@@ -1,0 +1,281 @@
+"""Building blocks of the Segment encoder-decoder (eval forward).
+
+Port of ``instancesegmentation_tpu/models/layers.py``.  Activations are
+logical NCHW tensors kept in ``torch.channels_last`` memory format, so the
+NHWC ``[N*H*W, C]`` view the chain kernel reads costs no copy.  Attribute
+names follow the state-dict keys of the PyTorch reference Segment (for
+example ``convs.1.conv.weight``, ``convm.0.bn.running_var``,
+``uppool.1.weight``), so ``utils/weights.py`` carries flax variables over
+with a key mapping and layout transforms only.
+
+Quirks kept from the reference:
+- explicit symmetric torch paddings (k5 s2 p2 pads (2, 2), not 'SAME');
+- ``Bottleneck5x5``: the (5,1) depthwise conv is raw — bias, no BN, no
+  activation — while the (1,5) leg has BN + PReLU;
+- ``BottleneckDim(use_prelu=False)``: the middle 3x3 conv is dense, with
+  ReLU activations;
+- ``BottleneckDim`` / ``BottleneckDimRes`` with ``use_prelu=False`` keep a
+  dead PReLU so the state dict stays a bijection with the reference;
+- ``BottleneckDown2`` returns the max-pooled *input* as the skip tensor;
+- ``BottleneckUpRes`` runs its 1x1 merge conv before the nearest 2x
+  upsample (a pointwise conv commutes exactly with replication);
+- VALID max pools, BatchNorm eps 1e-5, PReLU as ``where(x >= 0, x, a*x)``.
+
+Only the eval forward exists here: BN uses its running statistics.  Once
+``fold_batchnorm`` has folded every BN into its conv, ``bn_folded`` (set by
+``Segment.prepare_serving``) skips the identity BNs.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def autopad(k) -> Tuple[int, int]:
+    """torch-style 'same' padding: k//2 per spatial dim."""
+    kh, kw = _pair(k)
+    return kh // 2, kw // 2
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU on NCHW (init 0.25): ``where(x >= 0, x, a*x)``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((channels,), 0.25))
+
+    def forward(self, x):
+        a = self.weight.to(x.dtype).view(1, -1, 1, 1)
+        return torch.where(x >= 0, x, a * x)
+
+
+class ConvBN(nn.Module):
+    """Conv2d(bias) + BatchNorm + activation ('prelu', 'relu' or None)."""
+
+    def __init__(self, cin: int, cout: int, kernel=1, stride=1,
+                 padding=None, groups: int = 1, dilation=1,
+                 act: Optional[str] = None):
+        super().__init__()
+        pad = autopad(kernel) if padding is None else _pair(padding)
+        self.conv = nn.Conv2d(cin, cout, _pair(kernel), _pair(stride), pad,
+                              _pair(dilation), groups, bias=True)
+        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        if act not in (None, "prelu", "relu"):
+            raise ValueError(f"unknown activation {act!r}")
+        self.act = PReLU(cout) if act == "prelu" else None
+        self.relu = act == "relu"
+        self.bn_folded = False
+
+    def forward(self, x):
+        x = self.conv(x)
+        if not self.bn_folded:
+            x = _bn_eval(self.bn, x)
+        if self.act is not None:
+            return self.act(x)
+        return F.relu(x) if self.relu else x
+
+
+def _bn_eval(bn: nn.BatchNorm2d, x):
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, training=False, eps=bn.eps)
+
+
+class InitHeadS4(nn.Module):
+    """Stride-4 stem: maxpool4 shortcut || two k5 s2 PReLU convs,
+    channel-concat (shortcut first) -> ``in+16`` channels at 1/4 res."""
+
+    def __init__(self, cin: int, planes: int = 16):
+        super().__init__()
+        self.layer1 = ConvBN(cin, planes, 5, 2, 2, act="prelu")
+        self.layer2 = ConvBN(planes, planes, 5, 2, 2, act="prelu")
+
+    def forward(self, x):
+        short = F.max_pool2d(x, 4, 4)
+        y = self.layer2(self.layer1(x))
+        return torch.cat([short.to(y.dtype), y], dim=1)
+
+
+class Bottleneck3x3(nn.Module):
+    """1x1-reduce -> depthwise 3x3 (opt. dilated) -> 1x1-expand, PReLU
+    residual add."""
+
+    def __init__(self, inplanes: int, planes: int, dilation: int = 1):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            ConvBN(inplanes, planes, 1, act="prelu"),
+            ConvBN(planes, planes, 3, padding=dilation, groups=planes,
+                   dilation=dilation, act="prelu"),
+            ConvBN(planes, inplanes, 1),
+        ])
+        self.prelu = PReLU(inplanes)
+
+    def forward(self, x):
+        y = x
+        for conv in self.convs:
+            y = conv(y)
+        return self.prelu(y + x)
+
+
+class Bottleneck5x5(nn.Module):
+    """Factorised 5x1 + 1x5 depthwise bottleneck; the (5,1) leg is a raw
+    biased conv with no BN and no activation."""
+
+    def __init__(self, inplanes: int, planes: int):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            ConvBN(inplanes, planes, 1, act="prelu"),
+            nn.Conv2d(planes, planes, (5, 1), padding=(2, 0), groups=planes),
+            ConvBN(planes, planes, (1, 5), padding=(0, 2), groups=planes,
+                   act="prelu"),
+            ConvBN(planes, inplanes, 1),
+        ])
+        self.prelu = PReLU(inplanes)
+
+    def forward(self, x):
+        y = x
+        for conv in self.convs:
+            y = conv(y)
+        return self.prelu(y + x)
+
+
+class BottleneckDown2(nn.Module):
+    """Stride-2 downsample block.  Returns ``(out, pooled_input)``: the
+    second value is the max-pooled input, a later decoder skip."""
+
+    def __init__(self, inplanes: int, planes: int, outplanes: int):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            ConvBN(inplanes, planes, 2, 2, padding=0, act="prelu"),
+            ConvBN(planes, planes, 3, padding=1, groups=planes, act="prelu"),
+            ConvBN(planes, outplanes, 1),
+        ])
+        self.convm = nn.ModuleList([ConvBN(inplanes, outplanes, 1)])
+        self.prelu = PReLU(outplanes)
+
+    def forward(self, x):
+        y = x
+        for conv in self.convs:
+            y = conv(y)
+        pooled = F.max_pool2d(x, 2, 2)
+        return self.prelu(y + self.convm[0](pooled)), pooled
+
+
+class BottleneckDimRes(nn.Module):
+    """Channel-changing residual block with a 1x1 shortcut projection.
+    Both branches use PReLU inside; ``use_prelu`` picks only the final
+    activation (PReLU, or ReLU with a dead PReLU kept)."""
+
+    def __init__(self, inplanes: int, planes: int, outplanes: int,
+                 use_prelu: bool):
+        super().__init__()
+        self.use_prelu = use_prelu
+        self.convs = nn.ModuleList([
+            ConvBN(inplanes, planes, 1, act="prelu"),
+            ConvBN(planes, planes, 3, padding=1, groups=planes, act="prelu"),
+            ConvBN(planes, outplanes, 1),
+        ])
+        self.resconv = nn.ModuleList([ConvBN(inplanes, outplanes, 1)])
+        self.prelu = PReLU(outplanes)
+
+    def forward(self, x):
+        y = x
+        for conv in self.convs:
+            y = conv(y)
+        y = y + self.resconv[0](x)
+        return self.prelu(y) if self.use_prelu else F.relu(y)
+
+
+class BottleneckDim(nn.Module):
+    """Identity-shortcut block.  With ``use_prelu=False`` the middle 3x3
+    conv is dense (no groups) and the activations are ReLU, with a dead
+    PReLU kept."""
+
+    def __init__(self, inplanes: int, planes: int, outplanes: int,
+                 use_prelu: bool):
+        super().__init__()
+        self.use_prelu = use_prelu
+        act = "prelu" if use_prelu else "relu"
+        groups = planes if use_prelu else 1
+        self.convs = nn.ModuleList([
+            ConvBN(inplanes, planes, 1, act=act),
+            ConvBN(planes, planes, 3, padding=1, groups=groups, act=act),
+            ConvBN(planes, outplanes, 1),
+        ])
+        self.prelu = PReLU(outplanes)
+
+    def forward(self, x):
+        y = x
+        for conv in self.convs:
+            y = conv(y)
+        y = y + x
+        return self.prelu(y) if self.use_prelu else F.relu(y)
+
+
+class BottleneckUpRes(nn.Module):
+    """2x upsampling decoder block with a skip-feature merge.
+
+    Main path: 1x1 (ReLU) -> ConvTranspose k4 s2 p1 + BN + ReLU -> 1x1.
+    Skip path: 1x1-project x, concat the encoder skip at low resolution,
+    raw 1x1 merge conv, nearest 2x upsample.  ``convs`` and ``uppool`` keep
+    the reference's Sequential indices (``convs.3`` is the ReLU,
+    ``uppool.0`` the upsample).
+    """
+
+    def __init__(self, inplanes: int, planes: int, outplanes: int,
+                 skip_channels: int):
+        super().__init__()
+        self.convs = nn.Sequential(
+            ConvBN(inplanes, planes, 1, act="relu"),
+            nn.ConvTranspose2d(planes, planes, 4, stride=2, padding=1),
+            nn.BatchNorm2d(planes, eps=BN_EPS),
+            nn.ReLU(),
+            ConvBN(planes, outplanes, 1),
+        )
+        self.conv2 = nn.ModuleList([ConvBN(inplanes, outplanes, 1)])
+        self.uppool = nn.Sequential(
+            nn.Upsample(scale_factor=2, mode="nearest"),
+            nn.Conv2d(outplanes + skip_channels, outplanes, 1),
+        )
+        self.bn_folded = False
+
+    def forward(self, x, skip):
+        y = self.convs[1](self.convs[0](x))
+        if not self.bn_folded:
+            y = _bn_eval(self.convs[2], y)
+        y = self.convs[4](F.relu(y))
+        merged = torch.cat([self.conv2[0](x), skip.to(y.dtype)], dim=1)
+        shortcut = self.uppool[0](self.uppool[1](merged))
+        return F.relu(y + shortcut)
+
+
+def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
+    """Random initialisation matching the JAX package's: Kaiming fan-in
+    normal convs with zero bias; transposed convs (weight and bias)
+    uniform in +-1/sqrt(out*kh*kw), torch's default for them; BN scale 1,
+    bias 0, mean 0, var 1; PReLU 0.25.  Draws from ``generator`` in module
+    order."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+                bound = 1.0 / math.sqrt(fan_in)
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.Conv2d):
+                fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+                m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+            elif isinstance(m, PReLU):
+                m.weight.fill_(0.25)

@@ -1,0 +1,164 @@
+"""Where the time goes in the port's two serving programs on one NVIDIA GPU.
+
+    python3 profile_port.py      # from the repository root; needs one CUDA card
+
+On seeded random weights, at batch 128 in bfloat16, it times with CUDA
+events each stage of the 480 px instance program (warp parameters, crop
+warp, normalisation, heatmap render, backbone with its two chain launches,
+folded head, sigmoid + inverse warp) and of the 512 px whole-image program,
+the host-side parts of a dispatch with the host clock (upload, download,
+resizes), and takes one ``torch.profiler`` trace of each program for the
+device busy share and the largest device ops.  It prints one JSON object as
+its last line, after the card's name and power limit.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from chip_smoke import BATCH, SEED, card_line, cuda_ms, random_state_dict
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def trace(fn, top: int = 12) -> dict:
+    """Device busy share of one call of ``fn`` and its largest device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "n_device_ops": len(events),
+            "largest_ms": {k[:90]: v for k, v in largest}}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_port: CUDA is not available", file=sys.stderr)
+        return 1
+    from instancesegmentation_tpu_torch.data.synthetic import synthetic_host_batch
+    from instancesegmentation_tpu_torch.infer import pipeline as pl
+    from instancesegmentation_tpu_torch.models.fused_head import fold_head, head_apply
+    from instancesegmentation_tpu_torch.ops import fused_chain as fc
+    from instancesegmentation_tpu_torch.ops import warp as wp
+    from instancesegmentation_tpu_torch.ops.heatmap import render_heatmaps
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    print(card)
+    bf16 = torch.bfloat16
+    out = {"card": card, "batch": BATCH, "dtype": "bfloat16"}
+
+    # -- the 480 px instance program, stage by stage -----------------------
+    eng = pl.InferenceEngine(random_state_dict(20, SEED), in_channels=20,
+                             size=480, dtype=bf16)
+    head = fold_head(eng.variables).to(dev)
+    batch = synthetic_host_batch(BATCH, 640, seed=SEED)
+    keys = ("image", "mask", "image_hw", "obj_box", "mask_box", "mask_valid", "keypoints")
+    st = {"upload_host": host_ms(lambda: [
+        torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev) for k in keys])}
+    canvas, mask, hw, obj, mbox, mvalid, kps = (
+        torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev) for k in keys)
+    out_hw = (480, 480)
+
+    def params():
+        t = wp.center_translation(obj, hw)
+        box, ok = wp.clipped_mask_box(mask, t, hw)
+        use = torch.where(ok[:, None], box, mbox)
+        return wp.instance_warp_params(obj, use, hw, out_hw, 16, ok | mvalid)
+
+    with torch.inference_mode():
+        p = params()
+        imgs = wp.warp_image(canvas, wp.WarpParams(p.scale, p.offset), out_hw)
+        x = (torch.clamp(imgs, 0.0, 255.0) / 127.5 - 1.0).to(bf16)
+        pts = wp.warp_points(kps[..., :2], p)
+        hm = render_heatmaps(pts, kps[..., 2] > 0.5, out_hw).to(bf16)
+        feats = eng.model(x, hm, truncate_head=True)
+        probs = torch.sigmoid(head_apply(feats, head, bf16).float())
+        inv = wp.WarpParams(1.0 / p.scale, -p.offset / p.scale)
+        back = wp.warp_image(probs, inv, (640, 640))
+        s1, s23 = eng.model.chains
+        x1 = torch.randn((BATCH, 60, 60, 48), device=dev).to(bf16)
+        x23 = torch.randn((BATCH, 30, 30, 128), device=dev).to(bf16)
+        st.update({
+            "warp_params": cuda_ms(params, 5),
+            "crop_warp": cuda_ms(lambda: wp.warp_image(
+                canvas, wp.WarpParams(p.scale, p.offset), out_hw), 5),
+            "normalize": cuda_ms(lambda: (torch.clamp(imgs, 0.0, 255.0) / 127.5 - 1.0)
+                                 .to(bf16), 5),
+            "heatmaps": cuda_ms(lambda: render_heatmaps(
+                pts, kps[..., 2] > 0.5, out_hw).to(bf16), 5),
+            "backbone": cuda_ms(lambda: eng.model(x, hm, truncate_head=True), 5),
+            "backbone_chain_s1": cuda_ms(lambda: fc.fused_chain(x1, s1), 10),
+            "backbone_chain_s23": cuda_ms(lambda: fc.fused_chain(x23, s23), 10),
+            "head": cuda_ms(lambda: head_apply(feats, head, bf16).float(), 5),
+            "sigmoid_inverse_warp": cuda_ms(lambda: wp.warp_image(
+                torch.sigmoid(head_apply(feats, head, bf16).float()), inv, (640, 640)), 5),
+            "threshold_download_host": host_ms(lambda: (
+                pl._mask_u8(back[..., 0], 0.5).cpu().numpy(), probs.cpu().numpy())),
+            "program": cuda_ms(lambda: eng._forward_instance(
+                canvas, mask, hw, obj, mbox, mvalid, kps), 5),
+        })
+        out["instance480_trace"] = trace(lambda: eng._forward_instance(
+            canvas, mask, hw, obj, mbox, mvalid, kps))
+    st["sigmoid_inverse_warp"] -= st["head"]
+    st["predict_instances_host"] = host_ms(lambda: eng.predict_instances(batch))
+    out["instance480_ms"] = st
+
+    # -- the 512 px whole-image program ------------------------------------
+    eng3 = pl.InferenceEngine(random_state_dict(3, SEED + 1), in_channels=3,
+                              size=512, dtype=bf16)
+    rng = np.random.default_rng(SEED)
+    images = [rng.integers(0, 255, (int(rng.integers(360, 800)),
+                                    int(rng.integers(360, 800)), 3), dtype=np.uint8)
+              for _ in range(BATCH)]
+    u8 = torch.zeros((BATCH, 512, 512, 3), dtype=torch.uint8, device=dev)
+
+    def resize_in():
+        for i, img in enumerate(images):
+            u8[i] = pl.to_u8(pl.resize(torch.from_numpy(img).to(dev), (512, 512)))
+
+    with torch.inference_mode():
+        probs3 = eng3._forward_whole(u8)
+
+        def resize_back():
+            return [pl._mask_u8(pl.resize(probs3[i, ..., 0], img.shape[:2]), 0.5)
+                    .cpu().numpy() for i, img in enumerate(images)]
+
+        out["whole512_ms"] = {
+            "upload_resize_host": host_ms(resize_in),
+            "program": cuda_ms(lambda: eng3._forward_whole(u8), 5),
+            "resize_back_download_host": host_ms(resize_back),
+            "predict_images_host": host_ms(lambda: eng3.predict_images(images)),
+        }
+        out["whole512_trace"] = trace(lambda: eng3._forward_whole(u8))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
