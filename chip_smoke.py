@@ -12,15 +12,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    section-2+3 specs of the 480 px program in float32 (atol 1e-3 plus rtol
    1e-4 of the reference's magnitude: the sums run in another order) and
    bfloat16 I/O (atol 0.1, rtol 0.1), and ``bottleneck3x3_fused`` in float32
-   (atol 1e-3, rtol 1e-4);
+   (atol 1e-3, rtol 1e-4); then the detection kernels: NMS bit-equal (N = 48
+   to 4096, thresholds 0.5 and 0.7, ties, duplicates and zero-area boxes, K
+   below and above N; ``nms_batch`` on [8, 1000] in one launch), matching
+   bit-equal ([2000, 64] with ties and an all-zero column), and
+   ``roi_align`` within atol 1e-4 + rtol 1e-4 at torchvision's Mask R-CNN
+   pooler shapes on a stride-4 FPN level of an 800x1344 input (features
+   [2, 200, 336, 256], scale 1/4, 1000 ROIs at 7x7 and 100 at 14x14, both
+   ``aligned`` values, bfloat16 features once);
 4. serve at full width from seeded random weights with random running
    statistics: the 20-channel instance program at 480 px over a batch of 128
    in bfloat16 (with the launch counts read around that one dispatch),
    the same engine in float32 on the card, a float32 CPU engine on two rows
    of the batch, a few requests through ``ServingFrontend``, and the 3-channel
-   whole-image program at 512 px over 128 images;
-5. time each kernel and its plain version with CUDA events at batch 128, and
-   the two programs end to end;
+   whole-image program at 512 px over 128 images; then the proposal path:
+   64 images of 360-800 px with 48 proposals each through
+   ``iter_segment_proposals`` (NMS at 0.7, 16 instances, dispatches of 128),
+   with one NMS launch per image, the keeps of the plain NMS on the CPU and
+   the packing rule's dispatch count, and its first two images through the
+   float32 card and CPU engines; and ``roi_align`` and ``match_proposals``
+   through their own entry points;
+5. time each kernel and its plain version with CUDA events at batch 128 (the
+   detection kernels at the shapes above), and the two programs and the
+   proposal path end to end;
 6. print the per-kernel JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -128,6 +142,127 @@ def max_err(got, want, atol, rtol, what) -> float:
     return err.max().item()
 
 
+def exact(got, want, what: str) -> None:
+    """Bit equality of two tuples of tensors (indices, flags, labels)."""
+    for a, b in zip(got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+              f"{what}: kernel and plain version differ")
+    print(f"check {what}: equal")
+
+
+# -- detection ops: inputs and costs ------------------------------------------
+
+# float32 operations greedy NMS needs: per IoU pair 4 min/max, 2 subtractions,
+# 2 clamps, the intersection product, the union's add and subtract, its
+# test, clamp and the division, and the threshold test; per box its area
+# (2 subtractions, 2 clamps, 1 product)
+IOU_PAIR_OPS, IOU_BOX_OPS = 15, 5
+
+
+def nms_inputs(g, n: int, dev, batch=()):
+    """Boxes in a 640 px field with exact score ties (20 levels), duplicated
+    boxes (IoU 1) and zero-area boxes."""
+    shape = tuple(batch) + (n,)
+    xy = torch.rand(shape + (2,), generator=g, device=dev) * 600
+    wh = torch.rand(shape + (2,), generator=g, device=dev) * 120 + 8
+    boxes = torch.cat([xy, xy + wh], -1)
+    scores = (torch.rand(shape, generator=g, device=dev) * 20).floor() / 20
+    dup = boxes[..., 3::9, :].shape[-2]
+    boxes[..., 3::9, :] = boxes[..., 2::9, :][..., :dup, :]
+    boxes[..., 5::11, 2] = boxes[..., 5::11, 0]
+    boxes[..., 7::13, 3] = boxes[..., 7::13, 1]
+    return boxes.contiguous(), scores.contiguous()
+
+
+def nms_work(boxes, scores, thr: float) -> int:
+    """IoU evaluations greedy NMS needs on these boxes: for each surviving
+    box, the later boxes still alive at its step."""
+    from instancesegmentation_tpu_torch.ops.nms import box_iou
+
+    order = torch.argsort(-scores.float(), stable=True)
+    sup = (box_iou(boxes[order], boxes[order]) > thr).cpu().numpy()
+    alive = np.ones(len(order), bool)
+    pairs = 0
+    for i in range(len(order)):
+        if alive[i]:
+            pairs += int(alive[i + 1:].sum())
+            alive[i + 1:] &= ~sup[i, i + 1:]
+    return pairs
+
+
+def nms_bound(n: int, k: int, pairs: int, images: int = 1) -> tuple[float, str]:
+    """boxes and scores read once, indices and flags written once; the IoU
+    work at the float32 rate outside the tensor cores."""
+    return bound_f32(IOU_PAIR_OPS * pairs + IOU_BOX_OPS * images * n,
+                     images * (20 * n + 9 * k))
+
+
+def bound_f32(ops: float, io: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, io / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def roi_inputs(g, r: int, dev, image_hw=(800, 1344), n_images: int = 2):
+    """``r`` proposals of 16-600 px (log-uniform) centred anywhere in the
+    image, so some reach past its edges, on random images of the batch."""
+    lo, hi = np.log(16.0), np.log(600.0)
+    wh = torch.exp(torch.rand((r, 2), generator=g, device=dev) * (hi - lo) + lo)
+    ctr = torch.rand((r, 2), generator=g, device=dev) * torch.tensor(
+        [image_hw[1], image_hw[0]], dtype=torch.float32, device=dev)
+    idx = torch.randint(0, n_images, (r,), generator=g, device=dev, dtype=torch.int32)
+    return torch.cat([ctr - wh / 2, ctr + wh / 2], 1), idx
+
+
+def roi_bytes(features, boxes, idx, out_hw, scale, ratio, aligned) -> float:
+    """Feature bytes the samples touch (each pixel with a non-zero tap
+    weight, read once), plus boxes and indices read and the output written."""
+    from instancesegmentation_tpu_torch.ops.roi_align import _interp_weights, _roi_geometry
+
+    n, h, w, c = features.shape
+    x0, y0, bin_w, bin_h = _roi_geometry(boxes, out_hw, scale, aligned)
+    rows = (_interp_weights(y0, bin_h, h, out_hw[0], ratio) > 0).any(1)  # [R, H]
+    cols = (_interp_weights(x0, bin_w, w, out_hw[1], ratio) > 0).any(1)  # [R, W]
+    pixels = 0
+    for img in range(n):
+        sel = idx.long() == img
+        pixels += int((rows[sel][:, :, None] & cols[sel][:, None, :]).any(0).sum())
+    out = boxes.shape[0] * out_hw[0] * out_hw[1] * c * 4
+    return pixels * c * features.element_size() + boxes.shape[0] * 20 + out
+
+
+def proposal_requests(rng, n_images: int) -> list:
+    """Images of 360-800 px, each with 48 proposals: 8 jittered copies of
+    the box of each of 6 persons, random scores, 17 keypoints per box."""
+    reqs = []
+    for _ in range(n_images):
+        h, w = (int(v) for v in rng.integers(360, 801, 2))
+        boxes, kps = [], []
+        for _ in range(6):
+            bw, bh = rng.uniform(0.15, 0.45) * w, rng.uniform(0.3, 0.8) * h
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            for _ in range(8):
+                b = np.array([x0, y0, x0 + bw, y0 + bh]) + rng.normal(0, 0.03 * min(bw, bh), 4)
+                boxes.append(b)
+                kps.append(np.concatenate([rng.uniform(b[:2], b[2:], (17, 2)),
+                                           np.ones((17, 1))], 1))
+        reqs.append({"image": rng.integers(0, 255, (h, w, 3), dtype=np.uint8),
+                     "boxes": np.asarray(boxes, np.float32),
+                     "scores": rng.uniform(0.05, 1.0, 48).astype(np.float32),
+                     "keypoints": np.asarray(kps, np.float32)})
+    return reqs
+
+
+def packed_dispatches(kept_counts, cap: int) -> int:
+    """``predict_instances`` calls of iter_segment_proposals' packing rule:
+    one each time the pending crops reach ``cap``, one for the rest."""
+    calls, pending = 0, 0
+    for k in kept_counts:
+        pending += k
+        if pending >= cap:
+            calls, pending = calls + 1, 0
+    return calls + (pending > 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -135,10 +270,12 @@ def main() -> int:
     try:
         from instancesegmentation_tpu_torch.data.synthetic import synthetic_host_batch
         from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
+        from instancesegmentation_tpu_torch.infer import proposals
         from instancesegmentation_tpu_torch.infer.server import ServingFrontend
         from instancesegmentation_tpu_torch.models.export import fold_batchnorm
         from instancesegmentation_tpu_torch.ops import _build
         from instancesegmentation_tpu_torch.ops import fused_chain as fc
+        from instancesegmentation_tpu_torch.ops import matching, nms, roi_align
         from instancesegmentation_tpu_torch.ops.fused_block import (
             bottleneck3x3_fused,
             bottleneck3x3_reference,
@@ -193,6 +330,47 @@ def main() -> int:
     errs["block"] = max_err(bottleneck3x3_fused(xb, **block_args),
                             bottleneck3x3_reference(xb, **block_args), 1e-3, 1e-4,
                             "bottleneck3x3_fused [8, 64, 64, 48]")
+
+    # the detection kernels: NMS and matching bit-equal, roi_align within
+    # atol 1e-4 + rtol 1e-4 of the reference's magnitude (sums in another order)
+    for n in (48, 128, 1024, 4096):
+        boxes, scores = nms_inputs(g, n, dev)
+        for thr in (0.5, 0.7):
+            for k in (n // 4, n + 7):
+                exact(nms.nms(boxes, scores, thr, max_outputs=k),
+                      nms.nms_reference(boxes, scores, thr, max_outputs=k),
+                      f"nms N={n} thr={thr} K={k}")
+    bb, bs = nms_inputs(g, 1000, dev, batch=(8,))
+    before = nms.nms.launches
+    got = nms.nms_batch(bb, bs, 0.7)
+    check(nms.nms.launches == before + 1, "nms_batch: one launch for 8 images")
+    refs = [nms.nms_reference(bb[i], bs[i], 0.7) for i in range(8)]
+    exact(got, (torch.stack([r[0] for r in refs]), torch.stack([r[1] for r in refs])),
+          "nms_batch [8, 1000] thr=0.7")
+
+    feats = torch.randn((2, 200, 336, 256), generator=g, device=dev)
+    roi_cases = {"box_head": (1000, (7, 7)), "mask_head": (100, (14, 14))}
+    roi_in = {name: roi_inputs(g, r, dev) for name, (r, _) in roi_cases.items()}
+    errs["roi_align"] = 0.0
+    for name, (r, out_hw) in roi_cases.items():
+        boxes, idx = roi_in[name]
+        for aligned, dtype in ((False, torch.float32), (True, torch.float32),
+                               *(((False, torch.bfloat16),) if name == "box_head" else ())):
+            f = feats.to(dtype)
+            args = (f, boxes, idx, out_hw, 0.25, 2, aligned)
+            errs["roi_align"] = max(errs["roi_align"], max_err(
+                roi_align.roi_align(*args), roi_align.roi_align_reference(*args), 1e-4, 1e-4,
+                f"roi_align {name} R={r} {out_hw} aligned={aligned} {dtype}"))
+
+    iou = torch.rand((2000, 64), generator=g, device=dev)
+    iou[5] = iou[3]                      # tied rows
+    iou[7, [2, 9]] = iou[7].max()        # a tie inside a row: the first index wins
+    iou[100, 3] = iou[:, 3].max()        # two proposals reach one column's max
+    iou[:, 7] = 0.0                      # a ground truth nobody overlaps
+    for lq in (True, False):
+        exact(matching.match_proposals(iou, allow_low_quality=lq),
+              matching.match_proposals_reference(iou, allow_low_quality=lq),
+              f"match_proposals [2000, 64] allow_low_quality={lq}")
     torch.cuda.synchronize()
 
     # -- 4. serving at full width -----------------------------------------
@@ -271,6 +449,90 @@ def main() -> int:
     check(all(m.shape == im.shape[:2] and m.dtype == np.uint8
               for m, im in zip(img_masks, images)), "whole-image mask shapes")
 
+    # the proposal path at full width: NMS on the card, then one 480 px crop
+    # per surviving box through the bf16 instance engine
+    reqs = proposal_requests(rng, 64)
+    calls, nms_s = [], [0.0]
+    predict = InferenceEngine.predict_instances
+    nms_keep = proposals._nms_keep
+
+    def counted_predict(self, batch):
+        calls.append(batch["image"].shape[0])
+        return predict(self, batch)
+
+    def timed_nms_keep(*args):
+        t = time.perf_counter()
+        keep = nms_keep(*args)  # ends in a copy to the host: synchronous
+        nms_s[0] += time.perf_counter() - t
+        return keep
+
+    InferenceEngine.predict_instances = counted_predict
+    proposals._nms_keep = timed_nms_keep
+    try:
+        nms.nms.launches = 0
+        fc.fused_chain.launches = 0
+        t0 = time.perf_counter()
+        results = list(proposals.iter_segment_proposals(
+            eng, reqs, nms_threshold=0.7, max_instances=16, batch_cap=128))
+        torch.cuda.synchronize()
+        prop_s = time.perf_counter() - t0
+        prop_launches = {"nms": nms.nms.launches, "fused_chain": fc.fused_chain.launches}
+    finally:
+        InferenceEngine.predict_instances = predict
+        proposals._nms_keep = nms_keep
+    kept = [len(r) for r in results]
+    crops = sum(kept)
+    print(f"proposal path ({len(reqs)} images x 48 proposals, bf16 480): {crops} crops, "
+          f"{len(calls)} predict_instances calls {calls}, launches {prop_launches}")
+    check(len(results) == len(reqs), "proposal path: one result list per image")
+    check(prop_launches["nms"] == len(reqs), "proposal path: one nms launch per image")
+    check(prop_launches["fused_chain"] >= 2, "proposal path: the chain kernel ran")
+    check(len(calls) == packed_dispatches(kept, 128),
+          "proposal path: dispatches follow the packing rule")
+    for req, res in zip(reqs, results):
+        idx, valid = nms.nms_reference(torch.from_numpy(req["boxes"]),
+                                       torch.from_numpy(req["scores"]), 0.7, max_outputs=16)
+        check([r["box"] for r in res] == req["boxes"][idx[valid].numpy()].tolist(),
+              "proposal path: kept boxes equal the plain NMS on the CPU")
+        check(all(r["mask"].shape == req["image"].shape[:2] and r["mask"].dtype == np.uint8
+                  and set(np.unique(r["mask"])) <= {0, 255} for r in res),
+              "proposal path: masks are 0/255 at the image's shape")
+
+    # the first two images, two instances each, through the f32 card engine
+    # and the f32 CPU engine, held to the instance program's card-vs-CPU limits
+    on_card = list(proposals.iter_segment_proposals(eng32, reqs[:2], 0.7, max_instances=2))
+    on_cpu = list(proposals.iter_segment_proposals(cpu, reqs[:2], 0.7, max_instances=2))
+    prop_vs_cpu = {"mask_agreement_min": 1.0, "mask_score_max_abs_diff": 0.0}
+    for a, b in zip(on_card, on_cpu):
+        check([r["box"] for r in a] == [r["box"] for r in b], "card vs CPU: kept boxes")
+        for ra, rb in zip(a, b):
+            prop_vs_cpu["mask_agreement_min"] = min(prop_vs_cpu["mask_agreement_min"],
+                                                    float((ra["mask"] == rb["mask"]).mean()))
+            prop_vs_cpu["mask_score_max_abs_diff"] = max(
+                prop_vs_cpu["mask_score_max_abs_diff"], abs(ra["mask_score"] - rb["mask_score"]))
+    print(f"proposal path f32 card vs f32 CPU on 2 images: {json.dumps(prop_vs_cpu)} "
+          "(limits: mask agreement >= 0.999, |d mask_score| <= 1e-2)")
+    check(sum(len(a) for a in on_card) == 4, "card vs CPU: 4 crops")
+    check(prop_vs_cpu["mask_agreement_min"] >= 0.999, "card vs CPU: proposal masks")
+    check(prop_vs_cpu["mask_score_max_abs_diff"] <= 1e-2, "card vs CPU: mask scores")
+
+    # roi_align and match_proposals through their own entry points, at the
+    # poolers' shapes and one matching batch
+    roi_align.roi_align.launches = 0
+    matching.match_proposals.launches = 0
+    for name, (r, out_hw) in roi_cases.items():
+        out = roi_align.roi_align(feats, *roi_in[name], out_hw, 0.25, 2, False)
+        check(out.shape == (r,) + out_hw + feats.shape[-1:] and bool(torch.isfinite(out).all()),
+              f"roi_align {name}: shape and finite values")
+    matched, labels = matching.match_proposals(iou)
+    check(bool(((labels >= -1) & (labels <= 1)).all()) and int(matched.max()) < 64,
+          "match_proposals: labels in {-1, 0, 1}, indices in range")
+    torch.cuda.synchronize()
+    det_launches = {"roi_align": roi_align.roi_align.launches,
+                    "match_proposals": matching.match_proposals.launches}
+    print(f"detection ops through their entry points: launches {det_launches}")
+    check(det_launches == {"roi_align": 2, "match_proposals": 1}, "detection op launches")
+
     # -- 5. times ------------------------------------------------------------
     parts = []
     for name, spec in specs.items():
@@ -325,6 +587,81 @@ def main() -> int:
     print(json.dumps({"e2e": e2e, "bf16_vs_f32": bf16_vs_f32, "gpu_vs_cpu": gpu_vs_cpu,
                       "card": card}))
 
+    # the detection kernels beside their plain versions; NMS at the proposal
+    # path's N = 48 and at detector sizes, at the path's threshold 0.7
+    nms_parts = []
+    for n in (48, 128, 256, 512, 1024):
+        boxes, scores = nms_inputs(g, n, dev)
+        ms = cuda_ms(lambda: nms.nms(boxes, scores, 0.7), iters=50)
+        # the kernel alone on inputs sorted beforehand (the rest is the
+        # wrapper's torch sort and gathers)
+        ranked = nms._sorted(boxes[None], scores[None])
+        scan_ms = cuda_ms(lambda: nms._scan(*ranked, 0.7, n, float("-inf")), iters=50)
+        plain = cuda_ms(lambda: nms.nms_reference(boxes, scores, 0.7), iters=3, warmup=1)
+        pairs = nms_work(boxes, scores, 0.7)
+        b_ms, b_by = nms_bound(n, n, pairs)
+        nms_parts.append({"shape": [n, 4], "ms": ms, "scan_ms": scan_ms, "plain_ms": plain,
+                          "bound_ms": b_ms, "bound_by": b_by, "iou_pairs": pairs,
+                          "serial_steps": n})
+        print(f"time nms N={n}: {ms:.4f} ms, kernel alone {scan_ms:.4f} ms (plain {plain:.3f} "
+              f"ms, bound {b_ms:.5f} ms by {b_by}; {pairs} IoU pairs, {n} serial steps)")
+    batch_ms = cuda_ms(lambda: nms.nms_batch(bb, bs, 0.7), iters=20)
+    batch_plain = cuda_ms(lambda: [nms.nms_reference(bb[i], bs[i], 0.7) for i in range(8)],
+                          iters=1, warmup=1)
+    pairs = sum(nms_work(bb[i], bs[i], 0.7) for i in range(8))
+    b_ms, b_by = nms_bound(1000, 1000, pairs, images=8)
+    nms_parts.append({"shape": [8, 1000, 4], "entry": "nms_batch", "ms": batch_ms,
+                      "plain_ms": batch_plain, "bound_ms": b_ms, "bound_by": b_by,
+                      "iou_pairs": pairs, "serial_steps": 1000})
+    print(f"time nms_batch [8, 1000]: {batch_ms:.4f} ms (plain {batch_plain:.3f} ms, "
+          f"bound {b_ms:.5f} ms by {b_by})")
+
+    roi_parts = []
+    for name, (r, out_hw) in roi_cases.items():
+        args = (feats, *roi_in[name], out_hw, 0.25, 2, False)
+        ms = cuda_ms(lambda: roi_align.roi_align(*args), iters=20)
+        plain = cuda_ms(lambda: roi_align.roi_align_reference(*args), iters=2, warmup=1)
+        b_ms, b_by = bound_f32(0.0, roi_bytes(feats, *roi_in[name], out_hw, 0.25, 2, False))
+        roi_parts.append({"pooler": name, "shape": [r, *out_hw, feats.shape[-1]],
+                          "features": list(feats.shape), "dtype": "float32", "ms": ms,
+                          "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"time roi_align {name} R={r} {out_hw}: {ms:.4f} ms (plain {plain:.3f} ms, "
+              f"bound {b_ms:.5f} ms by {b_by})")
+
+    match_ms = cuda_ms(lambda: matching.match_proposals(iou), iters=50)
+    match_plain = cuda_ms(lambda: matching.match_proposals_reference(iou), iters=20)
+    # matrix read once, matched (int64) and labels (int32) written once; a
+    # few comparisons per element
+    match_bound, match_by = bound_f32(3.0 * iou.numel(), iou.numel() * 4 + 2000 * 12)
+    print(f"time match_proposals [2000, 64]: {match_ms:.4f} ms (plain {match_plain:.3f} ms, "
+          f"bound {match_bound:.5f} ms by {match_by})")
+
+    nms_s[0], predict_s = 0.0, [0.0]
+
+    def timed_predict(self, batch):
+        t = time.perf_counter()
+        out = predict(self, batch)  # returns host arrays: synchronous
+        predict_s[0] += time.perf_counter() - t
+        return out
+
+    InferenceEngine.predict_instances = timed_predict
+    proposals._nms_keep = timed_nms_keep
+    try:
+        t0 = time.perf_counter()
+        n_crops = sum(len(r) for r in proposals.iter_segment_proposals(
+            eng, reqs, nms_threshold=0.7, max_instances=16, batch_cap=128))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        InferenceEngine.predict_instances = predict
+        proposals._nms_keep = nms_keep
+    prop = {"images": len(reqs), "crops": n_crops, "first_run_s": prop_s, "wall_s": wall,
+            "img_per_s": len(reqs) / wall, "crops_per_s": n_crops / wall,
+            "nms_s": nms_s[0], "nms_share": nms_s[0] / wall,
+            "predict_instances_s": predict_s[0],
+            "host_rest_s": wall - nms_s[0] - predict_s[0]}
+    print(json.dumps({"proposal_path_bf16_480": prop, "card": card}))
+
     # -- 6. summary ----------------------------------------------------------
     # the chain's bound is that of its two launches' work taken together
     chain_bound, chain_by = bound(sum(p["flops"] for p in parts),
@@ -346,6 +683,26 @@ def main() -> int:
          "max_abs_err": errs["block"], "ms": blk_ms, "plain_ms": blk_plain,
          "bound_ms": blk_bound, "bound_by": blk_by, "library_ms": None,
          "shape": [BATCH, 60, 60, 48], "dtype": "float32"},
+        {"name": "nms", "route": "cuda",
+         "source": "instancesegmentation_tpu_torch/csrc/nms.cu",
+         "replaces": "instancesegmentation_tpu/ops/nms.py:105",
+         "launches": prop_launches["nms"], "max_abs_err": 0.0,
+         **{k: nms_parts[0][k] for k in ("ms", "scan_ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "parts": nms_parts},
+        {"name": "roi_align", "route": "cuda",
+         "source": "instancesegmentation_tpu_torch/csrc/roi_align.cu",
+         "replaces": "instancesegmentation_tpu/ops/roi_align.py:99",
+         "launches": det_launches["roi_align"], "on_main_path": False,
+         "max_abs_err": errs["roi_align"],
+         **{k: roi_parts[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "parts": roi_parts},
+        {"name": "match_proposals", "route": "cuda",
+         "source": "instancesegmentation_tpu_torch/csrc/matching.cu",
+         "replaces": "instancesegmentation_tpu/ops/matching.py:61",
+         "launches": det_launches["match_proposals"], "on_main_path": False,
+         "max_abs_err": 0.0, "ms": match_ms, "plain_ms": match_plain,
+         "bound_ms": match_bound, "bound_by": match_by, "library_ms": None,
+         "shape": [2000, 64]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

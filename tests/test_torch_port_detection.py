@@ -1,0 +1,397 @@
+"""The port's detection ops against the JAX package (f32, CPU): NMS, RoI-Align,
+proposal matching and label subsampling.
+
+The CUDA kernels cannot run here; their checks against the plain versions
+are phases of ``chip_smoke.py``.  What does run here: the plain versions and
+the CPU route of the wrappers against the JAX functions, their Pallas
+kernels in interpret mode and the numpy oracles, and an emulator of the NMS
+kernel's scan (``csrc/nms.cu``) that follows its word and bit layout, its
+per-warp clearing and its prefix-count compaction.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from instancesegmentation_tpu.ops import matching as jmatch
+from instancesegmentation_tpu.ops import nms as jnms
+from instancesegmentation_tpu.ops import roi_align as jroi
+from instancesegmentation_tpu_torch.ops import matching as tmatch
+from instancesegmentation_tpu_torch.ops import nms as tnms
+from instancesegmentation_tpu_torch.ops import roi_align as troi
+
+torch.set_num_threads(1)
+
+
+def _np(*ts):
+    return [np.asarray(t) for t in ts]
+
+
+# ---------------------------------------------------------------------------
+# NMS
+# ---------------------------------------------------------------------------
+
+
+def _nms_case(seed=0, n=64):
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(0, 80, size=n)
+    y0 = rng.uniform(0, 80, size=n)
+    boxes = np.stack(
+        [x0, y0, x0 + rng.uniform(5, 30, n), y0 + rng.uniform(5, 30, n)], -1
+    ).astype(np.float32)
+    scores = rng.uniform(0, 1, size=n).astype(np.float32)
+    return boxes, scores
+
+
+def _hard_case(seed=0, n=64):
+    """Exact score ties, duplicated boxes (IoU 1) and zero-area boxes."""
+    boxes, scores = _nms_case(seed, n)
+    scores = np.round(scores, 1)        # ~10 distinct scores: many ties
+    boxes[3::9] = boxes[2::9][: len(boxes[3::9])]
+    boxes[5::11, 2] = boxes[5::11, 0]   # zero width
+    boxes[7::13, 3] = boxes[7::13, 1]   # zero height
+    return boxes, scores
+
+
+def _port_nms(boxes, scores, *args, **kw):
+    before = tnms.nms.launches
+    idx, valid = tnms.nms(torch.from_numpy(boxes), torch.from_numpy(scores), *args, **kw)
+    assert tnms.nms.launches == before  # CPU: the plain version
+    assert idx.dtype == torch.int64 and valid.dtype == torch.bool
+    return idx.numpy(), valid.numpy()
+
+
+def test_box_iou_matches_jax():
+    a, _ = _hard_case(1, 40)
+    got = tnms.box_iou(torch.from_numpy(a), torch.from_numpy(a)).numpy()
+    want = np.asarray(jnms.box_iou_jnp(jnp.asarray(a), jnp.asarray(a)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("threshold", [0.3, 0.5, 0.7])
+def test_nms_matches_jax_kernel_and_oracle(seed, threshold):
+    boxes, scores = _nms_case(seed, n=96)
+    idx, valid = _port_nms(boxes, scores, threshold)
+    ref_idx, ref_valid = _np(*jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), threshold))
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_array_equal(valid, ref_valid)
+    p_idx, p_valid = _np(*jnms.nms_pallas(jnp.asarray(boxes), jnp.asarray(scores), threshold,
+                                          interpret=True))
+    np.testing.assert_array_equal(idx, p_idx)
+    np.testing.assert_array_equal(valid, p_valid)
+    np.testing.assert_array_equal(idx[valid], jnms.nms_numpy(boxes, scores, threshold))
+
+
+@pytest.mark.parametrize("k", [5, 80, 0])
+def test_nms_max_outputs(k):
+    """K < N truncates in score order, K > N pads with -1, K = 0 is empty."""
+    boxes, scores = _nms_case(7, n=40)
+    idx, valid = _port_nms(boxes, scores, 0.5, max_outputs=k)
+    assert idx.shape == valid.shape == (k,)
+    ref_idx, ref_valid = _np(*jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
+                                       max_outputs=k))
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_array_equal(valid, ref_valid)
+    assert (idx[~valid] == -1).all()
+
+
+def test_nms_score_threshold():
+    boxes, scores = _nms_case(8, n=48)
+    idx, valid = _port_nms(boxes, scores, 0.5, score_threshold=0.5)
+    for fn, kw in ((jnms.nms, {}), (jnms.nms_pallas, {"interpret": True})):
+        ref_idx, ref_valid = _np(*fn(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
+                                     score_threshold=0.5, **kw))
+        np.testing.assert_array_equal(idx, ref_idx)
+        np.testing.assert_array_equal(valid, ref_valid)
+    assert (scores[idx[valid]] > 0.5).all()
+
+
+@pytest.mark.parametrize("threshold", [0.5, 0.7])
+def test_nms_ties_duplicates_zero_area(threshold):
+    boxes, scores = _hard_case(4, n=90)
+    idx, valid = _port_nms(boxes, scores, threshold, max_outputs=100)
+    ref_idx, ref_valid = _np(*jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), threshold,
+                                       max_outputs=100))
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_array_equal(valid, ref_valid)
+    np.testing.assert_array_equal(idx[valid], jnms.nms_numpy(boxes, scores, threshold))
+    # a duplicate (IoU 1) never survives beside its twin, where both have area
+    kept = set(idx[valid].tolist())
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    for i in range(3, 90, 9):
+        if area[i] > 0 and (boxes[i] == boxes[i - 1]).all():
+            assert not {i, i - 1} <= kept
+
+
+def test_batched_nms_matches_jax():
+    boxes, scores = _nms_case(9, n=50)
+    classes = np.random.default_rng(9).integers(0, 3, 50).astype(np.int32)
+    idx, valid = tnms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                  torch.from_numpy(classes), 0.4, max_outputs=30)
+    ref_idx, ref_valid = _np(*jnms.batched_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                                               jnp.asarray(classes), 0.4, max_outputs=30))
+    np.testing.assert_array_equal(idx.numpy(), ref_idx)
+    np.testing.assert_array_equal(valid.numpy(), ref_valid)
+    # two overlapping boxes of different classes both stay
+    two = torch.tensor([[0, 0, 10, 10], [1, 1, 11, 11]], dtype=torch.float32)
+    sc = torch.tensor([0.9, 0.8])
+    assert int(tnms.batched_nms(two, sc, torch.tensor([0, 0]), 0.5)[1].sum()) == 1
+    assert int(tnms.batched_nms(two, sc, torch.tensor([0, 1]), 0.5)[1].sum()) == 2
+
+
+def test_nms_batch_matches_jax():
+    cases = [_nms_case(s, n=32) for s in (10, 11)] + [_hard_case(12, n=32)]
+    boxes = np.stack([c[0] for c in cases])
+    scores = np.stack([c[1] for c in cases])
+    idx, valid = tnms.nms_batch(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5,
+                                max_outputs=20)
+    assert idx.shape == valid.shape == (3, 20)
+    ref_idx, ref_valid = _np(*jnms.nms_batch(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
+                                             max_outputs=20))
+    np.testing.assert_array_equal(idx.numpy(), ref_idx)
+    np.testing.assert_array_equal(valid.numpy(), ref_valid)
+
+
+def test_nms_wrappers_reject_bad_inputs():
+    boxes, scores = _nms_case(0, n=8)
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    with pytest.raises(ValueError):
+        tnms.nms(b[:, :3], s)
+    with pytest.raises(ValueError):
+        tnms.nms(b, s[:5])
+    with pytest.raises(ValueError):
+        tnms.nms(b[None], s[None])
+    with pytest.raises(ValueError):
+        tnms.nms_batch(b, s)
+    with pytest.raises(TypeError):
+        tnms.nms(b.int(), s)
+
+
+# -- the scan the CUDA kernel runs --------------------------------------------
+
+_FULL = np.uint64(0xFFFFFFFF)
+
+
+def _ballot(pred: np.ndarray) -> np.uint32:
+    return np.uint32(int((pred.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum()))
+
+
+def _kernel_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """csrc/nms.cu:box_iou in float32, box a against the boxes b [32, 4]."""
+    f = np.float32
+    w = np.maximum(np.minimum(a[2], b[:, 2]) - np.maximum(a[0], b[:, 0]), f(0))
+    h = np.maximum(np.minimum(a[3], b[:, 3]) - np.maximum(a[1], b[:, 1]), f(0))
+    inter = w * h
+    area_a = np.maximum(a[2] - a[0], f(0)) * np.maximum(a[3] - a[1], f(0))
+    area_b = np.maximum(b[:, 2] - b[:, 0], f(0)) * np.maximum(b[:, 3] - b[:, 1], f(0))
+    union = (area_a + area_b) - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / np.maximum(union, f(1e-12)), f(0)).astype(f)
+
+
+def _emulate_nms_kernel(boxes, scores, thr, k, score_thr=-np.inf, nwarps=4):
+    """Run csrc/nms.cu:nms_kernel for one image: 32-box words, a ballot per
+    warp and word, the warp-0 shuffle scan of the words' popcounts, and the
+    compaction.  Words of a step are visited warp by warp in the kernel's
+    strided order (each word is owned by one warp in a step)."""
+    n = boxes.shape[0]
+    order = np.argsort(-scores, kind="stable")
+    sb, ss = boxes[order].astype(np.float32), scores[order].astype(np.float32)
+    thr, score_thr = np.float32(thr), np.float32(score_thr)
+    nwords = (n + 31) >> 5
+    lanes = np.arange(32)
+    alive = np.zeros(nwords, np.uint32)
+    for w in range(nwords):
+        j = (w << 5) + lanes
+        alive[w] = _ballot((j < n) & (ss[np.minimum(j, n - 1)] > score_thr))
+    for i in range(n):
+        if not (int(alive[i >> 5]) >> (i & 31)) & 1:
+            continue  # a dead box: no work and no barrier
+        for warp in range(nwarps):
+            for w in range(((i + 1) >> 5) + warp, nwords, nwarps):
+                word = int(alive[w])
+                j = (w << 5) + lanes
+                bit = (word >> lanes) & 1
+                kill = (j > i) & (j < n) & (bit == 1) & (
+                    _kernel_iou(sb[i], sb[np.minimum(j, n - 1)]) > thr)
+                m = int(_ballot(kill))
+                if m:
+                    alive[w] = np.uint32(word & ~m & 0xFFFFFFFF)
+    # warp 0: exclusive prefix of the popcounts, 32 words at a time
+    prefix = np.zeros(nwords + 1, np.int64)
+    carry = 0
+    for base in range(0, nwords, 32):
+        w = base + lanes
+        c = np.array([bin(int(alive[x])).count("1") if x < nwords else 0 for x in w])
+        s = c.copy()
+        off = 1
+        while off < 32:  # __shfl_up_sync inclusive scan
+            s = np.where(lanes >= off, s + np.roll(s, off), s)
+            off <<= 1
+        for lane in range(32):
+            if w[lane] < nwords:
+                prefix[w[lane]] = carry + s[lane] - c[lane]
+        carry += int(s[31])
+    prefix[nwords] = carry
+    indices = np.full(k, -1, np.int64)
+    valid = np.zeros(k, bool)
+    for j in range(n):
+        word, bit = int(alive[j >> 5]), 1 << (j & 31)
+        if word & bit:
+            pos = prefix[j >> 5] + bin(word & (bit - 1)).count("1")
+            if pos < k:
+                indices[pos], valid[pos] = order[j], True
+    return indices, valid
+
+
+@pytest.mark.parametrize("n,k,threshold,hard", [
+    (1, 3, 0.5, False), (37, 37, 0.5, True), (100, 20, 0.7, True), (1100, 1200, 0.3, False),
+])
+def test_nms_kernel_scan_emulator(n, k, threshold, hard):
+    boxes, scores = (_hard_case if hard else _nms_case)(n, n)
+    if n > 200:  # spread the boxes so that many survive and the scan spans >32 words
+        boxes[:, [0, 2]] *= 8.0
+    idx, valid = _emulate_nms_kernel(boxes, scores, threshold, k)
+    ref_idx, ref_valid = _port_nms(boxes, scores, threshold, max_outputs=k)
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_array_equal(valid, ref_valid)
+    np.testing.assert_array_equal(idx[valid], jnms.nms_numpy(boxes, scores, threshold)[:k])
+    # the score threshold seeds the alive words
+    idx, valid = _emulate_nms_kernel(boxes, scores, threshold, k, score_thr=0.5)
+    ref_idx, ref_valid = _port_nms(boxes, scores, threshold, max_outputs=k,
+                                   score_threshold=0.5)
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_array_equal(valid, ref_valid)
+
+
+# ---------------------------------------------------------------------------
+# RoI-Align
+# ---------------------------------------------------------------------------
+
+
+def _roi_case(seed=0, n=2, h=24, w=32, c=5, r=6):
+    """Boxes partly outside the map (x0, y0 from -2)."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n, h, w, c)).astype(np.float32)
+    x0 = rng.uniform(-2, w - 4, size=r)
+    y0 = rng.uniform(-2, h - 4, size=r)
+    bw = rng.uniform(2, w / 2, size=r)
+    bh = rng.uniform(2, h / 2, size=r)
+    boxes = np.stack([x0, y0, x0 + bw, y0 + bh], axis=-1).astype(np.float32)
+    boxes[0] = [-6.0, -5.0, w + 3.0, h + 4.0]  # beyond the map on every side
+    idx = rng.integers(0, n, size=r).astype(np.int32)
+    return feats, boxes, idx
+
+
+def _port_roi(feats, boxes, idx, *args, **kw):
+    before = troi.roi_align.launches
+    out = troi.roi_align(torch.from_numpy(feats), torch.from_numpy(boxes),
+                         torch.from_numpy(idx), *args, **kw)
+    assert troi.roi_align.launches == before  # CPU: the plain version
+    assert out.dtype == torch.float32
+    return out.numpy()
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("ratio", [1, 2])
+def test_roi_align_matches_jax_kernel_and_oracle(aligned, ratio):
+    feats, boxes, idx = _roi_case(seed=ratio + 2 * aligned, c=8)
+    kw = dict(spatial_scale=0.5, sampling_ratio=ratio, aligned=aligned)
+    got = _port_roi(feats, boxes, idx, (7, 7), **kw)
+    assert got.shape == (6, 7, 7, 8)
+    j = [jnp.asarray(a) for a in (feats, boxes, idx)]
+    np.testing.assert_allclose(got, np.asarray(jroi.roi_align(*j, (7, 7), **kw)), atol=1e-4)
+    np.testing.assert_allclose(
+        got, np.asarray(jroi.roi_align_pallas(*j, (7, 7), interpret=True, **kw)), atol=1e-4)
+    np.testing.assert_allclose(got, jroi.roi_align_numpy(feats, boxes, idx, (7, 7), **kw),
+                               atol=1e-4)
+
+
+def test_roi_align_chunks_equal_one_pass():
+    feats, boxes, idx = _roi_case(seed=5, r=37)
+    args = [torch.from_numpy(a) for a in (feats, boxes, idx)]
+    whole = troi.roi_align_reference(*args, (5, 6), 0.5, 2, False, chunk=37)
+    for chunk in (1, 16):
+        np.testing.assert_allclose(
+            troi.roi_align_reference(*args, (5, 6), 0.5, 2, False, chunk=chunk).numpy(),
+            whole.numpy(), rtol=0, atol=1e-6)
+    assert troi.REFERENCE_CHUNK == 16
+
+
+def test_roi_align_bf16_features():
+    feats, boxes, idx = _roi_case(seed=6, c=8)
+    f16 = torch.from_numpy(feats).bfloat16()
+    got = troi.roi_align(f16, torch.from_numpy(boxes), torch.from_numpy(idx), (4, 4))
+    want = jroi.roi_align(jnp.asarray(f16.float().numpy()).astype(jnp.bfloat16),
+                          jnp.asarray(boxes), jnp.asarray(idx), (4, 4))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_roi_align_rejects_bad_inputs():
+    feats, boxes, idx = _roi_case(seed=7)
+    f, b, i = (torch.from_numpy(a) for a in (feats, boxes, idx))
+    with pytest.raises(ValueError):
+        troi.roi_align(f, b, i, sampling_ratio=0)
+    with pytest.raises(ValueError):
+        troi.roi_align(f[0], b, i)
+    with pytest.raises(ValueError):
+        troi.roi_align(f, b[:, :3], i)
+    with pytest.raises(TypeError):
+        troi.roi_align(f.double(), b, i)
+
+
+# ---------------------------------------------------------------------------
+# proposal matching
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("allow_lq", [True, False])
+@pytest.mark.parametrize("seed", [0, 4, 9])
+def test_match_proposals_bit_equal_to_jax(seed, allow_lq):
+    rng = np.random.default_rng(seed)
+    iou = rng.uniform(0, 1, size=(48, 12)).astype(np.float32)
+    iou[5] = iou[3]              # tied rows
+    iou[7, [2, 9]] = iou[7].max()  # a tie inside a row: the first index wins
+    iou[:, 7] = 0.0              # a ground truth nobody overlaps
+    iou[11] = 0.0                # a proposal that overlaps nothing
+    before = tmatch.match_proposals.launches
+    m, lab = tmatch.match_proposals(torch.from_numpy(iou), allow_low_quality=allow_lq)
+    assert tmatch.match_proposals.launches == before
+    assert m.dtype == torch.int64 and lab.dtype == torch.int32
+    for fn, kw in ((jmatch.match_proposals, {}),
+                   (jmatch.match_proposals_pallas, {"interpret": True})):
+        ref_m, ref_l = _np(*fn(jnp.asarray(iou), allow_low_quality=allow_lq, **kw))
+        np.testing.assert_array_equal(m.numpy(), ref_m)
+        np.testing.assert_array_equal(lab.numpy(), ref_l)
+
+
+def test_match_thresholds_and_low_quality_rescue():
+    iou = torch.tensor([[0.9, 0.1], [0.4, 0.35], [0.1, 0.05]])
+    m, lab = tmatch.match_proposals(iou, 0.5, 0.3, allow_low_quality=False)
+    assert lab.tolist() == [tmatch.POSITIVE, tmatch.IGNORE, tmatch.NEGATIVE]
+    assert m.tolist() == [0, 0, 0]
+    # gt 1's best proposal reaches only 0.2: rescued as positive
+    iou = torch.tensor([[0.9, 0.05], [0.1, 0.2]])
+    assert tmatch.match_proposals(iou, 0.5, 0.3, False)[1].tolist() == [1, 0]
+    m, lab = tmatch.match_proposals(iou, 0.5, 0.3, True)
+    assert lab.tolist() == [1, 1] and m.tolist() == [0, 1]
+    with pytest.raises(ValueError):
+        tmatch.match_proposals(torch.zeros((4, 0)))
+
+
+def test_subsample_labels_quota():
+    """Random bits differ from jax.random: quotas and membership only."""
+    g = torch.Generator().manual_seed(0)
+    for n_pos, want_pos, want_neg in ((10, 8, 24), (2, 2, 30)):
+        labels = torch.tensor([1] * n_pos + [-1] * 5 + [0] * (95 - n_pos), dtype=torch.int32)
+        out = tmatch.subsample_labels(labels, g, batch_size=32, positive_fraction=0.25)
+        jout = np.asarray(jmatch.subsample_labels(jnp.asarray(labels.numpy()),
+                                                  jax.random.PRNGKey(0), 32, 0.25))
+        assert out.dtype == labels.dtype
+        assert int((out == 1).sum()) == int((jout == 1).sum()) == want_pos
+        assert int((out == 0).sum()) == int((jout == 0).sum()) == want_neg
+        assert (labels[out == 1] == 1).all() and (labels[out == 0] == 0).all()
+        assert (out[labels == -1] == -1).all()
