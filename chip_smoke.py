@@ -19,7 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``roi_align`` within atol 1e-4 + rtol 1e-4 at torchvision's Mask R-CNN
    pooler shapes on a stride-4 FPN level of an 800x1344 input (features
    [2, 200, 336, 256], scale 1/4, 1000 ROIs at 7x7 and 100 at 14x14, both
-   ``aligned`` values, bfloat16 features once);
+   ``aligned`` values, bfloat16 features once); and both two-level rotated
+   warp kernels (``warp_2level``, ``warp_2level_fused``) at the training
+   shape (batch 32, 640 -> 480, draws with rotate 25 incl. samples at 0,
+   flips, jitter 0.1, boxes moved so the centring translation cuts content
+   off) within 1e-2 on the 0-255 scale of the plain version and of each
+   other;
 4. serve at full width from seeded random weights with random running
    statistics: the 20-channel instance program at 480 px over a batch of 128
    in bfloat16 (with the launch counts read around that one dispatch),
@@ -31,10 +36,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    with one NMS launch per image, the keeps of the plain NMS on the CPU and
    the packing rule's dispatch count, and its first two images through the
    float32 card and CPU engines; and ``roi_align`` and ``match_proposals``
-   through their own entry points;
+   through their own entry points; then train at full width (the training
+   slice's main path): ``TrainConfig`` defaults with ``Segment(20)``, 640 ->
+   480, bf16, folded head, rotate 25 through the 2level sampler, flips,
+   jitter, photometric draws, 10 ``make_train_step`` steps at batch 32 on
+   one fixed batch (2 ``warp_2level`` launches per step, finite falling
+   losses), one ``make_eval_step``, ``warp_2level_fused`` through its own
+   entry point, and one float32 step (batch 2, 192 -> 64) on the card
+   against the same step on the CPU;
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above), and the two programs and the
-   proposal path end to end;
+   proposal path end to end, and the train step (of which preprocessing and
+   the warp kernels) with ``F.grid_sample`` at the warp's shape as a
+   yardstick;
 6. print the per-kernel JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -263,6 +277,70 @@ def packed_dispatches(kept_counts, cap: int) -> int:
     return calls + (pending > 0)
 
 
+# -- training: inputs and costs -----------------------------------------------
+
+TRAIN_BATCH = 32
+TRAIN_STEPS = 10
+#: float32 operations per output value of each warp pass: two hat taps, each a
+#: 2-tap residual lerp (2 products, 1 add) accumulated (1 product, 1 add)
+WARP_OPS_PER_VALUE = 10
+
+
+def training_batch(b: int, canvas: int, seed: int) -> dict:
+    """``synthetic_host_batch`` with each sample's boxes moved by up to a
+    third of the canvas, so that the centring translation cuts content off
+    (the case where the probe kernels and the path's sampler part ways)."""
+    from instancesegmentation_tpu_torch.data.synthetic import synthetic_host_batch
+
+    batch = synthetic_host_batch(b, canvas, seed=seed)
+    shift = np.random.default_rng(seed).uniform(-canvas / 3, canvas / 3, (b, 2))
+    batch["obj_box"] = batch["obj_box"] + np.tile(shift, 2).astype(np.float32)
+    batch["mask_box"] = batch["mask_box"] + np.tile(shift, 2).astype(np.float32)
+    return batch
+
+
+def warp_cost(coefs, image_shape, out_hw) -> tuple[float, float]:
+    """(operations, bytes) of the two-level warp on these inputs: uint8 canvas
+    and mask read once, coefficients read once, the float32 [B,oh,ow,4] output
+    written once; operations for the pass-1 rows inside the translation cut
+    and the pass-2 pixels inside the rotation cut, 4 channels each."""
+    b, h, w, _ = image_shape
+    oh, ow = out_hw
+    c = coefs.double().cpu()
+    y = torch.arange(h, dtype=torch.float64)
+    rows = ((y >= c[:, 8:9]) & (y < torch.clamp_max(c[:, 9:10], h))).sum().item()
+    pyu = c[:, 10:11] * torch.arange(oh, dtype=torch.float64) + c[:, 11:12]
+    pxv = c[:, 12:13] * torch.arange(ow, dtype=torch.float64) + c[:, 13:14]
+    row_ok = ((pyu >= 0) & (pyu < c[:, 14:15])).sum(1)
+    col_ok = ((pxv >= 0) & (pxv < c[:, 15:16])).sum(1)
+    pixels = rows * ow + (row_ok * col_ok).sum().item()
+    ops = WARP_OPS_PER_VALUE * 4 * pixels
+    io = b * h * w * 4 + coefs.numel() * 4 + b * oh * ow * 4 * 4
+    return float(ops), float(io)
+
+
+def grid_sample_yardstick(image, mask, params, out_hw):
+    """``F.grid_sample`` (one-pass bilinear, zero padding) of the float NCHW
+    canvas + mask through the same rotated window: the gather sampler's
+    function, timed beside the kernels as a yardstick only."""
+    import torch.nn.functional as F
+
+    b, h, w, _ = image.shape
+    oh, ow = out_hw
+    x = torch.cat([image.float(), mask[..., None].float()], -1).permute(0, 3, 1, 2).contiguous()
+    u = torch.arange(oh, device=image.device, dtype=torch.float32)
+    v = torch.arange(ow, device=image.device, dtype=torch.float32)
+    py = (u[None, :, None] + 0.5) * params.scale[:, 0, None, None] - 0.5 + params.origin[:, 0, None, None]
+    px = (v[None, None, :] + 0.5) * params.scale[:, 1, None, None] - 0.5 + params.origin[:, 1, None, None]
+    cth, sth = params.cos_sin[:, 0, None, None], params.cos_sin[:, 1, None, None]
+    cy, cx = params.center[:, 0, None, None], params.center[:, 1, None, None]
+    sy = cy - sth * (px - cx) + cth * (py - cy) - params.t[:, 0, None, None]
+    sx = cx + cth * (px - cx) + sth * (py - cy) - params.t[:, 1, None, None]
+    grid = torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], -1)
+    return lambda: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -279,6 +357,22 @@ def main() -> int:
         from instancesegmentation_tpu_torch.ops.fused_block import (
             bottleneck3x3_fused,
             bottleneck3x3_reference,
+        )
+        from instancesegmentation_tpu_torch.data.pipeline import (
+            batch_to,
+            draw_augment,
+            preprocess_batch,
+            rotated_warp_params,
+        )
+        from instancesegmentation_tpu_torch.models.layers import init_weights_
+        from instancesegmentation_tpu_torch.models.segment import Segment
+        from instancesegmentation_tpu_torch.ops import warp_2level as w2
+        from instancesegmentation_tpu_torch.train.config import TrainConfig
+        from instancesegmentation_tpu_torch.train.state import TrainState
+        from instancesegmentation_tpu_torch.train.steps import (
+            augment_config,
+            make_eval_step,
+            make_train_step,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -371,6 +465,30 @@ def main() -> int:
         exact(matching.match_proposals(iou, allow_low_quality=lq),
               matching.match_proposals_reference(iou, allow_low_quality=lq),
               f"match_proposals [2000, 64] allow_low_quality={lq}")
+
+    # the two-level rotated warp at the training shape, on the params the
+    # training path gives it; f32 sums of a few terms in another order
+    tcfg = TrainConfig(in_channels=20, rotate=25.0, flip_prob=0.5, jitter=0.1,
+                       brightness=0.2, contrast=0.2, noise_std=5.0, batch_size=TRAIN_BATCH)
+    aug = augment_config(tcfg, train=True)
+    tbatch = batch_to(training_batch(TRAIN_BATCH, tcfg.canvas, SEED), dev)
+    draws = draw_augment(TRAIN_BATCH, aug, torch.Generator(device=dev).manual_seed(SEED))
+    wparams, _ = rotated_warp_params(tbatch, draws, aug)
+    n_rot = int((draws["theta"] != 0).sum())
+    n_cut = int(((wparams.src_lo > 0) | (wparams.src_hi < wparams.canvas_hw)).any(1).sum())
+    print(f"warp inputs: {n_rot} of {TRAIN_BATCH} samples rotated, {int(draws['flip'].sum())} "
+          f"flipped, {n_cut} with a translation cut")
+    check(0 < n_rot < TRAIN_BATCH and n_cut > 0, "warp inputs: rotations, zeros and cuts")
+    wargs = (tbatch["image"], tbatch["mask"], wparams, aug.out_size, aug.rotate,
+             aug.rotate_block)
+    want = w2.warp_2level_reference(*wargs)
+    shape = list(want.shape)
+    errs["warp_2level"] = max_err(w2.warp_2level(*wargs), want, 1e-2, 0.0,
+                                  f"warp_2level {shape}")
+    errs["warp_2level_fused"] = max_err(w2.warp_2level_fused(*wargs), want, 1e-2, 0.0,
+                                        f"warp_2level_fused {shape}")
+    max_err(w2.warp_2level(*wargs), w2.warp_2level_fused(*wargs), 1e-2, 0.0,
+            "warp_2level vs warp_2level_fused")
     torch.cuda.synchronize()
 
     # -- 4. serving at full width -----------------------------------------
@@ -533,6 +651,73 @@ def main() -> int:
     print(f"detection ops through their entry points: launches {det_launches}")
     check(det_launches == {"roi_align": 2, "match_proposals": 1}, "detection op launches")
 
+    # training at full width: the training slice's main path
+    model = Segment(20)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    state = TrainState.create(model.to(dev), tcfg.learning_rate)
+    train_step = make_train_step(tcfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    w2.warp_2level.launches = 0
+    w2.warp_2level_fused.launches = 0
+    fc.fused_chain.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, tbatch, draw_augment(TRAIN_BATCH, aug, gen))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = {"warp_2level": w2.warp_2level.launches,
+                      "warp_2level_fused": w2.warp_2level_fused.launches,
+                      "fused_chain": fc.fused_chain.launches}
+    losses = [float(v) for v in losses]
+    print(f"main path (train, Segment(20) 640 -> 480, batch {TRAIN_BATCH}, bf16, rotate 25 "
+          f"2level, {TRAIN_STEPS} steps): losses {[round(v, 4) for v in losses]}, "
+          f"launches {train_launches}")
+    check(train_launches["warp_2level"] == 2 * TRAIN_STEPS, "train: 2 warp_2level launches per step")
+    check(all(np.isfinite(losses)), "train: finite losses")
+    check(np.mean(losses[-3:]) < losses[0], "train: the mean of the last 3 losses is below the first")
+    _, probs_e, _, ious = make_eval_step(tcfg)(state.model, tbatch)
+    check(tuple(ious.shape) == (TRAIN_BATCH,) and bool(torch.isfinite(ious).all())
+          and bool(((ious >= 0) & (ious <= 1)).all()), "eval step: per-sample IoUs [32]")
+    check(tuple(probs_e.shape) == (TRAIN_BATCH, 480, 480, 1), "eval step: probabilities")
+    print(f"eval step: mean IoU {float(ious.mean()):.4f} over {TRAIN_BATCH} samples")
+
+    w2.warp_2level_fused.launches = 0
+    out = w2.warp_2level_fused(*wargs)
+    torch.cuda.synchronize()
+    fused_launches = w2.warp_2level_fused.launches
+    check(fused_launches == 1 and bool(torch.isfinite(out).all()),
+          "warp_2level_fused: one launch through its entry point")
+
+    # one float32 step on the card against the same step on the CPU: same
+    # weights (random running statistics), batch and draws
+    small_cfg = TrainConfig(canvas=192, out_size=64, in_channels=20, bfloat16=False,
+                            rotate=25.0, flip_prob=0.5, jitter=0.1, brightness=0.2,
+                            contrast=0.2, noise_std=5.0, batch_size=2)
+    small_aug = augment_config(small_cfg, train=True)
+    small_batch = training_batch(2, 192, SEED + 2)
+    small_draws = draw_augment(2, small_aug, torch.Generator().manual_seed(SEED + 2))
+    sd_small = random_state_dict(20, SEED + 3)
+    steps = {}
+    for where in ("cpu", dev):
+        m = Segment(20)
+        m.load_state_dict(sd_small)
+        st = TrainState.create(m.to(where), small_cfg.learning_rate)
+        st, met = make_train_step(small_cfg)(st, small_batch, small_draws)
+        steps[str(where)] = (float(met["loss"]),
+                             {k: v.detach().cpu() for k, v in st.model.state_dict().items()
+                              if k.endswith(("running_mean", "running_var"))})
+    (l_cpu, s_cpu), (l_gpu, s_gpu) = steps["cpu"], steps[str(dev)]
+    step_vs_cpu = {"loss_cpu": l_cpu, "loss_card": l_gpu,
+                   "loss_rel_diff": abs(l_gpu - l_cpu) / abs(l_cpu),
+                   "batch_stats_max_abs_diff": max((s_gpu[k] - s_cpu[k]).abs().max().item()
+                                                   for k in s_cpu)}
+    print(f"f32 train step, card vs CPU (batch 2, 192 -> 64): {json.dumps(step_vs_cpu)} "
+          "(limits: loss rel 1e-4, batch_stats 1e-4)")
+    check(step_vs_cpu["loss_rel_diff"] <= 1e-4, "train step card vs CPU: loss")
+    check(step_vs_cpu["batch_stats_max_abs_diff"] <= 1e-4, "train step card vs CPU: batch_stats")
+
     # -- 5. times ------------------------------------------------------------
     parts = []
     for name, spec in specs.items():
@@ -662,6 +847,28 @@ def main() -> int:
             "host_rest_s": wall - nms_s[0] - predict_s[0]}
     print(json.dumps({"proposal_path_bf16_480": prop, "card": card}))
 
+    # the train step (bf16, batch 32) and its warp kernels; the step updates
+    # the state as it is timed
+    step_ms = cuda_ms(lambda: train_step(state, tbatch, draws), iters=5)
+    pre_ms = cuda_ms(lambda: preprocess_batch(tbatch, draws, aug), iters=5)
+    warp_ms = cuda_ms(lambda: w2.warp_2level(*wargs), iters=20)
+    fused_ms = cuda_ms(lambda: w2.warp_2level_fused(*wargs), iters=20)
+    warp_plain = cuda_ms(lambda: w2.warp_2level_reference(*wargs), iters=3, warmup=1)
+    grid_ms = cuda_ms(grid_sample_yardstick(tbatch["image"], tbatch["mask"], wparams,
+                                                   aug.out_size), iters=20)
+    warp_bound, warp_by = bound_f32(*warp_cost(w2.coefficients(wparams), tbatch["image"].shape,
+                                                aug.out_size))
+    train = {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": losses,
+             "first_steps_s": train_s, "step_ms": step_ms, "img_per_s": TRAIN_BATCH / step_ms * 1e3,
+             "preprocess_ms": pre_ms, "warp_2level_ms": warp_ms, "warp_2level_fused_ms": fused_ms,
+             "warp_plain_ms": warp_plain, "warp_bound_ms": warp_bound, "warp_bound_by": warp_by,
+             "grid_sample_yardstick_ms": grid_ms, "step_vs_cpu": step_vs_cpu}
+    print(f"time train step [{TRAIN_BATCH}, 640 -> 480] bf16: {step_ms:.2f} ms "
+          f"({TRAIN_BATCH / step_ms * 1e3:.1f} img/s), of which preprocessing {pre_ms:.2f} ms, "
+          f"warp_2level {warp_ms:.3f} ms (fused {fused_ms:.3f} ms; plain {warp_plain:.2f} ms, "
+          f"bound {warp_bound:.4f} ms by {warp_by}; grid_sample yardstick {grid_ms:.3f} ms)")
+    print(json.dumps({"train_bf16_480": train, "card": card}))
+
     # -- 6. summary ----------------------------------------------------------
     # the chain's bound is that of its two launches' work taken together
     chain_bound, chain_by = bound(sum(p["flops"] for p in parts),
@@ -703,6 +910,19 @@ def main() -> int:
          "max_abs_err": 0.0, "ms": match_ms, "plain_ms": match_plain,
          "bound_ms": match_bound, "bound_by": match_by, "library_ms": None,
          "shape": [2000, 64]},
+        {"name": "warp_2level", "route": "cuda",
+         "source": "instancesegmentation_tpu_torch/csrc/warp_2level.cu",
+         "replaces": "tools/rot_pallas_probe.py:74",
+         "launches": train_launches["warp_2level"], "max_abs_err": errs["warp_2level"],
+         "ms": warp_ms, "plain_ms": warp_plain, "bound_ms": warp_bound, "bound_by": warp_by,
+         "library_ms": None, "grid_sample_yardstick_ms": grid_ms, "shape": shape},
+        {"name": "warp_2level_fused", "route": "cuda",
+         "source": "instancesegmentation_tpu_torch/csrc/warp_2level.cu",
+         "replaces": "tools/rot_pallas_probe.py:211",
+         "launches": fused_launches, "on_main_path": False,
+         "max_abs_err": errs["warp_2level_fused"], "ms": fused_ms, "plain_ms": warp_plain,
+         "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,
+         "grid_sample_yardstick_ms": grid_ms, "shape": shape},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

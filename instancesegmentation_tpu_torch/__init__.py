@@ -7,16 +7,22 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
 - ``core``    device selection (the card unless the caller asks for the CPU).
 - ``utils``   weight carrying between the flax variable tree and the port's
               state dict.
-- ``models``  the Segment encoder-decoder as ``nn.Module``s (eval forward),
-              BN folding and the algebraically folded section-6 head.
-- ``ops``     the separable crop-warp, the heatmap render, the
-              bottleneck-chain kernel and the detection ops (NMS, RoI-Align,
-              proposal matching); each kernel is hand-written CUDA C++ for
-              sm_90a (sources in ``csrc/``) with its plain PyTorch version.
+- ``models``  the Segment encoder-decoder as ``nn.Module``s (eval and train
+              forward), BN folding and the algebraically folded section-6
+              head (serving fold and differentiable training fold).
+- ``ops``     the separable and rotated crop-warps, the heatmap render, the
+              bottleneck-chain kernel, the two-level rotated warp kernels and
+              the detection ops (NMS, RoI-Align, proposal matching); each
+              kernel is hand-written CUDA C++ for sm_90a (sources in
+              ``csrc/``) with its plain PyTorch version.
 - ``infer``   the instance and whole-image serving programs, the engine, the
               dynamic-batching front end and proposal-based serving (NMS,
               then one instance crop per surviving box).
-- ``data``    the synthetic host batch the benchmarks and tests feed.
+- ``data``    the preprocessing program of training (augmentation draws,
+              rotated/separable crop warp, photometric augmentations,
+              heatmaps) and the synthetic host batch.
+- ``train``   the training configuration, the train state (model + Adam)
+              and the train and eval steps.
 
 The package imports ``torch`` and ``numpy`` only; it never imports JAX or
 the JAX package.

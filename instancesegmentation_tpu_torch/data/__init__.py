@@ -1,1 +1,2 @@
-"""Host-side data helpers of the port."""
+"""Data: the preprocessing program of training and the synthetic host
+batch."""

@@ -15,7 +15,10 @@ adjacent input line (plus per-corner dot products) and adds the
 exact-minus-composite difference there.
 
 Every kernel and bias is measured from impulse responses of the real
-two-op head, in float64 on the CPU, once per weight assignment.
+two-op head.  Serving folds once per weight assignment, in float64 on the
+CPU (``fold_head``); training folds from the live parameters at every step,
+on their device and in their dtype, differentiably, so gradients reach
+``bottle6_1`` and ``bottle6_2`` (``fold_head_live``).
 """
 from __future__ import annotations
 
@@ -55,20 +58,45 @@ def _head(x, w1, b1, w2, b2):
 
 def fold_head(state_dict: Mapping[str, torch.Tensor]) -> FoldedHead:
     """Build the composite head from ``bottle6_1`` / ``bottle6_2`` of a
-    port state dict, in float64 on the CPU."""
+    port state dict, in float64 on the CPU (serving)."""
     def get(k):
         return state_dict[k].detach().to("cpu", torch.float64)
 
-    w1, b1 = get("bottle6_1.weight"), get("bottle6_1.bias")  # [C,4,8,8], [4]
-    w2, b2 = get("bottle6_2.weight"), get("bottle6_2.bias")  # [1,4,3,3], [1]
+    return _fold(get("bottle6_1.weight"), get("bottle6_1.bias"),
+                 get("bottle6_2.weight"), get("bottle6_2.bias"))
+
+
+def fold_head_live(model) -> FoldedHead:
+    """The composite head of ``model`` (a Segment) from its live parameters,
+    on their device and in their dtype, differentiable (training)."""
+    return _fold(model.bottle6_1.weight, model.bottle6_1.bias,
+                 model.bottle6_2.weight, model.bottle6_2.bias)
+
+
+def _phase_index():
+    """Gather indices of the phase decomposition: output pixel
+    (S*u+py, S*v+px) = sum_t kc[S*t - p + PC] x[u+t], t in {-1,0,1}, so
+    phase (py, px) at tap (ky, kx) reads kc[UY[py, ky], UX[px, kx]]; an
+    index of KC reads the zero pad."""
+    t = torch.arange(3)
+    p = torch.arange(S)
+    u = S * (t[None, :] - 1) - p[:, None] + PC        # [S, 3]
+    return torch.where((u >= 0) & (u < KC), u, torch.full_like(u, KC))
+
+
+def _fold(w1, b1, w2, b2) -> FoldedHead:
+    """The composite head of the two-op head with ConvTranspose weights
+    ``w1 [C,4,8,8]``, ``b1 [4]`` and conv weights ``w2 [1,4,3,3]``, ``b2 [1]``,
+    in their dtype and on their device."""
+    dt, dev = w1.dtype, w1.device
     c_in = w1.shape[0]
-    eye = torch.arange(c_in)
+    eye = torch.arange(c_in, device=dev)
 
     # impulse at the centre of a canvas large enough that neither the
     # response support nor conv padding reaches the borders
     canvas = 2 * KC
     ctr = canvas // 2
-    x = torch.zeros(c_in, c_in, canvas, canvas, dtype=torch.float64)
+    x = torch.zeros(c_in, c_in, canvas, canvas, dtype=dt, device=dev)
     x[eye, eye, ctr, ctr] = 1.0
     out = _head(x, w1, None, w2, None)[:, 0]  # [C, S*canvas, S*canvas]
 
@@ -76,26 +104,18 @@ def fold_head(state_dict: Mapping[str, torch.Tensor]) -> FoldedHead:
     # conv-ready composite kc[c, u, v] = g[c, PC-u, PC-v]
     lo = S * ctr - (KC - 1)
     g = out[:, lo:lo + 2 * KC - 1, lo:lo + 2 * KC - 1]
-    idx = (PC - torch.arange(KC)) + (KC - 1)
+    idx = (PC - torch.arange(KC, device=dev)) + (KC - 1)
     kc = g[:, idx][:, :, idx]  # [C, KC, KC]
 
-    # phase decomposition: output pixel (S*u+py, S*v+px) =
-    # sum_t kc[S*t - p + PC] x[u+t], t in {-1,0,1}: one 3x3 conv with
-    # S*S phase output channels, then a pixel shuffle
-    pk = torch.zeros(S * S, c_in, 3, 3, dtype=torch.float64)
-    for ky in range(3):
-        for kx in range(3):
-            for py in range(S):
-                uy = S * (ky - 1) - py + PC
-                if not 0 <= uy < KC:
-                    continue
-                for px in range(S):
-                    ux = S * (kx - 1) - px + PC
-                    if 0 <= ux < KC:
-                        pk[S * py + px, :, ky, kx] = kc[:, uy, ux]
+    # phase decomposition: one 3x3 conv with S*S phase output channels,
+    # then a pixel shuffle
+    idx = _phase_index().to(dev)
+    kcp = F.pad(kc, (0, 1, 0, 1))                        # [C, KC+1, KC+1]
+    pk = kcp[:, idx[:, None, :, None], idx[None, :, None, :]]  # [C, py, px, ky, kx]
+    pk = pk.reshape(c_in, S * S, 3, 3).transpose(0, 1)
 
     # interior bias: the real head on zeros, read at an interior pixel
-    z = torch.zeros(1, c_in, canvas, canvas, dtype=torch.float64)
+    z = torch.zeros(1, c_in, canvas, canvas, dtype=dt, device=dev)
     bias = _head(z, w1, b1, w2, b2)[0, 0, S * ctr, S * ctr]
 
     edges = _edge_maps(w1, b1, w2, b2)
@@ -115,14 +135,15 @@ def _edge_maps(w1, b1, w2, b2):
     its own [C] dot weight.
     """
     c_in = w1.shape[0]
+    dt, dev = w1.dtype, w1.device
     W0 = 12  # canvas: centre responses must clear the corners
     ctr = W0 // 2
-    eye = torch.arange(c_in)
+    eye = torch.arange(c_in, device=dev)
 
     def run(x):
         return _head(x, w1, b1, w2, b2)[:, 0]
 
-    base = run(torch.zeros(1, c_in, W0, W0, dtype=torch.float64))[0]
+    base = run(torch.zeros(1, c_in, W0, W0, dtype=dt, device=dev))[0]
     bias_rows = torch.stack([
         torch.stack([base[0, 0], base[0, S * ctr], base[0, -1]]),
         torch.stack([base[-1, 0], base[-1, S * ctr], base[-1, -1]]),
@@ -131,7 +152,7 @@ def _edge_maps(w1, b1, w2, b2):
 
     # edge-centre impulses (top, bottom, left, right) and corner impulses
     # (tl, tr, bl, br), c_in canvases each
-    imp = torch.zeros(8 * c_in, c_in, W0, W0, dtype=torch.float64)
+    imp = torch.zeros(8 * c_in, c_in, W0, W0, dtype=dt, device=dev)
     for i, (yy, xx) in enumerate([(0, ctr), (-1, ctr), (ctr, 0), (ctr, -1),
                                   (0, 0), (0, -1), (-1, 0), (-1, -1)]):
         imp[i * c_in + eye, eye, yy, xx] = 1.0

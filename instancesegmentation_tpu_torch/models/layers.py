@@ -1,4 +1,4 @@
-"""Building blocks of the Segment encoder-decoder (eval forward).
+"""Building blocks of the Segment encoder-decoder.
 
 Port of ``instancesegmentation_tpu/models/layers.py``.  Activations are
 logical NCHW tensors kept in ``torch.channels_last`` memory format, so the
@@ -21,9 +21,14 @@ Quirks kept from the reference:
   upsample (a pointwise conv commutes exactly with replication);
 - VALID max pools, BatchNorm eps 1e-5, PReLU as ``where(x >= 0, x, a*x)``.
 
-Only the eval forward exists here: BN uses its running statistics.  Once
-``fold_batchnorm`` has folded every BN into its conv, ``bn_folded`` (set by
-``Segment.prepare_serving``) skips the identity BNs.
+Every forward takes ``train``.  In eval mode BN uses its running
+statistics; once ``fold_batchnorm`` has folded every BN into its conv,
+``bn_folded`` (set by ``Segment.prepare_serving``) skips the identity BNs.  In
+train mode BN normalises with the batch statistics in float32 and updates the
+running statistics as flax does (``_bn_train``).  Convs run in the dtype of
+their input: float32 parameters are cast to it at each call, so a float32
+model computes in bfloat16 when fed bfloat16 activations, as the JAX
+package's ``dtype=bfloat16`` modules do.
 """
 from __future__ import annotations
 
@@ -35,6 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+#: flax's BatchNorm momentum: running = MOMENTUM * running + (1 - MOMENTUM) *
+#: batch (torch's ``momentum=0.1`` is the same decay)
+BN_MOMENTUM = 0.9
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -76,18 +84,68 @@ class ConvBN(nn.Module):
         self.relu = act == "relu"
         self.bn_folded = False
 
-    def forward(self, x):
-        x = self.conv(x)
-        if not self.bn_folded:
+    def forward(self, x, train: bool = False):
+        x = conv(self.conv, x)
+        if train:
+            x = _bn_train(self.bn, x)
+        elif not self.bn_folded:
             x = _bn_eval(self.bn, x)
         if self.act is not None:
             return self.act(x)
         return F.relu(x) if self.relu else x
 
 
+def conv(m: nn.Conv2d, x):
+    """``m`` applied to ``x`` in ``x``'s dtype (parameters cast to it)."""
+    bias = None if m.bias is None else m.bias.to(x.dtype)
+    return m._conv_forward(x, m.weight.to(x.dtype), bias)
+
+
+def conv_transpose(m: nn.ConvTranspose2d, x):
+    """``m`` applied to ``x`` in ``x``'s dtype (parameters cast to it)."""
+    bias = None if m.bias is None else m.bias.to(x.dtype)
+    return F.conv_transpose2d(x, m.weight.to(x.dtype), bias, m.stride, m.padding,
+                              m.output_padding, m.groups, m.dilation)
+
+
+def _stat_dtype(x) -> torch.dtype:
+    """BN statistics run in at least float32 (flax's promotion)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _bn_eval(bn: nn.BatchNorm2d, x):
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, training=False, eps=bn.eps)
+    """Running-statistics BN, computed in at least float32, returned in
+    ``x``'s dtype."""
+    dt = _stat_dtype(x)
+    return F.batch_norm(x.to(dt), bn.running_mean.to(dt), bn.running_var.to(dt),
+                        bn.weight.to(dt), bn.bias.to(dt), training=False,
+                        eps=bn.eps).to(x.dtype)
+
+
+def _bn_train(bn: nn.BatchNorm2d, x):
+    """Batch-statistics BN as flax computes it, returned in ``x``'s dtype.
+
+    In at least float32: ``mean = E[x]``, ``var = max(0, E[x^2] - mean^2)`` (the
+    BIASED variance), ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``.
+    The running statistics become ``0.9 * running + 0.1 * batch`` with that
+    same biased variance (``F.batch_norm(training=True)`` would store the
+    unbiased one).
+    """
+    x32 = x.to(_stat_dtype(x))
+    dims = (0, 2, 3)
+    mean = x32.mean(dims)
+    var = torch.clamp_min((x32 * x32).mean(dims) - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
+    return y.to(x.dtype)
+
+
+def _apply(m: nn.Module, y, train: bool):
+    """One entry of a block's ``convs``: a ConvBN, or a raw Conv2d."""
+    return m(y, train) if isinstance(m, ConvBN) else conv(m, y)
 
 
 class InitHeadS4(nn.Module):
@@ -99,9 +157,9 @@ class InitHeadS4(nn.Module):
         self.layer1 = ConvBN(cin, planes, 5, 2, 2, act="prelu")
         self.layer2 = ConvBN(planes, planes, 5, 2, 2, act="prelu")
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         short = F.max_pool2d(x, 4, 4)
-        y = self.layer2(self.layer1(x))
+        y = self.layer2(self.layer1(x, train), train)
         return torch.cat([short.to(y.dtype), y], dim=1)
 
 
@@ -119,10 +177,10 @@ class Bottleneck3x3(nn.Module):
         ])
         self.prelu = PReLU(inplanes)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         y = x
-        for conv in self.convs:
-            y = conv(y)
+        for m in self.convs:
+            y = _apply(m, y, train)
         return self.prelu(y + x)
 
 
@@ -141,10 +199,10 @@ class Bottleneck5x5(nn.Module):
         ])
         self.prelu = PReLU(inplanes)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         y = x
-        for conv in self.convs:
-            y = conv(y)
+        for m in self.convs:
+            y = _apply(m, y, train)
         return self.prelu(y + x)
 
 
@@ -162,12 +220,12 @@ class BottleneckDown2(nn.Module):
         self.convm = nn.ModuleList([ConvBN(inplanes, outplanes, 1)])
         self.prelu = PReLU(outplanes)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         y = x
-        for conv in self.convs:
-            y = conv(y)
+        for m in self.convs:
+            y = m(y, train)
         pooled = F.max_pool2d(x, 2, 2)
-        return self.prelu(y + self.convm[0](pooled)), pooled
+        return self.prelu(y + self.convm[0](pooled, train)), pooled
 
 
 class BottleneckDimRes(nn.Module):
@@ -187,11 +245,11 @@ class BottleneckDimRes(nn.Module):
         self.resconv = nn.ModuleList([ConvBN(inplanes, outplanes, 1)])
         self.prelu = PReLU(outplanes)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         y = x
-        for conv in self.convs:
-            y = conv(y)
-        y = y + self.resconv[0](x)
+        for m in self.convs:
+            y = m(y, train)
+        y = y + self.resconv[0](x, train)
         return self.prelu(y) if self.use_prelu else F.relu(y)
 
 
@@ -213,10 +271,10 @@ class BottleneckDim(nn.Module):
         ])
         self.prelu = PReLU(outplanes)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         y = x
-        for conv in self.convs:
-            y = conv(y)
+        for m in self.convs:
+            y = m(y, train)
         y = y + x
         return self.prelu(y) if self.use_prelu else F.relu(y)
 
@@ -248,13 +306,15 @@ class BottleneckUpRes(nn.Module):
         )
         self.bn_folded = False
 
-    def forward(self, x, skip):
-        y = self.convs[1](self.convs[0](x))
-        if not self.bn_folded:
+    def forward(self, x, skip, train: bool = False):
+        y = conv_transpose(self.convs[1], self.convs[0](x, train))
+        if train:
+            y = _bn_train(self.convs[2], y)
+        elif not self.bn_folded:
             y = _bn_eval(self.convs[2], y)
-        y = self.convs[4](F.relu(y))
-        merged = torch.cat([self.conv2[0](x), skip.to(y.dtype)], dim=1)
-        shortcut = self.uppool[0](self.uppool[1](merged))
+        y = self.convs[4](F.relu(y), train)
+        merged = torch.cat([self.conv2[0](x, train), skip.to(y.dtype)], dim=1)
+        shortcut = self.uppool[0](conv(self.uppool[1], merged))
         return F.relu(y + shortcut)
 
 

@@ -1,10 +1,13 @@
 """The Segment network: ENet-style encoder-decoder for one-instance masks.
 
-Port of ``instancesegmentation_tpu/models/segment.py`` (eval forward).
-Public layout is the JAX package's NHWC: ``images [N,H,W,3]`` and
-``heatmaps [N,H,W,in_channels-3]`` in, ``[N,H,W,1]`` float32 logits out
-(or the ``[N,H/4,W/4,16]`` features with ``truncate_head``).  Inside, the
-activations are NCHW tensors in ``channels_last`` memory.
+Port of ``instancesegmentation_tpu/models/segment.py``.  Public layout is
+the JAX package's NHWC: ``images [N,H,W,3]`` and ``heatmaps
+[N,H,W,in_channels-3]`` in, ``[N,H,W,1]`` float32 logits out (or the
+``[N,H/4,W/4,16]`` features with ``truncate_head``).  Inside, the
+activations are NCHW tensors in ``channels_last`` memory.  ``train=True``
+runs every BN on its batch statistics and updates the running statistics
+(``models/layers.py``); ``dtype`` is the compute dtype (default: the
+parameters'), so float32 parameters can train in bfloat16.
 
 When ``prepare_serving`` has been given the two chain specs built from
 BN-folded weights, sections 1 and 2+3 run through
@@ -28,6 +31,8 @@ from instancesegmentation_tpu_torch.models.layers import (
     BottleneckUpRes,
     ConvBN,
     InitHeadS4,
+    conv,
+    conv_transpose,
 )
 from instancesegmentation_tpu_torch.ops.fused_chain import ChainSpec, fused_chain
 
@@ -41,9 +46,9 @@ def _section(inplanes: int) -> nn.ModuleList:
     return nn.ModuleList(blocks + [Bottleneck5x5(inplanes, 48)])
 
 
-def _run(blocks, y):
+def _run(blocks, y, train: bool):
     for block in blocks:
-        y = block(y)
+        y = block(y, train)
     return y
 
 
@@ -90,8 +95,11 @@ class Segment(nn.Module):
                 m.bn_folded = True
         self.chains = (s1, s23)
 
-    def forward(self, images, heatmaps=None, truncate_head: bool = False):
-        dtype = self.bottle6_1.weight.dtype
+    def forward(self, images, heatmaps=None, truncate_head: bool = False,
+                train: bool = False, dtype: Optional[torch.dtype] = None):
+        if train and self.chains is not None:
+            raise ValueError("a model prepared for serving (folded BN, chains) cannot train")
+        dtype = self.bottle6_1.weight.dtype if dtype is None else dtype
         x = images.to(dtype)
         if heatmaps is not None:
             x = torch.cat([x, heatmaps.to(dtype)], dim=-1)
@@ -101,36 +109,36 @@ class Segment(nn.Module):
             )
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
-        init_down = self.init_conv(x)
+        init_down = self.init_conv(x, train)
 
         # section 1: /8, 48ch
-        b1_down, b1_pool = self.bottle1_1(init_down)
+        b1_down, b1_pool = self.bottle1_1(init_down, train)
         if self.chains is not None:
             b1_5 = _chain(b1_down, self.chains[0])
         else:
-            b1_5 = _run(self.bottle1_x, b1_down)
+            b1_5 = _run(self.bottle1_x, b1_down, train)
 
         # section 2 + concat_2 + section 3: /16, 128ch
-        b2_down, b2_pool = self.bottle2_1(b1_5)
+        b2_down, b2_pool = self.bottle2_1(b1_5, train)
         if self.chains is not None:
             b3_8 = _chain(b2_down, self.chains[1])
         else:
-            b2_8 = _run(self.bottle2_x, b2_down)
+            b2_8 = _run(self.bottle2_x, b2_down, train)
             cat2 = torch.cat([b2_8, b2_down], dim=1)
-            b3_8 = _run(self.bottle3_x, self.bottle3_1(cat2))
+            b3_8 = _run(self.bottle3_x, self.bottle3_1(cat2, train), train)
 
         # section 4: up to /8, 48ch
-        b4_1 = self.bottle4_1up(b3_8, b2_pool)
-        y = self.bottle4_2(torch.cat([b1_down, b4_1], dim=1))
-        b4_3 = self.bottle4_3(y)
+        b4_1 = self.bottle4_1up(b3_8, b2_pool, train)
+        y = self.bottle4_2(torch.cat([b1_down, b4_1], dim=1), train)
+        b4_3 = self.bottle4_3(y, train)
 
         # section 5: up to /4, 16ch
-        b5_2 = self.bottle5_2(self.bottle5_1up(b4_3, b1_pool))
+        b5_2 = self.bottle5_2(self.bottle5_1up(b4_3, b1_pool, train), train)
         if truncate_head:
             return b5_2.permute(0, 2, 3, 1)
 
-        # section 6: /1, 1ch logits
-        logits = self.bottle6_2(self.bottle6_1(b5_2))
+        # section 6: /1, 1ch logits (no BN)
+        logits = conv(self.bottle6_2, conv_transpose(self.bottle6_1, b5_2))
         return logits.float().permute(0, 2, 3, 1)
 
 

@@ -1,6 +1,8 @@
-"""Where the time goes in the port's two serving programs on one NVIDIA GPU.
+"""Where the time goes in the port's serving programs and its train step on
+one NVIDIA GPU.
 
-    python3 profile_port.py      # from the repository root; needs one CUDA card
+    python3 profile_port.py          # from the repository root; needs one CUDA card
+    python3 profile_port.py --train  # the train step only
 
 On seeded random weights, at batch 128 in bfloat16, it times with CUDA
 events each stage of the 480 px instance program (warp parameters, crop
@@ -8,8 +10,13 @@ warp, normalisation, heatmap render, backbone with its two chain launches,
 folded head, sigmoid + inverse warp) and of the 512 px whole-image program,
 the host-side parts of a dispatch with the host clock (upload, download,
 resizes), and takes one ``torch.profiler`` trace of each program for the
-device busy share and the largest device ops.  It prints one JSON object as
-its last line, after the card's name and power limit.
+device busy share and the largest device ops.  The train step (the
+``chip_smoke.py`` training cell: ``Segment(20)`` in bf16, batch 32, 640 ->
+480, rotate 25 through the 2level sampler, flips, jitter, photometric draws)
+is split the same way into preprocessing (of which the warp kernels), the
+train-mode forward and loss, the backward and the Adam update, with one
+trace.  It prints one JSON object as its last line, after the card's name
+and power limit.
 """
 from __future__ import annotations
 
@@ -20,7 +27,15 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import BATCH, SEED, card_line, cuda_ms, random_state_dict
+from chip_smoke import (
+    BATCH,
+    SEED,
+    TRAIN_BATCH,
+    card_line,
+    cuda_ms,
+    random_state_dict,
+    training_batch,
+)
 
 
 def host_ms(fn, iters: int = 3) -> float:
@@ -56,10 +71,75 @@ def trace(fn, top: int = 12) -> dict:
             "largest_ms": {k[:90]: v for k, v in largest}}
 
 
+def train_breakdown(dev) -> dict:
+    """The bf16 train step at batch 32, stage by stage, and one trace."""
+    from instancesegmentation_tpu_torch.data.pipeline import (
+        batch_to,
+        draw_augment,
+        preprocess_batch,
+        rotated_warp_params,
+    )
+    from instancesegmentation_tpu_torch.models.layers import init_weights_
+    from instancesegmentation_tpu_torch.models.segment import Segment
+    from instancesegmentation_tpu_torch.ops import warp_2level as w2
+    from instancesegmentation_tpu_torch.train.config import TrainConfig
+    from instancesegmentation_tpu_torch.train.state import TrainState
+    from instancesegmentation_tpu_torch.train.steps import (
+        augment_config,
+        bce_loss,
+        make_fwd,
+        make_train_step,
+    )
+
+    cfg = TrainConfig(in_channels=20, rotate=25.0, flip_prob=0.5, jitter=0.1,
+                      brightness=0.2, contrast=0.2, noise_std=5.0, batch_size=TRAIN_BATCH)
+    aug = augment_config(cfg, train=True)
+    batch = batch_to(training_batch(TRAIN_BATCH, cfg.canvas, SEED), dev)
+    draws = draw_augment(TRAIN_BATCH, aug, torch.Generator(device=dev).manual_seed(SEED))
+    model = Segment(20)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    state = TrainState.create(model.to(dev), cfg.learning_rate)
+    step = make_train_step(cfg)
+    fwd = make_fwd(state.model, cfg, train=True)
+    images, heatmaps, masks = preprocess_batch(batch, draws, aug)
+    params, _ = rotated_warp_params(batch, draws, aug)
+
+    def forward_loss():
+        return bce_loss(fwd(images, heatmaps), masks)
+
+    def forward_backward():
+        state.optimizer.zero_grad(set_to_none=True)
+        forward_loss().backward()
+
+    forward_backward()
+    st = {
+        "step": cuda_ms(lambda: step(state, batch, draws), 5),
+        "preprocess": cuda_ms(lambda: preprocess_batch(batch, draws, aug), 5),
+        "warp_params": cuda_ms(lambda: rotated_warp_params(batch, draws, aug), 5),
+        "warp_2level": cuda_ms(lambda: w2.warp_2level(
+            batch["image"], batch["mask"], params, aug.out_size, aug.rotate,
+            aug.rotate_block), 20),
+        "forward_loss": cuda_ms(forward_loss, 5),
+        "forward_backward": cuda_ms(forward_backward, 5),
+        "adam": cuda_ms(state.optimizer.step, 10),
+    }
+    with torch.no_grad():
+        st["forward_no_grad"] = cuda_ms(forward_loss, 5)
+    st["backward"] = st["forward_backward"] - st["forward_loss"]
+    return {"ms": st, "img_per_s": TRAIN_BATCH / st["step"] * 1e3,
+            "trace": trace(lambda: step(state, batch, draws), top=16)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
         return 1
+    if "--train" in sys.argv[1:]:
+        card = card_line()
+        print(card)
+        out = {"card": card, "train_bf16_480": train_breakdown(torch.device("cuda:0"))}
+        print(json.dumps(out))
+        return 0
     from instancesegmentation_tpu_torch.data.synthetic import synthetic_host_batch
     from instancesegmentation_tpu_torch.infer import pipeline as pl
     from instancesegmentation_tpu_torch.models.fused_head import fold_head, head_apply
@@ -156,6 +236,7 @@ def main() -> int:
             "predict_images_host": host_ms(lambda: eng3.predict_images(images)),
         }
         out["whole512_trace"] = trace(lambda: eng3._forward_whole(u8))
+    out["train_bf16_480"] = train_breakdown(dev)
     print(json.dumps(out))
     return 0
 
