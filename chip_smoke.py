@@ -8,10 +8,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``instancesegmentation_tpu_torch/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   serving shapes, with TF32 off: the chain kernel on the section-1 and
+   serving shapes, with TF32 off: the chain's SIMT form on the section-1 and
    section-2+3 specs of the 480 px program in float32 (atol 1e-3 plus rtol
    1e-4 of the reference's magnitude: the sums run in another order) and
-   bfloat16 I/O (atol 0.1, rtol 0.1), and ``bottleneck3x3_fused`` in float32
+   bfloat16 I/O (atol 0.1, rtol 0.1); the chain's banded cluster form on both
+   specs of the 480 and 512 px programs at batch 8 and 128, against its
+   rounding plain version within twice the spread between that plain version
+   with its sums in float32 and in float64 (at least one bf16 ulp of the
+   output's largest magnitude), and against the float32 plain version within
+   atol 0.1 + rtol 0.1 of the output's largest magnitude; its ptxas line and
+   its resident clusters; ``bottleneck3x3_fused`` in float32
    (atol 1e-3, rtol 1e-4); then the detection kernels: NMS bit-equal (N = 48
    to 4096, thresholds 0.5 and 0.7, ties, duplicates and zero-area boxes, K
    below and above N; ``nms_batch`` on [8, 1000] in one launch), matching
@@ -27,10 +33,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    other;
 4. serve at full width from seeded random weights with random running
    statistics: the 20-channel instance program at 480 px over a batch of 128
-   in bfloat16 (with the launch counts read around that one dispatch),
-   the same engine in float32 on the card, a float32 CPU engine on two rows
+   in bfloat16 (with the launch counts read around that one dispatch: 2
+   banded chain launches), the same engine in float32 on the card (2 SIMT
+   launches), a float32 CPU engine on two rows
    of the batch, a few requests through ``ServingFrontend``, and the 3-channel
-   whole-image program at 512 px over 128 images; then the proposal path:
+   whole-image program at 512 px over 128 images (2 banded launches); then
+   the proposal path (2 banded launches per dispatch):
    64 images of 360-800 px with 48 proposals each through
    ``iter_segment_proposals`` (NMS at 0.7, 16 instances, dispatches of 128),
    with one NMS launch per image, the keeps of the plain NMS on the CPU and
@@ -45,7 +53,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    entry point, and one float32 step (batch 2, 192 -> 64) on the card
    against the same step on the CPU;
 5. time each kernel and its plain version with CUDA events at batch 128 (the
-   detection kernels at the shapes above), and the two programs and the
+   detection kernels at the shapes above; the banded chain beside its bound
+   per launch, its rounding and float32 plain versions, the float32 SIMT form
+   and, as a yardstick the port never calls, the same sections through the
+   layer modules on cuDNN in bf16 channels_last), and the two programs and the
    proposal path end to end, and the train step (of which preprocessing and
    the warp kernels) with ``F.grid_sample`` at the warp's shape as a
    yardstick;
@@ -57,6 +68,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -116,34 +128,101 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def chain_cost(spec, n: int, elt: int) -> tuple[float, float]:
-    """(operations, bytes) the chain needs on ``n`` images: 1x1 products,
-    depthwise taps and residual adds; input read once, output written once,
-    weights read once."""
+def chain_cost(spec, n: int, elt: int) -> tuple[float, float, float]:
+    """(1x1-product operations, other operations, bytes) the chain needs on
+    ``n`` images: the 1x1 products; the depthwise taps and residual adds;
+    input read once, output written once, weights read once."""
     from instancesegmentation_tpu_torch.ops import fused_chain as fc
 
     p = n * spec.h * spec.w
-    flops, weights, c = 0.0, 0, spec.c_in
+    mm, other, weights, c = 0.0, 0.0, 0, spec.c_in
     for op in spec.ops:
         if isinstance(op, (fc.MatmulOp, fc.DepthwiseOp)):
-            flops += 2.0 * p * op.w.size
+            if isinstance(op, fc.MatmulOp):
+                mm += 2.0 * p * op.w.size
+            else:
+                other += 2.0 * p * op.w.size
             weights += op.w.size + op.b.size
             c = op.w.shape[1]
         elif isinstance(op, fc.ResidualAdd):
             if op.proj is not None:
-                flops += 2.0 * p * op.proj.w.size
+                mm += 2.0 * p * op.proj.w.size
                 weights += op.proj.w.size + op.proj.b.size
                 c = op.proj.w.shape[1]
-            flops += p * c
+            other += p * c
         elif isinstance(op, fc.ConcatChainInput):
             c += spec.c_in
     io = p * (spec.c_in + spec.c_out) * elt + 4 * weights
-    return flops, io
+    return mm, other, io
 
 
-def bound(flops: float, io: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, io / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def chain_bound(spec, n: int, dtype) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, operations, bytes) of one chain launch on
+    ``n`` images.  bf16 I/O: the 1x1 products at the bf16 tensor-core rate,
+    the depthwise taps and residual adds (float32 on the CUDA cores) at the
+    float32 rate, the larger of the two (the pipes can overlap); float32 I/O:
+    every operation at the float32 rate."""
+    mm, other, io = chain_cost(spec, n, 2 if dtype == torch.bfloat16 else 4)
+    if dtype == torch.bfloat16:
+        t_ops = max(mm / PEAK_BF16_FLOPS, other / PEAK_F32_FLOPS)
+    else:
+        t_ops = (mm + other) / PEAK_F32_FLOPS
+    t_bytes = io / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            mm + other, io)
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bfloat16 values at magnitude ``v``."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
+
+
+def banded_check(got, r32, r64, f32, what: str) -> dict:
+    """The banded kernel against its rounding plain version ``r32`` within
+    twice the spread between ``r32`` and the same program with its sums in
+    float64 (``r64``), and at least one bf16 ulp of the output's largest
+    magnitude: a sum that rounds differently flips a bf16 rounding, which the
+    later ops carry on, so two right float32 programs differ by that much.
+    Against the float32 plain version ``f32`` within atol 0.1 + rtol 0.1 of
+    the output's largest magnitude (per element, values near zero move by
+    more than 10 % of themselves: their share is printed)."""
+    got, r32, r64, f32 = got.float(), r32.float(), r64.float(), f32.float()
+    spread = (r32 - r64).abs().max().item()
+    top = r64.abs().max().item()
+    limit = 2.0 * max(spread, bf16_ulp(top))
+    err = (got - r32).abs().max().item()
+    d32 = (got - f32).abs()
+    top32 = f32.abs().max().item()
+    out = {"max_abs_err": err, "limit": limit, "spread_f32_f64": spread, "max_abs_ref": top,
+           "mean_abs_err": (got - r32).abs().mean().item(),
+           "max_abs_err_f32": d32.max().item(), "limit_f32": 0.1 + 0.1 * top32,
+           "rms_rel_err_f32": (d32.pow(2).mean().sqrt() / f32.pow(2).mean().sqrt()).item(),
+           "share_outside_elementwise_f32": (d32 > 0.1 + 0.1 * f32.abs()).float().mean().item()}
+    print(f"check {what}: {json.dumps(out)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(err <= limit, f"{what}: outside twice the float32/float64 spread")
+    check(out["max_abs_err_f32"] <= out["limit_f32"], f"{what}: too far from the float32 program")
+    return out
+
+
+def section_yardstick(model, name: str):
+    """The chain's sections through the layer modules of a model prepared for
+    serving (BN folded, its dtype, channels_last; cuDNN convolutions) on an
+    NHWC input: a yardstick only, the port never runs it."""
+    def run(x):
+        y = x.permute(0, 3, 1, 2)
+        if name == "s1":
+            for block in model.bottle1_x:
+                y = block(y, False)
+        else:
+            y0 = y
+            for block in model.bottle2_x:
+                y = block(y, False)
+            y = model.bottle3_1(torch.cat([y, y0], dim=1), False)
+            for block in model.bottle3_x:
+                y = block(y, False)
+        return y.permute(0, 2, 3, 1)
+    return run
 
 
 def max_err(got, want, atol, rtol, what) -> float:
@@ -394,24 +473,78 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    # the banded chain kernel's ptxas report: registers, spills, stack
+    chain_log = _build.build_log.get("fused_chain.cu")
+    if chain_log is None:
+        print("fused_chain.cu was built before this run: no ptxas report")
+    else:
+        entry = chain_log.split("fused_chain_banded_kernel", 1)[1].split("Compiling entry", 1)[0]
+        report = " | ".join(ln.strip() for ln in entry.splitlines()[1:] if ln.strip())
+        print(f"ptxas fused_chain_banded_kernel: {report}")
+        check("0 bytes spill stores, 0 bytes spill loads" in report,
+              "fused_chain_banded_kernel spills registers")
 
     # -- 3. kernels against their plain versions ---------------------------
     sd20 = random_state_dict(20, SEED)
+    sd3 = random_state_dict(3, SEED + 1)
     folded = fold_batchnorm(sd20)
     specs = {"s1": fc.extract_s1_chain(folded, 60, 60),
              "s23": fc.extract_s23_chain(folded, 30, 30)}
+    # both chains of the 480 px instance and the 512 px whole-image programs
+    folded3 = fold_batchnorm(sd3)
+    chains = {(480, "s1"): specs["s1"], (480, "s23"): specs["s23"],
+              (512, "s1"): fc.extract_s1_chain(folded3, 64, 64),
+              (512, "s23"): fc.extract_s23_chain(folded3, 32, 32)}
     g = torch.Generator(device=dev).manual_seed(SEED)
     errs = {}
     for name, spec in specs.items():
         ref_spec = spec.to(dev)
         x = torch.randn((8, spec.h, spec.w, spec.c_in), generator=g, device=dev)
-        for dtype, atol, rtol in ((torch.float32, 1e-3, 1e-4), (torch.bfloat16, 0.1, 0.1)):
-            xd = x.to(dtype)
-            got = fc.fused_chain(xd, spec)
-            want = fc.fused_chain_reference(xd, ref_spec)
-            check(got.dtype == dtype and got.shape == want.shape, f"{name} {dtype} shape")
-            errs[(name, dtype)] = max_err(got, want, atol, rtol,
-                                          f"fused_chain {name} {dtype} {list(x.shape)}")
+        # float32 I/O: the SIMT form, through the wrapper
+        before = fc.fused_chain.launches_by_form["simt"]
+        got = fc.fused_chain(x, spec)
+        want = fc.fused_chain_reference(x, ref_spec)
+        check(fc.fused_chain.launches_by_form["simt"] == before + 1, f"{name} f32: SIMT form")
+        check(got.dtype == torch.float32 and got.shape == want.shape, f"{name} f32 shape")
+        errs[(name, torch.float32)] = max_err(got, want, 1e-3, 1e-4,
+                                              f"fused_chain simt {name} float32 {list(x.shape)}")
+        # bf16 I/O on the SIMT form (what a spec no cluster holds runs)
+        xd = x.to(torch.bfloat16)
+        got = fc._launch(xd, spec)
+        want = fc.fused_chain_reference(xd, ref_spec)
+        check(got.dtype == torch.bfloat16 and got.shape == want.shape, f"{name} bf16 shape")
+        errs[(name, "simt_bf16")] = max_err(got, want, 0.1, 0.1,
+                                            f"fused_chain simt {name} bfloat16 {list(x.shape)}")
+
+    # bf16 I/O: the banded cluster form, at batch 8 and a full grid of clusters
+    banded = {}
+    for (prog, name), spec in chains.items():
+        ref_spec = spec.to(dev)
+        plan = fc.plan_banded(spec)
+        check(fc.chain_form(spec, torch.bfloat16) == "banded", f"{prog} {name}: banded plan")
+        resident = fc.banded_occupancy(spec)
+        print(f"banded plan {prog} {name} [{spec.h}, {spec.w}, {spec.c_in}]: cluster "
+              f"{plan.cluster}, bands of {plan.band_px} px, {plan.smem_bytes} B of shared "
+              f"memory per CTA, {len(plan.ops())} ops, {plan.n_phases} cluster barriers; "
+              f"cudaOccupancyMaxActiveClusters {resident}")
+        for n in (8, BATCH):
+            x = torch.randn((n, spec.h, spec.w, spec.c_in), generator=g,
+                            device=dev).bfloat16()
+            before = fc.fused_chain.launches_by_form["banded"]
+            got = fc.fused_chain(x, spec)
+            check(fc.fused_chain.launches_by_form["banded"] == before + 1,
+                  f"{prog} {name}: banded form")
+            check(got.dtype == torch.bfloat16 and got.shape == (n, spec.h, spec.w, spec.c_out),
+                  f"{prog} {name}: banded output")
+            r32 = fc.fused_chain_reference(x, ref_spec, act_dtype=torch.bfloat16)
+            r64 = fc.fused_chain_reference(x, ref_spec, act_dtype=torch.bfloat16,
+                                           compute_dtype=torch.float64)
+            f32 = fc.fused_chain_reference(x, ref_spec)
+            banded[(prog, name, n)] = dict(
+                banded_check(got, r32, r64, f32,
+                             f"fused_chain banded {prog} {name} {list(x.shape)}"),
+                cluster=plan.cluster, smem_bytes=plan.smem_bytes, resident_clusters=resident)
+            del r32, r64, f32
 
     # bottleneck3x3_fused on the folded weights of the first section-1 block
     _, mm1, dw_op, mm2, res = specs["s1"].ops[:5]
@@ -494,13 +627,15 @@ def main() -> int:
     # -- 4. serving at full width -----------------------------------------
     batch = synthetic_host_batch(BATCH, 640, seed=SEED)
     eng = InferenceEngine(sd20, in_channels=20, size=480, dtype=torch.bfloat16)
-    fc.fused_chain.launches = 0
+    fc.reset_launches()
     bottleneck3x3_fused.launches = 0
     probs, masks = eng.predict_instances(batch)  # the main path, once
     launches = {"fused_chain": fc.fused_chain.launches,
+                "fused_chain_by_form": dict(fc.fused_chain.launches_by_form),
                 "bottleneck3x3_fused": bottleneck3x3_fused.launches}
     print(f"main path (instance 480, batch {BATCH}, bf16): launches {launches}")
-    check(launches["fused_chain"] == 2, "fused_chain: 2 launches per dispatch")
+    check(launches["fused_chain_by_form"] == {"banded": 2, "simt": 0},
+          "fused_chain: 2 banded launches per bf16 dispatch")
     check(probs.shape == (BATCH, 480, 480, 1) and masks.shape == (BATCH, 640, 640),
           "instance output shapes")
     check(bool(np.isfinite(probs).all()) and probs.min() >= 0 and probs.max() <= 1,
@@ -508,7 +643,11 @@ def main() -> int:
     check(set(np.unique(masks)) <= {0, 255}, "instance masks are 0/255")
 
     eng32 = InferenceEngine(sd20, in_channels=20, size=480, dtype=torch.float32)
+    fc.reset_launches()
     probs32, masks32 = eng32.predict_instances(batch)
+    f32_launches = dict(fc.fused_chain.launches_by_form)
+    print(f"instance 480, batch {BATCH}, f32: fused_chain launches {f32_launches}")
+    check(f32_launches == {"banded": 0, "simt": 2}, "fused_chain: 2 SIMT launches per f32 dispatch")
     bf16_vs_f32 = {
         "crop_prob_mean_abs_diff": float(np.abs(probs - probs32).mean()),
         "crop_prob_max_abs_diff": float(np.abs(probs - probs32).max()),
@@ -555,15 +694,15 @@ def main() -> int:
         print(f"frontend: {len(inst)} instance + {len(whole)} image requests resolved "
               f"in {fe.dispatches} dispatches")
 
-    sd3 = random_state_dict(3, SEED + 1)
     eng3 = InferenceEngine(sd3, in_channels=3, size=512, dtype=torch.bfloat16)
     images = [rng.integers(0, 255, (int(rng.integers(360, 800)), int(rng.integers(360, 800)), 3),
                            dtype=np.uint8) for _ in range(BATCH)]
-    fc.fused_chain.launches = 0
+    fc.reset_launches()
     img_masks = eng3.predict_images(images)
-    whole_launches = fc.fused_chain.launches
+    whole_launches = dict(fc.fused_chain.launches_by_form)
     print(f"whole-image path (512, batch {BATCH}, bf16): fused_chain launches {whole_launches}")
-    check(whole_launches == 2, "whole-image: 2 chain launches per dispatch")
+    check(whole_launches == {"banded": 2, "simt": 0},
+          "whole-image: 2 banded chain launches per dispatch")
     check(all(m.shape == im.shape[:2] and m.dtype == np.uint8
               for m, im in zip(img_masks, images)), "whole-image mask shapes")
 
@@ -584,27 +723,39 @@ def main() -> int:
         nms_s[0] += time.perf_counter() - t
         return keep
 
+    forwards = []  # one per dispatch of the program: a call above 128 crops is chunked
+    forward_instance = eng._forward_instance
+
+    def counted_forward(*args):
+        forwards.append(args[0].shape[0])
+        return forward_instance(*args)
+
     InferenceEngine.predict_instances = counted_predict
     proposals._nms_keep = timed_nms_keep
+    eng._forward_instance = counted_forward
     try:
         nms.nms.launches = 0
-        fc.fused_chain.launches = 0
+        fc.reset_launches()
         t0 = time.perf_counter()
         results = list(proposals.iter_segment_proposals(
             eng, reqs, nms_threshold=0.7, max_instances=16, batch_cap=128))
         torch.cuda.synchronize()
         prop_s = time.perf_counter() - t0
-        prop_launches = {"nms": nms.nms.launches, "fused_chain": fc.fused_chain.launches}
+        prop_launches = {"nms": nms.nms.launches,
+                         "fused_chain": dict(fc.fused_chain.launches_by_form)}
     finally:
         InferenceEngine.predict_instances = predict
         proposals._nms_keep = nms_keep
+        eng._forward_instance = forward_instance
     kept = [len(r) for r in results]
     crops = sum(kept)
     print(f"proposal path ({len(reqs)} images x 48 proposals, bf16 480): {crops} crops, "
-          f"{len(calls)} predict_instances calls {calls}, launches {prop_launches}")
+          f"{len(calls)} predict_instances calls {calls} in {len(forwards)} program dispatches "
+          f"{forwards}, launches {prop_launches}")
     check(len(results) == len(reqs), "proposal path: one result list per image")
     check(prop_launches["nms"] == len(reqs), "proposal path: one nms launch per image")
-    check(prop_launches["fused_chain"] >= 2, "proposal path: the chain kernel ran")
+    check(prop_launches["fused_chain"] == {"banded": 2 * len(forwards), "simt": 0},
+          "proposal path: 2 banded chain launches per program dispatch")
     check(len(calls) == packed_dispatches(kept, 128),
           "proposal path: dispatches follow the packing rule")
     for req, res in zip(reqs, results):
@@ -659,7 +810,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     w2.warp_2level.launches = 0
     w2.warp_2level_fused.launches = 0
-    fc.fused_chain.launches = 0
+    fc.reset_launches()
     losses = []
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -719,29 +870,54 @@ def main() -> int:
     check(step_vs_cpu["batch_stats_max_abs_diff"] <= 1e-4, "train step card vs CPU: batch_stats")
 
     # -- 5. times ------------------------------------------------------------
+    # the chain at batch 128: the banded form (bf16) of both programs beside
+    # each launch's bound, its rounding plain version, the float32 plain
+    # version, the float32 SIMT form and the cuDNN yardstick; the SIMT form's
+    # own parts for the 480 program
     parts = []
-    for name, spec in specs.items():
+    models = {480: eng.model, 512: eng3.model}
+    for (prog, name), spec in chains.items():
         ref_spec = spec.to(dev)
         x = torch.randn((BATCH, spec.h, spec.w, spec.c_in), generator=g,
                         device=dev).bfloat16()
-        ms = cuda_ms(lambda: fc.fused_chain(x, spec), iters=20)
-        plain = cuda_ms(lambda: fc.fused_chain_reference(x, ref_spec), iters=5)
-        flops, io = chain_cost(spec, BATCH, 2)
-        b_ms, b_by = bound(flops, io)
-        parts.append({"spec": name, "shape": list(x.shape), "dtype": "bfloat16",
-                      "flops": flops, "bytes": io,
-                      "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                      "f32_cuda_core_bound_ms": 1e3 * flops / PEAK_F32_FLOPS,
-                      "max_abs_err_f32": errs[(name, torch.float32)],
-                      "max_abs_err_bf16": errs[(name, torch.bfloat16)]})
-        print(f"time fused_chain {name} {list(x.shape)} bf16: {ms:.3f} ms "
-              f"(plain {plain:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+        xf = x.float()
+        with torch.inference_mode():
+            yard = section_yardstick(models[prog], name)
+            want = fc.fused_chain_reference(xf, ref_spec)
+            d = (yard(x).float() - want).abs().max().item()
+            check(d <= 0.1 + 0.1 * want.abs().max().item(),
+                  f"{prog} {name}: the cuDNN yardstick computes the chain")
+            del want
+            ms = cuda_ms(lambda: fc.fused_chain(x, spec), iters=20)
+            plain = cuda_ms(lambda: fc.fused_chain_reference(x, ref_spec,
+                                                             act_dtype=torch.bfloat16), iters=5)
+            plain_f32 = cuda_ms(lambda: fc.fused_chain_reference(x, ref_spec), iters=5)
+            simt = cuda_ms(lambda: fc.fused_chain(xf, spec), iters=10)
+            cudnn = cuda_ms(lambda: yard(x), iters=10)
+        b_ms, b_by, flops, io = chain_bound(spec, BATCH, torch.bfloat16)
+        chk = banded[(prog, name, BATCH)]
+        parts.append({"program": prog, "spec": name, "form": "banded", "shape": list(x.shape),
+                      "dtype": "bfloat16", "flops": flops, "bytes": io, "ms": ms,
+                      "plain_ms": plain, "plain_f32_ms": plain_f32, "bound_ms": b_ms,
+                      "bound_by": b_by, "simt_f32_ms": simt, "cudnn_bf16_yardstick_ms": cudnn,
+                      **{k: chk[k] for k in ("max_abs_err", "limit", "max_abs_err_f32",
+                                             "cluster", "smem_bytes", "resident_clusters")}})
+        print(f"time fused_chain banded {prog} {name} {list(x.shape)} bf16: {ms:.4f} ms "
+              f"(bound {b_ms:.4f} ms by {b_by}; rounding plain {plain:.3f} ms, f32 plain "
+              f"{plain_f32:.3f} ms; f32 SIMT form {simt:.3f} ms; cuDNN bf16 yardstick "
+              f"{cudnn:.3f} ms)")
+        if prog == 480:
+            s_ms, s_by, s_flops, s_io = chain_bound(spec, BATCH, torch.float32)
+            parts.append({"program": prog, "spec": name, "form": "simt", "shape": list(x.shape),
+                          "dtype": "float32", "flops": s_flops, "bytes": s_io, "ms": simt,
+                          "plain_ms": plain_f32, "bound_ms": s_ms, "bound_by": s_by,
+                          "max_abs_err": errs[(name, torch.float32)]})
 
     xb = torch.randn((BATCH, 60, 60, 48), generator=g, device=dev)
     blk_ms = cuda_ms(lambda: bottleneck3x3_fused(xb, **block_args), iters=20)
     blk_plain = cuda_ms(lambda: bottleneck3x3_reference(xb, **block_args), iters=5)
     one_block = fc.ChainSpec(60, 60, 48, 48, specs["s1"].ops[:5])
-    blk_bound, blk_by = bound(*chain_cost(one_block, BATCH, 4))
+    blk_bound, blk_by, _, _ = chain_bound(one_block, BATCH, torch.float32)
     print(f"time bottleneck3x3_fused [{BATCH}, 60, 60, 48] f32: {blk_ms:.3f} ms "
           f"(plain {blk_plain:.3f} ms, bound {blk_bound:.4f} ms by {blk_by})")
 
@@ -870,18 +1046,20 @@ def main() -> int:
     print(json.dumps({"train_bf16_480": train, "card": card}))
 
     # -- 6. summary ----------------------------------------------------------
-    # the chain's bound is that of its two launches' work taken together
-    chain_bound, chain_by = bound(sum(p["flops"] for p in parts),
-                                  sum(p["bytes"] for p in parts))
+    # the main path's two launches (banded, 480 program): each launch's own
+    # bound, summed; what bounds the chain is what bounds its larger part
+    main = [p for p in parts if p["program"] == 480 and p["form"] == "banded"]
     kernels = [
         {"name": "fused_chain", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/fused_chain.cu",
          "replaces": "instancesegmentation_tpu/ops/fused_chain.py:308",
          "launches": launches["fused_chain"],
-         "max_abs_err": max(p["max_abs_err_f32"] for p in parts),
-         "ms": sum(p["ms"] for p in parts),
-         "plain_ms": sum(p["plain_ms"] for p in parts),
-         "bound_ms": chain_bound, "bound_by": chain_by,
+         "launches_by_form": launches["fused_chain_by_form"],
+         "max_abs_err": max(p["max_abs_err"] for p in main),
+         "ms": sum(p["ms"] for p in main),
+         "plain_ms": sum(p["plain_ms"] for p in main),
+         "bound_ms": sum(p["bound_ms"] for p in main),
+         "bound_by": max(main, key=lambda p: p["bound_ms"])["bound_by"],
          "library_ms": None, "parts": parts},
         {"name": "bottleneck3x3_fused", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/fused_chain.cu",

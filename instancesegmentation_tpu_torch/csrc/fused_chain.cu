@@ -1,40 +1,59 @@
-// Fused bottleneck-chain kernel for Hopper (sm_90a), inference only.
+// Fused bottleneck-chain kernels for Hopper (sm_90a), inference only.
 //
-// Replaces the Pallas TPU kernel instancesegmentation_tpu/ops/fused_chain.py:
-// fused_chain (and, as a one-block chain, ops/fused_block.py:
-// bottleneck3x3_fused).  It runs a chain of BN-folded residual bottleneck
-// blocks -- 1x1 convs with bias + PReLU/ReLU, masked depthwise taps,
+// Replace the Pallas TPU kernel instancesegmentation_tpu/ops/fused_chain.py:
+// fused_chain (pallas_call at :413; and, as a one-block chain,
+// ops/fused_block.py:bottleneck3x3_fused).  A chain of BN-folded residual
+// bottleneck blocks: 1x1 convs with bias + PReLU/ReLU, masked depthwise taps
+// (3x3 at dilation 1/2/4, (5,1), (1,5); a tap at (dy, dx) reads
+// in[y+dy, x+dx] when that coordinate is inside the image, zero otherwise),
 // residual adds with an optional 1x1 projection, and the concat with the
-// chain input -- for one image per CTA, walking an instruction table that
-// ops/fused_chain.py:compile_chain builds once per weight assignment.
+// chain input.  Two forms, chosen by ops/fused_chain.py:chain_form.
 //
-// What bounds it on the card.  At the serving shapes the chain is mostly
-// 1x1 products (s23 at 30x30x128: ~322 MFLOP per image against ~0.46 MB of
-// bf16 chain I/O), so the bound is the tensor-core rate; this kernel does
-// its products as float32 FMAs on the CUDA cores, so it is capped near the
-// 67 TFLOP/s FP32 rate instead, and it is further limited by the traffic
-// of its per-op intermediates.
+// The banded form (bf16 I/O; fused_chain_banded_kernel).
+//   What bounds it: section 1 ([N,60,60,48], four 48->16->48 blocks) does
+//   ~0.05 GFLOP per image against 0.69 MB of bf16 I/O: the bytes bound it.
+//   Sections 2+3 ([N,30,30,128], eleven 128->48->128 blocks and a 256-deep
+//   projection) do ~0.32 GFLOP per image against 0.46 MB: the tensor-core
+//   rate bounds it.
+//   What the design does: one thread-block cluster per image, each CTA
+//   owning a band of whole image rows (ops/fused_chain.py:plan_banded picks
+//   the smallest cluster whose band fits in 227 KB).  Every activation of the
+//   chain lives in the CTAs' shared memory as bf16 [band_px, C] rows with an
+//   odd count of 16-byte units per row (no ldmatrix bank conflicts), so the
+//   chain input is read from device memory once (cp.async) and the output
+//   written once; nothing else but the weights touches device memory.  The
+//   1x1 convs run on the tensor cores (mma.sync m16n8k16, bf16 operands,
+//   float32 accumulation, A by ldmatrix, each K-tile's fragments loaded one
+//   step ahead) with a float32 epilogue (bias, residual in place, PReLU/ReLU,
+//   round to bf16).  Their weights come packed in fragment order; each op's
+//   parameters are staged into one of two shared-memory slots, op k+1's copy
+//   in flight while op k runs.
+//   The concat is a second K-segment and bottle3_1's projected residual one
+//   product over [y | cur | xin].  Depthwise taps run on the CUDA cores in
+//   float32; a tap in another CTA's band reads its shared memory through
+//   distributed shared memory.  One cluster barrier before each depthwise
+//   op orders its reads after the writes; the plan alternates buffers so
+//   that no CTA overwrites rows another may still read before the next
+//   barrier.  CTA barriers elsewhere; a last cluster barrier before exit.
 //
-// What the design does about it.  The TPU kernel keeps a whole
-// [rows, C] tile in VMEM; one image's s23 activation is 461 KB in float32
-// (922 KB for the 256-channel concat), above the 227 KB a block may hold in
-// shared memory, and the chain's 10-px receptive-field halo per section rules
-// out cheap spatial tiling at 30x30.  So each CTA owns one image, keeps its
-// intermediates in a global float32 scratch (in L2 as far as it fits), stages
-// each 1x1 weight matrix in shared memory, computes 4-pixel x 4-channel
-// register tiles with float32 accumulation, and synchronises the block
-// between ops.  The chain input is read once and the output written once, in
-// the caller's dtype.  wgmma, TMA and shared-memory activation tiling are
-// left for a later version.
-//
-// Depthwise taps follow the TPU kernel's rule: a tap at (dy, dx) reads
-// in[y+dy, x+dx] when that coordinate is inside the image, zero otherwise.
+// The SIMT form (float32 I/O, and bf16 specs no cluster can hold;
+// fused_chain_kernel).  One CTA per image walks an instruction table that
+// ops/fused_chain.py:compile_chain builds; the float32 activations of one
+// image (461 KB at s23) exceed a block's shared memory, so its intermediates
+// live in a global float32 scratch, the 1x1 products are 4x4 register tiles
+// of float32 FMAs (capped near the 67 TFLOP/s FP32 rate) and the block
+// synchronises between ops.  It is the exact float32 form.
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
-// -shared -Xcompiler -fPIC; bound with ctypes through fused_chain_launch.
+// -shared -Xcompiler -fPIC; bound with ctypes through fused_chain_launch and
+// fused_chain_banded_launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 // keep in step with ops/fused_chain.py
 enum { OP_LOAD = 0, OP_STORE = 1, OP_MATMUL = 2, OP_DW = 3, OP_CONCAT = 4 };
@@ -224,4 +243,462 @@ extern "C" int fused_chain_launch(const void* x, void* out, void* scratch, const
     return launch<__nv_bfloat16>(x, out, scratch, wts, table, n_instr, slots_off, n, h, w,
                                  per_image, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The banded bf16 form: one cluster per image, activations in shared memory
+// ---------------------------------------------------------------------------
+
+// keep in step with ops/fused_chain.py (plan_banded)
+enum { FB_MM = 0, FB_DW = 1 };
+#define FB_ROW 20
+#define FB_HDR 16
+#define FB_THREADS 384
+#define FB_WARPS (FB_THREADS / 32)
+#define FB_MAX_CLUSTER 16
+
+typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16_u32(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& a0, uint32_t& a1,
+                                            uint32_t& a2, uint32_t& a3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+               : "r"(addr)
+               : "memory");
+}
+
+// c[0..3] += A (16x16, row) * B (16x8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// explicit shared-memory accesses by 32-bit address: .shared for this CTA,
+// .shared::cluster (after mapa) for any CTA of the cluster
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts64(uint32_t a, uint2 v) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(a), "r"(v.x), "r"(v.y) : "memory");
+}
+
+__device__ __forceinline__ uint2 ldc64(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared::cluster.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// the shared::cluster address of shared::cta address a in CTA `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t a, int rank) {
+  uint32_t v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(v) : "r"(a), "r"(rank));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const bf162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const bf162*>(&v));
+}
+
+__device__ __forceinline__ float act_f(float v, int act, float alpha) {
+  if (act == ACT_PRELU) return v >= 0.f ? v : alpha * v;
+  if (act == ACT_RELU) return fmaxf(v, 0.f);
+  return v;
+}
+
+struct BandMM {  // shared::cta addresses
+  int nseg;
+  uint32_t seg[3];  // K-segments: buffer base, stride, channels
+  int seg_stride[3], seg_ch[3];
+  uint32_t dst, add;  // add == 0: no residual
+  int dst_stride, add_stride;
+  uint32_t wslot;  // B fragments, (k16, n8) tiles k-major; then bias[n], alpha[n]
+  uint32_t bias, alpha;
+  int act, px, n_tiles;  // n_tiles: n8 tiles of the whole output
+};
+
+// dst[p, :] = act(sum_s seg_s[p, :] @ W_s + b [+ add[p, :]]) for the CTA's px
+// rows.  A unit of work is a 16-row tile and NT of the output's n8 tiles: its
+// bias, slopes and residual are loaded first and each K-tile's fragments one
+// step ahead of its products, so their latency overlaps.  dst is never a
+// K-segment; a residual add may be dst itself (in place: each value is read
+// and written by the same thread).
+template <int NT>
+__device__ void band_matmul(const BandMM& m) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int n_mt = (m.px + 15) >> 4, n_units = n_mt * (m.n_tiles / NT);
+  // K-tiles of the segments in order: [0, k0), [k0, k01), [k01, kts)
+  const int k0 = m.seg_ch[0] >> 4;
+  const int k01 = k0 + (m.nseg > 1 ? m.seg_ch[1] >> 4 : 0);
+  const int kts = k01 + (m.nseg > 2 ? m.seg_ch[2] >> 4 : 0);
+  const uint32_t b_step = m.n_tiles * 256u;
+  for (int u = warp; u < n_units; u += FB_WARPS) {
+    const int mt = u % n_mt, n0 = (u / n_mt) * NT;
+    const int r0 = mt * 16 + g;
+    float2 bv[NT], al[NT];
+    uint32_t ad[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = (n0 + j) * 8 + 2 * q;
+      bv[j] = lds_f2(m.bias + col * 4u);
+      al[j] = m.act == ACT_PRELU ? lds_f2(m.alpha + col * 4u) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rr = min(r0 + hh * 8, m.px - 1);
+        ad[j][hh] = m.add ? lds32(m.add + (uint32_t)(rr * m.add_stride + col) * 2u) : 0u;
+      }
+    }
+    // rows past the band read its last row; their results are dropped
+    const int arow = min(mt * 16 + (lane & 15), m.px - 1);
+    const uint32_t acol = (uint32_t)(lane >> 4) * 16u;
+    const uint32_t a_seg0 = m.seg[0] + (uint32_t)(arow * m.seg_stride[0]) * 2u + acol;
+    const uint32_t a_seg1 = m.seg[1] + (uint32_t)(arow * m.seg_stride[1]) * 2u + acol;
+    const uint32_t a_seg2 = m.seg[2] + (uint32_t)(arow * m.seg_stride[2]) * 2u + acol;
+    const uint32_t bp = m.wslot + (uint32_t)(n0 * 32 + lane) * 8u;
+    auto load = [&](int kt, uint32_t (&a)[4], uint2 (&b)[NT]) {
+      const uint32_t at = kt < k0    ? a_seg0 + kt * 32u
+                          : kt < k01 ? a_seg1 + (kt - k0) * 32u
+                                     : a_seg2 + (kt - k01) * 32u;
+      ldmatrix_x4(at, a[0], a[1], a[2], a[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) b[j] = lds64(bp + kt * b_step + j * 256u);
+    };
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    auto mma = [&](const uint32_t (&a)[4], const uint2 (&b)[NT]) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[j], a[0], a[1], a[2], a[3], b[j].x, b[j].y);
+    };
+    uint32_t a0[4], a1[4];
+    uint2 b0[NT], b1[NT];
+    load(0, a0, b0);
+    int kt = 0;
+    for (; kt + 2 <= kts; kt += 2) {
+      load(kt + 1, a1, b1);
+      mma(a0, b0);
+      if (kt + 2 < kts) load(kt + 2, a0, b0);
+      mma(a1, b1);
+    }
+    if (kt < kts) mma(a0, b0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = (n0 + j) * 8 + 2 * q;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rr = r0 + hh * 8;
+        if (rr < m.px) {
+          float v0 = acc[j][2 * hh] + bv[j].x, v1 = acc[j][2 * hh + 1] + bv[j].y;
+          if (m.add) {
+            const float2 a = unpack_bf16(ad[j][hh]);
+            v0 += a.x;
+            v1 += a.y;
+          }
+          sts32(m.dst + (uint32_t)(rr * m.dst_stride + col) * 2u,
+                pack_bf16(act_f(v0, m.act, al[j].x), act_f(v1, m.act, al[j].y)));
+        }
+      }
+    }
+  }
+}
+
+// dst[p, c] = act(b[c] + sum_t valid_t * src[y+dy_t, x+dx_t, c] * w[t, c]) for
+// the CTA's band, 4 channels a thread (FB_THREADS is a multiple of c / 4, so
+// a thread keeps its channels and their taps in registers, read from the
+// op's parameter slot: taps [ntaps, c], bias, slopes, (dy, dx) pairs).  row_addr[y] is
+// the shared::cluster address of image row y of the source: this CTA's
+// shared memory or, for a row in another CTA's band, that CTA's (distributed
+// shared memory).  Taps are clamped into the image and their loads issued
+// together; a tap outside the image then counts zero.
+template <int NTAPS>
+__device__ void band_depthwise(uint32_t row_addr, int h, int w, int y0, int px, int src_stride,
+                               uint32_t dst, int dst_stride, int c, uint32_t slot,
+                               const int* row) {
+  const int c4n = c >> 2;
+  const int ch = (threadIdx.x % c4n) * 4;
+  const int act = row[8];
+  int dy[NTAPS], dx[NTAPS];
+  float4 k[NTAPS];
+#pragma unroll
+  for (int t = 0; t < NTAPS; ++t) {
+    const uint2 d = lds64(slot + row[5] + 8u * t);
+    dy[t] = (int)d.x;
+    dx[t] = (int)d.y;
+    const uint4 kw = lds128(slot + row[6] + (uint32_t)(t * c + ch) * 4u);
+    k[t] = make_float4(__uint_as_float(kw.x), __uint_as_float(kw.y), __uint_as_float(kw.z),
+                       __uint_as_float(kw.w));
+  }
+  const uint4 bw = lds128(slot + row[7] + ch * 4u);
+  const float4 b = make_float4(__uint_as_float(bw.x), __uint_as_float(bw.y),
+                               __uint_as_float(bw.z), __uint_as_float(bw.w));
+  float4 al = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (act == ACT_PRELU) {
+    const uint4 aw = lds128(slot + row[9] + ch * 4u);
+    al = make_float4(__uint_as_float(aw.x), __uint_as_float(aw.y), __uint_as_float(aw.z),
+                     __uint_as_float(aw.w));
+  }
+  for (int p = threadIdx.x / c4n; p < px; p += FB_THREADS / c4n) {
+    const int y = y0 + p / w, x = p - (p / w) * w;
+    uint32_t ra[NTAPS];
+    bool ok[NTAPS];
+#pragma unroll
+    for (int t = 0; t < NTAPS; ++t) {
+      const int yy = y + dy[t], xx = x + dx[t];
+      ok[t] = yy >= 0 && yy < h && xx >= 0 && xx < w;
+      const int yc = min(max(yy, 0), h - 1), xc = min(max(xx, 0), w - 1);
+      ra[t] = lds32(row_addr + 4u * yc) + (uint32_t)(xc * src_stride + ch) * 2u;
+    }
+    uint2 v[NTAPS];
+#pragma unroll
+    for (int t = 0; t < NTAPS; ++t) v[t] = ldc64(ra[t]);
+    float4 acc = b;
+#pragma unroll
+    for (int t = 0; t < NTAPS; ++t) {
+      if (!ok[t]) continue;
+      const float2 lo = unpack_bf16(v[t].x), hi = unpack_bf16(v[t].y);
+      acc.x = fmaf(lo.x, k[t].x, acc.x);
+      acc.y = fmaf(lo.y, k[t].y, acc.y);
+      acc.z = fmaf(hi.x, k[t].z, acc.z);
+      acc.w = fmaf(hi.y, k[t].w, acc.w);
+    }
+    sts64(dst + (uint32_t)(p * dst_stride + ch) * 2u,
+          make_uint2(pack_bf16(act_f(acc.x, act, al.x), act_f(acc.y, act, al.y)),
+                     pack_bf16(act_f(acc.z, act, al.z), act_f(acc.w, act, al.w))));
+  }
+}
+
+// stage op `row`'s parameter block into its shared-memory slot (cp.async)
+__device__ __forceinline__ void stage_params(uint32_t sbase, const int* row,
+                                             const uint4* __restrict__ params, int slot0,
+                                             int slot1) {
+  const uint32_t dst = sbase + (row[13] ? slot1 : slot0);
+  const uint4* src = params + row[11];
+  for (int i = threadIdx.x; i < row[12]; i += FB_THREADS) cp_async16_u32(dst + 16u * i, src + i);
+}
+
+// grid: n images x cluster CTAs, one cluster per image; table and params
+// from ops/fused_chain.py:plan_banded
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fused_chain_banded_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+                          const int* __restrict__ table, const uint4* __restrict__ params) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t sbase = smem_u32(smem);
+  const int words = table[9];
+  const int* tab = reinterpret_cast<const int*>(smem);  // the table, copied
+  for (int i = threadIdx.x; i < words / 4; i += FB_THREADS)
+    cp_async16_u32(sbase + 16u * i, reinterpret_cast<const uint4*>(table) + i);
+  const int h = table[1], w = table[2], cl = table[3], rows_off = table[10];
+  const int ops_off = table[11];
+  const int slot0 = table[13], slot1 = table[14];
+  const int rank = (int)cluster.block_rank();
+  const int img = blockIdx.x / cl;
+  const int y0 = table[rows_off + rank], y1 = table[rows_off + rank + 1];
+  const int px = (y1 - y0) * w;
+
+  // the chain input, rows y0..y1 of this image, read once; op 0's parameters
+  {
+    const int c_in = table[6], in_buf = table[4];
+    const int c8n = c_in >> 3, st = table[FB_HDR + 2 * in_buf + 1];
+    const bf16* src = x + ((size_t)img * h + y0) * w * c_in;
+    const uint32_t dst = sbase + table[FB_HDR + 2 * in_buf];
+    for (int e = threadIdx.x; e < px * c8n; e += FB_THREADS) {
+      const int p = e / c8n, c8 = e - p * c8n;
+      cp_async16_u32(dst + (uint32_t)(p * st + c8 * 8) * 2u, src + (size_t)p * c_in + c8 * 8);
+    }
+  }
+  stage_params(sbase, table + ops_off, params, slot0, slot1);
+  cp_async_commit();
+  const int n_ops = table[0];
+  const int* bufs = tab + FB_HDR;  // (smem offset, stride) per buffer
+  const int* s_row_lo = tab + rows_off;
+  const int* s_row_rank = s_row_lo + cl + 1;
+  uint32_t* s_row_addr = reinterpret_cast<uint32_t*>(smem + table[12]);
+  cp_async_wait_all();
+  __syncthreads();  // the table copy is read below
+
+  for (int k = 0; k < n_ops; ++k) {
+    const int* r = tab + ops_off + k * FB_ROW;
+    // op k's parameters have landed and every warp is done with op k - 1; a
+    // depthwise op also needs every CTA's source rows written, and nothing it
+    // reads is overwritten before the next cluster barrier (the plan picks
+    // buffers so)
+    cp_async_wait_all();
+    if (r[0] == FB_MM)
+      __syncthreads();
+    else
+      cluster.sync();
+    // op k + 1's parameters go into the other slot while op k runs
+    if (k + 1 < n_ops) {
+      stage_params(sbase, r + FB_ROW, params, slot0, slot1);
+      cp_async_commit();
+    }
+    const uint32_t slot = sbase + (r[13] ? slot1 : slot0);
+    if (r[0] == FB_MM) {
+      BandMM m;
+      m.nseg = r[1];
+#pragma unroll
+      for (int sg = 0; sg < 3; ++sg) {
+        const int bb = sg < m.nseg ? r[2 + 2 * sg] : 0;
+        m.seg[sg] = sbase + bufs[2 * bb];
+        m.seg_stride[sg] = bufs[2 * bb + 1];
+        m.seg_ch[sg] = r[3 + 2 * sg];
+      }
+      m.dst = sbase + bufs[2 * r[9]];
+      m.dst_stride = bufs[2 * r[9] + 1];
+      m.add = r[10] >= 0 ? sbase + bufs[2 * r[10]] : 0u;
+      m.add_stride = r[10] >= 0 ? bufs[2 * r[10] + 1] : 0;
+      m.wslot = slot;
+      m.bias = slot + r[14];
+      m.alpha = slot + r[16];
+      m.act = r[15];
+      m.px = px;
+      m.n_tiles = r[8] >> 3;
+      if (r[19] == 4)  // n8 tiles per unit of work
+        band_matmul<4>(m);
+      else
+        band_matmul<2>(m);
+    } else {
+      const uint32_t src = sbase + bufs[2 * r[1]];
+      const int src_st = bufs[2 * r[1] + 1];
+      for (int y = threadIdx.x; y < h; y += FB_THREADS) {
+        const int owner = s_row_rank[y];
+        const uint32_t row = src + (uint32_t)((y - s_row_lo[owner]) * w * src_st) * 2u;
+        s_row_addr[y] = owner == rank ? row : mapa(row, owner);
+      }
+      __syncthreads();
+      const uint32_t ra = smem_u32(s_row_addr);
+      const uint32_t dst = sbase + bufs[2 * r[2]];
+      const int dst_st = bufs[2 * r[2] + 1];
+      if (r[4] == 9)
+        band_depthwise<9>(ra, h, w, y0, px, src_st, dst, dst_st, r[3], slot, r);
+      else if (r[4] == 5)
+        band_depthwise<5>(ra, h, w, y0, px, src_st, dst, dst_st, r[3], slot, r);
+      else
+        __trap();
+    }
+  }
+  __syncthreads();
+  {
+    const int c_out = tab[7], out_buf = tab[5];
+    const int c8n = c_out >> 3, st = bufs[2 * out_buf + 1];
+    const uint32_t src = sbase + bufs[2 * out_buf];
+    bf16* dst = out + ((size_t)img * h + y0) * w * c_out;
+    for (int e = threadIdx.x; e < px * c8n; e += FB_THREADS) {
+      const int p = e / c8n, c8 = e - p * c8n;
+      *reinterpret_cast<uint4*>(dst + (size_t)p * c_out + c8 * 8) =
+          lds128(src + (uint32_t)(p * st + c8 * 8) * 2u);
+    }
+  }
+  // other CTAs may still read this CTA's rows in the last depthwise op
+  cluster.sync();
+}
+
+static cudaError_t banded_config(int cluster, int smem_bytes, cudaLaunchConfig_t* cfg,
+                                 cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(fused_chain_banded_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(fused_chain_banded_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->blockDim = dim3(FB_THREADS);
+  cfg->dynamicSmemBytes = smem_bytes;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// x, out [n, h, w, c] bf16; n clusters of `cluster` CTAs.  Returns a
+// cudaError_t (0 on success).
+extern "C" int fused_chain_banded_launch(const void* x, void* out, const void* table,
+                                         const void* params, int n, int cluster,
+                                         int smem_bytes, void* stream) {
+  if (n < 1 || cluster < 1 || cluster > FB_MAX_CLUSTER || (long long)n * cluster > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t err = banded_config(cluster, smem_bytes, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  cfg.gridDim = dim3(n * cluster);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  err = cudaLaunchKernelEx(&cfg, fused_chain_banded_kernel, static_cast<const bf16*>(x),
+                           static_cast<bf16*>(out), static_cast<const int*>(table),
+                           static_cast<const uint4*>(params));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// clusters of this size and shared memory that can be resident at once
+extern "C" int fused_chain_banded_occupancy(int cluster, int smem_bytes, int* clusters) {
+  if (cluster < 1 || cluster > FB_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t err = banded_config(cluster, smem_bytes, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  cfg.gridDim = dim3(cluster);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, fused_chain_banded_kernel, &cfg);
 }

@@ -15,19 +15,31 @@ Pallas TPU kernel) to a hand-written CUDA C++ kernel for Hopper
   * ``ConcatChainInput`` appends the chain input to the current tensor
     (``cat2 = [b2_8, b2_down]``).
 
-Compute is float32 inside; I/O is the caller's dtype (float32 or bfloat16).
-
 The spec (``ChainSpec`` and its op descriptors) and the extractors come
 over from the JAX module; the extractors read the port's state dict
-(torch layouts) instead of flax params.  ``compile_chain`` turns a spec
-into what the CUDA kernel walks: one float32 weight buffer and a small
-int32 instruction table whose operands are scratch slots (a liveness pass
-assigns them), with each residual add folded into the 1x1 conv before it.
+(torch layouts) instead of flax params.
+
+The CUDA source has two forms of the kernel:
+
+  * **banded** (bfloat16 I/O): one thread-block cluster per image, each CTA
+    owning a band of whole image rows; every activation of the chain lives
+    in shared memory as bf16, the 1x1 convs run on the tensor cores
+    (``mma.sync`` m16n8k16, float32 accumulation) and the depthwise taps
+    read the neighbours' rows through distributed shared memory.
+    ``plan_banded`` lays it out once per spec: cluster size, bands, buffers,
+    weight slots, barrier phases, and the weights packed in fragment order.
+  * **simt** (float32 I/O, and any bf16 spec no cluster of <= 16 CTAs can
+    hold): one CTA per image walking an instruction table from
+    ``compile_chain`` over a float32 global scratch, products as float32
+    FMAs.  ``bottleneck3x3_fused`` runs on it too.
 
 ``fused_chain(x, spec)`` runs the plain PyTorch version
-(``fused_chain_reference``) on a CPU tensor and launches the CUDA kernel on
-a CUDA tensor, raising on a build or launch failure; ``fused_chain.launches``
-counts the kernel launches.
+(``fused_chain_reference``) on a CPU tensor and launches one form on a CUDA
+tensor (``chain_form`` decides by dtype and shape), raising on a build or
+launch failure.  ``fused_chain.launches`` counts every launch and
+``fused_chain.launches_by_form`` each form's.  ``fused_chain_reference(...,
+act_dtype=torch.bfloat16)`` is the banded form's plain version: it rounds
+where that kernel rounds.
 """
 from __future__ import annotations
 
@@ -48,6 +60,9 @@ __all__ = [
     "ChainSpec",
     "ChainProgram",
     "compile_chain",
+    "BandPlan",
+    "plan_banded",
+    "chain_form",
     "fused_chain",
     "fused_chain_reference",
     "extract_bottleneck3x3",
@@ -112,7 +127,8 @@ class ChainSpec:
     c_in: int
     c_out: int
     ops: list = field(default_factory=list)
-    # per-device packed buffers of the kernel, filled on first launch
+    # the banded plan and the per-device packed buffers of the kernels,
+    # filled on first use
     _packed: dict = field(default_factory=dict, repr=False, compare=False)
 
     def to(self, device) -> "ChainSpec":
@@ -273,10 +289,93 @@ def _t(a, device):
     return torch.as_tensor(a, device=device)
 
 
-def fused_chain_reference(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
-    """Plain PyTorch walk of ``spec.ops`` on ``x [N,H,W,C_in]``: float32
-    inside, output in ``x.dtype``.  Depthwise taps read a zero-padded copy,
-    so a tap outside the image reads zero."""
+def _depthwise(cur, op: DepthwiseOp, h: int, w: int, dtype):
+    """``b + sum_t tap_t * w_t`` in tap order, a tap outside the image
+    reading zero (a zero-padded copy)."""
+    pad = max(max(abs(dy), abs(dx)) for dy, dx in op.taps)
+    cp = F.pad(cur, (0, 0, pad, pad, pad, pad))
+    wt = _t(op.w, cur.device).to(dtype)
+    acc = torch.zeros_like(cur) + _t(op.b, cur.device).to(dtype)
+    for t, (dy, dx) in enumerate(op.taps):
+        acc = acc + cp[:, pad + dy:pad + dy + h, pad + dx:pad + dx + w] * wt[t]
+    return _act(acc, op.alpha, op.relu)
+
+
+def fused_chain_reference(x: torch.Tensor, spec: ChainSpec,
+                          act_dtype: torch.dtype = torch.float32,
+                          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch walk of ``spec.ops`` on ``x [N,H,W,C_in]``, output in
+    ``x.dtype``.  Depthwise taps read a zero-padded copy, so a tap outside
+    the image reads zero.
+
+    With the default ``act_dtype`` (float32) it is the float32 program the
+    TPU kernel runs.  With ``act_dtype=torch.bfloat16`` it is the banded
+    kernel's plain version, rounding where that kernel rounds: the chain
+    input and every op's output are rounded to bf16, the 1x1 weights too
+    (bias, PReLU slopes and depthwise taps stay float32), and a linear 1x1
+    conv followed by a projected residual is one product over the
+    concatenated K (``[y | saved] @ [W2; Wproj]``, biases summed).  Inside
+    an op it computes in ``compute_dtype``; in float32 a 1x1 product is the
+    correctly rounded float32 value of the exact sum (its bf16 products are
+    exact; summed in float64), so it does not depend on the order of the
+    sums.
+    """
+    if act_dtype == torch.float32:
+        return _reference_f32(x, spec)
+    return _reference_rounded(x, spec, act_dtype, compute_dtype)
+
+
+def _reference_rounded(x, spec: ChainSpec, act_dtype, compute) -> torch.Tensor:
+    dev = x.device
+
+    def rnd(v):
+        return v.to(act_dtype).to(compute)
+
+    def weight(a):
+        return rnd(_t(a, dev))
+
+    def mm(v, wt):
+        if compute == torch.float32:
+            return (v.double() @ wt.double()).float()
+        return v @ wt
+
+    xin = rnd(x)
+    cur, saved = xin, None
+    ops = list(spec.ops)
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        nxt = ops[i + 1] if i + 1 < len(ops) else None
+        if isinstance(op, SaveResidual):
+            saved = cur
+        elif isinstance(op, MatmulOp):
+            b = _t(op.b, dev).to(compute)
+            if op.alpha is None and not op.relu and isinstance(nxt, ResidualAdd):
+                if nxt.proj is None:
+                    v = mm(cur, weight(op.w)) + b + saved
+                else:  # the merged bottle3_1 product
+                    wk = torch.cat([weight(op.w), weight(nxt.proj.w)], 0)
+                    # summed in float32, as the plan stores it
+                    bias = (_t(op.b, dev).float() + _t(nxt.proj.b, dev).float()).to(compute)
+                    v = mm(torch.cat([cur, saved], -1), wk) + bias
+                cur, saved = rnd(_act(v, nxt.alpha, nxt.relu)), None
+                i += 1  # the ResidualAdd is folded in
+            else:
+                cur = rnd(_act(mm(cur, weight(op.w)) + b, op.alpha, op.relu))
+        elif isinstance(op, DepthwiseOp):
+            cur = rnd(_depthwise(cur, op, spec.h, spec.w, compute))
+        elif isinstance(op, ResidualAdd):
+            raise NotImplementedError(
+                "a ResidualAdd must follow a linear MatmulOp in the banded form")
+        elif isinstance(op, ConcatChainInput):
+            cur = torch.cat([cur, xin], dim=-1)
+        else:
+            raise TypeError(f"unknown chain op {op!r}")
+        i += 1
+    return cur.to(x.dtype)
+
+
+def _reference_f32(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
     dev = x.device
     h, w = spec.h, spec.w
     xin = x.float()
@@ -287,13 +386,7 @@ def fused_chain_reference(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
         elif isinstance(op, MatmulOp):
             cur = _act(cur @ _t(op.w, dev) + _t(op.b, dev), op.alpha, op.relu)
         elif isinstance(op, DepthwiseOp):
-            pad = max(max(abs(dy), abs(dx)) for dy, dx in op.taps)
-            cp = F.pad(cur, (0, 0, pad, pad, pad, pad))
-            wt = _t(op.w, dev)
-            acc = torch.zeros_like(cur) + _t(op.b, dev)
-            for t, (dy, dx) in enumerate(op.taps):
-                acc = acc + cp[:, pad + dy:pad + dy + h, pad + dx:pad + dx + w] * wt[t]
-            cur = _act(acc, op.alpha, op.relu)
+            cur = _depthwise(cur, op, h, w, torch.float32)
         elif isinstance(op, ResidualAdd):
             assert saved is not None, "ResidualAdd without SaveResidual"
             s = saved
@@ -465,6 +558,352 @@ def compile_chain(spec: ChainSpec) -> ChainProgram:
 
 
 # ---------------------------------------------------------------------------
+# the banded bf16 form: its plan and packed weights
+# ---------------------------------------------------------------------------
+
+#: dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: cluster sizes tried in order; above 8 needs the non-portable attribute
+CLUSTER_SIZES = (2, 4, 8, 16)
+PORTABLE_CLUSTER = 8
+#: n8 output tiles a warp takes at once (the kernel's template instances)
+MMA_N_TILES = (2, 4)
+MAX_SEGS = 3  # K-segments of one product
+DW_TAPS = (5, 9)  # the depthwise tap counts the kernel unrolls
+# keep in step with csrc/fused_chain.cu
+BANDED_THREADS = 384
+B_MM, B_DW = 0, 1
+BROW = 20
+# every op: [11] params offset, [12] params length (16-byte units, into
+# ``params``), [13] its slot (op index % 2); byte offsets below are into
+# the slot.
+# MM row: op, nseg, buf0, ch0, buf1, ch1, buf2, ch2, n, dst, add, p_off, p_len,
+#         slot, bias_off, act, alpha_off, -, phase, unit_tiles
+#         (slot: fragments at 0; unit_tiles: n8 tiles a warp takes at once)
+# DW row: op, src, dst, c, ntaps, taps_off, w_off, bias_off, act, alpha_off,
+#         phase, p_off, p_len, slot, 0...
+HDR = 16
+# header: n_ops, h, w, cluster, in_buf, out_buf, c_in, c_out, n_bufs,
+#         table_words, rows_off, ops_off, row_addr_off, slot0_off, slot1_off,
+#         n_phases
+MAX_BUFS = 8  # then MAX_BUFS pairs (smem offset, stride), row_lo, row_rank, ops
+
+#: the k index (within a 16-deep tile) of each of the 4 bf16 a lane holds
+#: in an m16n8k16 B fragment, by lane % 4 and element
+_FRAG_K = np.array([[2 * q + (e & 1) + 8 * (e >> 1) for e in range(4)] for q in range(4)])
+
+
+def bf16_bits(a) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns (uint16), round to nearest even."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def pack_fragments(w: np.ndarray) -> np.ndarray:
+    """``w [K, N]`` -> bf16 bits in the order the kernel reads B fragments of
+    ``mma.m16n8k16``: tiles (k16, n8), k-major; in a tile, lane ``4g + q``
+    holds ``w[2q, g], w[2q+1, g], w[2q+8, g], w[2q+9, g]`` (8 bytes)."""
+    k, n = w.shape
+    t = bf16_bits(w).reshape(k // 16, 16, n // 8, 8).transpose(0, 2, 3, 1)
+    return np.ascontiguousarray(t[..., _FRAG_K]).ravel()
+
+
+def unpack_fragments(bits: np.ndarray, k: int, n: int) -> np.ndarray:
+    """Inverse of ``pack_fragments``, as float32."""
+    t = np.zeros((k // 16, n // 8, 8, 16), np.uint16)
+    t[..., _FRAG_K] = bits.reshape(k // 16, n // 8, 8, 4, 4)
+    w = t.transpose(0, 3, 1, 2).reshape(k, n)
+    return (w.astype(np.uint32) << 16).view(np.float32)
+
+
+def _stride(c: int) -> int:
+    """Row stride (elements) of a bf16 buffer of ``c`` channels: an odd
+    number of 16-byte units, so the 8 rows an ``ldmatrix`` reads fall in 8
+    different bank groups."""
+    units = -(-c // 8)
+    return 8 * (units + 1 - units % 2)
+
+
+class _Lowered(NamedTuple):
+    rows: list
+    params: np.ndarray
+    widths: list
+    slot_bytes: list
+    out_buf: int
+    n_phases: int
+
+
+def _lower_banded(spec: ChainSpec) -> Optional[_Lowered]:
+    """Lower ``spec`` to the banded kernel's ops over shared-memory buffers,
+    or None where its channel counts do not suit the kernel's tiles.
+
+    Buffer 0 holds the chain input.  A buffer is chosen for an op's output
+    among those holding no live value (``cur``, ``saved``, the chain input
+    until the last concat), never one of the op's inputs, and never the
+    buffer that the current phase's depthwise op reads from other CTAs:
+    phases are the stretches between cluster barriers, one barrier before
+    each depthwise op.  So no CTA overwrites rows that another may still be
+    reading, without a second barrier.  A folded residual add writes in
+    place over the saved tensor; a concat is a second K-segment; a linear
+    1x1 conv followed by a projected residual is one product over
+    ``[y | saved]`` (biases summed).  No product writes over one of its
+    K-segments, so a warp may take any slice of the output's columns.
+
+    Each op's parameters are one block of ``params``, which the kernel
+    stages into a shared-memory slot while the op before it runs: a 1x1
+    conv's bf16 fragments, float32 bias and PReLU slopes; a depthwise op's
+    float32 taps ``[ntaps, C]``, bias, slopes and int32 ``(dy, dx)`` pairs.
+    """
+    blocks: List[np.ndarray] = []
+    n_params = 0  # 16-byte units
+
+    def add_params(*parts):
+        """Append one op's block; returns (offset, length) in 16-byte units
+        and each part's byte offset in it (-1 for a None part)."""
+        nonlocal n_params
+        offs, chunks, at = [], [], 0
+        for part in parts:
+            if part is None:
+                offs.append(-1)
+                continue
+            raw = np.ascontiguousarray(part).view(np.uint8).ravel()
+            raw = np.concatenate([raw, np.zeros((-raw.size) % 16, np.uint8)])
+            offs.append(at)
+            chunks.append(raw)
+            at += raw.size
+        blocks.append(np.concatenate(chunks))
+        off, n_params = n_params, n_params + at // 16
+        return off, at // 16, offs
+
+    def act_kind(alpha, relu):
+        return ACT_PRELU if alpha is not None else ACT_RELU if relu else ACT_NONE
+
+    def f32(a):
+        return None if a is None else np.asarray(a, np.float32)
+
+    ops = list(spec.ops)
+    last_cat = max((i for i, op in enumerate(ops)
+                    if isinstance(op, ConcatChainInput)), default=-1)
+    widths = [spec.c_in]
+    cur: list = [(0, spec.c_in)]
+    saved: Optional[list] = None
+    xin_live = last_cat >= 0
+    phase, phase_src = 0, -1
+    rows: List[list] = []
+    slot_bytes = [0, 0]
+
+    def live() -> set:
+        s = {b for b, _ in cur} | {b for b, _ in (saved or [])}
+        return s | {0} if xin_live else s
+
+    def pick(width: int, avoid) -> int:
+        busy = live() | set(avoid) | {phase_src}
+        free = [b for b in range(len(widths)) if b not in busy]
+        if not free:
+            widths.append(width)
+            return len(widths) - 1
+        b = min(free, key=lambda b: (max(width - widths[b], 0), widths[b]))
+        widths[b] = max(widths[b], width)
+        return b
+
+    def add_row(row, p_off, p_len):
+        slot = len(rows) % 2
+        slot_bytes[slot] = max(slot_bytes[slot], 16 * p_len)
+        row[11:14] = [p_off, p_len, slot]
+        rows.append(row)
+
+    def mm_row(segs, w, b, alpha, relu, dst, add) -> bool:
+        n = w.shape[1]
+        if len(segs) > MAX_SEGS or any(c % 16 for _, c in segs) or n % 16:
+            return False
+        p_off, p_len, (_, b_at, a_at) = add_params(pack_fragments(w), f32(b), f32(alpha))
+        seg_fields = sum(([sb, c] for sb, c in segs), []) + [-1, 0] * (MAX_SEGS - len(segs))
+        tiles = n // 8
+        unit = 4 if tiles % 4 == 0 and tiles > 6 else 2
+        add_row([B_MM, len(segs), *seg_fields, n, dst, add, 0, 0, 0, b_at,
+                 act_kind(alpha, relu), a_at, 0, phase, unit], p_off, p_len)
+        return True
+
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        nxt = ops[i + 1] if i + 1 < len(ops) else None
+        if isinstance(op, SaveResidual):
+            saved = list(cur)
+        elif isinstance(op, MatmulOp):
+            n = op.w.shape[1]
+            seg_bufs = {b for b, _ in cur}
+            if op.alpha is None and not op.relu and isinstance(nxt, ResidualAdd):
+                if saved is None:
+                    raise ValueError("ResidualAdd without SaveResidual")
+                head = saved[0][0]
+                if nxt.proj is None:
+                    if len(saved) != 1 or saved[0][1] != n:
+                        raise ValueError("residual width differs from the 1x1 conv's")
+                    segs, w, b, add = list(cur), op.w, op.b, head
+                else:
+                    segs = list(cur) + list(saved)
+                    w = np.concatenate([op.w, nxt.proj.w])
+                    b = np.asarray(op.b, np.float32) + np.asarray(nxt.proj.b, np.float32)
+                    add = -1
+                # in place over the saved tensor where it is the residual
+                # operand alone, not a K-segment, and no later op reads it
+                # (the chain input until its last concat)
+                in_place = (add == head and not (xin_live and head == 0)
+                            and head not in seg_bufs)
+                dst = head if in_place else pick(n, {sb for sb, _ in segs})
+                if not mm_row(segs, w, b, nxt.alpha, nxt.relu, dst, add):
+                    return None
+                i += 1  # the ResidualAdd is folded in
+                saved = None
+            else:
+                dst = pick(n, seg_bufs)
+                if not mm_row(list(cur), op.w, op.b, op.alpha, op.relu, dst, -1):
+                    return None
+            cur = [(dst, n)]
+        elif isinstance(op, DepthwiseOp):
+            if (len(cur) != 1 or cur[0][1] % 8 or BANDED_THREADS % (cur[0][1] // 4)
+                    or len(op.taps) not in DW_TAPS):
+                return None
+            phase, phase_src = phase + 1, -1
+            src, c = cur[0]
+            dst = pick(c, {src})
+            p_off, p_len, (w_at, b_at, a_at, t_at) = add_params(
+                f32(op.w), f32(op.b), f32(op.alpha), np.asarray(op.taps, np.int32).ravel())
+            add_row([B_DW, src, dst, c, len(op.taps), t_at, w_at, b_at,
+                     act_kind(op.alpha, op.relu), a_at, phase] + [0] * (BROW - 11),
+                    p_off, p_len)
+            phase_src = src
+            cur = [(dst, c)]
+        elif isinstance(op, ResidualAdd):
+            raise NotImplementedError(
+                "a ResidualAdd must follow a linear MatmulOp")
+        elif isinstance(op, ConcatChainInput):
+            cur = cur + [(0, spec.c_in)]
+            if i == last_cat:
+                xin_live = False
+        else:
+            raise TypeError(f"unknown chain op {op!r}")
+        i += 1
+    if sum(c for _, c in cur) != spec.c_out:
+        raise ValueError(f"chain ends with {sum(c for _, c in cur)} channels, "
+                         f"spec says {spec.c_out}")
+    if len(cur) != 1 or not rows or len(widths) > MAX_BUFS or spec.c_in % 8:
+        return None
+    return _Lowered(rows, np.concatenate(blocks), widths, slot_bytes, cur[0][0], phase)
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    """The banded kernel's layout for one spec: a cluster of ``cluster``
+    CTAs per image, rank ``r`` owning image rows ``row_lo[r]:row_lo[r+1]``
+    (``row_rank[y]`` is the owner of row ``y``); per CTA, in
+    ``smem_bytes`` of dynamic shared memory: a copy of ``table``, a row
+    address table, bf16 buffers of ``band_px`` rows at ``buf_offsets`` with
+    ``strides``, and two parameter slots.  ``table`` (int32: header,
+    buffers, rows, op rows) and ``params`` (bytes: each op's parameter
+    block) are what the kernel reads."""
+
+    h: int
+    w: int
+    c_in: int
+    c_out: int
+    cluster: int
+    row_lo: Tuple[int, ...]
+    row_rank: Tuple[int, ...]
+    band_px: int
+    widths: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    buf_offsets: Tuple[int, ...]
+    slot_offsets: Tuple[int, ...]
+    slot_bytes: Tuple[int, ...]
+    smem_bytes: int
+    out_buf: int
+    n_phases: int
+    table: np.ndarray = field(repr=False)
+    params: np.ndarray = field(repr=False)
+
+    @property
+    def nonportable(self) -> bool:
+        return self.cluster > PORTABLE_CLUSTER
+
+    def ops(self) -> np.ndarray:
+        """The op rows, ``[n_ops, BROW]``."""
+        n_ops, off = int(self.table[0]), int(self.table[11])
+        return self.table[off:off + n_ops * BROW].reshape(n_ops, BROW)
+
+    def op_params(self, row) -> np.ndarray:
+        """The parameter block (bytes) of op ``row``."""
+        return self.params[16 * int(row[11]):16 * int(row[11] + row[12])]
+
+
+def _align(n: int, a: int = 128) -> int:
+    return -(-n // a) * a
+
+
+def plan_banded(spec: ChainSpec, clusters: Tuple[int, ...] = CLUSTER_SIZES
+                ) -> Optional[BandPlan]:
+    """The banded kernel's plan for ``spec``: the smallest cluster of 2, 4
+    or 8 CTAs (else 16, non-portable) whose per-CTA table, buffers and
+    parameter slots fit in ``SMEM_LIMIT`` bytes; None where none does or
+    the spec's channel counts do not suit the kernel (the SIMT form runs
+    it).  ``clusters`` narrows the sizes tried (the tests force many
+    bands)."""
+    low = _lower_banded(spec)
+    if low is None:
+        return None
+    h, w = spec.h, spec.w
+    strides = [_stride(c) for c in low.widths]
+    rows_off = HDR + 2 * MAX_BUFS
+    for cl in clusters:
+        if cl > h:
+            break
+        base, rem = divmod(h, cl)
+        row_lo = [r * base + min(r, rem) for r in range(cl + 1)]
+        band_px = (base + (rem > 0)) * w
+        ops_off = rows_off + cl + 1 + h
+        words = _align(ops_off + BROW * len(low.rows), 4)  # copied in 16-byte units
+        row_addr_off = _align(4 * words)
+        offs, at = [], _align(row_addr_off + 4 * h)
+        for s in strides:
+            offs.append(at)
+            at = _align(at + band_px * s * 2)
+        slot_offs = []
+        for nb in low.slot_bytes:
+            slot_offs.append(at)
+            at = _align(at + nb)
+        if at > SMEM_LIMIT:
+            continue
+        row_rank = [r for r in range(cl) for _ in range(row_lo[r], row_lo[r + 1])]
+        bufs = sum(([o, s] for o, s in zip(offs, strides)), [])
+        bufs += [0, 0] * (MAX_BUFS - len(strides))
+        header = [len(low.rows), h, w, cl, 0, low.out_buf, spec.c_in, spec.c_out,
+                  len(strides), words, rows_off, ops_off, row_addr_off,
+                  slot_offs[0], slot_offs[1], low.n_phases]
+        body = header + bufs + row_lo + row_rank + sum(low.rows, [])
+        table = np.asarray(body + [0] * (words - len(body)), np.int32)
+        return BandPlan(h, w, spec.c_in, spec.c_out, cl, tuple(row_lo), tuple(row_rank),
+                        band_px, tuple(low.widths), tuple(strides), tuple(offs),
+                        tuple(slot_offs), tuple(low.slot_bytes), at, low.out_buf,
+                        low.n_phases, table, low.params)
+    return None
+
+
+def chain_form(spec: ChainSpec, dtype: torch.dtype) -> str:
+    """Which kernel form runs ``spec`` on ``dtype`` I/O: "banded" for
+    bfloat16 where a plan exists, else "simt".  Decided by shape alone."""
+    if dtype == torch.bfloat16 and _band_plan(spec) is not None:
+        return "banded"
+    return "simt"
+
+
+def _band_plan(spec: ChainSpec) -> Optional[BandPlan]:
+    if "band_plan" not in spec._packed:
+        spec._packed["band_plan"] = plan_banded(spec)
+    return spec._packed["band_plan"]
+
+
+# ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
 
@@ -536,21 +975,100 @@ def _launch(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
     return out
 
 
+def _banded_library():
+    from instancesegmentation_tpu_torch.ops import _build
+
+    lib = _build.library("fused_chain.cu")
+    fn = lib.fused_chain_banded_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, p]
+        fn.restype = ctypes.c_int
+        occ = lib.fused_chain_banded_occupancy
+        occ.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+    return lib
+
+
+class _BandedPacked(NamedTuple):
+    plan: BandPlan
+    table: torch.Tensor
+    params: torch.Tensor
+
+
+def _banded_packed(spec: ChainSpec, device: torch.device) -> _BandedPacked:
+    key = ("banded", str(device))
+    if key not in spec._packed:
+        plan = _band_plan(spec)
+        spec._packed[key] = _BandedPacked(
+            plan,
+            torch.from_numpy(plan.table).to(device),
+            torch.from_numpy(plan.params).to(device),
+        )
+    return spec._packed[key]
+
+
+def _launch_banded(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
+    """Launch the banded kernel on bf16 ``x`` (checked by the caller);
+    raises on a build or launch failure."""
+    fn = _banded_library().fused_chain_banded_launch
+    dev = x.device
+    packed = _banded_packed(spec, dev)
+    n = x.shape[0]
+    out = torch.empty((n, spec.h, spec.w, spec.c_out), dtype=x.dtype, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), out.data_ptr(), packed.table.data_ptr(),
+                packed.params.data_ptr(), n, packed.plan.cluster, packed.plan.smem_bytes,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_chain banded kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def banded_occupancy(spec: ChainSpec) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the banded kernel at ``spec``'s
+    cluster size and shared memory (needs a card)."""
+    plan = _band_plan(spec)
+    if plan is None:
+        raise ValueError("no banded plan for this spec")
+    n = ctypes.c_int(0)
+    rc = _banded_library().fused_chain_banded_occupancy(plan.cluster, plan.smem_bytes,
+                                                        ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {rc}")
+    return n.value
+
+
+FORMS = ("banded", "simt")
+
+
 def fused_chain(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
     """Run the chain on ``x [N, H, W, C_in]`` -> ``[N, H, W, C_out]`` in
     ``x.dtype``.
 
     A CPU tensor runs ``fused_chain_reference``; a CUDA tensor launches the
-    kernel (counted in ``fused_chain.launches``) or raises.
+    form ``chain_form`` names (counted in ``fused_chain.launches`` and
+    ``fused_chain.launches_by_form``) or raises.
     """
     _check(x, spec)
     if x.device.type == "cpu":
         return fused_chain_reference(x, spec)
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_chain has no kernel for device {x.device}")
-    out = _launch(x, spec)
+    form = chain_form(spec, x.dtype)
+    out = _launch_banded(x, spec) if form == "banded" else _launch(x, spec)
     fused_chain.launches += 1
+    fused_chain.launches_by_form[form] += 1
     return out
 
 
-fused_chain.launches = 0
+def reset_launches() -> None:
+    """Set ``fused_chain``'s launch counts to 0."""
+    fused_chain.launches = 0
+    fused_chain.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+reset_launches()

@@ -9,8 +9,9 @@ events each stage of the 480 px instance program (warp parameters, crop
 warp, normalisation, heatmap render, backbone with its two chain launches,
 folded head, sigmoid + inverse warp) and of the 512 px whole-image program,
 the host-side parts of a dispatch with the host clock (upload, download,
-resizes), and takes one ``torch.profiler`` trace of each program for the
-device busy share and the largest device ops.  The train step (the
+resizes), counts each program's chain launches by kernel form (banded or
+SIMT), and takes one ``torch.profiler`` trace of each program for the device
+busy share and the largest device ops.  The train step (the
 ``chip_smoke.py`` training cell: ``Segment(20)`` in bf16, batch 32, 640 ->
 480, rotate 25 through the 2level sampler, flips, jitter, photometric draws)
 is split the same way into preprocessing (of which the warp kernels), the
@@ -203,6 +204,9 @@ def main() -> int:
             "program": cuda_ms(lambda: eng._forward_instance(
                 canvas, mask, hw, obj, mbox, mvalid, kps), 5),
         })
+        fc.reset_launches()
+        eng._forward_instance(canvas, mask, hw, obj, mbox, mvalid, kps)
+        out["instance480_chain_launches"] = dict(fc.fused_chain.launches_by_form)
         out["instance480_trace"] = trace(lambda: eng._forward_instance(
             canvas, mask, hw, obj, mbox, mvalid, kps))
     st["sigmoid_inverse_warp"] -= st["head"]
@@ -235,6 +239,9 @@ def main() -> int:
             "resize_back_download_host": host_ms(resize_back),
             "predict_images_host": host_ms(lambda: eng3.predict_images(images)),
         }
+        fc.reset_launches()
+        eng3._forward_whole(u8)
+        out["whole512_chain_launches"] = dict(fc.fused_chain.launches_by_form)
         out["whole512_trace"] = trace(lambda: eng3._forward_whole(u8))
     out["train_bf16_480"] = train_breakdown(dev)
     print(json.dumps(out))
