@@ -18,19 +18,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    output's largest magnitude), and against the float32 plain version within
    atol 0.1 + rtol 0.1 of the output's largest magnitude; its ptxas line and
    its resident clusters; ``bottleneck3x3_fused`` in float32
-   (atol 1e-3, rtol 1e-4); then the detection kernels: NMS bit-equal (N = 48
-   to 4096, thresholds 0.5 and 0.7, ties, duplicates and zero-area boxes, K
-   below and above N; ``nms_batch`` on [8, 1000] in one launch), matching
+   (atol 1e-3, rtol 1e-4); then the detection kernels: NMS bit-equal, one
+   launch per call (N = 48 to 4096, where the kernel sorts, and one N above
+   its sort limit; thresholds 0.5 and 0.7, ties, duplicates, zero-area
+   boxes, -0.0 beside +0.0 and NaN scores, K below and above N, a score
+   threshold; ``nms_batch`` on [8, 1000] in one launch), matching
    bit-equal ([2000, 64] with ties and an all-zero column), and
    ``roi_align`` within atol 1e-4 + rtol 1e-4 at torchvision's Mask R-CNN
    pooler shapes on a stride-4 FPN level of an 800x1344 input (features
    [2, 200, 336, 256], scale 1/4, 1000 ROIs at 7x7 and 100 at 14x14, both
    ``aligned`` values, bfloat16 features once); and both two-level rotated
-   warp kernels (``warp_2level``, ``warp_2level_fused``) at the training
-   shape (batch 32, 640 -> 480, draws with rotate 25 incl. samples at 0,
-   flips, jitter 0.1, boxes moved so the centring translation cuts content
-   off) within 1e-2 on the 0-255 scale of the plain version and of each
-   other;
+   warp kernels (``warp_2level``, one tiled launch, and ``warp_2level_fused``)
+   at the training shape (batch 32, 640 -> 480, draws with rotate 25 incl.
+   samples at 0, flips, jitter 0.1, boxes moved so the centring translation
+   cuts content off) within 1e-2 on the 0-255 scale of the plain version,
+   and bit-equal to each other, also with tile plans too small for the
+   samples (sub-tiles, and rows read straight from pass 1);
 4. serve at full width from seeded random weights with random running
    statistics: the 20-channel instance program at 480 px over a batch of 128
    in bfloat16 (with the launch counts read around that one dispatch: 2
@@ -48,12 +51,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    slice's main path): ``TrainConfig`` defaults with ``Segment(20)``, 640 ->
    480, bf16, folded head, rotate 25 through the 2level sampler, flips,
    jitter, photometric draws, 10 ``make_train_step`` steps at batch 32 on
-   one fixed batch (2 ``warp_2level`` launches per step, finite falling
+   one fixed batch (1 ``warp_2level`` launch per step, finite falling
    losses), one ``make_eval_step``, ``warp_2level_fused`` through its own
    entry point, and one float32 step (batch 2, 192 -> 64) on the card
    against the same step on the CPU;
 5. time each kernel and its plain version with CUDA events at batch 128 (the
-   detection kernels at the shapes above; the banded chain beside its bound
+   detection kernels at the shapes above, NMS and the warp also by their
+   kernels' device time in a ``torch.profiler`` trace; the banded chain beside its bound
    per launch, its rounding and float32 plain versions, the float32 SIMT form
    and, as a yardstick the port never calls, the same sections through the
    layer modules on cuDNN in bf16 channels_last), and the two programs and the
@@ -225,6 +229,30 @@ def section_yardstick(model, name: str):
     return run
 
 
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device time per call of ``fn`` in the CUDA kernels whose name holds
+    ``kernel``, from a ``torch.profiler`` trace of ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type.name == "CUDA" and kernel in e.name]
+    check(len(spans) >= iters, f"profiler: {len(spans)} {kernel} launches in {iters} calls")
+    return sum(spans) / 1e3 / iters
+
+
+def ptxas_report(log: str, kernel: str) -> str:
+    """nvcc -Xptxas -v's lines for one kernel (registers, spills, shared
+    memory), joined."""
+    entry = log.split(kernel, 1)[1].split("Compiling entry", 1)[0]
+    return " | ".join(ln.strip() for ln in entry.splitlines()[1:] if ln.strip())
+
+
 def max_err(got, want, atol, rtol, what) -> float:
     err = (got.float() - want.float()).abs()
     limit = atol + rtol * want.float().abs()
@@ -254,12 +282,16 @@ IOU_PAIR_OPS, IOU_BOX_OPS = 15, 5
 
 def nms_inputs(g, n: int, dev, batch=()):
     """Boxes in a 640 px field with exact score ties (20 levels), duplicated
-    boxes (IoU 1) and zero-area boxes."""
+    boxes (IoU 1), zero-area boxes, -0.0 beside +0.0 scores and a few NaN
+    scores (which never survive)."""
     shape = tuple(batch) + (n,)
     xy = torch.rand(shape + (2,), generator=g, device=dev) * 600
     wh = torch.rand(shape + (2,), generator=g, device=dev) * 120 + 8
     boxes = torch.cat([xy, xy + wh], -1)
     scores = (torch.rand(shape, generator=g, device=dev) * 20).floor() / 20
+    scores[..., 0::17] = 0.0
+    scores[..., 8::17] = -0.0
+    scores[..., 5::29] = float("nan")
     dup = boxes[..., 3::9, :].shape[-2]
     boxes[..., 3::9, :] = boxes[..., 2::9, :][..., :dup, :]
     boxes[..., 5::11, 2] = boxes[..., 5::11, 0]
@@ -274,7 +306,7 @@ def nms_work(boxes, scores, thr: float) -> int:
 
     order = torch.argsort(-scores.float(), stable=True)
     sup = (box_iou(boxes[order], boxes[order]) > thr).cpu().numpy()
-    alive = np.ones(len(order), bool)
+    alive = (scores.float()[order] > float("-inf")).cpu().numpy()  # NaN never lives
     pairs = 0
     for i in range(len(order)):
         if alive[i]:
@@ -446,6 +478,7 @@ def main() -> int:
         from instancesegmentation_tpu_torch.models.layers import init_weights_
         from instancesegmentation_tpu_torch.models.segment import Segment
         from instancesegmentation_tpu_torch.ops import warp_2level as w2
+        from instancesegmentation_tpu_torch.ops.warp import SRC_PAD
         from instancesegmentation_tpu_torch.train.config import TrainConfig
         from instancesegmentation_tpu_torch.train.state import TrainState
         from instancesegmentation_tpu_torch.train.steps import (
@@ -473,16 +506,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    # the banded chain kernel's ptxas report: registers, spills, stack
-    chain_log = _build.build_log.get("fused_chain.cu")
-    if chain_log is None:
-        print("fused_chain.cu was built before this run: no ptxas report")
-    else:
-        entry = chain_log.split("fused_chain_banded_kernel", 1)[1].split("Compiling entry", 1)[0]
-        report = " | ".join(ln.strip() for ln in entry.splitlines()[1:] if ln.strip())
-        print(f"ptxas fused_chain_banded_kernel: {report}")
-        check("0 bytes spill stores, 0 bytes spill loads" in report,
-              "fused_chain_banded_kernel spills registers")
+    # ptxas reports (registers, spills, stack, static shared memory) of the
+    # banded chain kernel and of the nms and tiled warp kernels
+    ptxas = {}
+    for src, kernel in (("fused_chain.cu", "fused_chain_banded_kernel"),
+                        ("nms.cu", "nms_kernel"), ("warp_2level.cu", "warp_2level_tiled_kernel")):
+        log = _build.build_log.get(src)
+        if log is None:
+            print(f"{src} was built before this run: no ptxas report")
+            continue
+        ptxas[kernel] = ptxas_report(log, kernel)
+        print(f"ptxas {kernel}: {ptxas[kernel]}")
+        check("spill" not in ptxas[kernel] or
+              "0 bytes spill stores, 0 bytes spill loads" in ptxas[kernel],
+              f"{kernel} spills registers")
 
     # -- 3. kernels against their plain versions ---------------------------
     sd20 = random_state_dict(20, SEED)
@@ -559,14 +596,22 @@ def main() -> int:
                             "bottleneck3x3_fused [8, 64, 64, 48]")
 
     # the detection kernels: NMS and matching bit-equal, roi_align within
-    # atol 1e-4 + rtol 1e-4 of the reference's magnitude (sums in another order)
-    for n in (48, 128, 1024, 4096):
+    # atol 1e-4 + rtol 1e-4 of the reference's magnitude (sums in another
+    # order); NMS in one launch per call, sorting in the kernel up to its
+    # limit and after the wrapper's torch sort above it
+    print(f"nms: the kernel sorts up to {nms.SORT_LIMIT} boxes per image")
+    for n in (48, 128, 1024, 4096, nms.SORT_LIMIT + 1000):
         boxes, scores = nms_inputs(g, n, dev)
         for thr in (0.5, 0.7):
             for k in (n // 4, n + 7):
-                exact(nms.nms(boxes, scores, thr, max_outputs=k),
-                      nms.nms_reference(boxes, scores, thr, max_outputs=k),
+                before = nms.nms.launches
+                got = nms.nms(boxes, scores, thr, max_outputs=k)
+                check(nms.nms.launches == before + 1, f"nms N={n}: one launch")
+                exact(got, nms.nms_reference(boxes, scores, thr, max_outputs=k),
                       f"nms N={n} thr={thr} K={k}")
+        exact(nms.nms(boxes, scores, 0.5, score_threshold=0.3),
+              nms.nms_reference(boxes, scores, 0.5, score_threshold=0.3),
+              f"nms N={n} thr=0.5 score_threshold=0.3")
     bb, bs = nms_inputs(g, 1000, dev, batch=(8,))
     before = nms.nms.launches
     got = nms.nms_batch(bb, bs, 0.7)
@@ -616,12 +661,23 @@ def main() -> int:
              aug.rotate_block)
     want = w2.warp_2level_reference(*wargs)
     shape = list(want.shape)
-    errs["warp_2level"] = max_err(w2.warp_2level(*wargs), want, 1e-2, 0.0,
-                                  f"warp_2level {shape}")
-    errs["warp_2level_fused"] = max_err(w2.warp_2level_fused(*wargs), want, 1e-2, 0.0,
-                                        f"warp_2level_fused {shape}")
-    max_err(w2.warp_2level(*wargs), w2.warp_2level_fused(*wargs), 1e-2, 0.0,
-            "warp_2level vs warp_2level_fused")
+    plan = w2.plan_tiles(float(aug.rotate), aug.rotate_block,
+                         (tcfg.canvas + 2 * SRC_PAD) / aug.out_size[1], tuple(aug.out_size))
+    print(f"warp_2level tile plan: {plan._asdict()}")
+    before = w2.warp_2level.launches
+    tiled = w2.warp_2level(*wargs)
+    check(w2.warp_2level.launches == before + 1, "warp_2level: one launch per call")
+    errs["warp_2level"] = max_err(tiled, want, 1e-2, 0.0, f"warp_2level {shape}")
+    fused = w2.warp_2level_fused(*wargs)
+    errs["warp_2level_fused"] = max_err(fused, want, 1e-2, 0.0, f"warp_2level_fused {shape}")
+    exact((tiled,), (fused,), "warp_2level vs warp_2level_fused (bit-equal)")
+    # plans too small for these samples: sub-tiles along u, and one-row
+    # sub-tiles read straight from pass 1; both still bit-equal
+    for cap in (plan.cap_rows // 3, 8):
+        small = plan._replace(cap_rows=cap, smem_bytes=cap * w2.ROW_BYTES)
+        exact((w2._tiled(*wargs[:5], aug.rotate_block, None, small),), (fused,),
+              f"warp_2level with {cap} rows of shared tmp (bit-equal to the fused form)")
+    del tiled, fused
     torch.cuda.synchronize()
 
     # -- 4. serving at full width -----------------------------------------
@@ -825,7 +881,7 @@ def main() -> int:
     print(f"main path (train, Segment(20) 640 -> 480, batch {TRAIN_BATCH}, bf16, rotate 25 "
           f"2level, {TRAIN_STEPS} steps): losses {[round(v, 4) for v in losses]}, "
           f"launches {train_launches}")
-    check(train_launches["warp_2level"] == 2 * TRAIN_STEPS, "train: 2 warp_2level launches per step")
+    check(train_launches["warp_2level"] == TRAIN_STEPS, "train: 1 warp_2level launch per step")
     check(all(np.isfinite(losses)), "train: finite losses")
     check(np.mean(losses[-3:]) < losses[0], "train: the mean of the last 3 losses is below the first")
     _, probs_e, _, ious = make_eval_step(tcfg)(state.model, tbatch)
@@ -949,33 +1005,32 @@ def main() -> int:
                       "card": card}))
 
     # the detection kernels beside their plain versions; NMS at the proposal
-    # path's N = 48 and at detector sizes, at the path's threshold 0.7
+    # path's N = 48 and at detector sizes, at the path's threshold 0.7: the
+    # call (one launch; at small N the host's launch cost) and the kernel's
+    # device time
     nms_parts = []
     for n in (48, 128, 256, 512, 1024):
         boxes, scores = nms_inputs(g, n, dev)
         ms = cuda_ms(lambda: nms.nms(boxes, scores, 0.7), iters=50)
-        # the kernel alone on inputs sorted beforehand (the rest is the
-        # wrapper's torch sort and gathers)
-        ranked = nms._sorted(boxes[None], scores[None])
-        scan_ms = cuda_ms(lambda: nms._scan(*ranked, 0.7, n, float("-inf")), iters=50)
+        kernel_ms = device_ms(lambda: nms.nms(boxes, scores, 0.7), "nms_kernel", iters=20)
         plain = cuda_ms(lambda: nms.nms_reference(boxes, scores, 0.7), iters=3, warmup=1)
         pairs = nms_work(boxes, scores, 0.7)
         b_ms, b_by = nms_bound(n, n, pairs)
-        nms_parts.append({"shape": [n, 4], "ms": ms, "scan_ms": scan_ms, "plain_ms": plain,
-                          "bound_ms": b_ms, "bound_by": b_by, "iou_pairs": pairs,
-                          "serial_steps": n})
-        print(f"time nms N={n}: {ms:.4f} ms, kernel alone {scan_ms:.4f} ms (plain {plain:.3f} "
-              f"ms, bound {b_ms:.5f} ms by {b_by}; {pairs} IoU pairs, {n} serial steps)")
+        nms_parts.append({"shape": [n, 4], "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain,
+                          "bound_ms": b_ms, "bound_by": b_by, "iou_pairs": pairs})
+        print(f"time nms N={n}: {ms:.4f} ms per call, kernel {kernel_ms:.4f} ms (plain "
+              f"{plain:.3f} ms, bound {b_ms:.5f} ms by {b_by}; {pairs} IoU pairs)")
     batch_ms = cuda_ms(lambda: nms.nms_batch(bb, bs, 0.7), iters=20)
+    batch_kernel = device_ms(lambda: nms.nms_batch(bb, bs, 0.7), "nms_kernel", iters=20)
     batch_plain = cuda_ms(lambda: [nms.nms_reference(bb[i], bs[i], 0.7) for i in range(8)],
                           iters=1, warmup=1)
     pairs = sum(nms_work(bb[i], bs[i], 0.7) for i in range(8))
     b_ms, b_by = nms_bound(1000, 1000, pairs, images=8)
     nms_parts.append({"shape": [8, 1000, 4], "entry": "nms_batch", "ms": batch_ms,
-                      "plain_ms": batch_plain, "bound_ms": b_ms, "bound_by": b_by,
-                      "iou_pairs": pairs, "serial_steps": 1000})
-    print(f"time nms_batch [8, 1000]: {batch_ms:.4f} ms (plain {batch_plain:.3f} ms, "
-          f"bound {b_ms:.5f} ms by {b_by})")
+                      "kernel_ms": batch_kernel, "plain_ms": batch_plain, "bound_ms": b_ms,
+                      "bound_by": b_by, "iou_pairs": pairs})
+    print(f"time nms_batch [8, 1000]: {batch_ms:.4f} ms per call, kernel {batch_kernel:.4f} ms "
+          f"(plain {batch_plain:.3f} ms, bound {b_ms:.5f} ms by {b_by})")
 
     roi_parts = []
     for name, (r, out_hw) in roi_cases.items():
@@ -1028,7 +1083,9 @@ def main() -> int:
     step_ms = cuda_ms(lambda: train_step(state, tbatch, draws), iters=5)
     pre_ms = cuda_ms(lambda: preprocess_batch(tbatch, draws, aug), iters=5)
     warp_ms = cuda_ms(lambda: w2.warp_2level(*wargs), iters=20)
+    warp_kernel = device_ms(lambda: w2.warp_2level(*wargs), "warp_2level_tiled_kernel")
     fused_ms = cuda_ms(lambda: w2.warp_2level_fused(*wargs), iters=20)
+    fused_kernel = device_ms(lambda: w2.warp_2level_fused(*wargs), "warp_2level_fused_kernel")
     warp_plain = cuda_ms(lambda: w2.warp_2level_reference(*wargs), iters=3, warmup=1)
     grid_ms = cuda_ms(grid_sample_yardstick(tbatch["image"], tbatch["mask"], wparams,
                                                    aug.out_size), iters=20)
@@ -1036,13 +1093,16 @@ def main() -> int:
                                                 aug.out_size))
     train = {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": losses,
              "first_steps_s": train_s, "step_ms": step_ms, "img_per_s": TRAIN_BATCH / step_ms * 1e3,
-             "preprocess_ms": pre_ms, "warp_2level_ms": warp_ms, "warp_2level_fused_ms": fused_ms,
+             "preprocess_ms": pre_ms, "warp_2level_ms": warp_ms,
+             "warp_2level_kernel_ms": warp_kernel, "warp_2level_fused_ms": fused_ms,
+             "warp_2level_fused_kernel_ms": fused_kernel,
              "warp_plain_ms": warp_plain, "warp_bound_ms": warp_bound, "warp_bound_by": warp_by,
              "grid_sample_yardstick_ms": grid_ms, "step_vs_cpu": step_vs_cpu}
     print(f"time train step [{TRAIN_BATCH}, 640 -> 480] bf16: {step_ms:.2f} ms "
           f"({TRAIN_BATCH / step_ms * 1e3:.1f} img/s), of which preprocessing {pre_ms:.2f} ms, "
-          f"warp_2level {warp_ms:.3f} ms (fused {fused_ms:.3f} ms; plain {warp_plain:.2f} ms, "
-          f"bound {warp_bound:.4f} ms by {warp_by}; grid_sample yardstick {grid_ms:.3f} ms)")
+          f"warp_2level {warp_ms:.3f} ms per call, kernel {warp_kernel:.4f} ms (fused "
+          f"{fused_ms:.3f} ms, kernel {fused_kernel:.4f} ms; plain {warp_plain:.2f} ms, bound "
+          f"{warp_bound:.4f} ms by {warp_by}; grid_sample yardstick {grid_ms:.3f} ms)")
     print(json.dumps({"train_bf16_480": train, "card": card}))
 
     # -- 6. summary ----------------------------------------------------------
@@ -1071,9 +1131,9 @@ def main() -> int:
         {"name": "nms", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/nms.cu",
          "replaces": "instancesegmentation_tpu/ops/nms.py:105",
-         "launches": prop_launches["nms"], "max_abs_err": 0.0,
-         **{k: nms_parts[0][k] for k in ("ms", "scan_ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None, "parts": nms_parts},
+         "launches": prop_launches["nms"], "max_abs_err": 0.0, "sort_limit": nms.SORT_LIMIT,
+         **{k: nms_parts[0][k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "ptxas": ptxas.get("nms_kernel"), "parts": nms_parts},
         {"name": "roi_align", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/roi_align.cu",
          "replaces": "instancesegmentation_tpu/ops/roi_align.py:99",
@@ -1092,13 +1152,16 @@ def main() -> int:
          "source": "instancesegmentation_tpu_torch/csrc/warp_2level.cu",
          "replaces": "tools/rot_pallas_probe.py:74",
          "launches": train_launches["warp_2level"], "max_abs_err": errs["warp_2level"],
-         "ms": warp_ms, "plain_ms": warp_plain, "bound_ms": warp_bound, "bound_by": warp_by,
-         "library_ms": None, "grid_sample_yardstick_ms": grid_ms, "shape": shape},
+         "ms": warp_ms, "kernel_ms": warp_kernel, "plain_ms": warp_plain,
+         "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,
+         "grid_sample_yardstick_ms": grid_ms, "shape": shape, "tile_plan": plan._asdict(),
+         "ptxas": ptxas.get("warp_2level_tiled_kernel")},
         {"name": "warp_2level_fused", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/warp_2level.cu",
          "replaces": "tools/rot_pallas_probe.py:211",
          "launches": fused_launches, "on_main_path": False,
-         "max_abs_err": errs["warp_2level_fused"], "ms": fused_ms, "plain_ms": warp_plain,
+         "max_abs_err": errs["warp_2level_fused"], "ms": fused_ms, "kernel_ms": fused_kernel,
+         "plain_ms": warp_plain,
          "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,
          "grid_sample_yardstick_ms": grid_ms, "shape": shape},
     ]

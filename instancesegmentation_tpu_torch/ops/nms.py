@@ -9,11 +9,14 @@ descending score order (a stable sort, so ties keep input order), strict
 ``valid`` bool.
 
 A CPU tensor runs ``nms_reference`` (the JAX package's scan over the
-``IoU > thr`` matrix).  A CUDA tensor runs the kernel of ``csrc/nms.cu``:
-the wrapper sorts with torch, the kernel walks the sorted boxes with an
-alive bitmask in shared memory, one block per image, and compacts the
-survivors itself; no N x N matrix is built.  Launches are counted in
-``nms.launches``.
+``IoU > thr`` matrix).  A CUDA tensor runs the kernel of ``csrc/nms.cu``,
+one launch per call and one thread-block cluster per image: up to
+``SORT_LIMIT`` boxes per image the kernel sorts them itself (a bitonic
+network in shared memory), builds the ``IoU > thr`` bitmask across the
+cluster, walks it greedily with one warp, 32 boxes at a time, and compacts
+the survivors.  Above ``SORT_LIMIT`` the wrapper sorts with torch first and
+the kernel skips its sort; above ~54,000 boxes per image it raises.
+Launches are counted in ``nms.launches``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from typing import Optional
 import torch
 
 _NEG_INF = float("-inf")
+#: boxes per image up to which the kernel sorts (``csrc/nms.cu:NMS_SORT_LIMIT``)
+SORT_LIMIT = 4096
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -82,37 +87,55 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
 def _library():
     from instancesegmentation_tpu_torch.ops import _build
 
-    fn = _build.library("nms.cu").nms_launch
+    lib = _build.library("nms.cu")
+    fn, words = lib.nms_launch, lib.nms_scratch_words
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, f, f, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
-    return fn
+        words.argtypes = [i, i]
+        words.restype = ctypes.c_longlong
+    return fn, words
 
 
 def _sorted(boxes: torch.Tensor, scores: torch.Tensor):
-    """The wrapper's torch part: ``(sboxes [B,N,4], sscores [B,N], order
-    [B,N])`` sorted by descending score, stable, as the kernel takes them."""
+    """The wrapper's torch sort above ``SORT_LIMIT``: ``(sboxes [B,N,4],
+    sscores [B,N], order [B,N])`` by descending score, stable."""
     order = torch.argsort(-scores.float(), dim=1, stable=True)
     sboxes = torch.take_along_dim(boxes.float(), order[..., None], dim=1).contiguous()
     sscores = torch.take_along_dim(scores.float(), order, dim=1).contiguous()
     return sboxes, sscores, order
 
 
-def _scan(sboxes, sscores, order, iou_threshold: float, k: int, score_threshold: float):
-    """One launch of the kernel on sorted inputs (one block per image;
-    B, N, k >= 1) -> ``([B,k] int64, [B,k] bool)``; raises on a failure."""
-    fn = _library()
-    b, n = sscores.shape
-    dev = sscores.device
+def _launch(boxes, scores, iou_threshold: float, k: int, score_threshold: float):
+    """One launch of the kernel on ``boxes [B,N,4]``, ``scores [B,N]`` (one
+    cluster per image; B, N, k >= 1): in input order up to ``SORT_LIMIT``
+    boxes, the kernel sorting them, else sorted by ``_sorted`` with their
+    permutation -> ``([B,k] int64, [B,k] bool)``; raises on a failure.
+    Counted in ``nms.launches``."""
+    order = None
+    if scores.shape[1] <= SORT_LIMIT:
+        boxes, scores = boxes.float().contiguous(), scores.float().contiguous()
+    else:
+        boxes, scores, order = _sorted(boxes, scores)
+    fn, words = _library()
+    b, n = scores.shape
+    dev = scores.device
+    need = words(n, int(order is None))
+    if need < 0:
+        raise RuntimeError(f"nms kernel cannot take N={n}: CUDA error {-need}")
+    scratch = torch.empty((b, need), dtype=torch.int32, device=dev) if need else None
     indices = torch.empty((b, k), dtype=torch.int64, device=dev)
     valid = torch.empty((b, k), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(sboxes.data_ptr(), sscores.data_ptr(), order.data_ptr(), indices.data_ptr(),
-                valid.data_ptr(), b, n, k, iou_threshold, score_threshold, stream)
+        rc = fn(boxes.data_ptr(), scores.data_ptr(), None if order is None else order.data_ptr(),
+                indices.data_ptr(), valid.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), b, n, k, iou_threshold,
+                score_threshold, stream)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: CUDA error {rc}")
+    nms.launches += 1
     return indices, valid
 
 
@@ -131,7 +154,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
     valid [K])`` (see the module docstring for the contract).
 
     A CPU tensor runs ``nms_reference``; a CUDA tensor launches the kernel
-    (counted in ``nms.launches``) or raises.
+    once (counted in ``nms.launches``) or raises.
     """
     _check(boxes, scores)
     if boxes.dim() != 2:
@@ -142,9 +165,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
         return nms_reference(boxes, scores, iou_threshold, k, score_threshold)
     if n == 0 or k == 0:
         return _pad_keep(torch.empty(0, dtype=torch.int64, device=boxes.device), k)
-    indices, valid = _scan(*_sorted(boxes[None], scores[None]), iou_threshold, k,
-                           score_threshold)
-    nms.launches += 1
+    indices, valid = _launch(boxes[None], scores[None], iou_threshold, k, score_threshold)
     return indices[0], valid[0]
 
 
@@ -178,6 +199,4 @@ def nms_batch(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 
     if not on_card:
         outs = [nms_reference(boxes[i], scores[i], iou_threshold, k) for i in range(bsz)]
         return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
-    indices, valid = _scan(*_sorted(boxes, scores), iou_threshold, k, _NEG_INF)
-    nms.launches += 1
-    return indices, valid
+    return _launch(boxes, scores, iou_threshold, k, _NEG_INF)

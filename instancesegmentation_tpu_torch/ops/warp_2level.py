@@ -12,14 +12,18 @@ the two agree only where no translation cut is active
 (``tests/test_torch_port_rotation.py`` shows both facts).
 
 A CPU tensor runs ``warp_2level_reference``.  A CUDA tensor launches the
-kernels of ``csrc/warp_2level.cu`` or raises: ``warp_2level`` is one pass-1
-and one pass-2 launch per call (each counted in ``warp_2level.launches``),
-``warp_2level_fused`` one launch (``warp_2level_fused.launches``).
+kernels of ``csrc/warp_2level.cu`` or raises: ``warp_2level`` is one launch
+of the tiled kernel per call (counted in ``warp_2level.launches``), each CTA
+one output tile whose pass-1 rows stay in shared memory, laid out by
+``plan_tiles``; ``warp_2level_fused`` is one launch of the cluster kernel
+(``warp_2level_fused.launches``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,7 +42,9 @@ def coefficients(params: RotWarpParams) -> torch.Tensor:
     tensor: ``Ax, Bx, Cx`` and the x cut ``[max(0, lo_x), hi_x)`` (pass 1),
     ``m00, m01, ky0`` and the y cut (pass 2), ``a_y, b_y, a_x, b_x`` and
     ``canvas_hw`` (the rotation cut).  The probe's ``_coeffs`` plus the
-    canvas size, which the probe took from the array shape."""
+    canvas size, which the probe took from the array shape.  The kernels
+    compute the same terms from the params themselves
+    (``csrc/warp_2level.cu:sample_coefs``), in this order."""
     k = _affine_terms(params)
     return torch.stack([
         k["Ax"], k["Bx"], k["Cx"],
@@ -72,6 +78,65 @@ def warp_2level_reference(image, mask, params: RotWarpParams, out_hw, theta_max_
                                      scale_x_max, block)
 
 
+#: output columns per CTA of the tiled kernel (``csrc/warp_2level.cu:W2_TILE_V``)
+TILE_V = 32
+#: shared memory per tile row: TILE_V float4 tmp values (RGB + mask) and the
+#: row's pass-1 terms (``csrc/warp_2level.cu:W2_ROW_TERMS_BYTES``)
+ROW_BYTES = TILE_V * 16 + 32
+#: the plan's shared memory per CTA: three CTAs per SM of an H100
+PLAN_SMEM_BYTES = 75 * 1024
+#: the most shared memory a CTA can take on an H100
+MAX_SMEM_BYTES = 227 * 1024
+
+
+class TilePlan(NamedTuple):
+    """The tiled kernel's layout: CTAs of ``tile_u x TILE_V`` output pixels,
+    each holding ``cap_rows`` rows of tmp (``smem_bytes``, ``ROW_BYTES`` a
+    row) in shared memory; ``grid`` is (column tiles, row tiles) per sample."""
+
+    tile_u: int
+    cap_rows: int
+    smem_bytes: int
+    grid: tuple
+
+
+def _centre_spread(out_w: int, block: int) -> int:
+    """The largest spread of block centres over the columns of one tile."""
+    return max((min(v0 + TILE_V, out_w) - 1) // block * block - v0 // block * block
+               for v0 in range(0, out_w, TILE_V))
+
+
+@functools.lru_cache(maxsize=64)
+def plan_tiles(theta_max_deg: float, block: int, scale_x_max: float, out_hw) -> TilePlan:
+    """The tile shape of the tiled kernel from bounds the wrapper knows, with
+    no read of the per-sample coefficients: |theta| <= ``theta_max_deg`` and
+    |a_y|, |a_x| <= ``scale_x_max``.  Pass 2 of ``tu`` output rows reads
+    canvas rows ``floor(upos_min) - d2 .. floor(upos_max) + 2 + d2`` with
+    ``upos_max - upos_min <= |m00| (tu - 1) + |m01| * centre spread``, so at
+    most ``floor(s (tu - 1) + s sin(theta) spread) + 2 d2 + 4`` rows.  Takes
+    the ``tu`` that computes the fewest pass-1 rows in all (row tiles x rows)
+    within ``PLAN_SMEM_BYTES``; a sample beyond the bounds is split into
+    sub-tiles by the kernel itself."""
+    out_h, out_w = out_hw
+    _, d2 = two_level_bands(theta_max_deg, block, scale_x_max)
+    s = abs(float(scale_x_max))
+    spread = s * math.sin(math.radians(abs(float(theta_max_deg)))) * _centre_spread(out_w, block)
+
+    def rows(tu: int) -> int:
+        return math.floor(s * (tu - 1) + spread) + 2 * d2 + 4
+
+    cap_max = PLAN_SMEM_BYTES // ROW_BYTES
+    fits = [tu for tu in range(1, out_h + 1) if rows(tu) <= cap_max]
+    if fits:
+        tile_u = min(fits, key=lambda tu: (-(-out_h // tu) * rows(tu), -tu))
+        cap = rows(tile_u)
+    else:  # not even one row fits: the largest buffer, single-row sub-tiles
+        tile_u = 1
+        cap = min(rows(1), MAX_SMEM_BYTES // ROW_BYTES)
+    return TilePlan(tile_u, cap, cap * ROW_BYTES,
+                    (-(-out_w // TILE_V), -(-out_h // tile_u)))
+
+
 def _library(name: str, n_ints: int, n_bufs: int):
     from instancesegmentation_tpu_torch.ops import _build
 
@@ -84,23 +149,41 @@ def _library(name: str, n_ints: int, n_bufs: int):
 
 
 def _prepare(image, mask, params, out_hw, theta_max_deg, block, scale_x_max):
-    """Checks, bands and buffers of a launch: ``(dims, tmp, out, coefs)``."""
+    """Checks, bands and buffers of a launch: ``(dims, out, table,
+    scale_x_max)``, ``table`` the params' fields as one ``[8, B, 2]`` float32
+    tensor, from which the kernels compute ``coefficients`` themselves."""
     _check(image, mask, params)
     b, h, w, _ = image.shape
     out_h, out_w = out_hw
     if scale_x_max is None:
         scale_x_max = (w + 2 * SRC_PAD) / out_w
     d1, d2 = two_level_bands(theta_max_deg, block, scale_x_max)
-    dev = image.device
-    coefs = coefficients(params)
-    tmp = torch.empty((b, h, out_w, 4), dtype=torch.float32, device=dev)
-    out = torch.empty((b, out_h, out_w, 4), dtype=torch.float32, device=dev)
-    return (b, h, w, out_h, out_w, block, d1, d2), tmp, out, coefs
+    table = torch.stack(tuple(params)).float()
+    out = torch.empty((b, out_h, out_w, 4), dtype=torch.float32, device=image.device)
+    return (b, h, w, out_h, out_w, block, d1, d2), out, table, scale_x_max
 
 
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _tiled(image, mask, params: RotWarpParams, out_hw, theta_max_deg: float, block: int,
+           scale_x_max: Optional[float], plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """One launch of the tiled kernel on CUDA tensors, laid out by ``plan``
+    (default ``plan_tiles``), counted in ``warp_2level.launches``."""
+    dims, out, table, scale_x_max = _prepare(image, mask, params, out_hw, theta_max_deg,
+                                             block, scale_x_max)
+    if plan is None:
+        plan = plan_tiles(float(theta_max_deg), block, float(scale_x_max), tuple(out_hw))
+    img, msk = image.contiguous(), mask.contiguous()
+    tiled = _library("warp_2level_tiled", 10, 4)
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        _raise_on(tiled(img.data_ptr(), msk.data_ptr(), table.data_ptr(), out.data_ptr(),
+                        *dims, plan.tile_u, plan.cap_rows, stream), "warp_2level")
+        warp_2level.launches += 1
+    return out
 
 
 def warp_2level(image: torch.Tensor, mask: torch.Tensor, params: RotWarpParams, out_hw,
@@ -110,29 +193,15 @@ def warp_2level(image: torch.Tensor, mask: torch.Tensor, params: RotWarpParams, 
     uint8 through ``params`` -> ``[B, out_h, out_w, 4]`` float32.
 
     A CPU tensor runs ``warp_2level_reference``; a CUDA tensor launches the
-    pass-1 and pass-2 kernels (each counted in ``warp_2level.launches``) or
-    raises.  ``theta_max_deg`` (DEGREES, in (0, 60)) must bound the sampled
-    |theta|.
+    tiled kernel once (counted in ``warp_2level.launches``) or raises.
+    ``theta_max_deg`` (DEGREES, in (0, 60)) must bound the sampled |theta|.
     """
     out_hw = tuple(out_hw)
     if not _on_card(image, "warp_2level"):
         _check(image, mask, params)
         return warp_2level_reference(image, mask, params, out_hw, theta_max_deg, block,
                                      scale_x_max)
-    dims, tmp, out, coefs = _prepare(image, mask, params, out_hw, theta_max_deg, block,
-                                     scale_x_max)
-    img, msk = image.contiguous(), mask.contiguous()
-    pass1 = _library("warp_2level_pass1", 8, 4)
-    pass2 = _library("warp_2level_pass2", 8, 3)
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        _raise_on(pass1(img.data_ptr(), msk.data_ptr(), coefs.data_ptr(), tmp.data_ptr(),
-                        *dims, stream), "warp_2level pass 1")
-        warp_2level.launches += 1
-        _raise_on(pass2(tmp.data_ptr(), coefs.data_ptr(), out.data_ptr(), *dims, stream),
-                  "warp_2level pass 2")
-        warp_2level.launches += 1
-    return out
+    return _tiled(image, mask, params, out_hw, theta_max_deg, block, scale_x_max)
 
 
 warp_2level.launches = 0
@@ -149,13 +218,14 @@ def warp_2level_fused(image: torch.Tensor, mask: torch.Tensor, params: RotWarpPa
         _check(image, mask, params)
         return warp_2level_reference(image, mask, params, out_hw, theta_max_deg, block,
                                      scale_x_max)
-    dims, tmp, out, coefs = _prepare(image, mask, params, out_hw, theta_max_deg, block,
-                                     scale_x_max)
+    dims, out, table, _ = _prepare(image, mask, params, out_hw, theta_max_deg, block,
+                                   scale_x_max)
+    tmp = torch.empty((dims[0], dims[1], dims[4], 4), dtype=torch.float32, device=image.device)
     img, msk = image.contiguous(), mask.contiguous()
     fused = _library("warp_2level_fused", 8, 5)
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        _raise_on(fused(img.data_ptr(), msk.data_ptr(), coefs.data_ptr(), tmp.data_ptr(),
+        _raise_on(fused(img.data_ptr(), msk.data_ptr(), table.data_ptr(), tmp.data_ptr(),
                         out.data_ptr(), *dims, stream), "warp_2level_fused")
         warp_2level_fused.launches += 1
     return out

@@ -14,9 +14,9 @@ SIMT), and takes one ``torch.profiler`` trace of each program for the device
 busy share and the largest device ops.  The train step (the
 ``chip_smoke.py`` training cell: ``Segment(20)`` in bf16, batch 32, 640 ->
 480, rotate 25 through the 2level sampler, flips, jitter, photometric draws)
-is split the same way into preprocessing (of which the warp kernels), the
-train-mode forward and loss, the backward and the Adam update, with one
-trace.  It prints one JSON object as its last line, after the card's name
+is split the same way into preprocessing (of which the warp kernel, by
+call and by its device time, and its launches per step), the train-mode
+forward and loss, the backward and the Adam update, with one trace.  It prints one JSON object as its last line, after the card's name
 and power limit.
 """
 from __future__ import annotations
@@ -34,6 +34,7 @@ from chip_smoke import (
     TRAIN_BATCH,
     card_line,
     cuda_ms,
+    device_ms,
     random_state_dict,
     training_batch,
 )
@@ -113,13 +114,18 @@ def train_breakdown(dev) -> dict:
         forward_loss().backward()
 
     forward_backward()
+    w2.warp_2level.launches = 0
+    step(state, batch, draws)
+    launches = w2.warp_2level.launches
+    warp_args = (batch["image"], batch["mask"], params, aug.out_size, aug.rotate,
+                 aug.rotate_block)
     st = {
         "step": cuda_ms(lambda: step(state, batch, draws), 5),
         "preprocess": cuda_ms(lambda: preprocess_batch(batch, draws, aug), 5),
         "warp_params": cuda_ms(lambda: rotated_warp_params(batch, draws, aug), 5),
-        "warp_2level": cuda_ms(lambda: w2.warp_2level(
-            batch["image"], batch["mask"], params, aug.out_size, aug.rotate,
-            aug.rotate_block), 20),
+        "warp_2level": cuda_ms(lambda: w2.warp_2level(*warp_args), 20),
+        "warp_2level_kernel": device_ms(lambda: w2.warp_2level(*warp_args),
+                                        "warp_2level_tiled_kernel"),
         "forward_loss": cuda_ms(forward_loss, 5),
         "forward_backward": cuda_ms(forward_backward, 5),
         "adam": cuda_ms(state.optimizer.step, 10),
@@ -128,6 +134,7 @@ def train_breakdown(dev) -> dict:
         st["forward_no_grad"] = cuda_ms(forward_loss, 5)
     st["backward"] = st["forward_backward"] - st["forward_loss"]
     return {"ms": st, "img_per_s": TRAIN_BATCH / st["step"] * 1e3,
+            "warp_2level_launches_per_step": launches,
             "trace": trace(lambda: step(state, batch, draws), top=16)}
 
 

@@ -5,8 +5,10 @@ The CUDA kernels cannot run here; their checks against the plain versions
 are phases of ``chip_smoke.py``.  What does run here: the plain versions and
 the CPU route of the wrappers against the JAX functions, their Pallas
 kernels in interpret mode and the numpy oracles, and an emulator of the NMS
-kernel's scan (``csrc/nms.cu``) that follows its word and bit layout, its
-per-warp clearing and its prefix-count compaction.
+kernel (``csrc/nms.cu``) that runs its bitonic sort stage by stage with its
+comparator, builds its suppression words with its item mapping, walks them
+32 boxes at a time as its one warp does (the diagonal word resolved by its
+shuffle loop) and compacts by its prefix count.
 """
 import jax
 import jax.numpy as jnp
@@ -169,13 +171,17 @@ def test_nms_wrappers_reject_bad_inputs():
         tnms.nms(b.int(), s)
 
 
-# -- the scan the CUDA kernel runs --------------------------------------------
+# -- the CUDA kernel, emulated ------------------------------------------------
 
-_FULL = np.uint64(0xFFFFFFFF)
+_LANES = np.arange(32)
 
 
-def _ballot(pred: np.ndarray) -> np.uint32:
-    return np.uint32(int((pred.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum()))
+def _ballot(pred: np.ndarray) -> int:
+    return int((pred.astype(np.uint64) << _LANES.astype(np.uint64)).sum())
+
+
+def _popc(x: int) -> int:
+    return bin(x & 0xFFFFFFFF).count("1")
 
 
 def _kernel_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -191,59 +197,164 @@ def _kernel_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
         return np.where(union > 0, inter / np.maximum(union, f(1e-12)), f(0)).astype(f)
 
 
-def _emulate_nms_kernel(boxes, scores, thr, k, score_thr=-np.inf, nwarps=4):
-    """Run csrc/nms.cu:nms_kernel for one image: 32-box words, a ballot per
-    warp and word, the warp-0 shuffle scan of the words' popcounts, and the
-    compaction.  Words of a step are visited warp by warp in the kernel's
-    strided order (each word is owned by one warp in a step)."""
+def _ranks_before(sa, ia, sb, ib):
+    """csrc/nms.cu:ranks_before, elementwise: a number before a NaN, then
+    descending score by value (-0.0 == +0.0), then ascending index."""
+    na, nb = np.isnan(sa), np.isnan(sb)
+    with np.errstate(invalid="ignore"):
+        by_value = np.where(sa != sb, sa > sb, ia < ib)
+    return np.where(na != nb, nb, np.where(na, ia < ib, by_value))
+
+
+def _bitonic_sort(scores: np.ndarray):
+    """Phase A: the bitonic network over (score, index), padded to a power
+    of two with NaN sentinels of index >= N, stage by stage as the block runs
+    it (comparator t swaps lo and lo + stride; at strides <= 32 a warp's
+    comparators touch only its own 64 elements, so those stages meet at a
+    warp barrier) -> (keys, indices)."""
+    n = len(scores)
+    p = 1
+    while p < n:
+        p <<= 1
+    key = np.full(p, np.nan, np.float32)
+    key[:n] = scores
+    idx = np.arange(p)
+    t = np.arange(p // 2)
+    size = 2
+    while size <= p:
+        stride = size >> 1
+        while stride:
+            s = stride.bit_length() - 1
+            lo = ((t >> s) << (s + 1)) | (t & (stride - 1))
+            hi = lo + stride
+            if stride <= 32:  # a warp's comparators stay in its 64 elements: __syncwarp
+                assert (lo >> 6 == t >> 5).all() and (hi >> 6 == t >> 5).all()
+            swap = _ranks_before(key[hi], idx[hi], key[lo], idx[lo]) == ((lo & size) == 0)
+            kl, kh, il, ih = key[lo], key[hi], idx[lo], idx[hi]
+            key[lo], key[hi] = np.where(swap, kh, kl), np.where(swap, kl, kh)
+            idx[lo], idx[hi] = np.where(swap, ih, il), np.where(swap, il, ih)
+            stride >>= 1
+        size <<= 1
+    return key, idx
+
+
+def _emulate_nms_kernel(boxes, scores, thr, k, score_thr=-np.inf, staged=False,
+                        log_split=0):
+    """Run csrc/nms.cu:nms_kernel for one image: the sort (A); the mask
+    words as the cluster's items e = (w * 32 nwords + i) * split + s, w >= i /
+    32, part s a loop over its 32 / split boxes of word w, the parts ORed (B),
+    over a mask poisoned with all ones, so a read of a word no item wrote
+    kills every box; the walk of each word c by one warp (C): the 32 boxes'
+    diagonal words resolve word c in registers, then the kept rows are ORed
+    into the later words lane by lane, from the mask or (``staged``) from a
+    copy of the word's 32 rows; the warp-0 prefix scan of the alive words'
+    popcounts and the compaction (D).  Returns (indices, valid, sorted
+    order)."""
     n = boxes.shape[0]
-    order = np.argsort(-scores, kind="stable")
-    sb, ss = boxes[order].astype(np.float32), scores[order].astype(np.float32)
+    key, order = _bitonic_sort(scores.astype(np.float32))
+    assert (order[:n] < n).all()  # the sentinels sort last
+    order = order[:n]
+    sb, ss = boxes[order].astype(np.float32), key[:n]
     thr, score_thr = np.float32(thr), np.float32(score_thr)
     nwords = (n + 31) >> 5
-    lanes = np.arange(32)
-    alive = np.zeros(nwords, np.uint32)
+    npad = nwords << 5
+    split, part = 1 << log_split, 32 >> log_split
+    items = (nwords * npad) << log_split
+    assert items % 32 == 0  # whole warps: every lane takes the same trips
+    mask = np.full((n, nwords), 0xFFFFFFFF, np.int64)
+    written = np.zeros((n, nwords), bool)
+    for e0 in range(0, items, split):  # the split lanes of one item
+        w, i = divmod(e0 >> log_split, npad)
+        if i >= n or w < (i >> 5):
+            continue
+        word = 0
+        for s in range(split):
+            j = (w << 5) + s * part + np.arange(part)
+            bits = (j > i) & (j < n) & (_kernel_iou(sb[i], sb[np.minimum(j, n - 1)]) > thr)
+            word |= _ballot(np.pad(bits, (s * part, 32 - (s + 1) * part)))
+        assert not written[i, w]
+        written[i, w] = True
+        mask[i, w] = word
+    removed = [0] * nwords
     for w in range(nwords):
-        j = (w << 5) + lanes
-        alive[w] = _ballot((j < n) & (ss[np.minimum(j, n - 1)] > score_thr))
-    for i in range(n):
-        if not (int(alive[i >> 5]) >> (i & 31)) & 1:
-            continue  # a dead box: no work and no barrier
-        for warp in range(nwarps):
-            for w in range(((i + 1) >> 5) + warp, nwords, nwarps):
-                word = int(alive[w])
-                j = (w << 5) + lanes
-                bit = (word >> lanes) & 1
-                kill = (j > i) & (j < n) & (bit == 1) & (
-                    _kernel_iou(sb[i], sb[np.minimum(j, n - 1)]) > thr)
-                m = int(_ballot(kill))
-                if m:
-                    alive[w] = np.uint32(word & ~m & 0xFFFFFFFF)
+        j = (w << 5) + _LANES
+        with np.errstate(invalid="ignore"):
+            alive = (j < n) & (ss[np.minimum(j, n - 1)] > score_thr)
+        removed[w] = ~_ballot(alive) & 0xFFFFFFFF
+    for c in range(nwords):
+        rows = mask[c << 5:(c << 5) + 32]  # row r of word c's boxes
+        if staged:
+            rows = np.zeros((32, nwords), np.int64)
+            rows[:min(32, n - (c << 5)), c:] = mask[c << 5:(c << 5) + 32, c:]
+        nrow = min(32, n - (c << 5))
+        dead = removed[c]
+        for r in range(32):  # the diagonal words, broadcast to every lane
+            if not (dead >> r) & 1:
+                assert r < nrow  # boxes past n are seeded dead: no read past the mask
+                dead |= int(rows[r, c])
+        kept = ~dead & 0xFFFFFFFF
+        for w in range(c + 1, nwords):  # lane w - c - 1 (mod 32)
+            acc = removed[w]
+            for r in range(32):
+                if (kept >> r) & 1:
+                    acc |= int(rows[r, w])
+            removed[w] = acc
+        removed[c] = dead
+    alive_words = [~x & 0xFFFFFFFF for x in removed]
     # warp 0: exclusive prefix of the popcounts, 32 words at a time
     prefix = np.zeros(nwords + 1, np.int64)
     carry = 0
     for base in range(0, nwords, 32):
-        w = base + lanes
-        c = np.array([bin(int(alive[x])).count("1") if x < nwords else 0 for x in w])
-        s = c.copy()
+        w = base + _LANES
+        cnt = np.array([_popc(alive_words[x]) if x < nwords else 0 for x in w])
+        incl = cnt.copy()
         off = 1
         while off < 32:  # __shfl_up_sync inclusive scan
-            s = np.where(lanes >= off, s + np.roll(s, off), s)
+            incl = np.where(_LANES >= off, incl + np.roll(incl, off), incl)
             off <<= 1
         for lane in range(32):
             if w[lane] < nwords:
-                prefix[w[lane]] = carry + s[lane] - c[lane]
-        carry += int(s[31])
+                prefix[w[lane]] = carry + incl[lane] - cnt[lane]
+        carry += int(incl[31])
     prefix[nwords] = carry
     indices = np.full(k, -1, np.int64)
     valid = np.zeros(k, bool)
     for j in range(n):
-        word, bit = int(alive[j >> 5]), 1 << (j & 31)
+        word, bit = alive_words[j >> 5], 1 << (j & 31)
         if word & bit:
-            pos = prefix[j >> 5] + bin(word & (bit - 1)).count("1")
+            pos = prefix[j >> 5] + _popc(word & (bit - 1))
             if pos < k:
                 indices[pos], valid[pos] = order[j], True
-    return indices, valid
+    return indices, valid, order
+
+
+def _oracle_keep(boxes, scores, thr, score_thr=-np.inf):
+    """jnms.nms_numpy on the boxes whose score passes ``score_thr`` (NaN
+    never does), mapped back to input indices."""
+    with np.errstate(invalid="ignore"):
+        sub = np.flatnonzero(scores > np.float32(score_thr))
+    if sub.size == 0:
+        return sub
+    return sub[jnms.nms_numpy(boxes[sub], scores[sub], thr)]
+
+
+def _check_emulator(boxes, scores, threshold, k, score_thr=-np.inf, staged=False,
+                    log_split=0):
+    idx, valid, order = _emulate_nms_kernel(boxes, scores, threshold, k, score_thr, staged,
+                                            log_split)
+    want_order = torch.argsort(-torch.from_numpy(scores), stable=True).numpy()
+    np.testing.assert_array_equal(order, want_order)  # the plain version's sort
+    ref_idx, ref_valid = _port_nms(boxes, scores, threshold, max_outputs=k,
+                                   score_threshold=score_thr)
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_array_equal(valid, ref_valid)
+    j_idx, j_valid = _np(*jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), threshold,
+                                   max_outputs=k, score_threshold=score_thr))
+    np.testing.assert_array_equal(idx, j_idx)
+    np.testing.assert_array_equal(valid, j_valid)
+    np.testing.assert_array_equal(idx[valid], _oracle_keep(boxes, scores, threshold,
+                                                           score_thr)[:k])
+    return idx, valid
 
 
 @pytest.mark.parametrize("n,k,threshold,hard", [
@@ -253,17 +364,45 @@ def test_nms_kernel_scan_emulator(n, k, threshold, hard):
     boxes, scores = (_hard_case if hard else _nms_case)(n, n)
     if n > 200:  # spread the boxes so that many survive and the scan spans >32 words
         boxes[:, [0, 2]] *= 8.0
-    idx, valid = _emulate_nms_kernel(boxes, scores, threshold, k)
-    ref_idx, ref_valid = _port_nms(boxes, scores, threshold, max_outputs=k)
-    np.testing.assert_array_equal(idx, ref_idx)
-    np.testing.assert_array_equal(valid, ref_valid)
-    np.testing.assert_array_equal(idx[valid], jnms.nms_numpy(boxes, scores, threshold)[:k])
+    _check_emulator(boxes, scores, threshold, k, staged=n > 1000, log_split=int(n < 200))
     # the score threshold seeds the alive words
-    idx, valid = _emulate_nms_kernel(boxes, scores, threshold, k, score_thr=0.5)
-    ref_idx, ref_valid = _port_nms(boxes, scores, threshold, max_outputs=k,
-                                   score_threshold=0.5)
-    np.testing.assert_array_equal(idx, ref_idx)
-    np.testing.assert_array_equal(valid, ref_valid)
+    _check_emulator(boxes, scores, threshold, k, score_thr=0.5, log_split=3 * int(n < 50))
+
+
+def _edge_scores(case: str):
+    """Inputs of the kernel's sort and walk edges."""
+    boxes, scores = _hard_case(21, 90)
+    if case == "exact_ties":
+        scores[:] = np.float32(0.5)
+        scores[10:30] = np.float32(0.75)
+    elif case == "signed_zeros":
+        scores[0::3] = np.float32(0.0)
+        scores[1::3] = np.float32(-0.0)
+        scores[2::9] = -scores[2::9]
+    elif case == "nan_and_inf":
+        scores[0::5] = np.nan
+        scores[2::7] = -np.inf
+        scores[3::11] = np.inf
+    elif case == "n_not_pow2":
+        boxes, scores = _hard_case(22, 97)
+        scores[40:] = scores[:57]  # ties across words
+    return boxes, scores
+
+
+@pytest.mark.parametrize("score_thr", [-np.inf, 0.25], ids=["no_score_thr", "score_thr"])
+@pytest.mark.parametrize("case", ["exact_ties", "signed_zeros", "nan_and_inf", "n_not_pow2"])
+def test_nms_kernel_emulator_score_edges(case, score_thr):
+    boxes, scores = _edge_scores(case)
+    n = len(scores)
+    for threshold, k, log_split in ((0.5, n // 4, 1), (0.7, n + 7, 2)):
+        idx, valid = _check_emulator(boxes, scores, threshold, k, score_thr, log_split=log_split)
+        kept = scores[idx[valid]]
+        with np.errstate(invalid="ignore"):
+            assert (kept > np.float32(score_thr)).all()  # NaN and -inf never survive
+        if case == "signed_zeros" and score_thr < 0:
+            # -0.0 and +0.0 tie: their boxes keep input order among themselves
+            zeros = idx[valid][kept == 0]
+            assert (np.diff(zeros) > 0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -336,3 +336,246 @@ def test_draw_augment_contract():
     assert dataclasses.asdict(tpipe.AugmentConfig()).keys() == \
         dataclasses.asdict(jpipe.AugmentConfig()).keys()
     assert tpipe.AugmentConfig().rotate_impl == "2level"
+
+
+# -- the tiled warp kernel: its plan and its schedule, emulated ---------------
+
+F32 = np.float32
+
+
+def _hat(pos, tap):
+    return np.maximum(F32(0), F32(1) - np.abs(pos - tap.astype(F32)))
+
+
+def _residual(slope, idx, block, d):
+    """csrc/warp_2level.cu:residual for indices ``idx``: (k0, w0, w1)."""
+    r = (idx % block).astype(F32) - F32(0.5) * F32(block - 1)
+    delta = np.minimum(np.maximum(F32(slope) * r, F32(-d)), F32(d))
+    k0 = np.floor(delta).astype(np.int64)
+    return k0, _hat(delta, k0), np.where(k0 + 1 <= d, _hat(delta, k0 + 1), F32(0))
+
+
+def _centre(idx, block):
+    return ((idx // block) * block).astype(F32) + F32(0.5) * F32(block - 1)
+
+
+def _pass1(content, k, block, d1, ys, vs):
+    """csrc/warp_2level.cu:pass1_value of canvas rows ``ys`` and output
+    columns ``vs`` -> [len(ys), len(vs), 4], in float32 in its order."""
+    h, w = content.shape[:2]
+    ax, bx, cx, lox, hix, _, _, _, loy, hiy = k[:10]
+    k0, w0, w1 = _residual(bx, ys, block, d1)
+    vpos = (ax * vs.astype(F32))[None, :] + (bx * _centre(ys, block))[:, None]
+    vpos = vpos + cx
+    x0 = np.floor(vpos).astype(np.int64)
+    hix = np.minimum(hix, F32(w))
+
+    def pixel(x):
+        ok = (x >= 0) & (x < w) & (x.astype(F32) >= lox) & (x.astype(F32) < hix)
+        return np.where(ok[..., None], content[ys[:, None], np.clip(x, 0, w - 1)], F32(0))
+
+    acc = np.zeros((len(ys), len(vs), 4), F32)
+    for t in range(2):
+        x = x0 + t
+        hw = _hat(vpos, x)
+        use = (x >= 0) & (x < w) & (hw != 0)
+        lerp = (w0[:, None, None] * pixel(x + k0[:, None])
+                + w1[:, None, None] * pixel(x + k0[:, None] + 1))
+        acc = np.where(use[..., None], acc + hw[..., None] * lerp, acc)
+    row_ok = (ys.astype(F32) >= loy) & (ys.astype(F32) < np.minimum(hiy, F32(h)))
+    return np.where(row_ok[:, None, None], acc, F32(0))
+
+
+def _upos(k, block, u, v):
+    return (k[5] * F32(u)) + (k[6] * _centre(np.asarray(v), block)) + k[7]
+
+
+def _pass2(rows, k, h, block, d2, us, vs):
+    """csrc/warp_2level.cu:pass2_value of pixels ``us x vs``; ``rows(y,
+    need)`` gives tmp rows y [U, C] where ``need``, as the kernel loads them."""
+    a_y, b_y, a_x, b_x, ch, cw = k[10:16]
+    pyu, pxv = a_y * us.astype(F32) + b_y, a_x * vs.astype(F32) + b_x
+    cut = ((pyu >= 0) & (pyu < ch))[:, None] & ((pxv >= 0) & (pxv < cw))[None, :]
+    k0, w0, w1 = _residual(k[6], vs, block, d2)
+    upos = (k[5] * us.astype(F32))[:, None] + (k[6] * _centre(vs, block))[None, :]
+    upos = upos + k[7]
+    y0 = np.floor(upos).astype(np.int64)
+    acc = np.zeros((len(us), len(vs), 4), F32)
+    for t in range(2):
+        y = y0 + t
+        hw = _hat(upos, y)
+        use = cut & (y >= 0) & (y < h) & (hw != 0)
+        ya = y + k0[None, :]
+        a = rows(ya, use & (ya >= 0) & (ya < h))
+        c = rows(ya + 1, use & (ya + 1 >= 0) & (ya + 1 < h))
+        acc = np.where(use[..., None],
+                       acc + hw[..., None] * (w0[None, :, None] * a + w1[None, :, None] * c), acc)
+    return acc
+
+
+def _row_span(k, h, block, d2, ua, ub, va, vb):
+    """csrc/warp_2level.cu:row_span: the rows [lo, hi] pass 2 of output rows
+    [ua, ub) and columns [va, vb] reads, from upos at the corners."""
+    p = np.array([_upos(k, block, u, v) for u in (ua, ub - 1) for v in (va, vb)], F32)
+    lo = max(np.floor(p.min()) - F32(d2), F32(0))
+    hi = min(np.floor(p.max()) + F32(2 + d2), F32(h - 1))
+    return int(lo), int(hi)
+
+
+def _emulate_tiled(img, mask, params, out_hw, theta_max_deg, block, plan):
+    """Run csrc/warp_2level.cu:warp_2level_tiled_kernel CTA by CTA: the
+    sub-tile height (halved until every sub-tile's span fits ``cap_rows``),
+    pass 1 of each sub-tile's span into its tile buffer, pass 2 from it,
+    asserting that every row pass 2 loads lies inside the span; a one-row
+    sub-tile beyond the capacity takes tmp values straight from pass 1.
+    Returns (out [B, oh, ow, 4], counts of split tiles and direct rows)."""
+    b, h, w, _ = img.shape
+    oh, ow = out_hw
+    d1, d2 = tw.two_level_bands(theta_max_deg, block, (w + 2 * tw.SRC_PAD) / ow)
+    coefs = w2.coefficients(params).numpy()
+    content = np.concatenate([img, mask[..., None]], -1).astype(F32)
+    out = np.zeros((b, oh, ow, 4), F32)
+    stats = {"split_tiles": 0, "direct_rows": 0}
+    gv, gu = plan.grid
+    for s in range(b):
+        k = coefs[s]
+        for tu in range(gu):
+            for tv in range(gv):
+                v0, u0 = tv * w2.TILE_V, tu * plan.tile_u
+                nv, u_end = min(w2.TILE_V, ow - v0), min(u0 + plan.tile_u, oh)
+                vs = np.arange(v0, v0 + nv)
+
+                def nrows(ua, ub):
+                    lo, hi = _row_span(k, h, block, d2, ua, ub, v0, v0 + nv - 1)
+                    return hi - lo + 1
+
+                su = u_end - u0
+                while su > 1 and any(nrows(ua, min(ua + su, u_end)) > plan.cap_rows
+                                     for ua in range(u0, u_end, su)):
+                    su = (su + 1) >> 1
+                stats["split_tiles"] += su < u_end - u0
+                for ua in range(u0, u_end, su):
+                    ub = min(ua + su, u_end)
+                    lo, hi = _row_span(k, h, block, d2, ua, ub, v0, v0 + nv - 1)
+                    direct = hi - lo + 1 > plan.cap_rows
+                    if direct:
+                        assert ub == ua + 1
+                        stats["direct_rows"] += 1
+                        lo, hi = 0, h - 1
+                    tile = _pass1(content[s], k, block, d1, np.arange(lo, hi + 1), vs)
+
+                    def rows(y, need, lo=lo, hi=hi, tile=tile):
+                        assert ((y[need] >= lo) & (y[need] <= hi)).all(), "a row off the span"
+                        if not len(tile):
+                            return np.zeros(y.shape + (4,), F32)
+                        got = tile[np.clip(y - lo, 0, len(tile) - 1), np.arange(nv)[None, :]]
+                        return np.where(need[..., None], got, F32(0))
+
+                    out[s, ua:ub, v0:v0 + nv] = _pass2(rows, k, h, block, d2,
+                                                       np.arange(ua, ub), vs)
+    return out, stats
+
+
+def test_tile_plan_at_the_training_config():
+    """At 640 -> 480, rotate 25, block 16: one CTA's tmp rows fit well under
+    the 227 KB of an SM (three CTAs per SM), the tiles cover the output
+    exactly once, and the training path's own params need no sub-tile."""
+    plan = w2.plan_tiles(25.0, 16, (640 + 2 * tw.SRC_PAD) / 480, (480, 480))
+    assert plan.smem_bytes == plan.cap_rows * w2.ROW_BYTES
+    assert plan.smem_bytes <= w2.PLAN_SMEM_BYTES < 227 * 1024 // 3
+    cover = np.zeros((480, 480), int)
+    gv, gu = plan.grid
+    for tu in range(gu):
+        for tv in range(gv):
+            cover[tu * plan.tile_u:(tu + 1) * plan.tile_u, tv * w2.TILE_V:(tv + 1) * w2.TILE_V] += 1
+    assert (cover == 1).all()
+    assert gv * w2.TILE_V >= 480 > (gv - 1) * w2.TILE_V
+    assert gu * plan.tile_u >= 480 > (gu - 1) * plan.tile_u
+    # the spans of in-contract samples (rotate 25, jitter, flips) fit the plan
+    cfg = tpipe.AugmentConfig(out_size=(480, 480), rotate=25.0, rotate_prob=1.0,
+                              flip_prob=0.5, jitter=0.1)
+    batch = synthetic_host_batch(8, 640, seed=9)
+    draws = tpipe.draw_augment(8, cfg, torch.Generator().manual_seed(9))
+    params, _ = tpipe.rotated_warp_params(tpipe.batch_to(batch, "cpu"), draws, cfg)
+    coefs = w2.coefficients(params).numpy()
+    _, d2 = tw.two_level_bands(25.0, 16, (640 + 2 * tw.SRC_PAD) / 480)
+    worst = max(hi - lo + 1
+                for k in coefs for tu in range(gu) for tv in range(gv)
+                for lo, hi in [_row_span(k, 640, 16, d2, tu * plan.tile_u,
+                                         min((tu + 1) * plan.tile_u, 480), tv * w2.TILE_V,
+                                         min((tv + 1) * w2.TILE_V, 480) - 1)])
+    assert worst <= plan.cap_rows
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["no_cut", "cut"])
+@pytest.mark.parametrize("flip", [False, True], ids=["unflipped", "flipped"])
+@pytest.mark.parametrize("deg", [0.0, 13.0, -25.0])
+def test_tiled_warp_schedule_matches_the_plain_version(deg, flip, cut):
+    img, mask = _canvas(1, seed=11)
+    _, tp = _params(deg, cut, flip, b=1)
+    plan = w2.plan_tiles(25.0, 16, (W + 2 * tw.SRC_PAD) / OUT, (OUT, OUT))
+    got, stats = _emulate_tiled(img, mask, tp, (OUT, OUT), 25.0, 16, plan)
+    assert stats == {"split_tiles": 0, "direct_rows": 0}
+    want = w2.warp_2level_reference(torch.from_numpy(img), torch.from_numpy(mask), tp,
+                                    (OUT, OUT), 25.0).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("cap", ["split", "direct"])
+def test_tiled_warp_schedule_splits_what_outgrows_the_plan(cap):
+    """A capacity below the tile's span splits the tile along u; one below
+    a single row's span sends that row to pass 1 directly.  Both stay equal
+    to the plain version."""
+    img, mask = _canvas(2, seed=12)
+    pairs = [_params(deg, cut=True, flip=deg < 0, b=1) for deg in (13.0, -25.0)]
+    tp = tw.RotWarpParams(*(torch.cat(f) for f in zip(*(p[1] for p in pairs))))
+    plan = w2.plan_tiles(25.0, 16, (W + 2 * tw.SRC_PAD) / OUT, (OUT, OUT))
+    small = plan.cap_rows // 3 if cap == "split" else 8
+    plan = plan._replace(cap_rows=small, smem_bytes=small * w2.ROW_BYTES)
+    got, stats = _emulate_tiled(img, mask, tp, (OUT, OUT), 25.0, 16, plan)
+    assert stats["split_tiles"] > 0
+    assert (stats["direct_rows"] > 0) == (cap == "direct")
+    want = w2.warp_2level_reference(torch.from_numpy(img), torch.from_numpy(mask), tp,
+                                    (OUT, OUT), 25.0).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def _sample_coefs(table):
+    """csrc/warp_2level.cu:sample_coefs in float32, one rounded operation at
+    a time, over the params table [8, B, 2] -> [B, 16]."""
+    scale, origin, cos_sin, center, t, src_lo, src_hi, canvas_hw = (table[i] for i in range(8))
+    a_y, a_x, cth, sth = scale[:, 0], scale[:, 1], cos_sin[:, 0], cos_sin[:, 1]
+    cy, cx = center[:, 0], center[:, 1]
+    half = F32(0.5)
+    b_y = ((half * a_y) - half) + origin[:, 0]
+    b_x = ((half * a_x) - half) + origin[:, 1]
+    m00, m01 = cth * a_y, (-sth) * a_x
+    m10, m11 = sth * a_y, cth * a_x
+    dy, dx = b_y - cy, b_x - cx
+    ky0 = ((cy + cth * dy) - sth * dx) - t[:, 0]
+    kx0 = ((cx + sth * dy) + cth * dx) - t[:, 1]
+
+    def clamp_min0(x):
+        return np.where(x < 0, F32(0), x)
+
+    return np.stack([m11 - (m10 * m01) / m00, m10 / m00, kx0 - (m10 * ky0) / m00,
+                     clamp_min0(src_lo[:, 1]), src_hi[:, 1], m00, m01, ky0,
+                     clamp_min0(src_lo[:, 0]), src_hi[:, 0], a_y, b_y, a_x, b_x,
+                     canvas_hw[:, 0], canvas_hw[:, 1]], 1)
+
+
+def test_kernel_coefficients_equal_the_plain_version_bit_for_bit():
+    """The kernels compute the per-sample terms from the params table the
+    wrapper stacks; the transliteration of that device function equals
+    ``coefficients`` (the plain version's ``_affine_terms``) bit for bit,
+    flips, cuts and a -0.0 / NaN cut bound included."""
+    pairs = [_params(deg, cut, flip, b=1) for deg in (0.0, 13.0, -25.0)
+             for cut in (False, True) for flip in (False, True)]
+    tp = tw.RotWarpParams(*(torch.cat(f) for f in zip(*(p[1] for p in pairs))))
+    lo = tp.src_lo.clone()
+    lo[1, 0], lo[2, 1], lo[3, 1] = -0.0, float("nan"), -3.5
+    tp = tp._replace(src_lo=lo)
+    table = torch.stack(tuple(tp)).float().numpy()
+    got, want = _sample_coefs(table), w2.coefficients(tp).numpy()
+    assert got.dtype == want.dtype == F32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
