@@ -8,21 +8,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``instancesegmentation_tpu_torch/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   serving shapes, with TF32 off: the chain's SIMT form on the section-1 and
-   section-2+3 specs of the 480 px program in float32 (atol 1e-3 plus rtol
-   1e-4 of the reference's magnitude: the sums run in another order) and
-   bfloat16 I/O (atol 0.1, rtol 0.1); the chain's banded cluster form on both
-   specs of the 480 and 512 px programs at batch 8 and 128, against its
-   rounding plain version within twice the spread between that plain version
-   with its sums in float32 and in float64 (at least one bf16 ulp of the
-   output's largest magnitude), and against the float32 plain version within
-   atol 0.1 + rtol 0.1 of the output's largest magnitude; its ptxas line and
-   its resident clusters; ``bottleneck3x3_fused`` in float32
-   (atol 1e-3, rtol 1e-4); then the detection kernels: NMS bit-equal, one
-   launch per call (N = 48 to 4096, where the kernel sorts, and one N above
-   its sort limit; thresholds 0.5 and 0.7, ties, duplicates, zero-area
-   boxes, -0.0 beside +0.0 and NaN scores, K below and above N, a score
-   threshold; ``nms_batch`` on [8, 1000] in one launch), matching
+   serving shapes, with TF32 off: the chain's SIMT form (through ``_launch``)
+   on the section-1 and section-2+3 specs of the 480 px program in float32
+   (atol 1e-3 plus rtol 1e-4 of the reference's magnitude: the sums run in
+   another order) and bfloat16 I/O (atol 0.1, rtol 0.1); the chain's banded
+   cluster form on both specs of the 480 and 512 px programs at batch 8 and
+   128, against its rounding plain version within twice the spread between
+   that plain version with its sums in float32 and in float64 (at least one
+   bf16 ulp of the output's largest magnitude), and against the float32
+   plain version within atol 0.1 + rtol 0.1 of the output's largest
+   magnitude; the banded float32 form on the same specs and batches against
+   the float32 plain version (atol 1e-3, rtol 1e-4); each banded plan (cluster,
+   bands, shared memory, phases, resident clusters) and both banded kernels'
+   ptxas lines; ``bottleneck3x3_fused`` in float32 through the banded
+   float32 form (atol 1e-3, rtol 1e-4); then the detection kernels: NMS
+   bit-equal, one launch per call (N = 48 to 4096, where the kernel sorts,
+   and one N above its sort limit; thresholds 0.5 and 0.7, ties, duplicates,
+   zero-area boxes, -0.0 beside +0.0 and NaN scores, K below and above N, a
+   score threshold; N = 1024 with the walk forced into column windows of 1,
+   3 and 8 words; one image of N = 60,000 against the row-blocked plain
+   version; ``nms_batch`` on [8, 1000] in one launch), matching
    bit-equal ([2000, 64] with ties and an all-zero column), and
    ``roi_align`` within atol 1e-4 + rtol 1e-4 at torchvision's Mask R-CNN
    pooler shapes on a stride-4 FPN level of an 800x1344 input (features
@@ -37,14 +42,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 4. serve at full width from seeded random weights with random running
    statistics: the 20-channel instance program at 480 px over a batch of 128
    in bfloat16 (with the launch counts read around that one dispatch: 2
-   banded chain launches), the same engine in float32 on the card (2 SIMT
-   launches), a float32 CPU engine on two rows
-   of the batch, a few requests through ``ServingFrontend``, and the 3-channel
-   whole-image program at 512 px over 128 images (2 banded launches); then
-   the proposal path (2 banded launches per dispatch):
-   64 images of 360-800 px with 48 proposals each through
-   ``iter_segment_proposals`` (NMS at 0.7, 16 instances, dispatches of 128),
-   with one NMS launch per image, the keeps of the plain NMS on the CPU and
+   banded chain launches), the same engine in float32 on the card (2 banded
+   float32 launches, no SIMT one), a float32 CPU engine on two rows
+   of the batch, a few requests through ``ServingFrontend``, the uint8
+   resize on the card against the host (bit-equal), and the 3-channel
+   whole-image program at 512 px over 128 images (2 banded launches, one
+   integer uint8 resize per image); then the proposal path (2 banded
+   launches per dispatch): 64 images of 360-800 px with 48 proposals each
+   through ``iter_segment_proposals`` (NMS at 0.7, 16 instances, dispatches
+   of 128), with one NMS launch per image, one integer uint8 resize per
+   image larger than the canvas, the keeps of the plain NMS on the CPU and
    the packing rule's dispatch count, and its first two images through the
    float32 card and CPU engines; and ``roi_align`` and ``match_proposals``
    through their own entry points; then train at full width (the training
@@ -57,10 +64,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    against the same step on the CPU;
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above, NMS and the warp also by their
-   kernels' device time in a ``torch.profiler`` trace; the banded chain beside its bound
-   per launch, its rounding and float32 plain versions, the float32 SIMT form
-   and, as a yardstick the port never calls, the same sections through the
-   layer modules on cuDNN in bf16 channels_last), and the two programs and the
+   kernels' device time in a ``torch.profiler`` trace; the banded chain beside
+   its bound per launch, its rounding and float32 plain versions and, as a
+   yardstick the port never calls, the same sections through the layer
+   modules on cuDNN in bf16 channels_last; the banded float32 form beside its
+   bound, the float32 plain version, the SIMT form in turns with it (SIMT,
+   banded, banded, SIMT) and the same sections on cuDNN in float32 with TF32
+   off; ``bottleneck3x3_fused`` on both forms in turns), the instance
+   program in bf16 and float32 by CUDA events (float32 also with its chain
+   on the SIMT form, in turns), the two programs and the
    proposal path end to end, and the train step (of which preprocessing and
    the warp kernels) with ``F.grid_sample`` at the warp's shape as a
    yardstick;
@@ -465,9 +477,13 @@ def main() -> int:
         from instancesegmentation_tpu_torch.ops import _build
         from instancesegmentation_tpu_torch.ops import fused_chain as fc
         from instancesegmentation_tpu_torch.ops import matching, nms, roi_align
+        from instancesegmentation_tpu_torch.infer import pipeline
         from instancesegmentation_tpu_torch.ops.fused_block import (
             bottleneck3x3_fused,
             bottleneck3x3_reference,
+        )
+        from instancesegmentation_tpu_torch.ops.fused_block import (
+            reset_launches as reset_block_launches,
         )
         from instancesegmentation_tpu_torch.data.pipeline import (
             batch_to,
@@ -507,9 +523,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
     # ptxas reports (registers, spills, stack, static shared memory) of the
-    # banded chain kernel and of the nms and tiled warp kernels
+    # two banded chain kernels and of the nms and tiled warp kernels
     ptxas = {}
     for src, kernel in (("fused_chain.cu", "fused_chain_banded_kernel"),
+                        ("fused_chain.cu", "fused_chain_banded_f32_kernel"),
                         ("nms.cu", "nms_kernel"), ("warp_2level.cu", "warp_2level_tiled_kernel")):
         log = _build.build_log.get(src)
         if log is None:
@@ -537,14 +554,12 @@ def main() -> int:
     for name, spec in specs.items():
         ref_spec = spec.to(dev)
         x = torch.randn((8, spec.h, spec.w, spec.c_in), generator=g, device=dev)
-        # float32 I/O: the SIMT form, through the wrapper
-        before = fc.fused_chain.launches_by_form["simt"]
-        got = fc.fused_chain(x, spec)
+        # float32 I/O on the SIMT form (what a spec no cluster holds runs)
+        got = fc._launch(x, spec)
         want = fc.fused_chain_reference(x, ref_spec)
-        check(fc.fused_chain.launches_by_form["simt"] == before + 1, f"{name} f32: SIMT form")
         check(got.dtype == torch.float32 and got.shape == want.shape, f"{name} f32 shape")
-        errs[(name, torch.float32)] = max_err(got, want, 1e-3, 1e-4,
-                                              f"fused_chain simt {name} float32 {list(x.shape)}")
+        errs[(name, "simt_f32")] = max_err(got, want, 1e-3, 1e-4,
+                                           f"fused_chain simt {name} float32 {list(x.shape)}")
         # bf16 I/O on the SIMT form (what a spec no cluster holds runs)
         xd = x.to(torch.bfloat16)
         got = fc._launch(xd, spec)
@@ -583,6 +598,37 @@ def main() -> int:
                 cluster=plan.cluster, smem_bytes=plan.smem_bytes, resident_clusters=resident)
             del r32, r64, f32
 
+    # float32 I/O: the banded float32 cluster form, at batch 8 and 128,
+    # against the float32 plain version (TF32 off) within atol 1e-3 + rtol
+    # 1e-4 (the SIMT check's limit: the sums run in another order)
+    banded32 = {}
+    for (prog, name), spec in chains.items():
+        ref_spec = spec.to(dev)
+        plan = fc.plan_banded(spec, dtype=torch.float32)
+        check(fc.chain_form(spec, torch.float32) == "banded_f32", f"{prog} {name}: f32 plan")
+        resident = fc.banded_occupancy(spec, torch.float32)
+        tiles = sorted({(int(r[19]), int(r[21])) for r in plan.ops() if r[0] == fc.B_MM})
+        chunked = sum(int(r[0] == fc.B_MM and r[20] != fc.MM_FIRST | fc.MM_LAST)
+                      for r in plan.ops())
+        print(f"banded f32 plan {prog} {name} [{spec.h}, {spec.w}, {spec.c_in}]: cluster "
+              f"{plan.cluster}, bands of {plan.band_px} px, {plan.smem_bytes} B of shared "
+              f"memory per CTA (slots {plan.slot_bytes}), {len(plan.ops())} ops ({chunked} "
+              f"product K-chunks; rows x columns per thread {tiles}), {plan.n_phases} cluster "
+              f"barriers; "
+              f"cudaOccupancyMaxActiveClusters {resident}")
+        for n in (8, BATCH):
+            x = torch.randn((n, spec.h, spec.w, spec.c_in), generator=g, device=dev)
+            before = fc.fused_chain.launches_by_form["banded_f32"]
+            got = fc.fused_chain(x, spec)
+            check(fc.fused_chain.launches_by_form["banded_f32"] == before + 1,
+                  f"{prog} {name}: banded f32 form")
+            check(got.dtype == torch.float32 and got.shape == (n, spec.h, spec.w, spec.c_out),
+                  f"{prog} {name}: banded f32 output")
+            banded32[(prog, name, n)] = dict(
+                max_abs_err=max_err(got, fc.fused_chain_reference(x, ref_spec), 1e-3, 1e-4,
+                                    f"fused_chain banded_f32 {prog} {name} {list(x.shape)}"),
+                cluster=plan.cluster, smem_bytes=plan.smem_bytes, resident_clusters=resident)
+
     # bottleneck3x3_fused on the folded weights of the first section-1 block
     _, mm1, dw_op, mm2, res = specs["s1"].ops[:5]
     block_args = dict(
@@ -590,10 +636,15 @@ def main() -> int:
         b_dw=dw_op.b, a2=dw_op.alpha, w2=mm2.w, b2=mm2.b, a_out=res.alpha)
     block_args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                   for k, v in block_args.items()}
-    xb = torch.randn((8, 64, 64, 48), generator=g, device=dev)
-    errs["block"] = max_err(bottleneck3x3_fused(xb, **block_args),
-                            bottleneck3x3_reference(xb, **block_args), 1e-3, 1e-4,
-                            "bottleneck3x3_fused [8, 64, 64, 48]")
+    for shape in ((8, 64, 64, 48), (8, 60, 60, 48)):
+        xb = torch.randn(shape, generator=g, device=dev)
+        before = bottleneck3x3_fused.launches_by_form["banded_f32"]
+        got = bottleneck3x3_fused(xb, **block_args)
+        check(bottleneck3x3_fused.launches_by_form["banded_f32"] == before + 1,
+              f"bottleneck3x3_fused {list(shape)}: the banded f32 form")
+        errs["block"] = max(errs.get("block", 0.0), max_err(
+            got, bottleneck3x3_reference(xb, **block_args), 1e-3, 1e-4,
+            f"bottleneck3x3_fused {list(shape)}"))
 
     # the detection kernels: NMS and matching bit-equal, roi_align within
     # atol 1e-4 + rtol 1e-4 of the reference's magnitude (sums in another
@@ -612,6 +663,28 @@ def main() -> int:
         exact(nms.nms(boxes, scores, 0.5, score_threshold=0.3),
               nms.nms_reference(boxes, scores, 0.5, score_threshold=0.3),
               f"nms N={n} thr=0.5 score_threshold=0.3")
+    # the walk from a global mask in forced small column windows of 32-box
+    # words, and one image above the old ~54,000-box limit, against the
+    # row-blocked plain version (nms_reference's [N, N, 2] intermediates
+    # would take ~29 GB each at this N)
+    boxes, scores = nms_inputs(g, 1024, dev)
+    for window in (1, 3, 8):
+        before = nms.nms.launches
+        got = nms._launch(boxes[None], scores[None], 0.5, 1024, float("-inf"), window=window)
+        check(nms.nms.launches == before + 1, f"nms window {window}: one launch")
+        exact((got[0][0], got[1][0]), nms.nms_reference(boxes, scores, 0.5),
+              f"nms N=1024 thr=0.5 in column windows of {window} words")
+    boxes, scores = nms_inputs(g, 60_000, dev)
+    # spread over a 4,800 px field: thousands of boxes survive
+    boxes = boxes + (torch.rand((60_000, 2), generator=g, device=dev) * 4200).repeat(1, 2)
+    t_big = time.perf_counter()
+    got = nms.nms(boxes, scores, 0.5)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t_big
+    exact(got, nms.nms_reference_blocked(boxes, scores, 0.5),
+          f"nms N=60000 thr=0.5 ({int(got[1].sum())} kept, {t_big:.2f} s with its mask)")
+    del boxes, scores, got
+    torch.cuda.empty_cache()
     bb, bs = nms_inputs(g, 1000, dev, batch=(8,))
     before = nms.nms.launches
     got = nms.nms_batch(bb, bs, 0.7)
@@ -684,13 +757,13 @@ def main() -> int:
     batch = synthetic_host_batch(BATCH, 640, seed=SEED)
     eng = InferenceEngine(sd20, in_channels=20, size=480, dtype=torch.bfloat16)
     fc.reset_launches()
-    bottleneck3x3_fused.launches = 0
+    reset_block_launches()
     probs, masks = eng.predict_instances(batch)  # the main path, once
     launches = {"fused_chain": fc.fused_chain.launches,
                 "fused_chain_by_form": dict(fc.fused_chain.launches_by_form),
                 "bottleneck3x3_fused": bottleneck3x3_fused.launches}
     print(f"main path (instance 480, batch {BATCH}, bf16): launches {launches}")
-    check(launches["fused_chain_by_form"] == {"banded": 2, "simt": 0},
+    check(launches["fused_chain_by_form"] == {"banded": 2, "banded_f32": 0, "simt": 0},
           "fused_chain: 2 banded launches per bf16 dispatch")
     check(probs.shape == (BATCH, 480, 480, 1) and masks.shape == (BATCH, 640, 640),
           "instance output shapes")
@@ -700,10 +773,11 @@ def main() -> int:
 
     eng32 = InferenceEngine(sd20, in_channels=20, size=480, dtype=torch.float32)
     fc.reset_launches()
-    probs32, masks32 = eng32.predict_instances(batch)
+    probs32, masks32 = eng32.predict_instances(batch)  # the float32 main path, once
     f32_launches = dict(fc.fused_chain.launches_by_form)
     print(f"instance 480, batch {BATCH}, f32: fused_chain launches {f32_launches}")
-    check(f32_launches == {"banded": 0, "simt": 2}, "fused_chain: 2 SIMT launches per f32 dispatch")
+    check(f32_launches == {"banded": 0, "banded_f32": 2, "simt": 0},
+          "fused_chain: 2 banded f32 launches per f32 dispatch")
     bf16_vs_f32 = {
         "crop_prob_mean_abs_diff": float(np.abs(probs - probs32).mean()),
         "crop_prob_max_abs_diff": float(np.abs(probs - probs32).max()),
@@ -753,12 +827,32 @@ def main() -> int:
     eng3 = InferenceEngine(sd3, in_channels=3, size=512, dtype=torch.bfloat16)
     images = [rng.integers(0, 255, (int(rng.integers(360, 800)), int(rng.integers(360, 800)), 3),
                            dtype=np.uint8) for _ in range(BATCH)]
-    fc.reset_launches()
-    img_masks = eng3.predict_images(images)
+    # the uint8 bilinear resize (cv2's fixed-point INTER_LINEAR, as integer
+    # torch ops) gives the same bits on the card and on the host
+    for img in images[:3]:
+        for out_hw in ((512, 512), (img.shape[0] // 2, img.shape[1] // 2), (37, 901)):
+            on_card = pipeline.resize(torch.from_numpy(img).to(dev), out_hw).cpu()
+            exact((on_card,), (pipeline.resize(torch.from_numpy(img), out_hw),),
+                  f"uint8 resize {list(img.shape)} -> {list(out_hw)}, card vs host")
+    u8_resizes = [0]
+    resize_u8 = pipeline._resize_u8_linear
+
+    def counted_resize_u8(*args):
+        u8_resizes[0] += 1
+        return resize_u8(*args)
+
+    pipeline._resize_u8_linear = counted_resize_u8
+    try:
+        fc.reset_launches()
+        img_masks = eng3.predict_images(images)
+    finally:
+        pipeline._resize_u8_linear = resize_u8
     whole_launches = dict(fc.fused_chain.launches_by_form)
-    print(f"whole-image path (512, batch {BATCH}, bf16): fused_chain launches {whole_launches}")
-    check(whole_launches == {"banded": 2, "simt": 0},
+    print(f"whole-image path (512, batch {BATCH}, bf16): fused_chain launches {whole_launches}, "
+          f"{u8_resizes[0]} uint8 integer resizes")
+    check(whole_launches == {"banded": 2, "banded_f32": 0, "simt": 0},
           "whole-image: 2 banded chain launches per dispatch")
+    check(u8_resizes[0] == BATCH, "whole-image: one integer uint8 resize per image")
     check(all(m.shape == im.shape[:2] and m.dtype == np.uint8
               for m, im in zip(img_masks, images)), "whole-image mask shapes")
 
@@ -789,6 +883,8 @@ def main() -> int:
     InferenceEngine.predict_instances = counted_predict
     proposals._nms_keep = timed_nms_keep
     eng._forward_instance = counted_forward
+    pipeline._resize_u8_linear = counted_resize_u8
+    u8_resizes[0] = 0
     try:
         nms.nms.launches = 0
         fc.reset_launches()
@@ -803,15 +899,21 @@ def main() -> int:
         InferenceEngine.predict_instances = predict
         proposals._nms_keep = nms_keep
         eng._forward_instance = forward_instance
+        pipeline._resize_u8_linear = resize_u8
+    larger = sum(max(r["image"].shape[:2]) > 640 for r in reqs)
     kept = [len(r) for r in results]
     crops = sum(kept)
     print(f"proposal path ({len(reqs)} images x 48 proposals, bf16 480): {crops} crops, "
           f"{len(calls)} predict_instances calls {calls} in {len(forwards)} program dispatches "
-          f"{forwards}, launches {prop_launches}")
+          f"{forwards}, launches {prop_launches}, {u8_resizes[0]} uint8 integer resizes "
+          f"({larger} images larger than the canvas)")
     check(len(results) == len(reqs), "proposal path: one result list per image")
     check(prop_launches["nms"] == len(reqs), "proposal path: one nms launch per image")
-    check(prop_launches["fused_chain"] == {"banded": 2 * len(forwards), "simt": 0},
+    check(prop_launches["fused_chain"] == {"banded": 2 * len(forwards), "banded_f32": 0,
+                                           "simt": 0},
           "proposal path: 2 banded chain launches per program dispatch")
+    check(larger > 0 and u8_resizes[0] == larger,
+          "proposal path: one integer uint8 resize per image larger than the canvas")
     check(len(calls) == packed_dispatches(kept, 128),
           "proposal path: dispatches follow the packing rule")
     for req, res in zip(reqs, results):
@@ -926,12 +1028,16 @@ def main() -> int:
     check(step_vs_cpu["batch_stats_max_abs_diff"] <= 1e-4, "train step card vs CPU: batch_stats")
 
     # -- 5. times ------------------------------------------------------------
-    # the chain at batch 128: the banded form (bf16) of both programs beside
+    # the chain at batch 128, both programs: the banded form (bf16) beside
     # each launch's bound, its rounding plain version, the float32 plain
-    # version, the float32 SIMT form and the cuDNN yardstick; the SIMT form's
+    # version and the cuDNN bf16 yardstick; the banded float32 form beside
+    # its bound, the float32 plain version, the SIMT form (what float32 ran
+    # before it) and the cuDNN float32 yardstick (TF32 off); the SIMT form's
     # own parts for the 480 program
     parts = []
+    eng3_32 = InferenceEngine(sd3, in_channels=3, size=512, dtype=torch.float32)
     models = {480: eng.model, 512: eng3.model}
+    models32 = {480: eng32.model, 512: eng3_32.model}
     for (prog, name), spec in chains.items():
         ref_spec = spec.to(dev)
         x = torch.randn((BATCH, spec.h, spec.w, spec.c_in), generator=g,
@@ -939,43 +1045,69 @@ def main() -> int:
         xf = x.float()
         with torch.inference_mode():
             yard = section_yardstick(models[prog], name)
+            yard32 = section_yardstick(models32[prog], name)
             want = fc.fused_chain_reference(xf, ref_spec)
+            top = want.abs().max().item()
             d = (yard(x).float() - want).abs().max().item()
-            check(d <= 0.1 + 0.1 * want.abs().max().item(),
-                  f"{prog} {name}: the cuDNN yardstick computes the chain")
+            check(d <= 0.1 + 0.1 * top, f"{prog} {name}: the cuDNN yardstick computes the chain")
+            d32 = (yard32(xf) - want).abs().max().item()
+            check(d32 <= 1e-3 + 1e-3 * top,
+                  f"{prog} {name}: the cuDNN f32 yardstick computes the chain ({d32:.2e})")
             del want
             ms = cuda_ms(lambda: fc.fused_chain(x, spec), iters=20)
             plain = cuda_ms(lambda: fc.fused_chain_reference(x, ref_spec,
                                                              act_dtype=torch.bfloat16), iters=5)
             plain_f32 = cuda_ms(lambda: fc.fused_chain_reference(x, ref_spec), iters=5)
-            simt = cuda_ms(lambda: fc.fused_chain(xf, spec), iters=10)
             cudnn = cuda_ms(lambda: yard(x), iters=10)
+            # the two float32 forms in turns: SIMT, banded, banded, SIMT
+            simt_a = cuda_ms(lambda: fc._launch(xf, spec), iters=10)
+            f32_a = cuda_ms(lambda: fc.fused_chain(xf, spec), iters=20)
+            f32_b = cuda_ms(lambda: fc.fused_chain(xf, spec), iters=20)
+            simt_b = cuda_ms(lambda: fc._launch(xf, spec), iters=10)
+            ms32, simt = (f32_a + f32_b) / 2, (simt_a + simt_b) / 2
+            cudnn32 = cuda_ms(lambda: yard32(xf), iters=10)
         b_ms, b_by, flops, io = chain_bound(spec, BATCH, torch.bfloat16)
         chk = banded[(prog, name, BATCH)]
         parts.append({"program": prog, "spec": name, "form": "banded", "shape": list(x.shape),
                       "dtype": "bfloat16", "flops": flops, "bytes": io, "ms": ms,
                       "plain_ms": plain, "plain_f32_ms": plain_f32, "bound_ms": b_ms,
-                      "bound_by": b_by, "simt_f32_ms": simt, "cudnn_bf16_yardstick_ms": cudnn,
+                      "bound_by": b_by, "cudnn_bf16_yardstick_ms": cudnn,
                       **{k: chk[k] for k in ("max_abs_err", "limit", "max_abs_err_f32",
                                              "cluster", "smem_bytes", "resident_clusters")}})
         print(f"time fused_chain banded {prog} {name} {list(x.shape)} bf16: {ms:.4f} ms "
               f"(bound {b_ms:.4f} ms by {b_by}; rounding plain {plain:.3f} ms, f32 plain "
-              f"{plain_f32:.3f} ms; f32 SIMT form {simt:.3f} ms; cuDNN bf16 yardstick "
-              f"{cudnn:.3f} ms)")
+              f"{plain_f32:.3f} ms; cuDNN bf16 yardstick {cudnn:.3f} ms)")
+        s_ms, s_by, s_flops, s_io = chain_bound(spec, BATCH, torch.float32)
+        chk = banded32[(prog, name, BATCH)]
+        parts.append({"program": prog, "spec": name, "form": "banded_f32",
+                      "shape": list(x.shape), "dtype": "float32", "flops": s_flops,
+                      "bytes": s_io, "ms": ms32, "ms_runs": [f32_a, f32_b], "plain_ms": plain_f32,
+                      "bound_ms": s_ms, "bound_by": s_by, "simt_ms": simt,
+                      "simt_ms_runs": [simt_a, simt_b], "cudnn_f32_yardstick_ms": cudnn32,
+                      **chk})
+        print(f"time fused_chain banded_f32 {prog} {name} {list(x.shape)} f32: {ms32:.4f} ms "
+              f"({f32_a:.4f}, {f32_b:.4f}; bound {s_ms:.4f} ms by {s_by}; f32 plain "
+              f"{plain_f32:.3f} ms; SIMT form {simt:.4f} ms ({simt_a:.4f}, {simt_b:.4f}); "
+              f"cuDNN f32 yardstick {cudnn32:.3f} ms)")
         if prog == 480:
-            s_ms, s_by, s_flops, s_io = chain_bound(spec, BATCH, torch.float32)
             parts.append({"program": prog, "spec": name, "form": "simt", "shape": list(x.shape),
                           "dtype": "float32", "flops": s_flops, "bytes": s_io, "ms": simt,
                           "plain_ms": plain_f32, "bound_ms": s_ms, "bound_by": s_by,
-                          "max_abs_err": errs[(name, torch.float32)]})
+                          "max_abs_err": errs[(name, "simt_f32")]})
 
     xb = torch.randn((BATCH, 60, 60, 48), generator=g, device=dev)
-    blk_ms = cuda_ms(lambda: bottleneck3x3_fused(xb, **block_args), iters=20)
+    one_block = fc.ChainSpec(60, 60, 48, 48, specs["s1"].ops[:5])  # the same weights
+    blk_simt_a = cuda_ms(lambda: fc._launch(xb, one_block), iters=20)
+    blk_a = cuda_ms(lambda: bottleneck3x3_fused(xb, **block_args), iters=20)
+    blk_b = cuda_ms(lambda: bottleneck3x3_fused(xb, **block_args), iters=20)
+    blk_simt_b = cuda_ms(lambda: fc._launch(xb, one_block), iters=20)
+    blk_ms, blk_simt = (blk_a + blk_b) / 2, (blk_simt_a + blk_simt_b) / 2
     blk_plain = cuda_ms(lambda: bottleneck3x3_reference(xb, **block_args), iters=5)
-    one_block = fc.ChainSpec(60, 60, 48, 48, specs["s1"].ops[:5])
     blk_bound, blk_by, _, _ = chain_bound(one_block, BATCH, torch.float32)
-    print(f"time bottleneck3x3_fused [{BATCH}, 60, 60, 48] f32: {blk_ms:.3f} ms "
-          f"(plain {blk_plain:.3f} ms, bound {blk_bound:.4f} ms by {blk_by})")
+    print(f"time bottleneck3x3_fused [{BATCH}, 60, 60, 48] f32 (banded f32 form): "
+          f"{blk_ms:.4f} ms ({blk_a:.4f}, {blk_b:.4f}; SIMT form {blk_simt:.4f} ms "
+          f"({blk_simt_a:.4f}, {blk_simt_b:.4f}); plain {blk_plain:.3f} ms, bound "
+          f"{blk_bound:.4f} ms by {blk_by})")
 
     e2e = {}
     for label, fn, n in (
@@ -994,11 +1126,29 @@ def main() -> int:
     dev_batch = [torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev) for k in keys]
     with torch.inference_mode():
         inst_ms = cuda_ms(lambda: eng._forward_instance(*dev_batch), iters=5)
+        # the float32 program in turns with its chain on the SIMT form (what
+        # float32 engines ran before the banded float32 form): SIMT, banded,
+        # banded, SIMT
+        chain_form = fc.chain_form
+        runs32 = {"simt": [], "banded_f32": []}
+        for form in ("simt", "banded_f32", "banded_f32", "simt"):
+            fc.chain_form = (lambda spec, dtype: "simt") if form == "simt" else chain_form
+            try:
+                runs32[form].append(cuda_ms(lambda: eng32._forward_instance(*dev_batch), iters=5))
+            finally:
+                fc.chain_form = chain_form
+        inst32_ms, inst32_simt_ms = (sum(runs32[k]) / 2 for k in ("banded_f32", "simt"))
         u8 = torch.randint(0, 255, (BATCH, 512, 512, 3), generator=g, device=dev,
                            dtype=torch.uint8)
         whole_ms = cuda_ms(lambda: eng3._forward_whole(u8), iters=5)
     e2e["instance480_bf16_program_ms"] = inst_ms
     e2e["instance480_bf16_program_img_per_s"] = BATCH / inst_ms * 1e3
+    e2e["instance480_f32_program_ms"] = inst32_ms
+    e2e["instance480_f32_program_img_per_s"] = BATCH / inst32_ms * 1e3
+    e2e["instance480_f32_program_simt_chain_ms"] = inst32_simt_ms
+    print(f"time instance480 program [{BATCH}] (CUDA events): bf16 {inst_ms:.2f} ms, "
+          f"f32 {inst32_ms:.2f} ms {runs32['banded_f32']} (with the SIMT chain "
+          f"{inst32_simt_ms:.2f} ms {runs32['simt']})")
     e2e["whole512_bf16_program_ms"] = whole_ms
     e2e["whole512_bf16_program_img_per_s"] = BATCH / whole_ms * 1e3
     print(json.dumps({"e2e": e2e, "bf16_vs_f32": bf16_vs_f32, "gpu_vs_cpu": gpu_vs_cpu,
@@ -1109,6 +1259,7 @@ def main() -> int:
     # the main path's two launches (banded, 480 program): each launch's own
     # bound, summed; what bounds the chain is what bounds its larger part
     main = [p for p in parts if p["program"] == 480 and p["form"] == "banded"]
+    main32 = [p for p in parts if p["program"] == 480 and p["form"] == "banded_f32"]
     kernels = [
         {"name": "fused_chain", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/fused_chain.cu",
@@ -1120,13 +1271,27 @@ def main() -> int:
          "plain_ms": sum(p["plain_ms"] for p in main),
          "bound_ms": sum(p["bound_ms"] for p in main),
          "bound_by": max(main, key=lambda p: p["bound_ms"])["bound_by"],
-         "library_ms": None, "parts": parts},
+         "library_ms": None, "ptxas": ptxas.get("fused_chain_banded_kernel"), "parts": parts},
+        {"name": "fused_chain_f32", "route": "cuda",
+         "source": "instancesegmentation_tpu_torch/csrc/fused_chain.cu",
+         "replaces": "instancesegmentation_tpu/ops/fused_chain.py:308",
+         "form": "banded_f32", "launches": f32_launches["banded_f32"],
+         "launches_by_form": f32_launches,
+         "max_abs_err": max(p["max_abs_err"] for p in main32),
+         "ms": sum(p["ms"] for p in main32),
+         "plain_ms": sum(p["plain_ms"] for p in main32),
+         "bound_ms": sum(p["bound_ms"] for p in main32),
+         "bound_by": max(main32, key=lambda p: p["bound_ms"])["bound_by"],
+         "library_ms": None, "simt_ms": sum(p["simt_ms"] for p in main32),
+         "cudnn_f32_yardstick_ms": sum(p["cudnn_f32_yardstick_ms"] for p in main32),
+         "ptxas": ptxas.get("fused_chain_banded_f32_kernel")},
         {"name": "bottleneck3x3_fused", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/fused_chain.cu",
          "replaces": "instancesegmentation_tpu/ops/fused_block.py:52",
          "launches": launches["bottleneck3x3_fused"], "on_main_path": False,
-         "max_abs_err": errs["block"], "ms": blk_ms, "plain_ms": blk_plain,
-         "bound_ms": blk_bound, "bound_by": blk_by, "library_ms": None,
+         "form": "banded_f32", "max_abs_err": errs["block"], "ms": blk_ms,
+         "ms_runs": [blk_a, blk_b], "simt_ms": blk_simt, "simt_ms_runs": [blk_simt_a, blk_simt_b],
+         "plain_ms": blk_plain, "bound_ms": blk_bound, "bound_by": blk_by, "library_ms": None,
          "shape": [BATCH, 60, 60, 48], "dtype": "float32"},
         {"name": "nms", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/nms.cu",

@@ -7,7 +7,7 @@
 // (3x3 at dilation 1/2/4, (5,1), (1,5); a tap at (dy, dx) reads
 // in[y+dy, x+dx] when that coordinate is inside the image, zero otherwise),
 // residual adds with an optional 1x1 projection, and the concat with the
-// chain input.  Two forms, chosen by ops/fused_chain.py:chain_form.
+// chain input.  Three forms, chosen by ops/fused_chain.py:chain_form.
 //
 // The banded form (bf16 I/O; fused_chain_banded_kernel).
 //   What bounds it: section 1 ([N,60,60,48], four 48->16->48 blocks) does
@@ -36,17 +36,34 @@
 //   that no CTA overwrites rows another may still read before the next
 //   barrier.  CTA barriers elsewhere; a last cluster barrier before exit.
 //
-// The SIMT form (float32 I/O, and bf16 specs no cluster can hold;
-// fused_chain_kernel).  One CTA per image walks an instruction table that
-// ops/fused_chain.py:compile_chain builds; the float32 activations of one
-// image (461 KB at s23) exceed a block's shared memory, so its intermediates
-// live in a global float32 scratch, the 1x1 products are 4x4 register tiles
-// of float32 FMAs (capped near the 67 TFLOP/s FP32 rate) and the block
+// The banded float32 form (float32 I/O; fused_chain_banded_f32_kernel).
+//   The exact float32 program of the TPU kernel (no TF32).  What bounds it:
+//   every product and tap at the 67 TFLOP/s float32 rate of the CUDA cores,
+//   ~0.71 ms per batch-128 forward at 480 px against ~0.1 ms of float32 I/O.
+//   What the design does: the bf16 form's schedule, from the same planner,
+//   over float32 rows (buffers twice the bytes, so clusters of 8 at s1 60^2
+//   and 16 at s23 30^2): input read once, output written once, depthwise
+//   taps across bands through distributed shared memory.  A 1x1 conv runs in
+//   warp tiles of 16 TM rows x 2 TN columns, a thread's TM x TN outputs in
+//   registers, both operands float4 loads from shared memory (TM + TN load
+//   instructions for 4 TM TN FMAs a k-step), float32 FMAs in K order.  One
+//   CTA per SM holds 12 warps, so a product over a narrow band (60 px at
+//   s23) waits on load latency more than on the FMA rate; the plan picks TM
+//   x TN per product and band (ops/fused_chain.py:_f32_tile).  Weights
+//   stream in K-chunks of at most 32 KB through the two parameter slots (a
+//   chunk's copy in flight while the one before it runs), the partial sums
+//   of a chunked product kept in its output buffer, and the last chunk
+//   applying bias, residual and PReLU/ReLU in float32.
+//
+// The SIMT form (specs no cluster can hold; fused_chain_kernel).  One CTA
+// per image walks an instruction table that ops/fused_chain.py:compile_chain
+// builds; its intermediates live in a global float32 scratch, the 1x1
+// products are 4x4 register tiles of float32 FMAs and the block
 // synchronises between ops.  It is the exact float32 form.
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // -shared -Xcompiler -fPIC; bound with ctypes through fused_chain_launch and
-// fused_chain_banded_launch.
+// fused_chain_banded_launch (both banded forms).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -246,12 +263,13 @@ extern "C" int fused_chain_launch(const void* x, void* out, void* scratch, const
 }
 
 // ---------------------------------------------------------------------------
-// The banded bf16 form: one cluster per image, activations in shared memory
+// The banded forms: one cluster per image, activations in shared memory
 // ---------------------------------------------------------------------------
 
 // keep in step with ops/fused_chain.py (plan_banded)
 enum { FB_MM = 0, FB_DW = 1 };
-#define FB_ROW 20
+enum { MM_FIRST = 1, MM_LAST = 2 };
+#define FB_ROW 22
 #define FB_HDR 16
 #define FB_THREADS 384
 #define FB_WARPS (FB_THREADS / 32)
@@ -338,6 +356,21 @@ __device__ __forceinline__ uint2 ldc64(uint32_t a) {
                : "r"(a)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ float4 ldc128f(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128f(uint32_t a, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // the shared::cluster address of shared::cta address a in CTA `rank`
@@ -459,6 +492,149 @@ __device__ void band_matmul(const BandMM& m) {
   }
 }
 
+struct BandMM32 {  // pointers into this CTA's shared memory
+  const float* src;  // row 0, column k_off of the chunk's K-segment
+  int src_stride;    // floats
+  int kc, n;         // the chunk's depth, the output's columns
+  float* dst;
+  int dst_stride;
+  const float* add;  // nullptr: no residual
+  int add_stride;
+  const float* w;  // the chunk's weights [kc, n]; then bias[n], alpha[n] (last chunk)
+  const float* bias;
+  const float* alpha;
+  int act, px, first, last;
+};
+
+// One K-chunk of dst[p, :] = act(src[p, :] @ W + b [+ add[p, :]]) in float32
+// for the CTA's px rows, by warp tiles of 16 TM rows x 2 TN columns: lane
+// (g, q) = (lane / 2, lane % 2) takes rows g + 16 i (i < TM) and columns
+// 4q + 8j .. + 3 (j < TN / 4) of its warp's tile, TM x TN sums in
+// registers.  A shared-memory load instruction costs about the same
+// whatever the lanes share, so a k-step (4 k) is few of them: TM row float4s
+// along k (the 8 lanes of a phase read 4 rows, 4 bank groups apart: odd
+// 16-byte-unit strides) and TN weight float4s (contiguous across a phase)
+// for 4 TM TN FMAs, all issued before the k-step's FMAs, the next k-step's
+// rows while they run.  Sums run in K order from zero (first chunk) or from
+// the partial sums dst holds; the last chunk adds bias and residual and
+// applies the activation.  dst is never the chunk's K-segment, and a
+// residual in place is read and written by the same thread.
+template <int TM, int TN>
+__device__ __forceinline__ void band_matmul_f32(const BandMM32& m) {
+  constexpr int NJ = TN / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 1, q = lane & 1;
+  const int row_tiles = (m.px + 16 * TM - 1) / (16 * TM), tiles = row_tiles * (m.n / (2 * TN));
+  for (int t = warp; t < tiles; t += FB_WARPS) {
+    const int r0 = (t % row_tiles) * 16 * TM + g, c0 = (t / row_tiles) * 2 * TN + 4 * q;
+    const float* a[TM];
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      // rows past the band read its last row; their results are dropped
+      const int r = min(r0 + 16 * i, m.px - 1);
+      a[i] = m.src + r * m.src_stride;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 d = m.first ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                 : *reinterpret_cast<const float4*>(m.dst + r * m.dst_stride +
+                                                                    c0 + 8 * j);
+        acc[i][4 * j] = d.x;
+        acc[i][4 * j + 1] = d.y;
+        acc[i][4 * j + 2] = d.z;
+        acc[i][4 * j + 3] = d.w;
+      }
+    }
+    const float* wp = m.w + c0;
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) av[i] = *reinterpret_cast<const float4*>(a[i]);
+    for (int k = 0; k < m.kc; k += 4) {
+      float4 wv[4][NJ];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          wv[kk][j] = *reinterpret_cast<const float4*>(wp + (k + kk) * m.n + 8 * j);
+      float as[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        as[i][0] = av[i].x;
+        as[i][1] = av[i].y;
+        as[i][2] = av[i].z;
+        as[i][3] = av[i].w;
+      }
+      if (k + 4 < m.kc) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) av[i] = *reinterpret_cast<const float4*>(a[i] + k + 4);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            acc[i][4 * j] = fmaf(as[i][kk], wv[kk][j].x, acc[i][4 * j]);
+            acc[i][4 * j + 1] = fmaf(as[i][kk], wv[kk][j].y, acc[i][4 * j + 1]);
+            acc[i][4 * j + 2] = fmaf(as[i][kk], wv[kk][j].z, acc[i][4 * j + 2]);
+            acc[i][4 * j + 3] = fmaf(as[i][kk], wv[kk][j].w, acc[i][4 * j + 3]);
+          }
+    }
+    float bv[TN] = {}, al[TN] = {};
+    if (m.last) {
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int col = c0 + (c & 3) + 8 * (c >> 2);
+        bv[c] = m.bias[col];
+        if (m.act == ACT_PRELU) al[c] = m.alpha[col];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = r0 + 16 * i;
+      if (r >= m.px) break;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = acc[i][4 * j + e];
+        if (m.last) {
+          float4 ad = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (m.add)
+            ad = *reinterpret_cast<const float4*>(m.add + r * m.add_stride + c0 + 8 * j);
+          const float as4[4] = {ad.x, ad.y, ad.z, ad.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float t = v[e] + bv[4 * j + e];
+            if (m.add) t += as4[e];
+            v[e] = act_f(t, m.act, al[4 * j + e]);
+          }
+        }
+        *reinterpret_cast<float4*>(m.dst + r * m.dst_stride + c0 + 8 * j) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
+// four channels of a buffer row: bf16 (8 bytes) or float32 (16 bytes), any
+// CTA of the cluster (shared::cluster address) in, this CTA's out
+template <typename T> struct Band4;
+template <> struct Band4<bf16> {
+  static __device__ __forceinline__ float4 load(uint32_t a) {
+    const uint2 v = ldc64(a);
+    const float2 lo = unpack_bf16(v.x), hi = unpack_bf16(v.y);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  static __device__ __forceinline__ void store(uint32_t a, float4 v) {
+    sts64(a, make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w)));
+  }
+};
+template <> struct Band4<float> {
+  static __device__ __forceinline__ float4 load(uint32_t a) { return ldc128f(a); }
+  static __device__ __forceinline__ void store(uint32_t a, float4 v) { sts128f(a, v); }
+};
+
 // dst[p, c] = act(b[c] + sum_t valid_t * src[y+dy_t, x+dx_t, c] * w[t, c]) for
 // the CTA's band, 4 channels a thread (FB_THREADS is a multiple of c / 4, so
 // a thread keeps its channels and their taps in registers, read from the
@@ -467,7 +643,7 @@ __device__ void band_matmul(const BandMM& m) {
 // shared memory or, for a row in another CTA's band, that CTA's (distributed
 // shared memory).  Taps are clamped into the image and their loads issued
 // together; a tap outside the image then counts zero.
-template <int NTAPS>
+template <int NTAPS, typename T>
 __device__ void band_depthwise(uint32_t row_addr, int h, int w, int y0, int px, int src_stride,
                                uint32_t dst, int dst_stride, int c, uint32_t slot,
                                const int* row) {
@@ -503,24 +679,23 @@ __device__ void band_depthwise(uint32_t row_addr, int h, int w, int y0, int px, 
       const int yy = y + dy[t], xx = x + dx[t];
       ok[t] = yy >= 0 && yy < h && xx >= 0 && xx < w;
       const int yc = min(max(yy, 0), h - 1), xc = min(max(xx, 0), w - 1);
-      ra[t] = lds32(row_addr + 4u * yc) + (uint32_t)(xc * src_stride + ch) * 2u;
+      ra[t] = lds32(row_addr + 4u * yc) + (uint32_t)((xc * src_stride + ch) * sizeof(T));
     }
-    uint2 v[NTAPS];
+    float4 v[NTAPS];
 #pragma unroll
-    for (int t = 0; t < NTAPS; ++t) v[t] = ldc64(ra[t]);
+    for (int t = 0; t < NTAPS; ++t) v[t] = Band4<T>::load(ra[t]);
     float4 acc = b;
 #pragma unroll
     for (int t = 0; t < NTAPS; ++t) {
       if (!ok[t]) continue;
-      const float2 lo = unpack_bf16(v[t].x), hi = unpack_bf16(v[t].y);
-      acc.x = fmaf(lo.x, k[t].x, acc.x);
-      acc.y = fmaf(lo.y, k[t].y, acc.y);
-      acc.z = fmaf(hi.x, k[t].z, acc.z);
-      acc.w = fmaf(hi.y, k[t].w, acc.w);
+      acc.x = fmaf(v[t].x, k[t].x, acc.x);
+      acc.y = fmaf(v[t].y, k[t].y, acc.y);
+      acc.z = fmaf(v[t].z, k[t].z, acc.z);
+      acc.w = fmaf(v[t].w, k[t].w, acc.w);
     }
-    sts64(dst + (uint32_t)(p * dst_stride + ch) * 2u,
-          make_uint2(pack_bf16(act_f(acc.x, act, al.x), act_f(acc.y, act, al.y)),
-                     pack_bf16(act_f(acc.z, act, al.z), act_f(acc.w, act, al.w))));
+    Band4<T>::store(dst + (uint32_t)((p * dst_stride + ch) * sizeof(T)),
+                    make_float4(act_f(acc.x, act, al.x), act_f(acc.y, act, al.y),
+                                act_f(acc.z, act, al.z), act_f(acc.w, act, al.w)));
   }
 }
 
@@ -533,11 +708,14 @@ __device__ __forceinline__ void stage_params(uint32_t sbase, const int* row,
   for (int i = threadIdx.x; i < row[12]; i += FB_THREADS) cp_async16_u32(dst + 16u * i, src + i);
 }
 
-// grid: n images x cluster CTAs, one cluster per image; table and params
-// from ops/fused_chain.py:plan_banded
-__global__ void __launch_bounds__(FB_THREADS, 1)
-fused_chain_banded_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
-                          const int* __restrict__ table, const uint4* __restrict__ params) {
+// the body of both banded kernels, T = bf16 or float: grid n images x
+// cluster CTAs, one cluster per image; table and params from
+// ops/fused_chain.py:plan_banded
+template <typename T>
+__device__ __forceinline__ void banded_body(const T* __restrict__ x, T* __restrict__ out,
+                                            const int* __restrict__ table,
+                                            const uint4* __restrict__ params) {
+  constexpr int PER16 = 16 / (int)sizeof(T);  // elements per 16-byte unit
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const uint32_t sbase = smem_u32(smem);
@@ -556,12 +734,13 @@ fused_chain_banded_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   // the chain input, rows y0..y1 of this image, read once; op 0's parameters
   {
     const int c_in = table[6], in_buf = table[4];
-    const int c8n = c_in >> 3, st = table[FB_HDR + 2 * in_buf + 1];
-    const bf16* src = x + ((size_t)img * h + y0) * w * c_in;
+    const int c8n = c_in / PER16, st = table[FB_HDR + 2 * in_buf + 1];
+    const T* src = x + ((size_t)img * h + y0) * w * c_in;
     const uint32_t dst = sbase + table[FB_HDR + 2 * in_buf];
     for (int e = threadIdx.x; e < px * c8n; e += FB_THREADS) {
       const int p = e / c8n, c8 = e - p * c8n;
-      cp_async16_u32(dst + (uint32_t)(p * st + c8 * 8) * 2u, src + (size_t)p * c_in + c8 * 8);
+      cp_async16_u32(dst + (uint32_t)((p * st + c8 * PER16) * sizeof(T)),
+                     src + (size_t)p * c_in + c8 * PER16);
     }
   }
   stage_params(sbase, table + ops_off, params, slot0, slot1);
@@ -591,7 +770,42 @@ fused_chain_banded_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
       cp_async_commit();
     }
     const uint32_t slot = sbase + (r[13] ? slot1 : slot0);
-    if (r[0] == FB_MM) {
+    if constexpr (sizeof(T) == 4) {
+      if (r[0] == FB_MM) {
+        float* smf = reinterpret_cast<float*>(smem);
+        BandMM32 m;
+        m.src = smf + bufs[2 * r[2]] / 4 + r[17];
+        m.src_stride = bufs[2 * r[2] + 1];
+        m.kc = r[3];
+        m.n = r[8];
+        m.dst = smf + bufs[2 * r[9]] / 4;
+        m.dst_stride = bufs[2 * r[9] + 1];
+        m.add = r[10] >= 0 ? smf + bufs[2 * r[10]] / 4 : nullptr;
+        m.add_stride = r[10] >= 0 ? bufs[2 * r[10] + 1] : 0;
+        m.w = smf + (r[13] ? slot1 : slot0) / 4;
+        m.bias = m.w + r[14] / 4;
+        m.alpha = m.w + r[16] / 4;
+        m.act = r[15];
+        m.px = px;
+        m.first = r[20] & MM_FIRST;
+        m.last = r[20] & MM_LAST;
+        // rows x columns a thread takes
+        const int tile = r[19] * 10 + r[21];
+        if (tile == 48)
+          band_matmul_f32<4, 8>(m);
+        else if (tile == 44)
+          band_matmul_f32<4, 4>(m);
+        else if (tile == 28)
+          band_matmul_f32<2, 8>(m);
+        else if (tile == 24)
+          band_matmul_f32<2, 4>(m);
+        else if (tile == 18)
+          band_matmul_f32<1, 8>(m);
+        else
+          band_matmul_f32<1, 4>(m);
+        continue;
+      }
+    } else if (r[0] == FB_MM) {
       BandMM m;
       m.nseg = r[1];
 #pragma unroll
@@ -615,12 +829,14 @@ fused_chain_banded_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
         band_matmul<4>(m);
       else
         band_matmul<2>(m);
-    } else {
+      continue;
+    }
+    {
       const uint32_t src = sbase + bufs[2 * r[1]];
       const int src_st = bufs[2 * r[1] + 1];
       for (int y = threadIdx.x; y < h; y += FB_THREADS) {
         const int owner = s_row_rank[y];
-        const uint32_t row = src + (uint32_t)((y - s_row_lo[owner]) * w * src_st) * 2u;
+        const uint32_t row = src + (uint32_t)((y - s_row_lo[owner]) * w * src_st * sizeof(T));
         s_row_addr[y] = owner == rank ? row : mapa(row, owner);
       }
       __syncthreads();
@@ -628,9 +844,9 @@ fused_chain_banded_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
       const uint32_t dst = sbase + bufs[2 * r[2]];
       const int dst_st = bufs[2 * r[2] + 1];
       if (r[4] == 9)
-        band_depthwise<9>(ra, h, w, y0, px, src_st, dst, dst_st, r[3], slot, r);
+        band_depthwise<9, T>(ra, h, w, y0, px, src_st, dst, dst_st, r[3], slot, r);
       else if (r[4] == 5)
-        band_depthwise<5>(ra, h, w, y0, px, src_st, dst, dst_st, r[3], slot, r);
+        band_depthwise<5, T>(ra, h, w, y0, px, src_st, dst, dst_st, r[3], slot, r);
       else
         __trap();
     }
@@ -638,27 +854,45 @@ fused_chain_banded_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   __syncthreads();
   {
     const int c_out = tab[7], out_buf = tab[5];
-    const int c8n = c_out >> 3, st = bufs[2 * out_buf + 1];
+    const int c8n = c_out / PER16, st = bufs[2 * out_buf + 1];
     const uint32_t src = sbase + bufs[2 * out_buf];
-    bf16* dst = out + ((size_t)img * h + y0) * w * c_out;
+    T* dst = out + ((size_t)img * h + y0) * w * c_out;
     for (int e = threadIdx.x; e < px * c8n; e += FB_THREADS) {
       const int p = e / c8n, c8 = e - p * c8n;
-      *reinterpret_cast<uint4*>(dst + (size_t)p * c_out + c8 * 8) =
-          lds128(src + (uint32_t)(p * st + c8 * 8) * 2u);
+      *reinterpret_cast<uint4*>(dst + (size_t)p * c_out + c8 * PER16) =
+          lds128(src + (uint32_t)((p * st + c8 * PER16) * sizeof(T)));
     }
   }
   // other CTAs may still read this CTA's rows in the last depthwise op
   cluster.sync();
 }
 
-static cudaError_t banded_config(int cluster, int smem_bytes, cudaLaunchConfig_t* cfg,
-                                 cudaLaunchAttribute* attr) {
-  cudaError_t err = cudaFuncSetAttribute(fused_chain_banded_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fused_chain_banded_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+                          const int* __restrict__ table, const uint4* __restrict__ params) {
+  banded_body<bf16>(x, out, table, params);
+}
+
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fused_chain_banded_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
+                              const int* __restrict__ table, const uint4* __restrict__ params) {
+  banded_body<float>(x, out, table, params);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (as fused_chain_launch)
+static const void* banded_kernel(int dtype) {
+  if (dtype == 0) return (const void*)fused_chain_banded_f32_kernel;
+  if (dtype == 1) return (const void*)fused_chain_banded_kernel;
+  return nullptr;
+}
+
+static cudaError_t banded_config(const void* kernel, int cluster, int smem_bytes,
+                                 cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
   if (err != cudaSuccess) return err;
   if (cluster > 8) {
-    err = cudaFuncSetAttribute(fused_chain_banded_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -672,33 +906,37 @@ static cudaError_t banded_config(int cluster, int smem_bytes, cudaLaunchConfig_t
   return cudaSuccess;
 }
 
-// x, out [n, h, w, c] bf16; n clusters of `cluster` CTAs.  Returns a
-// cudaError_t (0 on success).
+// x, out [n, h, w, c] of dtype (0 = float32, 1 = bfloat16); n clusters of
+// `cluster` CTAs.  Returns a cudaError_t (0 on success).
 extern "C" int fused_chain_banded_launch(const void* x, void* out, const void* table,
                                          const void* params, int n, int cluster,
-                                         int smem_bytes, void* stream) {
-  if (n < 1 || cluster < 1 || cluster > FB_MAX_CLUSTER || (long long)n * cluster > 0x7fffffffLL)
+                                         int smem_bytes, int dtype, void* stream) {
+  const void* kernel = banded_kernel(dtype);
+  if (kernel == nullptr || n < 1 || cluster < 1 || cluster > FB_MAX_CLUSTER ||
+      (long long)n * cluster > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t err = banded_config(cluster, smem_bytes, &cfg, &attr);
+  cudaError_t err = banded_config(kernel, cluster, smem_bytes, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   cfg.gridDim = dim3(n * cluster);
   cfg.stream = static_cast<cudaStream_t>(stream);
-  err = cudaLaunchKernelEx(&cfg, fused_chain_banded_kernel, static_cast<const bf16*>(x),
-                           static_cast<bf16*>(out), static_cast<const int*>(table),
-                           static_cast<const uint4*>(params));
+  void* args[] = {(void*)&x, (void*)&out, (void*)&table, (void*)&params};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // clusters of this size and shared memory that can be resident at once
-extern "C" int fused_chain_banded_occupancy(int cluster, int smem_bytes, int* clusters) {
-  if (cluster < 1 || cluster > FB_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+extern "C" int fused_chain_banded_occupancy(int cluster, int smem_bytes, int dtype,
+                                            int* clusters) {
+  const void* kernel = banded_kernel(dtype);
+  if (kernel == nullptr || cluster < 1 || cluster > FB_MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t err = banded_config(cluster, smem_bytes, &cfg, &attr);
+  cudaError_t err = banded_config(kernel, cluster, smem_bytes, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   cfg.gridDim = dim3(cluster);
-  return (int)cudaOccupancyMaxActiveClusters(clusters, fused_chain_banded_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }

@@ -26,8 +26,9 @@
 //      built by all CTAs of the cluster at once (a thread per (row, word), or
 //      per part of one at small N; a warp reads the boxes of a word from a
 //      few addresses), into CTA 0's shared memory through distributed shared
-//      memory while it fits (N <= ~1,250), else into a global scratch.  Up
-//      to 8 CTAs per image spread the IoUs over 8 SMs.
+//      memory while it fits (N <= ~1,250), else into a global scratch of
+//      N x N/8 bytes per image.  Up to 8 CTAs per image spread the IoUs over
+//      8 SMs.
 //   C. The greedy walk, in CTA 0, by one warp, 32 boxes at a time: the
 //      diagonal words of the 32 boxes (their bits for the later boxes of the
 //      same word) resolve the word in registers (a box whose bit is clear in
@@ -35,7 +36,12 @@
 //      every earlier OR; then the kept rows are ORed into `removed`
 //      lane-parallel over the later words, by independent loads.  No block
 //      barrier per box.  From a global scratch the block first copies the
-//      word's 32 rows into shared memory.
+//      word's 32 rows into shared memory, in column windows of `win` words
+//      (the launch plan's; the diagonal word comes first), and ORs the kept
+//      rows in window by window.  Only removed[] and prefix[] (~N/4 bytes)
+//      stay in shared memory at every N, so the kernel takes any N up to
+//      ~900,000 boxes; the global mask (N^2/8 bytes) runs out of device
+//      memory first.
 //   D. The compaction: a prefix count of the alive words, the first K
 //      survivors in score order, -1 / False padding.  The score threshold
 //      seeds `removed`.
@@ -94,14 +100,14 @@ __host__ __device__ inline int next_pow2(int n) {
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
 // Shared memory: boxes[n] (optional) | keys[p] | idx[p] (when sorting) |
-// mask[n][nwords] (while it fits) or stage[32][nwords] | removed[nwords] |
+// mask[n][nwords] (while it fits) or stage[32][win] | removed[nwords] |
 // prefix[nwords + 1]
 struct Layout {
   size_t box, key, idx, mask, removed, prefix, total;
 };
 
 __host__ __device__ inline Layout smem_layout(int n, bool sort, bool boxes_in_smem,
-                                              bool mask_in_smem) {
+                                              bool mask_in_smem, int win) {
   const size_t nwords = (size_t)((n + 31) >> 5);
   const size_t p = sort ? (size_t)next_pow2(n) : 0;
   Layout l;
@@ -113,7 +119,7 @@ __host__ __device__ inline Layout smem_layout(int n, bool sort, bool boxes_in_sm
   l.idx = off;
   off = align16(off + 4 * p);
   l.mask = off;
-  off = align16(off + 4 * nwords * (mask_in_smem ? (size_t)n : 32));
+  off = align16(off + (mask_in_smem ? 4 * nwords * (size_t)n : (size_t)128 * win));
   l.removed = off;
   off = align16(off + 4 * nwords);
   l.prefix = off;
@@ -122,16 +128,53 @@ __host__ __device__ inline Layout smem_layout(int n, bool sort, bool boxes_in_sm
   return l;
 }
 
+// Warp 0's share of the walk for word c (boxes 32c .. 32c + nrow - 1).  Word
+// w of the word's row r is rows[r * rstride + w - base].  With `resolve`, the
+// word is resolved first: box 32c + r is kept when its bit of `dead` is still
+// clear, and then its diagonal word joins `dead`; every lane does the same
+// from broadcast loads, eight at a time, and lane 0 stores the result in
+// removed[c].  Then the kept rows are ORed into removed[w] for w in
+// [w_lo, w_hi), lane-parallel, by independent loads.  Kept bits come from
+// removed[c] when the word was resolved in an earlier window.
+__device__ __forceinline__ void walk_window(const unsigned* rows, int rstride, int base, int c,
+                                            int nrow, int w_lo, int w_hi, bool resolve,
+                                            unsigned* removed, int lane) {
+  unsigned dead = removed[c];
+  if (resolve) {
+    const unsigned* diag = rows + c - base;
+#pragma unroll
+    for (int r0 = 0; r0 < 32; r0 += 8) {
+      unsigned d[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) d[q] = r0 + q < nrow ? diag[(r0 + q) * rstride] : 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (!((dead >> (r0 + q)) & 1u)) dead |= d[q];
+    }
+  }
+  const unsigned kept = ~dead;
+  for (int w = w_lo + lane; w < w_hi; w += 32) {
+    const unsigned* col = rows + w - base;
+    unsigned acc = removed[w];
+#pragma unroll 8
+    for (int r = 0; r < 32; ++r)
+      if ((kept >> r) & 1u) acc |= col[r * rstride];
+    removed[w] = acc;
+  }
+  if (resolve && lane == 0) removed[c] = dead;
+  __syncwarp();
+}
+
 // One cluster per image.  order == nullptr: boxes [b, n, 4] and scores
 // [b, n] in input order, sorted here (n <= NMS_SORT_LIMIT).  Otherwise they
 // are sorted already and order [b, n] int64 is the permutation.
 // mask_scratch == nullptr: the mask lives in CTA 0's shared memory, else in
-// [b, n, nwords] of global memory.
+// [b, n, nwords] of global memory, staged in windows of win words.
 __global__ void __launch_bounds__(NMS_MAX_THREADS)
 nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
            const long long* __restrict__ order, long long* __restrict__ indices,
            uint8_t* __restrict__ valid, unsigned* mask_scratch, int n, int k, float iou_thr,
-           float score_thr, int boxes_in_smem, int log_split) {
+           float score_thr, int boxes_in_smem, int log_split, int win) {
   extern __shared__ uint4 smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
@@ -139,7 +182,7 @@ nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
   const bool sort = order == nullptr;
   const bool staged = mask_scratch != nullptr;
   const int nwords = (n + 31) >> 5;
-  const Layout lay = smem_layout(n, sort, boxes_in_smem, !staged);
+  const Layout lay = smem_layout(n, sort, boxes_in_smem, !staged, win);
   const int img = blockIdx.x / csize, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const float4* gbox = boxes + (size_t)img * n;
@@ -236,47 +279,30 @@ nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
   }
   __syncthreads();
 
-  // C. the greedy walk, 32 boxes (word c) at a time
-  for (int c = 0; c < nwords; ++c) {
-    const unsigned* rows = local_mask + (size_t)(c << 5) * nwords;  // row r at rows + r * nwords
-    if (staged) {
-      const int span = nwords - c;
-      for (int e = tid; e < 32 * span; e += nt) {
-        const int r = e / span, w = c + e - (e / span) * span;
-        const int i = (c << 5) + r;
-        local_mask[r * nwords + w] = i < n ? __ldcg(mask + (size_t)i * nwords + w) : 0u;
+  // C. the greedy walk, 32 boxes (word c) at a time, by warp 0: from the
+  // shared mask in one pass per word; from a global one, the word's rows
+  // copied into the stage in column windows [w0, w0 + win), the first
+  // holding the diagonal word c
+  if (!staged) {
+    for (int c = 0; c < nwords && warp == 0; ++c)
+      walk_window(local_mask + (size_t)(c << 5) * nwords, nwords, 0, c, min(32, n - (c << 5)),
+                  c + 1, nwords, true, removed, lane);
+  } else {
+    for (int c = 0; c < nwords; ++c) {
+      for (int w0 = c; w0 < nwords; w0 += win) {
+        const int span = min(win, nwords - w0);
+        for (int e = tid; e < 32 * span; e += nt) {
+          const int r = e / span, w = w0 + e - (e / span) * span;
+          const int i = (c << 5) + r;
+          local_mask[r * win + w - w0] = i < n ? __ldcg(mask + (size_t)i * nwords + w) : 0u;
+        }
+        __syncthreads();
+        if (warp == 0)
+          walk_window(local_mask, win, w0, c, min(32, n - (c << 5)), max(w0, c + 1), w0 + span,
+                      w0 == c, removed, lane);
+        __syncthreads();  // the stage is free for the next window
       }
-      __syncthreads();
-      rows = local_mask;
     }
-    if (warp == 0) {
-      // resolve word c: box 32c + r is kept when its bit of `dead` is still
-      // clear, and then its diagonal word joins `dead`; every lane does the
-      // same from broadcast loads, eight at a time
-      const int nrow = min(32, n - (c << 5));
-      unsigned dead = removed[c];
-#pragma unroll
-      for (int r0 = 0; r0 < 32; r0 += 8) {
-        unsigned d[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) d[q] = r0 + q < nrow ? rows[(r0 + q) * nwords + c] : 0u;
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (!((dead >> (r0 + q)) & 1u)) dead |= d[q];
-      }
-      // the kept rows into the later words, lane-parallel, independent loads
-      const unsigned kept = ~dead;
-      for (int w = c + 1 + lane; w < nwords; w += 32) {
-        unsigned acc = removed[w];
-#pragma unroll 8
-        for (int r = 0; r < 32; ++r)
-          if ((kept >> r) & 1u) acc |= rows[r * nwords + w];
-        removed[w] = acc;
-      }
-      if (lane == 0) removed[c] = dead;
-      __syncwarp();
-    }
-    if (staged) __syncthreads();  // the stage is free for the next word
   }
   __syncthreads();
 
@@ -321,12 +347,14 @@ nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
 struct Plan {
   bool boxes_in_smem, mask_in_smem;
   size_t smem;
-  int cluster, threads, log_split;
+  int cluster, threads, log_split, win;
 };
 
-// Where the launch keeps boxes and mask, its cluster and its block size:
-// 0 on success, else a cudaError_t.
-static int make_plan(int n, bool sort, Plan* plan) {
+// Where the launch keeps boxes and mask, the walk's window, its cluster and
+// its block size: 0 on success, else a cudaError_t.  window > 0 forces the
+// global mask and windows of at most that many words (the tests' small
+// windows); 0 lets the plan choose.
+static int make_plan(int n, bool sort, int window, Plan* plan) {
   if (n < 1 || (sort && n > NMS_SORT_LIMIT)) return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -334,15 +362,26 @@ static int make_plan(int n, bool sort, Plan* plan) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   // preference: boxes and mask in shared memory, then the mask only, then
-  // the boxes only, then neither; sorting needs the boxes there (they fit)
+  // the boxes only, then neither; sorting needs the boxes there (they fit).
+  // A global mask is staged in the widest window that fits (all nwords
+  // words when they do), at least 32 words, or the forced one.
+  const int nwords = (n + 31) >> 5;
   const bool choices[4][2] = {{true, true}, {false, true}, {true, false}, {false, false}};
   for (int c = 0; c < 4; ++c) {
-    if (sort && !choices[c][0]) continue;
-    const size_t bytes = smem_layout(n, sort, choices[c][0], choices[c][1]).total;
+    if ((sort && !choices[c][0]) || (window > 0 && choices[c][1])) continue;
+    int win = 0;
+    if (!choices[c][1]) {
+      const size_t rest = smem_layout(n, sort, choices[c][0], false, 0).total;
+      const long long room = rest < (size_t)optin ? ((long long)optin - (long long)rest) / 128 : 0;
+      win = (int)(room < nwords ? room : nwords);
+      if (window > 0 && window < win) win = window;
+      if (win < (window > 0 ? 1 : (nwords < 32 ? nwords : 32))) continue;
+    }
+    const size_t bytes = smem_layout(n, sort, choices[c][0], choices[c][1], win).total;
     if (bytes <= (size_t)optin) {
-      const int nwords = (n + 31) >> 5;
       plan->boxes_in_smem = choices[c][0];
       plan->mask_in_smem = choices[c][1];
+      plan->win = win;
       plan->smem = bytes;
       // CTAs per image: 1 up to N = 64, 8 from N = 512
       plan->cluster = nwords <= 2 ? 1 : (nwords <= 4 ? 2 : (nwords <= 8 ? 4 : NMS_MAX_CLUSTER));
@@ -365,10 +404,10 @@ static int make_plan(int n, bool sort, Plan* plan) {
 
 // Words of global mask scratch per image that nms_launch needs for n
 // boxes (0: the mask fits in shared memory); the negated cudaError_t when
-// no launch can take n.
-extern "C" long long nms_scratch_words(int n, int sort) {
+// no launch can take n.  window as in make_plan.
+extern "C" long long nms_scratch_words(int n, int sort, int window) {
   Plan plan;
-  const int err = make_plan(n, sort != 0, &plan);
+  const int err = make_plan(n, sort != 0, window, &plan);
   if (err != 0) return -(long long)err;
   return plan.mask_in_smem ? 0 : (long long)n * ((n + 31) >> 5);
 }
@@ -376,14 +415,15 @@ extern "C" long long nms_scratch_words(int n, int sort) {
 // boxes [b, n, 4] f32 and scores [b, n] f32: in input order when order is
 // null (n <= NMS_SORT_LIMIT), else sorted by descending score with order
 // [b, n] int64 their permutation.  mask_scratch: null, or [b, n * nwords]
-// uint32 when nms_scratch_words says so.  Writes indices [b, k] int64 and
-// valid [b, k] bool.  b, n, k >= 1.  Returns a cudaError_t (0 on success).
+// uint32 when nms_scratch_words says so (with the same window).  Writes
+// indices [b, k] int64 and valid [b, k] bool.  b, n, k >= 1.  Returns a
+// cudaError_t (0 on success).
 extern "C" int nms_launch(const void* boxes, const void* scores, const void* order,
                           void* indices, void* valid, void* mask_scratch, int b, int n, int k,
-                          float iou_thr, float score_thr, void* stream) {
+                          float iou_thr, float score_thr, int window, void* stream) {
   if (b < 1 || n < 1 || k < 1) return (int)cudaErrorInvalidValue;
   Plan plan;
-  const int perr = make_plan(n, order == nullptr, &plan);
+  const int perr = make_plan(n, order == nullptr, window, &plan);
   if (perr != 0) return perr;
   if (plan.mask_in_smem != (mask_scratch == nullptr) ||
       (long long)b * plan.cluster > 0x7fffffffLL)
@@ -407,7 +447,7 @@ extern "C" int nms_launch(const void* boxes, const void* scores, const void* ord
                            static_cast<const float*>(scores), static_cast<const long long*>(order),
                            static_cast<long long*>(indices), static_cast<uint8_t*>(valid),
                            static_cast<unsigned*>(mask_scratch), n, k, iou_thr, score_thr,
-                           (int)plan.boxes_in_smem, plan.log_split);
+                           (int)plan.boxes_in_smem, plan.log_split, plan.win);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

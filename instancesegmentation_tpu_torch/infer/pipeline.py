@@ -12,10 +12,12 @@ chain kernel) and the algebraically folded section-6 head:
 
 Batches are padded to power-of-2 buckets (repeating row 0) and chunked
 above ``MAX_BUCKET``.  The resizes the JAX package does with ``cv2.resize``
-are done here with ``torch.nn.functional.interpolate`` (see ``resize``).
+are done here by ``resize``: cv2's own fixed-point arithmetic on uint8
+images, ``torch.nn.functional.interpolate`` on float maps.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -49,17 +51,61 @@ _INSTANCE_KEYS = ("image", "mask", "image_hw", "obj_box", "mask_box",
                   "mask_valid", "keypoints")
 
 
+@functools.lru_cache(maxsize=256)
+def _linear_taps(n_in: int, n_out: int):
+    """cv2's INTER_LINEAR taps along one axis, as ``cv::resize`` builds them
+    for uint8: source ``(lo, hi)`` indices clamped into the image and 11-bit
+    weights ``(w_lo, w_hi)`` (``INTER_RESIZE_COEF_BITS``) rounded from the
+    float32 fraction.  At the edges the fraction is kept and only the
+    indices are clamped (both taps read the edge pixel), which is what the
+    sweep in ``tests/test_torch_port_ops.py`` finds cv2 doing."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = f - s
+    one = np.float32(2048)
+    s = s.astype(np.int64)
+    return (torch.from_numpy(np.clip(s, 0, n_in - 1)),
+            torch.from_numpy(np.clip(s + 1, 0, n_in - 1)),
+            torch.from_numpy(np.rint((np.float32(1) - f) * one).astype(np.int32)),
+            torch.from_numpy(np.rint(f * one).astype(np.int32)))
+
+
+def _resize_u8_linear(t: torch.Tensor, out_hw) -> torch.Tensor:
+    """``cv2.resize(t, INTER_LINEAR)`` of uint8 ``t [H, W, C]``, bit for bit,
+    in int32 torch ops on ``t``'s device.
+
+    A horizontal pass of 11-bit weights gives exact sums ``S``; the vertical
+    pass rounds as cv2's SIMD loop does, ``((S0>>4)*b0>>16) +
+    ((S1>>4)*b1>>16)``, then ``(v + 2) >> 2``.  An exact 2x downscale in
+    both axes is cv2's INTER_AREA instead: the rounded mean of 2x2 pixels.
+    """
+    (h, w), (oh, ow) = t.shape[:2], tuple(out_hw)
+    x = t.to(torch.int32)
+    if h == 2 * oh and w == 2 * ow:
+        return (x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2] + 2) >> 2
+    xl, xh, a0, a1 = (v.to(t.device) for v in _linear_taps(w, ow))
+    yl, yh, b0, b1 = (v.to(t.device) for v in _linear_taps(h, oh))
+    rows = (x[:, xl] * a0[:, None] + x[:, xh] * a1[:, None]) >> 4
+    v = ((rows[yl] * b0[:, None, None]) >> 16) + ((rows[yh] * b1[:, None, None]) >> 16)
+    return ((v + 2) >> 2).clamp(0, 255)
+
+
 def resize(t: torch.Tensor, out_hw, mode: str = "bilinear") -> torch.Tensor:
     """Resize ``t [H, W]`` or ``[H, W, C]`` to ``out_hw``; float32 result.
 
-    Stands in for ``cv2.resize``: ``"bilinear"`` is INTER_LINEAR
-    (half-pixel centres, edge clamp, no antialias; float inputs agree with
-    cv2 to float rounding, uint8 inputs differ by at most 1 where cv2's
-    fixed-point arithmetic rounds otherwise), ``"nearest"`` is
-    INTER_NEAREST (source index ``floor(dst * in/out)``, which is torch's
-    ``"nearest"``; its ``"nearest-exact"`` rounds half a pixel differently
-    from cv2).
+    Stands in for ``cv2.resize``: ``"bilinear"`` is INTER_LINEAR (half-pixel
+    centres, edge clamp, no antialias): a uint8 input goes through cv2's
+    fixed-point arithmetic (``_resize_u8_linear``, equal to cv2 bit for
+    bit), a float input through ``F.interpolate`` (equal to cv2 to float
+    rounding); ``"nearest"`` is INTER_NEAREST (source index ``floor(dst *
+    in/out)``, which is torch's ``"nearest"``; its ``"nearest-exact"``
+    rounds half a pixel differently from cv2).
     """
+    if mode == "bilinear" and t.dtype == torch.uint8:
+        x = t.reshape(t.shape[0], t.shape[1], -1)
+        y = _resize_u8_linear(x, out_hw).float()
+        return y.reshape(tuple(out_hw) + tuple(t.shape[2:]))
     x = t.reshape(t.shape[0], t.shape[1], -1).permute(2, 0, 1)[None].float()
     if mode == "bilinear":
         y = F.interpolate(x, size=tuple(out_hw), mode="bilinear",

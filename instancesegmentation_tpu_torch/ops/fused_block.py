@@ -3,9 +3,12 @@
 Port of ``instancesegmentation_tpu/ops/fused_block.py:bottleneck3x3_fused``
 (a Pallas TPU kernel): 1x1 reduce, PReLU, depthwise 3x3, PReLU, 1x1 expand,
 residual add, PReLU, with BN pre-folded into the weights.  It runs as a
-one-block ``ChainSpec`` on the chain kernel (``csrc/fused_chain.cu``), with
-the same signature and a float32 output.  Standalone: the serving path runs
-whole chains instead.
+one-block ``ChainSpec`` on the chain kernel (``csrc/fused_chain.cu``), in
+the form ``chain_form`` picks for float32 (the banded float32 cluster
+kernel at the serving shapes), with the same signature and a float32
+output.  The spec, and with it the packed weights on the card, is built
+once per set of weight tensors.  Standalone: the serving path runs whole
+chains instead.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from instancesegmentation_tpu_torch.ops.fused_chain import (
     SaveResidual,
     _check,
     _launch,
+    _launch_banded,
+    chain_form,
     fused_chain_reference,
 )
 
@@ -62,22 +67,48 @@ def _spec(x, w1, b1, a1, dw, b_dw, a2, w2, b2, a_out) -> ChainSpec:
     return ChainSpec(h=h, w=w, c_in=c, c_out=c, ops=ops)
 
 
+#: specs by (shape, weight tensors' identities and versions); each entry
+#: holds its tensors, so an identity stays theirs while it is cached
+_SPECS: dict = {}
+_MAX_SPECS = 8
+
+
+def _cached_spec(x, weights) -> ChainSpec:
+    key = (tuple(x.shape[1:]),) + tuple(
+        (id(t), getattr(t, "_version", None)) for t in weights)
+    hit = _SPECS.get(key)
+    if hit is None:
+        if len(_SPECS) >= _MAX_SPECS:
+            _SPECS.pop(next(iter(_SPECS)))
+        hit = _SPECS[key] = (weights, _spec(x, *weights))
+    return hit[1]
+
+
 def bottleneck3x3_fused(x, w1, b1, a1, dw, b_dw, a2, w2, b2, a_out):
     """Fused version of ``bottleneck3x3_reference``: float32 out.
 
     A CPU tensor runs the chain's plain version; a CUDA tensor launches the
-    chain kernel (counted in ``bottleneck3x3_fused.launches``) or raises.
+    chain kernel in the form ``chain_form`` picks (counted in
+    ``bottleneck3x3_fused.launches`` and ``.launches_by_form``) or raises.
     """
     x = x.float().contiguous()
-    spec = _spec(x, w1, b1, a1, dw, b_dw, a2, w2, b2, a_out)
+    spec = _cached_spec(x, (w1, b1, a1, dw, b_dw, a2, w2, b2, a_out))
     _check(x, spec)
     if x.device.type == "cpu":
         return fused_chain_reference(x, spec)
     if x.device.type != "cuda":
         raise RuntimeError(f"bottleneck3x3_fused has no kernel for device {x.device}")
-    out = _launch(x, spec)
+    form = chain_form(spec, torch.float32)
+    out = _launch(x, spec) if form == "simt" else _launch_banded(x, spec)
     bottleneck3x3_fused.launches += 1
+    bottleneck3x3_fused.launches_by_form[form] += 1
     return out
 
 
-bottleneck3x3_fused.launches = 0
+def reset_launches() -> None:
+    """Set ``bottleneck3x3_fused``'s launch counts to 0."""
+    bottleneck3x3_fused.launches = 0
+    bottleneck3x3_fused.launches_by_form = {"banded_f32": 0, "simt": 0}
+
+
+reset_launches()

@@ -19,7 +19,7 @@ The spec (``ChainSpec`` and its op descriptors) and the extractors come
 over from the JAX module; the extractors read the port's state dict
 (torch layouts) instead of flax params.
 
-The CUDA source has two forms of the kernel:
+The CUDA source has three forms of the kernel:
 
   * **banded** (bfloat16 I/O): one thread-block cluster per image, each CTA
     owning a band of whole image rows; every activation of the chain lives
@@ -28,10 +28,14 @@ The CUDA source has two forms of the kernel:
     read the neighbours' rows through distributed shared memory.
     ``plan_banded`` lays it out once per spec: cluster size, bands, buffers,
     weight slots, barrier phases, and the weights packed in fragment order.
-  * **simt** (float32 I/O, and any bf16 spec no cluster of <= 16 CTAs can
-    hold): one CTA per image walking an instruction table from
-    ``compile_chain`` over a float32 global scratch, products as float32
-    FMAs.  ``bottleneck3x3_fused`` runs on it too.
+  * **banded_f32** (float32 I/O): the same cluster schedule from the same
+    planner over float32 rows, the 1x1 convs as register-tiled float32 FMAs
+    on the CUDA cores (both operands from shared memory), their weights
+    streamed in K-chunks through the two parameter slots.  The exact
+    float32 program the TPU kernel runs; ``bottleneck3x3_fused`` runs on it.
+  * **simt** (any spec no cluster of <= 16 CTAs can hold): one CTA per image
+    walking an instruction table from ``compile_chain`` over a float32
+    global scratch, products as float32 FMAs.
 
 ``fused_chain(x, spec)`` runs the plain PyTorch version
 (``fused_chain_reference``) on a CPU tensor and launches one form on a CUDA
@@ -39,7 +43,7 @@ tensor (``chain_form`` decides by dtype and shape), raising on a build or
 launch failure.  ``fused_chain.launches`` counts every launch and
 ``fused_chain.launches_by_form`` each form's.  ``fused_chain_reference(...,
 act_dtype=torch.bfloat16)`` is the banded form's plain version: it rounds
-where that kernel rounds.
+where that kernel rounds; the float32 default is the other two forms'.
 """
 from __future__ import annotations
 
@@ -558,7 +562,7 @@ def compile_chain(spec: ChainSpec) -> ChainProgram:
 
 
 # ---------------------------------------------------------------------------
-# the banded bf16 form: its plan and packed weights
+# the banded forms (bf16 and float32): their plan and packed weights
 # ---------------------------------------------------------------------------
 
 #: dynamic shared memory one block may use on an H100 (227 KB)
@@ -566,20 +570,31 @@ SMEM_LIMIT = 232_448
 #: cluster sizes tried in order; above 8 needs the non-portable attribute
 CLUSTER_SIZES = (2, 4, 8, 16)
 PORTABLE_CLUSTER = 8
-#: n8 output tiles a warp takes at once (the kernel's template instances)
+#: n8 output tiles a warp takes at once (the bf16 kernel's template instances)
 MMA_N_TILES = (2, 4)
+#: (rows, columns) a thread takes in a float32 product, in warp tiles of
+#: 16 x rows by 2 x columns (the f32 kernel's template instances)
+F32_TILES = ((4, 8), (4, 4), (2, 8), (2, 4), (1, 8), (1, 4))
+#: the largest float32 K-chunk of a product's weights staged at once
+CHUNK_BYTES = 32_768
 MAX_SEGS = 3  # K-segments of one product
 DW_TAPS = (5, 9)  # the depthwise tap counts the kernel unrolls
 # keep in step with csrc/fused_chain.cu
 BANDED_THREADS = 384
 B_MM, B_DW = 0, 1
-BROW = 20
+MM_FIRST, MM_LAST = 1, 2  # an f32 K-chunk: starts from zero; ends the product
+BROW = 22
 # every op: [11] params offset, [12] params length (16-byte units, into
 # ``params``), [13] its slot (op index % 2); byte offsets below are into
 # the slot.
 # MM row: op, nseg, buf0, ch0, buf1, ch1, buf2, ch2, n, dst, add, p_off, p_len,
-#         slot, bias_off, act, alpha_off, -, phase, unit_tiles
-#         (slot: fragments at 0; unit_tiles: n8 tiles a warp takes at once)
+#         slot, bias_off, act, alpha_off, k_off, phase, unit, flags, cols
+#         (slot: the weights at 0, bf16 fragments or an f32 [ch0, n]
+#         K-chunk; unit: n8 tiles a warp takes (bf16) or rows a thread takes
+#         (f32); k_off: the chunk's first column of buf0 (f32, one segment);
+#         flags: MM_FIRST | MM_LAST, both on an unchunked product, which
+#         alone applies bias, residual and activation; cols: columns a
+#         thread takes (f32))
 # DW row: op, src, dst, c, ntaps, taps_off, w_off, bias_off, act, alpha_off,
 #         phase, p_off, p_len, slot, 0...
 HDR = 16
@@ -616,12 +631,50 @@ def unpack_fragments(bits: np.ndarray, k: int, n: int) -> np.ndarray:
     return (w.astype(np.uint32) << 16).view(np.float32)
 
 
-def _stride(c: int) -> int:
-    """Row stride (elements) of a bf16 buffer of ``c`` channels: an odd
-    number of 16-byte units, so the 8 rows an ``ldmatrix`` reads fall in 8
+def _stride(c: int, elt: int = 2) -> int:
+    """Row stride (elements) of a buffer of ``c`` channels of ``elt`` bytes:
+    an odd number of 16-byte units, so 8 rows read at one column (an
+    ``ldmatrix``, or the float4 loads of the f32 products) fall in 8
     different bank groups."""
-    units = -(-c // 8)
-    return 8 * (units + 1 - units % 2)
+    per = 16 // elt
+    units = -(-c // per)
+    return per * (units + 1 - units % 2)
+
+
+def _f32_chunks(segs, n: int, chunk_bytes: int) -> list:
+    """The K-chunks of a float32 product over ``segs`` [(buffer, channels)]
+    with ``n`` outputs: ``(buffer, first column, depth)``, one segment each,
+    each at most ``chunk_bytes`` of weights (a multiple of 4 rows)."""
+    depth = max(4, chunk_bytes // (4 * n) // 4 * 4)
+    return [(b, k0, min(depth, c - k0)) for b, c in segs for k0 in range(0, c, depth)]
+
+
+#: cycles a warp waits for a k-step's shared-memory loads before its FMAs
+#: can issue (the latency the tile choice must hide)
+F32_LOAD_LATENCY = 200
+
+
+def _f32_tile(px: int, n: int) -> Tuple[int, int]:
+    """(rows, columns) a thread takes in a float32 product of ``n`` columns
+    over a band of ``px`` rows.  The kernel runs warp tiles of 16 x rows by
+    2 x columns, the block's warps taking them in rounds, a scheduler per 4
+    warps.  A k-step of a round takes the longer of the FMAs its busiest
+    scheduler issues (4 x rows x columns a warp) and one warp's load latency
+    followed by its FMAs.  The cheapest sum over the rounds wins: large
+    tiles where the band is wide, more warps where it is narrow (fitted to
+    the kernel's times on an H100 at the serving shapes)."""
+    warps = BANDED_THREADS // 32
+
+    def cost(tile):
+        tm, tn = tile
+        fmas = 4 * tm * tn
+        tiles, total = -(-px // (16 * tm)) * (n // (2 * tn)), 0
+        while tiles > 0:
+            active = min(tiles, warps)
+            total += max(-(-active // 4) * fmas, F32_LOAD_LATENCY + fmas)
+            tiles -= active
+        return total
+    return min(F32_TILES, key=cost)
 
 
 class _Lowered(NamedTuple):
@@ -633,9 +686,11 @@ class _Lowered(NamedTuple):
     n_phases: int
 
 
-def _lower_banded(spec: ChainSpec) -> Optional[_Lowered]:
-    """Lower ``spec`` to the banded kernel's ops over shared-memory buffers,
-    or None where its channel counts do not suit the kernel's tiles.
+def _lower_banded(spec: ChainSpec, elt: int = 2,
+                  chunk_bytes: int = CHUNK_BYTES) -> Optional[_Lowered]:
+    """Lower ``spec`` to the banded kernel's ops over shared-memory buffers
+    of ``elt``-byte elements (2: bf16, 4: float32), or None where its
+    channel counts do not suit the kernel's tiles.
 
     Buffer 0 holds the chain input.  A buffer is chosen for an op's output
     among those holding no live value (``cur``, ``saved``, the chain input
@@ -653,6 +708,10 @@ def _lower_banded(spec: ChainSpec) -> Optional[_Lowered]:
     stages into a shared-memory slot while the op before it runs: a 1x1
     conv's bf16 fragments, float32 bias and PReLU slopes; a depthwise op's
     float32 taps ``[ntaps, C]``, bias, slopes and int32 ``(dy, dx)`` pairs.
+    In float32 a 1x1 conv is one row per K-chunk (``_f32_chunks``), each
+    with its float32 weights ``[depth, n]``, the last also with bias and
+    slopes; the partial sums of a chunked product live in its output
+    buffer, so it is never written in place over the residual.
     """
     blocks: List[np.ndarray] = []
     n_params = 0  # 16-byte units
@@ -714,6 +773,22 @@ def _lower_banded(spec: ChainSpec) -> Optional[_Lowered]:
 
     def mm_row(segs, w, b, alpha, relu, dst, add) -> bool:
         n = w.shape[1]
+        if elt == 4:
+            if any(c % 4 for _, c in segs) or n % 16:
+                return False
+            chunks = _f32_chunks(segs, n, chunk_bytes)
+            k = 0
+            for i, (sb, k0, kc) in enumerate(chunks):
+                last = i == len(chunks) - 1
+                flags = (MM_FIRST if i == 0 else 0) | (MM_LAST if last else 0)
+                p_off, p_len, (_, b_at, a_at) = add_params(
+                    f32(w[k:k + kc]), f32(b) if last else None,
+                    f32(alpha) if last else None)
+                add_row([B_MM, 1, sb, kc, -1, 0, -1, 0, n, dst, add if last else -1, 0, 0, 0,
+                         b_at, act_kind(alpha, relu) if last else ACT_NONE, a_at, k0, phase,
+                         0, flags, 0], p_off, p_len)
+                k += kc
+            return True
         if len(segs) > MAX_SEGS or any(c % 16 for _, c in segs) or n % 16:
             return False
         p_off, p_len, (_, b_at, a_at) = add_params(pack_fragments(w), f32(b), f32(alpha))
@@ -721,7 +796,8 @@ def _lower_banded(spec: ChainSpec) -> Optional[_Lowered]:
         tiles = n // 8
         unit = 4 if tiles % 4 == 0 and tiles > 6 else 2
         add_row([B_MM, len(segs), *seg_fields, n, dst, add, 0, 0, 0, b_at,
-                 act_kind(alpha, relu), a_at, 0, phase, unit], p_off, p_len)
+                 act_kind(alpha, relu), a_at, 0, phase, unit, MM_FIRST | MM_LAST, 0],
+                p_off, p_len)
         return True
 
     i = 0
@@ -747,10 +823,12 @@ def _lower_banded(spec: ChainSpec) -> Optional[_Lowered]:
                     b = np.asarray(op.b, np.float32) + np.asarray(nxt.proj.b, np.float32)
                     add = -1
                 # in place over the saved tensor where it is the residual
-                # operand alone, not a K-segment, and no later op reads it
-                # (the chain input until its last concat)
+                # operand alone, not a K-segment, no later op reads it (the
+                # chain input until its last concat) and the product is not
+                # accumulated over several chunks
+                chunked = elt == 4 and len(_f32_chunks(segs, n, chunk_bytes)) > 1
                 in_place = (add == head and not (xin_live and head == 0)
-                            and head not in seg_bufs)
+                            and head not in seg_bufs and not chunked)
                 dst = head if in_place else pick(n, {sb for sb, _ in segs})
                 if not mm_row(segs, w, b, nxt.alpha, nxt.relu, dst, add):
                     return None
@@ -762,7 +840,7 @@ def _lower_banded(spec: ChainSpec) -> Optional[_Lowered]:
                     return None
             cur = [(dst, n)]
         elif isinstance(op, DepthwiseOp):
-            if (len(cur) != 1 or cur[0][1] % 8 or BANDED_THREADS % (cur[0][1] // 4)
+            if (len(cur) != 1 or cur[0][1] % (16 // elt) or BANDED_THREADS % (cur[0][1] // 4)
                     or len(op.taps) not in DW_TAPS):
                 return None
             phase, phase_src = phase + 1, -1
@@ -788,7 +866,7 @@ def _lower_banded(spec: ChainSpec) -> Optional[_Lowered]:
     if sum(c for _, c in cur) != spec.c_out:
         raise ValueError(f"chain ends with {sum(c for _, c in cur)} channels, "
                          f"spec says {spec.c_out}")
-    if len(cur) != 1 or not rows or len(widths) > MAX_BUFS or spec.c_in % 8:
+    if len(cur) != 1 or not rows or len(widths) > MAX_BUFS or spec.c_in % (16 // elt):
         return None
     return _Lowered(rows, np.concatenate(blocks), widths, slot_bytes, cur[0][0], phase)
 
@@ -799,11 +877,13 @@ class BandPlan:
     CTAs per image, rank ``r`` owning image rows ``row_lo[r]:row_lo[r+1]``
     (``row_rank[y]`` is the owner of row ``y``); per CTA, in
     ``smem_bytes`` of dynamic shared memory: a copy of ``table``, a row
-    address table, bf16 buffers of ``band_px`` rows at ``buf_offsets`` with
-    ``strides``, and two parameter slots.  ``table`` (int32: header,
-    buffers, rows, op rows) and ``params`` (bytes: each op's parameter
-    block) are what the kernel reads."""
+    address table, buffers of ``band_px`` rows of ``elt``-byte elements
+    (2: bf16, 4: float32) at ``buf_offsets`` with ``strides``, and two
+    parameter slots.  ``table`` (int32: header, buffers, rows, op rows) and
+    ``params`` (bytes: each op's parameter block) are what the kernel
+    reads."""
 
+    elt: int
     h: int
     w: int
     c_in: int
@@ -841,19 +921,22 @@ def _align(n: int, a: int = 128) -> int:
     return -(-n // a) * a
 
 
-def plan_banded(spec: ChainSpec, clusters: Tuple[int, ...] = CLUSTER_SIZES
-                ) -> Optional[BandPlan]:
-    """The banded kernel's plan for ``spec``: the smallest cluster of 2, 4
-    or 8 CTAs (else 16, non-portable) whose per-CTA table, buffers and
-    parameter slots fit in ``SMEM_LIMIT`` bytes; None where none does or
-    the spec's channel counts do not suit the kernel (the SIMT form runs
-    it).  ``clusters`` narrows the sizes tried (the tests force many
-    bands)."""
-    low = _lower_banded(spec)
+def plan_banded(spec: ChainSpec, clusters: Tuple[int, ...] = CLUSTER_SIZES,
+                dtype: torch.dtype = torch.bfloat16,
+                chunk_bytes: int = CHUNK_BYTES) -> Optional[BandPlan]:
+    """The banded kernel's plan for ``spec`` on ``dtype`` I/O (bfloat16 or
+    float32): the smallest cluster of 2, 4 or 8 CTAs (else 16,
+    non-portable) whose per-CTA table, buffers and parameter slots fit in
+    ``SMEM_LIMIT`` bytes; None where none does or the spec's channel counts
+    do not suit the kernel (the SIMT form runs it).  ``clusters`` narrows
+    the sizes tried and ``chunk_bytes`` caps the float32 weight chunks (the
+    tests force many bands and many chunks)."""
+    elt = 2 if dtype == torch.bfloat16 else 4
+    low = _lower_banded(spec, elt, chunk_bytes)
     if low is None:
         return None
     h, w = spec.h, spec.w
-    strides = [_stride(c) for c in low.widths]
+    strides = [_stride(c, elt) for c in low.widths]
     rows_off = HDR + 2 * MAX_BUFS
     for cl in clusters:
         if cl > h:
@@ -861,13 +944,17 @@ def plan_banded(spec: ChainSpec, clusters: Tuple[int, ...] = CLUSTER_SIZES
         base, rem = divmod(h, cl)
         row_lo = [r * base + min(r, rem) for r in range(cl + 1)]
         band_px = (base + (rem > 0)) * w
+        if elt == 4:  # rows x columns a thread takes in each product, for this band
+            for row in low.rows:
+                if row[0] == B_MM:
+                    row[19], row[21] = _f32_tile(band_px, row[8])
         ops_off = rows_off + cl + 1 + h
         words = _align(ops_off + BROW * len(low.rows), 4)  # copied in 16-byte units
         row_addr_off = _align(4 * words)
         offs, at = [], _align(row_addr_off + 4 * h)
         for s in strides:
             offs.append(at)
-            at = _align(at + band_px * s * 2)
+            at = _align(at + band_px * s * elt)
         slot_offs = []
         for nb in low.slot_bytes:
             slot_offs.append(at)
@@ -882,7 +969,7 @@ def plan_banded(spec: ChainSpec, clusters: Tuple[int, ...] = CLUSTER_SIZES
                   slot_offs[0], slot_offs[1], low.n_phases]
         body = header + bufs + row_lo + row_rank + sum(low.rows, [])
         table = np.asarray(body + [0] * (words - len(body)), np.int32)
-        return BandPlan(h, w, spec.c_in, spec.c_out, cl, tuple(row_lo), tuple(row_rank),
+        return BandPlan(elt, h, w, spec.c_in, spec.c_out, cl, tuple(row_lo), tuple(row_rank),
                         band_px, tuple(low.widths), tuple(strides), tuple(offs),
                         tuple(slot_offs), tuple(low.slot_bytes), at, low.out_buf,
                         low.n_phases, table, low.params)
@@ -890,17 +977,19 @@ def plan_banded(spec: ChainSpec, clusters: Tuple[int, ...] = CLUSTER_SIZES
 
 
 def chain_form(spec: ChainSpec, dtype: torch.dtype) -> str:
-    """Which kernel form runs ``spec`` on ``dtype`` I/O: "banded" for
-    bfloat16 where a plan exists, else "simt".  Decided by shape alone."""
-    if dtype == torch.bfloat16 and _band_plan(spec) is not None:
-        return "banded"
-    return "simt"
+    """Which kernel form runs ``spec`` on ``dtype`` I/O where a band plan
+    exists: "banded" for bfloat16, "banded_f32" for float32; else "simt".
+    Decided by shape alone."""
+    if _band_plan(spec, dtype) is None:
+        return "simt"
+    return "banded" if dtype == torch.bfloat16 else "banded_f32"
 
 
-def _band_plan(spec: ChainSpec) -> Optional[BandPlan]:
-    if "band_plan" not in spec._packed:
-        spec._packed["band_plan"] = plan_banded(spec)
-    return spec._packed["band_plan"]
+def _band_plan(spec: ChainSpec, dtype: torch.dtype) -> Optional[BandPlan]:
+    key = ("band_plan", dtype)
+    if key not in spec._packed:
+        spec._packed[key] = plan_banded(spec, dtype=dtype)
+    return spec._packed[key]
 
 
 # ---------------------------------------------------------------------------
@@ -982,10 +1071,10 @@ def _banded_library():
     fn = lib.fused_chain_banded_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
         occ = lib.fused_chain_banded_occupancy
-        occ.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+        occ.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
         occ.restype = ctypes.c_int
     return lib
 
@@ -996,10 +1085,10 @@ class _BandedPacked(NamedTuple):
     params: torch.Tensor
 
 
-def _banded_packed(spec: ChainSpec, device: torch.device) -> _BandedPacked:
-    key = ("banded", str(device))
+def _banded_packed(spec: ChainSpec, device: torch.device, dtype) -> _BandedPacked:
+    key = ("banded", dtype, str(device))
     if key not in spec._packed:
-        plan = _band_plan(spec)
+        plan = _band_plan(spec, dtype)
         spec._packed[key] = _BandedPacked(
             plan,
             torch.from_numpy(plan.table).to(device),
@@ -1009,11 +1098,11 @@ def _banded_packed(spec: ChainSpec, device: torch.device) -> _BandedPacked:
 
 
 def _launch_banded(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
-    """Launch the banded kernel on bf16 ``x`` (checked by the caller);
-    raises on a build or launch failure."""
+    """Launch the banded kernel of ``x.dtype`` (bf16 or float32; checked by
+    the caller, with a plan); raises on a build or launch failure."""
     fn = _banded_library().fused_chain_banded_launch
     dev = x.device
-    packed = _banded_packed(spec, dev)
+    packed = _banded_packed(spec, dev, x.dtype)
     n = x.shape[0]
     out = torch.empty((n, spec.h, spec.w, spec.c_out), dtype=x.dtype, device=dev)
     if n == 0:
@@ -1022,27 +1111,27 @@ def _launch_banded(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), out.data_ptr(), packed.table.data_ptr(),
                 packed.params.data_ptr(), n, packed.plan.cluster, packed.plan.smem_bytes,
-                stream)
+                _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"fused_chain banded kernel launch failed: CUDA error {rc}")
     return out
 
 
-def banded_occupancy(spec: ChainSpec) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of the banded kernel at ``spec``'s
-    cluster size and shared memory (needs a card)."""
-    plan = _band_plan(spec)
+def banded_occupancy(spec: ChainSpec, dtype: torch.dtype = torch.bfloat16) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the banded kernel of ``dtype``
+    at ``spec``'s cluster size and shared memory (needs a card)."""
+    plan = _band_plan(spec, dtype)
     if plan is None:
         raise ValueError("no banded plan for this spec")
     n = ctypes.c_int(0)
     rc = _banded_library().fused_chain_banded_occupancy(plan.cluster, plan.smem_bytes,
-                                                        ctypes.byref(n))
+                                                        _DTYPES[dtype], ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {rc}")
     return n.value
 
 
-FORMS = ("banded", "simt")
+FORMS = ("banded", "banded_f32", "simt")
 
 
 def fused_chain(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
@@ -1059,7 +1148,7 @@ def fused_chain(x: torch.Tensor, spec: ChainSpec) -> torch.Tensor:
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_chain has no kernel for device {x.device}")
     form = chain_form(spec, x.dtype)
-    out = _launch_banded(x, spec) if form == "banded" else _launch(x, spec)
+    out = _launch(x, spec) if form == "simt" else _launch_banded(x, spec)
     fused_chain.launches += 1
     fused_chain.launches_by_form[form] += 1
     return out

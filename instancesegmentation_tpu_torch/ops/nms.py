@@ -15,8 +15,12 @@ one launch per call and one thread-block cluster per image: up to
 network in shared memory), builds the ``IoU > thr`` bitmask across the
 cluster, walks it greedily with one warp, 32 boxes at a time, and compacts
 the survivors.  Above ``SORT_LIMIT`` the wrapper sorts with torch first and
-the kernel skips its sort; above ~54,000 boxes per image it raises.
-Launches are counted in ``nms.launches``.
+the kernel skips its sort.  Above ~1,250 boxes the ``N x N/8``-byte mask
+lives in a global scratch that the walk reads in column windows, so any N
+whose scratch the card can allocate runs (the wrapper raises, naming the
+bytes, when it cannot).  Launches are counted in ``nms.launches``.
+``nms_reference_blocked`` is the plain version at large N: the same scan,
+with the ``IoU > thr`` matrix built in row blocks.
 """
 from __future__ import annotations
 
@@ -74,6 +78,27 @@ def nms_reference(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: floa
     return _pad_keep(order[alive], k)
 
 
+def nms_reference_blocked(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
+                          max_outputs: Optional[int] = None,
+                          score_threshold: float = _NEG_INF, block_rows: int = 2048):
+    """``nms_reference`` for N too large for its ``[N, N]`` intermediates:
+    the same stable sort and the same scan, with ``box_iou`` of
+    ``block_rows`` sorted boxes against all of them at a time (its
+    operation order, on the boxes' device) and the scan on the host."""
+    n = boxes.shape[0]
+    k = n if max_outputs is None else max_outputs
+    order = torch.argsort(-scores.float(), stable=True)
+    sboxes = boxes[order]
+    alive = (scores.float()[order] > score_threshold).cpu().numpy()
+    for r0 in range(0, n, block_rows):
+        rows = (box_iou(sboxes[r0:r0 + block_rows], sboxes) > iou_threshold).cpu().numpy()
+        for r, row in enumerate(rows):
+            i = r0 + r
+            if alive[i]:
+                alive[i + 1:] &= ~row[i + 1:]
+    return _pad_keep(order[torch.from_numpy(alive).to(order.device)], k)
+
+
 def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
     if boxes.shape[-1:] != (4,) or boxes.shape[:-1] != scores.shape:
         raise ValueError(f"nms expects boxes [..., N, 4] and scores [..., N], got "
@@ -91,9 +116,9 @@ def _library():
     fn, words = lib.nms_launch, lib.nms_scratch_words
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, f, f, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, f, f, i, p]
         fn.restype = ctypes.c_int
-        words.argtypes = [i, i]
+        words.argtypes = [i, i, i]
         words.restype = ctypes.c_longlong
     return fn, words
 
@@ -107,12 +132,15 @@ def _sorted(boxes: torch.Tensor, scores: torch.Tensor):
     return sboxes, sscores, order
 
 
-def _launch(boxes, scores, iou_threshold: float, k: int, score_threshold: float):
+def _launch(boxes, scores, iou_threshold: float, k: int, score_threshold: float,
+            window: int = 0):
     """One launch of the kernel on ``boxes [B,N,4]``, ``scores [B,N]`` (one
     cluster per image; B, N, k >= 1): in input order up to ``SORT_LIMIT``
     boxes, the kernel sorting them, else sorted by ``_sorted`` with their
     permutation -> ``([B,k] int64, [B,k] bool)``; raises on a failure.
-    Counted in ``nms.launches``."""
+    ``window > 0`` forces the global mask and a walk in column windows of
+    at most that many 32-box words (else the plan takes the widest that
+    fits).  Counted in ``nms.launches``."""
     order = None
     if scores.shape[1] <= SORT_LIMIT:
         boxes, scores = boxes.float().contiguous(), scores.float().contiguous()
@@ -121,10 +149,17 @@ def _launch(boxes, scores, iou_threshold: float, k: int, score_threshold: float)
     fn, words = _library()
     b, n = scores.shape
     dev = scores.device
-    need = words(n, int(order is None))
+    need = words(n, int(order is None), window)
     if need < 0:
         raise RuntimeError(f"nms kernel cannot take N={n}: CUDA error {-need}")
-    scratch = torch.empty((b, need), dtype=torch.int32, device=dev) if need else None
+    scratch = None
+    if need:
+        try:
+            scratch = torch.empty((b, need), dtype=torch.int32, device=dev)
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError(
+                f"nms: the suppression mask of {b} x {n} boxes needs {4 * b * need:,} bytes "
+                "of device memory, which cannot be allocated") from e
     indices = torch.empty((b, k), dtype=torch.int64, device=dev)
     valid = torch.empty((b, k), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
@@ -132,7 +167,7 @@ def _launch(boxes, scores, iou_threshold: float, k: int, score_threshold: float)
         rc = fn(boxes.data_ptr(), scores.data_ptr(), None if order is None else order.data_ptr(),
                 indices.data_ptr(), valid.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), b, n, k, iou_threshold,
-                score_threshold, stream)
+                score_threshold, window, stream)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: CUDA error {rc}")
     nms.launches += 1

@@ -9,8 +9,8 @@ events each stage of the 480 px instance program (warp parameters, crop
 warp, normalisation, heatmap render, backbone with its two chain launches,
 folded head, sigmoid + inverse warp) and of the 512 px whole-image program,
 the host-side parts of a dispatch with the host clock (upload, download,
-resizes), counts each program's chain launches by kernel form (banded or
-SIMT), and takes one ``torch.profiler`` trace of each program for the device
+resizes), counts each program's chain launches by kernel form (banded,
+banded_f32 or SIMT), and takes one ``torch.profiler`` trace of each program for the device
 busy share and the largest device ops.  The train step (the
 ``chip_smoke.py`` training cell: ``Segment(20)`` in bf16, batch 32, 640 ->
 480, rotate 25 through the 2level sampler, flips, jitter, photometric draws)

@@ -1,22 +1,24 @@
-"""The banded bf16 form of the chain kernel, on the CPU.
+"""The banded forms of the chain kernel (bf16 and float32), on the CPU.
 
-The cluster kernel (``csrc/fused_chain.cu:fused_chain_banded_kernel``)
-cannot run here; ``chip_smoke.py`` holds it against its plain version on the
-card.  What runs here:
+The cluster kernels (``csrc/fused_chain.cu:fused_chain_banded_kernel`` and
+``fused_chain_banded_f32_kernel``) cannot run here; ``chip_smoke.py`` holds
+them against their plain versions on the card.  What runs here:
 
-* the band plan (``plan_banded``) at every serving shape: bands, shared
-  memory, cluster size, the owner of every row a depthwise tap reads;
+* the band plans (``plan_banded``) at every serving shape, in both element
+  types: bands, shared memory, cluster size, the owner of every row a
+  depthwise tap reads;
 * an emulator of the banded schedule that walks the plan's table and packed
   parameters CTA by CTA over NaN-poisoned shared-memory buffers, reads other
   bands only through the plan's row -> rank table, and checks each such read
   against the cluster barriers (after the barrier that follows the write,
-  never overwritten before the next one); it must equal the rounding plain
-  version;
+  never overwritten before the next one); in bf16 it must equal the rounding
+  plain version, in float32 (products in K-chunks, partial sums in the
+  output buffer) the float32 plain version within float32 rounding;
 * the bf16 weight fragments against the ``mma.m16n8k16`` B-fragment layout;
 * the rounding plain version (``fused_chain_reference(...,
   act_dtype=torch.bfloat16)``) against the JAX kernel in interpret mode, the
   flax spans and the float32 plain version;
-* the wrapper's dispatch on the CPU.
+* the wrapper's dispatch on the CPU, and ``bottleneck3x3_fused``'s route.
 """
 import dataclasses
 import functools
@@ -27,15 +29,20 @@ import pytest
 import torch
 
 from instancesegmentation_tpu.ops import fused_chain as jchain
+from instancesegmentation_tpu.ops.fused_block import (
+    bottleneck3x3_reference as jax_block_reference,
+)
 from instancesegmentation_tpu_torch.models.export import fold_batchnorm
 from instancesegmentation_tpu_torch.models.layers import init_weights_
 from instancesegmentation_tpu_torch.models.segment import Segment
+from instancesegmentation_tpu_torch.ops import fused_block as tblock
 from instancesegmentation_tpu_torch.ops import fused_chain as tchain
 from test_torch_port_chain import _span
 
 torch.set_num_threads(1)
 
 BF16 = torch.bfloat16
+F32 = torch.float32
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,15 +63,20 @@ def _serving_spec(kind: str, s: int) -> tchain.ChainSpec:
 SERVING = [("s1", 60), ("s1", 64), ("s1", 80), ("s23", 30), ("s23", 32), ("s23", 40)]
 
 
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("kind,s", SERVING)
-def test_band_plan_at_serving_shapes(kind, s):
+def test_band_plan_at_serving_shapes(kind, s, dtype):
     spec = _serving_spec(kind, s)
-    plan = tchain.plan_banded(spec)
-    assert plan is not None
+    plan = tchain.plan_banded(spec, dtype=dtype)
+    if plan is None:  # float32 s23 at 40 x 40: no cluster of <= 16 holds it
+        assert (dtype, kind, s) == (F32, "s23", 40)
+        return
+    assert plan.elt == (2 if dtype == BF16 else 4)
     h, w, cl = spec.h, spec.w, plan.cluster
     # the smallest cluster that fits; above 8 only with the non-portable attribute
     assert cl in tchain.CLUSTER_SIZES and plan.nonportable == (cl > 8)
-    assert all(tchain.plan_banded(spec, (c,)) is None for c in tchain.CLUSTER_SIZES if c < cl)
+    assert all(tchain.plan_banded(spec, (c,), dtype) is None
+               for c in tchain.CLUSTER_SIZES if c < cl)
     # bands of whole rows cover the image once, at most band_px pixels each
     lo = plan.row_lo
     assert lo[0] == 0 and lo[-1] == h and len(lo) == cl + 1
@@ -76,14 +88,16 @@ def test_band_plan_at_serving_shapes(kind, s):
     tab = plan.table
     assert plan.smem_bytes <= tchain.SMEM_LIMIT
     regions = [(0, 4 * int(tab[9])), (int(tab[12]), int(tab[12]) + 4 * h)]
-    regions += [(o, o + 2 * plan.band_px * s_) for o, s_ in zip(plan.buf_offsets, plan.strides)]
+    regions += [(o, o + plan.elt * plan.band_px * s_)
+                for o, s_ in zip(plan.buf_offsets, plan.strides)]
     regions += list(zip(plan.slot_offsets, (o + b for o, b in zip(plan.slot_offsets,
                                                                  plan.slot_bytes))))
     assert all(a[1] <= b[0] for a, b in zip(regions, regions[1:]))
     assert regions[-1][1] <= plan.smem_bytes
     assert all(o % 128 == 0 for o, _ in regions)
     # buffer rows: an odd number of 16-byte units, at least the widest value
-    assert all(s_ >= c and s_ % 8 == 0 and (s_ // 8) % 2 == 1
+    per = 16 // plan.elt
+    assert all(s_ >= c and s_ % per == 0 and (s_ // per) % 2 == 1
                for s_, c in zip(plan.strides, plan.widths))
     # every row a depthwise tap reads has an owner inside the cluster
     dw = [row for row in plan.ops() if row[0] == tchain.B_DW]
@@ -97,10 +111,28 @@ def test_band_plan_at_serving_shapes(kind, s):
 
 
 def test_band_plan_sizes_of_the_programs():
-    """The cluster sizes the serving programs launch with."""
+    """The cluster sizes the serving programs launch with, in bf16 and in
+    float32 (float32 rows take twice the bytes: twice the CTAs)."""
     got = {(k, s): tchain.plan_banded(_serving_spec(k, s)).cluster for k, s in SERVING}
     assert got == {("s1", 60): 4, ("s1", 64): 4, ("s1", 80): 8,
                    ("s23", 30): 8, ("s23", 32): 8, ("s23", 40): 16}
+    plans = {(k, s): tchain.plan_banded(_serving_spec(k, s), dtype=F32) for k, s in SERVING}
+    got = {key: p and p.cluster for key, p in plans.items()}
+    assert got == {("s1", 60): 8, ("s1", 64): 8, ("s1", 80): 16,
+                   ("s23", 30): 16, ("s23", 32): 16, ("s23", 40): None}
+    # the 480 px program's: shared memory within 227 KB, the products of s23
+    # over 256 and 304 channels in K-chunks of at most CHUNK_BYTES of weights
+    for key in (("s1", 60), ("s23", 30)):
+        assert plans[key].smem_bytes <= tchain.SMEM_LIMIT
+        assert max(plans[key].slot_bytes) <= tchain.CHUNK_BYTES + 1024
+    mm = [row for row in plans[("s23", 30)].ops() if row[0] == tchain.B_MM]
+    assert sum(row[20] != tchain.MM_FIRST | tchain.MM_LAST for row in mm) == 7
+    # rows x columns a thread takes: large tiles on s1's 480 px bands and
+    # s23's 128-wide products, more warps on s23's 48-wide ones (60 px bands)
+    tiles = {(k, int(row[8])): (int(row[19]), int(row[21]))
+             for k in (("s1", 60), ("s23", 30)) for row in plans[k].ops() if row[0] == tchain.B_MM}
+    assert tiles == {(("s1", 60), 16): (4, 8), (("s1", 60), 48): (4, 8),
+                     (("s23", 30), 48): (2, 4), (("s23", 30), 128): (4, 8)}
 
 
 # -- the banded schedule, emulated ----------------------------------------------
@@ -117,12 +149,15 @@ def _f32(blk, at, n):
 
 
 def _emulate_banded(x: torch.Tensor, plan: tchain.BandPlan) -> torch.Tensor:
-    """Run ``plan`` the way the banded kernel does: per CTA (rank), bf16
-    buffers of ``band_px`` rows poisoned with NaN; 1x1 convs over K-segments
-    with packed fragments; depthwise taps reading the owner's rows through
-    the plan's row tables.  Phases are the stretches between the cluster
-    barriers, one before each depthwise op; every read of another CTA's rows
-    is checked against them."""
+    """Run ``plan`` the way the banded kernel does: per CTA (rank), buffers
+    of ``band_px`` rows poisoned with NaN, holding bf16 or float32 values
+    (``plan.elt``); in bf16, 1x1 convs over K-segments with packed
+    fragments; in float32, one K-chunk per row, from zero or from the
+    partial sums in the output buffer, the last adding bias and residual
+    and applying the activation; depthwise taps reading the owner's rows
+    through the plan's row tables.  Phases are the stretches between the
+    cluster barriers, one before each depthwise op; every read of another
+    CTA's rows is checked against them."""
     tab = plan.table
     n_ops, h, w, cl, in_buf, out_buf, c_in, c_out, n_bufs = (int(v) for v in tab[:9])
     rows_off = int(tab[10])
@@ -140,20 +175,47 @@ def _emulate_banded(x: torch.Tensor, plan: tchain.BandPlan) -> torch.Tensor:
     remote_reads: dict = {}  # phase -> {(owner rank, buffer)} read from other CTAs
     written_in: dict = {}    # (rank, buffer) -> phase of its last write
 
+    f32 = plan.elt == 4
+
     def write(r, b, v, phase):
         assert (r, b) not in remote_reads.get(phase, set()), (
             f"buffer {b} of rank {r} is overwritten in phase {phase}, while another "
             "CTA may still read it")
         assert v.shape[-1] <= strides[b]
-        smem[r][b][:, :px[r], :v.shape[-1]] = v.to(BF16).float()
+        smem[r][b][:, :px[r], :v.shape[-1]] = v if f32 else v.to(BF16).float()
         written_in[(r, b)] = phase
 
     phase = 0
     for k, row in enumerate(plan.ops().tolist()):
         blk = plan.op_params(row)
         assert row[13] == k % 2 and blk.size == 16 * row[12] <= plan.slot_bytes[row[13]]
-        if row[0] == tchain.B_MM:
-            assert row[18] == phase
+        if row[0] == tchain.B_MM and f32:
+            assert row[18] == phase and row[1] == 1 and (row[19], row[21]) in tchain.F32_TILES
+            src, kc, k_off, n_out, dst, add, kind = (row[2], row[3], row[17], row[8],
+                                                     row[9], row[10], row[15])
+            first, last = row[20] & tchain.MM_FIRST, row[20] & tchain.MM_LAST
+            assert dst != src and k_off % 4 == 0 and kc % 4 == 0
+            assert blk.size >= 4 * kc * n_out
+            wt = torch.from_numpy(blk[:4 * kc * n_out].view(np.float32).reshape(kc, n_out).copy())
+            bias = _f32(blk, row[14], n_out) if last else None
+            alpha = _f32(blk, row[16], n_out) if last and kind == tchain.ACT_PRELU else None
+            assert last or (add < 0 and kind == tchain.ACT_NONE)
+            outs = []
+            for r in range(cl):
+                a = smem[r][src][:, :px[r], k_off:k_off + kc]
+                acc = a @ wt
+                if not first:
+                    acc = smem[r][dst][:, :px[r], :n_out] + acc
+                if last:
+                    acc = acc + bias
+                    if add >= 0:
+                        acc = acc + smem[r][add][:, :px[r], :n_out]
+                    acc = _act(acc, kind, alpha)
+                outs.append(acc)
+            for r in range(cl):
+                write(r, dst, outs[r], phase)
+        elif row[0] == tchain.B_MM:
+            assert row[18] == phase and row[20] == tchain.MM_FIRST | tchain.MM_LAST
             nseg, n_out, dst, add, kind = row[1], row[8], row[9], row[10], row[15]
             segs = [(row[2 + 2 * s], row[3 + 2 * s]) for s in range(nseg)]
             assert row[19] in tchain.MMA_N_TILES and (n_out // 8) % row[19] == 0
@@ -221,6 +283,40 @@ EMULATED = [
     ("s1", 1, 12, 12, (8,)),
     ("dil4", 2, 8, 8, (8,)),
 ]
+
+
+# float32: the planner's own choice, forced clusters of 1-4 row bands, and
+# weight chunks forced down to 4-16 rows of K, so that in-place residuals
+# give way to chunked products into other buffers
+EMULATED_F32 = [
+    ("s23", 2, 8, 8, tchain.CLUSTER_SIZES, tchain.CHUNK_BYTES),
+    ("s23", 1, 16, 12, (16,), tchain.CHUNK_BYTES),
+    ("s23", 1, 14, 12, (4,), 2048),
+    ("s1", 2, 8, 8, tchain.CLUSTER_SIZES, 256),
+    ("s1", 1, 12, 12, (8,), tchain.CHUNK_BYTES),
+    ("dil4", 2, 8, 8, (8,), 1024),
+]
+
+
+@pytest.mark.parametrize("kind,n,h,w,clusters,chunk", EMULATED_F32)
+def test_banded_f32_schedule_matches_float32_reference(kind, n, h, w, clusters, chunk):
+    """The float32 schedule against the float32 plain version (which the
+    chain tests hold to the JAX kernel in interpret mode): the same float32
+    program, summed in another order (K in chunks), within 1e-5 of the
+    output's largest magnitude."""
+    x, _, _, tspec = _span(kind, n, h, w, seed=40 + h)
+    plan = tchain.plan_banded(tspec, clusters, F32, chunk)
+    assert plan is not None and plan.elt == 4 and plan.cluster in clusters
+    if clusters != tchain.CLUSTER_SIZES:
+        assert plan.cluster == clusters[0]
+    mm = [row for row in plan.ops() if row[0] == tchain.B_MM]
+    if chunk < tchain.CHUNK_BYTES:
+        assert any(row[20] != tchain.MM_FIRST | tchain.MM_LAST for row in mm)
+    xf = torch.from_numpy(x)
+    got = _emulate_banded(xf, plan)
+    want = tchain.fused_chain_reference(xf, tspec)
+    assert got.dtype == F32 and not torch.isnan(got).any()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 @pytest.mark.parametrize("kind,n,h,w,clusters", EMULATED)
@@ -373,12 +469,15 @@ def test_chain_form_by_dtype_and_shape():
     s1, s23 = _serving_spec("s1", 60), _serving_spec("s23", 30)
     assert tchain.chain_form(s1, BF16) == "banded"
     assert tchain.chain_form(s23, BF16) == "banded"
-    assert tchain.chain_form(s1, torch.float32) == "simt"
-    assert tchain.chain_form(s23, torch.float32) == "simt"
-    # no cluster of <= 16 CTAs holds s23 at 120 x 120: the SIMT form, by shape
+    assert tchain.chain_form(s1, F32) == "banded_f32"
+    assert tchain.chain_form(s23, F32) == "banded_f32"
+    # no cluster of <= 16 CTAs holds s23 at 120 x 120 (nor at 40 x 40 in
+    # float32): the SIMT form, by shape
     big = _serving_spec("s23", 120)
     assert tchain.plan_banded(big) is None
     assert tchain.chain_form(big, BF16) == "simt"
+    assert tchain.chain_form(big, F32) == "simt"
+    assert tchain.chain_form(_serving_spec("s23", 40), F32) == "simt"
 
 
 def test_cpu_tensor_runs_the_plain_version_without_launches():
@@ -387,6 +486,48 @@ def test_cpu_tensor_runs_the_plain_version_without_launches():
     before = (tchain.fused_chain.launches, dict(tchain.fused_chain.launches_by_form))
     got = tchain.fused_chain(xb, tspec)
     assert (tchain.fused_chain.launches, tchain.fused_chain.launches_by_form) == before
-    assert set(before[1]) == {"banded", "simt"}
+    assert set(before[1]) == {"banded", "banded_f32", "simt"}
     assert got.dtype == BF16
     assert torch.equal(got, tchain.fused_chain_reference(xb, tspec))
+
+
+# -- bottleneck3x3_fused through the float32 banded form ------------------------
+
+
+def _block_args(seed, c=48, p=16):
+    rng = np.random.default_rng(seed)
+    arrs = dict(
+        w1=rng.normal(0, 0.2, (c, p)), b1=rng.normal(0, 0.1, p),
+        a1=rng.uniform(0.05, 0.45, p), dw=rng.normal(0, 0.3, (3, 3, p)),
+        b_dw=rng.normal(0, 0.1, p), a2=rng.uniform(0.05, 0.45, p),
+        w2=rng.normal(0, 0.2, (p, c)), b2=rng.normal(0, 0.1, c),
+        a_out=rng.uniform(0.05, 0.45, c))
+    return rng, {k: v.astype(np.float32) for k, v in arrs.items()}
+
+
+@pytest.mark.parametrize("h,w,clusters", [(60, 60, tchain.CLUSTER_SIZES), (9, 8, (4,))])
+def test_bottleneck3x3_fused_route(h, w, clusters):
+    """Its spec is built once per set of weight tensors and runs on the
+    float32 banded form (cluster 8 at the serving [*, 60, 60, 48]); that
+    form's schedule, emulated, agrees with the JAX reference."""
+    rng, arrs = _block_args(h)
+    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    x = torch.from_numpy(rng.normal(0, 1, (1, h, w, 48)).astype(np.float32))
+    weights = tuple(t[k] for k in ("w1", "b1", "a1", "dw", "b_dw", "a2", "w2", "b2", "a_out"))
+    spec = tblock._cached_spec(x, weights)
+    assert tblock._cached_spec(x, weights) is spec  # the same tensors: cached
+    assert tblock._cached_spec(x, tuple(v.clone() for v in weights)) is not spec
+    assert tchain.chain_form(spec, F32) == "banded_f32"
+    if h == 60:
+        assert tchain.plan_banded(spec, dtype=F32).cluster == 8
+        return
+    before = (tblock.bottleneck3x3_fused.launches,
+              dict(tblock.bottleneck3x3_fused.launches_by_form))
+    got = tblock.bottleneck3x3_fused(x, **t)  # CPU: the plain version
+    assert (tblock.bottleneck3x3_fused.launches,
+            tblock.bottleneck3x3_fused.launches_by_form) == before
+    want = np.asarray(jax_block_reference(jnp.asarray(x.numpy()),
+                                          **{k: jnp.asarray(v) for k, v in arrs.items()}))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
+    emulated = _emulate_banded(x, tchain.plan_banded(spec, clusters, F32, 512))
+    np.testing.assert_allclose(emulated.numpy(), want, atol=2e-4)

@@ -238,7 +238,7 @@ def _bitonic_sort(scores: np.ndarray):
     return key, idx
 
 
-def _emulate_nms_kernel(boxes, scores, thr, k, score_thr=-np.inf, staged=False,
+def _emulate_nms_kernel(boxes, scores, thr, k, score_thr=-np.inf, window=0,
                         log_split=0):
     """Run csrc/nms.cu:nms_kernel for one image: the sort (A); the mask
     words as the cluster's items e = (w * 32 nwords + i) * split + s, w >= i /
@@ -246,10 +246,12 @@ def _emulate_nms_kernel(boxes, scores, thr, k, score_thr=-np.inf, staged=False,
     over a mask poisoned with all ones, so a read of a word no item wrote
     kills every box; the walk of each word c by one warp (C): the 32 boxes'
     diagonal words resolve word c in registers, then the kept rows are ORed
-    into the later words lane by lane, from the mask or (``staged``) from a
-    copy of the word's 32 rows; the warp-0 prefix scan of the alive words'
-    popcounts and the compaction (D).  Returns (indices, valid, sorted
-    order)."""
+    into the later words lane by lane, from the mask or (``window`` > 0: the
+    global mask) from a copy of the word's 32 rows in column windows of
+    ``window`` words, the first holding the diagonal word, every read
+    checked to lie in the staged window; the warp-0 prefix scan of the alive
+    words' popcounts and the compaction (D).  Returns (indices, valid,
+    sorted order)."""
     n = boxes.shape[0]
     key, order = _bitonic_sort(scores.astype(np.float32))
     assert (order[:n] < n).all()  # the sentinels sort last
@@ -281,25 +283,33 @@ def _emulate_nms_kernel(boxes, scores, thr, k, score_thr=-np.inf, staged=False,
         with np.errstate(invalid="ignore"):
             alive = (j < n) & (ss[np.minimum(j, n - 1)] > score_thr)
         removed[w] = ~_ballot(alive) & 0xFFFFFFFF
+    span_max = window or nwords
     for c in range(nwords):
-        rows = mask[c << 5:(c << 5) + 32]  # row r of word c's boxes
-        if staged:
-            rows = np.zeros((32, nwords), np.int64)
-            rows[:min(32, n - (c << 5)), c:] = mask[c << 5:(c << 5) + 32, c:]
         nrow = min(32, n - (c << 5))
-        dead = removed[c]
-        for r in range(32):  # the diagonal words, broadcast to every lane
-            if not (dead >> r) & 1:
-                assert r < nrow  # boxes past n are seeded dead: no read past the mask
-                dead |= int(rows[r, c])
-        kept = ~dead & 0xFFFFFFFF
-        for w in range(c + 1, nwords):  # lane w - c - 1 (mod 32)
-            acc = removed[w]
-            for r in range(32):
-                if (kept >> r) & 1:
-                    acc |= int(rows[r, w])
-            removed[w] = acc
-        removed[c] = dead
+        for w0 in range(c, nwords, span_max):
+            span = min(span_max, nwords - w0)
+            rows = mask[c << 5:(c << 5) + 32]  # row r of word c's boxes
+            if window:  # the stage holds columns w0 .. w0 + span - 1 only
+                rows = np.full((32, nwords), -1, np.int64)
+                rows[:nrow, w0:w0 + span] = mask[c << 5:(c << 5) + nrow, w0:w0 + span]
+                rows[nrow:, w0:w0 + span] = 0
+            if w0 == c:
+                dead = removed[c]
+                for r in range(32):  # the diagonal words, broadcast to every lane
+                    if not (dead >> r) & 1:
+                        assert r < nrow  # boxes past n are seeded dead: no read past the mask
+                        dead |= int(rows[r, c])
+                        assert rows[r, c] >= 0
+            kept = ~dead & 0xFFFFFFFF
+            for w in range(max(w0, c + 1), w0 + span):  # lane (w - ...) mod 32
+                acc = removed[w]
+                for r in range(32):
+                    if (kept >> r) & 1:
+                        assert rows[r, w] >= 0, "a read outside the staged window"
+                        acc |= int(rows[r, w])
+                removed[w] = acc
+            if w0 == c:
+                removed[c] = dead
     alive_words = [~x & 0xFFFFFFFF for x in removed]
     # warp 0: exclusive prefix of the popcounts, 32 words at a time
     prefix = np.zeros(nwords + 1, np.int64)
@@ -338,9 +348,9 @@ def _oracle_keep(boxes, scores, thr, score_thr=-np.inf):
     return sub[jnms.nms_numpy(boxes[sub], scores[sub], thr)]
 
 
-def _check_emulator(boxes, scores, threshold, k, score_thr=-np.inf, staged=False,
+def _check_emulator(boxes, scores, threshold, k, score_thr=-np.inf, window=0,
                     log_split=0):
-    idx, valid, order = _emulate_nms_kernel(boxes, scores, threshold, k, score_thr, staged,
+    idx, valid, order = _emulate_nms_kernel(boxes, scores, threshold, k, score_thr, window,
                                             log_split)
     want_order = torch.argsort(-torch.from_numpy(scores), stable=True).numpy()
     np.testing.assert_array_equal(order, want_order)  # the plain version's sort
@@ -364,9 +374,35 @@ def test_nms_kernel_scan_emulator(n, k, threshold, hard):
     boxes, scores = (_hard_case if hard else _nms_case)(n, n)
     if n > 200:  # spread the boxes so that many survive and the scan spans >32 words
         boxes[:, [0, 2]] *= 8.0
-    _check_emulator(boxes, scores, threshold, k, staged=n > 1000, log_split=int(n < 200))
+    _check_emulator(boxes, scores, threshold, k, window=(n > 1000) * 35, log_split=int(n < 200))
     # the score threshold seeds the alive words
     _check_emulator(boxes, scores, threshold, k, score_thr=0.5, log_split=3 * int(n < 50))
+
+
+@pytest.mark.parametrize("window", [1, 3, 32])
+def test_nms_kernel_emulator_column_windows(window):
+    """The walk from a global mask in forced small column windows: bit-equal
+    to the plain version, JAX and the oracle (and to the unwindowed walk)."""
+    boxes, scores = _nms_case(31, 300)
+    boxes[:, [0, 2]] *= 4.0
+    for threshold, k in ((0.5, 300), (0.3, 40)):
+        idx, valid = _check_emulator(boxes, scores, threshold, k, window=window)
+        whole = _emulate_nms_kernel(boxes, scores, threshold, k)
+        np.testing.assert_array_equal(idx, whole[0])
+        np.testing.assert_array_equal(valid, whole[1])
+
+
+@pytest.mark.parametrize("block_rows", [1, 7, 64])
+def test_nms_reference_blocked_equals_reference(block_rows):
+    """The row-blocked plain NMS (the card's check above the plain version's
+    reach) keeps what ``nms_reference`` keeps, ties and score thresholds
+    included."""
+    for boxes, scores in (_nms_case(32, 150), _hard_case(33, 90), _edge_scores("nan_and_inf")):
+        b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+        for thr, k, score_thr in ((0.5, None, -np.inf), (0.7, 17, 0.3)):
+            got = tnms.nms_reference_blocked(b, s, thr, k, score_thr, block_rows=block_rows)
+            want = tnms.nms_reference(b, s, thr, k, score_thr)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _edge_scores(case: str):

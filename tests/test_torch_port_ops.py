@@ -104,11 +104,36 @@ def test_resize_stands_in_for_cv2():
     want = cv2.resize(probs, (70, 50), interpolation=cv2.INTER_LINEAR)
     got = resize(torch.from_numpy(probs), (50, 70)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
-    # uint8: cv2 rounds its fixed-point blend, so values may differ by 1
+    # uint8: cv2's own fixed-point arithmetic, so equal
     img = rng.integers(0, 255, (50, 70, 3), dtype=np.uint8)
     want = cv2.resize(img, (64, 64), interpolation=cv2.INTER_LINEAR)
     got = to_u8(resize(torch.from_numpy(img), (64, 64))).numpy()
-    assert np.abs(got.astype(int) - want).max() <= 1
+    np.testing.assert_array_equal(got, want)
+
+
+# (in h, w) -> (out h, w): up, down, mixed, exact 2x down (cv2's INTER_AREA),
+# 2x in one axis only, and 1-3 px edges on either side
+_RESIZE_SWEEP = [
+    ((37, 53), (80, 106)), ((120, 97), (41, 33)), ((30, 40), (31, 43)), ((40, 30), (120, 29)),
+    ((64, 48), (32, 24)), ((64, 48), (32, 48)), ((1, 1), (5, 7)), ((1, 5), (2, 10)),
+    ((3, 2), (7, 1)), ((2, 3), (1, 1)), ((5, 5), (3, 2)), ((720, 960), (480, 640)),
+]
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_resize_uint8_bilinear_is_cv2_bit_for_bit(channels):
+    """The uint8 INTER_LINEAR resize equals ``cv2.resize`` exactly over the
+    sweep and over random sizes of 1-40 px to 1-60 px."""
+    rng = np.random.default_rng(channels)
+    cases = _RESIZE_SWEEP + [(tuple(rng.integers(1, 41, 2)), tuple(rng.integers(1, 61, 2)))
+                             for _ in range(60)]
+    for (h, w), (oh, ow) in cases:
+        shape = (int(h), int(w)) + ((channels,) if channels > 1 else ())
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        want = cv2.resize(img, (int(ow), int(oh)), interpolation=cv2.INTER_LINEAR)
+        got = resize(torch.from_numpy(img), (int(oh), int(ow)))
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_array_equal(to_u8(got).numpy(), want, err_msg=f"{shape} -> {oh, ow}")
 
 
 def test_device_rule():
