@@ -27,12 +27,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    zero-area boxes, -0.0 beside +0.0 and NaN scores, K below and above N, a
    score threshold; N = 1024 with the walk forced into column windows of 1,
    3 and 8 words; one image of N = 60,000 against the row-blocked plain
-   version; ``nms_batch`` on [8, 1000] in one launch), matching
-   bit-equal ([2000, 64] with ties and an all-zero column), and
-   ``roi_align`` within atol 1e-4 + rtol 1e-4 at torchvision's Mask R-CNN
-   pooler shapes on a stride-4 FPN level of an 800x1344 input (features
-   [2, 200, 336, 256], scale 1/4, 1000 ROIs at 7x7 and 100 at 14x14, both
-   ``aligned`` values, bfloat16 features once); and both two-level rotated
+   version; ``nms_batch`` on [8, 1000] in one launch), ``roi_align`` in
+   both forms (the entry point's direct form and the pipelined form,
+   through ``_launch``) within atol 1e-4 + rtol 1e-4 at torchvision's Mask
+   R-CNN pooler shapes on a stride-4 FPN level of an 800x1344 input
+   (features [2, 200, 336, 256], scale 1/4, 1000 ROIs at 7x7 and 100 at
+   14x14, both ``aligned`` values, bfloat16 features, boxes with NaN and
+   infinite coordinates giving zeros, indices -1, N and -N-1; every lever
+   once), the pipelined form launched at both poolers; matching bit-equal
+   against the plain version, with the rescue in the cluster form (also
+   against the two-pass form), without it in the two-pass form's row pass
+   ([2000, 64] with ties and an all-zero column, [256, 8], [60000, 64]
+   whose rows do not fit in shared memory, NaN in rows, in columns and a
+   whole NaN row), one launch per call; and
+   both two-level rotated
    warp kernels (``warp_2level``, one tiled launch, and ``warp_2level_fused``)
    at the training shape (batch 32, 640 -> 480, draws with rotate 25 incl.
    samples at 0, flips, jitter 0.1, boxes moved so the centring translation
@@ -54,7 +62,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    image larger than the canvas, the keeps of the plain NMS on the CPU and
    the packing rule's dispatch count, and its first two images through the
    float32 card and CPU engines; and ``roi_align`` and ``match_proposals``
-   through their own entry points; then train at full width (the training
+   through their own entry points (launches by form: the direct and the
+   cluster form); then train at full width (the training
    slice's main path): ``TrainConfig`` defaults with ``Segment(20)``, 640 ->
    480, bf16, folded head, rotate 25 through the 2level sampler, flips,
    jitter, photometric draws, 10 ``make_train_step`` steps at batch 32 on
@@ -63,8 +72,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    entry point, and one float32 step (batch 2, 192 -> 64) on the card
    against the same step on the CPU;
 5. time each kernel and its plain version with CUDA events at batch 128 (the
-   detection kernels at the shapes above, NMS and the warp also by their
-   kernels' device time in a ``torch.profiler`` trace; the banded chain beside
+   detection kernels at the shapes above, NMS, the warp, roi_align and
+   matching also by their kernels' device time in a ``torch.profiler``
+   trace; roi_align's two forms in turns direct, pipelined, pipelined,
+   direct at both poolers and in bfloat16, each lever flipped in turns
+   (float32),
+   and the gather traffic beside the bound (taps issued, distinct pixels
+   per output row and per ROI, bytes the pipelined form stages, the union
+   per image); matching's two forms in turns two-pass, cluster, cluster,
+   two-pass; the banded chain beside
    its bound per launch, its rounding and float32 plain versions and, as a
    yardstick the port never calls, the same sections through the layer
    modules on cuDNN in bf16 channels_last; the banded float32 form beside its
@@ -241,21 +257,48 @@ def section_yardstick(model, name: str):
     return run
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
-    """Device time per call of ``fn`` in the CUDA kernels whose name holds
-    ``kernel``, from a ``torch.profiler`` trace of ``iters`` calls."""
+def _kernel_time(fn, iters: int, kernel: str = "") -> tuple[float, float]:
+    """Device ms per call of ``fn`` in the CUDA kernels whose name holds
+    ``kernel``, and their launches per call, from a ``torch.profiler`` trace
+    of ``iters`` calls.  The tracer on the card now and then drops a span (19
+    of 20 launches traced) or returns an empty trace, so each kernel's time
+    is its mean span times its launches per call, rounded, and a trace in
+    which a kernel shows in fewer than 90 % of the calls is taken again, up
+    to four times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type.name == "CUDA" and kernel in e.name]
-    check(len(spans) >= iters, f"profiler: {len(spans)} {kernel} launches in {iters} calls")
-    return sum(spans) / 1e3 / iters
+    for _ in range(4):
+        time.sleep(0.1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA" and kernel in e.name:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        launches = {name: max(1, round(len(spans) / iters)) for name, spans in by_name.items()}
+        if by_name and all(len(spans) >= 0.9 * iters * launches[name]
+                           for name, spans in by_name.items()):
+            ms = sum(launches[name] * sum(spans) / len(spans) / 1e3
+                     for name, spans in by_name.items())
+            return ms, float(sum(launches.values()))
+    counts = {name: len(spans) for name, spans in by_name.items()}
+    check(False, f"profiler: {kernel or 'kernel'} spans {counts} in {iters} calls, 4 traces")
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device time per call of ``fn`` in the CUDA kernels whose name holds
+    ``kernel`` (``_kernel_time``)."""
+    return _kernel_time(fn, iters, kernel)[0]
+
+
+def device_calls(fn, iters: int = 20) -> tuple[float, float]:
+    """Device time per call of ``fn`` summed over every kernel it launches,
+    and the kernels it launches per call (``_kernel_time``)."""
+    return _kernel_time(fn, iters)
 
 
 def ptxas_report(log: str, kernel: str) -> str:
@@ -350,21 +393,97 @@ def roi_inputs(g, r: int, dev, image_hw=(800, 1344), n_images: int = 2):
     return torch.cat([ctr - wh / 2, ctr + wh / 2], 1), idx
 
 
-def roi_bytes(features, boxes, idx, out_hw, scale, ratio, aligned) -> float:
-    """Feature bytes the samples touch (each pixel with a non-zero tap
-    weight, read once), plus boxes and indices read and the output written."""
-    from instancesegmentation_tpu_torch.ops.roi_align import _interp_weights, _roi_geometry
+def roi_repair_inputs(boxes, idx, n: int):
+    """The first boxes with NaN and infinite coordinates (whose samples count
+    for nothing), and indices -1, N and -N-1 on the next ones."""
+    b, i = boxes.clone(), idx.clone()
+    inf, nan = float("inf"), float("nan")
+    b[0] = torch.tensor([nan, 10.0, 50.0, 50.0])
+    b[1] = torch.tensor([-inf, 10.0, inf, 50.0])
+    b[2] = torch.tensor([10.0, nan, 50.0, nan])
+    b[3] = torch.tensor([20.0, -inf, 60.0, 40.0])
+    i[4:7] = torch.tensor([-1, n, -n - 1], dtype=i.dtype)
+    return b, i
+
+
+def nan_matrices(iou) -> dict:
+    """IoU matrices with NaN in a few rows, in a few columns, and one whole
+    NaN row."""
+    rows, cols, whole = iou.clone(), iou.clone(), iou.clone()
+    rows[[0, 40, 1999], 5] = float("nan")
+    rows[40, 60] = float("nan")
+    cols[[3, 900], 20] = float("nan")
+    cols[:, 33] = float("nan")
+    whole[17] = float("nan")
+    return {"[2000, 64] NaN rows": rows, "[2000, 64] NaN columns": cols,
+            "[2000, 64] a NaN row": whole}
+
+
+def _axis_taps(start, bin_size, size: int, out_dim: int, ratio: int):
+    """Per ROI, output index and sample: the two taps and whether the
+    sample counts (the rule of ops/roi_align.py:_interp_weights)."""
+    dev = start.device
+    o = torch.arange(out_dim, dtype=torch.float32, device=dev)[:, None]
+    s = (torch.arange(ratio, dtype=torch.float32, device=dev) + 0.5) / torch.full(
+        (), float(ratio), device=dev)
+    ctr = start[:, None, None] + (o + s) * bin_size[:, None, None]
+    ok = (ctr >= -1) & (ctr <= size)
+    i0 = ctr.clamp(0, size - 1).floor().long()
+    i1 = (i0 + 1).clamp(max=size - 1)
+    return torch.where(ok, i0, -1), torch.where(ok, i1, -1), ok  # [R, out, ratio]
+
+
+def _slot_count(i0, i1, ok, width: int):
+    """Slots a footprint axis copies: the span where it is no wider than
+    ``width``, else two per counted sample.  Inputs [R, k]."""
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(ok, i0, big).amin(1)
+    hi = torch.where(ok, i1, -1).amax(1)
+    span = hi - lo + 1
+    any_ok = ok.any(1)
+    return torch.where(~any_ok, 0, torch.where(span <= width, span, 2 * ok.sum(1)))
+
+
+def roi_traffic(features, boxes, idx, out_hw, scale, ratio, aligned, plan) -> dict:
+    """Feature bytes of the gathers: the taps the direct form issues (four
+    per counted sample), the distinct pixels of each output row and of each
+    ROI, what the pipelined form stages under ``plan``, and the union over
+    the ROIs of each image (what the bound counts)."""
+    from instancesegmentation_tpu_torch.ops.roi_align import _roi_geometry, gather_index
 
     n, h, w, c = features.shape
-    x0, y0, bin_w, bin_h = _roi_geometry(boxes, out_hw, scale, aligned)
-    rows = (_interp_weights(y0, bin_h, h, out_hw[0], ratio) > 0).any(1)  # [R, H]
-    cols = (_interp_weights(x0, bin_w, w, out_hw[1], ratio) > 0).any(1)  # [R, W]
-    pixels = 0
-    for img in range(n):
-        sel = idx.long() == img
-        pixels += int((rows[sel][:, :, None] & cols[sel][:, None, :]).any(0).sum())
-    out = boxes.shape[0] * out_hw[0] * out_hw[1] * c * 4
-    return pixels * c * features.element_size() + boxes.shape[0] * 20 + out
+    oh, ow = out_hw
+    px = c * features.element_size()
+    x0, y0, bw, bh = _roi_geometry(boxes, out_hw, scale, aligned)
+    xi0, xi1, xok = _axis_taps(x0, bw, w, ow, ratio)
+    yi0, yi1, yok = _axis_taps(y0, bh, h, oh, ratio)
+    issued = 4 * yok.sum((1, 2)) * xok.sum((1, 2))
+
+    def marks(i0, i1, size):  # [R, k] taps -> [R, size] pixels touched
+        m = torch.zeros((i0.shape[0], size + 1), dtype=torch.bool, device=i0.device)
+        m.scatter_(1, torch.where(i0 < 0, size, i0), True)
+        m.scatter_(1, torch.where(i1 < 0, size, i1), True)
+        return m[:, :size]
+
+    cols = marks(xi0.flatten(1), xi1.flatten(1), w)
+    ncols = cols.sum(1)
+    rows_roi = marks(yi0.flatten(1), yi1.flatten(1), h)
+    per_row = sum(marks(yi0[:, j], yi1[:, j], h).sum(1) for j in range(oh)) * ncols
+    xs = _slot_count(xi0.flatten(1), xi1.flatten(1), xok.flatten(1), 2 * ow * ratio)
+    staged = torch.zeros_like(xs)
+    for j0 in range(0, oh, plan.rows_per_band):
+        sl = slice(j0, min(oh, j0 + plan.rows_per_band))
+        ys = _slot_count(yi0[:, sl].flatten(1), yi1[:, sl].flatten(1), yok[:, sl].flatten(1),
+                         2 * ratio * (sl.stop - sl.start))
+        staged += ys * xs
+    img = gather_index(idx, n)
+    union = 0
+    for i in range(n):
+        sel = img == i
+        union += int((rows_roi[sel][:, :, None] & cols[sel][:, None, :]).any(0).sum())
+    return {"issued_taps": int(issued.sum()) * px, "per_row_distinct": int(per_row.sum()) * px,
+            "per_roi_distinct": int((rows_roi.sum(1) * ncols).sum()) * px,
+            "pipelined_staged": int(staged.sum()) * px, "union": union * px}
 
 
 def proposal_requests(rng, n_images: int) -> list:
@@ -523,11 +642,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
     # ptxas reports (registers, spills, stack, static shared memory) of the
-    # two banded chain kernels and of the nms and tiled warp kernels
+    # two banded chain kernels, the nms and tiled warp kernels, the two
+    # roi_align forms (their first instantiation) and the cluster matcher
     ptxas = {}
     for src, kernel in (("fused_chain.cu", "fused_chain_banded_kernel"),
                         ("fused_chain.cu", "fused_chain_banded_f32_kernel"),
-                        ("nms.cu", "nms_kernel"), ("warp_2level.cu", "warp_2level_tiled_kernel")):
+                        ("nms.cu", "nms_kernel"), ("warp_2level.cu", "warp_2level_tiled_kernel"),
+                        ("roi_align.cu", "roi_align_kernel"),
+                        ("roi_align.cu", "roi_align_pipelined_kernel"),
+                        ("matching.cu", "match_cluster_kernel")):
         log = _build.build_log.get(src)
         if log is None:
             print(f"{src} was built before this run: no ptxas report")
@@ -693,29 +816,77 @@ def main() -> int:
     exact(got, (torch.stack([r[0] for r in refs]), torch.stack([r[1] for r in refs])),
           "nms_batch [8, 1000] thr=0.7")
 
+    # roi_align: both forms (the entry point's direct form and the pipelined
+    # form) at both poolers, float32 and bfloat16, within atol 1e-4 + rtol
+    # 1e-4 of the reference's magnitude (sums in another order); boxes with
+    # NaN and infinite coordinates give zeros, and indices -1, N and -N-1
+    # take JAX's gather rule
     feats = torch.randn((2, 200, 336, 256), generator=g, device=dev)
     roi_cases = {"box_head": (1000, (7, 7)), "mask_head": (100, (14, 14))}
     roi_in = {name: roi_inputs(g, r, dev) for name, (r, _) in roi_cases.items()}
     errs["roi_align"] = 0.0
+    errs["roi_align_pipelined"] = 0.0
+    roi_align.roi_align.launches_by_form.update(direct=0, pipelined=0)
     for name, (r, out_hw) in roi_cases.items():
         boxes, idx = roi_in[name]
-        for aligned, dtype in ((False, torch.float32), (True, torch.float32),
-                               *(((False, torch.bfloat16),) if name == "box_head" else ())):
+        rb, ri = roi_repair_inputs(boxes, idx, feats.shape[0])
+        for aligned, dtype, (bx, ix, what) in (
+                (False, torch.float32, (boxes, idx, "")), (True, torch.float32, (boxes, idx, "")),
+                (False, torch.bfloat16, (boxes, idx, "")),
+                (True, torch.float32, (rb, ri, " with NaN/inf boxes and indices -1, N, -N-1"))):
             f = feats.to(dtype)
-            args = (f, boxes, idx, out_hw, 0.25, 2, aligned)
-            errs["roi_align"] = max(errs["roi_align"], max_err(
-                roi_align.roi_align(*args), roi_align.roi_align_reference(*args), 1e-4, 1e-4,
-                f"roi_align {name} R={r} {out_hw} aligned={aligned} {dtype}"))
+            args = (f, bx, ix, out_hw, 0.25, 2, aligned)
+            want = roi_align.roi_align_reference(*args)
+            for form in ("direct", "pipelined"):
+                got = roi_align._launch(*args, form=form)
+                key = "roi_align" if form == roi_align.ENTRY_FORM else "roi_align_pipelined"
+                errs[key] = max(errs[key], max_err(
+                    got, want, 1e-4, 1e-4,
+                    f"roi_align {form} {name} R={r} {out_hw} aligned={aligned} {dtype}{what}"))
+                if what:
+                    check(bool((got[:4] == 0).all()), f"roi_align {form}: NaN/inf boxes give zeros")
+    # every lever of both forms changes no value
+    args = (feats, *roi_in["box_head"], (7, 7), 0.25, 2, True)
+    want = roi_align.roi_align_reference(*args)
+    all_levers = roi_align.LEVER_ORDER | roi_align.LEVER_STREAM_OUT
+    for form in ("direct", "pipelined"):
+        max_err(roi_align._launch(*args, form=form, levers=all_levers), want, 1e-4, 1e-4,
+                f"roi_align {form} box_head with levers {all_levers}")
+    # the planner's mirror of the kernel's shared-memory layout
+    lib = roi_align._library()
+    for elt, (r, out_hw) in ((4, roi_cases["box_head"]), (4, roi_cases["mask_head"]),
+                             (2, roi_cases["box_head"])):
+        plan = roi_align.plan_pipelined(256, out_hw, 2, elt, r)
+        check(plan.smem == lib.roi_align_pipelined_smem(elt, out_hw[1], 2, plan.slab,
+                                                        plan.stages, plan.rows_per_band),
+              f"roi_align pipelined plan {plan}: shared memory as the kernel lays it out")
+    by_form = dict(roi_align.roi_align.launches_by_form)
+    print(f"roi_align checks: launches by form {by_form}")
+    check(by_form["pipelined"] >= 2 * 4 + 1, "roi_align: the pipelined form at both poolers")
 
+    # match_proposals: bit-equal, the cluster form against the plain version
+    # and against the two-pass form, one launch per call in the cluster form
     iou = torch.rand((2000, 64), generator=g, device=dev)
     iou[5] = iou[3]                      # tied rows
     iou[7, [2, 9]] = iou[7].max()        # a tie inside a row: the first index wins
     iou[100, 3] = iou[:, 3].max()        # two proposals reach one column's max
     iou[:, 7] = 0.0                      # a ground truth nobody overlaps
-    for lq in (True, False):
-        exact(matching.match_proposals(iou, allow_low_quality=lq),
-              matching.match_proposals_reference(iou, allow_low_quality=lq),
-              f"match_proposals [2000, 64] allow_low_quality={lq}")
+    match_cases = {"[2000, 64]": iou, "[256, 8]": torch.rand((256, 8), generator=g, device=dev),
+                   "[60000, 64]": torch.rand((60000, 64), generator=g, device=dev),
+                   **nan_matrices(iou)}
+    for what, m in match_cases.items():
+        for lq, form in ((True, "cluster"), (False, "two_pass")):
+            plain = matching.match_proposals_reference(m, allow_low_quality=lq)
+            before = dict(matching.match_proposals.launches_by_form)
+            got = matching.match_proposals(m, allow_low_quality=lq)
+            check(matching.match_proposals.launches_by_form[form] == before[form] + 1,
+                  f"match_proposals {what} allow_low_quality={lq}: the {form} form")
+            exact(got, plain, f"match_proposals {what} allow_low_quality={lq}")
+            if lq:
+                exact(got, matching._launch(m, 0.5, 0.3, lq, form="two_pass"),
+                      f"match_proposals {what}: cluster vs two-pass form")
+    print(f"match_proposals plan at [2000, 64]: "
+          f"{matching.plan_cluster(2000, 64, matching.max_cluster())._asdict()}")
 
     # the two-level rotated warp at the training shape, on the params the
     # training path gives it; f32 sums of a few terms in another order
@@ -947,6 +1118,8 @@ def main() -> int:
     # poolers' shapes and one matching batch
     roi_align.roi_align.launches = 0
     matching.match_proposals.launches = 0
+    roi_align.roi_align.launches_by_form.update(direct=0, pipelined=0)
+    matching.match_proposals.launches_by_form.update(cluster=0, two_pass=0)
     for name, (r, out_hw) in roi_cases.items():
         out = roi_align.roi_align(feats, *roi_in[name], out_hw, 0.25, 2, False)
         check(out.shape == (r,) + out_hw + feats.shape[-1:] and bool(torch.isfinite(out).all()),
@@ -957,8 +1130,14 @@ def main() -> int:
     torch.cuda.synchronize()
     det_launches = {"roi_align": roi_align.roi_align.launches,
                     "match_proposals": matching.match_proposals.launches}
-    print(f"detection ops through their entry points: launches {det_launches}")
+    det_by_form = {"roi_align": dict(roi_align.roi_align.launches_by_form),
+                   "match_proposals": dict(matching.match_proposals.launches_by_form)}
+    print(f"detection ops through their entry points: launches {det_launches}, by form "
+          f"{det_by_form}")
     check(det_launches == {"roi_align": 2, "match_proposals": 1}, "detection op launches")
+    check(det_by_form["roi_align"][roi_align.ENTRY_FORM] == 2 and
+          det_by_form["match_proposals"] == {"cluster": 1, "two_pass": 0},
+          "detection op launches by form")
 
     # training at full width: the training slice's main path
     model = Segment(20)
@@ -1182,24 +1361,80 @@ def main() -> int:
     print(f"time nms_batch [8, 1000]: {batch_ms:.4f} ms per call, kernel {batch_kernel:.4f} ms "
           f"(plain {batch_plain:.3f} ms, bound {b_ms:.5f} ms by {b_by})")
 
+    # roi_align: each form's call time (CUDA events) and kernel device time
+    # (profiler; the order launch counted where a lever adds it), in turns
+    # old, new, new, old (direct, pipelined, pipelined, direct); then each
+    # lever of each form in turns with the form's default levers; the gather
+    # traffic beside the bound
     roi_parts = []
-    for name, (r, out_hw) in roi_cases.items():
-        args = (feats, *roi_in[name], out_hw, 0.25, 2, False)
-        ms = cuda_ms(lambda: roi_align.roi_align(*args), iters=20)
+    for name, (r, out_hw), dtype in (("box_head", roi_cases["box_head"], torch.float32),
+                                     ("mask_head", roi_cases["mask_head"], torch.float32),
+                                     ("box_head", roi_cases["box_head"], torch.bfloat16)):
+        f = feats.to(dtype)
+        args = (f, *roi_in[name], out_hw, 0.25, 2, False)
+        runs = {"direct": [], "pipelined": []}
+        for form in ("direct", "pipelined", "pipelined", "direct"):
+            call = cuda_ms(lambda: roi_align._launch(*args, form=form), iters=20)
+            kern, _ = device_calls(lambda: roi_align._launch(*args, form=form))
+            runs[form].append((call, kern))
         plain = cuda_ms(lambda: roi_align.roi_align_reference(*args), iters=2, warmup=1)
-        b_ms, b_by = bound_f32(0.0, roi_bytes(feats, *roi_in[name], out_hw, 0.25, 2, False))
-        roi_parts.append({"pooler": name, "shape": [r, *out_hw, feats.shape[-1]],
-                          "features": list(feats.shape), "dtype": "float32", "ms": ms,
-                          "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
-        print(f"time roi_align {name} R={r} {out_hw}: {ms:.4f} ms (plain {plain:.3f} ms, "
-              f"bound {b_ms:.5f} ms by {b_by})")
+        plan = roi_align.plan_pipelined(f.shape[-1], out_hw, 2, f.element_size(), r)
+        traffic = roi_traffic(f, *roi_in[name], out_hw, 0.25, 2, False, plan)
+        b_ms, b_by = bound_f32(0.0, traffic["union"] + r * 20 + r * out_hw[0] * out_hw[1]
+                               * f.shape[-1] * 4)
+        levers = {}
+        lever_forms = () if dtype == torch.bfloat16 else ("direct", "pipelined")
+        for form in lever_forms:
+            bits = (roi_align.LEVER_ORDER, roi_align.LEVER_STREAM_OUT)
+            base = roi_align.default_levers(form, r)
+            for bit in bits:
+                turns = [device_calls(lambda lv=lv: roi_align._launch(
+                    *args, form=form, levers=lv))[0] for lv in (base, base ^ bit, base ^ bit, base)]
+                levers[f"{form} ^ {bit}"] = {"default": (turns[0] + turns[3]) / 2,
+                                             "flipped": (turns[1] + turns[2]) / 2, "turns": turns}
+        entry = roi_align.ENTRY_FORM
+        part = {"pooler": name, "shape": [r, *out_hw, f.shape[-1]], "features": list(f.shape),
+                "dtype": str(dtype).replace("torch.", ""), "form": entry,
+                "ms": sum(c for c, _ in runs[entry]) / 2,
+                "kernel_ms": sum(k for _, k in runs[entry]) / 2,
+                "ms_runs": {fm: [c for c, _ in v] for fm, v in runs.items()},
+                "kernel_ms_runs": {fm: [k for _, k in v] for fm, v in runs.items()},
+                "pipelined_ms": sum(c for c, _ in runs["pipelined"]) / 2,
+                "pipelined_kernel_ms": sum(k for _, k in runs["pipelined"]) / 2,
+                "pipelined_plan": plan._asdict(), "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "traffic_bytes": traffic, "levers": levers}
+        roi_parts.append(part)
+        print(f"time roi_align {name} R={r} {out_hw} {part['dtype']}: direct {part['ms']:.4f} ms "
+              f"per call, kernel {part['kernel_ms']:.4f} ms; pipelined "
+              f"{part['pipelined_ms']:.4f} / {part['pipelined_kernel_ms']:.4f} ms (turns "
+              f"{json.dumps(part['kernel_ms_runs'])}); plain {plain:.3f} ms, bound "
+              f"{b_ms:.5f} ms by {b_by}")
+        print(f"roi_align {name} {part['dtype']} gather traffic (bytes): {json.dumps(traffic)}")
+        print(f"roi_align {name} {part['dtype']} levers (kernel ms, default vs flipped): "
+              f"{json.dumps(levers)}")
 
+    # match_proposals at [2000, 64]: the call (CUDA events) and the kernels'
+    # device time of each form, in turns two-pass, cluster, cluster, two-pass
+    mruns = {"two_pass": [], "cluster": []}
+    for form in ("two_pass", "cluster", "cluster", "two_pass"):
+        call = cuda_ms(lambda: matching._launch(iou, 0.5, 0.3, True, form=form), iters=50)
+        kern, per_call = device_calls(lambda: matching._launch(iou, 0.5, 0.3, True, form=form), 50)
+        mruns[form].append((call, kern, per_call))
+    # one launch per call, with the rescue (the cluster form) and without it
+    # (the two-pass form's row pass) (traced here, beside the other traces: a trace taken before the serving
+    # and training phases left the later ones empty on the card)
+    for lq in (True, False):
+        _, per_call = device_calls(lambda: matching.match_proposals(iou, allow_low_quality=lq))
+        print(f"match_proposals [2000, 64] allow_low_quality={lq}: {per_call} kernel per call")
+        check(per_call == 1.0, "match_proposals: one launch per call")
     match_ms = cuda_ms(lambda: matching.match_proposals(iou), iters=50)
+    match_kernel = sum(k for _, k, _ in mruns["cluster"]) / 2
     match_plain = cuda_ms(lambda: matching.match_proposals_reference(iou), iters=20)
     # matrix read once, matched (int64) and labels (int32) written once; a
     # few comparisons per element
     match_bound, match_by = bound_f32(3.0 * iou.numel(), iou.numel() * 4 + 2000 * 12)
-    print(f"time match_proposals [2000, 64]: {match_ms:.4f} ms (plain {match_plain:.3f} ms, "
+    print(f"time match_proposals [2000, 64]: {match_ms:.4f} ms per call, cluster kernel "
+          f"{match_kernel:.4f} ms (turns {json.dumps(mruns)}; plain {match_plain:.3f} ms, "
           f"bound {match_bound:.5f} ms by {match_by})")
 
     nms_s[0], predict_s = 0.0, [0.0]
@@ -1302,17 +1537,24 @@ def main() -> int:
         {"name": "roi_align", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/roi_align.cu",
          "replaces": "instancesegmentation_tpu/ops/roi_align.py:99",
-         "launches": det_launches["roi_align"], "on_main_path": False,
-         "max_abs_err": errs["roi_align"],
-         **{k: roi_parts[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None, "parts": roi_parts},
+         "launches": det_launches["roi_align"], "launches_by_form": det_by_form["roi_align"],
+         "on_main_path": False, "form": roi_align.ENTRY_FORM,
+         "max_abs_err": errs["roi_align"], "pipelined_max_abs_err": errs["roi_align_pipelined"],
+         **{k: roi_parts[0][k] for k in ("ms", "kernel_ms", "ms_runs", "plain_ms", "bound_ms",
+                                         "bound_by")},
+         "library_ms": None, "ptxas": ptxas.get("roi_align_kernel"),
+         "pipelined_ptxas": ptxas.get("roi_align_pipelined_kernel"), "parts": roi_parts},
         {"name": "match_proposals", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/matching.cu",
          "replaces": "instancesegmentation_tpu/ops/matching.py:61",
-         "launches": det_launches["match_proposals"], "on_main_path": False,
-         "max_abs_err": 0.0, "ms": match_ms, "plain_ms": match_plain,
-         "bound_ms": match_bound, "bound_by": match_by, "library_ms": None,
-         "shape": [2000, 64]},
+         "launches": det_launches["match_proposals"],
+         "launches_by_form": det_by_form["match_proposals"], "on_main_path": False,
+         "form": "cluster", "max_abs_err": 0.0, "ms": match_ms, "kernel_ms": match_kernel,
+         "ms_runs": {fm: [c for c, _, _ in v] for fm, v in mruns.items()},
+         "kernel_ms_runs": {fm: [k for _, k, _ in v] for fm, v in mruns.items()},
+         "two_pass_kernel_ms": sum(k for _, k, _ in mruns["two_pass"]) / 2,
+         "plain_ms": match_plain, "bound_ms": match_bound, "bound_by": match_by,
+         "library_ms": None, "ptxas": ptxas.get("match_cluster_kernel"), "shape": [2000, 64]},
         {"name": "warp_2level", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/warp_2level.cu",
          "replaces": "tools/rot_pallas_probe.py:74",

@@ -1,4 +1,4 @@
-// RoI-Align kernel for Hopper (sm_90a), torchvision semantics, NHWC.
+// RoI-Align kernels for Hopper (sm_90a), torchvision semantics, NHWC.
 //
 // Replaces the Pallas TPU kernel instancesegmentation_tpu/ops/roi_align.py:
 // roi_align_pallas.  That kernel runs one program per ROI: the ROI's whole
@@ -6,53 +6,120 @@
 // weights Wy [oh, H] and Wx^T [W, ow] are built, and out[c] =
 // Wy . feat[c] . Wx^T runs on the matrix unit, channel by channel.
 //
-// What bounds it on the card.  Bytes.  An output bin needs only the
-// 2 x 2 taps of its ratio^2 samples, a few hundred bytes per output row,
-// against a few MB per feature map: the dense products touch every pixel
-// of the map for every ROI, ~H*W / (4 ratio^2 oh ow) times more reads and
-// operations than the samples need.  The least traffic is the feature
-// pixels the samples touch, each read once, plus the output.
+// What bounds it on the card.  Bytes: an output bin needs only the 2 x 2
+// taps of its ratio^2 samples, so the least traffic is the feature pixels
+// the samples touch, each read once, plus the output.  Neighbouring samples
+// of a small ROI share taps, and so do ROIs that overlap: the taps a kernel
+// reads come to several times the distinct pixels, and ROIs taken in a
+// random order read a map larger than L2 from device memory several times
+// over.  Arithmetic is a few FMAs per byte.
 //
-// What the design does about it.  It samples the map directly.  One block
-// per (ROI, output row): it first computes the taps and weights of the
-// row's ratio y-samples and of all ow * ratio x-samples into shared memory
-// (the rules of ops/roi_align.py:_interp_weights: a centre outside
-// [-1, size] weighs 0, else it is clamped to [0, size-1]; taps floor(c) and
-// floor(c)+1, the second clamped since its weight is 0 at the edge); then
-// its threads run over (ow, C) with C innermost, so neighbouring threads
-// read neighbouring channels of one pixel: 16-byte float32 (8-byte bf16)
-// loads where C % 4 == 0.  Inputs are float32 or bfloat16, arithmetic and
-// the output float32.  The taps of a ROI are read once per output row
-// that uses them, from L2 where neighbouring rows share them.
+// Two forms, chosen in ops/roi_align.py:
 //
-// The geometry is written with round-to-nearest intrinsics in the
-// operation order of the plain version, so that sample positions (and
-// their validity at the edges) agree with it.
+// The direct form (roi_align_kernel), the entry point's: one block per
+// (ROI, output row), taps and weights in shared memory, threads over
+// (ow, C) with C innermost (16-byte float32 or 8-byte bf16 loads where
+// C % 4 == 0), four taps per sample read straight from global memory, so
+// L1 catches the taps a block's samples share.
+//
+// The pipelined form (roi_align_pipelined_kernel).  A CTA owns one ROI and
+// one band of its output rows.  It first works out the band's footprint:
+// the columns its ow * ratio x-samples tap and the rows its y-samples tap,
+// each axis as its span [lo, hi] where that is no wider than the taps (so a
+// tap that neighbouring samples share is staged once), else as a slot pair
+// per sample, and each footprint slot's pixel offset.  Then it walks the
+// channels in slabs: each slab of the footprint is copied by 16-byte
+// cp.async copies into a shared-memory ring of `stages` slots (the copy of
+// slab u + stages - 1 goes out before the wait for slab u).  A slot holds
+// the largest footprint at `slab` channels; a smaller footprint (a small
+// ROI) takes the widest slab that fits, so it needs fewer, larger copies.
+// The arithmetic runs from shared memory, separably: the x-interpolation of
+// each tap row of a y-sample, summed over the x-samples, then the
+// y-combination and the mean.  On the H100 it is slower than the direct
+// form at every shape measured (PERF.md): its arithmetic and copies both
+// go through shared memory, while the direct form's gathers hit L1.
+//
+// Levers of both forms, each a bit of `levers`: a first small launch that
+// orders the ROIs by (image, band of the map the box centre lies in), so
+// that resident blocks work on one region of the map and its pixels stay in
+// L2 between them; streaming (st.global.cs) output stores.
+//
+// Both forms share the tap rule of ops/roi_align.py:_interp_weights: a
+// sample centre counts only if -1 <= ctr <= size (written so that a NaN
+// centre fails), and then weighs (1 - frac, frac) on floor(cc) and
+// floor(cc) + 1 of its clamp cc to [0, size - 1]; a centre that does not
+// count weighs 0.  A valid tap has w0 > 0, so w0 == 0 marks a sample that
+// does not count.  The box index follows the JAX gather: i < 0 -> i + n,
+// then a clamp to [0, n - 1].  The geometry is written with round-to-
+// nearest intrinsics in the operation order of the plain version, so that
+// sample positions (and their validity at the edges) agree with it.
+// Inputs are float32 or bfloat16, arithmetic and the output float32.
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
-// -shared -Xcompiler -fPIC; bound with ctypes through roi_align_launch.
+// -shared -Xcompiler -fPIC; bound with ctypes through roi_align_launch,
+// roi_align_pipelined_launch and roi_align_pipelined_smem.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
 
 #define RA_MAX_THREADS 256
+#define RA_PIPE_THREADS 256
+#define RA_MAX_RATIO 4
+#define RA_MAX_STAGES 4
+#define RA_SMEM_LIMIT 232448
+#define RA_ORDER_THREADS 1024
+#define RA_ORDER_BUCKETS 4096
+
+// levers (as LEVER_* in ops/roi_align.py)
+#define RA_LEVER_ORDER 1
+#define RA_LEVER_STREAM_OUT 2
 
 struct Tap {
   int i0, i1;    // the two taps on this axis
-  float w0, w1;  // their weights, 0 for a sample outside [-1, size]
+  float w0, w1;  // their weights; w0 == 0 for a sample that does not count
 };
 
 __device__ __forceinline__ Tap make_tap(float start, float bin, int size, int o, int k, int ratio) {
   const float s = __fdiv_rn(__fadd_rn((float)k, 0.5f), (float)ratio);
   const float ctr = __fadd_rn(start, __fmul_rn(__fadd_rn((float)o, s), bin));
   Tap t = {0, 0, 0.f, 0.f};
-  if (ctr < -1.f || ctr > (float)size) return t;
+  if (!(ctr >= -1.f && ctr <= (float)size)) return t;  // NaN fails too
   const float cc = fminf(fmaxf(ctr, 0.f), (float)(size - 1));
   t.i0 = (int)floorf(cc);
   t.i1 = min(t.i0 + 1, size - 1);
   t.w1 = __fsub_rn(cc, (float)t.i0);
   t.w0 = __fsub_rn(1.f, t.w1);
   return t;
+}
+
+// JAX's gather rule for a box index: a negative one wraps once, then clamps
+__device__ __forceinline__ int image_of(int i, int n) {
+  if (i < 0) i += n;
+  return min(max(i, 0), n - 1);
+}
+
+struct Geometry {
+  float x0, y0, bin_w, bin_h;
+};
+
+__device__ __forceinline__ Geometry roi_geometry(const float* b, float scale, int aligned, int oh,
+                                                 int ow) {
+  const float off = aligned ? 0.5f : 0.f;
+  Geometry g;
+  g.x0 = __fsub_rn(__fmul_rn(b[0], scale), off);
+  g.y0 = __fsub_rn(__fmul_rn(b[1], scale), off);
+  const float x1 = __fsub_rn(__fmul_rn(b[2], scale), off);
+  const float y1 = __fsub_rn(__fmul_rn(b[3], scale), off);
+  float roi_w = __fsub_rn(x1, g.x0), roi_h = __fsub_rn(y1, g.y0);
+  if (!aligned) {
+    roi_w = fmaxf(roi_w, 1.f);
+    roi_h = fmaxf(roi_h, 1.f);
+  }
+  g.bin_w = __fdiv_rn(roi_w, (float)ow);
+  g.bin_h = __fdiv_rn(roi_h, (float)oh);
+  return g;
 }
 
 template <typename T, int V> struct Vec;
@@ -77,39 +144,118 @@ template <> struct Vec<__nv_bfloat16, 4> {
   }
 };
 
+__device__ __forceinline__ void store4(float* dst, const float* acc, float inv, int stream) {
+  const float4 val = make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv);
+  if (stream)
+    __stcs(reinterpret_cast<float4*>(dst), val);
+  else
+    *reinterpret_cast<float4*>(dst) = val;
+}
+
+// ---------------------------------------------------------------------------
+// The locality order
+// ---------------------------------------------------------------------------
+
+// ROI indices by (image, band of the map that holds the box centre), a
+// counting sort in one CTA.  Within a bucket the order is the atomics' (it
+// changes no output: each ROI writes only its own rows).
+__global__ void __launch_bounds__(RA_ORDER_THREADS)
+roi_order_kernel(const float* __restrict__ boxes, const int* __restrict__ box_idx,
+                 int* __restrict__ order, int r, int n, int h, float scale, int bands) {
+  __shared__ int start[RA_ORDER_BUCKETS];
+  __shared__ int warp_sums[RA_ORDER_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long nb = (long long)n * bands;
+  const int buckets = nb < RA_ORDER_BUCKETS ? (int)nb : RA_ORDER_BUCKETS;
+  auto key = [&](int i) {
+    const float cy = __fmul_rn(__fmul_rn(__fadd_rn(boxes[4 * i + 1], boxes[4 * i + 3]), 0.5f),
+                               scale);
+    const float fb = cy * (float)bands / (float)h;
+    const int band = !(fb >= 0.f) ? 0 : (fb >= (float)(bands - 1) ? bands - 1 : (int)fb);
+    return (int)(((long long)image_of(box_idx[i], n) * bands + band) % buckets);
+  };
+  for (int i = tid; i < RA_ORDER_BUCKETS; i += RA_ORDER_THREADS) start[i] = 0;
+  __syncthreads();
+  for (int i = tid; i < r; i += RA_ORDER_THREADS) atomicAdd(&start[key(i)], 1);
+  __syncthreads();
+  // exclusive scan of the counts: PER consecutive buckets per thread
+  constexpr int PER = RA_ORDER_BUCKETS / RA_ORDER_THREADS;
+  int local[PER], sum = 0;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    local[k] = start[tid * PER + k];
+    sum += local[k];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int ws = warp_sums[lane], wincl = ws;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, wincl, off);
+      if (lane >= off) wincl += v;
+    }
+    warp_sums[lane] = wincl - ws;
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + incl - sum;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    start[tid * PER + k] = run;
+    run += local[k];
+  }
+  __syncthreads();
+  for (int i = tid; i < r; i += RA_ORDER_THREADS) order[atomicAdd(&start[key(i)], 1)] = i;
+}
+
+// With RA_LEVER_ORDER: the order launch into `order` (int32 [r]), and *ord
+// the order to read; without it *ord is null.
+static cudaError_t maybe_order(int levers, const void* boxes, const void* box_idx, void* order,
+                               int r, int n, int h, float scale, int bands, cudaStream_t s,
+                               const int** ord) {
+  *ord = nullptr;
+  if (!(levers & RA_LEVER_ORDER)) return cudaSuccess;
+  if (order == nullptr || bands < 1) return cudaErrorInvalidValue;
+  roi_order_kernel<<<1, RA_ORDER_THREADS, 0, s>>>(static_cast<const float*>(boxes),
+                                                  static_cast<const int*>(box_idx),
+                                                  static_cast<int*>(order), r, n, h, scale, bands);
+  *ord = static_cast<const int*>(order);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The direct form
+// ---------------------------------------------------------------------------
+
 template <typename T, int V>
 __global__ void __launch_bounds__(RA_MAX_THREADS)
 roi_align_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
-                 const int* __restrict__ box_idx, float* __restrict__ out, int n, int h, int w,
-                 int c, int oh, int ow, float scale, int ratio, int aligned) {
+                 const int* __restrict__ box_idx, const int* __restrict__ order,
+                 float* __restrict__ out, int n, int h, int w, int c, int oh, int ow, float scale,
+                 int ratio, int aligned, int stream) {
   extern __shared__ Tap taps[];  // ratio y-taps, then ow * ratio x-taps
-  const int r = blockIdx.x / oh, oy = blockIdx.x - (blockIdx.x / oh) * oh;
-  const float off = aligned ? 0.5f : 0.f;
-  const float* b = boxes + 4 * r;
-  const float x0 = __fsub_rn(__fmul_rn(b[0], scale), off);
-  const float y0 = __fsub_rn(__fmul_rn(b[1], scale), off);
-  const float x1 = __fsub_rn(__fmul_rn(b[2], scale), off);
-  const float y1 = __fsub_rn(__fmul_rn(b[3], scale), off);
-  float roi_w = __fsub_rn(x1, x0), roi_h = __fsub_rn(y1, y0);
-  if (!aligned) {
-    roi_w = fmaxf(roi_w, 1.f);
-    roi_h = fmaxf(roi_h, 1.f);
-  }
-  const float bin_w = __fdiv_rn(roi_w, (float)ow), bin_h = __fdiv_rn(roi_h, (float)oh);
+  const int q = blockIdx.x / oh, oy = blockIdx.x - q * oh;
+  const int r = order != nullptr ? order[q] : q;
+  const Geometry geo = roi_geometry(boxes + 4 * r, scale, aligned, oh, ow);
   Tap* ty = taps;
   Tap* tx = taps + ratio;
   for (int e = threadIdx.x; e < ratio * (ow + 1); e += blockDim.x) {
     if (e < ratio) {
-      ty[e] = make_tap(y0, bin_h, h, oy, e, ratio);
+      ty[e] = make_tap(geo.y0, geo.bin_h, h, oy, e, ratio);
     } else {
-      const int q = e - ratio;
-      tx[q] = make_tap(x0, bin_w, w, q / ratio, q % ratio, ratio);
+      const int k = e - ratio;
+      tx[k] = make_tap(geo.x0, geo.bin_w, w, k / ratio, k % ratio, ratio);
     }
   }
   __syncthreads();
 
-  const int img = min(max(box_idx[r], 0), n - 1);  // never read outside the batch
-  const T* f = feats + (size_t)img * h * w * c;
+  const T* f = feats + (size_t)image_of(box_idx[r], n) * h * w * c;
   const float inv = 1.f / (float)(ratio * ratio);
   const int cg = c / V;
   float* o = out + ((size_t)r * oh + oy) * ow * c;
@@ -120,12 +266,12 @@ roi_align_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
     for (int v = 0; v < V; ++v) acc[v] = 0.f;
     for (int sy = 0; sy < ratio; ++sy) {
       const Tap ya = ty[sy];
-      if (ya.w0 == 0.f && ya.w1 == 0.f) continue;
+      if (ya.w0 == 0.f) continue;
       const T* row0 = f + (size_t)ya.i0 * w * c + c0;
       const T* row1 = f + (size_t)ya.i1 * w * c + c0;
       for (int sx = 0; sx < ratio; ++sx) {
         const Tap xa = tx[ox * ratio + sx];
-        if (xa.w0 == 0.f && xa.w1 == 0.f) continue;
+        if (xa.w0 == 0.f) continue;
         float p00[V], p01[V], p10[V], p11[V];
         Vec<T, V>::load(row0 + (size_t)xa.i0 * c, p00);
         Vec<T, V>::load(row0 + (size_t)xa.i1 * c, p01);
@@ -140,52 +286,333 @@ roi_align_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
       }
     }
     float* dst = o + (size_t)ox * c + c0;
-    if constexpr (V == 4) {
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv);
-    } else {
+    if constexpr (V == 4)
+      store4(dst, acc, inv, stream);
+    else
       dst[0] = acc[0] * inv;
-    }
   }
 }
 
 template <typename T, int V>
-static int launch(const void* feats, const void* boxes, const void* box_idx, void* out, int n,
-                  int h, int w, int c, int r, int oh, int ow, float scale, int ratio, int aligned,
-                  cudaStream_t stream) {
+static int launch_direct(const void* feats, const void* boxes, const void* box_idx,
+                         const int* order, void* out, int n, int h, int w, int c, int r, int oh,
+                         int ow, float scale, int ratio, int aligned, int stream, cudaStream_t s) {
   int threads = ((ow * (c / V) + 31) / 32) * 32;
   threads = threads > RA_MAX_THREADS ? RA_MAX_THREADS : threads;
   const size_t smem = sizeof(Tap) * (size_t)ratio * (ow + 1);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  roi_align_kernel<T, V><<<r * oh, threads, smem, stream>>>(
+  roi_align_kernel<T, V><<<r * oh, threads, smem, s>>>(
       static_cast<const T*>(feats), static_cast<const float*>(boxes),
-      static_cast<const int*>(box_idx), static_cast<float*>(out), n, h, w, c, oh, ow, scale,
-      ratio, aligned);
+      static_cast<const int*>(box_idx), order, static_cast<float*>(out), n, h, w, c, oh, ow,
+      scale, ratio, aligned, stream);
   return (int)cudaGetLastError();
 }
 
 // feats [n, h, w, c] (dtype 0 = float32, 1 = bfloat16), boxes [r, 4] f32,
 // box_idx [r] int32, out [r, oh, ow, c] f32.  r, c >= 1, ratio >= 1.
-// Returns a cudaError_t (0 on success).
+// levers: RA_LEVER_* bits (streaming stores where C % 4 == 0 and the rows
+// are aligned; with RA_LEVER_ORDER an int32 [r] scratch `order` and
+// order_bands bands of the map).  Returns a cudaError_t (0 on success).
 extern "C" int roi_align_launch(const void* feats, const void* boxes, const void* box_idx,
-                                void* out, int n, int h, int w, int c, int r, int oh, int ow,
-                                float scale, int ratio, int aligned, int dtype, void* stream) {
+                                void* order, void* out, int n, int h, int w, int c, int r, int oh,
+                                int ow, float scale, int ratio, int aligned, int dtype, int levers,
+                                int order_bands, void* stream) {
   if (n < 1 || h < 1 || w < 1 || c < 1 || r < 1 || oh < 1 || ow < 1 || ratio < 1 ||
-      (long long)r * oh > 0x7fffffffLL)
+      (long long)r * oh > 0x7fffffffLL || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ord = nullptr;
+  const cudaError_t err =
+      maybe_order(levers, boxes, box_idx, order, r, n, h, scale, order_bands, s, &ord);
+  if (err != cudaSuccess) return (int)err;
   const size_t elt = dtype == 0 ? 4 : 2;
   const bool vec4 = c % 4 == 0 && reinterpret_cast<size_t>(feats) % (4 * elt) == 0 &&
                     reinterpret_cast<size_t>(out) % 16 == 0;
+  const int st = (levers & RA_LEVER_STREAM_OUT) != 0;
   if (dtype == 0)
-    return vec4 ? launch<float, 4>(feats, boxes, box_idx, out, n, h, w, c, r, oh, ow, scale, ratio,
-                                   aligned, s)
-                : launch<float, 1>(feats, boxes, box_idx, out, n, h, w, c, r, oh, ow, scale, ratio,
-                                   aligned, s);
-  if (dtype == 1)
-    return vec4 ? launch<__nv_bfloat16, 4>(feats, boxes, box_idx, out, n, h, w, c, r, oh, ow,
-                                           scale, ratio, aligned, s)
-                : launch<__nv_bfloat16, 1>(feats, boxes, box_idx, out, n, h, w, c, r, oh, ow,
-                                           scale, ratio, aligned, s);
-  return (int)cudaErrorInvalidValue;
+    return vec4 ? launch_direct<float, 4>(feats, boxes, box_idx, ord, out, n, h, w, c, r, oh, ow,
+                                          scale, ratio, aligned, st, s)
+                : launch_direct<float, 1>(feats, boxes, box_idx, ord, out, n, h, w, c, r, oh, ow,
+                                          scale, ratio, aligned, st, s);
+  return vec4 ? launch_direct<__nv_bfloat16, 4>(feats, boxes, box_idx, ord, out, n, h, w, c, r,
+                                                oh, ow, scale, ratio, aligned, st, s)
+              : launch_direct<__nv_bfloat16, 1>(feats, boxes, box_idx, ord, out, n, h, w, c, r,
+                                                oh, ow, scale, ratio, aligned, st, s);
+}
+
+// ---------------------------------------------------------------------------
+// The pipelined form
+// ---------------------------------------------------------------------------
+
+// One sample of an axis: the slots of its two taps (-1: it does not count)
+// and their weights.
+struct Sample {
+  int s0, s1;
+  float w0, w1;
+};
+
+// Byte offsets of the pipelined kernel's dynamic shared memory: the ring
+// [stages][stage_bytes], the x-samples [ow ratio], the y-samples
+// [rows_per_band ratio], the column of each column slot [2 ow ratio], the
+// row of each row slot [2 ratio rows_per_band], the pixel offset (y w + x,
+// -1: nothing to copy) of each footprint slot, and the spans (x lo, hi; y
+// lo, hi).  A stage holds the band's largest footprint (row slots x column
+// slots) at `slab` channels.
+struct PipeLayout {
+  size_t stage_bytes, xs, ys, colidx, rowidx, pixoff, span, total;
+};
+
+__host__ __device__ inline size_t round16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+__host__ __device__ inline PipeLayout pipe_layout(int elt, int ow, int ratio, int slab, int stages,
+                                                  int rows_per_band) {
+  const size_t ncol = 2 * (size_t)ow * ratio, nrow = 2 * (size_t)ratio * rows_per_band;
+  PipeLayout l;
+  l.stage_bytes = nrow * ncol * slab * elt;
+  size_t off = (size_t)stages * l.stage_bytes;
+  l.xs = off;
+  off += sizeof(Sample) * (size_t)ow * ratio;
+  l.ys = off;
+  off += sizeof(Sample) * (size_t)rows_per_band * ratio;
+  l.colidx = off;
+  off += round16(4 * ncol);
+  l.rowidx = off;
+  off += round16(4 * nrow);
+  l.pixoff = off;
+  off += round16(4 * nrow * ncol);
+  l.span = off;
+  l.total = off + 16;
+  return l;
+}
+
+// The slot rule of one axis, after the span [lo, hi] of its valid taps is
+// known: where the span is no wider than the taps (`width` slots) it is
+// staged as it lies, else each sample's two taps get slots 2e, 2e + 1.
+// Turns the samples' tap indices into slots (every sample that does not
+// count, all of them where none does (hi < lo), gets -1) and fills idx[]
+// (-1: no pixel); returns the slots used.
+__device__ int assign_slots(Sample* smp, int nsmp, int* idx, int width, int lo, int hi) {
+  const bool dense = hi >= lo && hi - lo < width;
+  for (int e = threadIdx.x; e < nsmp; e += blockDim.x) {
+    Sample s = smp[e];
+    const bool ok = s.w0 != 0.f;
+    if (!dense) {
+      idx[2 * e] = ok ? s.s0 : -1;
+      idx[2 * e + 1] = ok ? s.s1 : -1;
+    }
+    s.s0 = ok ? (dense ? s.s0 - lo : 2 * e) : -1;
+    s.s1 = ok ? (dense ? s.s1 - lo : 2 * e + 1) : -1;
+    smp[e] = s;
+  }
+  if (hi < lo) return 0;
+  if (!dense) return width;
+  for (int e = threadIdx.x; e <= hi - lo; e += blockDim.x) idx[e] = lo + e;
+  return hi - lo + 1;
+}
+
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` commit groups are in flight
+__device__ __forceinline__ void wait_groups(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else if (pending == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RA_PIPE_THREADS)
+roi_align_pipelined_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
+                           const int* __restrict__ box_idx, const int* __restrict__ order,
+                           float* __restrict__ out, int n, int h, int w, int c, int oh, int ow,
+                           float scale, int ratio, int aligned, int slab, int stages,
+                           int rows_per_band, int stream) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const PipeLayout lay = pipe_layout((int)sizeof(T), ow, ratio, slab, stages, rows_per_band);
+  Sample* xs = reinterpret_cast<Sample*>(smem + lay.xs);
+  Sample* ys = reinterpret_cast<Sample*>(smem + lay.ys);
+  int* colidx = reinterpret_cast<int*>(smem + lay.colidx);
+  int* rowidx = reinterpret_cast<int*>(smem + lay.rowidx);
+  int* pixoff = reinterpret_cast<int*>(smem + lay.pixoff);
+  int* span = reinterpret_cast<int*>(smem + lay.span);  // x lo, hi; y lo, hi
+
+  // block -> (ROI in the launch's order, band of output rows)
+  const int bands = (oh + rows_per_band - 1) / rows_per_band;
+  const int band = blockIdx.x % bands;
+  const int q = blockIdx.x / bands;
+  const int r = order != nullptr ? order[q] : q;
+  const int j0 = band * rows_per_band, nj = min(oh - j0, rows_per_band);
+  const Geometry geo = roi_geometry(boxes + 4 * r, scale, aligned, oh, ow);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int ncol = 2 * ow * ratio, nrow = 2 * ratio * nj;
+
+  if (tid < 4) span[tid] = tid % 2 == 0 ? INT_MAX : -1;
+  __syncthreads();
+  // the taps of the ROI's x-samples and of the band's y-samples, and their spans
+  const int nxs = ow * ratio, nys = nj * ratio;
+  for (int e = tid; e < nxs + nys; e += nt) {
+    const bool is_x = e < nxs;
+    const int k = is_x ? e : e - nxs;
+    const Tap t = is_x ? make_tap(geo.x0, geo.bin_w, w, k / ratio, k % ratio, ratio)
+                       : make_tap(geo.y0, geo.bin_h, h, j0 + k / ratio, k % ratio, ratio);
+    (is_x ? xs : ys)[k] = Sample{t.i0, t.i1, t.w0, t.w1};
+    if (t.w0 != 0.f) {
+      atomicMin(&span[is_x ? 0 : 2], t.i0);
+      atomicMax(&span[is_x ? 1 : 3], t.i1);
+    }
+  }
+  __syncthreads();
+  const int ncols = assign_slots(xs, nxs, colidx, ncol, span[0], span[1]);
+  const int nrows = assign_slots(ys, nys, rowidx, nrow, span[2], span[3]);
+  __syncthreads();
+  const int pixels = nrows * ncols;  // slots of a stage
+  for (int p = tid; p < pixels; p += nt) {
+    const int rs = p / ncols, y = rowidx[rs], x = colidx[p - rs * ncols];
+    pixoff[p] = y < 0 || x < 0 ? -1 : y * w + x;
+  }
+  __syncthreads();
+  // the widest slab whose footprint fits a stage: small ROIs take more
+  // channels per ring slot
+  int sw = slab;
+  while (c % (2 * sw) == 0 && (size_t)pixels * 2 * sw * sizeof(T) <= lay.stage_bytes) sw *= 2;
+  const int units = c / sw;
+
+  const T* f = feats + (size_t)image_of(box_idx[r], n) * h * w * c;
+  constexpr int PER16 = 16 / (int)sizeof(T);
+  const int chunks = sw / PER16;
+  const uint32_t pix_bytes = (uint32_t)(sw * sizeof(T));
+  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(smem);
+
+  // stage channel slab u of the footprint into ring slot st: a thread takes
+  // pixels p with a fixed 16-byte chunk k of the slab where the chunks
+  // divide the threads
+  auto issue = [&](int u, int st) {
+    const uint32_t base = ring + (uint32_t)(st * lay.stage_bytes);
+    const T* fu = f + (size_t)u * sw;
+    if (nt % chunks == 0) {
+      const int step = nt / chunks, k = tid % chunks;
+      for (int p = tid / chunks; p < pixels; p += step) {
+        const int o = pixoff[p];
+        if (o >= 0)
+          copy16(base + (uint32_t)p * pix_bytes + 16 * k, fu + (size_t)o * c + k * PER16);
+      }
+    } else {
+      for (int e = tid; e < pixels * chunks; e += nt) {
+        const int p = e / chunks, k = e - p * chunks;
+        const int o = pixoff[p];
+        if (o >= 0)
+          copy16(base + (uint32_t)p * pix_bytes + 16 * k, fu + (size_t)o * c + k * PER16);
+      }
+    }
+    commit_group();
+  };
+
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < units)
+      issue(s, s);
+    else
+      commit_group();  // an empty group keeps the count of groups in step
+  }
+  const float inv = 1.f / (float)(ratio * ratio);
+  const int cg = sw / 4;
+  for (int u = 0; u < units; ++u) {
+    const int st = u % stages;
+    if (u > 0) __syncthreads();  // the slot of unit u - 1 is read by no thread
+    // the copy of unit u + stages - 1 goes out before the wait for unit u
+    const int nxt = u + stages - 1;
+    if (nxt < units)
+      issue(nxt, nxt % stages);
+    else
+      commit_group();
+    wait_groups(stages - 1);
+    __syncthreads();  // slot st is filled for every thread
+
+    const T* stg = reinterpret_cast<const T*>(smem + st * lay.stage_bytes);
+    for (int e = tid; e < nj * ow * cg; e += nt) {
+      const int g4 = e % cg, pix = e / cg;
+      const int j = pix / ow, ox = pix - j * ow, cc = 4 * g4;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int sy = 0; sy < ratio; ++sy) {
+        const Sample ya = ys[j * ratio + sy];
+        if (ya.s0 < 0) continue;
+        const T* row0 = stg + (size_t)ya.s0 * ncols * sw + cc;
+        const T* row1 = stg + (size_t)ya.s1 * ncols * sw + cc;
+        float top[4] = {0.f, 0.f, 0.f, 0.f}, bot[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int sx = 0; sx < ratio; ++sx) {
+          const Sample xa = xs[ox * ratio + sx];
+          if (xa.s0 < 0) continue;
+          float p00[4], p01[4], p10[4], p11[4];
+          Vec<T, 4>::load(row0 + (size_t)xa.s0 * sw, p00);
+          Vec<T, 4>::load(row0 + (size_t)xa.s1 * sw, p01);
+          Vec<T, 4>::load(row1 + (size_t)xa.s0 * sw, p10);
+          Vec<T, 4>::load(row1 + (size_t)xa.s1 * sw, p11);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            top[v] += xa.w0 * p00[v] + xa.w1 * p01[v];
+            bot[v] += xa.w0 * p10[v] + xa.w1 * p11[v];
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[v] += ya.w0 * top[v] + ya.w1 * bot[v];
+      }
+      store4(out + (((size_t)r * oh + j0 + j) * ow + ox) * c + (size_t)u * sw + cc, acc, inv,
+             stream);
+    }
+  }
+}
+
+// Dynamic shared memory of one pipelined CTA, in bytes (elt: 4 = float32,
+// 2 = bfloat16).
+extern "C" long long roi_align_pipelined_smem(int elt, int ow, int ratio, int slab, int stages,
+                                              int rows_per_band) {
+  return (long long)pipe_layout(elt, ow, ratio, slab, stages, rows_per_band).total;
+}
+
+// The pipelined form.  As roi_align_launch, plus: slab channels of the
+// largest footprint per ring slot (a divisor of c, 16-byte rows), stages
+// ring slots (2-4), rows_per_band output rows per CTA.  feats and out
+// 16-byte aligned.  Returns a cudaError_t (0 on success).
+extern "C" int roi_align_pipelined_launch(const void* feats, const void* boxes,
+                                          const void* box_idx, void* order, void* out, int n,
+                                          int h, int w, int c, int r, int oh, int ow, float scale,
+                                          int ratio, int aligned, int dtype, int slab, int stages,
+                                          int rows_per_band, int levers, int order_bands,
+                                          void* stream) {
+  const int elt = dtype == 0 ? 4 : (dtype == 1 ? 2 : 0);
+  if (elt == 0 || n < 1 || h < 1 || w < 1 || c < 1 || r < 1 || oh < 1 || ow < 1 || ratio < 1 ||
+      ratio > RA_MAX_RATIO || slab < 4 || slab % 4 != 0 || c % slab != 0 ||
+      (slab * elt) % 16 != 0 || (c * elt) % 16 != 0 || stages < 2 || stages > RA_MAX_STAGES ||
+      rows_per_band < 1 || rows_per_band > oh || reinterpret_cast<size_t>(feats) % 16 != 0 ||
+      reinterpret_cast<size_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long ctas = (long long)r * ((oh + rows_per_band - 1) / rows_per_band);
+  const size_t smem = pipe_layout(elt, ow, ratio, slab, stages, rows_per_band).total;
+  if (ctas > 0x7fffffffLL || smem > RA_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ord = nullptr;
+  cudaError_t err =
+      maybe_order(levers, boxes, box_idx, order, r, n, h, scale, order_bands, s, &ord);
+  if (err != cudaSuccess) return (int)err;
+  const void* kernel = dtype == 0 ? (const void*)roi_align_pipelined_kernel<float>
+                                  : (const void*)roi_align_pipelined_kernel<__nv_bfloat16>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int st = (levers & RA_LEVER_STREAM_OUT) != 0;
+  void* args[] = {(void*)&feats, (void*)&boxes, (void*)&box_idx, (void*)&ord, (void*)&out,
+                  (void*)&n,     (void*)&h,     (void*)&w,       (void*)&c,   (void*)&oh,
+                  (void*)&ow,    (void*)&scale, (void*)&ratio,   (void*)&aligned,
+                  (void*)&slab,  (void*)&stages, (void*)&rows_per_band, (void*)&st};
+  err = cudaLaunchKernel(kernel, dim3((unsigned)ctas), dim3(RA_PIPE_THREADS), args, smem, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -4,19 +4,29 @@ Port of ``instancesegmentation_tpu/ops/roi_align.py`` (``roi_align`` and the
 Pallas kernel ``roi_align_pallas``).  Every output bin is the mean of
 ``sampling_ratio**2`` bilinear samples; ``aligned=True`` applies the -0.5
 half-pixel offset, ``aligned=False`` clamps the ROI size to at least 1; a
-sample centre outside ``[-1, size]`` contributes zero and one inside is
-clamped to ``[0, size - 1]``.  The adaptive ratio (``sampling_ratio <= 0``
+sample centre counts only if it lies in ``[-1, size]`` (a NaN centre, from a
+NaN box coordinate or from ``-inf + inf``, does not) and is then clamped to
+``[0, size - 1]``; a centre that does not count contributes zero.  A box
+index follows JAX's gather: a negative one wraps once (``i + N``), then it
+is clamped to ``[0, N - 1]``.  The adaptive ratio (``sampling_ratio <= 0``
 in torchvision) is not supported, as in the JAX function.
 
 A CPU tensor runs ``roi_align_reference``, the JAX package's separable form
 ``Wy . feat . Wx^T`` per ROI, over chunks of ROIs so that the gathered
-feature maps stay small.  A CUDA tensor runs the kernel of
-``csrc/roi_align.cu``, which samples the NHWC map directly (counted in
-``roi_align.launches``).
+feature maps stay small.  A CUDA tensor runs a kernel of
+``csrc/roi_align.cu`` (counted in ``roi_align.launches``, and by form in
+``roi_align.launches_by_form``): the direct form (a block per ROI and output
+row, taps read straight from global memory through L1), which the entry
+point takes (``ENTRY_FORM``), or the pipelined form (a CTA per ROI and band
+of output rows stages the band's deduplicated tap footprint, channel slab
+by channel slab, in a shared-memory ring while a slab computes), planned by
+``plan_pipelined`` and reachable through ``_launch``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -61,6 +71,13 @@ def _roi_geometry(boxes, output_size, spatial_scale: float, aligned: bool):
     return x0, y0, roi_w / _full(roi_w, ow), roi_h / _full(roi_h, oh)
 
 
+def gather_index(box_indices: torch.Tensor, n: int) -> torch.Tensor:
+    """JAX's gather rule for the box indices: a negative index wraps once,
+    then every index is clamped to ``[0, n - 1]``."""
+    idx = box_indices.long()
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
 def roi_align_reference(features, boxes, box_indices, output_size=(7, 7),
                         spatial_scale: float = 1.0, sampling_ratio: int = 2,
                         aligned: bool = True, chunk: int = REFERENCE_CHUNK):
@@ -69,7 +86,7 @@ def roi_align_reference(features, boxes, box_indices, output_size=(7, 7),
     _, h, w, c = features.shape
     oh, ow = output_size
     x0, y0, bin_w, bin_h = _roi_geometry(boxes, output_size, spatial_scale, aligned)
-    idx = box_indices.long()
+    idx = gather_index(box_indices, features.shape[0])
     outs = [features.new_zeros((0, oh, ow, c), dtype=torch.float32)]
     for s in range(0, boxes.shape[0], chunk):
         sl = slice(s, s + chunk)
@@ -81,23 +98,135 @@ def roi_align_reference(features, boxes, box_indices, output_size=(7, 7),
     return torch.cat(outs)
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype codes
+
+# -- the pipelined form's plan (mirrors csrc/roi_align.cu) --------------------
+
+MAX_RATIO = 4             # the largest sampling ratio the pipelined form takes
+MAX_STAGES = 4
+SMEM_LIMIT = 232_448      # dynamic shared memory a Hopper block can use
+RING_BUDGET = 96 * 1024   # ring bytes of a CTA: at least two CTAs per SM
+MIN_ITEMS = 4 * 132       # below this many CTAs the planner splits rows into bands
+SAMPLE_BYTES = 16         # sizeof(Sample)
+
+# levers of both forms (bits, as RA_LEVER_* in the source)
+LEVER_ORDER = 1        # a first launch orders the ROIs by (image, band of the map)
+LEVER_STREAM_OUT = 2   # streaming (st.global.cs) output stores
+ORDER_MIN_ROIS = 512   # the direct form orders its ROIs from this many on
+ORDER_BANDS = 16       # bands of the map in the locality order's key
+
+
+def default_levers(form: str, r: int) -> int:
+    """The levers a form launches with for ``r`` ROIs, where each won in
+    turns on an H100 (PERF.md): the direct form stores its output streaming
+    and, from ``ORDER_MIN_ROIS`` ROIs on, takes them in the locality order
+    (below that its extra launch costs more than it saves); the pipelined
+    form none."""
+    if form == "direct":
+        return LEVER_STREAM_OUT | (LEVER_ORDER if r >= ORDER_MIN_ROIS else 0)
+    return 0
+
+
+#: The form the entry point launches.  The pipelined form measured slower
+#: than the direct form at both Mask R-CNN poolers, in float32 and bfloat16,
+#: and at sampling ratios 3 and 4, on an H100 (PERF.md); it stays reachable
+#: through ``_launch(..., form="pipelined")``, timed in turns with the direct
+#: form and held against the plain version by ``chip_smoke.py``.
+ENTRY_FORM = "direct"
+
+
+class PipePlan(NamedTuple):
+    slab: int           # channels of the largest footprint per ring slot
+    stages: int         # ring slots
+    rows_per_band: int  # output rows per CTA
+    bands: int
+    items: int          # CTAs: (ROI, band) pairs
+    smem: int           # dynamic shared memory per CTA, bytes
+
+
+def _round16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def footprint_slots(ow: int, ratio: int, rows_per_band: int) -> int:
+    """Pixel slots of a band's largest footprint: (2 ratio rows_per_band)
+    row slots by (2 ow ratio) column slots."""
+    return 2 * ratio * rows_per_band * 2 * ow * ratio
+
+
+def pipelined_smem(elt: int, ow: int, ratio: int, slab: int, stages: int,
+                   rows_per_band: int) -> int:
+    """Bytes of a pipelined CTA's shared memory (``pipe_layout``): the ring of
+    ``stages`` slots of the largest footprint at ``slab`` channels, the x-
+    and y-samples, the column and row of each slot, the pixel offset of each
+    footprint slot, and the two axes' spans."""
+    ncol, nrow = 2 * ow * ratio, 2 * ratio * rows_per_band
+    return (stages * nrow * ncol * slab * elt + SAMPLE_BYTES * (ow + rows_per_band) * ratio
+            + _round16(4 * ncol) + _round16(4 * nrow) + _round16(4 * nrow * ncol) + 16)
+
+
+def plan_pipelined(c: int, output_size, ratio: int, elt: int, r: int, *, slab=None,
+                   stages=None, rows_per_band=None):
+    """The pipelined form's plan for ``r`` ROIs of ``c`` channels of ``elt``
+    bytes, or None where the direct form runs (a ratio above ``MAX_RATIO``,
+    pixel rows that are not 16-byte multiples, no ring that fits).
+
+    Rows per band: all of them, halved while two slots of the largest
+    footprint at one 128-byte line of channels exceed ``RING_BUDGET`` (so
+    that copies come as whole lines), and while there are fewer than
+    ``MIN_ITEMS`` CTAs.  The slab: the widest divisor of ``c`` whose two
+    slots fit.  Stages: two.  Any of the three may be given instead.
+    """
+    oh, ow = output_size
+    base = max(4, 16 // elt)  # four channels per thread item, 16-byte rows
+    if ratio > MAX_RATIO or c % base:
+        return None
+    line = min(c, max(base, 128 // elt))
+    if rows_per_band is None:
+        rows_per_band = oh
+        while (rows_per_band > 1
+               and 2 * footprint_slots(ow, ratio, rows_per_band) * line * elt > RING_BUDGET):
+            rows_per_band = math.ceil(rows_per_band / 2)
+        while rows_per_band > 1 and r * math.ceil(oh / rows_per_band) < MIN_ITEMS:
+            rows_per_band = math.ceil(rows_per_band / 2)
+    slot = footprint_slots(ow, ratio, rows_per_band) * elt  # bytes per channel
+    if slab is None:
+        fit = [s for s in range(base, c + 1, base) if c % s == 0 and 2 * slot * s <= RING_BUDGET]
+        slab = max(fit, default=base)
+    if slab % base or c % slab:
+        return None
+    stages = stages or 2
+    bands = math.ceil(oh / rows_per_band)
+    smem = pipelined_smem(elt, ow, ratio, slab, stages, rows_per_band)
+    if smem > SMEM_LIMIT or not 2 <= stages <= MAX_STAGES:
+        return None
+    return PipePlan(slab, stages, rows_per_band, bands, r * bands, smem)
 
 
 def _library():
     from instancesegmentation_tpu_torch.ops import _build
 
-    fn = _build.library("roi_align.cu").roi_align_launch
-    if fn.argtypes is None:
+    lib = _build.library("roi_align.cu")
+    if lib.roi_align_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.roi_align_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, i, i,
+                                         p]
+        lib.roi_align_launch.restype = ctypes.c_int
+        lib.roi_align_pipelined_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
+                                                   i, i, i, i, i, i, p]
+        lib.roi_align_pipelined_launch.restype = ctypes.c_int
+        lib.roi_align_pipelined_smem.argtypes = [i, i, i, i, i, i]
+        lib.roi_align_pipelined_smem.restype = ctypes.c_longlong
+    return lib
 
 
 def _launch(features, boxes, box_indices, output_size, spatial_scale, sampling_ratio,
-            aligned):
-    fn = _library()
+            aligned, form=None, plan=None, levers=None):
+    """Launch one form: ``form=None`` takes ``ENTRY_FORM``; "pipelined" with
+    ``plan`` (a ``PipePlan``) or the planner's; "direct".
+    ``levers`` (``LEVER_*`` bits) default to ``default_levers``.
+    Counts ``roi_align.launches_by_form``."""
+    lib = _library()
     n, h, w, c = features.shape
     r = boxes.shape[0]
     oh, ow = output_size
@@ -106,24 +235,45 @@ def _launch(features, boxes, box_indices, output_size, spatial_scale, sampling_r
     bx = boxes.float().contiguous()
     idx = box_indices.to(torch.int32).contiguous()
     out = torch.empty((r, oh, ow, c), dtype=torch.float32, device=dev)
+    form = form or ENTRY_FORM
+    if form == "pipelined" and plan is None:
+        plan = plan_pipelined(c, output_size, sampling_ratio, feats.element_size(), r)
+    if form == "pipelined" and (plan is None or feats.data_ptr() % 16):
+        raise ValueError(f"roi_align: no pipelined plan for C={c}, ratio {sampling_ratio}")
+    if form not in roi_align.launches_by_form:
+        raise ValueError(f"roi_align: unknown form {form!r}")
+    levers = default_levers(form, r) if levers is None else levers
+    order = torch.empty(r, dtype=torch.int32, device=dev) if levers & LEVER_ORDER else None
+    order_ptr = None if order is None else order.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(feats.data_ptr(), bx.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                n, h, w, c, r, oh, ow, spatial_scale, sampling_ratio, int(aligned),
-                _DTYPES[feats.dtype], stream)
+        if form == "pipelined":
+            rc = lib.roi_align_pipelined_launch(
+                feats.data_ptr(), bx.data_ptr(), idx.data_ptr(), order_ptr, out.data_ptr(), n, h,
+                w, c, r, oh, ow, spatial_scale, sampling_ratio, int(aligned),
+                _DTYPES[feats.dtype], plan.slab, plan.stages, plan.rows_per_band, levers,
+                ORDER_BANDS, stream)
+        else:
+            rc = lib.roi_align_launch(
+                feats.data_ptr(), bx.data_ptr(), idx.data_ptr(), order_ptr, out.data_ptr(), n, h,
+                w, c, r, oh, ow, spatial_scale, sampling_ratio, int(aligned),
+                _DTYPES[feats.dtype], levers, ORDER_BANDS, stream)
     if rc != 0:
-        raise RuntimeError(f"roi_align kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"roi_align {form} kernel launch failed: CUDA error {rc}")
+    roi_align.launches_by_form[form] += 1
     return out
 
 
 def roi_align(features, boxes, box_indices, output_size=(7, 7), spatial_scale: float = 1.0,
               sampling_ratio: int = 2, aligned: bool = True):
     """RoI-Align: ``features [N,H,W,C]`` (float32 or bfloat16), ``boxes
-    [R,4]`` xyxy in input coordinates, ``box_indices [R]`` in ``[0, N)`` ->
+    [R,4]`` xyxy in input coordinates, ``box_indices [R]`` (JAX's gather
+    rule: ``i < 0`` wraps to ``i + N``, then a clamp to ``[0, N - 1]``) ->
     ``[R, oh, ow, C]`` float32.
 
-    A CPU tensor runs ``roi_align_reference``; a CUDA tensor launches the
-    kernel (counted in ``roi_align.launches``) or raises.
+    A CPU tensor runs ``roi_align_reference``; a CUDA tensor launches a
+    kernel (counted in ``roi_align.launches`` and, by form, in
+    ``roi_align.launches_by_form``) or raises.
     """
     if sampling_ratio < 1:
         raise ValueError("roi_align needs an explicit sampling_ratio >= 1")
@@ -149,3 +299,4 @@ def roi_align(features, boxes, box_indices, output_size=(7, 7), spatial_scale: f
 
 
 roi_align.launches = 0
+roi_align.launches_by_form = {"pipelined": 0, "direct": 0}

@@ -3,6 +3,7 @@ one NVIDIA GPU.
 
     python3 profile_port.py          # from the repository root; needs one CUDA card
     python3 profile_port.py --train  # the train step only
+    python3 profile_port.py --detection  # roi_align and match_proposals forms
 
 On seeded random weights, at batch 128 in bfloat16, it times with CUDA
 events each stage of the 480 px instance program (warp parameters, crop
@@ -16,8 +17,15 @@ busy share and the largest device ops.  The train step (the
 480, rotate 25 through the 2level sampler, flips, jitter, photometric draws)
 is split the same way into preprocessing (of which the warp kernel, by
 call and by its device time, and its launches per step), the train-mode
-forward and loss, the backward and the Adam update, with one trace.  It prints one JSON object as its last line, after the card's name
-and power limit.
+forward and loss, the backward and the Adam update, with one trace.
+``--detection`` times the detection kernels alone at ``chip_smoke.py``'s
+shapes by their device time: ``roi_align``'s direct form with each lever
+and other band counts of the order, its pipelined form under the
+planner's plan with each lever flipped and with other slabs, ring depths
+and row bands, both forms at sampling ratios 3 and 4; ``match_proposals``'
+two-pass and cluster forms (the cluster form also at other cluster sizes),
+with and without the rescue.  It prints one JSON object as its last line,
+after the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -34,8 +42,10 @@ from chip_smoke import (
     TRAIN_BATCH,
     card_line,
     cuda_ms,
+    device_calls,
     device_ms,
     random_state_dict,
+    roi_inputs,
     training_batch,
 )
 
@@ -138,10 +148,104 @@ def train_breakdown(dev) -> dict:
             "trace": trace(lambda: step(state, batch, draws), top=16)}
 
 
+def detection_breakdown(dev) -> dict:
+    """Device ms per call of each form and variant of the two detection
+    kernels (every kernel of a call summed: the order launch too)."""
+    from instancesegmentation_tpu_torch.ops import matching as mp
+    from instancesegmentation_tpu_torch.ops import roi_align as ra
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    feats = torch.randn((2, 200, 336, 256), generator=g, device=dev)
+    out = {}
+    for name, (r, hw), dtype in (("box_head", (1000, (7, 7)), torch.float32),
+                                 ("mask_head", (100, (14, 14)), torch.float32),
+                                 ("box_head_bf16", (1000, (7, 7)), torch.bfloat16)):
+        boxes, idx = roi_inputs(g, r, dev)
+        f = feats.to(dtype)
+        args = (f, boxes, idx, hw, 0.25, 2, False)
+        plan = ra.plan_pipelined(256, hw, 2, f.element_size(), r)
+        runs = {"direct": lambda: ra._launch(*args, form="direct", levers=0)}
+        for lever, bit in (("order", ra.LEVER_ORDER), ("stream_out", ra.LEVER_STREAM_OUT)):
+            runs[f"direct + {lever}"] = (lambda lv=bit: ra._launch(*args, form="direct",
+                                                                  levers=lv))
+        runs["direct + all"] = lambda: ra._launch(*args, form="direct", levers=3)
+        runs["direct default"] = lambda: ra._launch(*args, form="direct")
+
+        def banded(bands):  # the direct form ordered by ``bands`` bands of the map
+            def run():
+                kept, ra.ORDER_BANDS = ra.ORDER_BANDS, bands
+                try:
+                    return ra._launch(*args, form="direct", levers=ra.LEVER_ORDER)
+                finally:
+                    ra.ORDER_BANDS = kept
+            return run
+        for bands in (4, 8, 32, 64, 128):
+            runs[f"direct + order, {bands} bands"] = banded(bands)
+        base = ra.default_levers("pipelined", r)
+        for lever, bit in (("order", ra.LEVER_ORDER), ("stream_out", ra.LEVER_STREAM_OUT)):
+            runs[f"levers ^ {lever}"] = (lambda lv=base ^ bit: ra._launch(
+                *args, form="pipelined", plan=plan, levers=lv))
+        runs["levers 0"] = lambda: ra._launch(*args, form="pipelined", plan=plan, levers=0)
+        runs["levers all"] = lambda: ra._launch(*args, form="pipelined", plan=plan, levers=3)
+        variants = {(s, st, rb) for s in (plan.slab // 2, plan.slab, plan.slab * 2)
+                    for st in (2, 3, 4) for rb in (hw[0], 4, 3, 2, 1)}
+        for s_, st, rb in sorted(variants):
+            vp = ra.plan_pipelined(256, hw, 2, f.element_size(), r, slab=s_, stages=st,
+                                   rows_per_band=rb)
+            if vp is None:
+                continue
+            runs[f"slab {s_} stages {st} rows {rb}"] = (
+                lambda vp=vp: ra._launch(*args, form="pipelined", plan=vp, levers=base))
+        res = {"plan": plan._asdict(), "levers": base}
+        res["pipelined"], _ = device_calls(
+            lambda: ra._launch(*args, form="pipelined", plan=plan, levers=base))
+        for key, fn in runs.items():
+            res[key], _ = device_calls(fn)
+        res["call_ms pipelined"] = cuda_ms(
+            lambda: ra._launch(*args, form="pipelined", plan=plan, levers=base), 20)
+        res["call_ms direct"] = cuda_ms(lambda: ra._launch(*args, form="direct", levers=0), 20)
+        res["direct_again"], _ = device_calls(lambda: ra._launch(*args, form="direct", levers=0))
+        res["pipelined_again"], _ = device_calls(
+            lambda: ra._launch(*args, form="pipelined", plan=plan, levers=base))
+        print(json.dumps({name: res}), flush=True)
+        out[name] = res
+    # the box head at sampling ratios 3 and 4, where the direct form's taps
+    # per bin grow with ratio^2
+    boxes, idx = roi_inputs(g, 1000, dev)
+    for ratio in (3, 4):
+        args = (feats, boxes, idx, (7, 7), 0.25, ratio, False)
+        res = {"direct": device_calls(lambda: ra._launch(*args, form="direct"))[0],
+               "pipelined": device_calls(lambda: ra._launch(*args, form="pipelined"))[0],
+               "plan": ra.plan_pipelined(256, (7, 7), ratio, 4, 1000)._asdict()}
+        print(json.dumps({f"box_head_ratio{ratio}": res}), flush=True)
+        out[f"box_head_ratio{ratio}"] = res
+    iou = torch.rand((2000, 64), generator=g, device=dev)
+    res = {"max_cluster": mp.max_cluster()}
+    for lq in (True, False):
+        for key, form, plan in (("two_pass", "two_pass", None), ("cluster", "cluster", None),
+                                *((f"cluster {k}", "cluster", mp.plan_cluster(2000, 64, cluster=k))
+                                  for k in (4, 8, 16))):
+            if form == "cluster" and not lq:
+                continue  # the cluster form is the rescue's
+            key = key if lq else key + " no_rescue"
+            ms, kernels = device_calls(lambda: mp._launch(iou, 0.5, 0.3, lq, form, plan), 50)
+            res[key] = {"device_ms": ms, "kernels_per_call": kernels,
+                        "call_ms": cuda_ms(lambda: mp._launch(iou, 0.5, 0.3, lq, form, plan), 50)}
+    print(json.dumps({"match_2000x64": res}), flush=True)
+    out["match_2000x64"] = res
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
         return 1
+    if "--detection" in sys.argv[1:]:
+        card = card_line()
+        print(card)
+        print(json.dumps({"card": card, "detection": detection_breakdown(torch.device("cuda:0"))}))
+        print(card)
+        return 0
     if "--train" in sys.argv[1:]:
         card = card_line()
         print(card)

@@ -518,6 +518,55 @@ def test_roi_align_rejects_bad_inputs():
         troi.roi_align(f.double(), b, i)
 
 
+def _nonfinite_case():
+    """Boxes whose sample centres are NaN (a NaN coordinate, or -inf + inf)
+    or infinite, beside finite ones."""
+    feats, boxes, idx = _roi_case(seed=8, c=8, r=8)
+    boxes[1] = [np.nan, 1.0, 5.0, 5.0]
+    boxes[2] = [-np.inf, 1.0, np.inf, 5.0]
+    boxes[3] = [1.0, np.nan, 5.0, np.nan]
+    boxes[4] = [0.0, 1.0, np.inf, 5.0]
+    boxes[5] = [1.0, -np.inf, 6.0, 4.0]
+    return feats, boxes, idx
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_roi_align_nonfinite_boxes_give_zeros_as_jax(aligned):
+    """A box whose samples fall on NaN or infinite centres weighs nothing:
+    its bins are zeros, bit for bit, in the port and in JAX."""
+    feats, boxes, idx = _nonfinite_case()
+    kw = dict(spatial_scale=0.5, sampling_ratio=2, aligned=aligned)
+    got = _port_roi(feats, boxes, idx, (4, 5), **kw)
+    want = np.asarray(jroi.roi_align(*(jnp.asarray(a) for a in (feats, boxes, idx)), (4, 5),
+                                     **kw))
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[1:6], np.zeros_like(got[1:6]))
+    np.testing.assert_array_equal(want[1:6], np.zeros_like(want[1:6]))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    # the numpy oracle casts a NaN centre to an index and raises: it sees the
+    # finite boxes and those with infinite (not NaN) centres
+    keep = [0, 4, 6, 7]
+    np.testing.assert_allclose(
+        got[keep], jroi.roi_align_numpy(feats, boxes[keep], idx[keep], (4, 5), **kw), atol=1e-4)
+
+
+def test_roi_align_box_indices_follow_jax_gather():
+    """i < 0 wraps once to i + N, then indices clamp to [0, N - 1]: -1 -> N-1,
+    N -> N-1, -N-1 -> 0, as JAX's gather does."""
+    feats, boxes, idx = _roi_case(seed=9, n=3, c=4, r=6)
+    idx = np.array([-1, 3, -4, 7, -3, 1], np.int32)
+    ruled = np.array([2, 2, 0, 2, 0, 1], np.int32)
+    np.testing.assert_array_equal(troi.gather_index(torch.from_numpy(idx), 3).numpy(), ruled)
+    got = _port_roi(feats, boxes, idx, (3, 3), 0.5, 2, True)
+    want = np.asarray(jroi.roi_align(*(jnp.asarray(a) for a in (feats, boxes, idx)), (3, 3),
+                                     0.5, 2, True))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_allclose(got, _port_roi(feats, boxes, ruled, (3, 3), 0.5, 2, True),
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(
+        got, jroi.roi_align_numpy(feats, boxes, ruled, (3, 3), 0.5, 2, True), atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # proposal matching
 # ---------------------------------------------------------------------------
@@ -570,3 +619,37 @@ def test_subsample_labels_quota():
         assert int((out == 0).sum()) == int((jout == 0).sum()) == want_neg
         assert (labels[out == 1] == 1).all() and (labels[out == 0] == 0).all()
         assert (out[labels == -1] == -1).all()
+
+
+def _nan_matrices():
+    rng = np.random.default_rng(11)
+    base = rng.uniform(0, 1, size=(24, 9)).astype(np.float32)
+    base[4, [1, 6]] = base[4].max()          # a tie: the first index wins
+    rows = base.copy()
+    rows[0, [1, 3]] = np.nan                 # a row's first NaN is its match
+    rows[0, 2] = 0.95
+    rows[7, 8] = np.nan
+    cols = base.copy()
+    cols[[2, 15], 5] = np.nan                # a column with a NaN rescues nobody
+    cols[3, 5] = 1.0
+    whole = base.copy()
+    whole[9] = np.nan                        # a whole NaN row
+    whole[10, 0] = np.nan
+    return {"rows": rows, "cols": cols, "whole_row": whole}
+
+
+@pytest.mark.parametrize("allow_lq", [True, False])
+@pytest.mark.parametrize("case", ["rows", "cols", "whole_row"])
+def test_match_proposals_nan_follows_jax(case, allow_lq):
+    """NaN in the matrix: JAX's max and argmax propagate it, and so does the
+    port.  The JAX Pallas kernel is left out here: on a row with a NaN its
+    matched index is G, out of range (ROADMAP.md section C)."""
+    iou = _nan_matrices()[case]
+    m, lab = tmatch.match_proposals(torch.from_numpy(iou), allow_low_quality=allow_lq)
+    ref_m, ref_l = _np(*jmatch.match_proposals(jnp.asarray(iou), allow_low_quality=allow_lq))
+    np.testing.assert_array_equal(m.numpy(), ref_m)
+    np.testing.assert_array_equal(lab.numpy(), ref_l)
+    nan_rows = np.isnan(iou).any(1)
+    first_nan = np.argmax(np.isnan(iou), 1)
+    np.testing.assert_array_equal(m.numpy()[nan_rows], first_nan[nan_rows])
+    assert (lab.numpy()[nan_rows] == tmatch.IGNORE).all() or allow_lq
