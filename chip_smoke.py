@@ -27,14 +27,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    zero-area boxes, -0.0 beside +0.0 and NaN scores, K below and above N, a
    score threshold; N = 1024 with the walk forced into column windows of 1,
    3 and 8 words; one image of N = 60,000 against the row-blocked plain
-   version; ``nms_batch`` on [8, 1000] in one launch), ``roi_align`` in
-   both forms (the entry point's direct form and the pipelined form,
-   through ``_launch``) within atol 1e-4 + rtol 1e-4 at torchvision's Mask
-   R-CNN pooler shapes on a stride-4 FPN level of an 800x1344 input
-   (features [2, 200, 336, 256], scale 1/4, 1000 ROIs at 7x7 and 100 at
-   14x14, both ``aligned`` values, bfloat16 features, boxes with NaN and
-   infinite coordinates giving zeros, indices -1, N and -N-1; every lever
-   once), the pipelined form launched at both poolers; matching bit-equal
+   version; ``nms_batch`` on [8, 1000] in one launch), ``roi_align`` with
+   and without its locality order (through ``_launch``) within atol 1e-4 +
+   rtol 1e-4 at torchvision's Mask R-CNN pooler shapes on a stride-4 FPN
+   level of an 800x1344 input (features [2, 200, 336, 256], scale 1/4, 1000
+   ROIs at 7x7 and 100 at 14x14, both ``aligned`` values, bfloat16
+   features, boxes with NaN and infinite coordinates giving zeros, indices
+   -1, N and -N-1); matching bit-equal
    against the plain version, with the rescue in the cluster form (also
    against the two-pass form), without it in the two-pass form's row pass
    ([2000, 64] with ties and an all-zero column, [256, 8], [60000, 64]
@@ -62,8 +61,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    image larger than the canvas, the keeps of the plain NMS on the CPU and
    the packing rule's dispatch count, and its first two images through the
    float32 card and CPU engines; and ``roi_align`` and ``match_proposals``
-   through their own entry points (launches by form: the direct and the
-   cluster form); then train at full width (the training
+   through their own entry points (3 roi_align launches: 2 gathers and the
+   locality order of the 1000 ROIs; one cluster matcher launch); then
+   train at full width (the training
    slice's main path): ``TrainConfig`` defaults with ``Segment(20)``, 640 ->
    480, bf16, folded head, rotate 25 through the 2level sampler, flips,
    jitter, photometric draws, 10 ``make_train_step`` steps at batch 32 on
@@ -74,13 +74,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above, NMS, the warp, roi_align and
    matching also by their kernels' device time in a ``torch.profiler``
-   trace; roi_align's two forms in turns direct, pipelined, pipelined,
-   direct at both poolers and in bfloat16, each lever flipped in turns
-   (float32),
-   and the gather traffic beside the bound (taps issued, distinct pixels
-   per output row and per ROI, bytes the pipelined form stages, the union
-   per image); matching's two forms in turns two-pass, cluster, cluster,
-   two-pass; the banded chain beside
+   trace; roi_align without and with its locality order in turns
+   (without, with, with, without) at both poolers and in bfloat16, and the
+   gather traffic beside the bound (taps issued, distinct pixels per output
+   row and per ROI, the union per image); matching's two forms in turns
+   two-pass, cluster, cluster, two-pass; the banded chain beside
    its bound per launch, its rounding and float32 plain versions and, as a
    yardstick the port never calls, the same sections through the layer
    modules on cuDNN in bf16 channels_last; the banded float32 form beside its
@@ -257,36 +255,52 @@ def section_yardstick(model, name: str):
     return run
 
 
+LAUNCH_RECORDS = ("cudaLaunchKernel", "cuLaunchKernel")  # the launch calls CUPTI records
+TRACE_WARMUP = 3  # calls at the start of a trace that it does not measure
+trace_stats = {"traces": 0, "warmup_launches_without_span": 0}
+
+
 def _kernel_time(fn, iters: int, kernel: str = "") -> tuple[float, float]:
     """Device ms per call of ``fn`` in the CUDA kernels whose name holds
     ``kernel``, and their launches per call, from a ``torch.profiler`` trace
-    of ``iters`` calls.  The tracer on the card now and then drops a span (19
-    of 20 launches traced) or returns an empty trace, so each kernel's time
-    is its mean span times its launches per call, rounded, and a trace in
-    which a kernel shows in fewer than 90 % of the calls is taken again, up
-    to four times."""
+    of ``TRACE_WARMUP + iters`` calls, of which the last ``iters`` are
+    measured.  On the card the first two kernel launches of a trace at times
+    had no device span while their launch records were there, in some runs
+    in every trace of a kernel (PERF.md); the warm-up calls take that loss.
+    A trace counts only if every launch of the measured calls has its span
+    (matched by CUPTI correlation id); an incomplete one is printed, with
+    the positions of the launches that lack a span, and taken again, up to
+    three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(4):
-        time.sleep(0.1)
+    calls = TRACE_WARMUP + iters
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        by_name: dict = {}
-        for e in prof.events():
-            if e.device_type.name == "CUDA" and kernel in e.name:
-                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        launches = {name: max(1, round(len(spans) / iters)) for name, spans in by_name.items()}
-        if by_name and all(len(spans) >= 0.9 * iters * launches[name]
-                           for name, spans in by_name.items()):
-            ms = sum(launches[name] * sum(spans) / len(spans) / 1e3
-                     for name, spans in by_name.items())
-            return ms, float(sum(launches.values()))
-    counts = {name: len(spans) for name, spans in by_name.items()}
-    check(False, f"profiler: {kernel or 'kernel'} spans {counts} in {iters} calls, 4 traces")
+        evs = prof.profiler.kineto_results.events()
+        spans = {}
+        for e in evs:
+            if e.device_type().name == "CUDA":
+                spans.update({c: e for c in (e.correlation_id(), e.linked_correlation_id()) if c})
+        records = [c for _, c in sorted((e.start_ns(), e.correlation_id()) for e in evs
+                                        if any(k in e.name() for k in LAUNCH_RECORDS))]
+        per_call = len(records) // calls
+        measured = records[TRACE_WARMUP * per_call:]
+        trace_stats["traces"] += 1
+        trace_stats["warmup_launches_without_span"] += sum(
+            c not in spans for c in records[:TRACE_WARMUP * per_call])
+        if per_call and len(records) == calls * per_call and all(c in spans for c in measured):
+            mine = [spans[c] for c in measured if kernel in spans[c].name()]
+            if mine:
+                return sum(e.duration_ns() for e in mine) / 1e6 / iters, len(mine) / iters
+        print(f"profiler: incomplete trace {attempt + 1} of {kernel or 'every kernel'}: "
+              f"{len(records)} launches in {calls} calls, those without a span (in launch "
+              f"order): {[i for i, c in enumerate(records) if c not in spans]}")
+    check(False, f"profiler: no complete trace of {kernel or 'the kernels'} in 3")
 
 
 def device_ms(fn, kernel: str, iters: int = 20) -> float:
@@ -433,22 +447,11 @@ def _axis_taps(start, bin_size, size: int, out_dim: int, ratio: int):
     return torch.where(ok, i0, -1), torch.where(ok, i1, -1), ok  # [R, out, ratio]
 
 
-def _slot_count(i0, i1, ok, width: int):
-    """Slots a footprint axis copies: the span where it is no wider than
-    ``width``, else two per counted sample.  Inputs [R, k]."""
-    big = torch.iinfo(torch.int64).max
-    lo = torch.where(ok, i0, big).amin(1)
-    hi = torch.where(ok, i1, -1).amax(1)
-    span = hi - lo + 1
-    any_ok = ok.any(1)
-    return torch.where(~any_ok, 0, torch.where(span <= width, span, 2 * ok.sum(1)))
-
-
-def roi_traffic(features, boxes, idx, out_hw, scale, ratio, aligned, plan) -> dict:
-    """Feature bytes of the gathers: the taps the direct form issues (four
-    per counted sample), the distinct pixels of each output row and of each
-    ROI, what the pipelined form stages under ``plan``, and the union over
-    the ROIs of each image (what the bound counts)."""
+def roi_traffic(features, boxes, idx, out_hw, scale, ratio, aligned) -> dict:
+    """Feature bytes of the gathers: the taps the kernel issues (four per
+    counted sample), the distinct pixels of each output row and of each
+    ROI, and the union over the ROIs of each image (what the bound
+    counts)."""
     from instancesegmentation_tpu_torch.ops.roi_align import _roi_geometry, gather_index
 
     n, h, w, c = features.shape
@@ -469,21 +472,13 @@ def roi_traffic(features, boxes, idx, out_hw, scale, ratio, aligned, plan) -> di
     ncols = cols.sum(1)
     rows_roi = marks(yi0.flatten(1), yi1.flatten(1), h)
     per_row = sum(marks(yi0[:, j], yi1[:, j], h).sum(1) for j in range(oh)) * ncols
-    xs = _slot_count(xi0.flatten(1), xi1.flatten(1), xok.flatten(1), 2 * ow * ratio)
-    staged = torch.zeros_like(xs)
-    for j0 in range(0, oh, plan.rows_per_band):
-        sl = slice(j0, min(oh, j0 + plan.rows_per_band))
-        ys = _slot_count(yi0[:, sl].flatten(1), yi1[:, sl].flatten(1), yok[:, sl].flatten(1),
-                         2 * ratio * (sl.stop - sl.start))
-        staged += ys * xs
     img = gather_index(idx, n)
     union = 0
     for i in range(n):
         sel = img == i
         union += int((rows_roi[sel][:, :, None] & cols[sel][:, None, :]).any(0).sum())
     return {"issued_taps": int(issued.sum()) * px, "per_row_distinct": int(per_row.sum()) * px,
-            "per_roi_distinct": int((rows_roi.sum(1) * ncols).sum()) * px,
-            "pipelined_staged": int(staged.sum()) * px, "union": union * px}
+            "per_roi_distinct": int((rows_roi.sum(1) * ncols).sum()) * px, "union": union * px}
 
 
 def proposal_requests(rng, n_images: int) -> list:
@@ -642,14 +637,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
     # ptxas reports (registers, spills, stack, static shared memory) of the
-    # two banded chain kernels, the nms and tiled warp kernels, the two
-    # roi_align forms (their first instantiation) and the cluster matcher
+    # two banded chain kernels, the nms and tiled warp kernels, roi_align's
+    # order and gather (its first instantiation) and the cluster matcher
     ptxas = {}
     for src, kernel in (("fused_chain.cu", "fused_chain_banded_kernel"),
                         ("fused_chain.cu", "fused_chain_banded_f32_kernel"),
                         ("nms.cu", "nms_kernel"), ("warp_2level.cu", "warp_2level_tiled_kernel"),
+                        ("roi_align.cu", "roi_order_kernel"),
                         ("roi_align.cu", "roi_align_kernel"),
-                        ("roi_align.cu", "roi_align_pipelined_kernel"),
                         ("matching.cu", "match_cluster_kernel")):
         log = _build.build_log.get(src)
         if log is None:
@@ -816,17 +811,16 @@ def main() -> int:
     exact(got, (torch.stack([r[0] for r in refs]), torch.stack([r[1] for r in refs])),
           "nms_batch [8, 1000] thr=0.7")
 
-    # roi_align: both forms (the entry point's direct form and the pipelined
-    # form) at both poolers, float32 and bfloat16, within atol 1e-4 + rtol
-    # 1e-4 of the reference's magnitude (sums in another order); boxes with
-    # NaN and infinite coordinates give zeros, and indices -1, N and -N-1
-    # take JAX's gather rule
+    # roi_align with and without the locality order at both poolers, float32
+    # and bfloat16, within atol 1e-4 + rtol 1e-4 of the reference's
+    # magnitude (sums in another order); boxes with NaN and infinite
+    # coordinates give zeros, and indices -1, N and -N-1 take JAX's gather
+    # rule
     feats = torch.randn((2, 200, 336, 256), generator=g, device=dev)
     roi_cases = {"box_head": (1000, (7, 7)), "mask_head": (100, (14, 14))}
     roi_in = {name: roi_inputs(g, r, dev) for name, (r, _) in roi_cases.items()}
     errs["roi_align"] = 0.0
-    errs["roi_align_pipelined"] = 0.0
-    roi_align.roi_align.launches_by_form.update(direct=0, pipelined=0)
+    roi_align.roi_align.launches_by_kernel.update(direct=0, order=0)
     for name, (r, out_hw) in roi_cases.items():
         boxes, idx = roi_in[name]
         rb, ri = roi_repair_inputs(boxes, idx, feats.shape[0])
@@ -837,32 +831,17 @@ def main() -> int:
             f = feats.to(dtype)
             args = (f, bx, ix, out_hw, 0.25, 2, aligned)
             want = roi_align.roi_align_reference(*args)
-            for form in ("direct", "pipelined"):
-                got = roi_align._launch(*args, form=form)
-                key = "roi_align" if form == roi_align.ENTRY_FORM else "roi_align_pipelined"
-                errs[key] = max(errs[key], max_err(
+            for order in (False, True):
+                got = roi_align._launch(*args, order=order)
+                errs["roi_align"] = max(errs["roi_align"], max_err(
                     got, want, 1e-4, 1e-4,
-                    f"roi_align {form} {name} R={r} {out_hw} aligned={aligned} {dtype}{what}"))
+                    f"roi_align {name} R={r} {out_hw} aligned={aligned} {dtype} order={order}"
+                    f"{what}"))
                 if what:
-                    check(bool((got[:4] == 0).all()), f"roi_align {form}: NaN/inf boxes give zeros")
-    # every lever of both forms changes no value
-    args = (feats, *roi_in["box_head"], (7, 7), 0.25, 2, True)
-    want = roi_align.roi_align_reference(*args)
-    all_levers = roi_align.LEVER_ORDER | roi_align.LEVER_STREAM_OUT
-    for form in ("direct", "pipelined"):
-        max_err(roi_align._launch(*args, form=form, levers=all_levers), want, 1e-4, 1e-4,
-                f"roi_align {form} box_head with levers {all_levers}")
-    # the planner's mirror of the kernel's shared-memory layout
-    lib = roi_align._library()
-    for elt, (r, out_hw) in ((4, roi_cases["box_head"]), (4, roi_cases["mask_head"]),
-                             (2, roi_cases["box_head"])):
-        plan = roi_align.plan_pipelined(256, out_hw, 2, elt, r)
-        check(plan.smem == lib.roi_align_pipelined_smem(elt, out_hw[1], 2, plan.slab,
-                                                        plan.stages, plan.rows_per_band),
-              f"roi_align pipelined plan {plan}: shared memory as the kernel lays it out")
-    by_form = dict(roi_align.roi_align.launches_by_form)
-    print(f"roi_align checks: launches by form {by_form}")
-    check(by_form["pipelined"] >= 2 * 4 + 1, "roi_align: the pipelined form at both poolers")
+                    check(bool((got[:4] == 0).all()), "roi_align: NaN/inf boxes give zeros")
+    by_kernel = dict(roi_align.roi_align.launches_by_kernel)
+    print(f"roi_align checks: launches by kernel {by_kernel}")
+    check(by_kernel == {"direct": 16, "order": 8}, "roi_align: both kernels at both poolers")
 
     # match_proposals: bit-equal, the cluster form against the plain version
     # and against the two-pass form, one launch per call in the cluster form
@@ -885,6 +864,12 @@ def main() -> int:
             if lq:
                 exact(got, matching._launch(m, 0.5, 0.3, lq, form="two_pass"),
                       f"match_proposals {what}: cluster vs two-pass form")
+    # one kernel per call in a trace, with the rescue (the cluster form) and
+    # without it (the two-pass form's row pass)
+    for lq in (True, False):
+        _, per_call = device_calls(lambda: matching.match_proposals(iou, allow_low_quality=lq))
+        print(f"match_proposals [2000, 64] allow_low_quality={lq}: {per_call} kernel per call")
+        check(per_call == 1.0, "match_proposals: one launch per call")
     print(f"match_proposals plan at [2000, 64]: "
           f"{matching.plan_cluster(2000, 64, matching.max_cluster())._asdict()}")
 
@@ -1118,7 +1103,7 @@ def main() -> int:
     # poolers' shapes and one matching batch
     roi_align.roi_align.launches = 0
     matching.match_proposals.launches = 0
-    roi_align.roi_align.launches_by_form.update(direct=0, pipelined=0)
+    roi_align.roi_align.launches_by_kernel.update(direct=0, order=0)
     matching.match_proposals.launches_by_form.update(cluster=0, two_pass=0)
     for name, (r, out_hw) in roi_cases.items():
         out = roi_align.roi_align(feats, *roi_in[name], out_hw, 0.25, 2, False)
@@ -1130,14 +1115,16 @@ def main() -> int:
     torch.cuda.synchronize()
     det_launches = {"roi_align": roi_align.roi_align.launches,
                     "match_proposals": matching.match_proposals.launches}
-    det_by_form = {"roi_align": dict(roi_align.roi_align.launches_by_form),
+    det_by_form = {"roi_align": dict(roi_align.roi_align.launches_by_kernel),
                    "match_proposals": dict(matching.match_proposals.launches_by_form)}
-    print(f"detection ops through their entry points: launches {det_launches}, by form "
-          f"{det_by_form}")
-    check(det_launches == {"roi_align": 2, "match_proposals": 1}, "detection op launches")
-    check(det_by_form["roi_align"][roi_align.ENTRY_FORM] == 2 and
-          det_by_form["match_proposals"] == {"cluster": 1, "two_pass": 0},
-          "detection op launches by form")
+    print(f"detection ops through their entry points: launches {det_launches}, by kernel "
+          f"or form {det_by_form}")
+    # roi_align: a gather per call, and the locality order of the box head's
+    # 1000 ROIs (the mask head's 100 stay unordered)
+    check(det_launches == {"roi_align": 3, "match_proposals": 1}, "detection op launches")
+    check(det_by_form == {"roi_align": {"direct": 2, "order": 1},
+                          "match_proposals": {"cluster": 1, "two_pass": 0}},
+          "detection op launches by kernel and form")
 
     # training at full width: the training slice's main path
     model = Segment(20)
@@ -1361,73 +1348,52 @@ def main() -> int:
     print(f"time nms_batch [8, 1000]: {batch_ms:.4f} ms per call, kernel {batch_kernel:.4f} ms "
           f"(plain {batch_plain:.3f} ms, bound {b_ms:.5f} ms by {b_by})")
 
-    # roi_align: each form's call time (CUDA events) and kernel device time
-    # (profiler; the order launch counted where a lever adds it), in turns
-    # old, new, new, old (direct, pipelined, pipelined, direct); then each
-    # lever of each form in turns with the form's default levers; the gather
-    # traffic beside the bound
+    # roi_align: the call (CUDA events) and kernel device time (profiler;
+    # the order launch counted where it runs) without and with the locality
+    # order, in turns without, with, with, without; the gather traffic
+    # beside the bound
     roi_parts = []
     for name, (r, out_hw), dtype in (("box_head", roi_cases["box_head"], torch.float32),
                                      ("mask_head", roi_cases["mask_head"], torch.float32),
                                      ("box_head", roi_cases["box_head"], torch.bfloat16)):
         f = feats.to(dtype)
         args = (f, *roi_in[name], out_hw, 0.25, 2, False)
-        runs = {"direct": [], "pipelined": []}
-        for form in ("direct", "pipelined", "pipelined", "direct"):
-            call = cuda_ms(lambda: roi_align._launch(*args, form=form), iters=20)
-            kern, _ = device_calls(lambda: roi_align._launch(*args, form=form))
-            runs[form].append((call, kern))
+        runs = {"unordered": [], "ordered": []}
+        for order in (False, True, True, False):
+            call = cuda_ms(lambda: roi_align._launch(*args, order=order), iters=20)
+            kern, _ = device_calls(lambda: roi_align._launch(*args, order=order))
+            runs["ordered" if order else "unordered"].append((call, kern))
+        entry = "ordered" if r >= roi_align.ORDER_MIN_ROIS else "unordered"
+        other = "unordered" if entry == "ordered" else "ordered"
         plain = cuda_ms(lambda: roi_align.roi_align_reference(*args), iters=2, warmup=1)
-        plan = roi_align.plan_pipelined(f.shape[-1], out_hw, 2, f.element_size(), r)
-        traffic = roi_traffic(f, *roi_in[name], out_hw, 0.25, 2, False, plan)
+        traffic = roi_traffic(f, *roi_in[name], out_hw, 0.25, 2, False)
         b_ms, b_by = bound_f32(0.0, traffic["union"] + r * 20 + r * out_hw[0] * out_hw[1]
                                * f.shape[-1] * 4)
-        levers = {}
-        lever_forms = () if dtype == torch.bfloat16 else ("direct", "pipelined")
-        for form in lever_forms:
-            bits = (roi_align.LEVER_ORDER, roi_align.LEVER_STREAM_OUT)
-            base = roi_align.default_levers(form, r)
-            for bit in bits:
-                turns = [device_calls(lambda lv=lv: roi_align._launch(
-                    *args, form=form, levers=lv))[0] for lv in (base, base ^ bit, base ^ bit, base)]
-                levers[f"{form} ^ {bit}"] = {"default": (turns[0] + turns[3]) / 2,
-                                             "flipped": (turns[1] + turns[2]) / 2, "turns": turns}
-        entry = roi_align.ENTRY_FORM
         part = {"pooler": name, "shape": [r, *out_hw, f.shape[-1]], "features": list(f.shape),
                 "dtype": str(dtype).replace("torch.", ""), "form": entry,
                 "ms": sum(c for c, _ in runs[entry]) / 2,
                 "kernel_ms": sum(k for _, k in runs[entry]) / 2,
-                "ms_runs": {fm: [c for c, _ in v] for fm, v in runs.items()},
-                "kernel_ms_runs": {fm: [k for _, k in v] for fm, v in runs.items()},
-                "pipelined_ms": sum(c for c, _ in runs["pipelined"]) / 2,
-                "pipelined_kernel_ms": sum(k for _, k in runs["pipelined"]) / 2,
-                "pipelined_plan": plan._asdict(), "plain_ms": plain, "bound_ms": b_ms,
-                "bound_by": b_by, "traffic_bytes": traffic, "levers": levers}
+                f"{other}_ms": sum(c for c, _ in runs[other]) / 2,
+                f"{other}_kernel_ms": sum(k for _, k in runs[other]) / 2,
+                "ms_runs": {o: [c for c, _ in v] for o, v in runs.items()},
+                "kernel_ms_runs": {o: [k for _, k in v] for o, v in runs.items()},
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "traffic_bytes": traffic}
         roi_parts.append(part)
-        print(f"time roi_align {name} R={r} {out_hw} {part['dtype']}: direct {part['ms']:.4f} ms "
-              f"per call, kernel {part['kernel_ms']:.4f} ms; pipelined "
-              f"{part['pipelined_ms']:.4f} / {part['pipelined_kernel_ms']:.4f} ms (turns "
+        print(f"time roi_align {name} R={r} {out_hw} {part['dtype']}: {entry} {part['ms']:.4f} "
+              f"ms per call, kernel {part['kernel_ms']:.4f} ms; {other} "
+              f"{part[other + '_ms']:.4f} / {part[other + '_kernel_ms']:.4f} ms (turns "
               f"{json.dumps(part['kernel_ms_runs'])}); plain {plain:.3f} ms, bound "
               f"{b_ms:.5f} ms by {b_by}")
         print(f"roi_align {name} {part['dtype']} gather traffic (bytes): {json.dumps(traffic)}")
-        print(f"roi_align {name} {part['dtype']} levers (kernel ms, default vs flipped): "
-              f"{json.dumps(levers)}")
 
     # match_proposals at [2000, 64]: the call (CUDA events) and the kernels'
     # device time of each form, in turns two-pass, cluster, cluster, two-pass
     mruns = {"two_pass": [], "cluster": []}
     for form in ("two_pass", "cluster", "cluster", "two_pass"):
-        call = cuda_ms(lambda: matching._launch(iou, 0.5, 0.3, True, form=form), iters=50)
+        call = cuda_ms(lambda: matching._launch(iou, 0.5, 0.3, True, form=form), iters=200)
         kern, per_call = device_calls(lambda: matching._launch(iou, 0.5, 0.3, True, form=form), 50)
         mruns[form].append((call, kern, per_call))
-    # one launch per call, with the rescue (the cluster form) and without it
-    # (the two-pass form's row pass) (traced here, beside the other traces: a trace taken before the serving
-    # and training phases left the later ones empty on the card)
-    for lq in (True, False):
-        _, per_call = device_calls(lambda: matching.match_proposals(iou, allow_low_quality=lq))
-        print(f"match_proposals [2000, 64] allow_low_quality={lq}: {per_call} kernel per call")
-        check(per_call == 1.0, "match_proposals: one launch per call")
-    match_ms = cuda_ms(lambda: matching.match_proposals(iou), iters=50)
+    match_ms = cuda_ms(lambda: matching.match_proposals(iou), iters=200)
     match_kernel = sum(k for _, k, _ in mruns["cluster"]) / 2
     match_plain = cuda_ms(lambda: matching.match_proposals_reference(iou), iters=20)
     # matrix read once, matched (int64) and labels (int32) written once; a
@@ -1490,6 +1456,8 @@ def main() -> int:
           f"{warp_bound:.4f} ms by {warp_by}; grid_sample yardstick {grid_ms:.3f} ms)")
     print(json.dumps({"train_bf16_480": train, "card": card}))
 
+    print(f"profiler traces: {json.dumps(trace_stats)}")
+
     # -- 6. summary ----------------------------------------------------------
     # the main path's two launches (banded, 480 program): each launch's own
     # bound, summed; what bounds the chain is what bounds its larger part
@@ -1537,13 +1505,13 @@ def main() -> int:
         {"name": "roi_align", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/roi_align.cu",
          "replaces": "instancesegmentation_tpu/ops/roi_align.py:99",
-         "launches": det_launches["roi_align"], "launches_by_form": det_by_form["roi_align"],
-         "on_main_path": False, "form": roi_align.ENTRY_FORM,
-         "max_abs_err": errs["roi_align"], "pipelined_max_abs_err": errs["roi_align_pipelined"],
-         **{k: roi_parts[0][k] for k in ("ms", "kernel_ms", "ms_runs", "plain_ms", "bound_ms",
-                                         "bound_by")},
+         "launches": det_launches["roi_align"],
+         "launches_by_kernel": det_by_form["roi_align"], "on_main_path": False,
+         "max_abs_err": errs["roi_align"],
+         **{k: roi_parts[0][k] for k in ("form", "ms", "kernel_ms", "ms_runs", "plain_ms",
+                                         "bound_ms", "bound_by")},
          "library_ms": None, "ptxas": ptxas.get("roi_align_kernel"),
-         "pipelined_ptxas": ptxas.get("roi_align_pipelined_kernel"), "parts": roi_parts},
+         "order_ptxas": ptxas.get("roi_order_kernel"), "parts": roi_parts},
         {"name": "match_proposals", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/matching.cu",
          "replaces": "instancesegmentation_tpu/ops/matching.py:61",

@@ -1,4 +1,4 @@
-// RoI-Align kernels for Hopper (sm_90a), torchvision semantics, NHWC.
+// RoI-Align for Hopper (sm_90a), torchvision semantics, NHWC.
 //
 // Replaces the Pallas TPU kernel instancesegmentation_tpu/ops/roi_align.py:
 // roi_align_pallas.  That kernel runs one program per ROI: the ROI's whole
@@ -14,39 +14,22 @@
 // random order read a map larger than L2 from device memory several times
 // over.  Arithmetic is a few FMAs per byte.
 //
-// Two forms, chosen in ops/roi_align.py:
+// The kernel (roi_align_kernel): one block per (ROI, output row), taps and
+// weights in shared memory, threads over (ow, C) with C innermost (16-byte
+// float32 or 8-byte bf16 loads where C % 4 == 0), four taps per sample read
+// straight from global memory, so L1 catches the taps a block's samples
+// share.  Output stores are streaming (st.global.cs), so the output does
+// not push feature lines out of L2.
 //
-// The direct form (roi_align_kernel), the entry point's: one block per
-// (ROI, output row), taps and weights in shared memory, threads over
-// (ow, C) with C innermost (16-byte float32 or 8-byte bf16 loads where
-// C % 4 == 0), four taps per sample read straight from global memory, so
-// L1 catches the taps a block's samples share.
+// The locality order (roi_order_kernel), a first small launch where the
+// caller passes an `order` scratch: the ROIs sorted by (image, band of the
+// map the box centre lies in), so that resident blocks work on one region
+// of the map and its pixels stay in L2 between them.  ops/roi_align.py
+// passes it from ORDER_MIN_ROIS ROIs on.
 //
-// The pipelined form (roi_align_pipelined_kernel).  A CTA owns one ROI and
-// one band of its output rows.  It first works out the band's footprint:
-// the columns its ow * ratio x-samples tap and the rows its y-samples tap,
-// each axis as its span [lo, hi] where that is no wider than the taps (so a
-// tap that neighbouring samples share is staged once), else as a slot pair
-// per sample, and each footprint slot's pixel offset.  Then it walks the
-// channels in slabs: each slab of the footprint is copied by 16-byte
-// cp.async copies into a shared-memory ring of `stages` slots (the copy of
-// slab u + stages - 1 goes out before the wait for slab u).  A slot holds
-// the largest footprint at `slab` channels; a smaller footprint (a small
-// ROI) takes the widest slab that fits, so it needs fewer, larger copies.
-// The arithmetic runs from shared memory, separably: the x-interpolation of
-// each tap row of a y-sample, summed over the x-samples, then the
-// y-combination and the mean.  On the H100 it is slower than the direct
-// form at every shape measured (PERF.md): its arithmetic and copies both
-// go through shared memory, while the direct form's gathers hit L1.
-//
-// Levers of both forms, each a bit of `levers`: a first small launch that
-// orders the ROIs by (image, band of the map the box centre lies in), so
-// that resident blocks work on one region of the map and its pixels stay in
-// L2 between them; streaming (st.global.cs) output stores.
-//
-// Both forms share the tap rule of ops/roi_align.py:_interp_weights: a
-// sample centre counts only if -1 <= ctr <= size (written so that a NaN
-// centre fails), and then weighs (1 - frac, frac) on floor(cc) and
+// The tap rule is that of ops/roi_align.py:_interp_weights: a sample centre
+// counts only if -1 <= ctr <= size (written so that a NaN centre fails),
+// and then weighs (1 - frac, frac) on floor(cc) and
 // floor(cc) + 1 of its clamp cc to [0, size - 1]; a centre that does not
 // count weighs 0.  A valid tap has w0 > 0, so w0 == 0 marks a sample that
 // does not count.  The box index follows the JAX gather: i < 0 -> i + n,
@@ -56,25 +39,15 @@
 // Inputs are float32 or bfloat16, arithmetic and the output float32.
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
-// -shared -Xcompiler -fPIC; bound with ctypes through roi_align_launch,
-// roi_align_pipelined_launch and roi_align_pipelined_smem.
+// -shared -Xcompiler -fPIC; bound with ctypes through roi_align_launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
 
 #define RA_MAX_THREADS 256
-#define RA_PIPE_THREADS 256
-#define RA_MAX_RATIO 4
-#define RA_MAX_STAGES 4
-#define RA_SMEM_LIMIT 232448
 #define RA_ORDER_THREADS 1024
 #define RA_ORDER_BUCKETS 4096
-
-// levers (as LEVER_* in ops/roi_align.py)
-#define RA_LEVER_ORDER 1
-#define RA_LEVER_STREAM_OUT 2
+#define RA_ORDER_BANDS 16  // bands of the map in the order's key, as ops/roi_align.py
 
 struct Tap {
   int i0, i1;    // the two taps on this axis
@@ -144,14 +117,6 @@ template <> struct Vec<__nv_bfloat16, 4> {
   }
 };
 
-__device__ __forceinline__ void store4(float* dst, const float* acc, float inv, int stream) {
-  const float4 val = make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv);
-  if (stream)
-    __stcs(reinterpret_cast<float4*>(dst), val);
-  else
-    *reinterpret_cast<float4*>(dst) = val;
-}
-
 // ---------------------------------------------------------------------------
 // The locality order
 // ---------------------------------------------------------------------------
@@ -161,7 +126,8 @@ __device__ __forceinline__ void store4(float* dst, const float* acc, float inv, 
 // changes no output: each ROI writes only its own rows).
 __global__ void __launch_bounds__(RA_ORDER_THREADS)
 roi_order_kernel(const float* __restrict__ boxes, const int* __restrict__ box_idx,
-                 int* __restrict__ order, int r, int n, int h, float scale, int bands) {
+                 int* __restrict__ order, int r, int n, int h, float scale) {
+  constexpr int bands = RA_ORDER_BANDS;
   __shared__ int start[RA_ORDER_BUCKETS];
   __shared__ int warp_sums[RA_ORDER_THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -214,23 +180,8 @@ roi_order_kernel(const float* __restrict__ boxes, const int* __restrict__ box_id
   for (int i = tid; i < r; i += RA_ORDER_THREADS) order[atomicAdd(&start[key(i)], 1)] = i;
 }
 
-// With RA_LEVER_ORDER: the order launch into `order` (int32 [r]), and *ord
-// the order to read; without it *ord is null.
-static cudaError_t maybe_order(int levers, const void* boxes, const void* box_idx, void* order,
-                               int r, int n, int h, float scale, int bands, cudaStream_t s,
-                               const int** ord) {
-  *ord = nullptr;
-  if (!(levers & RA_LEVER_ORDER)) return cudaSuccess;
-  if (order == nullptr || bands < 1) return cudaErrorInvalidValue;
-  roi_order_kernel<<<1, RA_ORDER_THREADS, 0, s>>>(static_cast<const float*>(boxes),
-                                                  static_cast<const int*>(box_idx),
-                                                  static_cast<int*>(order), r, n, h, scale, bands);
-  *ord = static_cast<const int*>(order);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// The direct form
+// The gather
 // ---------------------------------------------------------------------------
 
 template <typename T, int V>
@@ -238,7 +189,7 @@ __global__ void __launch_bounds__(RA_MAX_THREADS)
 roi_align_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
                  const int* __restrict__ box_idx, const int* __restrict__ order,
                  float* __restrict__ out, int n, int h, int w, int c, int oh, int ow, float scale,
-                 int ratio, int aligned, int stream) {
+                 int ratio, int aligned) {
   extern __shared__ Tap taps[];  // ratio y-taps, then ow * ratio x-taps
   const int q = blockIdx.x / oh, oy = blockIdx.x - q * oh;
   const int r = order != nullptr ? order[q] : q;
@@ -287,16 +238,17 @@ roi_align_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
     }
     float* dst = o + (size_t)ox * c + c0;
     if constexpr (V == 4)
-      store4(dst, acc, inv, stream);
+      __stcs(reinterpret_cast<float4*>(dst),
+             make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv));
     else
-      dst[0] = acc[0] * inv;
+      __stcs(dst, acc[0] * inv);
   }
 }
 
 template <typename T, int V>
 static int launch_direct(const void* feats, const void* boxes, const void* box_idx,
                          const int* order, void* out, int n, int h, int w, int c, int r, int oh,
-                         int ow, float scale, int ratio, int aligned, int stream, cudaStream_t s) {
+                         int ow, float scale, int ratio, int aligned, cudaStream_t s) {
   int threads = ((ow * (c / V) + 31) / 32) * 32;
   threads = threads > RA_MAX_THREADS ? RA_MAX_THREADS : threads;
   const size_t smem = sizeof(Tap) * (size_t)ratio * (ow + 1);
@@ -304,315 +256,41 @@ static int launch_direct(const void* feats, const void* boxes, const void* box_i
   roi_align_kernel<T, V><<<r * oh, threads, smem, s>>>(
       static_cast<const T*>(feats), static_cast<const float*>(boxes),
       static_cast<const int*>(box_idx), order, static_cast<float*>(out), n, h, w, c, oh, ow,
-      scale, ratio, aligned, stream);
+      scale, ratio, aligned);
   return (int)cudaGetLastError();
 }
 
 // feats [n, h, w, c] (dtype 0 = float32, 1 = bfloat16), boxes [r, 4] f32,
 // box_idx [r] int32, out [r, oh, ow, c] f32.  r, c >= 1, ratio >= 1.
-// levers: RA_LEVER_* bits (streaming stores where C % 4 == 0 and the rows
-// are aligned; with RA_LEVER_ORDER an int32 [r] scratch `order` and
-// order_bands bands of the map).  Returns a cudaError_t (0 on success).
+// With a non-null int32 [r] scratch `order`, the locality order runs first
+// and the gather takes the ROIs in its order.  Returns a cudaError_t (0 on
+// success).
 extern "C" int roi_align_launch(const void* feats, const void* boxes, const void* box_idx,
                                 void* order, void* out, int n, int h, int w, int c, int r, int oh,
-                                int ow, float scale, int ratio, int aligned, int dtype, int levers,
-                                int order_bands, void* stream) {
+                                int ow, float scale, int ratio, int aligned, int dtype,
+                                void* stream) {
   if (n < 1 || h < 1 || w < 1 || c < 1 || r < 1 || oh < 1 || ow < 1 || ratio < 1 ||
       (long long)r * oh > 0x7fffffffLL || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ord = nullptr;
-  const cudaError_t err =
-      maybe_order(levers, boxes, box_idx, order, r, n, h, scale, order_bands, s, &ord);
-  if (err != cudaSuccess) return (int)err;
+  const int* ord = static_cast<const int*>(order);
+  if (order != nullptr) {
+    roi_order_kernel<<<1, RA_ORDER_THREADS, 0, s>>>(static_cast<const float*>(boxes),
+                                                    static_cast<const int*>(box_idx),
+                                                    static_cast<int*>(order), r, n, h, scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const size_t elt = dtype == 0 ? 4 : 2;
   const bool vec4 = c % 4 == 0 && reinterpret_cast<size_t>(feats) % (4 * elt) == 0 &&
                     reinterpret_cast<size_t>(out) % 16 == 0;
-  const int st = (levers & RA_LEVER_STREAM_OUT) != 0;
   if (dtype == 0)
     return vec4 ? launch_direct<float, 4>(feats, boxes, box_idx, ord, out, n, h, w, c, r, oh, ow,
-                                          scale, ratio, aligned, st, s)
+                                          scale, ratio, aligned, s)
                 : launch_direct<float, 1>(feats, boxes, box_idx, ord, out, n, h, w, c, r, oh, ow,
-                                          scale, ratio, aligned, st, s);
+                                          scale, ratio, aligned, s);
   return vec4 ? launch_direct<__nv_bfloat16, 4>(feats, boxes, box_idx, ord, out, n, h, w, c, r,
-                                                oh, ow, scale, ratio, aligned, st, s)
+                                                oh, ow, scale, ratio, aligned, s)
               : launch_direct<__nv_bfloat16, 1>(feats, boxes, box_idx, ord, out, n, h, w, c, r,
-                                                oh, ow, scale, ratio, aligned, st, s);
-}
-
-// ---------------------------------------------------------------------------
-// The pipelined form
-// ---------------------------------------------------------------------------
-
-// One sample of an axis: the slots of its two taps (-1: it does not count)
-// and their weights.
-struct Sample {
-  int s0, s1;
-  float w0, w1;
-};
-
-// Byte offsets of the pipelined kernel's dynamic shared memory: the ring
-// [stages][stage_bytes], the x-samples [ow ratio], the y-samples
-// [rows_per_band ratio], the column of each column slot [2 ow ratio], the
-// row of each row slot [2 ratio rows_per_band], the pixel offset (y w + x,
-// -1: nothing to copy) of each footprint slot, and the spans (x lo, hi; y
-// lo, hi).  A stage holds the band's largest footprint (row slots x column
-// slots) at `slab` channels.
-struct PipeLayout {
-  size_t stage_bytes, xs, ys, colidx, rowidx, pixoff, span, total;
-};
-
-__host__ __device__ inline size_t round16(size_t b) { return (b + 15) & ~(size_t)15; }
-
-__host__ __device__ inline PipeLayout pipe_layout(int elt, int ow, int ratio, int slab, int stages,
-                                                  int rows_per_band) {
-  const size_t ncol = 2 * (size_t)ow * ratio, nrow = 2 * (size_t)ratio * rows_per_band;
-  PipeLayout l;
-  l.stage_bytes = nrow * ncol * slab * elt;
-  size_t off = (size_t)stages * l.stage_bytes;
-  l.xs = off;
-  off += sizeof(Sample) * (size_t)ow * ratio;
-  l.ys = off;
-  off += sizeof(Sample) * (size_t)rows_per_band * ratio;
-  l.colidx = off;
-  off += round16(4 * ncol);
-  l.rowidx = off;
-  off += round16(4 * nrow);
-  l.pixoff = off;
-  off += round16(4 * nrow * ncol);
-  l.span = off;
-  l.total = off + 16;
-  return l;
-}
-
-// The slot rule of one axis, after the span [lo, hi] of its valid taps is
-// known: where the span is no wider than the taps (`width` slots) it is
-// staged as it lies, else each sample's two taps get slots 2e, 2e + 1.
-// Turns the samples' tap indices into slots (every sample that does not
-// count, all of them where none does (hi < lo), gets -1) and fills idx[]
-// (-1: no pixel); returns the slots used.
-__device__ int assign_slots(Sample* smp, int nsmp, int* idx, int width, int lo, int hi) {
-  const bool dense = hi >= lo && hi - lo < width;
-  for (int e = threadIdx.x; e < nsmp; e += blockDim.x) {
-    Sample s = smp[e];
-    const bool ok = s.w0 != 0.f;
-    if (!dense) {
-      idx[2 * e] = ok ? s.s0 : -1;
-      idx[2 * e + 1] = ok ? s.s1 : -1;
-    }
-    s.s0 = ok ? (dense ? s.s0 - lo : 2 * e) : -1;
-    s.s1 = ok ? (dense ? s.s1 - lo : 2 * e + 1) : -1;
-    smp[e] = s;
-  }
-  if (hi < lo) return 0;
-  if (!dense) return width;
-  for (int e = threadIdx.x; e <= hi - lo; e += blockDim.x) idx[e] = lo + e;
-  return hi - lo + 1;
-}
-
-__device__ __forceinline__ void copy16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void commit_group() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most `pending` commit groups are in flight
-__device__ __forceinline__ void wait_groups(int pending) {
-  if (pending <= 0)
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  else if (pending == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else if (pending == 2)
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
-}
-
-template <typename T>
-__global__ void __launch_bounds__(RA_PIPE_THREADS)
-roi_align_pipelined_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
-                           const int* __restrict__ box_idx, const int* __restrict__ order,
-                           float* __restrict__ out, int n, int h, int w, int c, int oh, int ow,
-                           float scale, int ratio, int aligned, int slab, int stages,
-                           int rows_per_band, int stream) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PipeLayout lay = pipe_layout((int)sizeof(T), ow, ratio, slab, stages, rows_per_band);
-  Sample* xs = reinterpret_cast<Sample*>(smem + lay.xs);
-  Sample* ys = reinterpret_cast<Sample*>(smem + lay.ys);
-  int* colidx = reinterpret_cast<int*>(smem + lay.colidx);
-  int* rowidx = reinterpret_cast<int*>(smem + lay.rowidx);
-  int* pixoff = reinterpret_cast<int*>(smem + lay.pixoff);
-  int* span = reinterpret_cast<int*>(smem + lay.span);  // x lo, hi; y lo, hi
-
-  // block -> (ROI in the launch's order, band of output rows)
-  const int bands = (oh + rows_per_band - 1) / rows_per_band;
-  const int band = blockIdx.x % bands;
-  const int q = blockIdx.x / bands;
-  const int r = order != nullptr ? order[q] : q;
-  const int j0 = band * rows_per_band, nj = min(oh - j0, rows_per_band);
-  const Geometry geo = roi_geometry(boxes + 4 * r, scale, aligned, oh, ow);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int ncol = 2 * ow * ratio, nrow = 2 * ratio * nj;
-
-  if (tid < 4) span[tid] = tid % 2 == 0 ? INT_MAX : -1;
-  __syncthreads();
-  // the taps of the ROI's x-samples and of the band's y-samples, and their spans
-  const int nxs = ow * ratio, nys = nj * ratio;
-  for (int e = tid; e < nxs + nys; e += nt) {
-    const bool is_x = e < nxs;
-    const int k = is_x ? e : e - nxs;
-    const Tap t = is_x ? make_tap(geo.x0, geo.bin_w, w, k / ratio, k % ratio, ratio)
-                       : make_tap(geo.y0, geo.bin_h, h, j0 + k / ratio, k % ratio, ratio);
-    (is_x ? xs : ys)[k] = Sample{t.i0, t.i1, t.w0, t.w1};
-    if (t.w0 != 0.f) {
-      atomicMin(&span[is_x ? 0 : 2], t.i0);
-      atomicMax(&span[is_x ? 1 : 3], t.i1);
-    }
-  }
-  __syncthreads();
-  const int ncols = assign_slots(xs, nxs, colidx, ncol, span[0], span[1]);
-  const int nrows = assign_slots(ys, nys, rowidx, nrow, span[2], span[3]);
-  __syncthreads();
-  const int pixels = nrows * ncols;  // slots of a stage
-  for (int p = tid; p < pixels; p += nt) {
-    const int rs = p / ncols, y = rowidx[rs], x = colidx[p - rs * ncols];
-    pixoff[p] = y < 0 || x < 0 ? -1 : y * w + x;
-  }
-  __syncthreads();
-  // the widest slab whose footprint fits a stage: small ROIs take more
-  // channels per ring slot
-  int sw = slab;
-  while (c % (2 * sw) == 0 && (size_t)pixels * 2 * sw * sizeof(T) <= lay.stage_bytes) sw *= 2;
-  const int units = c / sw;
-
-  const T* f = feats + (size_t)image_of(box_idx[r], n) * h * w * c;
-  constexpr int PER16 = 16 / (int)sizeof(T);
-  const int chunks = sw / PER16;
-  const uint32_t pix_bytes = (uint32_t)(sw * sizeof(T));
-  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(smem);
-
-  // stage channel slab u of the footprint into ring slot st: a thread takes
-  // pixels p with a fixed 16-byte chunk k of the slab where the chunks
-  // divide the threads
-  auto issue = [&](int u, int st) {
-    const uint32_t base = ring + (uint32_t)(st * lay.stage_bytes);
-    const T* fu = f + (size_t)u * sw;
-    if (nt % chunks == 0) {
-      const int step = nt / chunks, k = tid % chunks;
-      for (int p = tid / chunks; p < pixels; p += step) {
-        const int o = pixoff[p];
-        if (o >= 0)
-          copy16(base + (uint32_t)p * pix_bytes + 16 * k, fu + (size_t)o * c + k * PER16);
-      }
-    } else {
-      for (int e = tid; e < pixels * chunks; e += nt) {
-        const int p = e / chunks, k = e - p * chunks;
-        const int o = pixoff[p];
-        if (o >= 0)
-          copy16(base + (uint32_t)p * pix_bytes + 16 * k, fu + (size_t)o * c + k * PER16);
-      }
-    }
-    commit_group();
-  };
-
-  for (int s = 0; s < stages - 1; ++s) {
-    if (s < units)
-      issue(s, s);
-    else
-      commit_group();  // an empty group keeps the count of groups in step
-  }
-  const float inv = 1.f / (float)(ratio * ratio);
-  const int cg = sw / 4;
-  for (int u = 0; u < units; ++u) {
-    const int st = u % stages;
-    if (u > 0) __syncthreads();  // the slot of unit u - 1 is read by no thread
-    // the copy of unit u + stages - 1 goes out before the wait for unit u
-    const int nxt = u + stages - 1;
-    if (nxt < units)
-      issue(nxt, nxt % stages);
-    else
-      commit_group();
-    wait_groups(stages - 1);
-    __syncthreads();  // slot st is filled for every thread
-
-    const T* stg = reinterpret_cast<const T*>(smem + st * lay.stage_bytes);
-    for (int e = tid; e < nj * ow * cg; e += nt) {
-      const int g4 = e % cg, pix = e / cg;
-      const int j = pix / ow, ox = pix - j * ow, cc = 4 * g4;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int sy = 0; sy < ratio; ++sy) {
-        const Sample ya = ys[j * ratio + sy];
-        if (ya.s0 < 0) continue;
-        const T* row0 = stg + (size_t)ya.s0 * ncols * sw + cc;
-        const T* row1 = stg + (size_t)ya.s1 * ncols * sw + cc;
-        float top[4] = {0.f, 0.f, 0.f, 0.f}, bot[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int sx = 0; sx < ratio; ++sx) {
-          const Sample xa = xs[ox * ratio + sx];
-          if (xa.s0 < 0) continue;
-          float p00[4], p01[4], p10[4], p11[4];
-          Vec<T, 4>::load(row0 + (size_t)xa.s0 * sw, p00);
-          Vec<T, 4>::load(row0 + (size_t)xa.s1 * sw, p01);
-          Vec<T, 4>::load(row1 + (size_t)xa.s0 * sw, p10);
-          Vec<T, 4>::load(row1 + (size_t)xa.s1 * sw, p11);
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            top[v] += xa.w0 * p00[v] + xa.w1 * p01[v];
-            bot[v] += xa.w0 * p10[v] + xa.w1 * p11[v];
-          }
-        }
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[v] += ya.w0 * top[v] + ya.w1 * bot[v];
-      }
-      store4(out + (((size_t)r * oh + j0 + j) * ow + ox) * c + (size_t)u * sw + cc, acc, inv,
-             stream);
-    }
-  }
-}
-
-// Dynamic shared memory of one pipelined CTA, in bytes (elt: 4 = float32,
-// 2 = bfloat16).
-extern "C" long long roi_align_pipelined_smem(int elt, int ow, int ratio, int slab, int stages,
-                                              int rows_per_band) {
-  return (long long)pipe_layout(elt, ow, ratio, slab, stages, rows_per_band).total;
-}
-
-// The pipelined form.  As roi_align_launch, plus: slab channels of the
-// largest footprint per ring slot (a divisor of c, 16-byte rows), stages
-// ring slots (2-4), rows_per_band output rows per CTA.  feats and out
-// 16-byte aligned.  Returns a cudaError_t (0 on success).
-extern "C" int roi_align_pipelined_launch(const void* feats, const void* boxes,
-                                          const void* box_idx, void* order, void* out, int n,
-                                          int h, int w, int c, int r, int oh, int ow, float scale,
-                                          int ratio, int aligned, int dtype, int slab, int stages,
-                                          int rows_per_band, int levers, int order_bands,
-                                          void* stream) {
-  const int elt = dtype == 0 ? 4 : (dtype == 1 ? 2 : 0);
-  if (elt == 0 || n < 1 || h < 1 || w < 1 || c < 1 || r < 1 || oh < 1 || ow < 1 || ratio < 1 ||
-      ratio > RA_MAX_RATIO || slab < 4 || slab % 4 != 0 || c % slab != 0 ||
-      (slab * elt) % 16 != 0 || (c * elt) % 16 != 0 || stages < 2 || stages > RA_MAX_STAGES ||
-      rows_per_band < 1 || rows_per_band > oh || reinterpret_cast<size_t>(feats) % 16 != 0 ||
-      reinterpret_cast<size_t>(out) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const long long ctas = (long long)r * ((oh + rows_per_band - 1) / rows_per_band);
-  const size_t smem = pipe_layout(elt, ow, ratio, slab, stages, rows_per_band).total;
-  if (ctas > 0x7fffffffLL || smem > RA_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ord = nullptr;
-  cudaError_t err =
-      maybe_order(levers, boxes, box_idx, order, r, n, h, scale, order_bands, s, &ord);
-  if (err != cudaSuccess) return (int)err;
-  const void* kernel = dtype == 0 ? (const void*)roi_align_pipelined_kernel<float>
-                                  : (const void*)roi_align_pipelined_kernel<__nv_bfloat16>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int st = (levers & RA_LEVER_STREAM_OUT) != 0;
-  void* args[] = {(void*)&feats, (void*)&boxes, (void*)&box_idx, (void*)&ord, (void*)&out,
-                  (void*)&n,     (void*)&h,     (void*)&w,       (void*)&c,   (void*)&oh,
-                  (void*)&ow,    (void*)&scale, (void*)&ratio,   (void*)&aligned,
-                  (void*)&slab,  (void*)&stages, (void*)&rows_per_band, (void*)&st};
-  err = cudaLaunchKernel(kernel, dim3((unsigned)ctas), dim3(RA_PIPE_THREADS), args, smem, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                                                oh, ow, scale, ratio, aligned, s);
 }

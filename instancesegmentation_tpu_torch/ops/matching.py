@@ -27,6 +27,7 @@ the rescue, its row pass alone).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -104,10 +105,11 @@ def cluster_smem(g: int, rows_per_cta: int, rows_in_smem: bool) -> int:
     return 4 * (fixed + (rows_per_cta * staged_stride(g) if rows_in_smem else 0))
 
 
+@functools.lru_cache(maxsize=256)
 def plan_cluster(p: int, g: int, max_cluster: int = MAX_CLUSTER, cluster=None):
     """The cluster form's plan for ``[p, g]`` (with the rescue), or None
     where the two-pass form runs (partials of G columns that do not fit in
-    shared memory).
+    shared memory).  Cached per shape: the entry point plans on every call.
 
     One CTA up to ``2 * ROWS_PER_CTA`` rows, else the power of two of CTAs
     that gives each at most ``ROWS_PER_CTA`` rows, capped at

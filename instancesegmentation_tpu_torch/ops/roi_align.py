@@ -13,20 +13,17 @@ in torchvision) is not supported, as in the JAX function.
 
 A CPU tensor runs ``roi_align_reference``, the JAX package's separable form
 ``Wy . feat . Wx^T`` per ROI, over chunks of ROIs so that the gathered
-feature maps stay small.  A CUDA tensor runs a kernel of
-``csrc/roi_align.cu`` (counted in ``roi_align.launches``, and by form in
-``roi_align.launches_by_form``): the direct form (a block per ROI and output
-row, taps read straight from global memory through L1), which the entry
-point takes (``ENTRY_FORM``), or the pipelined form (a CTA per ROI and band
-of output rows stages the band's deduplicated tap footprint, channel slab
-by channel slab, in a shared-memory ring while a slab computes), planned by
-``plan_pipelined`` and reachable through ``_launch``.
+feature maps stay small.  A CUDA tensor runs the kernels of
+``csrc/roi_align.cu``: the gather (a block per ROI and output row, taps
+read straight from global memory through L1, streaming output stores),
+after a locality order of the ROIs by (image, band of the map) from
+``ORDER_MIN_ROIS`` ROIs on.  Each kernel launch is counted in
+``roi_align.launches`` and, by kernel, in ``roi_align.launches_by_kernel``
+("direct", "order").
 """
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import NamedTuple
 
 import torch
 
@@ -100,107 +97,12 @@ def roi_align_reference(features, boxes, box_indices, output_size=(7, 7),
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype codes
 
-# -- the pipelined form's plan (mirrors csrc/roi_align.cu) --------------------
-
-MAX_RATIO = 4             # the largest sampling ratio the pipelined form takes
-MAX_STAGES = 4
-SMEM_LIMIT = 232_448      # dynamic shared memory a Hopper block can use
-RING_BUDGET = 96 * 1024   # ring bytes of a CTA: at least two CTAs per SM
-MIN_ITEMS = 4 * 132       # below this many CTAs the planner splits rows into bands
-SAMPLE_BYTES = 16         # sizeof(Sample)
-
-# levers of both forms (bits, as RA_LEVER_* in the source)
-LEVER_ORDER = 1        # a first launch orders the ROIs by (image, band of the map)
-LEVER_STREAM_OUT = 2   # streaming (st.global.cs) output stores
-ORDER_MIN_ROIS = 512   # the direct form orders its ROIs from this many on
-ORDER_BANDS = 16       # bands of the map in the locality order's key
-
-
-def default_levers(form: str, r: int) -> int:
-    """The levers a form launches with for ``r`` ROIs, where each won in
-    turns on an H100 (PERF.md): the direct form stores its output streaming
-    and, from ``ORDER_MIN_ROIS`` ROIs on, takes them in the locality order
-    (below that its extra launch costs more than it saves); the pipelined
-    form none."""
-    if form == "direct":
-        return LEVER_STREAM_OUT | (LEVER_ORDER if r >= ORDER_MIN_ROIS else 0)
-    return 0
-
-
-#: The form the entry point launches.  The pipelined form measured slower
-#: than the direct form at both Mask R-CNN poolers, in float32 and bfloat16,
-#: and at sampling ratios 3 and 4, on an H100 (PERF.md); it stays reachable
-#: through ``_launch(..., form="pipelined")``, timed in turns with the direct
-#: form and held against the plain version by ``chip_smoke.py``.
-ENTRY_FORM = "direct"
-
-
-class PipePlan(NamedTuple):
-    slab: int           # channels of the largest footprint per ring slot
-    stages: int         # ring slots
-    rows_per_band: int  # output rows per CTA
-    bands: int
-    items: int          # CTAs: (ROI, band) pairs
-    smem: int           # dynamic shared memory per CTA, bytes
-
-
-def _round16(b: int) -> int:
-    return (b + 15) & ~15
-
-
-def footprint_slots(ow: int, ratio: int, rows_per_band: int) -> int:
-    """Pixel slots of a band's largest footprint: (2 ratio rows_per_band)
-    row slots by (2 ow ratio) column slots."""
-    return 2 * ratio * rows_per_band * 2 * ow * ratio
-
-
-def pipelined_smem(elt: int, ow: int, ratio: int, slab: int, stages: int,
-                   rows_per_band: int) -> int:
-    """Bytes of a pipelined CTA's shared memory (``pipe_layout``): the ring of
-    ``stages`` slots of the largest footprint at ``slab`` channels, the x-
-    and y-samples, the column and row of each slot, the pixel offset of each
-    footprint slot, and the two axes' spans."""
-    ncol, nrow = 2 * ow * ratio, 2 * ratio * rows_per_band
-    return (stages * nrow * ncol * slab * elt + SAMPLE_BYTES * (ow + rows_per_band) * ratio
-            + _round16(4 * ncol) + _round16(4 * nrow) + _round16(4 * nrow * ncol) + 16)
-
-
-def plan_pipelined(c: int, output_size, ratio: int, elt: int, r: int, *, slab=None,
-                   stages=None, rows_per_band=None):
-    """The pipelined form's plan for ``r`` ROIs of ``c`` channels of ``elt``
-    bytes, or None where the direct form runs (a ratio above ``MAX_RATIO``,
-    pixel rows that are not 16-byte multiples, no ring that fits).
-
-    Rows per band: all of them, halved while two slots of the largest
-    footprint at one 128-byte line of channels exceed ``RING_BUDGET`` (so
-    that copies come as whole lines), and while there are fewer than
-    ``MIN_ITEMS`` CTAs.  The slab: the widest divisor of ``c`` whose two
-    slots fit.  Stages: two.  Any of the three may be given instead.
-    """
-    oh, ow = output_size
-    base = max(4, 16 // elt)  # four channels per thread item, 16-byte rows
-    if ratio > MAX_RATIO or c % base:
-        return None
-    line = min(c, max(base, 128 // elt))
-    if rows_per_band is None:
-        rows_per_band = oh
-        while (rows_per_band > 1
-               and 2 * footprint_slots(ow, ratio, rows_per_band) * line * elt > RING_BUDGET):
-            rows_per_band = math.ceil(rows_per_band / 2)
-        while rows_per_band > 1 and r * math.ceil(oh / rows_per_band) < MIN_ITEMS:
-            rows_per_band = math.ceil(rows_per_band / 2)
-    slot = footprint_slots(ow, ratio, rows_per_band) * elt  # bytes per channel
-    if slab is None:
-        fit = [s for s in range(base, c + 1, base) if c % s == 0 and 2 * slot * s <= RING_BUDGET]
-        slab = max(fit, default=base)
-    if slab % base or c % slab:
-        return None
-    stages = stages or 2
-    bands = math.ceil(oh / rows_per_band)
-    smem = pipelined_smem(elt, ow, ratio, slab, stages, rows_per_band)
-    if smem > SMEM_LIMIT or not 2 <= stages <= MAX_STAGES:
-        return None
-    return PipePlan(slab, stages, rows_per_band, bands, r * bands, smem)
+#: The gather takes the ROIs in the locality order from this many on: on an
+#: H100 the order's extra launch costs more than it saves at 100 ROIs (7x7
+#: and 14x14 poolers), ties at 200-300 (7x7) and wins from 200 (14x14) and
+#: 400 (7x7) (``profile_port.py --detection``, PERF.md)
+ORDER_MIN_ROIS = 200
+ORDER_BANDS = 16       # bands of the map in the order's key (RA_ORDER_BANDS in the source)
 
 
 def _library():
@@ -209,23 +111,16 @@ def _library():
     lib = _build.library("roi_align.cu")
     if lib.roi_align_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.roi_align_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, i, i,
-                                         p]
+        lib.roi_align_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
         lib.roi_align_launch.restype = ctypes.c_int
-        lib.roi_align_pipelined_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
-                                                   i, i, i, i, i, i, p]
-        lib.roi_align_pipelined_launch.restype = ctypes.c_int
-        lib.roi_align_pipelined_smem.argtypes = [i, i, i, i, i, i]
-        lib.roi_align_pipelined_smem.restype = ctypes.c_longlong
     return lib
 
 
 def _launch(features, boxes, box_indices, output_size, spatial_scale, sampling_ratio,
-            aligned, form=None, plan=None, levers=None):
-    """Launch one form: ``form=None`` takes ``ENTRY_FORM``; "pipelined" with
-    ``plan`` (a ``PipePlan``) or the planner's; "direct".
-    ``levers`` (``LEVER_*`` bits) default to ``default_levers``.
-    Counts ``roi_align.launches_by_form``."""
+            aligned, order=None):
+    """Launch the kernels: the locality order where ``order`` is true
+    (``None``: from ``ORDER_MIN_ROIS`` ROIs on), then the gather.  Counts
+    each launch in ``roi_align.launches`` and ``roi_align.launches_by_kernel``."""
     lib = _library()
     n, h, w, c = features.shape
     r = boxes.shape[0]
@@ -235,32 +130,20 @@ def _launch(features, boxes, box_indices, output_size, spatial_scale, sampling_r
     bx = boxes.float().contiguous()
     idx = box_indices.to(torch.int32).contiguous()
     out = torch.empty((r, oh, ow, c), dtype=torch.float32, device=dev)
-    form = form or ENTRY_FORM
-    if form == "pipelined" and plan is None:
-        plan = plan_pipelined(c, output_size, sampling_ratio, feats.element_size(), r)
-    if form == "pipelined" and (plan is None or feats.data_ptr() % 16):
-        raise ValueError(f"roi_align: no pipelined plan for C={c}, ratio {sampling_ratio}")
-    if form not in roi_align.launches_by_form:
-        raise ValueError(f"roi_align: unknown form {form!r}")
-    levers = default_levers(form, r) if levers is None else levers
-    order = torch.empty(r, dtype=torch.int32, device=dev) if levers & LEVER_ORDER else None
-    order_ptr = None if order is None else order.data_ptr()
+    if order is None:
+        order = r >= ORDER_MIN_ROIS
+    scratch = torch.empty(r, dtype=torch.int32, device=dev) if order else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if form == "pipelined":
-            rc = lib.roi_align_pipelined_launch(
-                feats.data_ptr(), bx.data_ptr(), idx.data_ptr(), order_ptr, out.data_ptr(), n, h,
-                w, c, r, oh, ow, spatial_scale, sampling_ratio, int(aligned),
-                _DTYPES[feats.dtype], plan.slab, plan.stages, plan.rows_per_band, levers,
-                ORDER_BANDS, stream)
-        else:
-            rc = lib.roi_align_launch(
-                feats.data_ptr(), bx.data_ptr(), idx.data_ptr(), order_ptr, out.data_ptr(), n, h,
-                w, c, r, oh, ow, spatial_scale, sampling_ratio, int(aligned),
-                _DTYPES[feats.dtype], levers, ORDER_BANDS, stream)
+        rc = lib.roi_align_launch(
+            feats.data_ptr(), bx.data_ptr(), idx.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(), n, h, w, c, r, oh,
+            ow, spatial_scale, sampling_ratio, int(aligned), _DTYPES[feats.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"roi_align {form} kernel launch failed: CUDA error {rc}")
-    roi_align.launches_by_form[form] += 1
+        raise RuntimeError(f"roi_align kernel launch failed: CUDA error {rc}")
+    roi_align.launches_by_kernel["direct"] += 1
+    roi_align.launches_by_kernel["order"] += int(order)
+    roi_align.launches += 1 + int(order)
     return out
 
 
@@ -271,9 +154,9 @@ def roi_align(features, boxes, box_indices, output_size=(7, 7), spatial_scale: f
     rule: ``i < 0`` wraps to ``i + N``, then a clamp to ``[0, N - 1]``) ->
     ``[R, oh, ow, C]`` float32.
 
-    A CPU tensor runs ``roi_align_reference``; a CUDA tensor launches a
-    kernel (counted in ``roi_align.launches`` and, by form, in
-    ``roi_align.launches_by_form``) or raises.
+    A CPU tensor runs ``roi_align_reference``; a CUDA tensor launches the
+    kernels (each launch counted in ``roi_align.launches`` and, by kernel, in
+    ``roi_align.launches_by_kernel``) or raises.
     """
     if sampling_ratio < 1:
         raise ValueError("roi_align needs an explicit sampling_ratio >= 1")
@@ -292,11 +175,9 @@ def roi_align(features, boxes, box_indices, output_size=(7, 7), spatial_scale: f
     if boxes.shape[0] == 0 or features.shape[-1] == 0:
         return torch.zeros((boxes.shape[0],) + output_size + (features.shape[-1],),
                            dtype=torch.float32, device=features.device)
-    out = _launch(features, boxes, box_indices, output_size, spatial_scale,
-                  sampling_ratio, aligned)
-    roi_align.launches += 1
-    return out
+    return _launch(features, boxes, box_indices, output_size, spatial_scale, sampling_ratio,
+                   aligned)
 
 
 roi_align.launches = 0
-roi_align.launches_by_form = {"pipelined": 0, "direct": 0}
+roi_align.launches_by_kernel = {"direct": 0, "order": 0}

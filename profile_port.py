@@ -4,6 +4,7 @@ one NVIDIA GPU.
     python3 profile_port.py          # from the repository root; needs one CUDA card
     python3 profile_port.py --train  # the train step only
     python3 profile_port.py --detection  # roi_align and match_proposals forms
+    python3 profile_port.py --trace-check  # the profiler's spans per trace
 
 On seeded random weights, at batch 128 in bfloat16, it times with CUDA
 events each stage of the 480 px instance program (warp parameters, crop
@@ -19,12 +20,11 @@ is split the same way into preprocessing (of which the warp kernel, by
 call and by its device time, and its launches per step), the train-mode
 forward and loss, the backward and the Adam update, with one trace.
 ``--detection`` times the detection kernels alone at ``chip_smoke.py``'s
-shapes by their device time: ``roi_align``'s direct form with each lever
-and other band counts of the order, its pipelined form under the
-planner's plan with each lever flipped and with other slabs, ring depths
-and row bands, both forms at sampling ratios 3 and 4; ``match_proposals``'
-two-pass and cluster forms (the cluster form also at other cluster sizes),
-with and without the rescue.  It prints one JSON object as its last line,
+shapes (``detection_breakdown``): ``roi_align`` with and without its
+locality order over a range of ROI counts at both poolers, and
+``match_proposals``' two forms.  ``--trace-check`` counts the spans
+``torch.profiler`` returns per trace, in a child process per CUPTI
+setting (``trace_check``).  Each prints one JSON object as its last line,
 after the card's name and power limit.
 """
 from __future__ import annotations
@@ -38,6 +38,7 @@ import torch
 
 from chip_smoke import (
     BATCH,
+    LAUNCH_RECORDS,
     SEED,
     TRAIN_BATCH,
     card_line,
@@ -81,6 +82,75 @@ def trace(fn, top: int = 12) -> dict:
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "n_device_ops": len(events),
             "largest_ms": {k[:90]: v for k, v in largest}}
+
+
+def trace_check(dev, traces: int = 60, iters: int = 20) -> dict:
+    """What ``torch.profiler`` returns per trace in this process's
+    environment: each trace holds ``iters`` calls of a function that
+    launches one kernel (a torch add, the nms kernel at N = 48, the cluster
+    matcher at [2000, 64]), with the same calls timed untraced by CUDA events
+    between traces, as ``chip_smoke.py``'s timing phase runs them, and a
+    second of other work every ten traces.  Per function: the traces whose
+    kernel spans or launch records are not ``iters``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instancesegmentation_tpu_torch.ops import matching as mp
+    from instancesegmentation_tpu_torch.ops import nms
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.zeros(256, device=dev)
+    xy = torch.rand((48, 2), generator=g, device=dev) * 600
+    boxes = torch.cat([xy, xy + 50], 1)
+    scores = torch.rand(48, generator=g, device=dev)
+    iou = torch.rand((2000, 64), generator=g, device=dev)
+    big = torch.randn((4096, 4096), device=dev)
+    fns = {"add": lambda: x.add_(1.0), "nms": lambda: nms.nms(boxes, scores, 0.7),
+           "match": lambda: mp.match_proposals(iou)}
+    res = {name: {"traces": 0, "bad": []} for name in fns}
+    t0 = time.perf_counter()
+    for s in range(traces):
+        if s % 10 == 9:
+            t1 = time.perf_counter()
+            while time.perf_counter() - t1 < 1.0:
+                big @ big
+                torch.cuda.synchronize()
+        for name, fn in fns.items():
+            cuda_ms(fn, iters)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            spans: dict = {}
+            records = 0
+            for e in prof.events():
+                if e.device_type.name == "CUDA":
+                    spans[e.name[:40]] = spans.get(e.name[:40], 0) + 1
+                elif any(k in e.name for k in LAUNCH_RECORDS):
+                    records += 1
+            res[name]["traces"] += 1
+            if list(spans.values()) != [iters] or records != iters:
+                res[name]["bad"].append({"trace": s, "spans": spans, "launch_records": records})
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def trace_check_children() -> dict:
+    """``trace_check`` in a child process per environment: the default, and
+    with ``TEARDOWN_CUPTI=0`` (the profiler keeps CUPTI set up between
+    traces instead of tearing it down at each trace's end)."""
+    import os
+    import subprocess
+
+    out = {}
+    for label, env in (("default", {}), ("TEARDOWN_CUPTI=0", {"TEARDOWN_CUPTI": "0"})):
+        child = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+        proc = subprocess.run([sys.executable, __file__, "--trace-check-child"],
+                              env={**child, **env}, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        out[label] = json.loads(lines[-1]) if proc.returncode == 0 and lines else {
+            "rc": proc.returncode, "stderr": proc.stderr[-2000:]}
+        print(json.dumps({label: out[label]}), flush=True)
+    return out
 
 
 def train_breakdown(dev) -> dict:
@@ -148,89 +218,53 @@ def train_breakdown(dev) -> dict:
             "trace": trace(lambda: step(state, batch, draws), top=16)}
 
 
+ORDER_SWEEP_ROIS = (100, 200, 300, 400, 600, 800, 1000)
+
+
 def detection_breakdown(dev) -> dict:
-    """Device ms per call of each form and variant of the two detection
-    kernels (every kernel of a call summed: the order launch too)."""
+    """``roi_align`` with and without the locality order, in turns (without,
+    with, with, without), at both poolers over ``ORDER_SWEEP_ROIS`` ROIs:
+    device ms per call (the order launch included) and call ms by CUDA
+    events, which place the order's crossover; ``match_proposals``' two
+    forms in turns (two-pass, cluster, cluster, two-pass), device and call
+    ms, also at other cluster sizes and without the rescue."""
     from instancesegmentation_tpu_torch.ops import matching as mp
     from instancesegmentation_tpu_torch.ops import roi_align as ra
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     feats = torch.randn((2, 200, 336, 256), generator=g, device=dev)
     out = {}
-    for name, (r, hw), dtype in (("box_head", (1000, (7, 7)), torch.float32),
-                                 ("mask_head", (100, (14, 14)), torch.float32),
-                                 ("box_head_bf16", (1000, (7, 7)), torch.bfloat16)):
-        boxes, idx = roi_inputs(g, r, dev)
-        f = feats.to(dtype)
-        args = (f, boxes, idx, hw, 0.25, 2, False)
-        plan = ra.plan_pipelined(256, hw, 2, f.element_size(), r)
-        runs = {"direct": lambda: ra._launch(*args, form="direct", levers=0)}
-        for lever, bit in (("order", ra.LEVER_ORDER), ("stream_out", ra.LEVER_STREAM_OUT)):
-            runs[f"direct + {lever}"] = (lambda lv=bit: ra._launch(*args, form="direct",
-                                                                  levers=lv))
-        runs["direct + all"] = lambda: ra._launch(*args, form="direct", levers=3)
-        runs["direct default"] = lambda: ra._launch(*args, form="direct")
-
-        def banded(bands):  # the direct form ordered by ``bands`` bands of the map
-            def run():
-                kept, ra.ORDER_BANDS = ra.ORDER_BANDS, bands
-                try:
-                    return ra._launch(*args, form="direct", levers=ra.LEVER_ORDER)
-                finally:
-                    ra.ORDER_BANDS = kept
-            return run
-        for bands in (4, 8, 32, 64, 128):
-            runs[f"direct + order, {bands} bands"] = banded(bands)
-        base = ra.default_levers("pipelined", r)
-        for lever, bit in (("order", ra.LEVER_ORDER), ("stream_out", ra.LEVER_STREAM_OUT)):
-            runs[f"levers ^ {lever}"] = (lambda lv=base ^ bit: ra._launch(
-                *args, form="pipelined", plan=plan, levers=lv))
-        runs["levers 0"] = lambda: ra._launch(*args, form="pipelined", plan=plan, levers=0)
-        runs["levers all"] = lambda: ra._launch(*args, form="pipelined", plan=plan, levers=3)
-        variants = {(s, st, rb) for s in (plan.slab // 2, plan.slab, plan.slab * 2)
-                    for st in (2, 3, 4) for rb in (hw[0], 4, 3, 2, 1)}
-        for s_, st, rb in sorted(variants):
-            vp = ra.plan_pipelined(256, hw, 2, f.element_size(), r, slab=s_, stages=st,
-                                   rows_per_band=rb)
-            if vp is None:
-                continue
-            runs[f"slab {s_} stages {st} rows {rb}"] = (
-                lambda vp=vp: ra._launch(*args, form="pipelined", plan=vp, levers=base))
-        res = {"plan": plan._asdict(), "levers": base}
-        res["pipelined"], _ = device_calls(
-            lambda: ra._launch(*args, form="pipelined", plan=plan, levers=base))
-        for key, fn in runs.items():
-            res[key], _ = device_calls(fn)
-        res["call_ms pipelined"] = cuda_ms(
-            lambda: ra._launch(*args, form="pipelined", plan=plan, levers=base), 20)
-        res["call_ms direct"] = cuda_ms(lambda: ra._launch(*args, form="direct", levers=0), 20)
-        res["direct_again"], _ = device_calls(lambda: ra._launch(*args, form="direct", levers=0))
-        res["pipelined_again"], _ = device_calls(
-            lambda: ra._launch(*args, form="pipelined", plan=plan, levers=base))
-        print(json.dumps({name: res}), flush=True)
-        out[name] = res
-    # the box head at sampling ratios 3 and 4, where the direct form's taps
-    # per bin grow with ratio^2
-    boxes, idx = roi_inputs(g, 1000, dev)
-    for ratio in (3, 4):
-        args = (feats, boxes, idx, (7, 7), 0.25, ratio, False)
-        res = {"direct": device_calls(lambda: ra._launch(*args, form="direct"))[0],
-               "pipelined": device_calls(lambda: ra._launch(*args, form="pipelined"))[0],
-               "plan": ra.plan_pipelined(256, (7, 7), ratio, 4, 1000)._asdict()}
-        print(json.dumps({f"box_head_ratio{ratio}": res}), flush=True)
-        out[f"box_head_ratio{ratio}"] = res
+    for pooler, hw in (("box_head", (7, 7)), ("mask_head", (14, 14))):
+        for r in ORDER_SWEEP_ROIS:
+            boxes, idx = roi_inputs(g, r, dev)
+            args = (feats, boxes, idx, hw, 0.25, 2, False)
+            turns = {False: [], True: []}
+            for order in (False, True, True, False):
+                turns[order].append(
+                    (device_calls(lambda: ra._launch(*args, order=order))[0],
+                     cuda_ms(lambda: ra._launch(*args, order=order), 20)))
+            res = {"default_order": r >= ra.ORDER_MIN_ROIS}
+            for order, key in ((False, "unordered"), (True, "ordered")):
+                res[key] = {"device_ms": sum(d for d, _ in turns[order]) / 2,
+                            "call_ms": sum(c for _, c in turns[order]) / 2,
+                            "device_ms_turns": [d for d, _ in turns[order]]}
+            print(json.dumps({f"roi_align {pooler} R={r}": res}), flush=True)
+            out[f"roi_align {pooler} R={r}"] = res
     iou = torch.rand((2000, 64), generator=g, device=dev)
     res = {"max_cluster": mp.max_cluster()}
-    for lq in (True, False):
-        for key, form, plan in (("two_pass", "two_pass", None), ("cluster", "cluster", None),
-                                *((f"cluster {k}", "cluster", mp.plan_cluster(2000, 64, cluster=k))
-                                  for k in (4, 8, 16))):
-            if form == "cluster" and not lq:
-                continue  # the cluster form is the rescue's
-            key = key if lq else key + " no_rescue"
-            ms, kernels = device_calls(lambda: mp._launch(iou, 0.5, 0.3, lq, form, plan), 50)
-            res[key] = {"device_ms": ms, "kernels_per_call": kernels,
-                        "call_ms": cuda_ms(lambda: mp._launch(iou, 0.5, 0.3, lq, form, plan), 50)}
+    for form in ("two_pass", "cluster", "cluster", "two_pass"):
+        fn = (lambda: mp._launch(iou, 0.5, 0.3, True, form))
+        ms, kernels = device_calls(fn, 50)
+        res.setdefault(form, []).append({"device_ms": ms, "kernels_per_call": kernels,
+                                         "call_ms": cuda_ms(fn, 200)})
+    res["entry_call_ms"] = cuda_ms(lambda: mp.match_proposals(iou), 200)
+    for key, lq, form, plan in (
+            *((f"cluster {k}", True, "cluster", mp.plan_cluster(2000, 64, cluster=k))
+              for k in (4, 8, 16)),
+            ("two_pass no_rescue", False, "two_pass", None)):
+        fn = (lambda: mp._launch(iou, 0.5, 0.3, lq, form, plan))
+        ms, kernels = device_calls(fn, 50)
+        res[key] = {"device_ms": ms, "kernels_per_call": kernels, "call_ms": cuda_ms(fn, 200)}
     print(json.dumps({"match_2000x64": res}), flush=True)
     out["match_2000x64"] = res
     return out
@@ -240,6 +274,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
         return 1
+    if "--trace-check-child" in sys.argv[1:]:
+        print(json.dumps(trace_check(torch.device("cuda:0"))))
+        return 0
+    if "--trace-check" in sys.argv[1:]:
+        card = card_line()
+        print(card)
+        print(json.dumps({"card": card, "trace_check": trace_check_children()}))
+        return 0
     if "--detection" in sys.argv[1:]:
         card = card_line()
         print(card)

@@ -3,16 +3,13 @@
 The CUDA kernels cannot run here; ``chip_smoke.py`` holds them against their
 plain versions on the card.  What runs here:
 
-- the planner of ``roi_align``'s pipelined form (``plan_pipelined``) at the
-  Mask R-CNN pooler shapes, and an emulator of the pipelined kernel
-  (``csrc/roi_align.cu:roi_align_pipelined_kernel``) over its plan: the
-  (ROI, band) item of each CTA behind the locality order's counting sort, the tap rule in float32 with the kernel's operation order, the
-  column and row slot rules of a band's footprint (the span as it lies,
-  else a slot pair per sample), the slab widened while the footprint fits
-  a ring slot, the ring of ``stages`` slots filled a slab ahead of the one
-  that computes (slots start as NaN, and every read is checked to come from
-  the fill of its own slab), and the separable arithmetic; held against the
-  plain version within 1e-5 and against JAX's ``roi_align``;
+- an emulator of ``roi_align``'s kernels (``csrc/roi_align.cu``): the
+  locality order's keys and counting sort (``roi_order_kernel``), then the
+  gather (``roi_align_kernel``) block by block, one block per (ROI in that
+  order, output row), with the tap rule in float32 in the kernel's
+  operation order and the four taps of each counted sample; every bin is
+  written exactly once; held against the plain version within 1e-5 and
+  against JAX's ``roi_align``;
 - an emulator of the matching kernel's cluster schedule
   (``csrc/matching.cu:match_cluster_kernel``): each CTA's rows by segments
   of 4-32 lanes (lanes over columns, then the shuffle tree) under the NaN
@@ -38,7 +35,7 @@ F32 = np.float32
 
 
 # ---------------------------------------------------------------------------
-# roi_align: the pipelined form
+# roi_align: the locality order and the gather
 # ---------------------------------------------------------------------------
 
 
@@ -64,24 +61,6 @@ def _geometry(box, scale, aligned, oh, ow):
     return x0, y0, F32(roi_w / F32(ow)), F32(roi_h / F32(oh))
 
 
-def _slots(taps, width):
-    """The slot rule of one axis: ``taps`` (i0, i1, w0, w1) of the samples;
-    -> (index per slot, (s0, s1) per sample with -1 for a sample that does
-    not count)."""
-    ok = [t[2] != 0 for t in taps]
-    lo = min([t[0] for t, v in zip(taps, ok) if v], default=None)
-    hi = max([t[1] for t, v in zip(taps, ok) if v], default=None)
-    if lo is None:
-        return [], [(-1, -1)] * len(taps)
-    if hi - lo < width:  # the span as it lies
-        return ([lo + k for k in range(hi - lo + 1)],
-                [(t[0] - lo, t[1] - lo) if v else (-1, -1) for t, v in zip(taps, ok)])
-    idx = []
-    for t, v in zip(taps, ok):
-        idx += [t[0], t[1]] if v else [-1, -1]
-    return idx, [(2 * q, 2 * q + 1) if v else (-1, -1) for q, v in enumerate(ok)]
-
-
 def _order(boxes, idx, n, h, scale, bands):
     """The locality order's keys and a counting sort by them (the kernel's
     order inside a bucket is its atomics'; any order there is right)."""
@@ -97,102 +76,45 @@ def _order(boxes, idx, n, h, scale, bands):
     return order, keys
 
 
-def _item_tables(feats, boxes, idx, item, order, output_size, scale, ratio, aligned, plan, elt):
-    """What the producer warps work out for one (ROI, band) item."""
-    n, h, w, c = feats.shape
-    oh, ow = output_size
-    bands = plan.bands
-    roi, band = order[item // bands], item % bands
-    x0, y0, bw, bh = _geometry(boxes[roi], scale, aligned, oh, ow)
-    j0 = band * plan.rows_per_band
-    nj = min(oh - j0, plan.rows_per_band)
-    xtaps = [_tap(x0, bw, w, q // ratio, q % ratio, ratio) for q in range(ow * ratio)]
-    ytaps = [_tap(y0, bh, h, j0 + q // ratio, q % ratio, ratio) for q in range(nj * ratio)]
-    colidx, xslot = _slots(xtaps, 2 * ow * ratio)
-    rowidx, yslot = _slots(ytaps, 2 * ratio * nj)
-    pixels = len(rowidx) * len(colidx)
-    slot_bytes = troi.footprint_slots(ow, ratio, plan.rows_per_band) * plan.slab * elt
-    sw = plan.slab  # the widest slab whose footprint fits a slot
-    while c % (2 * sw) == 0 and pixels * 2 * sw * elt <= slot_bytes:
-        sw *= 2
-    assert pixels * sw * elt <= slot_bytes
-    img = troi.gather_index(torch.tensor([int(idx[roi])]), n).item()
-    return dict(item=item, roi=roi, j0=j0, nj=nj, img=img, xtaps=xtaps, ytaps=ytaps,
-                colidx=colidx, xslot=xslot, rowidx=rowidx, yslot=yslot, sw=sw, units=c // sw)
-
-
-def emulate_pipelined(feats, boxes, idx, output_size, scale, ratio, aligned, plan, levers,
-                      stats=None, elt=4):
-    """The schedule, CTA by CTA (one per item): the copies run as far ahead
-    as the ring's slots allow, the arithmetic takes the slabs in order;
-    every read is checked against the fill of its slot."""
+def emulate_gather(feats, boxes, idx, output_size, scale, ratio, aligned, order, stats=None):
+    """The kernels, block by block: with ``order``, the blocks take the ROIs
+    in the counting sort's order (a permutation, sorted by key); each block
+    (ROI, output row) builds its taps and sums the four taps of each counted
+    sample.  ``stats["bytes"]`` counts the tap bytes read."""
     n, h, w, c = feats.shape
     oh, ow = output_size
     r = boxes.shape[0]
-    stages = plan.stages
-    assert plan.smem == troi.pipelined_smem(elt, ow, ratio, plan.slab, stages,
-                                            plan.rows_per_band)
-    assert plan.smem <= troi.SMEM_LIMIT and plan.items == r * plan.bands
-    order = list(range(r))
-    if levers & troi.LEVER_ORDER:
-        order, keys = _order(boxes, idx, n, h, scale, troi.ORDER_BANDS)
-        assert sorted(order) == list(range(r))
-        assert [keys[q] for q in order] == sorted(keys)
+    seq = list(range(r))
+    if order:
+        seq, keys = _order(boxes, idx, n, h, scale, troi.ORDER_BANDS)
+        assert sorted(seq) == list(range(r))
+        assert [keys[q] for q in seq] == sorted(keys)
     f32 = feats.astype(np.float32)
     out = np.full((r, oh, ow, c), np.nan, np.float32)
     inv = F32(1) / F32(ratio * ratio)
-    for item in range(plan.items):
-        t = _item_tables(feats, boxes, idx, item, order, output_size, scale, ratio, aligned,
-                         plan, elt)
-        ring = [None] * stages           # (u, data) per slot
-        made = used = 0
-
-        def produce(u):
-            sw, ncols = t["sw"], len(t["colidx"])
-            data = np.full((max(1, len(t["rowidx"]) * ncols), sw), np.nan, np.float32)
-            for p in range(len(t["rowidx"]) * ncols):
-                y, x = t["rowidx"][p // ncols], t["colidx"][p % ncols]
-                if y >= 0 and x >= 0:
-                    data[p] = f32[t["img"], y, x, u * sw:(u + 1) * sw]
+    for block in range(r * oh):
+        q, oy = divmod(block, oh)
+        roi = seq[q]
+        x0, y0, bw, bh = _geometry(boxes[roi], scale, aligned, oh, ow)
+        ty = [_tap(y0, bh, h, oy, k, ratio) for k in range(ratio)]
+        f = f32[troi.gather_index(torch.tensor([int(idx[roi])]), n).item()]
+        for ox in range(ow):
+            acc = np.zeros(c, np.float32)
+            for ya in ty:
+                if ya[2] == 0:
+                    continue
+                for sx in range(ratio):
+                    xa = _tap(x0, bw, w, ox, sx, ratio)
+                    if xa[2] == 0:
+                        continue
+                    top = xa[2] * f[ya[0], xa[0]] + xa[3] * f[ya[0], xa[1]]
+                    bot = xa[2] * f[ya[1], xa[0]] + xa[3] * f[ya[1], xa[1]]
+                    acc += ya[2] * top + ya[3] * bot
                     if stats is not None:
-                        stats["bytes"] += sw * elt
-            ring[u % stages] = (u, data)
-
-        while used < t["units"]:
-            # the copy of slab used + stages - 1 goes out before the wait for slab used
-            while made < t["units"] and made - used < stages:
-                produce(made)
-                made += 1
-            u = used
-            su, data = ring[u % stages]
-            assert su == u, "a slot was overwritten before it was read"
-            sw, ncols = t["sw"], len(t["colidx"])
-            for j in range(t["nj"]):
-                for ox in range(ow):
-                    acc = np.zeros(sw, np.float32)
-                    for sy in range(ratio):
-                        r0, r1 = t["yslot"][j * ratio + sy]
-                        if r0 < 0:
-                            continue
-                        top = np.zeros(sw, np.float32)
-                        bot = np.zeros(sw, np.float32)
-                        for sx in range(ratio):
-                            q = ox * ratio + sx
-                            s0, s1 = t["xslot"][q]
-                            if s0 < 0:
-                                continue
-                            p00, p01, p10, p11 = (data[rs * ncols + cs] for rs in (r0, r1)
-                                                  for cs in (s0, s1))
-                            assert not any(np.isnan(v).any() for v in (p00, p01, p10, p11)), \
-                                "a read of a slot nothing was copied to"
-                            xw0, xw1 = t["xtaps"][q][2], t["xtaps"][q][3]
-                            top += xw0 * p00 + xw1 * p01
-                            bot += xw0 * p10 + xw1 * p11
-                        yt = t["ytaps"][j * ratio + sy]
-                        acc += yt[2] * top + yt[3] * bot
-                    out[t["roi"], t["j0"] + j, ox, u * sw:(u + 1) * sw] = acc * inv
-            used += 1
-    assert not np.isnan(out).any(), "an output bin no CTA wrote"
+                        stats["bytes"] += 4 * c * feats.itemsize
+            assert np.isnan(out[roi, oy, ox]).all(), "a bin written twice"
+            out[roi, oy, ox] = acc * inv
+    assert not np.isnan(out).any(), "an output bin no block wrote"
     return out
 
 
@@ -219,75 +141,66 @@ def _reference(feats, boxes, idx, out_hw, scale, ratio, aligned):
                                     aligned).numpy()
 
 
-def test_plans_at_the_pooler_shapes():
-    """The planner at Mask R-CNN's poolers (C = 256): two stages fit the
-    ring budget (at least three CTAs per SM), a CTA's items fill most of its
-    threads, and shapes the form does not take go to the direct form."""
-    box = troi.plan_pipelined(256, (7, 7), 2, 4, 1000)
-    mask = troi.plan_pipelined(256, (14, 14), 2, 4, 100)
-    bf16 = troi.plan_pipelined(256, (7, 7), 2, 2, 1000)
-    for plan in (box, mask, bf16):
-        assert plan is not None and plan.stages >= 2
-        assert plan.smem <= troi.SMEM_LIMIT and plan.items >= troi.MIN_ITEMS
-        # a slot holds the largest footprint in whole 128-byte lines
-        assert plan.slab * 4 >= 128 or plan.slab * 2 >= 128
-    assert (box.slab, box.stages, box.rows_per_band, box.items) == (32, 2, 2, 4000)
-    assert (mask.slab, mask.rows_per_band, mask.bands) == (32, 1, 14)
-    assert bf16.slab == 64 and 2 * box.smem <= 228 * 1024
-    assert troi.plan_pipelined(6, (7, 7), 2, 4, 10) is None          # 24-byte pixel rows
-    assert troi.plan_pipelined(12, (7, 7), 2, 2, 10) is None         # bf16 at C % 8 != 0
-    assert troi.plan_pipelined(256, (7, 7), 5, 4, 10) is None        # ratio above the limit
-    few = troi.plan_pipelined(256, (7, 7), 2, 4, 10)                 # few ROIs: row bands
-    assert (few.rows_per_band, few.bands, few.slab) == (1, 7, 64)
+def test_order_bands_mirror_the_kernel_source():
+    """ORDER_BANDS is the kernel's RA_ORDER_BANDS; a ratio below 1 raises."""
+    import pathlib
+
+    src = (pathlib.Path(troi.__file__).parent.parent / "csrc" / "roi_align.cu").read_text()
+    assert f"#define RA_ORDER_BANDS {troi.ORDER_BANDS} " in src
+    assert troi.ORDER_MIN_ROIS >= 1
     with pytest.raises(ValueError):
         troi.roi_align(torch.zeros(1, 4, 4, 4), torch.zeros(1, 4), torch.zeros(1),
                        sampling_ratio=0)
 
 
-def test_levers_by_form_and_roi_count():
-    """The direct form orders its ROIs from ORDER_MIN_ROIS on and stores
-    streaming; the pipelined form takes no lever by default."""
-    both = troi.LEVER_STREAM_OUT | troi.LEVER_ORDER
-    assert troi.default_levers("direct", 1000) == both
-    assert troi.default_levers("direct", troi.ORDER_MIN_ROIS - 1) == troi.LEVER_STREAM_OUT
-    assert troi.default_levers("pipelined", 1000) == 0
-    assert troi.ENTRY_FORM == "direct"
+def test_order_keys_of_nonfinite_and_edge_boxes():
+    """A NaN or negative centre falls in band 0, one past the map in the
+    last band; a negative index wraps before the key is formed; above
+    4,096 (image, band) pairs the keys wrap and the sort stays a
+    permutation."""
+    boxes = np.array([[0, np.nan, 4, 4], [0, -9, 4, -3], [0, 30, 4, 90], [0, 8, 4, 8],
+                      [0, 8, 4, 8]], np.float32)
+    idx = np.array([0, 0, 1, -1, 1], np.int32)
+    order, keys = _order(boxes, idx, 2, 20, 0.5, troi.ORDER_BANDS)
+    last = troi.ORDER_BANDS - 1
+    assert keys == [0, 0, troi.ORDER_BANDS + last, troi.ORDER_BANDS + 3, troi.ORDER_BANDS + 3]
+    assert order == [0, 1, 3, 4, 2]
+    many = np.tile(boxes[3:4], (600, 1))
+    order, keys = _order(many, np.arange(600, dtype=np.int32), 600, 20, 0.5, troi.ORDER_BANDS)
+    assert max(keys) < 4096 and sorted(order) == list(range(600))
 
 
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("ratio", [1, 2, 3])
-def test_pipelined_emulator_matches_plain_version(ratio, aligned):
+def test_gather_emulator_matches_plain_version(ratio, aligned):
     feats, boxes, idx = _roi_inputs(seed=10 * ratio + aligned)
     args = (feats, boxes, idx, (5, 4), 0.5, ratio, aligned)
-    plan = troi.plan_pipelined(8, (5, 4), ratio, 4, boxes.shape[0])
     stats = {"bytes": 0}
-    got = emulate_pipelined(*args, plan, troi.LEVER_ORDER | troi.LEVER_STREAM_OUT, stats)
+    got = emulate_gather(*args, True, stats)
     want = _reference(*args)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(
         got, np.asarray(jroi.roi_align(*(jnp.asarray(a) for a in (feats, boxes, idx)), (5, 4),
                                        0.5, ratio, aligned)), atol=1e-4)
-    # the staged bytes never exceed the taps the direct form reads
+    # four taps per counted sample, at most
     assert 0 < stats["bytes"] <= boxes.shape[0] * 5 * 4 * ratio * ratio * 4 * 8 * 4
 
 
-@pytest.mark.parametrize("slab,stages,rows_per_band,levers", [
-    (4, 2, 5, 0), (8, 3, 2, troi.LEVER_ORDER), (4, 4, 1, troi.LEVER_STREAM_OUT),
-    (8, 2, 3, troi.LEVER_STREAM_OUT | troi.LEVER_ORDER)])
-def test_pipelined_emulator_forced_plans(slab, stages, rows_per_band, levers):
-    """Slabs, ring depths and bands of rows the planner would not pick (a slab
-    of 4 channels at C = 16: four ring passes, slots reused, for the large
-    footprints, wider slabs for the small ones); the levers change the order and the
-    copies, never a value."""
-    feats, boxes, idx = _roi_inputs(seed=slab + stages, c=16, r=7)
-    args = (feats, boxes, idx, (5, 3), 0.5, 2, True)
-    plan = troi.plan_pipelined(16, (5, 3), 2, 4, 7, slab=slab, stages=stages,
-                               rows_per_band=rows_per_band)
-    np.testing.assert_allclose(emulate_pipelined(*args, plan, levers), _reference(*args),
+@pytest.mark.parametrize("order,n,c,out_hw", [
+    (False, 2, 16, (5, 3)), (True, 2, 6, (1, 1)), (True, 3, 3, (2, 7)),
+    (True, 300, 2, (3, 2))])
+def test_gather_emulator_orders_and_shapes(order, n, c, out_hw):
+    """With and without the order, channels that are not a multiple of 4
+    (the kernel's scalar loads), one-bin and wide poolers, and 300 images,
+    where (image, band) keys wrap at 4,096 buckets; the order changes no
+    value."""
+    feats, boxes, idx = _roi_inputs(seed=n + c, n=n, c=c, r=7)
+    args = (feats, boxes, idx, out_hw, 0.5, 2, True)
+    np.testing.assert_allclose(emulate_gather(*args, order), _reference(*args),
                                rtol=0, atol=1e-5)
 
 
-def test_pipelined_emulator_nonfinite_boxes_and_indices():
+def test_gather_emulator_nonfinite_boxes_and_indices():
     """NaN and infinite centres weigh nothing (zeros, bit for bit); indices
     -1, N and -N-1 take JAX's gather rule."""
     feats, boxes, idx = _roi_inputs(seed=3, r=8)
@@ -296,19 +209,15 @@ def test_pipelined_emulator_nonfinite_boxes_and_indices():
     boxes[3] = [0.0, 1.0, np.inf, 5.0]
     idx[4:7] = [-1, 2, -3]
     args = (feats, boxes, idx, (4, 4), 0.5, 2, False)
-    plan = troi.plan_pipelined(8, (4, 4), 2, 4, 8)
-    got = emulate_pipelined(*args, plan, troi.LEVER_ORDER)
+    got = emulate_gather(*args, True)
     np.testing.assert_array_equal(got[1:4], np.zeros_like(got[1:4]))
     np.testing.assert_allclose(got, _reference(*args), rtol=0, atol=1e-5)
 
 
-def test_pipelined_emulator_bf16_features():
+def test_gather_emulator_bf16_features():
     feats, boxes, idx = _roi_inputs(seed=4, c=16, r=5)
     f16 = torch.from_numpy(feats).bfloat16()
-    as_f32 = f16.float().numpy()
-    plan = troi.plan_pipelined(16, (3, 3), 2, 2, 5, slab=8)
-    assert plan.slab % 8 == 0
-    got = emulate_pipelined(as_f32, boxes, idx, (3, 3), 0.5, 2, True, plan, 0, elt=2)
+    got = emulate_gather(f16.float().numpy(), boxes, idx, (3, 3), 0.5, 2, True, False)
     want = troi.roi_align_reference(f16, torch.from_numpy(boxes), torch.from_numpy(idx), (3, 3),
                                     0.5, 2, True).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
