@@ -70,7 +70,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    one fixed batch (1 ``warp_2level`` launch per step, finite falling
    losses), one ``make_eval_step``, ``warp_2level_fused`` through its own
    entry point, and one float32 step (batch 2, 192 -> 64) on the card
-   against the same step on the CPU;
+   against the same step on the CPU; then the trainer from disk: the port
+   writes a synthetic train set of 128 COCO-sized images (480 x 640, one
+   object each) and a val set of 32, ``python -m
+   instancesegmentation_tpu_torch.train``'s ``main`` trains on them
+   (``TrainConfig`` defaults, batch 32, 2 epochs, the train480
+   augmentations, save gate 0, a loss row per step, image grids), with
+   ``warp_2level`` launched on every step that rotates a sample; a fresh
+   ``Trainer`` resumes from the checkpoint (epoch and best from its meta,
+   its state tree bit-equal to the file's); ``load_any_checkpoint`` feeds
+   an ``InferenceEngine(in_channels=20, size=480)`` that serves the 32 val
+   instances in one dispatch (2 banded ``fused_chain`` launches, non-empty
+   masks); and the train img/s over steps 2-8 (host clock, loader
+   included), the loader alone (``batch_iterator``, 8 threads), ``read_png``
+   per 480 x 640 file and the checkpoint's save and load times and size;
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above, NMS, the warp, roi_align and
    matching also by their kernels' device time in a ``torch.profiler``
@@ -257,26 +270,33 @@ def section_yardstick(model, name: str):
 
 LAUNCH_RECORDS = ("cudaLaunchKernel", "cuLaunchKernel")  # the launch calls CUPTI records
 TRACE_WARMUP = 3  # calls at the start of a trace that it does not measure
-trace_stats = {"traces": 0, "warmup_launches_without_span": 0}
+TRACE_ATTEMPTS = 5  # traces taken before the time falls back to CUDA events
+trace_stats = {"traces": 0, "warmup_launches_without_span": 0, "measured_calls_dropped": 0,
+               "event_fallbacks": []}
 
 
 def _kernel_time(fn, iters: int, kernel: str = "") -> tuple[float, float]:
     """Device ms per call of ``fn`` in the CUDA kernels whose name holds
     ``kernel``, and their launches per call, from a ``torch.profiler`` trace
     of ``TRACE_WARMUP + iters`` calls, of which the last ``iters`` are
-    measured.  On the card the first two kernel launches of a trace at times
-    had no device span while their launch records were there, in some runs
-    in every trace of a kernel (PERF.md); the warm-up calls take that loss.
-    A trace counts only if every launch of the measured calls has its span
-    (matched by CUPTI correlation id); an incomplete one is printed, with
-    the positions of the launches that lack a span, and taken again, up to
-    three times in all."""
+    measured.  On the card kernel launches at times had no device span while
+    their launch records were there: most often the first two of a trace,
+    at times a long run of them, in up to three traces in a row (PERF.md).
+    The warm-up calls take the first loss; of the measured calls
+    only those whose every launch has its span (matched by CUPTI correlation
+    id) are averaged, and a trace counts if at least half of them are
+    whole.  A trace that does not is printed, with the positions of the
+    launches that lack a span, and taken again, up to five times in all.
+    After five such traces the time is that of the calls by CUDA events
+    (``cuda_ms``: launches and any other kernels included, so an upper
+    bound of the kernels' time), its launches per call those of the launch
+    records, and the kernel is listed in ``trace_stats["event_fallbacks"]``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     calls = TRACE_WARMUP + iters
-    for attempt in range(3):
+    for attempt in range(TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -289,18 +309,27 @@ def _kernel_time(fn, iters: int, kernel: str = "") -> tuple[float, float]:
         records = [c for _, c in sorted((e.start_ns(), e.correlation_id()) for e in evs
                                         if any(k in e.name() for k in LAUNCH_RECORDS))]
         per_call = len(records) // calls
-        measured = records[TRACE_WARMUP * per_call:]
         trace_stats["traces"] += 1
         trace_stats["warmup_launches_without_span"] += sum(
             c not in spans for c in records[:TRACE_WARMUP * per_call])
-        if per_call and len(records) == calls * per_call and all(c in spans for c in measured):
-            mine = [spans[c] for c in measured if kernel in spans[c].name()]
-            if mine:
-                return sum(e.duration_ns() for e in mine) / 1e6 / iters, len(mine) / iters
+        if per_call and len(records) == calls * per_call:
+            whole = [[spans[c] for c in records[i * per_call:(i + 1) * per_call]]
+                     for i in range(TRACE_WARMUP, calls)
+                     if all(c in spans for c in records[i * per_call:(i + 1) * per_call])]
+            mine = [[e for e in call if kernel in e.name()] for call in whole]
+            if 2 * len(whole) >= iters and all(mine):
+                trace_stats["measured_calls_dropped"] += iters - len(whole)
+                return (sum(e.duration_ns() for call in mine for e in call) / 1e6 / len(mine),
+                        sum(map(len, mine)) / len(mine))
         print(f"profiler: incomplete trace {attempt + 1} of {kernel or 'every kernel'}: "
               f"{len(records)} launches in {calls} calls, those without a span (in launch "
               f"order): {[i for i, c in enumerate(records) if c not in spans]}")
-    check(False, f"profiler: no complete trace of {kernel or 'the kernels'} in 3")
+    check(per_call > 0 and len(records) == calls * per_call,
+          f"profiler: {len(records)} launch records in {calls} calls of {kernel or 'a function'}")
+    trace_stats["event_fallbacks"].append(kernel or "every kernel")
+    print(f"profiler: no whole trace of {kernel or 'every kernel'} in {TRACE_ATTEMPTS}; its "
+          f"time from CUDA events around the calls instead")
+    return cuda_ms(fn, iters), float(per_call)
 
 
 def device_ms(fn, kernel: str, iters: int = 20) -> float:
@@ -554,6 +583,185 @@ def warp_cost(coefs, image_shape, out_hw) -> tuple[float, float]:
     ops = WARP_OPS_PER_VALUE * 4 * pixels
     io = b * h * w * 4 + coefs.numel() * 4 + b * oh * ow * 4 * 4
     return float(ops), float(io)
+
+
+# -- the trainer from disk -----------------------------------------------------
+
+DISK_TRAIN, DISK_VAL, DISK_HW = 128, 32, (480, 640)
+DISK_BATCH, DISK_EPOCHS = 32, 2
+
+
+def step_ms_from_log(rows: list) -> tuple[float, int]:
+    """Host time of the train steps after the first, from ``metrics.jsonl``
+    rows in file order (``show_iter`` 1: one loss row per step, stamped after
+    the step's loss was read back): each step from the row before it, so a
+    validation (its own row) is left out and the loader's waits are kept.
+    Returns (seconds, steps)."""
+    seconds, steps, prev = 0.0, 0, None
+    for r in rows:
+        if "loss" in r and r["step"] > 1 and prev is not None:
+            seconds += r["time"] - prev
+            steps += 1
+        prev = r["time"]
+    return seconds, steps
+
+
+def trainer_from_disk(dev, card: str, w2, fc) -> dict:
+    """The trainer's path from a dataset directory to a served checkpoint, at
+    full width: write a COCO-sized synthetic train and val set with the port,
+    ``python -m instancesegmentation_tpu_torch.train``'s ``main`` on it
+    (``TrainConfig`` defaults: ``Segment(20)``, 640 -> 480, bf16, folded head,
+    Adam 1e-3; batch 32, 2 epochs, the train480 augmentations), resume it in a
+    fresh ``Trainer`` (bit for bit), serve the checkpoint through
+    ``load_any_checkpoint`` and ``InferenceEngine``, and time the loader,
+    ``read_png`` and the checkpoint codec."""
+    import glob
+    import os
+    import tempfile
+
+    from instancesegmentation_tpu_torch.core.png import read_png
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.data.pipeline import batch_iterator, draw_augment, host_batch
+    from instancesegmentation_tpu_torch.data.synthetic import make_synthetic_dataset
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine, load_any_checkpoint
+    from instancesegmentation_tpu_torch.train import loop
+    from instancesegmentation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from instancesegmentation_tpu_torch.train.config import parse_args
+    from instancesegmentation_tpu_torch.train.state import from_state_tree, to_state_tree
+    from instancesegmentation_tpu_torch.train.steps import augment_config
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+        t0 = time.perf_counter()
+        make_synthetic_dataset(train_dir, DISK_TRAIN, DISK_HW, 1, seed=SEED)
+        make_synthetic_dataset(val_dir, DISK_VAL, DISK_HW, 1, seed=SEED + 1)
+        out["write_dataset_s"] = time.perf_counter() - t0
+        argv = ["--train-dataset-dir", train_dir, "--val-dataset-dir", val_dir,
+                "--checkpoint-dir", os.path.join(tmp, "ckpt"),
+                "--out-dir", os.path.join(tmp, "runs"),
+                "--batch-size", str(DISK_BATCH), "--epochs", str(DISK_EPOCHS),
+                "--rotate", "25", "--flip-prob", "0.5", "--jitter", "0.1",
+                "--brightness", "0.2", "--contrast", "0.2", "--noise-std", "5",
+                "--save-iou-gate", "0", "--show-iter", "1", "--log-images", "true"]
+        cfg = parse_args(argv)
+        check((cfg.in_channels, cfg.canvas, cfg.out_size, cfg.bfloat16, cfg.fused_head,
+               cfg.learning_rate) == (20, 640, 480, True, True, 1e-3),
+              "trainer from disk: TrainConfig defaults")
+
+        # -- train through the entry point; counts read around this run only
+        w2.warp_2level.launches = 0
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        loop.main(argv)
+        torch.cuda.synchronize()
+        out["train_wall_s"] = time.perf_counter() - t0
+        launches = {"warp_2level": w2.warp_2level.launches,
+                    "fused_chain": fc.fused_chain.launches}
+        out["launches"] = launches
+        n_steps = DISK_EPOCHS * (DISK_TRAIN // DISK_BATCH)
+        aug = augment_config(cfg, train=True)
+        rotated = sum(bool((draw_augment(DISK_BATCH, aug, torch.Generator(device=dev).manual_seed(
+            loop.step_seed(cfg.seed, s)))["theta"] != 0).any()) for s in range(n_steps))
+        with open(os.path.join(cfg.out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        vals = [r["val_iou"] for r in rows if "val_iou" in r]
+        print(f"trainer from disk (Segment(20) 640 -> 480, bf16, batch {DISK_BATCH}, "
+              f"{DISK_EPOCHS} epochs of {DISK_TRAIN} images {DISK_HW}, val {DISK_VAL}): "
+              f"losses {[round(v, 4) for v in losses]}, val IoU {[round(v, 4) for v in vals]}, "
+              f"launches {launches}, {rotated} of {n_steps} steps with a rotated sample")
+        check(len(losses) == n_steps and all(np.isfinite(losses)),
+              "trainer from disk: one finite loss row per step in metrics.jsonl")
+        check(len(vals) == DISK_EPOCHS and all(0.0 <= v <= 1.0 for v in vals),
+              "trainer from disk: one validation per epoch")
+        check(launches["warp_2level"] >= rotated > 0,
+              "trainer from disk: warp_2level launched on every step with a rotated sample")
+        found = glob.glob(os.path.join(cfg.checkpoint_dir, "*_best.ckpt"))
+        check(len(found) == 1, "trainer from disk: the branch-best checkpoint exists")
+        ckpt_path = found[0]
+        grids = sorted(glob.glob(os.path.join(cfg.out_dir, "viz", "*.png")))
+        check(len(grids) == DISK_EPOCHS and all(
+            read_png(g).shape == (4 * 480, 4 * 480, 3) for g in grids),
+            "trainer from disk: the viz grids decode")
+        secs, steps = step_ms_from_log(rows)
+        out.update({"steps": n_steps, "rotated_steps": rotated, "losses": losses,
+                    "val_iou": vals, "train_img_per_s_steps_2_to_n": steps * DISK_BATCH / secs,
+                    "train_ms_per_step_steps_2_to_n": secs / steps * 1e3})
+
+        # -- resume: a fresh Trainer holds the saved state bit for bit
+        saved, meta = load_checkpoint(ckpt_path)
+        resumed = loop.Trainer(cfg)
+        resumed.logger.close()
+        check(resumed.start_epoch == meta["epoch"] and resumed.iou_max == meta["best"],
+              "resume: the saved epoch and best")
+        tree = to_state_tree(resumed.state)
+
+        def leaves(t, prefix=()):
+            for k, v in t.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, prefix + (k,))
+                else:
+                    yield prefix + (k,), np.asarray(v)
+
+        got = dict(leaves(tree))
+        want = dict(leaves(saved))
+        check(got.keys() == want.keys() and all(
+            got[k].dtype == v.dtype and np.array_equal(got[k], v) for k, v in want.items()),
+            "resume: to_state_tree equals the file's tree bit for bit")
+        print(f"resume: epoch {resumed.start_epoch}, best {resumed.iou_max:.4f}, step "
+              f"{resumed.state.step}; {len(want)} leaves bit-equal")
+
+        # -- checkpoint codec times and size
+        t0 = time.perf_counter()
+        tree = to_state_tree(resumed.state)
+        save_checkpoint(os.path.join(tmp, "timed.ckpt"), tree, meta)
+        out["checkpoint_save_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        from_state_tree(load_checkpoint(os.path.join(tmp, "timed.ckpt"))[0], resumed.state)
+        torch.cuda.synchronize()
+        out["checkpoint_load_ms"] = (time.perf_counter() - t0) * 1e3
+        out["checkpoint_bytes"] = os.path.getsize(ckpt_path)
+
+        # -- serve the checkpoint: instance program over the val samples
+        valset = InstanceCommonDataset(val_dir, cfg.canvas)
+        batch = host_batch([valset.fetch(i) for i in range(len(valset))])
+        eng = InferenceEngine(load_any_checkpoint(ckpt_path), in_channels=20, size=480)
+        fc.reset_launches()
+        probs, masks = eng.predict_instances(batch)
+        torch.cuda.synchronize()
+        serve_launches = dict(fc.fused_chain.launches_by_form)
+        serve_launches["total"] = fc.fused_chain.launches
+        out["serve_launches"] = serve_launches
+        nonempty = int((masks.reshape(len(masks), -1) > 0).any(1).sum())
+        print(f"served the checkpoint: {len(masks)} val instances in 1 dispatch, fused_chain "
+              f"launches {serve_launches}, {nonempty} non-empty masks")
+        check(serve_launches["total"] == 2 and serve_launches.get("banded") == 2,
+              "serve: 2 fused_chain launches per dispatch")
+        check(probs.shape == (DISK_VAL, 480, 480, 1) and np.isfinite(probs).all(),
+              "serve: finite crop probabilities")
+        check(nonempty > 0, "serve: non-empty masks")
+        out["nonempty_masks"] = nonempty
+
+        # -- the loader alone and the decoder
+        trainset = InstanceCommonDataset(train_dir, cfg.canvas)
+        t0 = time.perf_counter()
+        n = sum(b["image"].shape[0] for b in batch_iterator(
+            trainset, DISK_BATCH, shuffle=True, seed=0, epochs=2, num_threads=8))
+        out["loader_samples_per_s"] = n / (time.perf_counter() - t0)
+        files = sorted(glob.glob(os.path.join(train_dir, "image", "*.png")))
+        t0 = time.perf_counter()
+        for path in files:
+            read_png(path)
+        out["read_png_ms_480x640_rgb"] = (time.perf_counter() - t0) * 1e3 / len(files)
+    print(f"trainer from disk: {out['train_img_per_s_steps_2_to_n']:.1f} img/s over steps 2-"
+          f"{n_steps} ({out['train_ms_per_step_steps_2_to_n']:.1f} ms per step, host clock, "
+          f"loader included); loader alone {out['loader_samples_per_s']:.0f} samples/s "
+          f"(8 threads); read_png {out['read_png_ms_480x640_rgb']:.2f} ms per 480x640 RGB file; "
+          f"checkpoint save {out['checkpoint_save_ms']:.1f} ms, load "
+          f"{out['checkpoint_load_ms']:.1f} ms, {out['checkpoint_bytes']} bytes; {card}")
+    print(json.dumps({"trainer_from_disk": {k: v for k, v in out.items() if k != "losses"}}))
+    return out
 
 
 def grid_sample_yardstick(image, mask, params, out_hw):
@@ -1193,6 +1401,9 @@ def main() -> int:
     check(step_vs_cpu["loss_rel_diff"] <= 1e-4, "train step card vs CPU: loss")
     check(step_vs_cpu["batch_stats_max_abs_diff"] <= 1e-4, "train step card vs CPU: batch_stats")
 
+    # the trainer from disk to a served checkpoint (its own launch counts)
+    disk = trainer_from_disk(dev, card, w2, fc)
+
     # -- 5. times ------------------------------------------------------------
     # the chain at batch 128, both programs: the banded form (bf16) beside
     # each launch's bound, its rounding plain version, the float32 plain
@@ -1469,6 +1680,7 @@ def main() -> int:
          "replaces": "instancesegmentation_tpu/ops/fused_chain.py:308",
          "launches": launches["fused_chain"],
          "launches_by_form": launches["fused_chain_by_form"],
+         "launches_trainer_from_disk_serve": disk["serve_launches"]["total"],
          "max_abs_err": max(p["max_abs_err"] for p in main),
          "ms": sum(p["ms"] for p in main),
          "plain_ms": sum(p["plain_ms"] for p in main),
@@ -1526,7 +1738,9 @@ def main() -> int:
         {"name": "warp_2level", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/warp_2level.cu",
          "replaces": "tools/rot_pallas_probe.py:74",
-         "launches": train_launches["warp_2level"], "max_abs_err": errs["warp_2level"],
+         "launches": train_launches["warp_2level"],
+         "launches_trainer_from_disk": disk["launches"]["warp_2level"],
+         "max_abs_err": errs["warp_2level"],
          "ms": warp_ms, "kernel_ms": warp_kernel, "plain_ms": warp_plain,
          "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,
          "grid_sample_yardstick_ms": grid_ms, "shape": shape, "tile_plan": plan._asdict(),

@@ -1,2 +1,3 @@
-"""Data: the preprocessing program of training and the synthetic host
-batch."""
+"""Data: the common-format dataset reader, batching and host -> device
+prefetch, the preprocessing program of training, and synthetic datasets
+and host batches."""

@@ -1,10 +1,15 @@
-"""The device-side preprocessing program of training and evaluation.
+"""Batching, host -> device prefetch, and the device-side preprocessing
+program of training and evaluation.
 
 Port of ``instancesegmentation_tpu/data/pipeline.py`` (``_FLIP_PERM``,
-``AugmentConfig``, ``host_batch``, ``preprocess_batch``): canvas uint8
-batches -> normalised model inputs, soft mask targets and keypoint heatmaps,
-with the reference's augmentations as options (window jitter, horizontal
-flip, rotation, brightness, contrast, noise).
+``AugmentConfig``, ``host_batch``, ``preprocess_batch``, ``device_prefetch``,
+``batch_iterator``).  ``preprocess_batch`` turns canvas uint8 batches into
+normalised model inputs, soft mask targets and keypoint heatmaps, with the
+reference's augmentations as options (window jitter, horizontal flip,
+rotation, brightness, contrast, noise).  On the host, ``batch_iterator``
+decodes samples with a thread pool behind a background producer, in the
+JAX package's batch order, and ``device_prefetch`` keeps batches in flight
+to the device.
 
 jax.random cannot be matched from PyTorch, so the draws are split from the
 transform: ``draw_augment`` draws every random quantity of a batch from an
@@ -20,13 +25,18 @@ fall back to ``"gather"``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
-from typing import Optional
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
+from instancesegmentation_tpu_torch.core.keys import ORDER_PART_NAMES
 from instancesegmentation_tpu_torch.ops.heatmap import render_heatmaps
 from instancesegmentation_tpu_torch.ops.warp import (
     RotWarpParams,
@@ -45,16 +55,6 @@ from instancesegmentation_tpu_torch.ops.warp import (
     warp_points_rotated,
 )
 from instancesegmentation_tpu_torch.ops.warp_2level import warp_2level
-
-#: the canonical keypoint order (``instancesegmentation_tpu/core/keys.py``)
-ORDER_PART_NAMES = (
-    "right_shoulder", "right_elbow", "right_wrist",
-    "left_shoulder", "left_elbow", "left_wrist",
-    "right_hip", "right_knee", "right_ankle",
-    "left_hip", "left_knee", "left_ankle",
-    "right_ear", "left_ear",
-    "nose", "right_eye", "left_eye",
-)
 
 #: channel permutation under horizontal flip: left <-> right parts swap
 _FLIP_PERM = tuple(
@@ -290,3 +290,131 @@ def preprocess_batch(batch: dict, draws: dict, cfg: AugmentConfig):
         images = images.to(cfg.out_dtype)
         heatmaps = heatmaps.to(cfg.out_dtype)
     return images, heatmaps, masks
+
+
+def device_prefetch(iterator: Iterator[dict], device, depth: int = 2) -> Iterator[dict]:
+    """Keep ``depth`` batches in flight to ``device`` ahead of the consumer:
+    yields each host batch's arrays as tensors on ``device``.
+
+    On a CUDA device the arrays are copied into pinned host memory and sent
+    with ``non_blocking`` copies, so the transfer of batch n+1 overlaps the
+    step on batch n; each pinned batch is held until the consumer asks for
+    the batch after it, by which time its step has been enqueued behind the
+    copy."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+
+    def put(batch: dict):
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        if pin:
+            host = {k: v.pin_memory() for k, v in host.items()}
+        return host, {k: v.to(device, non_blocking=pin) for k, v in host.items()}
+
+    in_flight: collections.deque = collections.deque()
+    for item in iterator:
+        in_flight.append(put(item))
+        if len(in_flight) >= depth:
+            _, on_device = in_flight.popleft()
+            yield on_device
+    while in_flight:
+        _, on_device = in_flight.popleft()
+        yield on_device
+
+
+def batch_iterator(
+    dataset,
+    batch_size: int,
+    shuffle: bool = True,
+    seed: int = 0,
+    epochs: Optional[int] = 1,
+    drop_last: bool = True,
+    num_threads: int = 8,
+    prefetch: int = 2,
+    local_slice: Optional[slice] = None,
+) -> Iterator[dict]:
+    """Yield host batch dicts (``host_batch``) of ``dataset.fetch`` samples,
+    decoded by ``num_threads`` threads while a background producer keeps
+    ``prefetch`` batches ready.
+
+    The order is the JAX package's: one ``np.random.default_rng(seed)``
+    shuffles ``arange(len(dataset))`` once per epoch.  ``epochs=None``
+    streams forever.  An incomplete tail batch is dropped when
+    ``drop_last``, else padded by repeating its first sample.  The producer
+    never blocks forever: a consumer that stops iterating releases it.
+    ``local_slice`` (multi-host loading) is not ported: it must be None.
+    """
+    if local_slice is not None:
+        raise NotImplementedError("local_slice (multi-host data parallelism) is not "
+                                  "ported yet (ROADMAP A5)")
+    rng = np.random.default_rng(seed)
+    pool = ThreadPoolExecutor(max_workers=num_threads)
+    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+    failure: list = []
+
+    def order_stream():
+        epoch = 0
+        while epochs is None or epoch < epochs:
+            order = np.arange(len(dataset))
+            if shuffle:
+                rng.shuffle(order)
+            yield from (order[i:i + batch_size] for i in range(0, len(order), batch_size))
+            epoch += 1
+
+    def try_put(item) -> bool:
+        # an abandoned consumer sets `stop`; a producer stuck in q.put on a
+        # full queue would otherwise keep its thread and decoded batches
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        # the next batch's samples are decoded while this one is stacked
+        pending: collections.deque = collections.deque()
+
+        def put_oldest() -> bool:
+            return try_put(host_batch([f.result() for f in pending.popleft()]))
+
+        try:
+            for idxs in order_stream():
+                if stop.is_set():
+                    break
+                if len(idxs) < batch_size:
+                    if drop_last:
+                        continue
+                    idxs = np.concatenate([idxs, np.repeat(idxs[:1], batch_size - len(idxs))])
+                pending.append([pool.submit(dataset.fetch, i) for i in idxs])
+                if len(pending) > 1 and not put_oldest():
+                    return
+            while pending and not stop.is_set():
+                if not put_oldest():
+                    return
+        except BaseException as e:  # handed to the consumer, which raises it
+            failure.append(e)
+        finally:
+            # waits for room like a batch, so that a consumer behind the
+            # producer ends with the stream, not a poll interval later
+            try_put(None)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            try:
+                item = q.get(timeout=1.0)
+            except queue.Empty:
+                if not thread.is_alive() and q.empty():
+                    break  # the producer ended without a sentinel
+                continue
+            if item is None:
+                break
+            yield item
+        if failure:
+            raise failure[0]
+    finally:
+        stop.set()
+        pool.shutdown(wait=False, cancel_futures=True)

@@ -33,6 +33,7 @@ from instancesegmentation_tpu_torch.ops.fused_chain import (
     extract_s23_chain,
 )
 from instancesegmentation_tpu_torch.ops.heatmap import render_heatmaps
+from instancesegmentation_tpu_torch.train.checkpoint import load_checkpoint
 from instancesegmentation_tpu_torch.ops.warp import (
     WarpParams,
     center_translation,
@@ -115,6 +116,23 @@ def resize(t: torch.Tensor, out_hw, mode: str = "bilinear") -> torch.Tensor:
     else:
         raise ValueError(f"unknown resize mode {mode!r}")
     return y[0].permute(1, 2, 0).reshape(tuple(out_hw) + tuple(t.shape[2:]))
+
+
+def load_any_checkpoint(path: str) -> dict:
+    """The Segment weights of a checkpoint file, for ``InferenceEngine``:
+
+    - ``.ckpt``: an ISEG checkpoint of either package, holding the full
+      train state or only ``{step, params, batch_stats}``; returns the flax
+      layout ``{"params", "batch_stats"}``;
+    - ``.pth`` / ``.pt``: a reference checkpoint (``{"state_dict": ...}``)
+      or a bare state dict, read with ``weights_only=True``; returns the
+      state dict, whose keys are the port's module names.
+    """
+    if path.endswith((".pth", ".pt")):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        return ckpt.get("state_dict", ckpt)
+    tree, _ = load_checkpoint(path)
+    return {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
 
 
 def to_u8(t: torch.Tensor) -> torch.Tensor:

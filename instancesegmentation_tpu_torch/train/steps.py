@@ -105,6 +105,12 @@ def make_train_step(cfg) -> Callable:
         logits = make_fwd(model, cfg, train=True)(images, heatmaps)
         loss = bce_loss(logits, masks)
         loss.backward()
+        for p in model.parameters():
+            # a parameter the loss does not reach (a dead PReLU) gets a zero
+            # gradient, as in optax, whose Adam still decays its moments and
+            # applies them; torch's Adam would skip it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         state.optimizer.step()
         with torch.no_grad():
             iou = batch_mask_iou(torch.sigmoid(logits), masks)

@@ -204,3 +204,97 @@ def torch_to_jax_variables(state_dict: Mapping, template: Mapping) -> dict:
     if unused:
         raise ValueError(f"unconsumed state dict keys: {sorted(unused)[:8]}")
     return out
+
+
+def torch_to_flax_key(key: str, kind: str) -> tuple[str, tuple, str | None]:
+    """Inverse of ``flax_to_torch_key``: map a port state-dict key to
+    ``(collection, flax path, transform)``.
+
+    ``kind`` names the module that owns the key: ``"conv"`` (Conv2d),
+    ``"convT"`` (ConvTranspose2d), ``"bn"`` (BatchNorm2d) or ``"prelu"``.
+    The result is checked against ``flax_to_torch_key``, so the two mappings
+    stay each other's inverse.
+    """
+    parts = key.split(".")
+    mods, leaf = parts[:-1], parts[-1]
+    if re.fullmatch(r"bottle\d_x", mods[0]):
+        path, rest = [f"{mods[0]}_{mods[1]}"], mods[2:]
+    else:
+        path, rest = [mods[0]], mods[1:]
+    in_up = path[0].endswith("up")
+    i = 0
+    while i < len(rest):
+        name = rest[i]
+        if name in ("convm", "resconv", "conv2", "uppool", "convs"):
+            idx = int(rest[i + 1])
+            if name == "uppool":
+                path.append("uppool_conv")
+            elif name != "convs":
+                path.append(name)
+            elif in_up:
+                path.append({0: "convs_0", 1: "convs_1", 2: "convs_bn", 4: "convs_2"}[idx])
+            else:
+                path.append(f"convs_{idx}")
+            i += 2
+        else:
+            path.append(name)
+            i += 1
+    # a raw Conv2d (no ConvBN around it) still sits under "conv" in flax,
+    # apart from the ConvTranspose2d layers
+    if kind == "conv" and path[-1] != "conv":
+        path.append("conv")
+    if leaf in ("running_mean", "running_var"):
+        collection, fleaf = "batch_stats", leaf.removeprefix("running_")
+    elif leaf == "bias":
+        collection, fleaf = "params", "bias"
+    elif leaf == "weight":
+        collection = "params"
+        fleaf = {"conv": "kernel", "convT": "kernel", "bn": "scale", "prelu": "alpha"}[kind]
+    else:
+        raise KeyError(f"unknown state dict leaf {leaf!r} in {key}")
+    path = tuple(path) + (fleaf,)
+    back, transform = flax_to_torch_key(path, collection)
+    if back != key:
+        raise KeyError(f"{key} maps to flax {path}, which maps back to {back}")
+    return collection, path, transform
+
+
+def flax_layout(model: torch.nn.Module) -> dict[str, tuple[str, tuple, str | None]]:
+    """``torch_to_flax_key`` of every state-dict entry of ``model`` except
+    the ``num_batches_tracked`` counters, in state-dict order."""
+    kinds = {torch.nn.ConvTranspose2d: "convT", torch.nn.Conv2d: "conv",
+             torch.nn.BatchNorm2d: "bn"}
+    out = {}
+    for key in model.state_dict():
+        if key.endswith("num_batches_tracked"):
+            continue
+        owner = model.get_submodule(key.rsplit(".", 1)[0])
+        kind = next((k for cls, k in kinds.items() if isinstance(owner, cls)), "prelu")
+        out[key] = torch_to_flax_key(key, kind)
+    return out
+
+
+def torch_to_flax_tree(tensors: Mapping, layout: Mapping) -> dict:
+    """Nest ``tensors`` (state-dict keys -> tensors) into the flax tree of
+    ``layout`` (``flax_layout``), as float32 numpy arrays in flax layouts:
+    ``{"params": ..., "batch_stats": ...}``; the collections of keys absent
+    from ``tensors`` stay empty.  Keys are sorted at every level, as in the
+    trees that JAX transformations return (what the JAX trainer saves)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, (collection, path, transform) in layout.items():
+        if key not in tensors:
+            continue
+        val = np.asarray(tensors[key].detach().cpu().numpy(), np.float32)
+        if transform == "conv":
+            val = _conv_w(val)
+        elif transform == "convT":
+            val = _convT_w(val)
+        node = out[collection]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(val)
+    return {c: _sorted(tree) for c, tree in out.items()}
+
+
+def _sorted(tree: dict) -> dict:
+    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}

@@ -3,6 +3,7 @@ one NVIDIA GPU.
 
     python3 profile_port.py          # from the repository root; needs one CUDA card
     python3 profile_port.py --train  # the train step only
+    python3 profile_port.py --trainer  # the trainer from disk beside its step
     python3 profile_port.py --detection  # roi_align and match_proposals forms
     python3 profile_port.py --trace-check  # the profiler's spans per trace
 
@@ -19,7 +20,8 @@ busy share and the largest device ops.  The train step (the
 is split the same way into preprocessing (of which the warp kernel, by
 call and by its device time, and its launches per step), the train-mode
 forward and loss, the backward and the Adam update, with one trace.
-``--detection`` times the detection kernels alone at ``chip_smoke.py``'s
+``--trainer`` sets the trainer from disk beside its step and its loader
+(``trainer_breakdown``).  ``--detection`` times the detection kernels alone at ``chip_smoke.py``'s
 shapes (``detection_breakdown``): ``roi_align`` with and without its
 locality order over a range of ROI counts at both poolers, and
 ``match_proposals``' two forms.  ``--trace-check`` counts the spans
@@ -221,6 +223,138 @@ def train_breakdown(dev) -> dict:
 ORDER_SWEEP_ROIS = (100, 200, 300, 400, 600, 800, 1000)
 
 
+def trainer_breakdown(dev) -> dict:
+    """Why the trainer from disk runs slower than its step: on
+    ``chip_smoke.py``'s trainer-from-disk data (128 + 32 synthetic 480 x 640
+    images) and config, with the host clock around synchronised work:
+
+    - ``step_alone_ms``: the train step on one fixed batch already on the
+      card, and ``step_with_loader_ms``: the same while another thread
+      drains ``batch_iterator`` (8 threads) as fast as it can, with the
+      samples/s it drained; each in turns (alone, with, with, alone);
+    - ``loader_alone_samples_per_s``: ``batch_iterator`` drained alone;
+    - ``trainer``: ``train.loop.main`` runs (2 epochs, batch 32, the train480
+      augmentations) at ``--num-threads`` 8 and 2 and with the interpreter's
+      switch interval at 0.2 ms, in turns, ms per step over steps 2-8 from
+      ``metrics.jsonl`` (``chip_smoke.step_ms_from_log``).
+    """
+    import os
+    import tempfile
+    import threading
+
+    from chip_smoke import (DISK_BATCH, DISK_EPOCHS, DISK_HW, DISK_TRAIN, DISK_VAL,
+                            step_ms_from_log)
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.data.pipeline import (batch_iterator, batch_to,
+                                                               draw_augment, host_batch)
+    from instancesegmentation_tpu_torch.data.synthetic import make_synthetic_dataset
+    from instancesegmentation_tpu_torch.models.layers import init_weights_
+    from instancesegmentation_tpu_torch.models.segment import Segment
+    from instancesegmentation_tpu_torch.train import loop
+    from instancesegmentation_tpu_torch.train.config import parse_args
+    from instancesegmentation_tpu_torch.train.state import TrainState
+    from instancesegmentation_tpu_torch.train.steps import augment_config, make_train_step
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="profile_trainer_") as tmp:
+        train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+        make_synthetic_dataset(train_dir, DISK_TRAIN, DISK_HW, 1, seed=SEED)
+        make_synthetic_dataset(val_dir, DISK_VAL, DISK_HW, 1, seed=SEED + 1)
+        base = ["--train-dataset-dir", train_dir, "--val-dataset-dir", val_dir,
+                "--batch-size", str(DISK_BATCH), "--epochs", str(DISK_EPOCHS),
+                "--rotate", "25", "--flip-prob", "0.5", "--jitter", "0.1",
+                "--brightness", "0.2", "--contrast", "0.2", "--noise-std", "5",
+                "--save-iou-gate", "0", "--show-iter", "1"]
+        cfg = parse_args(base)
+        trainset = InstanceCommonDataset(train_dir, cfg.canvas)
+
+        # the step on a fixed batch, alone and beside a draining loader
+        model = Segment(20)
+        init_weights_(model, torch.Generator().manual_seed(SEED))
+        state = TrainState.create(model.to(dev), cfg.learning_rate)
+        step = make_train_step(cfg)
+        aug = augment_config(cfg, train=True)
+        batch = batch_to(host_batch([trainset.fetch(i) for i in range(DISK_BATCH)]), dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def steps(n: int = 8) -> float:
+            step(state, batch, draw_augment(DISK_BATCH, aug, gen))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(state, batch, draw_augment(DISK_BATCH, aug, gen))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        def drained(fn) -> tuple[float, float]:
+            """``fn()``'s result while a thread drains the loader, and the
+            loader's samples/s meanwhile."""
+            stop, count = threading.Event(), [0]
+
+            def drain():
+                stream = batch_iterator(trainset, DISK_BATCH, epochs=None, num_threads=8)
+                next(stream)  # the loader is running before fn starts
+                ready.set()
+                for b in stream:
+                    count[0] += b["image"].shape[0]
+                    if stop.is_set():
+                        break
+                stream.close()
+
+            ready = threading.Event()
+            th = threading.Thread(target=drain)
+            th.start()
+            ready.wait()
+            t0 = time.perf_counter()
+            value = fn()
+            rate = count[0] / (time.perf_counter() - t0)
+            stop.set()
+            th.join()
+            return value, rate
+
+        runs = {"alone": [], "with_loader": [], "loader_during_step": []}
+        for kind in ("alone", "with_loader", "with_loader", "alone"):
+            if kind == "alone":
+                runs["alone"].append(steps())
+            else:
+                ms, rate = drained(steps)
+                runs["with_loader"].append(ms)
+                runs["loader_during_step"].append(rate)
+        t0 = time.perf_counter()
+        n = sum(b["image"].shape[0] for b in batch_iterator(
+            trainset, DISK_BATCH, epochs=2, num_threads=8))
+        out.update({"step_alone_ms": runs["alone"], "step_with_loader_ms": runs["with_loader"],
+                    "loader_samples_per_s_during_step": runs["loader_during_step"],
+                    "loader_alone_samples_per_s": n / (time.perf_counter() - t0)})
+        print(f"train step on a fixed batch: alone {runs['alone']} ms, beside a draining "
+              f"loader {runs['with_loader']} ms (loader {runs['loader_during_step']} "
+              f"samples/s); loader alone {out['loader_alone_samples_per_s']:.0f} samples/s")
+
+        # the trainer itself, in turns
+        trainer = {}
+        interval = sys.getswitchinterval()
+        variants = (("threads8", 8, None), ("threads2", 2, None),
+                    ("threads8_switch_0.2ms", 8, 2e-4), ("threads8", 8, None))
+        for i, (name, threads, switch) in enumerate(variants):
+            run_dir = os.path.join(tmp, f"run{i}")
+            argv = base + ["--num-threads", str(threads),
+                           "--checkpoint-dir", os.path.join(run_dir, "ckpt"),
+                           "--out-dir", os.path.join(run_dir, "runs")]
+            if switch is not None:
+                sys.setswitchinterval(switch)
+            try:
+                loop.main(argv)
+            finally:
+                sys.setswitchinterval(interval)
+            with open(os.path.join(run_dir, "runs", "metrics.jsonl")) as f:
+                secs, n_steps = step_ms_from_log([json.loads(line) for line in f])
+            trainer.setdefault(name, []).append(secs / n_steps * 1e3)
+        out["trainer_ms_per_step_steps_2_to_n"] = trainer
+        print(f"trainer from disk, ms per step over steps 2-{DISK_EPOCHS * DISK_TRAIN // DISK_BATCH}: "
+              f"{json.dumps(trainer)}")
+    return out
+
+
 def detection_breakdown(dev) -> dict:
     """``roi_align`` with and without the locality order, in turns (without,
     with, with, without), at both poolers over ``ORDER_SWEEP_ROIS`` ROIs:
@@ -287,6 +421,12 @@ def main() -> int:
         print(card)
         print(json.dumps({"card": card, "detection": detection_breakdown(torch.device("cuda:0"))}))
         print(card)
+        return 0
+    if "--trainer" in sys.argv[1:]:
+        card = card_line()
+        print(card)
+        out = {"card": card, "trainer_from_disk": trainer_breakdown(torch.device("cuda:0"))}
+        print(json.dumps(out))
         return 0
     if "--train" in sys.argv[1:]:
         card = card_line()

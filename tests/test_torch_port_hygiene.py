@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package nor cv2/PIL."""
+"""The port imports neither JAX nor the JAX package nor cv2/PIL, nor msgpack
+(which the card's machine does not have)."""
 import ast
 import pathlib
 import subprocess
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "instancesegmentation_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "instancesegmentation_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "msgpack",
+             "instancesegmentation_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
