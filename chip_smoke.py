@@ -84,6 +84,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    masks); and the train img/s over steps 2-8 (host clock, loader
    included), the loader alone (``batch_iterator``, 8 threads), ``read_png``
    per 480 x 640 file and the checkpoint's save and load times and size;
+   then evaluation and the inference command (``eval_and_cli``):
+   ``examples/crossed_demo.ckpt`` on 8 crossed-pair images in float32
+   (conditioned AP 1.0, unconditioned AP75 <= 0.2) and bfloat16, ``python
+   -m instancesegmentation_tpu_torch.eval``'s ``main`` in both protocols on
+   a 32-image 480 x 640 ``make_hard_dataset`` set with the trainer's
+   checkpoint (the full-image run from a proposals file with 2 chain
+   launches per dispatch, one NMS launch per image whose keeps equal the
+   plain NMS on the CPU, and the native RLE IoU on every image; images/s
+   and the host split), and ``python -m
+   instancesegmentation_tpu_torch.infer``'s ``main`` in its three modes over
+   4 of the images, and in float32 on 2 of them against a CPU run (mask
+   agreement >= 0.999);
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above, NMS, the warp, roi_align and
    matching also by their kernels' device time in a ``torch.profiler``
@@ -112,8 +124,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -606,7 +620,7 @@ def step_ms_from_log(rows: list) -> tuple[float, int]:
     return seconds, steps
 
 
-def trainer_from_disk(dev, card: str, w2, fc) -> dict:
+def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
     """The trainer's path from a dataset directory to a served checkpoint, at
     full width: write a COCO-sized synthetic train and val set with the port,
     ``python -m instancesegmentation_tpu_torch.train``'s ``main`` on it
@@ -614,10 +628,10 @@ def trainer_from_disk(dev, card: str, w2, fc) -> dict:
     Adam 1e-3; batch 32, 2 epochs, the train480 augmentations), resume it in a
     fresh ``Trainer`` (bit for bit), serve the checkpoint through
     ``load_any_checkpoint`` and ``InferenceEngine``, and time the loader,
-    ``read_png`` and the checkpoint codec."""
+    ``read_png`` and the checkpoint codec.  The branch-best checkpoint is
+    copied to ``keep_checkpoint``."""
     import glob
-    import os
-    import tempfile
+    import shutil
 
     from instancesegmentation_tpu_torch.core.png import read_png
     from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
@@ -680,6 +694,7 @@ def trainer_from_disk(dev, card: str, w2, fc) -> dict:
         found = glob.glob(os.path.join(cfg.checkpoint_dir, "*_best.ckpt"))
         check(len(found) == 1, "trainer from disk: the branch-best checkpoint exists")
         ckpt_path = found[0]
+        shutil.copyfile(ckpt_path, keep_checkpoint)
         grids = sorted(glob.glob(os.path.join(cfg.out_dir, "viz", "*.png")))
         check(len(grids) == DISK_EPOCHS and all(
             read_png(g).shape == (4 * 480, 4 * 480, 3) for g in grids),
@@ -761,6 +776,312 @@ def trainer_from_disk(dev, card: str, w2, fc) -> dict:
           f"checkpoint save {out['checkpoint_save_ms']:.1f} ms, load "
           f"{out['checkpoint_load_ms']:.1f} ms, {out['checkpoint_bytes']} bytes; {card}")
     print(json.dumps({"trainer_from_disk": {k: v for k, v in out.items() if k != "losses"}}))
+    return out
+
+
+# -- evaluation and the inference command --------------------------------------
+
+EVAL_IMAGES, EVAL_HW, EVAL_SIZE = 32, (480, 640), 480
+CLI_IMAGES, CLI_VS_CPU_IMAGES, CLI_WHOLE_SIZE = 4, 2, 512
+
+
+def _run_main(fn, argv, device=None):
+    """Run an entry point's ``main`` (``main(argv, device=...)``), check its
+    exit code and return the lines it printed (passed through to stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv, device=device)
+    print(buf.getvalue(), end="")
+    check(rc == 0, f"{fn.__module__}.main returned {rc}")
+    return buf.getvalue().strip().splitlines()
+
+
+def hard_proposals(dataset_dir: str, path: str, seed: int) -> dict:
+    """A proposals JSON for a common-format set: per image, each GT box with
+    its keypoints at a score U(0.6, 1), and two copies of it moved by up to
+    3 % of its size at lower scores.  Returns the counts written."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.keys import key_combine
+    from instancesegmentation_tpu_torch.data.dataset import body_keypoint_array
+
+    rng = np.random.default_rng(seed)
+    props, n_gt = {}, 0
+    for f in sorted(glob.glob(os.path.join(dataset_dir, "data", "*.json"))):
+        with open(f) as fh:
+            ann = json.load(fh)
+        name = os.path.splitext(os.path.basename(ann[key_combine("image", "image_path")]))[0]
+        boxes, scores, kps = [], [], []
+        for obj in ann[key_combine("object", "sub_list")]:
+            box = np.asarray(obj[key_combine("box", "box_xyxy")], np.float64)
+            kp = body_keypoint_array(obj.get(key_combine("body_keypoint", "sub_dict"))).tolist()
+            size = np.tile(box[2:] - box[:2], 2)
+            score = rng.uniform(0.6, 1.0)
+            boxes.append(box.tolist())
+            scores.append(score)
+            kps.append(kp)
+            for _ in range(2):
+                boxes.append((box + rng.uniform(-0.03, 0.03, 4) * size).tolist())
+                scores.append(score * rng.uniform(0.3, 0.95))
+                kps.append(kp)
+            n_gt += 1
+        props[name] = {"boxes": boxes, "scores": scores, "keypoints": kps}
+    with open(path, "w") as fh:
+        json.dump(props, fh)
+    return {"images": len(props), "gt_boxes": n_gt, "proposals": 3 * n_gt}
+
+
+def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
+    """Evaluation and the inference command on the card, at full width:
+
+    1. quality: ``evaluate_full_image`` with ``examples/crossed_demo.ckpt`` on
+       the 8 crossed-pair images (seed 300) at 256 (canvas 320), float32 and
+       bfloat16, conditioned and not: float32 conditioned AP 1.0,
+       unconditioned AP75 <= 0.2, 16 predictions of 16 GTs;
+    2. ``python -m instancesegmentation_tpu_torch.eval --full-image
+       --proposals`` on a 32-image 480 x 640 ``make_hard_dataset`` set with
+       the trainer's checkpoint at 480, bf16: 2 chain launches per dispatch,
+       one NMS launch per image with the CPU plain NMS's keeps, the native
+       RLE IoU on every image; images/s and the host split;
+    3. the per-crop protocol on the same set at batch 32: every eligible
+       instance, 2 chain launches per batch;
+    4. ``python -m instancesegmentation_tpu_torch.infer`` in its three modes
+       over 4 of those images (whole image at 512 on seeded ``Segment(3)``
+       weights, ``--dataset-mode`` and ``--proposals`` on the trainer's
+       checkpoint), and on 2 images in float32 against a ``device="cpu"``
+       run of the same command (mask agreement >= 0.999)."""
+    import glob
+    import shutil
+
+    from instancesegmentation_tpu_torch import eval as teval
+    from instancesegmentation_tpu_torch.core import evaluation
+    from instancesegmentation_tpu_torch.core.keys import key_combine
+    from instancesegmentation_tpu_torch.core.png import read_png
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.data.synthetic import (
+        make_hard_dataset,
+        make_synthetic_dataset,
+    )
+    from instancesegmentation_tpu_torch.infer import cli, proposals
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
+    from instancesegmentation_tpu_torch.ops.native.build import load_native
+
+    out = {"card": card}
+    check(load_native() is not None, "eval: the native RLE library builds with the host's g++")
+
+    # -- 1. quality on the committed checkpoint
+    crossed = os.path.join(tmp, "crossed")
+    make_synthetic_dataset(crossed, num_images=8, seed=300, crossed_pairs=True)
+    demo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "crossed_demo.ckpt")
+    quality = {}
+    for dtype in ("float32", "bfloat16"):
+        for cond in (True, False):
+            r = teval.evaluate_full_image(crossed, demo, size=256, in_channels=20, canvas=320,
+                                          bfloat16=dtype == "bfloat16", use_keypoints=cond)
+            quality[f"{dtype}_{'conditioned' if cond else 'unconditioned'}"] = r
+            check(r["num_predictions"] == r["num_gt_instances"] == 16 and r["num_images"] == 8,
+                  f"crossed demo {dtype}: 16 predictions of 16 GTs on 8 images")
+    f32c, f32u = quality["float32_conditioned"], quality["float32_unconditioned"]
+    b16c, b16u = quality["bfloat16_conditioned"], quality["bfloat16_unconditioned"]
+    out["crossed_demo"] = {k: {m: v[m] for m in ("AP", "AP50", "AP75")}
+                           for k, v in quality.items()}
+    out["crossed_demo"]["bf16_minus_f32_AP"] = {"conditioned": b16c["AP"] - f32c["AP"],
+                                                "unconditioned": b16u["AP"] - f32u["AP"]}
+    print(f"crossed demo checkpoint (8 crossed-pair images, 256 px): "
+          f"{json.dumps(out['crossed_demo'])}")
+    check(f32c["AP"] == 1.0, "crossed demo: float32 conditioned AP 1.0")
+    check(f32u["AP75"] <= 0.2, "crossed demo: float32 unconditioned AP75 <= 0.2")
+
+    # -- 2. the full-image protocol at 480 on the hard set
+    hard = os.path.join(tmp, "hard")
+    t0 = time.perf_counter()
+    make_hard_dataset(hard, num_images=EVAL_IMAGES, image_hw=EVAL_HW, seed=SEED)
+    out["write_hard_set_s"] = time.perf_counter() - t0
+    props_path = os.path.join(tmp, "proposals.json")
+    out["proposals"] = hard_proposals(hard, props_path, SEED)
+
+    host = {k: 0.0 for k in ("decode", "rle_encode", "predict", "nms", "ap", "engine_build")}
+    nms_calls, predict_rows = [], []
+    originals = {"read_png": teval.read_png, "rle_encode": teval.rle_encode,
+                 "mask_ap_rle": teval.mask_ap_rle, "_build_engine": teval._build_engine}
+    nms_keep, predict = proposals._nms_keep, InferenceEngine.predict_instances
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[name] += time.perf_counter() - t
+        return wrapped
+
+    def recorded_nms_keep(boxes, scores, thr, max_instances, device):
+        keep = nms_keep(boxes, scores, thr, max_instances, device)  # ends in a host copy
+        nms_calls.append((boxes, scores, thr, max_instances, keep))
+        return keep
+
+    def counted_predict(self, batch):
+        predict_rows.append(int(batch["image"].shape[0]))
+        return predict(self, batch)  # returns host arrays: synchronous
+
+    teval.read_png = timed("decode", originals["read_png"])
+    teval.rle_encode = timed("rle_encode", originals["rle_encode"])
+    teval.mask_ap_rle = timed("ap", originals["mask_ap_rle"])
+    teval._build_engine = timed("engine_build", originals["_build_engine"])
+    proposals._nms_keep = timed("nms", recorded_nms_keep)
+    InferenceEngine.predict_instances = timed("predict", counted_predict)
+    native0, numpy0 = evaluation.mask_ap_rle.native_calls, evaluation.mask_ap_rle.numpy_calls
+    try:
+        nms_mod.nms.launches = 0
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        lines = _run_main(teval.main, ["--dataset", hard, "--full-image", "--proposals",
+                                       props_path, "--size", str(EVAL_SIZE), "--nms-threshold",
+                                       "0.7",
+                                       "--max-instances", "16", "--checkpoint", trained_ckpt])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        full_launches = {"nms": nms_mod.nms.launches,
+                         "fused_chain": dict(fc.fused_chain.launches_by_form)}
+    finally:
+        for k, v in originals.items():
+            setattr(teval, k, v)
+        proposals._nms_keep, InferenceEngine.predict_instances = nms_keep, predict
+    full = json.loads(lines[-1])
+    dispatches = sum(-(-n // 128) for n in predict_rows)
+    native = evaluation.mask_ap_rle.native_calls - native0
+    numpy_path = evaluation.mask_ap_rle.numpy_calls - numpy0
+    print(f"full-image eval (hard set, {EVAL_IMAGES} images {EVAL_HW}, {EVAL_SIZE} px bf16, "
+          f"{out['proposals']['proposals']} proposals): {json.dumps(full)}; predict_instances "
+          f"calls {predict_rows} in {dispatches} dispatches; launches {full_launches}; RLE IoU "
+          f"native {native}, numpy {numpy_path}")
+    check(full["protocol"] == "full_image" and full["num_images"] == EVAL_IMAGES
+          and full["num_gt_instances"] == out["proposals"]["gt_boxes"]
+          and 0 < full["num_predictions"] <= 16 * EVAL_IMAGES,
+          "full-image eval: the counts of the dataset and its proposals")
+    check(all(0.0 <= full[k] <= 1.0 for k in ("AP", "AP50", "AP75")), "full-image eval: AP in [0, 1]")
+    check(full["num_predictions"] == sum(len(c[4]) for c in nms_calls),
+          "full-image eval: one prediction per box NMS kept")
+    check(full_launches["fused_chain"] == {"banded": 2 * dispatches, "banded_f32": 0, "simt": 0},
+          "full-image eval: 2 banded chain launches per dispatch")
+    check(full_launches["nms"] == len(nms_calls) == EVAL_IMAGES,
+          "full-image eval: one nms launch per image")
+    for boxes, scores, thr, k, keep in nms_calls:
+        idx, valid = nms_mod.nms_reference(torch.from_numpy(boxes), torch.from_numpy(scores), thr,
+                                           max_outputs=min(k, boxes.shape[0]))
+        check(np.array_equal(idx[valid].numpy(), keep),
+              "full-image eval: the keeps equal the plain NMS on the CPU")
+    check(native == EVAL_IMAGES and numpy_path == 0,
+          "full-image eval: the native RLE IoU matrix on every image, no numpy path")
+    run_s = wall - host["engine_build"]
+    out["full_image"] = dict(full, wall_s=wall, images_per_s=EVAL_IMAGES / run_s,
+                             host_s=host, host_rest_s=run_s - sum(
+                                 v for k, v in host.items() if k != "engine_build"),
+                             predict_calls=predict_rows, dispatches=dispatches,
+                             launches=full_launches, rle_native_calls=native,
+                             rle_numpy_calls=numpy_path)
+    print(f"full-image eval: {EVAL_IMAGES / run_s:.2f} images/s ({run_s:.3f} s without the "
+          f"engine's build, {host['engine_build']:.3f} s); host split (s): "
+          f"{json.dumps({k: round(v, 4) for k, v in host.items()})}; {card}")
+
+    # -- 3. the per-crop protocol on the same set
+    eligible = len(InstanceCommonDataset(hard))
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    crop = json.loads(_run_main(teval.main, ["--dataset", hard, "--batch", "32", "--size",
+                                             str(EVAL_SIZE), "--checkpoint", trained_ckpt])[-1])
+    torch.cuda.synchronize()
+    crop_s = time.perf_counter() - t0
+    crop_launches = dict(fc.fused_chain.launches_by_form)
+    batches = -(-eligible // 32)
+    print(f"per-crop eval (batch 32, {EVAL_SIZE} px bf16): {json.dumps(crop)}; {eligible} eligible "
+          f"instances in {batches} batches; launches {crop_launches}; {crop_s:.2f} s")
+    check(crop["num_instances"] == eligible, "per-crop eval: every eligible instance once")
+    check(crop_launches == {"banded": 2 * batches, "banded_f32": 0, "simt": 0},
+          "per-crop eval: 2 banded chain launches per batch")
+    out["per_crop"] = dict(crop, eligible=eligible, batches=batches, launches=crop_launches,
+                           wall_s=crop_s)
+
+    # -- 4. the inference command's three modes over 4 images of the set
+    sub = os.path.join(tmp, "hard_sub")
+    shutil.copytree(hard, sub)
+    for f in sorted(glob.glob(os.path.join(sub, "data", "*.json")))[CLI_IMAGES:]:
+        os.remove(f)
+    images = os.path.join(tmp, "cli_images")
+    os.makedirs(images)
+    for f in sorted(glob.glob(os.path.join(hard, "image", "*.png")))[:CLI_IMAGES]:
+        shutil.copy(f, images)
+    k_mask = key_combine("instance_mask", "mask_path")
+    ds = InstanceCommonDataset(sub)
+    modes = {
+        "whole": ["-i", images, "--size", str(CLI_WHOLE_SIZE), "--batch", "8"],
+        "dataset": ["-i", sub, "--dataset-mode", "--size", str(EVAL_SIZE), "--batch", "8",
+                    "--checkpoint", trained_ckpt],
+        "proposals": ["-i", images, "--proposals", props_path, "--size", str(EVAL_SIZE),
+                      "--in-channels", "20", "--checkpoint", trained_ckpt],
+    }
+    cli_out = {}
+    for mode, argv in modes.items():
+        dest = os.path.join(tmp, f"cli_{mode}")
+        nms_mod.nms.launches = 0
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        _run_main(cli.main, argv + ["-o", dest])
+        torch.cuda.synchronize()
+        files = sorted(os.path.relpath(os.path.join(d, f), dest)
+                       for d, _, fs in os.walk(dest) for f in fs)
+        cli_out[mode] = {"s": time.perf_counter() - t0, "files": len(files),
+                         "launches": {"nms": nms_mod.nms.launches,
+                                      "fused_chain": dict(fc.fused_chain.launches_by_form)}}
+        check(files and all(read_png(os.path.join(dest, f), "gray").shape == EVAL_HW
+                            for f in files), f"cli {mode}: masks at the images' size")
+        if mode == "whole":
+            check(files == [f"{i:05d}.png" for i in range(CLI_IMAGES)],
+                  "cli whole: one mask per image")
+        elif mode == "dataset":
+            check(files == sorted(r[k_mask] for r in ds.records),
+                  "cli dataset mode: the instance_mask/<image>/<i>.png layout")
+        else:
+            check(cli_out[mode]["launches"]["nms"] == CLI_IMAGES,
+                  "cli proposals: one nms launch per image")
+        check(cli_out[mode]["launches"]["fused_chain"]["banded"] > 0,
+              f"cli {mode}: the banded chain kernel ran")
+    print(f"inference command on the card: {json.dumps(cli_out)}")
+
+    # card (float32) against a device="cpu" run of the same command, 2 images
+    sub2 = os.path.join(tmp, "hard_sub2")
+    shutil.copytree(sub, sub2)
+    for f in sorted(glob.glob(os.path.join(sub2, "data", "*.json")))[CLI_VS_CPU_IMAGES:]:
+        os.remove(f)
+    images2 = os.path.join(tmp, "cli_images2")
+    os.makedirs(images2)
+    for f in sorted(glob.glob(os.path.join(images, "*.png")))[:CLI_VS_CPU_IMAGES]:
+        shutil.copy(f, images2)
+    vs_cpu = {}
+    for mode, argv in modes.items():
+        argv = [images2 if a == images else sub2 if a == sub else a for a in argv]
+        dests = {d: os.path.join(tmp, f"vs_{mode}_{d}") for d in ("card", "cpu")}
+        _run_main(cli.main, argv + ["--float32", "-o", dests["card"]])
+        _run_main(cli.main, argv + ["--float32", "-o", dests["cpu"]], device="cpu")
+        files = sorted(os.path.relpath(os.path.join(d, f), dests["card"])
+                       for d, _, fs in os.walk(dests["card"]) for f in fs)
+        check(files == sorted(os.path.relpath(os.path.join(d, f), dests["cpu"])
+                              for d, _, fs in os.walk(dests["cpu"]) for f in fs),
+              f"cli {mode} card vs CPU: the same files")
+        agree = [float((read_png(os.path.join(dests["card"], f), "gray")
+                        == read_png(os.path.join(dests["cpu"], f), "gray")).mean())
+                 for f in files]
+        vs_cpu[mode] = {"files": len(files), "mask_agreement_min": min(agree)}
+        check(min(agree) >= 0.999, f"cli {mode} float32: card vs CPU mask agreement >= 0.999")
+    print(f"inference command float32, card vs CPU ({CLI_VS_CPU_IMAGES} images): "
+          f"{json.dumps(vs_cpu)} (limit 0.999)")
+    out["cli"] = cli_out
+    out["cli_vs_cpu"] = vs_cpu
+    print(json.dumps({"eval_and_cli": out}))
     return out
 
 
@@ -1401,8 +1722,12 @@ def main() -> int:
     check(step_vs_cpu["loss_rel_diff"] <= 1e-4, "train step card vs CPU: loss")
     check(step_vs_cpu["batch_stats_max_abs_diff"] <= 1e-4, "train step card vs CPU: batch_stats")
 
-    # the trainer from disk to a served checkpoint (its own launch counts)
-    disk = trainer_from_disk(dev, card, w2, fc)
+    # the trainer from disk to a served checkpoint (its own launch counts),
+    # then evaluation and the inference command on that checkpoint
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as eval_tmp:
+        trained = os.path.join(eval_tmp, "trained.ckpt")
+        disk = trainer_from_disk(dev, card, w2, fc, trained)
+        evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
     # -- 5. times ------------------------------------------------------------
     # the chain at batch 128, both programs: the banded form (bf16) beside
@@ -1681,6 +2006,8 @@ def main() -> int:
          "launches": launches["fused_chain"],
          "launches_by_form": launches["fused_chain_by_form"],
          "launches_trainer_from_disk_serve": disk["serve_launches"]["total"],
+         "launches_eval": (evals["full_image"]["launches"]["fused_chain"]["banded"]
+                           + evals["per_crop"]["launches"]["banded"]),
          "max_abs_err": max(p["max_abs_err"] for p in main),
          "ms": sum(p["ms"] for p in main),
          "plain_ms": sum(p["plain_ms"] for p in main),
@@ -1712,6 +2039,7 @@ def main() -> int:
          "source": "instancesegmentation_tpu_torch/csrc/nms.cu",
          "replaces": "instancesegmentation_tpu/ops/nms.py:105",
          "launches": prop_launches["nms"], "max_abs_err": 0.0, "sort_limit": nms.SORT_LIMIT,
+         "launches_eval": evals["full_image"]["launches"]["nms"],
          **{k: nms_parts[0][k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "ptxas": ptxas.get("nms_kernel"), "parts": nms_parts},
         {"name": "roi_align", "route": "cuda",

@@ -4,7 +4,9 @@ keypoint-conditioned person instance segmentation system.
 It serves the same programs as the JAX package ``instancesegmentation_tpu``
 (which stays the reference), on one NVIDIA Hopper GPU:
 
-- ``core``    device selection (the card unless the caller asks for the CPU).
+- ``core``    device selection (the card unless the caller asks for the CPU),
+              records, the PNG codec, mask rasterisation and RLE codecs,
+              and mask AP (``core/evaluation.py``).
 - ``utils``   weight carrying between the flax variable tree and the port's
               state dict.
 - ``models``  the Segment encoder-decoder as ``nn.Module``s (eval and train
@@ -14,10 +16,14 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
               bottleneck-chain kernel, the two-level rotated warp kernels and
               the detection ops (NMS, RoI-Align, proposal matching); each
               kernel is hand-written CUDA C++ for sm_90a (sources in
-              ``csrc/``) with its plain PyTorch version.
+              ``csrc/``) with its plain PyTorch version; ``ops/native`` the
+              host C++ RLE IoU of mask AP.
 - ``infer``   the instance and whole-image serving programs, the engine, the
-              dynamic-batching front end and proposal-based serving (NMS,
-              then one instance crop per surviving box).
+              dynamic-batching front end, proposal-based serving (NMS,
+              then one instance crop per surviving box) and the inference
+              command (``python -m instancesegmentation_tpu_torch.infer``).
+- ``eval``    mask IoU and mask AP over a dataset
+              (``python -m instancesegmentation_tpu_torch.eval``).
 - ``data``    the preprocessing program of training (augmentation draws,
               rotated/separable crop warp, photometric augmentations,
               heatmaps) and the synthetic host batch.

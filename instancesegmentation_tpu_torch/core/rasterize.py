@@ -1,5 +1,5 @@
-"""Mask rasterisation without cv2: the start of the port's copy of
-``instancesegmentation_tpu/core/rasterize.py``.
+"""Mask rasterisation and the COCO mask codecs without cv2: the port's copy
+of ``instancesegmentation_tpu/core/rasterize.py``.
 
 ``fill_ellipse`` is ``cv2.ellipse(mask, center, axes, angle, 0, 360, color,
 -1)`` (a filled ellipse, line type 8) by cv2's own algorithm, so that the
@@ -12,12 +12,23 @@ port's synthetic datasets hold the JAX package's masks:
   drawn as an 8-connected line (``Line2``), then the scanline fill between
   the left and right edges.
 
+``polygons_to_mask`` is ``cv2.fillPoly`` (line type 8, no fractional bits)
+by cv2's algorithm, ``fill_poly``: every edge drawn as an 8-connected line
+(``LineIterator``), then the spans between the sorted crossings of each row
+filled even-odd (``CollectPolyEdges`` + ``FillEdgeCollection``), so a
+self-intersecting polygon, and the overlap of two polygons, fill as cv2's do.
+
+The RLE codecs (uncompressed COCO RLE, column-major runs that start with the
+count of zeros, and COCO's compressed string format) are numpy and plain
+Python; ``ops/native`` holds the C++ run-merge IoU that mask AP uses.
+
 All arithmetic is on Python integers where cv2's is on int64, with C's
 truncating division where cv2 divides.
 """
 from __future__ import annotations
 
 import math
+from typing import Any, Sequence
 
 import numpy as np
 
@@ -219,3 +230,232 @@ def fill_ellipse(mask: np.ndarray, center, axes, angle: float, color: int = 255)
         pts = [(cx, cy)] * 2
     fill_convex_poly(mask, pts, color)
     return mask
+
+
+# ---------------------------------------------------------------------------
+# polygons
+# ---------------------------------------------------------------------------
+
+def _line8(img: np.ndarray, p0, p1, color: int) -> None:
+    """``Line``: cv2's 8-connected ``LineIterator`` (left to right) between
+    two integer points, clipped to ``img``."""
+    h, w = img.shape
+    (x0, y0), (x1, y1) = p0, p1
+    if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h):
+        a, b = [x0, y0], [x1, y1]
+        if not _clip_line(w, h, a, b):
+            return
+        (x0, y0), (x1, y1) = a, b
+    if x1 < x0:
+        x0, y0, x1, y1 = x1, y1, x0, y0
+    dx, dy = x1 - x0, abs(y1 - y0)
+    sy = -1 if y1 < y0 else 1
+    steep = dy > dx
+    if steep:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    x, y = x0, y0
+    for _ in range(dx + 1):
+        img[y, x] = color
+        minor = err < 0
+        err += 2 * dx - 2 * dy if minor else -2 * dy
+        if steep:
+            y += sy
+            x += minor
+        else:
+            x += 1
+            y += sy if minor else 0
+
+
+def _poly_edges(img: np.ndarray, pts: np.ndarray, color: int, edges: list) -> None:
+    """``CollectPolyEdges`` (line type 8, shift 0) of one closed polygon:
+    draws each edge with ``_line8`` and appends the non-horizontal ones to
+    ``edges`` as ``(y_top, y_bottom, x at y_top, dx per row)``, x in
+    ``XY_SHIFT`` fixed point.  An edge that leaves the image takes its x
+    (and, unless the clipped line is horizontal, its rows) from the clipped
+    line, as cv2 does."""
+    h, w = img.shape
+    p0 = pts[-1]
+    for p1 in pts:
+        (x0, y0), (x1, y1) = (int(p0[0]), int(p0[1])), (int(p1[0]), int(p1[1]))
+        p0 = p1
+        t0, t1 = [x0, y0], [x1, y1]
+        _line8(img, t0, t1, color)
+        c0x, c0y, c1x, c1y = x0 << XY_SHIFT, y0, x1 << XY_SHIFT, y1
+        if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h):
+            _clip_line(w, h, t0, t1)
+            if t0[1] != t1[1]:
+                c0y, c1y = t0[1], t1[1]
+            c0x, c1x = t0[0] << XY_SHIFT, t1[0] << XY_SHIFT
+        if y0 == y1:
+            continue
+        dx = _cdiv(c1x - c0x, c1y - c0y)
+        if y0 < y1:
+            edges.append((y0, y1, c0x + (y0 - c0y) * dx, dx))
+        else:
+            edges.append((y1, y0, c1x + (y1 - c1y) * dx, dx))
+
+
+def fill_poly(img: np.ndarray, polygons: Sequence[np.ndarray], color: int = 255) -> np.ndarray:
+    """``cv2.fillPoly(img, polygons, color)`` (line type 8, shift 0) on a
+    uint8 ``img [H, W]``, in place (and returned): ``polygons`` is a list of
+    integer ``[N, 2]`` (x, y) vertex arrays.  Each row is filled even-odd
+    between the sorted crossings of all polygons' edges (a crossing at x
+    fills from ``ceil(x)`` on the left of a span to ``floor(x)`` on its
+    right); the edges themselves are drawn as lines."""
+    h, w = img.shape
+    edges: list = []
+    for pts in polygons:
+        _poly_edges(img, np.asarray(pts).reshape(-1, 2), color, edges)
+    if len(edges) < 2:
+        return img
+    e = np.asarray(edges, np.int64)
+    y0, y1, x, dx = e.T
+    x_end = x + (y1 - y0) * dx
+    if (y1.max() < 0 or y0.min() >= h or max(x.max(), x_end.max()) < 0
+            or min(x.min(), x_end.min()) >= w << XY_SHIFT):
+        return img
+    rows = np.arange(max(int(y0.min()), 0), min(int(y1.max()), h))
+    if rows.size == 0:
+        return img
+    active = (rows[:, None] >= y0) & (rows[:, None] < y1)
+    # rows' crossings, sorted; inactive edges sort last (a sentinel that
+    # the ceil below cannot overflow)
+    xs = np.where(active, x + (rows[:, None] - y0) * dx, np.iinfo(np.int64).max >> 1)
+    xs.sort(axis=1)
+    m = len(edges) // 2
+    pair = np.arange(m) < (active.sum(1) // 2)[:, None]
+    x1 = np.where(pair, (xs[:, 0:2 * m:2] + XY_ONE - 1) >> XY_SHIFT, w)
+    x2 = np.where(pair, xs[:, 1:2 * m:2] >> XY_SHIFT, -1)
+    for r, k in zip(*np.nonzero((x1 < w) & (x2 >= 0))):
+        img[rows[r], max(x1[r, k], 0):min(x2[r, k], w - 1) + 1] = color
+    return img
+
+
+def polygons_to_mask(polygons: Sequence[Sequence[float]], height: int, width: int) -> np.ndarray:
+    """Rasterize COCO-style polygons ([[x0,y0,x1,y1,...], ...]) to uint8 0/255:
+    the vertices rounded half to even (``np.round``), polygons of fewer than
+    3 points dropped, then ``fill_poly`` (``cv2.fillPoly``)."""
+    mask = np.zeros((height, width), dtype=np.uint8)
+    pts = [
+        np.asarray(p, dtype=np.float64).reshape(-1, 2).round().astype(np.int32)
+        for p in polygons
+        if len(p) >= 6
+    ]
+    if pts:
+        fill_poly(mask, pts, 255)
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# uncompressed RLE
+# ---------------------------------------------------------------------------
+
+def rle_encode(mask: np.ndarray) -> dict:
+    """Encode a binary mask as uncompressed COCO RLE.
+
+    Runs are column-major (Fortran order) and start with the count of
+    zeros, matching the COCO convention.
+    """
+    mask = np.asarray(mask)
+    h, w = mask.shape
+    flat = (mask.flatten(order="F") > 0).astype(np.int8)
+    if flat.size == 0:
+        return {"size": [h, w], "counts": []}
+    change = np.nonzero(np.diff(flat))[0] + 1
+    bounds = np.concatenate(([0], change, [flat.size]))
+    counts = np.diff(bounds).tolist()
+    if flat[0] == 1:
+        counts = [0] + counts
+    return {"size": [h, w], "counts": counts}
+
+
+def rle_decode(rle: dict) -> np.ndarray:
+    """Decode uncompressed COCO RLE to a uint8 0/255 mask."""
+    h, w = rle["size"]
+    counts = np.asarray(rle["counts"], dtype=np.int64)
+    flat = np.zeros(h * w, dtype=np.uint8)
+    pos = np.concatenate(([0], np.cumsum(counts)))
+    for i in range(1, len(counts), 2):  # odd runs are ones
+        flat[pos[i]:pos[i + 1]] = 255
+    return flat.reshape((h, w), order="F")
+
+
+def rle_area(rle: dict) -> int:
+    """Foreground pixel count of an RLE (sum of odd-indexed runs)."""
+    return int(sum(rle["counts"][1::2]))
+
+
+# ---------------------------------------------------------------------------
+# compressed RLE (COCO string format)
+# ---------------------------------------------------------------------------
+
+def rle_to_string(rle: dict) -> str:
+    """Compress RLE counts to the COCO ascii string format: 5-bit groups
+    with a continuation flag, each count from the 4th on delta-coded against
+    the count two before it."""
+    counts = [int(c) for c in rle["counts"]]
+    chars = []
+    for i, cnt in enumerate(counts):
+        x = cnt
+        if i > 2:
+            x -= counts[i - 2]
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = (x != -1) if (c & 0x10) else (x != 0)
+            if more:
+                c |= 0x20
+            chars.append(chr(c + 48))
+    return "".join(chars)
+
+
+def rle_from_string(s: str, height: int, width: int) -> dict:
+    """Decompress a COCO ascii RLE string to uncompressed counts."""
+    counts: list[int] = []
+    i, n = 0, len(s)
+    while i < n:
+        x = k = 0
+        more = True
+        while more:
+            c = ord(s[i]) - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            i += 1
+            k += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * k)
+        if len(counts) > 2:
+            x += counts[-2]
+        counts.append(x)
+    return {"size": [height, width], "counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# COCO segmentation field -> mask
+# ---------------------------------------------------------------------------
+
+def segmentation_to_mask(segm: Any, height: int, width: int) -> np.ndarray:
+    """Rasterize a COCO ``segmentation`` field of any flavour to uint8 0/255:
+    polygon lists, uncompressed RLE dicts (counts as a list) and compressed
+    RLE dicts (counts as str or bytes)."""
+    if isinstance(segm, dict):
+        counts = segm["counts"]
+        h, w = segm["size"]
+        if isinstance(counts, (bytes, bytearray)):
+            counts = counts.decode("ascii")
+        if isinstance(counts, str):
+            return rle_decode(rle_from_string(counts, h, w))
+        return rle_decode(segm)
+    return polygons_to_mask(segm, height, width)
+
+
+def rle_iou(a: dict, b: dict) -> float:
+    """IoU of two RLE masks, decoded (two empty masks: 1.0)."""
+    ma = rle_decode(a) > 0
+    mb = rle_decode(b) > 0
+    union = np.logical_or(ma, mb).sum()
+    if union == 0:
+        return 1.0
+    return float(np.logical_and(ma, mb).sum()) / float(union)

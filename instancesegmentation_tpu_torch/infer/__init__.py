@@ -1,2 +1,3 @@
-"""Serving: the instance and whole-image programs, the engine and the
-dynamic-batching front end."""
+"""Serving: the instance and whole-image programs, the engine, the
+dynamic-batching front end, proposal-based serving and the inference command
+(``python -m instancesegmentation_tpu_torch.infer``)."""

@@ -1,0 +1,4 @@
+from instancesegmentation_tpu_torch.infer.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,160 @@
+"""The port's inference command against the JAX package's (CPU): the three
+modes on the committed demo checkpoint (flax variables of ``Segment(20)``)
+write the same file layout, and the masks the port writes are ≥ 99.9 % equal
+to JAX's; the extension filter, the unported flags and the PNG-only
+decoding."""
+import functools
+import json
+import os
+
+import cv2
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from instancesegmentation_tpu.data.synthetic import make_synthetic_dataset as jax_make
+from instancesegmentation_tpu.infer.cli import main as jax_main
+from instancesegmentation_tpu.models.segment import Segment as JaxSegment
+from instancesegmentation_tpu_torch.core.keys import key_combine
+from instancesegmentation_tpu_torch.core.png import read_png
+from instancesegmentation_tpu_torch.core.records import common_ann_loader
+from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+from instancesegmentation_tpu_torch.infer.cli import list_images, main
+
+torch.set_num_threads(1)
+SIZE = 64
+DEMO = os.path.join(os.path.dirname(__file__), "..", "examples", "synthetic_demo.ckpt")
+
+
+@pytest.fixture(scope="module")
+def synth(tmp_path_factory):
+    root = tmp_path_factory.mktemp("synth_cli")
+    jax_make(str(root), num_images=3, objects_per_image=1, seed=5)
+    return str(root)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_init_once():
+    """The JAX command initialises a Segment (a ~10 s CPU compile per call)
+    and then loads the checkpoint over it: each configuration's initial
+    variables are computed once, from the command's own key, and handed to
+    its later calls."""
+    init, cache = JaxSegment.init, {}
+
+    def cached(self, rng, *args, **kw):
+        key = (self.in_channels, self.dtype, tuple(a.shape for a in args), tuple(kw.items()))
+        if key not in cache:
+            with jax.ensure_compile_time_eval():
+                cache[key] = jax.jit(functools.partial(init, self, **kw))(
+                    jax.random.PRNGKey(0), *[jnp.zeros(a.shape, a.dtype) for a in args])
+        return cache[key]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxSegment, "init", cached)
+        yield
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def _same_masks(port_dir, jax_dir):
+    """Same files; each port mask (read by the port's codec) ≥ 99.9 % equal
+    to JAX's (read by cv2); returns the file list."""
+    files = _files(port_dir)
+    assert files and files == _files(jax_dir)
+    for f in files:
+        got = read_png(os.path.join(port_dir, f), "gray")
+        want = cv2.imread(os.path.join(jax_dir, f), cv2.IMREAD_GRAYSCALE)
+        assert got.shape == want.shape and set(np.unique(got)) <= {0, 255}
+        assert (got == want).mean() >= 0.999, f
+    return files
+
+
+def test_whole_image_mode_and_continue_test(synth, tmp_path, capsys):
+    argv = ["-i", os.path.join(synth, "image"), "--size", str(SIZE), "--batch", "4",
+            "--float32", "--in-channels", "20", "--checkpoint", DEMO]
+    assert main(["-o", str(tmp_path / "port")] + argv, device="cpu") == 0
+    assert jax_main(["-o", str(tmp_path / "jax")] + argv) == 0
+    files = _same_masks(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert len(files) == 3
+    # --continue-test skips existing outputs: a removed one is written again
+    os.remove(tmp_path / "port" / files[0])
+    capsys.readouterr()
+    assert main(["-o", str(tmp_path / "port"), "--continue-test"] + argv, device="cpu") == 0
+    assert "wrote 1 masks" in capsys.readouterr().out
+    assert _files(str(tmp_path / "port")) == files
+
+
+def test_dataset_mode_mirrors_common_layout(synth, tmp_path):
+    """``--dataset-mode`` on the 20-channel demo checkpoint at batch 2 (the
+    tail batch's repeat dropped): one mask per eligible instance at its
+    ``instance_mask/<image>/<i>.png`` path and the image's resolution."""
+    argv = ["-i", synth, "--dataset-mode", "--size", str(SIZE), "--batch", "2",
+            "--float32", "--checkpoint", DEMO]
+    assert main(["-o", str(tmp_path / "port")] + argv, device="cpu") == 0
+    assert jax_main(["-o", str(tmp_path / "jax")] + argv) == 0
+    files = _same_masks(str(tmp_path / "port"), str(tmp_path / "jax"))
+    ds = InstanceCommonDataset(synth)
+    k = key_combine("instance_mask", "mask_path")
+    assert len(ds) == 3 and files == sorted(rec[k] for rec in ds.records)
+    for f in files:
+        assert f.startswith("instance_mask" + os.sep)
+        assert read_png(os.path.join(tmp_path, "port", f), "gray").shape == (240, 320)
+
+
+def test_proposal_mode(synth, tmp_path):
+    """``--proposals``: the first image's object box and a shifted copy; NMS
+    at 0.5 keeps one; images without an entry write nothing."""
+    ann = next(common_ann_loader(synth))
+    name = os.path.splitext(os.path.basename(ann[key_combine("image", "image_path")]))[0]
+    box = ann[key_combine("object", "sub_list")][0][key_combine("box", "box_xyxy")]
+    props = tmp_path / "props.json"
+    props.write_text(json.dumps({name: {"boxes": [box, [b + 1 for b in box]],
+                                        "scores": [0.9, 0.5]}}))
+    argv = ["-i", os.path.join(synth, "image"), "--proposals", str(props), "--size",
+            str(SIZE), "--float32", "--nms-threshold", "0.5", "--in-channels", "20",
+            "--checkpoint", DEMO]
+    assert main(["-o", str(tmp_path / "port")] + argv, device="cpu") == 0
+    assert jax_main(["-o", str(tmp_path / "jax")] + argv) == 0
+    assert _same_masks(str(tmp_path / "port"), str(tmp_path / "jax")) == [f"{name}_0.png"]
+
+
+def test_list_images_filters_extensions(tmp_path):
+    for f in ("a.jpg", "b.png", "c.txt", "d.jpgerr", "e.BMP", "f.jpeg"):
+        (tmp_path / f).write_bytes(b"x")
+    assert [os.path.basename(p) for p in list_images(str(tmp_path))] == [
+        "a.jpg", "b.png", "e.BMP", "f.jpeg"]
+
+
+@pytest.mark.parametrize("mode", [[], ["--proposals", "props.json"]], ids=["whole", "proposals"])
+def test_jpeg_raises_naming_the_file(mode, tmp_path):
+    """A listed image that is not a PNG is never skipped: the command raises
+    before it writes anything, naming the file."""
+    img = tmp_path / "img"
+    img.mkdir()
+    cv2.imwrite(str(img / "a.png"), np.zeros((20, 20, 3), np.uint8))
+    cv2.imwrite(str(img / "b.jpg"), np.zeros((20, 20, 3), np.uint8))
+    (tmp_path / "props.json").write_text(json.dumps({"b": {"boxes": [[0, 0, 9, 9]],
+                                                           "scores": [1.0]}}))
+    mode = [str(tmp_path / m) if m.endswith(".json") else m for m in mode]
+    out = tmp_path / "out"
+    with pytest.raises(NotImplementedError, match="b.jpg"):
+        main(["-i", str(img), "-o", str(out), "--size", "32", "--float32"] + mode, device="cpu")
+    assert not out.exists() or not os.listdir(out)
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--fused-stem"])
+def test_unported_flags_raise(flag, synth, tmp_path):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        main(["-i", synth, "-o", str(tmp_path), "--dataset-mode", flag], device="cpu")
+
+
+def test_default_device_is_the_card(synth, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["-i", os.path.join(synth, "image"), "-o", str(tmp_path), "--size", "32"])
