@@ -95,7 +95,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    and the host split), and ``python -m
    instancesegmentation_tpu_torch.infer``'s ``main`` in its three modes over
    4 of the images, and in float32 on 2 of them against a CPU run (mask
-   agreement >= 0.999);
+   agreement >= 0.999); the trainer from disk also runs data-parallel over
+   one NCCL rank through ``main``'s ``--data-parallel --multihost`` flags
+   (the first loss bit-equal to the single-process run's, every loss within
+   1e-3 relative and val IoU within 1e-2, the same ``warp_2level``
+   launches; where a value differs, the single-process run is repeated to
+   show its own spread); then the parallel modules (``parallel_phase``):
+   two ranks on ``cuda:0`` over gloo (this script with ``--gloo-worker``,
+   twice), 3 float32 train steps at global batch 8, 640 -> 480, the
+   train480 augmentations: bit-identical states on both ranks, the first
+   step against one process (loss 2e-5, gradient vector 5e-2 relative, BN
+   statistics 1e-3), the later losses within 1e-3 relative, one
+   ``warp_2level`` launch per step and 149 all-reduces per step on each
+   rank; ``ParallelInferenceEngine`` at instance480, one bf16 replica
+   bit-equal to ``InferenceEngine`` (2 banded launches per dispatch), two
+   float32 replicas on ``cuda:0`` (2 banded float32 launches each; max prob
+   diff <= 1e-4, masks >= 0.999 equal), and requests through
+   ``ServingFrontend``; its images/s beside ``InferenceEngine``'s in turns,
+   and the bf16 train480 step data-parallel over one NCCL rank beside the
+   single-process step (CUDA events, in turns), its all-reduces and
+   ``warp_2level`` launches per step, and both steps' device idle share;
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above, NMS, the warp, roi_align and
    matching also by their kernels' device time in a ``torch.profiler``
@@ -170,6 +189,13 @@ def random_state_dict(in_channels: int, seed: int) -> dict:
             elif isinstance(m, PReLU):
                 m.weight.uniform_(0.05, 0.45, generator=g)
     return model.state_dict()
+
+
+def tf32_off() -> None:
+    """float32 products in float32 on the card (cuDNN's convs default to
+    TF32), as on the host, in every process of the script."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -605,6 +631,21 @@ DISK_TRAIN, DISK_VAL, DISK_HW = 128, 32, (480, 640)
 DISK_BATCH, DISK_EPOCHS = 32, 2
 
 
+def metric_rows(out_dir: str) -> list:
+    """The records of a trainer's ``metrics.jsonl``, in file order."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def step_ms_from_log(rows: list) -> tuple[float, int]:
     """Host time of the train steps after the first, from ``metrics.jsonl``
     rows in file order (``show_iter`` 1: one loss row per step, stamped after
@@ -651,13 +692,16 @@ def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
         make_synthetic_dataset(train_dir, DISK_TRAIN, DISK_HW, 1, seed=SEED)
         make_synthetic_dataset(val_dir, DISK_VAL, DISK_HW, 1, seed=SEED + 1)
         out["write_dataset_s"] = time.perf_counter() - t0
-        argv = ["--train-dataset-dir", train_dir, "--val-dataset-dir", val_dir,
-                "--checkpoint-dir", os.path.join(tmp, "ckpt"),
-                "--out-dir", os.path.join(tmp, "runs"),
-                "--batch-size", str(DISK_BATCH), "--epochs", str(DISK_EPOCHS),
-                "--rotate", "25", "--flip-prob", "0.5", "--jitter", "0.1",
-                "--brightness", "0.2", "--contrast", "0.2", "--noise-std", "5",
-                "--save-iou-gate", "0", "--show-iter", "1", "--log-images", "true"]
+        def run_argv(run: str) -> list:
+            return ["--train-dataset-dir", train_dir, "--val-dataset-dir", val_dir,
+                    "--checkpoint-dir", os.path.join(tmp, run, "ckpt"),
+                    "--out-dir", os.path.join(tmp, run, "runs"),
+                    "--batch-size", str(DISK_BATCH), "--epochs", str(DISK_EPOCHS),
+                    "--rotate", "25", "--flip-prob", "0.5", "--jitter", "0.1",
+                    "--brightness", "0.2", "--contrast", "0.2", "--noise-std", "5",
+                    "--save-iou-gate", "0", "--show-iter", "1", "--log-images", "true"]
+
+        argv = run_argv("single")
         cfg = parse_args(argv)
         check((cfg.in_channels, cfg.canvas, cfg.out_size, cfg.bfloat16, cfg.fused_head,
                cfg.learning_rate) == (20, 640, 480, True, True, 1e-3),
@@ -677,8 +721,7 @@ def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
         aug = augment_config(cfg, train=True)
         rotated = sum(bool((draw_augment(DISK_BATCH, aug, torch.Generator(device=dev).manual_seed(
             loop.step_seed(cfg.seed, s)))["theta"] != 0).any()) for s in range(n_steps))
-        with open(os.path.join(cfg.out_dir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
+        rows = metric_rows(cfg.out_dir)
         losses = [r["loss"] for r in rows if "loss" in r]
         vals = [r["val_iou"] for r in rows if "val_iou" in r]
         print(f"trainer from disk (Segment(20) 640 -> 480, bf16, batch {DISK_BATCH}, "
@@ -703,6 +746,49 @@ def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
         out.update({"steps": n_steps, "rotated_steps": rotated, "losses": losses,
                     "val_iou": vals, "train_img_per_s_steps_2_to_n": steps * DISK_BATCH / secs,
                     "train_ms_per_step_steps_2_to_n": secs / steps * 1e3})
+
+        # -- the same run data-parallel over one NCCL rank, through the entry
+        # point's --multihost flags (the counts read around this run only)
+        dp_argv = run_argv("dp") + [
+            "--data-parallel", "true", "--multihost", "true",
+            "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+            "--process-id", "0"]
+        w2.warp_2level.launches = 0
+        t0 = time.perf_counter()
+        loop.main(dp_argv)
+        torch.cuda.synchronize()
+        out["dp_train_wall_s"] = time.perf_counter() - t0
+        out["dp_launches"] = {"warp_2level": w2.warp_2level.launches}
+        dp_rows = metric_rows(parse_args(dp_argv).out_dir)
+        dp = {"losses": [r["loss"] for r in dp_rows if "loss" in r],
+              "val_iou": [r["val_iou"] for r in dp_rows if "val_iou" in r]}
+        dp["bit_equal"] = {k: [a == b for a, b in zip(dp[k], out[k])] for k in ("losses", "val_iou")}
+        dp["max_rel_loss_diff"] = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"], losses))
+        dp["max_abs_val_iou_diff"] = max(abs(a - b) for a, b in zip(dp["val_iou"], vals))
+        if not all(dp["bit_equal"]["losses"] + dp["bit_equal"]["val_iou"]):
+            # how far the single-process trainer is from itself on a rerun
+            loop.main(run_argv("single_again"))
+            again = [r["loss"] for r in metric_rows(os.path.join(tmp, "single_again", "runs"))
+                     if "loss" in r]
+            dp["single_rerun_max_rel_loss_diff"] = max(
+                abs(a - b) / abs(b) for a, b in zip(again, losses))
+        out["data_parallel_world1"] = dp
+        print(f"trainer from disk, data-parallel over 1 NCCL rank (--multihost): losses "
+              f"{[round(v, 4) for v in dp['losses']]}, val IoU "
+              f"{[round(v, 4) for v in dp['val_iou']]}, bit-equal to the single-process run "
+              f"{json.dumps(dp['bit_equal'])}, max rel loss diff {dp['max_rel_loss_diff']:.3g}, "
+              f"max val IoU diff {dp['max_abs_val_iou_diff']:.3g}; launches {out['dp_launches']}"
+              + (f"; the single-process run against itself: max rel loss diff "
+                 f"{dp['single_rerun_max_rel_loss_diff']:.3g}"
+                 if "single_rerun_max_rel_loss_diff" in dp else ""))
+        check(len(dp["losses"]) == n_steps and len(dp["val_iou"]) == DISK_EPOCHS,
+              "data-parallel trainer: one loss row per step, one validation per epoch")
+        check(dp["bit_equal"]["losses"][0],
+              "data-parallel trainer at world 1: the first step's loss bit-equal to one process's")
+        check(dp["max_rel_loss_diff"] <= 1e-3 and dp["max_abs_val_iou_diff"] <= 1e-2,
+              "data-parallel trainer at world 1: losses within rel 1e-3, val IoU within 1e-2")
+        check(out["dp_launches"]["warp_2level"] == launches["warp_2level"],
+              "data-parallel trainer: the single-process run's warp_2level launches")
 
         # -- resume: a fresh Trainer holds the saved state bit for bit
         saved, meta = load_checkpoint(ckpt_path)
@@ -776,6 +862,311 @@ def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
           f"checkpoint save {out['checkpoint_save_ms']:.1f} ms, load "
           f"{out['checkpoint_load_ms']:.1f} ms, {out['checkpoint_bytes']} bytes; {card}")
     print(json.dumps({"trainer_from_disk": {k: v for k, v in out.items() if k != "losses"}}))
+    return out
+
+
+# -- the parallel modules ---------------------------------------------------------
+
+#: the two-rank gloo phase: global batch, steps, and the f32 train config's
+#: augmentations (train480's, in float32)
+GLOO_BATCH, GLOO_STEPS, GLOO_TIMEOUT = 8, 3, 600
+
+
+def gloo_config(data_parallel: bool):
+    from instancesegmentation_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(in_channels=20, bfloat16=False, rotate=25.0, flip_prob=0.5,
+                       jitter=0.1, brightness=0.2, contrast=0.2, noise_std=5.0,
+                       batch_size=GLOO_BATCH, data_parallel=data_parallel)
+
+
+def gloo_steps(step, shard_batch, dev) -> dict:
+    """``GLOO_STEPS`` f32 train steps at 640 -> 480 from seeded weights, batch
+    and per-step draws (the same on every rank and in one process): the
+    losses, the first step's gradients and BN statistics, the final state's
+    digest, and the ``warp_2level`` launches and all-reduces they made."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from instancesegmentation_tpu_torch.data.pipeline import batch_to, draw_augment
+    from instancesegmentation_tpu_torch.models.segment import Segment
+    from instancesegmentation_tpu_torch.ops import warp_2level as w2
+    from instancesegmentation_tpu_torch.train.state import TrainState
+    from instancesegmentation_tpu_torch.train.steps import augment_config
+
+    cfg = gloo_config(False)
+    aug = augment_config(cfg, train=True)
+    model = Segment(20)
+    model.load_state_dict(random_state_dict(20, SEED + 4))
+    state = TrainState.create(model.to(dev), cfg.learning_rate)
+    batch = shard_batch(batch_to(training_batch(GLOO_BATCH, cfg.canvas, SEED + 5), dev))
+    all_reduce, calls = dist.all_reduce, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    out = {"losses": []}
+    w2.warp_2level.launches = 0
+    dist.all_reduce = counted
+    try:
+        for s in range(GLOO_STEPS):
+            draws = draw_augment(GLOO_BATCH, aug,
+                                 torch.Generator(device=dev).manual_seed(SEED + 10 + s))
+            state, metrics = step(state, batch, draws)
+            out["losses"].append(float(metrics["loss"]))
+            if s == 0:
+                out["grads"] = torch.cat([p.grad.reshape(-1) for p in
+                                          state.model.parameters()]).cpu().numpy()
+                out["stats"] = torch.cat([v.reshape(-1) for k, v in state.model.state_dict().items()
+                                          if k.endswith(("running_mean", "running_var"))]).cpu().numpy()
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    digest = hashlib.sha256()
+    for v in state.model.state_dict().values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    out.update(digest=digest.hexdigest(), warp_2level=w2.warp_2level.launches,
+               all_reduces=calls[0])
+    return out
+
+
+def gloo_worker(port: int, rank: int, path: str, dev="cuda:0") -> int:
+    """One of two ranks on ``dev`` over gloo (NCCL refuses two ranks on one
+    device): ``gloo_steps`` through ``make_parallel_steps``, written to
+    ``path`` as JSON."""
+    from instancesegmentation_tpu_torch.parallel import multihost
+    from instancesegmentation_tpu_torch.parallel.data_parallel import make_parallel_steps
+    from instancesegmentation_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(dev)
+    tf32_off()
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        _, step, _, shard_batch = make_parallel_steps(gloo_config(True), make_mesh(devices=[dev]))
+        out = gloo_steps(step, shard_batch, dev)
+    finally:
+        multihost.shutdown()
+    out["grads"] = out["grads"].tolist()
+    out["stats"] = out["stats"].tolist()
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def idle_share(fn) -> dict:
+    """Device busy and idle share of one call of ``fn`` (warmed up), from a
+    ``torch.profiler`` trace: the device ops' time over the host's wall
+    time of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_ops": len(events),
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)}
+
+
+def parallel_phase(dev, card: str, fc, w2, sd20, batch, probs, masks, probs32, masks32,
+                   tcfg, tbatch, draws) -> dict:
+    """The parallel modules on the one card:
+
+    1. two ranks on ``cuda:0`` over gloo (this script as two subprocesses),
+       ``GLOO_STEPS`` f32 train steps at global batch ``GLOO_BATCH``: the
+       ranks' states bit-identical; the first step against one process's
+       (loss within 2e-5, gradient vector within 5e-2 relative, BN
+       statistics within 1e-3: the CPU tests' bounds), the later losses
+       within 1e-3 relative; a ``warp_2level`` launch per step on each rank;
+    2. ``ParallelInferenceEngine`` at instance480: one replica bf16 bit-equal
+       to ``InferenceEngine`` with 2 banded chain launches per dispatch; two
+       replicas on ``cuda:0`` in float32 (max prob diff <= 1e-4, masks >=
+       0.999 equal, 2 launches per replica); a ``ServingFrontend`` run;
+    3. times: the engine's images/s beside ``InferenceEngine``'s (host
+       clock, in turns); the data-parallel bf16 train step at world 1 over
+       NCCL beside the single-process step (CUDA events, in turns), its
+       all-reduces per step and both steps' device idle share.
+    """
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
+    from instancesegmentation_tpu_torch.infer.server import ServingFrontend
+    from instancesegmentation_tpu_torch.models.segment import Segment
+    from instancesegmentation_tpu_torch.parallel import multihost
+    from instancesegmentation_tpu_torch.parallel.data_parallel import (
+        collectives_per_step,
+        make_parallel_steps,
+    )
+    from instancesegmentation_tpu_torch.parallel.inference import ParallelInferenceEngine
+    from instancesegmentation_tpu_torch.parallel.mesh import make_mesh
+    from instancesegmentation_tpu_torch.models.layers import init_weights_
+    from instancesegmentation_tpu_torch.train.state import TrainState
+    from instancesegmentation_tpu_torch.train.steps import make_train_step
+
+    out = {"card": card}
+
+    # -- 1. two gloo ranks on one card, against one process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        port = free_port()
+        paths = [os.path.join(tmp, f"rank{r}.json") for r in (0, 1)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-worker",
+                                   str(port), str(r), paths[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in (0, 1)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=GLOO_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                print(log[-4000:])
+            check(p.returncode == 0, "gloo worker exited with an error")
+        ranks = []
+        for path in paths:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    out["gloo_wall_s"] = time.perf_counter() - t0
+    ref = gloo_steps(make_train_step(gloo_config(False)), lambda b: b, dev)
+    grads = np.asarray(ranks[0]["grads"])
+    gloo = {
+        "losses": [r["losses"] for r in ranks], "one_process_losses": ref["losses"],
+        "step1_loss_abs_diff": abs(ranks[0]["losses"][0] - ref["losses"][0]),
+        "later_max_rel_loss_diff": max(abs(a - b) / abs(b) for a, b in
+                                       zip(ranks[0]["losses"][1:], ref["losses"][1:])),
+        "step1_grad_rel_err": float(np.linalg.norm(grads - ref["grads"])
+                                    / np.linalg.norm(ref["grads"])),
+        "step1_stats_max_abs_diff": float(np.abs(np.asarray(ranks[0]["stats"])
+                                                 - ref["stats"]).max()),
+        "ranks_bit_identical": ranks[0]["digest"] == ranks[1]["digest"],
+        "warp_2level_per_rank": [r["warp_2level"] for r in ranks],
+        "all_reduces_per_rank": [r["all_reduces"] for r in ranks],
+        "one_process_warp_2level": ref["warp_2level"],
+    }
+    out["gloo_two_ranks"] = gloo
+    print(f"data-parallel f32 step, 2 gloo ranks on cuda:0 (global batch {GLOO_BATCH}, "
+          f"640 -> 480, {GLOO_STEPS} steps, {out['gloo_wall_s']:.1f} s with start-up): "
+          f"{json.dumps(gloo)} (limits: step 1 loss 2e-5, gradients rel 5e-2, BN statistics "
+          f"1e-3, later losses rel 1e-3)")
+    check(gloo["ranks_bit_identical"], "gloo ranks: bit-identical states")
+    check(gloo["step1_loss_abs_diff"] <= 2e-5, "gloo ranks vs one process: step 1 loss")
+    check(gloo["step1_grad_rel_err"] <= 5e-2, "gloo ranks vs one process: step 1 gradients")
+    check(gloo["step1_stats_max_abs_diff"] <= 1e-3, "gloo ranks vs one process: BN statistics")
+    check(gloo["later_max_rel_loss_diff"] <= 1e-3, "gloo ranks vs one process: later losses")
+    check(gloo["warp_2level_per_rank"] == [GLOO_STEPS] * 2,
+          "gloo ranks: one warp_2level launch per step on each rank")
+    check(gloo["all_reduces_per_rank"] == [GLOO_STEPS * collectives_per_step(Segment(20))] * 2,
+          "gloo ranks: 2 all-reduces per BN layer and one for the gradients per step")
+
+    # -- 2. the replicated engine at instance480
+    size = probs.shape[1]
+    peng = ParallelInferenceEngine(sd20, in_channels=20, size=size, dtype=torch.bfloat16,
+                                   devices=[dev])
+    fc.reset_launches()
+    pp, pm = peng.predict_instances(batch)
+    torch.cuda.synchronize()
+    launches = {"one_replica_bf16": dict(fc.fused_chain.launches_by_form)}
+    check(launches["one_replica_bf16"] == {"banded": 2, "banded_f32": 0, "simt": 0},
+          "ParallelInferenceEngine, one replica: 2 banded chain launches per dispatch")
+    check(np.array_equal(pp, probs) and np.array_equal(pm, masks),
+          "ParallelInferenceEngine, one replica: bit-equal to InferenceEngine")
+    peng2 = ParallelInferenceEngine(sd20, in_channels=20, size=size, dtype=torch.float32,
+                                    devices=[dev, dev])
+    fc.reset_launches()
+    pp2, pm2 = peng2.predict_instances(batch)
+    torch.cuda.synchronize()
+    launches["two_replicas_f32"] = dict(fc.fused_chain.launches_by_form)
+    two = {"max_abs_prob_diff": float(np.abs(pp2 - probs32).max()),
+           "mask_agreement": float((pm2 == masks32).mean())}
+    out["engine"] = {"launches": launches, "two_replicas_vs_engine_f32": two}
+    print(f"ParallelInferenceEngine at instance480 (batch {len(probs)}): one bf16 replica "
+          f"bit-equal to InferenceEngine; two f32 replicas on {dev}: {json.dumps(two)} "
+          f"(limits 1e-4, 0.999); chain launches {json.dumps(launches)}")
+    check(launches["two_replicas_f32"] == {"banded": 0, "banded_f32": 4, "simt": 0},
+          "ParallelInferenceEngine, two replicas: 2 banded f32 launches per replica")
+    check(two["max_abs_prob_diff"] <= 1e-4 and two["mask_agreement"] >= 0.999,
+          "ParallelInferenceEngine, two replicas vs InferenceEngine (float32)")
+    rng = np.random.default_rng(SEED + 6)
+    with ServingFrontend(peng2, max_batch=8, max_delay_ms=20.0) as fe:
+        futs = [(fe.submit_instance(rng.integers(0, 255, (h, w, 3), dtype=np.uint8),
+                                    [w * .2, h * .1, w * .8, h * .9]), (h, w))
+                for h, w in [(480, 640), (640, 480), (300, 400)]]
+        futs += [(fe.submit(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)), (h, w))
+                 for h, w in [(512, 512), (375, 500)]]
+        for fut, hw in futs:
+            r = fut.result(timeout=300)
+            check((r["mask"] if isinstance(r, dict) else r).shape == hw,
+                  "ParallelInferenceEngine behind ServingFrontend: a mask per request")
+        print(f"ParallelInferenceEngine behind ServingFrontend: {fe.served} requests in "
+              f"{fe.dispatches} dispatches")
+
+    # -- 3. times
+    eng = InferenceEngine(sd20, in_channels=20, size=size, dtype=torch.bfloat16, device=dev)
+    runs = {"engine": [], "parallel_one_replica": []}
+    for name in ("engine", "parallel_one_replica", "parallel_one_replica", "engine"):
+        e = eng if name == "engine" else peng
+        e.predict_instances(batch)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            e.predict_instances(batch)  # returns host arrays: synchronous
+        runs[name].append(3 * len(probs) / (time.perf_counter() - t0))
+    out["engine"]["img_per_s_runs"] = runs
+    print(f"time instance480 bf16 batch {len(probs)}, host clock, turns: InferenceEngine "
+          f"{runs['engine']} img/s, ParallelInferenceEngine (1 replica) "
+          f"{runs['parallel_one_replica']} img/s; {card}")
+
+    dp_cfg = dataclasses.replace(tcfg, data_parallel=True)
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        _, dp_step, _, shard_batch = make_parallel_steps(dp_cfg, make_mesh(devices=[dev]))
+        states = {}
+        for name in ("single", "dp"):
+            model = Segment(20)
+            init_weights_(model, torch.Generator().manual_seed(SEED))
+            states[name] = TrainState.create(model.to(dev), tcfg.learning_rate)
+        single_step = make_train_step(tcfg)
+        steps = {"single": lambda: single_step(states["single"], tbatch, draws),
+                 "dp": lambda: dp_step(states["dp"], shard_batch(tbatch), draws)}
+        all_reduce, calls = dist.all_reduce, [0]
+
+        def counted(*args, **kwargs):
+            calls[0] += 1
+            return all_reduce(*args, **kwargs)
+
+        w2.warp_2level.launches = 0
+        dist.all_reduce = counted
+        try:
+            steps["dp"]()
+            torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = all_reduce
+        dp_launches = {"warp_2level": w2.warp_2level.launches, "all_reduces": calls[0]}
+        ms = {"single": [], "dp": []}
+        for name in ("single", "dp", "dp", "single"):
+            ms[name].append(cuda_ms(steps[name], iters=5))
+        idle = {name: idle_share(fn) for name, fn in steps.items()}
+    finally:
+        multihost.shutdown()
+    out["train_world1_nccl"] = {"ms_runs": ms, "launches_per_step": dp_launches, "trace": idle}
+    print(f"time train480 bf16 step (batch {tcfg.batch_size}), CUDA events, turns: single "
+          f"process {ms['single']} ms, data-parallel over 1 NCCL rank {ms['dp']} ms; per DP "
+          f"step {json.dumps(dp_launches)}; traces {json.dumps(idle)}; {card}")
+    check(dp_launches == {"warp_2level": 1, "all_reduces": collectives_per_step(Segment(20))},
+          "data-parallel step at world 1: 1 warp_2level launch, 149 all-reduces")
+    print(json.dumps({"parallel": out}))
     return out
 
 
@@ -1149,8 +1540,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32_off()
     dev = torch.device("cuda:0")
     card = card_line()
     print(card)
@@ -1729,6 +2119,11 @@ def main() -> int:
         disk = trainer_from_disk(dev, card, w2, fc, trained)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
+    # the parallel modules: two gloo ranks on the card, the replicated
+    # engine, and the data-parallel step's times over one NCCL rank
+    par = parallel_phase(dev, card, fc, w2, sd20, batch, probs, masks, probs32, masks32,
+                         tcfg, tbatch, draws)
+
     # -- 5. times ------------------------------------------------------------
     # the chain at batch 128, both programs: the banded form (bf16) beside
     # each launch's bound, its rounding plain version, the float32 plain
@@ -2008,6 +2403,7 @@ def main() -> int:
          "launches_trainer_from_disk_serve": disk["serve_launches"]["total"],
          "launches_eval": (evals["full_image"]["launches"]["fused_chain"]["banded"]
                            + evals["per_crop"]["launches"]["banded"]),
+         "launches_parallel_engine": par["engine"]["launches"],
          "max_abs_err": max(p["max_abs_err"] for p in main),
          "ms": sum(p["ms"] for p in main),
          "plain_ms": sum(p["plain_ms"] for p in main),
@@ -2068,6 +2464,9 @@ def main() -> int:
          "replaces": "tools/rot_pallas_probe.py:74",
          "launches": train_launches["warp_2level"],
          "launches_trainer_from_disk": disk["launches"]["warp_2level"],
+         "launches_dp_trainer_world1": disk["dp_launches"]["warp_2level"],
+         "launches_dp_step_world1": par["train_world1_nccl"]["launches_per_step"]["warp_2level"],
+         "launches_dp_gloo_per_rank": par["gloo_two_ranks"]["warp_2level_per_rank"],
          "max_abs_err": errs["warp_2level"],
          "ms": warp_ms, "kernel_ms": warp_kernel, "plain_ms": warp_plain,
          "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,
@@ -2091,4 +2490,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-worker"] and torch.cuda.is_available():
+        sys.exit(gloo_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

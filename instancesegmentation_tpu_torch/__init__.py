@@ -27,8 +27,12 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
 - ``data``    the preprocessing program of training (augmentation draws,
               rotated/separable crop warp, photometric augmentations,
               heatmaps) and the synthetic host batch.
-- ``train``   the training configuration, the train state (model + Adam)
-              and the train and eval steps.
+- ``train``   the training configuration, the train state (model + Adam),
+              the train and eval steps and the trainer
+              (``python -m instancesegmentation_tpu_torch.train``).
+- ``parallel`` data parallelism over ``torch.distributed``: process groups
+              (``multihost``), the data-parallel train and eval steps with
+              synchronised BatchNorm, and the replicated inference engine.
 
 The package imports ``torch`` and ``numpy`` only; it never imports JAX or
 the JAX package.

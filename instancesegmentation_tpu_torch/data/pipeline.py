@@ -341,11 +341,13 @@ def batch_iterator(
     streams forever.  An incomplete tail batch is dropped when
     ``drop_last``, else padded by repeating its first sample.  The producer
     never blocks forever: a consumer that stops iterating releases it.
-    ``local_slice`` (multi-host loading) is not ported: it must be None.
+
+    ``local_slice`` (multi-process data parallelism,
+    ``parallel/multihost.py:local_batch_slice``): every process derives the
+    same global batch order from ``seed``, then decodes and yields only its
+    rows of each global batch.  The tail is padded before slicing, so the
+    global rows (padding at the END) are the single-process batch's.
     """
-    if local_slice is not None:
-        raise NotImplementedError("local_slice (multi-host data parallelism) is not "
-                                  "ported yet (ROADMAP A5)")
     rng = np.random.default_rng(seed)
     pool = ThreadPoolExecutor(max_workers=num_threads)
     q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -387,6 +389,8 @@ def batch_iterator(
                     if drop_last:
                         continue
                     idxs = np.concatenate([idxs, np.repeat(idxs[:1], batch_size - len(idxs))])
+                if local_slice is not None:
+                    idxs = idxs[local_slice]
                 pending.append([pool.submit(dataset.fetch, i) for i in idxs])
                 if len(pending) > 1 and not put_oldest():
                     return

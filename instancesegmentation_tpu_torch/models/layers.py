@@ -25,17 +25,21 @@ Every forward takes ``train``.  In eval mode BN uses its running
 statistics; once ``fold_batchnorm`` has folded every BN into its conv,
 ``bn_folded`` (set by ``Segment.prepare_serving``) skips the identity BNs.  In
 train mode BN normalises with the batch statistics in float32 and updates the
-running statistics as flax does (``_bn_train``).  Convs run in the dtype of
+running statistics as flax does (``_bn_train``); inside
+``sync_batchnorm(model, group)`` the batch statistics are those of the whole
+data-parallel batch over the ranks of ``group``.  Convs run in the dtype of
 their input: float32 parameters are cast to it at each call, so a float32
 model computes in bfloat16 when fed bfloat16 activations, as the JAX
 package's ``dtype=bfloat16`` modules do.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -83,11 +87,12 @@ class ConvBN(nn.Module):
         self.act = PReLU(cout) if act == "prelu" else None
         self.relu = act == "relu"
         self.bn_folded = False
+        self.bn_group = None  # set by sync_batchnorm
 
     def forward(self, x, train: bool = False):
         x = conv(self.conv, x)
         if train:
-            x = _bn_train(self.bn, x)
+            x = _bn_train(self.bn, x, self.bn_group)
         elif not self.bn_folded:
             x = _bn_eval(self.bn, x)
         if self.act is not None:
@@ -122,7 +127,27 @@ def _bn_eval(bn: nn.BatchNorm2d, x):
                         eps=bn.eps).to(x.dtype)
 
 
-def _bn_train(bn: nn.BatchNorm2d, x):
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce(SUM)`` over ``group`` whose backward is the same sum:
+    JAX's psum, whose transpose is a psum.  Each rank's gradient then holds
+    every rank's terms through the shared statistics, and the ranks' mean
+    gradient is the full batch's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _bn_train(bn: nn.BatchNorm2d, x, group=None):
     """Batch-statistics BN as flax computes it, returned in ``x``'s dtype.
 
     In at least float32: ``mean = E[x]``, ``var = max(0, E[x^2] - mean^2)`` (the
@@ -130,17 +155,39 @@ def _bn_train(bn: nn.BatchNorm2d, x):
     The running statistics become ``0.9 * running + 0.1 * batch`` with that
     same biased variance (``F.batch_norm(training=True)`` would store the
     unbiased one).
+
+    With a process ``group``, ``E[x]`` and ``E[x^2]`` are the means of the
+    ranks' local ones (every rank holds as many rows), in one differentiable
+    all-reduce: flax's ``pmean`` of the two under ``axis_name``.
     """
     x32 = x.to(_stat_dtype(x))
     dims = (0, 2, 3)
     mean = x32.mean(dims)
-    var = torch.clamp_min((x32 * x32).mean(dims) - mean * mean, 0.0)
+    meansq = (x32 * x32).mean(dims)
+    if group is not None:
+        stats = _AllReduceSum.apply(torch.stack([mean, meansq]), group)
+        mean, meansq = stats / dist.get_world_size(group)
+    var = torch.clamp_min(meansq - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
     return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def sync_batchnorm(model: nn.Module, group):
+    """Within the block, every train-mode BN of ``model`` takes its batch
+    statistics over the ranks of the process ``group`` (``_bn_train``)."""
+    mods = [m for m in model.modules() if hasattr(m, "bn_group")]
+    for m in mods:
+        m.bn_group = group
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.bn_group = None
 
 
 def _apply(m: nn.Module, y, train: bool):
@@ -305,11 +352,12 @@ class BottleneckUpRes(nn.Module):
             nn.Conv2d(outplanes + skip_channels, outplanes, 1),
         )
         self.bn_folded = False
+        self.bn_group = None  # set by sync_batchnorm
 
     def forward(self, x, skip, train: bool = False):
         y = conv_transpose(self.convs[1], self.convs[0](x, train))
         if train:
-            y = _bn_train(self.convs[2], y)
+            y = _bn_train(self.convs[2], y, self.bn_group)
         elif not self.bn_folded:
             y = _bn_eval(self.convs[2], y)
         y = self.convs[4](F.relu(y), train)

@@ -1,8 +1,6 @@
 """The trainer: epoch loop, periodic validation, checkpoint contract.
 
-Port of ``instancesegmentation_tpu/train/loop.py`` (``Trainer``, ``main``),
-in one process (the single-process branch of the JAX package's
-``parallel/multihost.py:process_info``):
+Port of ``instancesegmentation_tpu/train/loop.py`` (``Trainer``, ``main``):
 
 - Adam + BCE over ``batch_iterator`` batches in the JAX package's order,
   sent ahead to the device by ``device_prefetch``;
@@ -22,12 +20,23 @@ Where it differs from the JAX package:
 - each step's augmentation draws come from a generator on the model's
   device seeded from ``(cfg.seed, host step)``, so a resumed run draws what
   an unbroken one would have (JAX folds the step into its key);
-- ``Trainer(cfg, device=None)`` runs on ``cuda:0`` and raises without CUDA
-  unless ``device="cpu"`` is passed; a train step on the card runs the
-  ``warp_2level`` kernel whenever ``rotate > 0``;
-- ``profile_steps`` traces with ``torch.profiler`` into ``out_dir/profile``;
-- data parallelism, multi-host runs, the grain loader and the orbax
-  backend are not ported yet and raise ``NotImplementedError``.
+- ``Trainer(cfg, device=None)`` runs on ``cuda:<local rank>`` and raises
+  without CUDA unless ``device="cpu"`` is passed; a train step on the card
+  runs the ``warp_2level`` kernel whenever ``rotate > 0``;
+- ``profile_steps`` traces with ``torch.profiler`` into ``out_dir/profile``
+  (rank 0 only);
+- the grain loader and the orbax backend are not ported yet and raise
+  ``NotImplementedError``.
+
+Data parallelism (``data_parallel``, ``parallel/data_parallel.py``): one
+process per device, joined by ``parallel/multihost.py:initialize`` before the
+``Trainer`` is built (``main`` does so under ``--multihost``; torchrun's
+environment works too).  ``batch_size`` is the GLOBAL batch; each rank loads
+its rows (``batch_iterator(local_slice=...)``) and draws the global batch's
+augmentations.  Rank 0 alone writes metrics, image grids and checkpoints;
+checkpoint observations and reloads go through rank 0 and a broadcast, so
+every rank takes the same branches (the JAX package's single-writer
+contract).  The checkpoint directory must be shared by the ranks.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ from instancesegmentation_tpu_torch.data.pipeline import (
 )
 from instancesegmentation_tpu_torch.models.layers import init_weights_
 from instancesegmentation_tpu_torch.models.segment import Segment
+from instancesegmentation_tpu_torch.parallel import multihost
 from instancesegmentation_tpu_torch.train.checkpoint import BranchBestCheckpoint, load_checkpoint
 from instancesegmentation_tpu_torch.train.config import TrainConfig, parse_args
 from instancesegmentation_tpu_torch.train.metrics import MetricLogger, dump_image_grid
@@ -75,10 +85,6 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def _not_ported(cfg: TrainConfig) -> Optional[str]:
-    if cfg.data_parallel:
-        return "data_parallel is not ported yet (ROADMAP A5)"
-    if cfg.multihost:
-        return "multihost is not ported yet (ROADMAP A5)"
     if cfg.loader != "threads":
         return f"loader={cfg.loader!r} is not ported yet (ROADMAP A8); use 'threads'"
     if cfg.checkpoint_backend != "file":
@@ -93,15 +99,33 @@ class Trainer:
         if reason:
             raise NotImplementedError(reason)
         self.cfg = cfg
-        self.device = pick_device(device)
+        self.proc_id, self.proc_count = multihost.process_info()
+        self.is_main = self.proc_id == 0
+        if self.proc_count > 1 and not cfg.data_parallel:
+            raise ValueError("multi-host training requires --data-parallel")
+        self.local_slice = (multihost.local_batch_slice(cfg.batch_size)
+                            if self.proc_count > 1 else None)
+        self.device = pick_device(device if device is not None
+                                  else f"cuda:{multihost.local_rank()}")
         model = Segment(cfg.in_channels)
         init_weights_(model, torch.Generator().manual_seed(cfg.seed))
         self.state = TrainState.create(model.to(self.device), cfg.learning_rate)
-        self.train_step = make_train_step(cfg)
-        self.eval_step = make_eval_step(cfg)
+        if cfg.data_parallel:
+            from instancesegmentation_tpu_torch.parallel.data_parallel import (
+                make_parallel_steps,
+            )
+            from instancesegmentation_tpu_torch.parallel.mesh import make_mesh
+
+            self.mesh, self.train_step, self.eval_step, self.shard_batch = (
+                make_parallel_steps(cfg, make_mesh(devices=[self.device])))
+        else:
+            self.mesh = None
+            self.train_step = make_train_step(cfg)
+            self.eval_step = make_eval_step(cfg)
+            self.shard_batch = lambda b: b
         self.ckpt = BranchBestCheckpoint(cfg.checkpoint_dir,
                                          explicit_path=cfg.checkpoint_save_path)
-        self.logger = MetricLogger(cfg.out_dir)
+        self.logger = MetricLogger(cfg.out_dir, enabled=self.is_main)
         self.start_epoch = 0
         self.iou_max = 0.0
 
@@ -119,43 +143,63 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _ckpt_obs(self) -> tuple[bool, float]:
-        """(exists, best) of the shared checkpoint."""
+        """(exists, best) of the shared checkpoint: rank 0's observation on
+        every rank, so the branches it gates (which gate collective calls)
+        are the same everywhere even while the file is being written."""
         exists = self.ckpt.exists()
-        return exists, (self.ckpt.best() or 0.0) if exists else 0.0
+        obs = multihost.broadcast_from_main(
+            [float(exists), (self.ckpt.best() or 0.0) if exists else 0.0])
+        return bool(obs[0]), float(obs[1])
 
     def _load_best(self) -> bool:
         """Resume model, optimizer and epoch from the branch-best
         checkpoint.  Returns success; a failed load is reported and
-        training goes on (as in the reference)."""
-        try:
-            tree, meta = self.ckpt.load()
-            from_state_tree(tree, self.state)
-        except (OSError, ValueError, KeyError) as e:
-            print(f"load fail: {e!r}")
+        training goes on (as in the reference).
+
+        Only rank 0 reads the file; the outcome and rank 0's state are
+        broadcast, so no rank can see a torn or newer file than the others.
+        """
+        ok, epoch = 0.0, 0.0
+        if self.is_main:
+            try:
+                tree, meta = self.ckpt.load()
+                from_state_tree(tree, self.state)
+                ok, epoch = 1.0, float(meta.get("epoch", 0))
+            except (OSError, ValueError, KeyError) as e:
+                print(f"load fail: {e!r}")
+        flags = multihost.broadcast_from_main([ok, epoch])
+        if not flags[0]:
             return False
-        self.start_epoch = int(meta.get("epoch", 0))
+        multihost.broadcast_state(self.state)
+        self.start_epoch = int(flags[1])
         return True
 
     def _validate(self, valset: InstanceCommonDataset, epoch: int, seed: int) -> float:
         """Mean mask IoU over the whole val set: the incomplete tail batch
         is padded (``drop_last=False`` repeats its first sample) and the
         padded rows are dropped from the mean, so every sample counts
-        once."""
+        once.  Each rank scores its rows; the sum and count are reduced
+        over the ranks once, at the end."""
         cfg = self.cfg
         iou_sum, iou_count = 0.0, 0
         cap = cfg.max_val_batches or None
         first = None
         n_total = len(valset)
+        per = cfg.batch_size // self.proc_count
         for k, batch in enumerate(batch_iterator(
                 valset, cfg.batch_size, shuffle=True, seed=seed, epochs=1,
-                drop_last=False, num_threads=cfg.num_threads)):
-            images, probs, masks, iou_vec = self.eval_step(self.state.model, batch)
-            # padding repeats the tail's first sample at the END of the batch
+                drop_last=False, num_threads=cfg.num_threads,
+                local_slice=self.local_slice)):
+            images, probs, masks, iou_vec = self.eval_step(self.state.model,
+                                                           self.shard_batch(batch))
+            # padding repeats the tail's first sample at the END of the
+            # global batch; this rank's rows are [proc_id*per, (proc_id+1)*per)
             valid = min(cfg.batch_size, n_total - k * cfg.batch_size)
-            vals = _host(iou_vec)[:valid]
-            iou_sum += float(vals.sum())
-            iou_count += len(vals)
-            if first is None and cfg.log_images:
+            local = multihost.host_local_rows(iou_vec, cfg.batch_size)
+            lv = int(np.clip(valid - self.proc_id * per, 0, per))
+            iou_sum += float(local[:lv].sum())
+            iou_count += lv
+            if first is None and cfg.log_images and self.is_main:
                 first = (images, probs, masks)
             if cap and k + 1 >= cap:
                 break
@@ -163,6 +207,7 @@ class Trainer:
             images, probs, masks = first
             dump_image_grid(os.path.join(cfg.out_dir, "viz"), f"val_e{epoch:03d}",
                             _host(images), _host(masks), _host(probs))
+        iou_sum, iou_count = multihost.sum_across_processes([iou_sum, float(iou_count)])
         return float(iou_sum / iou_count) if iou_count else 0.0
 
     def _generator(self, host_step: int) -> torch.Generator:
@@ -173,10 +218,11 @@ class Trainer:
     def train(self) -> float:
         cfg = self.cfg
         print(f"branch name: {self.ckpt.branch_name}")
-        print(f"device: {self.device}")
-        os.makedirs(cfg.out_dir, exist_ok=True)
-        with open(os.path.join(cfg.out_dir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2)
+        print(f"device: {self.device}, rank {self.proc_id} of {self.proc_count}")
+        if self.is_main:
+            os.makedirs(cfg.out_dir, exist_ok=True)
+            with open(os.path.join(cfg.out_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2)
 
         trainset = InstanceCommonDataset(cfg.train_dataset_dir, cfg.canvas)
         valset = InstanceCommonDataset(cfg.val_dataset_dir, cfg.canvas)
@@ -191,7 +237,7 @@ class Trainer:
         # --profile-steps N: a torch.profiler trace of N steady-state steps
         # (step 0 of an epoch is skipped) into out_dir/profile
         profiler = None
-        profile_done = cfg.profile_steps <= 0
+        profile_done = cfg.profile_steps <= 0 or not self.is_main
         steps_profiled = 0
         profile_dir = os.path.join(cfg.out_dir, "profile")
 
@@ -203,14 +249,16 @@ class Trainer:
             n_seen = 0
             stream = batch_iterator(trainset, cfg.batch_size, shuffle=True,
                                     seed=cfg.seed + epoch, epochs=1,
-                                    num_threads=cfg.num_threads)
+                                    num_threads=cfg.num_threads,
+                                    local_slice=self.local_slice)
             batches = device_prefetch(stream, self.device)
             try:
                 for i0, batch in enumerate(batches):
                     if not profile_done and profiler is None and i0 == 1:
                         profiler = _start_profiler(self.device)
                     draws = draw_augment(cfg.batch_size, aug, self._generator(host_step))
-                    self.state, metrics = self.train_step(self.state, batch, draws)
+                    self.state, metrics = self.train_step(self.state,
+                                                          self.shard_batch(batch), draws)
                     host_step += 1
                     losses.append(metrics["loss"])
                     n_seen += cfg.batch_size
@@ -271,12 +319,15 @@ class Trainer:
                                         restarts += 1
                                         break
 
-                        # save-best behind the quality gate
+                        # save-best behind the quality gate; the state is
+                        # replicated, so rank 0 alone writes (val_iou is
+                        # the global mean: iou_max advances everywhere)
                         if val_iou > self.iou_max and val_iou > cfg.save_iou_gate:
                             self.iou_max = val_iou
-                            print("save branch best checkpoint " + self.ckpt.path)
-                            self.ckpt.save(to_state_tree(self.state), best=val_iou,
-                                           epoch=epoch + 1)
+                            if self.is_main:
+                                print("save branch best checkpoint " + self.ckpt.path)
+                                self.ckpt.save(to_state_tree(self.state), best=val_iou,
+                                               epoch=epoch + 1)
             finally:
                 batches.close()
                 stream.close()
@@ -313,8 +364,22 @@ def _stop_profiler(profiler, device: torch.device, profile_dir: str, step: int) 
 
 def main(argv=None):
     """``python -m instancesegmentation_tpu_torch.train [flags]``: train on
-    ``cuda:0`` (every ``TrainConfig`` field is a flag)."""
-    Trainer(parse_args(argv)).train()
+    ``cuda:<local rank>`` (every ``TrainConfig`` field is a flag).  With
+    ``--multihost`` the process first joins the process group: ``--coordinator
+    host:port --num-processes N --process-id R``, or none of the three under
+    torchrun; it leaves the group when training ends."""
+    cfg = parse_args(argv)
+    if cfg.multihost:
+        multihost.initialize(
+            coordinator=cfg.coordinator or None,
+            num_processes=cfg.num_processes or None,
+            process_id=cfg.process_id if cfg.process_id >= 0 else None,
+        )
+    try:
+        Trainer(cfg).train()
+    finally:
+        if cfg.multihost:
+            multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -19,22 +19,34 @@ from instancesegmentation_tpu_torch.core.visualize import draw_mask, image_grid
 
 class MetricLogger:
     """Appends one JSON record per ``log`` call to ``out_dir/<name>.jsonl``:
-    the step, the seconds since the logger was made, and the scalars."""
+    the step, the seconds since the logger was made, and the scalars.
 
-    def __init__(self, out_dir: str, name: str = "metrics"):
+    ``enabled=False`` makes every method a no-op that touches no file: the
+    ranks other than 0 of a data-parallel run pass it, so a shared
+    ``out_dir`` has one writer."""
+
+    def __init__(self, out_dir: str, name: str = "metrics", enabled: bool = True):
+        self.enabled = enabled
         self.t0 = time.time()
+        self.path = None
+        self._f = None
+        if not enabled:
+            return
         os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, f"{name}.jsonl")
         self._f = open(self.path, "a")
 
     def log(self, step: int, **scalars) -> None:
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": round(time.time() - self.t0, 3)}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self.enabled:
+            self._f.close()
 
 
 def dump_image_grid(

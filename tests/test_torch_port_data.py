@@ -289,8 +289,10 @@ def test_batch_iterator_stops_and_raises(jax_dir):
     broken.records[3][K.key_combine("image", "image_path")] = "image/missing.png"
     with pytest.raises(FileNotFoundError):
         list(tpipe.batch_iterator(broken, batch_size=4, shuffle=False, num_threads=2))
-    with pytest.raises(NotImplementedError, match="A5"):
-        next(tpipe.batch_iterator(ds, batch_size=2, local_slice=slice(0, 1)))
+    # a local slice (ported: data parallelism) yields only its rows
+    it = tpipe.batch_iterator(ds, batch_size=2, num_threads=2, local_slice=slice(0, 1))
+    assert next(it)["image"].shape[0] == 1
+    it.close()
 
 
 def test_device_prefetch_keeps_batches(jax_dir):

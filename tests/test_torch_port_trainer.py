@@ -276,7 +276,17 @@ def test_draws_follow_the_step(synth_dir, tmp_path):
     ("data_parallel", True, "A5"), ("multihost", True, "A5"),
     ("loader", "grain", "A8"), ("checkpoint_backend", "orbax", "A8")])
 def test_not_ported_options_raise(synth_dir, tmp_path, field, value, where):
+    """A8's options raise naming their item.  A5's are ported: in one process
+    ``data_parallel`` builds the data-parallel steps on a one-device mesh, and
+    ``multihost`` only makes ``main`` join a process group first
+    (tests/test_torch_port_parallel.py runs both across processes)."""
     cfg = _cfg(synth_dir, str(tmp_path), **{field: value})
+    if where == "A5":
+        trainer = tloop.Trainer(cfg, device="cpu")
+        trainer.logger.close()
+        assert (trainer.mesh is not None) == cfg.data_parallel
+        assert (trainer.proc_id, trainer.proc_count, trainer.local_slice) == (0, 1, None)
+        return
     with pytest.raises(NotImplementedError, match=where):
         tloop.Trainer(cfg, device="cpu")
 
