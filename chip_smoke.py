@@ -84,6 +84,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    masks); and the train img/s over steps 2-8 (host clock, loader
    included), the loader alone (``batch_iterator``, 8 threads), ``read_png``
    per 480 x 640 file and the checkpoint's save and load times and size;
+   the same training through ``main`` with ``--loader grain`` at 0, 4 and 8
+   worker processes and then ``--loader threads`` again, in turns (img/s
+   over steps 2-8, each epoch's first-batch seconds, 1 ``warp_2level``
+   launch per step, losses within 1e-3 relative of the threaded run's: one
+   batch order for every loader), and with ``--checkpoint-backend orbax``
+   (the ``.orbax`` directory and sidecar, a resume bit for bit, save and
+   load ms); then the JPEG decoder (``ops/native/jpeg.cpp``, built with g++):
+   the fixtures of ``tests/data/jpeg`` bit-equal to the cv2 arrays stored
+   beside them in both modes, and ms per 480 x 640 baseline and progressive
+   file beside ``read_png``'s ms per 480 x 640 PNG;
    then evaluation and the inference command (``eval_and_cli``):
    ``examples/crossed_demo.ckpt`` on 8 crossed-pair images in float32
    (conditioned AP 1.0, unconditioned AP75 <= 0.2) and bfloat16, ``python
@@ -134,7 +144,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    proposal path end to end, and the train step (of which preprocessing and
    the warp kernels) with ``F.grid_sample`` at the warp's shape as a
    yardstick;
-6. print the per-kernel JSON line, the card line, and last
+6. stop the loaders' fork server and resource tracker and fail if any
+   process the run started is still alive (``child_pids``); print the
+   per-kernel JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -162,6 +174,19 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {msg}")
+
+
+def child_pids(pid: int | None = None) -> list[int]:
+    """The live children of process ``pid`` (this one by default)."""
+    pid = os.getpid() if pid is None else pid
+    out = []
+    for task in os.listdir(f"/proc/{pid}/task"):
+        try:
+            with open(f"/proc/{pid}/task/{task}/children") as f:
+                out += [int(c) for c in f.read().split()]
+        except FileNotFoundError:  # the thread ended meanwhile
+            pass
+    return out
 
 
 def card_line() -> str:
@@ -661,6 +686,22 @@ def step_ms_from_log(rows: list) -> tuple[float, int]:
     return seconds, steps
 
 
+def tree_leaves(t, prefix=()):
+    """(path, numpy array) of each leaf of a nested dict of arrays."""
+    for k, v in t.items():
+        if isinstance(v, dict):
+            yield from tree_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def same_tree(a: dict, b: dict) -> bool:
+    """Two state trees with the same leaves, dtypes and bits."""
+    got, want = dict(tree_leaves(a)), dict(tree_leaves(b))
+    return got.keys() == want.keys() and all(
+        got[k].dtype == v.dtype and np.array_equal(got[k], v) for k, v in want.items())
+
+
 def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
     """The trainer's path from a dataset directory to a served checkpoint, at
     full width: write a COCO-sized synthetic train and val set with the port,
@@ -710,9 +751,14 @@ def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
         # -- train through the entry point; counts read around this run only
         w2.warp_2level.launches = 0
         fc.reset_launches()
+        firsts = []
+        undo = first_batch_seconds(loop, firsts)
         t0 = time.perf_counter()
-        loop.main(argv)
-        torch.cuda.synchronize()
+        try:
+            loop.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            undo()
         out["train_wall_s"] = time.perf_counter() - t0
         launches = {"warp_2level": w2.warp_2level.launches,
                     "fused_chain": fc.fused_chain.launches}
@@ -790,26 +836,24 @@ def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
         check(out["dp_launches"]["warp_2level"] == launches["warp_2level"],
               "data-parallel trainer: the single-process run's warp_2level launches")
 
+        # -- the worker loader in turns beside the threaded one, and the
+        # directory checkpoint backend (each run's own warp_2level count)
+        out["loaders"] = loader_turns(run_argv, w2, n_steps, {
+            "img_per_s_steps_2_to_n": out["train_img_per_s_steps_2_to_n"],
+            "ms_per_step_steps_2_to_n": out["train_ms_per_step_steps_2_to_n"],
+            "first_batch_s_per_epoch": firsts,
+            "warp_2level_per_step": launches["warp_2level"] / n_steps, "losses": losses})
+        out["orbax"] = orbax_backend(run_argv, w2, n_steps)
+
         # -- resume: a fresh Trainer holds the saved state bit for bit
         saved, meta = load_checkpoint(ckpt_path)
         resumed = loop.Trainer(cfg)
         resumed.logger.close()
         check(resumed.start_epoch == meta["epoch"] and resumed.iou_max == meta["best"],
               "resume: the saved epoch and best")
-        tree = to_state_tree(resumed.state)
-
-        def leaves(t, prefix=()):
-            for k, v in t.items():
-                if isinstance(v, dict):
-                    yield from leaves(v, prefix + (k,))
-                else:
-                    yield prefix + (k,), np.asarray(v)
-
-        got = dict(leaves(tree))
-        want = dict(leaves(saved))
-        check(got.keys() == want.keys() and all(
-            got[k].dtype == v.dtype and np.array_equal(got[k], v) for k, v in want.items()),
-            "resume: to_state_tree equals the file's tree bit for bit")
+        want = dict(tree_leaves(saved))
+        check(same_tree(to_state_tree(resumed.state), saved),
+              "resume: to_state_tree equals the file's tree bit for bit")
         print(f"resume: epoch {resumed.start_epoch}, best {resumed.iou_max:.4f}, step "
               f"{resumed.state.step}; {len(want)} leaves bit-equal")
 
@@ -862,6 +906,187 @@ def trainer_from_disk(dev, card: str, w2, fc, keep_checkpoint: str) -> dict:
           f"checkpoint save {out['checkpoint_save_ms']:.1f} ms, load "
           f"{out['checkpoint_load_ms']:.1f} ms, {out['checkpoint_bytes']} bytes; {card}")
     print(json.dumps({"trainer_from_disk": {k: v for k, v in out.items() if k != "losses"}}))
+    return out
+
+
+#: train_disk480 again with the worker loader, in turns beside the threaded
+#: one (whose first run is the phase's own): (loader, worker processes)
+LOADER_TURNS = (("grain", 0), ("grain", 4), ("grain", 8), ("threads", None))
+
+
+def first_batch_seconds(loop, firsts: list):
+    """Patch the trainer's train streams (``batch_iterator`` with the tail
+    dropped, ``GrainLoader.batches``) to append to ``firsts`` the seconds
+    from opening each epoch's stream to its first batch (a worker pool
+    starts inside its first epoch's stream).  Returns the undo."""
+    make_threads, make_workers = loop.batch_iterator, loop.GrainLoader.batches
+
+    def timed(make):
+        def opened(*a, **k):
+            t0 = time.perf_counter()
+            stream = make(*a, **k)
+            try:
+                for i, b in enumerate(stream):
+                    if i == 0:
+                        firsts.append(time.perf_counter() - t0)
+                    yield b
+            finally:
+                stream.close()
+        return opened
+
+    def threads(*a, **k):  # validation's streams keep their tail: not timed
+        return (timed(make_threads) if k.get("drop_last", True) else make_threads)(*a, **k)
+
+    loop.batch_iterator, loop.GrainLoader.batches = threads, timed(make_workers)
+
+    def undo():
+        loop.batch_iterator, loop.GrainLoader.batches = make_threads, make_workers
+    return undo
+
+
+def loader_turns(run_argv, w2, n_steps: int, first_run: dict) -> dict:
+    """train_disk480 through ``main`` with ``--loader grain`` at 0, 4 and 8
+    worker processes, then ``--loader threads`` again: per run the img/s
+    over steps 2-8, each epoch's first-batch seconds, ``warp_2level``
+    launches per step (1) and finite losses; ``first_run`` is the phase's
+    threaded run."""
+    from instancesegmentation_tpu_torch.train import loop
+
+    runs = {"threads": [first_run]}
+    for loader, workers in LOADER_TURNS:
+        name = loader if workers is None else f"{loader}{workers}"
+        argv = run_argv(f"loader_{name}_{len(runs)}") + ["--loader", loader]
+        if workers is not None:
+            argv += ["--grain-workers", str(workers)]
+        firsts = []
+        undo = first_batch_seconds(loop, firsts)
+        w2.warp_2level.launches = 0
+        try:
+            loop.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        rows = metric_rows(argv[argv.index("--out-dir") + 1])
+        losses = [r["loss"] for r in rows if "loss" in r]
+        secs, steps = step_ms_from_log(rows)
+        run = {"img_per_s_steps_2_to_n": steps * DISK_BATCH / secs,
+               "ms_per_step_steps_2_to_n": secs / steps * 1e3,
+               "first_batch_s_per_epoch": firsts,
+               "warp_2level_per_step": w2.warp_2level.launches / n_steps,
+               "losses": losses}
+        check(len(losses) == n_steps and all(np.isfinite(losses)),
+              f"trainer from disk, --loader {name}: one finite loss per step")
+        check(w2.warp_2level.launches == n_steps,
+              f"trainer from disk, --loader {name}: 1 warp_2level launch per step")
+        check(len(firsts) == DISK_EPOCHS, f"trainer from disk, --loader {name}: an epoch's "
+              "first batch timed per epoch")
+        runs.setdefault(name, []).append(run)
+        print(f"trainer from disk, --loader {name}: {run['img_per_s_steps_2_to_n']:.1f} img/s "
+              f"over steps 2-{n_steps} ({run['ms_per_step_steps_2_to_n']:.1f} ms per step), "
+              f"first batch {[round(v, 3) for v in firsts]} s per epoch, "
+              f"{run['warp_2level_per_step']:.0f} warp_2level launch per step")
+    # one order (batch_iterator's) for every loader: the losses differ only
+    # by the card's run-to-run spread, if at all
+    for name, rs in runs.items():
+        for run in rs:
+            run["losses_bit_equal_to_first"] = [a == b for a, b in
+                                                zip(run["losses"], first_run["losses"])]
+            run["max_rel_loss_diff_to_first"] = max(
+                abs(a - b) / abs(b) for a, b in zip(run["losses"], first_run["losses"]))
+            check(run["max_rel_loss_diff_to_first"] <= 1e-3,
+                  f"trainer from disk, --loader {name}: the threaded run's losses (rel 1e-3)")
+    print("trainer from disk, loaders: losses bit-equal to the first threaded run's "
+          + json.dumps({n: [all(r["losses_bit_equal_to_first"]) for r in rs]
+                        for n, rs in runs.items()}))
+    return runs
+
+
+def orbax_backend(run_argv, w2, n_steps: int) -> dict:
+    """train_disk480 through ``main`` with ``--checkpoint-backend orbax``: the
+    ``.orbax`` directory and its sidecar, a fresh ``Trainer`` resuming from it
+    bit for bit (epoch, best, state tree), and its save and load times."""
+    from instancesegmentation_tpu_torch.train import loop
+    from instancesegmentation_tpu_torch.train.checkpoint_orbax import (
+        PAYLOAD,
+        OrbaxBranchBestCheckpoint,
+    )
+    from instancesegmentation_tpu_torch.train.config import parse_args
+    from instancesegmentation_tpu_torch.train.state import from_state_tree, to_state_tree
+
+    argv = run_argv("orbax") + ["--checkpoint-backend", "orbax"]
+    cfg = parse_args(argv)
+    w2.warp_2level.launches = 0
+    loop.main(argv)
+    torch.cuda.synchronize()
+    out = {"warp_2level_launches": w2.warp_2level.launches}
+    ckpt = OrbaxBranchBestCheckpoint(cfg.checkpoint_dir)
+    check(ckpt.exists() and sorted(os.listdir(ckpt.path)) == [PAYLOAD],
+          "orbax backend: the .orbax directory with its payload, and the sidecar")
+    saved, meta = ckpt.load()
+    resumed = loop.Trainer(cfg)
+    resumed.logger.close()
+    check(resumed.start_epoch == meta["epoch"] and resumed.iou_max == meta["best"] == ckpt.best(),
+          "orbax backend: the resumed trainer's epoch and best are the sidecar's")
+    check(same_tree(to_state_tree(resumed.state), saved),
+          "orbax backend: the resumed state bit-equal to the saved tree")
+    check(out["warp_2level_launches"] == n_steps,
+          "orbax backend: 1 warp_2level launch per step")
+    t0 = time.perf_counter()
+    ckpt.save(to_state_tree(resumed.state), best=meta["best"], epoch=meta["epoch"])
+    out["save_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    from_state_tree(ckpt.load()[0], resumed.state)
+    torch.cuda.synchronize()
+    out["load_ms"] = (time.perf_counter() - t0) * 1e3
+    out["payload_bytes"] = os.path.getsize(os.path.join(ckpt.path, PAYLOAD))
+    out.update(epoch=meta["epoch"], best=meta["best"])
+    print(f"orbax backend: resumed at epoch {meta['epoch']}, best {meta['best']:.4f}, state "
+          f"bit-equal; save {out['save_ms']:.1f} ms, load {out['load_ms']:.1f} ms, "
+          f"{out['payload_bytes']} bytes; {out['warp_2level_launches']} warp_2level launches")
+    return out
+
+
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+JPEG_TIMED = ("base_480x640_420_q95", "prog_480x640_420_q95")
+
+
+def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
+    """The JPEG decoder (``ops/native/jpeg.cpp``, built with g++ here): each
+    committed fixture of ``tests/data/jpeg`` decoded in both modes, bit-equal
+    to the cv2 arrays stored beside it; ms per 480 x 640 file, baseline and
+    progressive 4:2:0 at quality 95, beside ``read_png``'s ms per 480 x 640
+    PNG (``png_ms``, the trainer phase's)."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imread
+    from instancesegmentation_tpu_torch.ops.native import jpeg as native_jpeg
+
+    t0 = time.perf_counter()
+    native_jpeg.load_jpeg()
+    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    files = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
+    check(len(files) >= 8, "jpeg: the committed fixtures are present")
+    for path in files:
+        stored = np.load(path[:-4] + ".npz")
+        for mode in ("color", "gray"):
+            check(np.array_equal(imread(path, mode), stored[mode]),
+                  f"jpeg: {os.path.basename(path)} in {mode} mode equals cv2's stored decode")
+    out["fixtures_bit_equal"] = len(files)
+    for name in JPEG_TIMED:
+        path = os.path.join(JPEG_FIXTURES, name + ".jpg")
+        imread(path)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            imread(path)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        out[f"{name}_bytes"] = os.path.getsize(path)
+    out["read_png_ms_480x640_rgb"] = png_ms
+    print(f"jpeg: {len(files)} fixtures bit-equal to cv2's stored decodes in both modes; "
+          f"480x640 4:2:0 q95 baseline {out[JPEG_TIMED[0] + '_ms']:.2f} ms "
+          f"({out[JPEG_TIMED[0] + '_bytes']} bytes), progressive {out[JPEG_TIMED[1] + '_ms']:.2f} "
+          f"ms ({out[JPEG_TIMED[1] + '_bytes']} bytes), read_png {png_ms:.2f} ms per 480x640 "
+          f"RGB PNG (host clock); {card}")
+    print(json.dumps({"jpeg": out}))
     return out
 
 
@@ -1297,7 +1522,7 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
 
     host = {k: 0.0 for k in ("decode", "rle_encode", "predict", "nms", "ap", "engine_build")}
     nms_calls, predict_rows = [], []
-    originals = {"read_png": teval.read_png, "rle_encode": teval.rle_encode,
+    originals = {"imread": teval.imread, "rle_encode": teval.rle_encode,
                  "mask_ap_rle": teval.mask_ap_rle, "_build_engine": teval._build_engine}
     nms_keep, predict = proposals._nms_keep, InferenceEngine.predict_instances
 
@@ -1319,7 +1544,7 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
         predict_rows.append(int(batch["image"].shape[0]))
         return predict(self, batch)  # returns host arrays: synchronous
 
-    teval.read_png = timed("decode", originals["read_png"])
+    teval.imread = timed("decode", originals["imread"])
     teval.rle_encode = timed("rle_encode", originals["rle_encode"])
     teval.mask_ap_rle = timed("ap", originals["mask_ap_rle"])
     teval._build_engine = timed("engine_build", originals["_build_engine"])
@@ -2117,6 +2342,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as eval_tmp:
         trained = os.path.join(eval_tmp, "trained.ckpt")
         disk = trainer_from_disk(dev, card, w2, fc, trained)
+        jpeg_phase(card, disk["read_png_ms_480x640_rgb"])
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
     # the parallel modules: two gloo ranks on the card, the replicated
@@ -2390,6 +2616,16 @@ def main() -> int:
     print(f"profiler traces: {json.dumps(trace_stats)}")
 
     # -- 6. summary ----------------------------------------------------------
+    # every pool is closed by now: only the fork server and the resource
+    # tracker may be left, with no child of their own; stop both, then
+    # nothing this run started may still be alive
+    from instancesegmentation_tpu_torch.data.grain_loader import stop_fork_server
+
+    workers = {c: child_pids(c) for c in child_pids()}
+    check(not any(workers.values()), f"worker processes left running: {workers}")
+    stop_fork_server()
+    check(not child_pids(), f"processes left running: {child_pids()}")
+    print(f"processes: {len(workers)} helper(s) stopped, none left")
     # the main path's two launches (banded, 480 program): each launch's own
     # bound, summed; what bounds the chain is what bounds its larger part
     main = [p for p in parts if p["program"] == 480 and p["form"] == "banded"]
@@ -2464,6 +2700,10 @@ def main() -> int:
          "replaces": "tools/rot_pallas_probe.py:74",
          "launches": train_launches["warp_2level"],
          "launches_trainer_from_disk": disk["launches"]["warp_2level"],
+         "launches_trainer_from_disk_by_loader": {
+             name: [round(r["warp_2level_per_step"] * disk["steps"]) for r in rs]
+             for name, rs in disk["loaders"].items()},
+         "launches_trainer_from_disk_orbax": disk["orbax"]["warp_2level_launches"],
          "launches_dp_trainer_world1": disk["dp_launches"]["warp_2level"],
          "launches_dp_step_world1": par["train_world1_nccl"]["launches_per_step"]["warp_2level"],
          "launches_dp_gloo_per_rank": par["gloo_two_ranks"]["warp_2level_per_rank"],

@@ -5,8 +5,10 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
 (which stays the reference), on one NVIDIA Hopper GPU:
 
 - ``core``    device selection (the card unless the caller asks for the CPU),
-              records, the PNG codec, mask rasterisation and RLE codecs,
-              and mask AP (``core/evaluation.py``).
+              records, the image reader (``imread``: PNG, and JPEG through
+              ``ops/native``, with EXIF orientation, as ``cv2.imread``), the
+              PNG codec, mask rasterisation and RLE codecs, and mask AP
+              (``core/evaluation.py``).
 - ``utils``   weight carrying between the flax variable tree and the port's
               state dict.
 - ``models``  the Segment encoder-decoder as ``nn.Module``s (eval and train
@@ -17,7 +19,7 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
               the detection ops (NMS, RoI-Align, proposal matching); each
               kernel is hand-written CUDA C++ for sm_90a (sources in
               ``csrc/``) with its plain PyTorch version; ``ops/native`` the
-              host C++ RLE IoU of mask AP.
+              host C++ RLE IoU of mask AP and the JPEG decoder.
 - ``infer``   the instance and whole-image serving programs, the engine, the
               dynamic-batching front end, proposal-based serving (NMS,
               then one instance crop per surviving box) and the inference
@@ -26,9 +28,11 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
               (``python -m instancesegmentation_tpu_torch.eval``).
 - ``data``    the preprocessing program of training (augmentation draws,
               rotated/separable crop warp, photometric augmentations,
-              heatmaps) and the synthetic host batch.
+              heatmaps), the threaded and the worker-process loaders and
+              the synthetic host batch.
 - ``train``   the training configuration, the train state (model + Adam),
-              the train and eval steps and the trainer
+              the train and eval steps, ISEG checkpoints as a file or a
+              directory, and the trainer
               (``python -m instancesegmentation_tpu_torch.train``).
 - ``parallel`` data parallelism over ``torch.distributed``: process groups
               (``multihost``), the data-parallel train and eval steps with

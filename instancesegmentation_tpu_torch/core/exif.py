@@ -1,0 +1,66 @@
+"""EXIF orientation as ``cv2.imread`` applies it (no
+``IMREAD_IGNORE_ORIENTATION``): read tag 0x0112 from IFD0 of a TIFF block
+(a PNG ``eXIf`` chunk, or a JPEG's first APP1 segment from its seventh
+byte), then turn the decoded array by one of the eight orientations.
+
+The TIFF walk is cv2's ``ExifReader``: little-endian after ``II``, else
+big-endian; the marker 42; IFD0's entries in order, where the first 0x0112
+entry decides (one SHORT: its value, else 1).  A block cut short keeps what
+was read before the cut.  Values outside 1-8 leave the image as it is.
+"""
+from __future__ import annotations
+
+import struct
+from typing import Optional
+
+import numpy as np
+
+ORIENTATION_TAG = 0x0112
+_SHORT = 3
+
+
+def exif_orientation(tiff: Optional[bytes]) -> int:
+    """The orientation (1 when absent) of the TIFF block ``tiff``."""
+    if not tiff:
+        return 1
+    end = "<" if tiff[:2] == b"II" else ">"
+
+    def u16(off: int) -> int:
+        if off + 2 > len(tiff):
+            raise IndexError
+        return struct.unpack_from(end + "H", tiff, off)[0]
+
+    def u32(off: int) -> int:
+        if off + 4 > len(tiff):
+            raise IndexError
+        return struct.unpack_from(end + "I", tiff, off)[0]
+
+    try:
+        if u16(2) != 42:
+            return 1
+        off = u32(4)
+        for i in range(u16(off)):
+            entry = off + 2 + 12 * i
+            if u16(entry) == ORIENTATION_TAG:
+                if u16(entry + 2) == _SHORT and u32(entry + 4) == 1:
+                    return u16(entry + 8)
+                return 1
+    except IndexError:
+        pass
+    return 1
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """``img`` ([H, W] or [H, W, C]) turned as cv2 turns orientation 1-8:
+    2 mirror, 3 rotate 180, 4 flip, 5 transpose, 6 rotate 90 clockwise,
+    7 transverse, 8 rotate 90 counter-clockwise."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+        orientation = {5: 1, 6: 2, 7: 3, 8: 4}[orientation]
+    if orientation == 2:
+        img = img[:, ::-1]
+    elif orientation == 3:
+        img = img[::-1, ::-1]
+    elif orientation == 4:
+        img = img[::-1]
+    return np.ascontiguousarray(img)

@@ -7,12 +7,15 @@ channel and an alpha channel is dropped.  ``read_png(path, "gray")`` is
 ``IMREAD_GRAYSCALE`` of a gray file (with or without alpha).
 
 Accepted: colour types 0 (gray), 2 (RGB), 4 (gray + alpha) and 6 (RGBA) at
-bit depth 8, without interlace, rows in any of the five filters.  Rows in
+bit depth 8, without interlace, rows in any of the five filters.  An
+``eXIf`` chunk's orientation (before or after IDAT; the first one counts)
+turns the image as cv2 does (``core/exif.py``).  Rows in
 filter 0 (None) or 1 (Sub), which is all that ``cv2.imwrite`` writes, are
 undone for the whole image at once with numpy; Up is a row add; Average and
 Paeth (other writers' choices) are undone pixel by pixel.  Anything else
 (16-bit samples, palettes, Adam7 interlace, a colour file read as gray,
-whose libpng weights are not ported) raises ``ValueError`` naming it.
+whose libpng weights are not ported) raises ``UnsupportedImage`` naming it;
+a corrupt file (bad CRC, no IEND, short data) raises plain ``ValueError``.
 
 ``write_png(path, array)`` writes gray ``[H, W]``, RGB ``[H, W, 3]`` or RGBA
 ``[H, W, 4]`` uint8 rows in filter 0 or 1 (default Sub).
@@ -25,6 +28,8 @@ import zlib
 
 import numpy as np
 
+from instancesegmentation_tpu_torch.core.exif import apply_orientation, exif_orientation
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 #: channels per colour type (8-bit samples)
@@ -33,10 +38,15 @@ _COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
 _COLOR_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray+alpha", 6: "RGBA"}
 
 
+class UnsupportedImage(ValueError):
+    """A valid image file of a form the port does not decode yet (ROADMAP
+    A10), where ``cv2.imread`` would return pixels."""
+
+
 def _chunks(data: bytes, path: str):
     """Yield ``(type, body)`` of each chunk (the body a view into ``data``),
-    checking the CRC of critical chunks (upper-case first letter), as libpng
-    does."""
+    checking the CRC of critical chunks (upper-case first letter) and of
+    ``eXIf``, as libpng does: a critical chunk raises, ``eXIf`` is dropped."""
     view = memoryview(data)
     pos = len(SIGNATURE)
     while pos + 8 <= len(data):
@@ -45,9 +55,12 @@ def _chunks(data: bytes, path: str):
             raise ValueError(f"{path}: truncated {kind!r} chunk")
         body = view[pos + 8:pos + 8 + n]
         (crc,) = struct.unpack_from(">I", data, pos + 8 + n)
-        if kind[:1].isupper() and zlib.crc32(body, zlib.crc32(kind)) != crc:
-            raise ValueError(f"{path}: CRC error in {kind!r} chunk")
-        yield kind, body
+        checked = kind[:1].isupper() or kind == b"eXIf"
+        if checked and zlib.crc32(body, zlib.crc32(kind)) != crc:
+            if kind[:1].isupper():
+                raise ValueError(f"{path}: CRC error in {kind!r} chunk")
+        else:
+            yield kind, body
         if kind == b"IEND":
             return
         pos += 12 + n
@@ -108,26 +121,33 @@ def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
 def _check_header(header: tuple, path: str) -> None:
     _, _, depth, color, _, _, interlace = header
     if color not in _CHANNELS:
-        raise ValueError(f"{path}: colour type {color} "
-                         f"({_COLOR_NAMES.get(color, 'unknown')}) is not supported")
+        raise UnsupportedImage(f"{path}: colour type {color} "
+                               f"({_COLOR_NAMES.get(color, 'unknown')}) is not supported "
+                               "(ROADMAP A10)")
     if depth != 8:
-        raise ValueError(f"{path}: bit depth {depth} is not supported (8 only)")
+        raise UnsupportedImage(f"{path}: bit depth {depth} is not supported (8 only; "
+                               "ROADMAP A10)")
     if interlace != 0:
-        raise ValueError(f"{path}: interlace method {interlace} (Adam7) is not supported")
+        raise UnsupportedImage(f"{path}: interlace method {interlace} (Adam7) is not "
+                               "supported (ROADMAP A10)")
 
 
 def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """Decode PNG bytes to uint8 ``[H, W, C]`` in the file's own channels
-    (C = 1, 3, 2 or 4 for colour types 0, 2, 4, 6)."""
+    (C = 1, 3, 2 or 4 for colour types 0, 2, 4, 6), turned by its ``eXIf``
+    orientation."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     header = None
     idat = []
+    exif = None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"eXIf" and exif is None and bytes(body[:2]) in (b"II", b"MM"):
+            exif = bytes(body)  # libpng drops a block with another byte order mark
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     _check_header(header, path)
@@ -137,29 +157,39 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     if len(raw) < h * (1 + w * c):
         raise ValueError(f"{path}: image data too short")
     rows = np.frombuffer(raw, np.uint8, count=h * (1 + w * c)).reshape(h, 1 + w * c)
-    return _unfilter(rows, c).reshape(h, w, c)
+    img = _unfilter(rows, c).reshape(h, w, c)
+    return apply_orientation(img, exif_orientation(exif))
+
+
+def png_pixels(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.ndarray:
+    """PNG bytes as ``read_png`` returns the file: oriented, RGB ``[H, W, 3]``
+    for ``"color"``, ``[H, W]`` of a gray file for ``"gray"``."""
+    if mode not in ("color", "gray"):
+        raise ValueError(f"unknown read mode {mode!r}")
+    img = decode_png(data, path)
+    c = img.shape[2]
+    if mode == "gray":
+        if c > 2:
+            raise UnsupportedImage(f"{path}: a colour file read as gray (libpng's "
+                                   "rgb-to-gray weights are not ported; ROADMAP A10)")
+        return np.ascontiguousarray(img[..., 0])
+    if c <= 2:
+        return np.repeat(img[..., :1], 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
 
 
 def read_png(path: str, mode: str = "color") -> np.ndarray:
     """Read a PNG file as ``cv2.imread`` does: ``"color"`` -> RGB uint8
     ``[H, W, 3]`` (the BGR image converted to RGB), ``"gray"`` -> uint8
-    ``[H, W]`` of a gray file.  A missing file raises ``FileNotFoundError``;
-    an unsupported or corrupt one ``ValueError``."""
+    ``[H, W]`` of a gray file, turned by its ``eXIf`` orientation.  A
+    missing file raises ``FileNotFoundError``; an unsupported one
+    ``UnsupportedImage``, a corrupt one ``ValueError``."""
     if mode not in ("color", "gray"):
         raise ValueError(f"unknown read mode {mode!r}")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"cannot read image: {path}")
     with open(path, "rb") as f:
-        img = decode_png(f.read(), path)
-    c = img.shape[2]
-    if mode == "gray":
-        if c > 2:
-            raise ValueError(f"{path}: a colour file read as gray (libpng's "
-                             "rgb-to-gray weights are not ported)")
-        return np.ascontiguousarray(img[..., 0])
-    if c <= 2:
-        return np.repeat(img[..., :1], 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+        return png_pixels(f.read(), mode, path)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

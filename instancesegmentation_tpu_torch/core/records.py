@@ -17,7 +17,7 @@ Host-side, perf-noncritical code: the training hot path never touches
 these per step (the loader builds its index once at startup).
 
 Copy of ``instancesegmentation_tpu/core/records.py``; images and masks are
-decoded by the port's own PNG codec (``core/png.py``) instead of ``cv2``.
+decoded by the port's own ``core/imread.py:imread`` instead of ``cv2``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 
 from instancesegmentation_tpu_torch.core.keys import key_combine, key_decompose
-from instancesegmentation_tpu_torch.core.png import read_png
+from instancesegmentation_tpu_torch.core.imread import imread
 
 #: Private key (carries no ## suffix so record ops ignore it) under which
 #: the loader stashes the dataset root dir for path materialization.
@@ -98,13 +98,14 @@ def common_filter(record: dict, gen_fn: Callable[[dict], Iterator[bool]]) -> boo
 
 
 def _load_image(path: str) -> np.ndarray:
-    """Decode an image file to RGB uint8 HWC."""
-    return read_png(path, "color")
+    """Decode an image file to RGB uint8 HWC (``FileNotFoundError`` where
+    ``cv2.imread`` gives None)."""
+    return imread(path, "color")
 
 
 def _load_mask(path: str) -> np.ndarray:
-    """Decode a mask PNG to uint8 HW (0/255)."""
-    return read_png(path, "gray")
+    """Decode a mask file to uint8 HW (0/255)."""
+    return imread(path, "gray")
 
 
 def common_transfer(record: dict, root: str | None = None) -> None:

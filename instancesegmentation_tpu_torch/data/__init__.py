@@ -1,3 +1,3 @@
-"""Data: the common-format dataset reader, batching and host -> device
-prefetch, the preprocessing program of training, and synthetic datasets
-and host batches."""
+"""Data: the common-format dataset reader, batching in threads or worker
+processes and host -> device prefetch, the preprocessing program of
+training, and synthetic datasets and host batches."""

@@ -3,12 +3,13 @@
 Port of ``instancesegmentation_tpu/data/dataset.py``: the host builds the
 per-object sample index once at startup (the reference's eligibility
 filter, reference train_instance.py:102-117) and per sample only decodes
-PNGs and pads them onto a fixed canvas; all geometry, normalisation and
-heatmap rendering run on the device in the train step
+images and masks and pads them onto a fixed canvas; all geometry,
+normalisation and heatmap rendering run on the device in the train step
 (``data/pipeline.py:preprocess_batch``).  Images larger than the canvas are
 prescaled on the host.  The index and the samples equal the JAX package's
-bit for bit: PNGs are decoded by ``core/png.py`` and the prescale is
-``infer/pipeline.py:resize``, cv2's INTER_LINEAR arithmetic on uint8.
+bit for bit: files are decoded by ``core/imread.py`` (PNG and JPEG, as
+``cv2.imread``) and the prescale is ``infer/pipeline.py:resize``, cv2's
+INTER_LINEAR arithmetic on uint8.
 """
 from __future__ import annotations
 

@@ -294,7 +294,8 @@ def preprocess_batch(batch: dict, draws: dict, cfg: AugmentConfig):
 
 def device_prefetch(iterator: Iterator[dict], device, depth: int = 2) -> Iterator[dict]:
     """Keep ``depth`` batches in flight to ``device`` ahead of the consumer:
-    yields each host batch's arrays as tensors on ``device``.
+    yields each host batch's arrays (numpy arrays or CPU tensors, such as the
+    worker loader's in shared memory) as tensors on ``device``.
 
     On a CUDA device the arrays are copied into pinned host memory and sent
     with ``non_blocking`` copies, so the transfer of batch n+1 overlaps the
@@ -305,9 +306,10 @@ def device_prefetch(iterator: Iterator[dict], device, depth: int = 2) -> Iterato
     pin = device.type == "cuda"
 
     def put(batch: dict):
-        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        host = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items()}
         if pin:
-            host = {k: v.pin_memory() for k, v in host.items()}
+            host = {k: v if v.is_pinned() else v.pin_memory() for k, v in host.items()}
         return host, {k: v.to(device, non_blocking=pin) for k, v in host.items()}
 
     in_flight: collections.deque = collections.deque()
@@ -331,6 +333,7 @@ def batch_iterator(
     num_threads: int = 8,
     prefetch: int = 2,
     local_slice: Optional[slice] = None,
+    records: Optional[np.ndarray] = None,
 ) -> Iterator[dict]:
     """Yield host batch dicts (``host_batch``) of ``dataset.fetch`` samples,
     decoded by ``num_threads`` threads while a background producer keeps
@@ -347,6 +350,9 @@ def batch_iterator(
     same global batch order from ``seed``, then decodes and yields only its
     rows of each global batch.  The tail is padded before slicing, so the
     global rows (padding at the END) are the single-process batch's.
+
+    ``records``: the sample indices to draw from (default all), shuffled in
+    place of ``arange(len(dataset))`` (``data/grain_loader.py``'s shards).
     """
     rng = np.random.default_rng(seed)
     pool = ThreadPoolExecutor(max_workers=num_threads)
@@ -357,7 +363,7 @@ def batch_iterator(
     def order_stream():
         epoch = 0
         while epochs is None or epoch < epochs:
-            order = np.arange(len(dataset))
+            order = np.arange(len(dataset)) if records is None else np.array(records)
             if shuffle:
                 rng.shuffle(order)
             yield from (order[i:i + batch_size] for i in range(0, len(order), batch_size))

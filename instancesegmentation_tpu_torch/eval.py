@@ -24,7 +24,9 @@ functions and ``main`` take ``device="cpu"`` to run on the host.  Without
 ``--checkpoint`` the weights are the port's seeded initialisation
 (``init_weights_`` from ``torch.Generator().manual_seed(0)``), which are not
 the JAX package's ``PRNGKey(0)`` weights.  GT masks are read with
-``read_png(..., "gray")`` and images with ``read_png(..., "color")`` (RGB).
+``imread(..., "gray")`` and images with ``imread(..., "color")`` (RGB); a
+mask file that ``cv2.imread`` could not decode skips its object, as in the
+JAX package.
 ``--int8`` and ``--fused-stem`` name modules the port does not have yet and
 raise ``NotImplementedError``.
 """
@@ -40,7 +42,7 @@ import torch
 
 from instancesegmentation_tpu_torch.core.evaluation import mask_ap, mask_ap_rle, mean_mask_iou
 from instancesegmentation_tpu_torch.core.keys import key_combine
-from instancesegmentation_tpu_torch.core.png import read_png
+from instancesegmentation_tpu_torch.core.imread import imread
 from instancesegmentation_tpu_torch.core.rasterize import rle_encode
 from instancesegmentation_tpu_torch.core.records import ROOT_KEY, common_ann_loader
 from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset, body_keypoint_array
@@ -148,7 +150,7 @@ def evaluate_full_image(
                 if rel is None:
                     continue
                 try:
-                    m = read_png(os.path.join(root, rel), "gray")
+                    m = imread(os.path.join(root, rel), "gray")
                 except FileNotFoundError:
                     continue
                 gt_rles.append(rle_encode(m))
@@ -179,7 +181,7 @@ def evaluate_full_image(
 
             img = np.zeros((1, 1, 3), np.uint8)
             if boxes:
-                img = read_png(img_path, "color")
+                img = imread(img_path, "color")
             gts_rle.append(gt_rles)
             n_images += 1
             yield {"image": img, "boxes": boxes, "scores": scores, "keypoints": keypoints,

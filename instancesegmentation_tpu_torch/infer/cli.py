@@ -15,8 +15,9 @@ surviving box, ``OUT/<name>_<j>.png``).  ``--continue-test`` skips outputs
 that exist.
 
 The engine runs on ``cuda:0`` (``main(argv, device="cpu")`` runs it on the
-host).  Images are decoded by the port's PNG codec: a listed JPEG or BMP
-file raises ``NotImplementedError`` naming it.  Masks are written with
+host).  Images are decoded by ``core/imread.py:imread`` (PNG and JPEG, as
+``cv2.imread``): a listed BMP file raises ``NotImplementedError`` naming it
+before anything is written.  Masks are written with
 ``write_png``.  Without ``--checkpoint`` the weights are the port's seeded
 initialisation (``eval.load_weights``).  ``--int8`` and ``--fused-stem``
 raise ``NotImplementedError`` (their modules are not ported yet).
@@ -31,7 +32,8 @@ import os
 import torch
 
 from instancesegmentation_tpu_torch.core.keys import key_combine
-from instancesegmentation_tpu_torch.core.png import read_png, write_png
+from instancesegmentation_tpu_torch.core.imread import imread
+from instancesegmentation_tpu_torch.core.png import write_png
 from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
 from instancesegmentation_tpu_torch.data.pipeline import batch_iterator
 from instancesegmentation_tpu_torch.eval import check_ported, load_weights
@@ -39,6 +41,8 @@ from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
 from instancesegmentation_tpu_torch.infer.proposals import segment_proposals
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+#: the extensions of the listed files that ``imread`` decodes
+DECODED_EXTS = (".jpg", ".jpeg", ".png")
 
 
 def parse_args(argv=None):
@@ -77,13 +81,13 @@ def list_images(directory: str) -> list[str]:
             if os.path.splitext(p)[1].lower() in IMAGE_EXTS]
 
 
-def require_png(paths: list[str]) -> None:
-    """Raise ``NotImplementedError`` naming the first file that is not a PNG:
-    the port decodes PNG only."""
+def require_decodable(paths: list[str]) -> None:
+    """Raise ``NotImplementedError`` naming the first listed file whose
+    extension the port does not decode (BMP, ROADMAP A10)."""
     for p in paths:
-        if os.path.splitext(p)[1].lower() != ".png":
-            raise NotImplementedError(f"{p}: only PNG images are decoded (no JPEG or BMP "
-                                      "decoder is ported)")
+        if os.path.splitext(p)[1].lower() not in DECODED_EXTS:
+            raise NotImplementedError(f"{p}: only PNG and JPEG images are decoded (no BMP "
+                                      "decoder is ported, ROADMAP A10)")
 
 
 def main(argv=None, device=None) -> int:
@@ -120,7 +124,7 @@ def main(argv=None, device=None) -> int:
         return 0
 
     paths = list_images(args.test_image_dir)
-    require_png(paths)
+    require_decodable(paths)
     if args.proposals:
         with open(args.proposals) as f:
             proposal_map = json.load(f)
@@ -130,7 +134,7 @@ def main(argv=None, device=None) -> int:
             entry = proposal_map.get(name) or proposal_map.get(os.path.basename(path))
             if not entry:
                 continue
-            results = segment_proposals(engine, read_png(path, "color"), entry["boxes"],
+            results = segment_proposals(engine, imread(path, "color"), entry["boxes"],
                                         entry["scores"], nms_threshold=args.nms_threshold)
             for j, r in enumerate(results):
                 out_path = os.path.join(args.output_dir, f"{name}_{j}.png")
@@ -151,7 +155,7 @@ def main(argv=None, device=None) -> int:
         todo.append((p, out_path))
     for start in range(0, len(todo), args.batch):
         chunk = todo[start:start + args.batch]
-        masks = engine.predict_images([read_png(p, "color") for p, _ in chunk])
+        masks = engine.predict_images([imread(p, "color") for p, _ in chunk])
         for (_, out_path), mask in zip(chunk, masks):
             write_png(out_path, mask)
     print(f"wrote {len(todo)} masks to {args.output_dir}")

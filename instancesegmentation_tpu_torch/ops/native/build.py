@@ -1,11 +1,13 @@
-"""Build and bind the native RLE library.
+"""Build and bind the port's host C++ libraries.
 
-``rle.cpp`` is compiled with ``g++`` on first use into ``build/native/`` at
-the repository root, named by a hash of the source (a changed source builds
-afresh), through a temporary file and an atomic rename so that concurrent
-processes never load a half-written library, and loaded with ctypes.  Every
-caller has a NumPy path: ``load_native()`` returns None when no compiler is
-found or the build fails.
+Each source (``rle.cpp``, ``jpeg.cpp``) is compiled with ``g++`` on first use
+into ``build/native/`` at the repository root, named by a hash of the source
+(a changed source builds afresh), through a temporary file and an atomic
+rename so that concurrent processes never load a half-written library, and
+loaded with ctypes.  Every caller of the RLE library has a NumPy path:
+``load_native()`` returns None when no compiler is found or the build fails.
+The JPEG decoder has none: ``ops/native/jpeg.py`` raises with the compiler's
+message (``build_library``).
 """
 from __future__ import annotations
 
@@ -27,29 +29,36 @@ _cached: Optional[ctypes.CDLL] = None
 _failed = False
 
 
-def lib_path() -> Path:
-    """Path of the library built from the current ``rle.cpp``."""
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librle_{digest}.so"
+def lib_path(src: Path = SRC) -> Path:
+    """Path of the library built from the current ``src``."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def _compile(path: Path) -> bool:
+def build_library(src: Path) -> Path:
+    """The library of ``src``, compiled unless already built; raises
+    ``RuntimeError`` with the reason (no compiler, or its message)."""
+    path = lib_path(src)
+    if path.exists():
+        return path
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
-        return False
+        raise RuntimeError(f"cannot build {src.name}: no C++ compiler (g++ or c++) on PATH")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
     try:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", tmp],
-                              capture_output=True, timeout=120)
+        proc = subprocess.run([cxx, *CXX_FLAGS, str(src), "-o", tmp],
+                              capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
-            os.unlink(tmp)
-            return False
+            raise RuntimeError(f"cannot build {src.name}: {cxx} failed:\n{proc.stderr}")
         os.replace(tmp, path)
-        return True
-    except (OSError, subprocess.SubprocessError):
-        return False
+    except subprocess.SubprocessError as e:
+        raise RuntimeError(f"cannot build {src.name}: {e!r}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
 
 
 def load_native() -> Optional[ctypes.CDLL]:
@@ -59,13 +68,9 @@ def load_native() -> Optional[ctypes.CDLL]:
         return _cached
     if _failed:
         return None
-    path = lib_path()
-    if not path.exists() and not _compile(path):
-        _failed = True
-        return None
     try:
-        lib = ctypes.CDLL(str(path))
-    except OSError:
+        lib = ctypes.CDLL(str(build_library(SRC)))
+    except (OSError, RuntimeError):
         _failed = True
         return None
 

@@ -25,8 +25,11 @@ Where it differs from the JAX package:
   runs the ``warp_2level`` kernel whenever ``rotate > 0``;
 - ``profile_steps`` traces with ``torch.profiler`` into ``out_dir/profile``
   (rank 0 only);
-- the grain loader and the orbax backend are not ported yet and raise
-  ``NotImplementedError``.
+- ``loader="grain"`` decodes the train stream in ``grain_workers`` worker
+  processes (``data/grain_loader.py``; a pool started once per ``Trainer``
+  and kept across epochs), in ``batch_iterator``'s order rather than grain's;
+- ``checkpoint_backend="orbax"`` keeps the orbax backend's directory
+  contract with an ISEG payload inside (``train/checkpoint_orbax.py``).
 
 Data parallelism (``data_parallel``, ``parallel/data_parallel.py``): one
 process per device, joined by ``parallel/multihost.py:initialize`` before the
@@ -51,6 +54,7 @@ import torch
 
 from instancesegmentation_tpu_torch.core.device import pick_device
 from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+from instancesegmentation_tpu_torch.data.grain_loader import GrainLoader
 from instancesegmentation_tpu_torch.data.pipeline import (
     batch_iterator,
     device_prefetch,
@@ -60,6 +64,7 @@ from instancesegmentation_tpu_torch.models.layers import init_weights_
 from instancesegmentation_tpu_torch.models.segment import Segment
 from instancesegmentation_tpu_torch.parallel import multihost
 from instancesegmentation_tpu_torch.train.checkpoint import BranchBestCheckpoint, load_checkpoint
+from instancesegmentation_tpu_torch.train.checkpoint_orbax import OrbaxBranchBestCheckpoint
 from instancesegmentation_tpu_torch.train.config import TrainConfig, parse_args
 from instancesegmentation_tpu_torch.train.metrics import MetricLogger, dump_image_grid
 from instancesegmentation_tpu_torch.train.state import TrainState, from_state_tree, to_state_tree
@@ -84,20 +89,8 @@ def step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
 
 
-def _not_ported(cfg: TrainConfig) -> Optional[str]:
-    if cfg.loader != "threads":
-        return f"loader={cfg.loader!r} is not ported yet (ROADMAP A8); use 'threads'"
-    if cfg.checkpoint_backend != "file":
-        return (f"checkpoint_backend={cfg.checkpoint_backend!r} is not ported yet "
-                "(ROADMAP A8); use 'file'")
-    return None
-
-
 class Trainer:
     def __init__(self, cfg: TrainConfig, device=None):
-        reason = _not_ported(cfg)
-        if reason:
-            raise NotImplementedError(reason)
         self.cfg = cfg
         self.proc_id, self.proc_count = multihost.process_info()
         self.is_main = self.proc_id == 0
@@ -123,8 +116,11 @@ class Trainer:
             self.train_step = make_train_step(cfg)
             self.eval_step = make_eval_step(cfg)
             self.shard_batch = lambda b: b
-        self.ckpt = BranchBestCheckpoint(cfg.checkpoint_dir,
-                                         explicit_path=cfg.checkpoint_save_path)
+        if cfg.checkpoint_backend == "orbax":
+            self.ckpt = OrbaxBranchBestCheckpoint(cfg.checkpoint_dir)
+        else:
+            self.ckpt = BranchBestCheckpoint(cfg.checkpoint_dir,
+                                             explicit_path=cfg.checkpoint_save_path)
         self.logger = MetricLogger(cfg.out_dir, enabled=self.is_main)
         self.start_epoch = 0
         self.iou_max = 0.0
@@ -229,6 +225,23 @@ class Trainer:
         print(f"train samples: {len(trainset)}  val samples: {len(valset)}")
 
         aug = augment_config(cfg, train=True)
+        # --loader grain: one pool of decoding processes for the whole run
+        workers = None
+        if cfg.loader == "grain":
+            workers = GrainLoader(trainset, cfg.batch_size // self.proc_count,
+                                  num_workers=cfg.grain_workers,
+                                  shard_by_process=self.proc_count > 1,
+                                  read_threads=cfg.num_threads,
+                                  process=(self.proc_id, self.proc_count),
+                                  pin_memory=self.device.type == "cuda")
+        try:
+            return self._epochs(trainset, valset, aug, workers)
+        finally:
+            if workers is not None:
+                workers.close()
+
+    def _epochs(self, trainset, valset, aug, workers: Optional[GrainLoader]) -> float:
+        cfg = self.cfg
         epoch = self.start_epoch
         last_val = 0.0
         restarts = 0
@@ -247,10 +260,13 @@ class Trainer:
             t_start = time.time()
             val_seconds = 0.0  # excluded from the reported img/s
             n_seen = 0
-            stream = batch_iterator(trainset, cfg.batch_size, shuffle=True,
-                                    seed=cfg.seed + epoch, epochs=1,
-                                    num_threads=cfg.num_threads,
-                                    local_slice=self.local_slice)
+            if workers is not None:
+                stream = workers.batches(seed=cfg.seed + epoch)
+            else:
+                stream = batch_iterator(trainset, cfg.batch_size, shuffle=True,
+                                        seed=cfg.seed + epoch, epochs=1,
+                                        num_threads=cfg.num_threads,
+                                        local_slice=self.local_slice)
             batches = device_prefetch(stream, self.device)
             try:
                 for i0, batch in enumerate(batches):

@@ -229,14 +229,19 @@ def trainer_breakdown(dev) -> dict:
     images) and config, with the host clock around synchronised work:
 
     - ``step_alone_ms``: the train step on one fixed batch already on the
-      card, and ``step_with_loader_ms``: the same while another thread
-      drains ``batch_iterator`` (8 threads) as fast as it can, with the
-      samples/s it drained; each in turns (alone, with, with, alone);
-    - ``loader_alone_samples_per_s``: ``batch_iterator`` drained alone;
+      card, ``step_with_loader_ms``: the same while another thread drains
+      ``batch_iterator`` (8 threads) as fast as it can, and
+      ``step_with_workers_ms``: while it drains the worker loader
+      (``GrainLoader``, 4 processes, pool started before), each with the
+      samples/s drained; in turns (alone, threads, workers, workers,
+      threads, alone);
+    - ``loader_alone_samples_per_s``: ``batch_iterator`` drained alone, and
+      ``workers_alone_samples_per_s``: the worker loader drained alone;
     - ``trainer``: ``train.loop.main`` runs (2 epochs, batch 32, the train480
-      augmentations) at ``--num-threads`` 8 and 2 and with the interpreter's
-      switch interval at 0.2 ms, in turns, ms per step over steps 2-8 from
-      ``metrics.jsonl`` (``chip_smoke.step_ms_from_log``).
+      augmentations) at ``--num-threads`` 8 and 2, with the interpreter's
+      switch interval at 0.2 ms, and with ``--loader grain`` at 4, 6 and 8
+      workers, in turns, ms per step over steps 2-8 from ``metrics.jsonl``
+      (``chip_smoke.step_ms_from_log``).
     """
     import os
     import tempfile
@@ -245,6 +250,7 @@ def trainer_breakdown(dev) -> dict:
     from chip_smoke import (DISK_BATCH, DISK_EPOCHS, DISK_HW, DISK_TRAIN, DISK_VAL,
                             step_ms_from_log)
     from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.data.grain_loader import GrainLoader
     from instancesegmentation_tpu_torch.data.pipeline import (batch_iterator, batch_to,
                                                                draw_augment, host_batch)
     from instancesegmentation_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -286,13 +292,21 @@ def trainer_breakdown(dev) -> dict:
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) / n * 1e3
 
-        def drained(fn) -> tuple[float, float]:
-            """``fn()``'s result while a thread drains the loader, and the
+        workers = GrainLoader(trainset, DISK_BATCH, num_workers=4)
+
+        def threads_stream():
+            return batch_iterator(trainset, DISK_BATCH, epochs=None, num_threads=8)
+
+        def workers_stream():
+            return workers.batches(seed=SEED, epochs=None)
+
+        def drained(fn, open_stream) -> tuple[float, float]:
+            """``fn()``'s result while a thread drains a loader, and the
             loader's samples/s meanwhile."""
             stop, count = threading.Event(), [0]
 
             def drain():
-                stream = batch_iterator(trainset, DISK_BATCH, epochs=None, num_threads=8)
+                stream = open_stream()
                 next(stream)  # the loader is running before fn starts
                 ready.set()
                 for b in stream:
@@ -312,34 +326,52 @@ def trainer_breakdown(dev) -> dict:
             th.join()
             return value, rate
 
-        runs = {"alone": [], "with_loader": [], "loader_during_step": []}
-        for kind in ("alone", "with_loader", "with_loader", "alone"):
-            if kind == "alone":
-                runs["alone"].append(steps())
-            else:
-                ms, rate = drained(steps)
-                runs["with_loader"].append(ms)
-                runs["loader_during_step"].append(rate)
+        runs = {k: [] for k in ("alone", "with_loader", "loader_during_step", "with_workers",
+                                "workers_during_step")}
+        try:
+            list(workers.batches(seed=SEED))  # the pool starts outside the turns
+            for kind in ("alone", "threads", "workers", "workers", "threads", "alone"):
+                if kind == "alone":
+                    runs["alone"].append(steps())
+                    continue
+                ms, rate = drained(steps, threads_stream if kind == "threads"
+                                   else workers_stream)
+                key = "loader" if kind == "threads" else "workers"
+                runs[f"with_{key}"].append(ms)
+                runs[f"{key}_during_step"].append(rate)
+            t0 = time.perf_counter()
+            n_workers = sum(b["image"].shape[0] for b in workers.batches(seed=SEED, epochs=2))
+            out["workers_alone_samples_per_s"] = n_workers / (time.perf_counter() - t0)
+        finally:
+            workers.close()
         t0 = time.perf_counter()
         n = sum(b["image"].shape[0] for b in batch_iterator(
             trainset, DISK_BATCH, epochs=2, num_threads=8))
         out.update({"step_alone_ms": runs["alone"], "step_with_loader_ms": runs["with_loader"],
                     "loader_samples_per_s_during_step": runs["loader_during_step"],
+                    "step_with_workers_ms": runs["with_workers"],
+                    "workers_samples_per_s_during_step": runs["workers_during_step"],
                     "loader_alone_samples_per_s": n / (time.perf_counter() - t0)})
         print(f"train step on a fixed batch: alone {runs['alone']} ms, beside a draining "
-              f"loader {runs['with_loader']} ms (loader {runs['loader_during_step']} "
-              f"samples/s); loader alone {out['loader_alone_samples_per_s']:.0f} samples/s")
+              f"threaded loader {runs['with_loader']} ms (loader {runs['loader_during_step']} "
+              f"samples/s), beside 4 draining worker processes {runs['with_workers']} ms "
+              f"(workers {runs['workers_during_step']} samples/s); alone: threads "
+              f"{out['loader_alone_samples_per_s']:.0f}, workers "
+              f"{out['workers_alone_samples_per_s']:.0f} samples/s")
 
         # the trainer itself, in turns
         trainer = {}
         interval = sys.getswitchinterval()
-        variants = (("threads8", 8, None), ("threads2", 2, None),
-                    ("threads8_switch_0.2ms", 8, 2e-4), ("threads8", 8, None))
-        for i, (name, threads, switch) in enumerate(variants):
+        variants = (("threads8", 8, None, 0), ("grain4", 8, None, 4), ("threads2", 2, None, 0),
+                    ("grain6", 8, None, 6), ("threads8_switch_0.2ms", 8, 2e-4, 0),
+                    ("grain8", 8, None, 8), ("threads8", 8, None, 0))
+        for i, (name, threads, switch, n_workers) in enumerate(variants):
             run_dir = os.path.join(tmp, f"run{i}")
             argv = base + ["--num-threads", str(threads),
                            "--checkpoint-dir", os.path.join(run_dir, "ckpt"),
                            "--out-dir", os.path.join(run_dir, "runs")]
+            if n_workers:
+                argv += ["--loader", "grain", "--grain-workers", str(n_workers)]
             if switch is not None:
                 sys.setswitchinterval(switch)
             try:

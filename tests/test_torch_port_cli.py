@@ -1,8 +1,8 @@
 """The port's inference command against the JAX package's (CPU): the three
 modes on the committed demo checkpoint (flax variables of ``Segment(20)``)
 write the same file layout, and the masks the port writes are ≥ 99.9 % equal
-to JAX's; the extension filter, the unported flags and the PNG-only
-decoding."""
+to JAX's, also from JPEG images; the extension filter, the unported flags
+and the refusal of BMP files."""
 import functools
 import json
 import os
@@ -132,19 +132,39 @@ def test_list_images_filters_extensions(tmp_path):
 
 @pytest.mark.parametrize("mode", [[], ["--proposals", "props.json"]], ids=["whole", "proposals"])
 def test_jpeg_raises_naming_the_file(mode, tmp_path):
-    """A listed image that is not a PNG is never skipped: the command raises
-    before it writes anything, naming the file."""
+    """A listed image the port cannot decode (BMP; JPEG is decoded since
+    JPEG support landed, ``test_whole_image_mode_reads_jpeg``) is never
+    skipped: the command raises before it writes anything, naming the
+    file."""
     img = tmp_path / "img"
     img.mkdir()
     cv2.imwrite(str(img / "a.png"), np.zeros((20, 20, 3), np.uint8))
-    cv2.imwrite(str(img / "b.jpg"), np.zeros((20, 20, 3), np.uint8))
+    cv2.imwrite(str(img / "b.bmp"), np.zeros((20, 20, 3), np.uint8))
     (tmp_path / "props.json").write_text(json.dumps({"b": {"boxes": [[0, 0, 9, 9]],
                                                            "scores": [1.0]}}))
     mode = [str(tmp_path / m) if m.endswith(".json") else m for m in mode]
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="b.jpg"):
+    with pytest.raises(NotImplementedError, match="b.bmp"):
         main(["-i", str(img), "-o", str(out), "--size", "32", "--float32"] + mode, device="cpu")
     assert not out.exists() or not os.listdir(out)
+
+
+def test_whole_image_mode_reads_jpeg(synth, tmp_path):
+    """``.jpg`` and ``.jpeg`` inputs (written by cv2, one progressive)
+    decode as cv2 decodes them: the masks match JAX's as from PNG."""
+    img = tmp_path / "img"
+    img.mkdir()
+    for k, src in enumerate(sorted(os.listdir(os.path.join(synth, "image")))):
+        pixels = cv2.imread(os.path.join(synth, "image", src))
+        name = f"im{k}." + ("jpeg" if k == 1 else "jpg")
+        cv2.imwrite(str(img / name), pixels, [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                               cv2.IMWRITE_JPEG_PROGRESSIVE, int(k == 2)])
+    argv = ["-i", str(img), "--size", str(SIZE), "--batch", "4", "--float32",
+            "--in-channels", "20", "--checkpoint", DEMO]
+    assert main(["-o", str(tmp_path / "port")] + argv, device="cpu") == 0
+    assert jax_main(["-o", str(tmp_path / "jax")] + argv) == 0
+    assert _same_masks(str(tmp_path / "port"), str(tmp_path / "jax")) == [
+        "im0.png", "im1.png", "im2.png"]
 
 
 @pytest.mark.parametrize("flag", ["--int8", "--fused-stem"])

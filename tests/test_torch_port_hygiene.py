@@ -9,7 +9,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "instancesegmentation_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "msgpack",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "msgpack", "grain", "orbax",
              "instancesegmentation_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 

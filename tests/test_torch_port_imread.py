@@ -1,0 +1,298 @@
+"""The port's image reader (``core/imread.py``, ``core/png.py``'s EXIF
+orientation, the JPEG decoder ``ops/native/jpeg.cpp``) against the JAX
+package's readers, which are ``cv2.imread`` (CPU): every pixel equal.
+
+- PNG ``eXIf`` orientations 1-8 (and 0, 9), both byte orders, before and
+  after IDAT;
+- ``imread``'s split: ``FileNotFoundError`` exactly where cv2 returns None,
+  ``ValueError`` naming ROADMAP A10 for valid files it does not decode;
+- JPEG: quality 50 and 95, 4:4:4, 4:2:2 and 4:2:0, progressive, optimised
+  tables, restart markers, gray files, odd sizes, APP1 orientations, files
+  cut in their scan data (block smoothing of a cut progressive file);
+- a JPEG dataset's samples, and ``eval`` over unreadable mask files;
+- the committed fixtures of ``tests/data/jpeg/`` against cv2.
+"""
+import glob
+import json
+import os
+import shutil
+import struct
+import zlib
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from instancesegmentation_tpu import eval as jeval
+from instancesegmentation_tpu.core import records as jrecords
+from instancesegmentation_tpu.data.dataset import InstanceCommonDataset as JaxDataset
+from instancesegmentation_tpu.data.synthetic import make_hard_dataset as jax_make_hard
+from instancesegmentation_tpu.data.synthetic import make_synthetic_dataset as jax_make
+from instancesegmentation_tpu_torch import eval as teval
+from instancesegmentation_tpu_torch.core import records as trecords
+from instancesegmentation_tpu_torch.core.exif import exif_orientation
+from instancesegmentation_tpu_torch.core.imread import imread
+from instancesegmentation_tpu_torch.core.keys import key_combine
+from instancesegmentation_tpu_torch.core.png import UnsupportedImage, encode_png
+from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+from instancesegmentation_tpu_torch.ops.native import build as native_build
+from instancesegmentation_tpu_torch.ops.native import jpeg as native_jpeg
+
+torch.set_num_threads(1)
+FIXTURES = os.path.join(os.path.dirname(__file__), "data", "jpeg")
+
+
+def _picture(h, w, seed=0, noise=20.0):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([128 + 100 * np.sin(x / 7 + y / 11), 128 + 90 * np.cos(x / 5 - y / 13),
+                    (x * 3 + y * 2) % 256], axis=-1) + rng.normal(0, noise, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _tiff(orientation, order):
+    if order == "II":
+        return (b"II*\x00" + struct.pack("<IH", 8, 1)
+                + struct.pack("<HHII", 0x0112, 3, 1, orientation) + b"\x00" * 4)
+    return (b"MM\x00*" + struct.pack(">IH", 8, 1)
+            + struct.pack(">HHIHH", 0x0112, 3, 1, orientation, 0) + b"\x00" * 4)
+
+
+def _write(path, data):
+    with open(path, "wb") as f:
+        f.write(data)
+    return str(path)
+
+
+def _same_as_jax(path):
+    """The port's ``_load_image`` / ``_load_mask`` equal JAX's (cv2's)."""
+    for port, ref in ((trecords._load_image, jrecords._load_image),
+                      (trecords._load_mask, jrecords._load_mask)):
+        got, want = port(path), ref(path)
+        assert got.shape == want.shape and got.dtype == want.dtype, path
+        np.testing.assert_array_equal(got, want, err_msg=path)
+
+
+# -- C1: PNG eXIf ------------------------------------------------------------
+
+
+def _with_exif(png: bytes, tiff: bytes, after_idat: bool) -> bytes:
+    chunk = struct.pack(">I", len(tiff)) + b"eXIf" + tiff + struct.pack(
+        ">I", zlib.crc32(b"eXIf" + tiff))
+    at = png.index(b"IEND") - 4 if after_idat else png.index(b"IDAT") - 4
+    return png[:at] + chunk + png[at:]
+
+
+@pytest.mark.parametrize("order", ["II", "MM"])
+@pytest.mark.parametrize("after_idat", [False, True], ids=["before_idat", "after_idat"])
+def test_png_exif_orientation_matches_jax(tmp_path, order, after_idat):
+    """Orientations 0-9 of a 5 x 7 RGB and a gray PNG: the shapes turn
+    (5-8 transpose) and every pixel equals cv2's, in both read modes."""
+    rgb = _picture(5, 7)
+    gray = rgb[..., 0].copy()
+    for o in range(10):
+        tiff = _tiff(o, order)
+        assert exif_orientation(tiff) == o
+        color = _write(tmp_path / f"c{o}.png", _with_exif(encode_png(rgb), tiff, after_idat))
+        got = trecords._load_image(color)
+        np.testing.assert_array_equal(got, jrecords._load_image(color))
+        assert got.shape == ((7, 5, 3) if 5 <= o <= 8 else (5, 7, 3))
+        _same_as_jax(_write(tmp_path / f"g{o}.png",
+                            _with_exif(encode_png(gray), tiff, after_idat)))
+
+
+# -- C2: what raises ---------------------------------------------------------
+
+
+def test_imread_raises_where_cv2_returns_none(tmp_path):
+    png = encode_png(_picture(6, 8))
+    ok, jpg = cv2.imencode(".jpg", _picture(16, 16))
+    ok, bmp = cv2.imencode(".bmp", _picture(6, 8))
+    none_cases = {
+        "missing.png": None,
+        "empty.png": b"",
+        "garbage.png": b"this is not an image at all",
+        "no_iend.png": png[:png.index(b"IEND") - 4],
+        "cut_idat.png": png[:len(png) // 2],
+        "header_cut.jpg": jpg.tobytes()[:200],
+        "soi_only.jpg": jpg.tobytes()[:10],
+    }
+    for name, data in none_cases.items():
+        path = str(tmp_path / name) if data is None else _write(tmp_path / name, data)
+        assert cv2.imread(path) is None, name
+        for mode in ("color", "gray"):
+            with pytest.raises(FileNotFoundError):
+                imread(path, mode)
+        with pytest.raises(FileNotFoundError):
+            trecords._load_image(path)
+    ok, sixteen = cv2.imencode(".png", _picture(6, 8).astype(np.uint16) * 257)
+    unsupported = {"image.bmp": bmp.tobytes(), "sixteen.png": sixteen.tobytes()}
+    for name, data in unsupported.items():
+        path = _write(tmp_path / name, data)
+        assert cv2.imread(path) is not None, name
+        with pytest.raises(ValueError, match="A10") as info:
+            imread(path)
+        assert isinstance(info.value, UnsupportedImage)
+    rgb = _write(tmp_path / "rgb.png", encode_png(_picture(6, 8)))
+    with pytest.raises(UnsupportedImage, match="A10"):
+        imread(rgb, "gray")  # libpng's rgb-to-gray weights are not ported
+    # the extension plays no part: a JPEG named .png is a JPEG
+    _same_as_jax(_write(tmp_path / "jpeg_named.png", jpg.tobytes()))
+
+
+def test_undecodable_masks_skip_as_in_jax(tmp_path):
+    """``evaluate_full_image`` over a hard set where one object's mask file is
+    empty and another's is cut in its image data: both packages skip those
+    objects and return the same AP dict, to the last bit."""
+    root = str(tmp_path / "hard")
+    jax_make_hard(root, num_images=3, image_hw=(120, 160), seed=4)
+    k_objs, k_mask = key_combine("object", "sub_list"), key_combine("instance_mask", "mask_path")
+    masks = [o[k_mask] for p in sorted(glob.glob(os.path.join(root, "data", "*.json")))
+             for o in json.load(open(p)).get(k_objs, []) if k_mask in o]
+    assert len(masks) >= 3
+    _write(os.path.join(root, masks[0]), b"")
+    with open(os.path.join(root, masks[1]), "rb") as f:
+        data = f.read()
+    _write(os.path.join(root, masks[1]), data[:len(data) // 2])
+
+    def segment(image, boxes, scores, keypoints):
+        out = []
+        for x0, y0, x1, y1 in boxes:
+            m = np.zeros(image.shape[:2], np.uint8)
+            m[int(y0) + 2:int(y1) - 2, int(x0) + 2:int(x1) - 2] = 255
+            out.append({"mask": m, "mask_score": float((x1 - x0) / 200.0)})
+        return out
+
+    got = teval.evaluate_full_image(root, _segment_fn=segment)
+    want = jeval.evaluate_full_image(root, _segment_fn=segment)
+    assert got == want
+    assert got["num_gt_instances"] == len(masks) - 2
+
+
+# -- JPEG --------------------------------------------------------------------
+
+_SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+             "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+             "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420}
+
+
+def _jpeg(img, quality=90, sampling="420", progressive=False, optimize=False, rst=0):
+    ok, buf = cv2.imencode(".jpg", img, [
+        cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, _SAMPLING[sampling],
+        cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive), cv2.IMWRITE_JPEG_OPTIMIZE, int(optimize),
+        cv2.IMWRITE_JPEG_RST_INTERVAL, rst])
+    assert ok
+    return buf.tobytes()
+
+
+@pytest.mark.parametrize("form", ["plain", "progressive", "optimize", "rst"])
+@pytest.mark.parametrize("sampling", ["444", "422", "420"])
+@pytest.mark.parametrize("quality", [50, 95])
+def test_jpeg_forms_match_jax(tmp_path, quality, sampling, form):
+    """Colour and gray files at odd and whole-block sizes, read in both
+    modes, equal cv2's decode pixel for pixel."""
+    opts = {"progressive": form == "progressive", "optimize": form == "optimize",
+            "rst": 2 if form == "rst" else 0}
+    for h, w in ((17, 9), (37, 53), (1, 1), (64, 48)):
+        img = _picture(h, w, seed=h * w)
+        for gray in (False, True):
+            src = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) if gray else img
+            _same_as_jax(_write(tmp_path / f"{h}x{w}_{int(gray)}.jpg",
+                                _jpeg(src, quality, sampling, **opts)))
+
+
+@pytest.mark.parametrize("order", ["II", "MM"])
+@pytest.mark.parametrize("progressive", [False, True], ids=["baseline", "progressive"])
+def test_jpeg_exif_orientation_matches_jax(tmp_path, order, progressive):
+    """An APP1 Exif segment with orientation 0-9, first or after JFIF's
+    APP0, turns the image as cv2 does."""
+    data = _jpeg(_picture(13, 22), progressive=progressive)
+    app0_end = 4 + struct.unpack(">H", data[4:6])[0]
+    for o in range(10):
+        body = b"Exif\x00\x00" + _tiff(o, order)
+        app1 = b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+        for at in (2, app0_end):
+            path = _write(tmp_path / f"o{o}_{at}.jpg", data[:at] + app1 + data[at:])
+            _same_as_jax(path)
+            assert trecords._load_mask(path).shape == ((22, 13) if 5 <= o <= 8 else (13, 22))
+
+
+@pytest.mark.parametrize("sampling", ["444", "420"])
+@pytest.mark.parametrize("progressive", [False, True], ids=["baseline", "progressive"])
+def test_jpeg_cut_in_scan_data_matches_jax(tmp_path, progressive, sampling):
+    """Files cut at 24 points (headers excepted): cv2 decodes what is there
+    (the rest gray; a cut progressive file block-smoothed from its DC
+    values), or returns None where the port raises FileNotFoundError."""
+    data = _jpeg(_picture(48, 64, seed=2), 90, sampling, progressive=progressive, rst=1)
+    first_scan = data.index(b"\xff\xda")
+    for cut in np.linspace(first_scan + 12, len(data) - 1, 24).astype(int):
+        path = _write(tmp_path / f"cut{cut}.jpg", data[:cut])
+        if cv2.imread(path) is None:
+            with pytest.raises(FileNotFoundError):
+                imread(path)
+            continue
+        _same_as_jax(path)
+
+
+def test_jpeg_without_a_compiler_raises(tmp_path, monkeypatch):
+    """No silent path: with no library built and no compiler, reading a
+    JPEG raises and names the reason."""
+    path = _write(tmp_path / "a.jpg", _jpeg(_picture(8, 8)))
+    monkeypatch.setattr(native_jpeg, "_lib", None)
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "empty_build")
+    monkeypatch.setattr(native_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        imread(path)
+
+
+def test_jpeg_dataset_fetch_matches_jax(tmp_path):
+    """A common-format dataset whose images are JPEGs (written by cv2, half
+    of them progressive): every sample of the port's reader equals JAX's."""
+    root = str(tmp_path / "jpeg_set")
+    jax_make(root, num_images=4, objects_per_image=2, seed=9)
+    k_img = key_combine("image", "image_path")
+    for k, path in enumerate(sorted(glob.glob(os.path.join(root, "data", "*.json")))):
+        with open(path) as f:
+            ann = json.load(f)
+        png = os.path.join(root, ann[k_img])
+        rel = os.path.splitext(ann[k_img])[0] + ".jpg"
+        cv2.imwrite(os.path.join(root, rel), cv2.imread(png),
+                    [cv2.IMWRITE_JPEG_QUALITY, 85, cv2.IMWRITE_JPEG_PROGRESSIVE, k % 2])
+        os.remove(png)
+        ann[k_img] = rel
+        with open(path, "w") as f:
+            json.dump(ann, f)
+    port, ref = InstanceCommonDataset(root, 256), JaxDataset(root, 256)
+    assert len(port) == len(ref) > 0
+    for i in range(len(port)):
+        a, b = port.fetch(i), ref.fetch(i)
+        for name in ("image", "mask", "image_hw", "obj_box", "mask_box", "keypoints"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+        assert a.mask_valid == b.mask_valid
+
+
+# -- the committed fixtures ----------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(os.path.splitext(os.path.basename(p))[0]
+                                        for p in glob.glob(os.path.join(FIXTURES, "*.jpg"))))
+def test_fixtures_equal_cv2_and_the_port(name):
+    """The arrays stored beside each fixture are still cv2's decode, and the
+    port decodes the file to them (``chip_smoke.py`` repeats the latter on
+    the card's machine, which has no cv2)."""
+    path = os.path.join(FIXTURES, name + ".jpg")
+    stored = np.load(os.path.join(FIXTURES, name + ".npz"))
+    np.testing.assert_array_equal(stored["color"], jrecords._load_image(path))
+    np.testing.assert_array_equal(stored["gray"], jrecords._load_mask(path))
+    np.testing.assert_array_equal(imread(path, "color"), stored["color"])
+    np.testing.assert_array_equal(imread(path, "gray"), stored["gray"])
+
+
+def test_fixture_set_is_complete():
+    names = {os.path.basename(p) for p in glob.glob(os.path.join(FIXTURES, "*"))}
+    jpgs = {n for n in names if n.endswith(".jpg")}
+    assert {"base_480x640_420_q95.jpg", "prog_480x640_420_q95.jpg"} <= jpgs
+    assert {n[:-4] + ".npz" for n in jpgs} <= names
+    assert sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in jpgs) < 1 << 20
+    assert shutil.which("g++") is None or native_build.lib_path(native_jpeg.SRC).exists()

@@ -2,7 +2,7 @@
 both trainers started from one JAX-written checkpoint, and the cases of
 ``tests/test_train.py`` mirrored (overfit, the loop and the checkpoint
 contract, bounded reload, syn_train adoption, validation counts, a val set
-smaller than the batch, the profile trace) plus the parts not ported yet.
+smaller than the batch, the profile trace) plus the options ported last.
 """
 import json
 import os
@@ -23,6 +23,7 @@ from instancesegmentation_tpu_torch.models.segment import Segment
 from instancesegmentation_tpu_torch.train import checkpoint as tckpt
 from instancesegmentation_tpu_torch.train import config as tconfig
 from instancesegmentation_tpu_torch.train import loop as tloop
+from instancesegmentation_tpu_torch.train.checkpoint_orbax import OrbaxBranchBestCheckpoint
 from instancesegmentation_tpu_torch.train.state import TrainState, to_state_tree
 from instancesegmentation_tpu_torch.train.steps import (
     augment_config,
@@ -257,7 +258,7 @@ def test_trainer_profile_trace(synth_dir, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# draws, devices, entry point and what is not ported yet
+# draws, devices, entry point and the options ported last
 # ---------------------------------------------------------------------------
 
 def test_draws_follow_the_step(synth_dir, tmp_path):
@@ -275,20 +276,41 @@ def test_draws_follow_the_step(synth_dir, tmp_path):
 @pytest.mark.parametrize("field,value,where", [
     ("data_parallel", True, "A5"), ("multihost", True, "A5"),
     ("loader", "grain", "A8"), ("checkpoint_backend", "orbax", "A8")])
-def test_not_ported_options_raise(synth_dir, tmp_path, field, value, where):
-    """A8's options raise naming their item.  A5's are ported: in one process
-    ``data_parallel`` builds the data-parallel steps on a one-device mesh, and
-    ``multihost`` only makes ``main`` join a process group first
-    (tests/test_torch_port_parallel.py runs both across processes)."""
-    cfg = _cfg(synth_dir, str(tmp_path), **{field: value})
+def test_not_ported_options_raise(synth_dir, tmp_path, monkeypatch, field, value, where):
+    """The options that once raised are ported, and each builds what it
+    names.  A5: in one process ``data_parallel`` builds the data-parallel
+    steps on a one-device mesh, and ``multihost`` only makes ``main`` join a
+    process group first (tests/test_torch_port_parallel.py runs both across
+    processes).  A8: ``checkpoint_backend="orbax"`` chooses the directory
+    backend, and ``loader="grain"`` makes ``train`` start one worker pool of
+    ``grain_workers`` processes at the full batch."""
+    cfg = _cfg(synth_dir, str(tmp_path), grain_workers=3, **{field: value})
+    trainer = tloop.Trainer(cfg, device="cpu")
+    trainer.logger.close()
     if where == "A5":
-        trainer = tloop.Trainer(cfg, device="cpu")
-        trainer.logger.close()
         assert (trainer.mesh is not None) == cfg.data_parallel
         assert (trainer.proc_id, trainer.proc_count, trainer.local_slice) == (0, 1, None)
         return
-    with pytest.raises(NotImplementedError, match=where):
-        tloop.Trainer(cfg, device="cpu")
+    if field == "checkpoint_backend":
+        assert isinstance(trainer.ckpt, OrbaxBranchBestCheckpoint)
+        assert trainer.ckpt.path.endswith("_best.orbax")
+        return
+    assert isinstance(trainer.ckpt, tckpt.BranchBestCheckpoint)
+    made = []
+
+    class Started(Exception):
+        pass
+
+    def pool(dataset, batch_size, **kw):
+        made.append((len(dataset), batch_size, kw))
+        raise Started
+
+    monkeypatch.setattr(tloop, "GrainLoader", pool)
+    with pytest.raises(Started):
+        trainer.train()
+    assert made == [(4, cfg.batch_size, dict(num_workers=3, shard_by_process=False,
+                                            read_threads=cfg.num_threads, process=(0, 1),
+                                            pin_memory=False))]
 
 
 def test_main_runs_on_cuda_only(synth_dir, tmp_path, monkeypatch):
