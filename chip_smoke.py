@@ -94,6 +94,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the fixtures of ``tests/data/jpeg`` bit-equal to the cv2 arrays stored
    beside them in both modes, and ms per 480 x 640 baseline and progressive
    file beside ``read_png``'s ms per 480 x 640 PNG;
+   then the dataset converters (``converters_phase``): the port writes a
+   COCO (64 JPEGs of 480 x 640, two people each, polygons, compressed and
+   uncompressed RLE, 17 keypoints), an OCHuman (16 images, 19 keypoints,
+   polygons with holes) and a Supervisely source tree (16 images, 1-bit
+   palette PNG bitmaps, polygons with holes, point keypoints), converts each
+   (images/s per converter), holds ``encode_jpeg`` byte for byte against
+   cv2's encoder fixtures of ``tests/data/jpeg`` (ms per 480 x 640 file),
+   trains ``main`` on the converted COCO tree (``TrainConfig`` defaults,
+   batch 32, 8 steps, ``--loader threads`` and ``--loader grain``: finite
+   losses, 1 ``warp_2level`` launch per step, img/s over steps 2-8) and
+   serves the checkpoint over its 128 instances (2 ``fused_chain`` launches
+   per dispatch);
    then evaluation and the inference command (``eval_and_cli``):
    ``examples/crossed_demo.ckpt`` on 8 crossed-pair images in float32
    (conditioned AP 1.0, unconditioned AP75 <= 0.2) and bfloat16, ``python
@@ -1087,6 +1099,287 @@ def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
           f"ms ({out[JPEG_TIMED[1] + '_bytes']} bytes), read_png {png_ms:.2f} ms per 480x640 "
           f"RGB PNG (host clock); {card}")
     print(json.dumps({"jpeg": out}))
+    return out
+
+
+# -- the dataset converters ---------------------------------------------------------
+
+#: the converters phase: source images per converter, their size, and the
+#: training on the converted COCO tree (batch, steps: 2 epochs of 4)
+CONV_COCO, CONV_OCHUMAN, CONV_SUPERVISELY = 64, 16, 16
+CONV_HW = (480, 640)
+CONV_BATCH, CONV_EPOCHS = 32, 2
+#: visibility of each of the 17 COCO keypoints (0 missing, 1 occluded, 2 visible)
+CONV_VIS17 = (2, 2, 2, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 0, 0)
+
+
+def person_scene(rng, n_people: int):
+    """An RGB ``CONV_HW`` image of a textured background with ``n_people``
+    brighter ellipses side by side, and each person's (mask, cx, cy, ax, ay)."""
+    h, w = CONV_HW
+    img = rng.integers(20, 90, (h, w, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    people = []
+    for k in range(n_people):
+        cx = rng.uniform(0.15, 0.35) * w + k * w / 2
+        cy, ax, ay = rng.uniform(0.35, 0.65) * h, rng.uniform(50, 90), rng.uniform(110, 160)
+        inside = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 <= 1.0
+        img[inside] = np.clip(img[inside].astype(np.int32) + 130, 0, 255).astype(np.uint8)
+        people.append(((inside * 255).astype(np.uint8), cx, cy, ax, ay))
+    return img, people
+
+
+def ring(cx, cy, ax, ay, n: int) -> list:
+    """``n`` points on an ellipse as a flat [x0, y0, x1, y1, ...] list."""
+    ang = 2 * np.pi * np.arange(n) / n
+    return np.stack([cx + ax * np.cos(ang), cy + ay * np.sin(ang)], 1).round(2).ravel().tolist()
+
+
+def keypoints_in(cx, cy, ax, ay, visibility) -> list:
+    flat = []
+    for i, v in enumerate(visibility):
+        ang = 2 * np.pi * i / len(visibility)
+        flat += [int(cx + 0.6 * ax * np.cos(ang)), int(cy + 0.6 * ay * np.sin(ang)), int(v)]
+    return flat
+
+
+def palette_bitmap_png(bits: np.ndarray) -> bytes:
+    """A bitmap as Supervisely's library writes it: a 1-bit palette PNG,
+    palette black and white, black transparent (``tRNS``)."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    raw = b"".join(b"\x00" + r.tobytes() for r in rows)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 1, 3, 0, 0, 0))
+            + chunk(b"PLTE", bytes([0, 0, 0, 255, 255, 255])) + chunk(b"tRNS", b"\x00")
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def write_sources(root: str, seed: int) -> dict:
+    """The three source trees, written with the port's own codecs: COCO
+    (``CONV_COCO`` JPEGs, two people each, segmentations cycling through
+    polygons, compressed and uncompressed RLE, 17 keypoints, a non-person
+    annotation per image), OCHuman (``CONV_OCHUMAN`` JPEGs, 19 keypoints,
+    outer and inner polygons) and a Supervisely project (``CONV_SUPERVISELY``
+    PNGs; a bitmap person as a 1-bit palette PNG, a polygon person with a
+    hole, point keypoints, a neutral object).  Returns the converters'
+    arguments."""
+    import base64
+    import zlib
+
+    from instancesegmentation_tpu_torch.core.imwrite import imwrite
+    from instancesegmentation_tpu_torch.core.rasterize import rle_encode, rle_to_string
+
+    rng = np.random.default_rng(seed)
+    h, w = CONV_HW
+    coco_img = os.path.join(root, "coco", "images")
+    och_img = os.path.join(root, "ochuman", "images")
+    os.makedirs(coco_img)
+    os.makedirs(och_img)
+    images, annotations = [], []
+    for i in range(CONV_COCO):
+        img, people = person_scene(rng, 2)
+        name = f"{i:012d}.jpg"
+        imwrite(os.path.join(coco_img, name), img)
+        images.append({"id": i, "file_name": name, "height": h, "width": w})
+        for j, (mask, cx, cy, ax, ay) in enumerate(people):
+            kind = (2 * i + j) % 3
+            segm = ([ring(cx, cy, ax, ay, 24)] if kind == 0 else
+                    {"size": [h, w], "counts": rle_to_string(rle_encode(mask))} if kind == 1
+                    else rle_encode(mask))
+            ys, xs = np.nonzero(mask)
+            annotations.append({
+                "id": 2 * i + j, "image_id": i, "category_id": 1, "segmentation": segm,
+                "bbox": [int(xs.min()), int(ys.min()), int(xs.max() - xs.min()),
+                         int(ys.max() - ys.min())],
+                "keypoints": keypoints_in(cx, cy, ax, ay, CONV_VIS17)})
+        annotations.append({"id": 10 ** 6 + i, "image_id": i, "category_id": 2,
+                            "bbox": [0, 0, 10, 10], "segmentation": [[0, 0, 9, 0, 9, 9]]})
+    coco_ann = os.path.join(root, "coco", "instances.json")
+    with open(coco_ann, "w") as f:
+        json.dump({"categories": [{"id": 1, "name": "person"}, {"id": 2, "name": "dog"}],
+                   "images": images, "annotations": annotations}, f)
+
+    och = []
+    for i in range(CONV_OCHUMAN):
+        img, people = person_scene(rng, 2)
+        name = f"{i:06d}.jpg"
+        imwrite(os.path.join(och_img, name), img)
+        anns = [{"bbox": [int(cx - ax), int(cy - ay), int(cx + ax), int(cy + ay)],
+                 "keypoints": keypoints_in(cx, cy, ax, ay, rng.integers(0, 4, 19)),
+                 "segms": {"outer": [ring(cx, cy, ax, ay, 20)],
+                           "inner": [ring(cx, cy + ay / 3, ax / 4, ay / 6, 8)]}}
+                for _, cx, cy, ax, ay in people]
+        och.append({"file_name": name, "width": w, "height": h, "annotations": anns})
+    och_ann = os.path.join(root, "ochuman", "ochuman.json")
+    with open(och_ann, "w") as f:
+        json.dump({"images": och}, f)
+
+    project = os.path.join(root, "supervisely")
+    for sub in ("img", "ann"):
+        os.makedirs(os.path.join(project, "ds0", sub))
+    parts = ("nose", "left_eye", "right_eye", "left_shoulder", "right_shoulder")
+    for i in range(CONV_SUPERVISELY):
+        img, ((mask, cx, cy, ax, ay), (_, qx, qy, bx, by)) = person_scene(rng, 2)
+        imwrite(os.path.join(project, "ds0", "img", f"frame{i:04d}.png"), img)
+        ys, xs = np.nonzero(mask)
+        y0, x0 = int(ys.min()), int(xs.min())
+        png = palette_bitmap_png(mask[y0:ys.max() + 1, x0:xs.max() + 1] > 0)
+        objects = [{"classTitle": "person_bmp", "geometryType": "bitmap", "instance": "a",
+                    "bitmap": {"data": base64.b64encode(zlib.compress(png)).decode(),
+                               "origin": [x0, y0]}},
+                   {"classTitle": "person_poly", "geometryType": "polygon", "instance": "b",
+                    "points": {"exterior": np.reshape(ring(qx, qy, bx, by, 16), (-1, 2)).tolist(),
+                               "interior": [np.reshape(ring(qx, qy, bx / 4, by / 5, 6),
+                                                       (-1, 2)).tolist()]}},
+                   {"classTitle": "neutral", "geometryType": "polygon", "instance": "n",
+                    "points": {"exterior": [[0, 0], [9, 0], [9, 9]], "interior": []}}]
+        for k, part in enumerate(parts):
+            for inst, (px, py) in (("a", (cx, cy)), ("b", (qx, qy))):
+                objects.append({"classTitle": part, "geometryType": "point", "instance": inst,
+                                "points": {"exterior": [[int(px) + 5 * k, int(py) - 20]],
+                                           "interior": []}})
+        with open(os.path.join(project, "ds0", "ann", f"frame{i:04d}.json"), "w") as f:
+            json.dump({"size": {"height": h, "width": w}, "objects": objects}, f)
+    return {"coco": (coco_img, coco_ann), "ochuman": (och_ann, och_img),
+            "supervisely": (project,)}
+
+
+def converters_phase(dev, card: str, w2, fc, jpeg: dict) -> dict:
+    """The dataset converters (``data/converters/``) at COCO sizes: the port
+    writes a COCO, an OCHuman and a Supervisely source tree
+    (``write_sources``), converts each to the common format (images/s per
+    converter), holds ``encode_jpeg`` byte for byte against cv2's encoder
+    fixtures of ``tests/data/jpeg`` (ms per 480 x 640 file beside
+    ``jpeg_phase``'s decode), trains ``python -m
+    instancesegmentation_tpu_torch.train``'s ``main`` on the converted COCO
+    tree (``TrainConfig`` defaults, batch 32, 8 steps, the threaded loader
+    and the worker loader: finite losses, 1 ``warp_2level`` launch per step,
+    img/s over steps 2-8) and serves the checkpoint over the converted
+    samples (2 ``fused_chain`` launches per dispatch, finite outputs)."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imread
+    from instancesegmentation_tpu_torch.data import converters
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.data.pipeline import host_batch
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine, load_any_checkpoint
+    from instancesegmentation_tpu_torch.ops.native.jpeg import encode_jpeg, load_jpeg_encoder
+    from instancesegmentation_tpu_torch.train import loop
+
+    out = {"card": card}
+    t0 = time.perf_counter()
+    load_jpeg_encoder()
+    out["encoder_build_or_load_s"] = time.perf_counter() - t0
+    fixtures = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "enc_*.jpg")))
+    check(len(fixtures) >= 6, "converters: the encoder's fixtures are present")
+    for path in fixtures:
+        with open(path, "rb") as f:
+            want = f.read()
+        check(encode_jpeg(np.load(path[:-4] + ".npz")["pixels"]) == want,
+              f"converters: encode_jpeg of {os.path.basename(path)}'s pixels equals cv2's bytes")
+    out["encoder_fixtures_byte_equal"] = len(fixtures)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_converters_") as tmp:
+        t0 = time.perf_counter()
+        sources = write_sources(os.path.join(tmp, "src"), SEED + 12)
+        out["write_sources_s"] = time.perf_counter() - t0
+        big = imread(os.path.join(sources["coco"][0], f"{0:012d}.jpg"))
+        encode_jpeg(big)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            encode_jpeg(big)
+        out["jpeg_encode_ms_480x640"] = (time.perf_counter() - t0) * 1e3 / 20
+        out["jpeg_decode_ms_480x640"] = jpeg[JPEG_TIMED[0] + "_ms"]
+
+        calls = {"coco": converters.transfer_coco, "ochuman": converters.transfer_ochuman,
+                 "supervisely": converters.transfer_supervisely_to_common}
+        counts = {"coco": CONV_COCO, "ochuman": CONV_OCHUMAN, "supervisely": CONV_SUPERVISELY}
+        dirs = {}
+        for name, convert in calls.items():
+            dirs[name] = os.path.join(tmp, "common_" + name)
+            t0 = time.perf_counter()
+            n = convert(*sources[name], dirs[name], progress=False)
+            secs = time.perf_counter() - t0
+            check(n == counts[name], f"converters: {name} converted {n} of {counts[name]} images")
+            records = sorted(glob.glob(os.path.join(dirs[name], "data", "*.json")))
+            mixes = os.listdir(os.path.join(dirs[name], "mix"))
+            check(len(records) == len(mixes) == n, f"converters: {name} wrote a record and a "
+                  "mix preview per image")
+            masks = glob.glob(os.path.join(dirs[name], "instance_mask", "*", "*.png"))
+            check(len(masks) == 2 * n and all(imread(m, "gray").max() == 255 for m in masks[:8]),
+                  f"converters: {name} wrote two non-empty instance masks per image")
+            out[name] = {"images": n, "seconds": secs, "images_per_s": n / secs}
+        samples = {name: len(InstanceCommonDataset(d, 640)) for name, d in dirs.items()}
+        out["eligible_instances"] = samples
+        check(samples["coco"] == 2 * CONV_COCO, "converters: every COCO person is eligible")
+        print(f"converters ({CONV_HW[0]}x{CONV_HW[1]}, the port's codecs): " + ", ".join(
+            f"{name} {out[name]['images']} images in {out[name]['seconds']:.2f} s "
+            f"({out[name]['images_per_s']:.1f} images/s)" for name in calls)
+              + f"; eligible instances {samples}; encode_jpeg "
+              f"{out['jpeg_encode_ms_480x640']:.2f} ms per 480x640 file (decode "
+              f"{out['jpeg_decode_ms_480x640']:.2f} ms), {len(fixtures)} encoder fixtures "
+              f"byte-equal to cv2's; host clock; {card}")
+
+        # -- train on the converted COCO tree, both loaders (counts per run)
+        n_steps = CONV_EPOCHS * (samples["coco"] // CONV_BATCH)
+        runs = {}
+        for loader in ("threads", "grain"):
+            argv = ["--train-dataset-dir", dirs["coco"], "--val-dataset-dir", dirs["coco"],
+                    "--checkpoint-dir", os.path.join(tmp, loader, "ckpt"),
+                    "--out-dir", os.path.join(tmp, loader, "runs"),
+                    "--batch-size", str(CONV_BATCH), "--epochs", str(CONV_EPOCHS),
+                    "--rotate", "25", "--flip-prob", "0.5", "--jitter", "0.1",
+                    "--save-iou-gate", "0", "--show-iter", "1", "--loader", loader]
+            if loader == "grain":
+                argv += ["--grain-workers", "4"]
+            w2.warp_2level.launches = 0
+            loop.main(argv)
+            torch.cuda.synchronize()
+            rows = metric_rows(os.path.join(tmp, loader, "runs"))
+            losses = [r["loss"] for r in rows if "loss" in r]
+            secs, steps = step_ms_from_log(rows)
+            runs[loader] = {"losses": losses, "warp_2level": w2.warp_2level.launches,
+                            "img_per_s_steps_2_to_n": steps * CONV_BATCH / secs}
+            print(f"train on the converted COCO tree (--loader {loader}): losses "
+                  f"{[round(v, 4) for v in losses]}, {w2.warp_2level.launches} warp_2level "
+                  f"launches, {runs[loader]['img_per_s_steps_2_to_n']:.1f} img/s over steps "
+                  f"2-{n_steps} (host clock, loader included); {card}")
+            check(len(losses) == n_steps == 8 and all(np.isfinite(losses)),
+                  f"converters, --loader {loader}: 8 finite losses")
+            check(w2.warp_2level.launches == n_steps,
+                  f"converters, --loader {loader}: 1 warp_2level launch per step")
+        out["train"] = runs
+
+        # -- serve the checkpoint over the converted samples
+        found = glob.glob(os.path.join(tmp, "threads", "ckpt", "*_best.ckpt"))
+        check(len(found) == 1, "converters: the trainer's checkpoint exists")
+        eng = InferenceEngine(load_any_checkpoint(found[0]), in_channels=20, size=480)
+        ds = InstanceCommonDataset(dirs["coco"], 640)
+        fc.reset_launches()
+        dispatches = 0
+        nonempty = 0
+        for start in range(0, len(ds), CONV_BATCH):
+            probs, masks = eng.predict_instances(
+                host_batch([ds.fetch(i) for i in range(start, start + CONV_BATCH)]))
+            dispatches += 1
+            check(probs.shape == (CONV_BATCH, 480, 480, 1) and np.isfinite(probs).all(),
+                  "converters serve: finite crop probabilities")
+            nonempty += int((masks.reshape(len(masks), -1) > 0).any(1).sum())
+        torch.cuda.synchronize()
+        serve = {"dispatches": dispatches, "fused_chain": fc.fused_chain.launches,
+                 "by_form": dict(fc.fused_chain.launches_by_form), "nonempty_masks": nonempty}
+        out["serve"] = serve
+        print(f"served the converted COCO tree's {len(ds)} instances: {json.dumps(serve)}")
+        check(serve["fused_chain"] == 2 * dispatches and serve["by_form"].get("banded") == 2 * dispatches,
+              "converters serve: 2 fused_chain launches per dispatch")
+    print(json.dumps({"converters": out}))
     return out
 
 
@@ -2342,7 +2635,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as eval_tmp:
         trained = os.path.join(eval_tmp, "trained.ckpt")
         disk = trainer_from_disk(dev, card, w2, fc, trained)
-        jpeg_phase(card, disk["read_png_ms_480x640_rgb"])
+        jpeg = jpeg_phase(card, disk["read_png_ms_480x640_rgb"])
+        conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
     # the parallel modules: two gloo ranks on the card, the replicated
@@ -2640,6 +2934,7 @@ def main() -> int:
          "launches_eval": (evals["full_image"]["launches"]["fused_chain"]["banded"]
                            + evals["per_crop"]["launches"]["banded"]),
          "launches_parallel_engine": par["engine"]["launches"],
+         "launches_converters_serve": conv["serve"]["fused_chain"],
          "max_abs_err": max(p["max_abs_err"] for p in main),
          "ms": sum(p["ms"] for p in main),
          "plain_ms": sum(p["plain_ms"] for p in main),
@@ -2707,6 +3002,7 @@ def main() -> int:
          "launches_dp_trainer_world1": disk["dp_launches"]["warp_2level"],
          "launches_dp_step_world1": par["train_world1_nccl"]["launches_per_step"]["warp_2level"],
          "launches_dp_gloo_per_rank": par["gloo_two_ranks"]["warp_2level_per_rank"],
+         "launches_converters_train": {k: v["warp_2level"] for k, v in conv["train"].items()},
          "max_abs_err": errs["warp_2level"],
          "ms": warp_ms, "kernel_ms": warp_kernel, "plain_ms": warp_plain,
          "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,

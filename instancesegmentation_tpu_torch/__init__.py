@@ -5,9 +5,11 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
 (which stays the reference), on one NVIDIA Hopper GPU:
 
 - ``core``    device selection (the card unless the caller asks for the CPU),
-              records, the image reader (``imread``: PNG, and JPEG through
-              ``ops/native``, with EXIF orientation, as ``cv2.imread``), the
-              PNG codec, mask rasterisation and RLE codecs, and mask AP
+              records, the image reader and writer (``imread`` /
+              ``imwrite``: PNG, JPEG through ``ops/native``, and BMP, with
+              EXIF orientation, as ``cv2.imread`` / ``cv2.imwrite``), the
+              PNG and BMP codecs, cv2's box and circle drawing, mask
+              rasterisation and RLE codecs, and mask AP
               (``core/evaluation.py``).
 - ``utils``   weight carrying between the flax variable tree and the port's
               state dict.
@@ -19,7 +21,8 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
               the detection ops (NMS, RoI-Align, proposal matching); each
               kernel is hand-written CUDA C++ for sm_90a (sources in
               ``csrc/``) with its plain PyTorch version; ``ops/native`` the
-              host C++ RLE IoU of mask AP and the JPEG decoder.
+              host C++ RLE IoU of mask AP and the JPEG decoder and
+              encoder.
 - ``infer``   the instance and whole-image serving programs, the engine, the
               dynamic-batching front end, proposal-based serving (NMS,
               then one instance crop per surviving box) and the inference
@@ -28,8 +31,9 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
               (``python -m instancesegmentation_tpu_torch.eval``).
 - ``data``    the preprocessing program of training (augmentation draws,
               rotated/separable crop warp, photometric augmentations,
-              heatmaps), the threaded and the worker-process loaders and
-              the synthetic host batch.
+              heatmaps), the threaded and the worker-process loaders, the
+              synthetic host batch, and the dataset converters (COCO,
+              OCHuman, Supervisely -> common format).
 - ``train``   the training configuration, the train state (model + Adam),
               the train and eval steps, ISEG checkpoints as a file or a
               directory, and the trainer

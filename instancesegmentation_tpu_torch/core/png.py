@@ -1,27 +1,39 @@
 """PNG decoding and encoding with zlib and numpy: the port's counterpart of
-``cv2.imread`` / ``cv2.imwrite`` for the files of a common-format dataset.
+``cv2.imread`` / ``cv2.imwrite`` for PNG files.
 
 ``read_png(path, "color")`` is ``cv2.imread(path, IMREAD_COLOR)`` followed
-by ``COLOR_BGR2RGB``: RGB uint8 ``[H, W, 3]``; a gray file repeats its
-channel and an alpha channel is dropped.  ``read_png(path, "gray")`` is
-``IMREAD_GRAYSCALE`` of a gray file (with or without alpha).
+by ``COLOR_BGR2RGB``: RGB uint8 ``[H, W, 3]``.  ``read_png(path, "gray")``
+is ``IMREAD_GRAYSCALE``: uint8 ``[H, W]``.  Every valid PNG is read, with
+the transformations that cv2 asks of libpng (``grfmt_png.cpp``):
 
-Accepted: colour types 0 (gray), 2 (RGB), 4 (gray + alpha) and 6 (RGBA) at
-bit depth 8, without interlace, rows in any of the five filters.  An
-``eXIf`` chunk's orientation (before or after IDAT; the first one counts)
-turns the image as cv2 does (``core/exif.py``).  Rows in
-filter 0 (None) or 1 (Sub), which is all that ``cv2.imwrite`` writes, are
-undone for the whole image at once with numpy; Up is a row add; Average and
-Paeth (other writers' choices) are undone pixel by pixel.  Anything else
-(16-bit samples, palettes, Adam7 interlace, a colour file read as gray,
-whose libpng weights are not ported) raises ``UnsupportedImage`` naming it;
-a corrupt file (bad CRC, no IEND, short data) raises plain ``ValueError``.
+- colour types 0 (gray), 2 (RGB), 3 (palette), 4 (gray + alpha) and 6
+  (RGBA) at every bit depth the format allows (1, 2, 4, 8, 16), with or
+  without Adam7 interlace, rows in any of the five filters;
+- 16-bit samples keep their high byte (``png_set_strip_16``), gray samples
+  of 1, 2 or 4 bits are scaled to 8 (``png_set_expand_gray_1_2_4_to_8``),
+  palette indices look up ``PLTE`` (entries past its end are black);
+- alpha channels and ``tRNS`` are dropped (``png_set_strip_alpha``);
+- a colour file read as gray goes through ``png_set_rgb_to_gray(png, 1,
+  0.299, 0.587)``: libpng's fixed-point weights 9797 / 19234 / 3737 over
+  2^15, truncated on 8-bit rows and rounded on 16-bit rows before the
+  strip; a pixel with R = G = B keeps its value.  Where the file's gamma
+  (``gAMA``, or ``sRGB``'s 1/2.2) is further than 5 % from 1, libpng
+  mixes in linear light through its gamma tables, and so does the port.
+
+An ``eXIf`` chunk's orientation (before or after IDAT; the first one
+counts) turns the image as cv2 does (``core/exif.py``).  Rows in filter 0
+(None) or 1 (Sub), which is all that ``cv2.imwrite`` writes, are undone for
+the whole image at once with numpy; Up is a row add; Average and Paeth
+(other writers' choices) are undone pixel by pixel.  A corrupt file (bad
+CRC, no IEND, short data, a header the format does not allow) raises plain
+``ValueError``.
 
 ``write_png(path, array)`` writes gray ``[H, W]``, RGB ``[H, W, 3]`` or RGBA
 ``[H, W, 4]`` uint8 rows in filter 0 or 1 (default Sub).
 """
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -32,15 +44,25 @@ from instancesegmentation_tpu_torch.core.exif import apply_orientation, exif_ori
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
-#: channels per colour type (8-bit samples)
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-_COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
-_COLOR_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray+alpha", 6: "RGBA"}
+#: samples per pixel, and the bit depths the format allows, per colour type
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+#: colour type written for 1, 3 and 4 channels
+_COLOR_TYPE = {1: 0, 3: 2, 4: 6}
+#: Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+#: libpng's rgb-to-gray weights for cv2's 0.299 / 0.587, in 1/32768
+_RC = 29900 * 32768 // 100000
+_GC = 58700 * 32768 // 100000
+_BC = 32768 - _RC - _GC
+_FP_1 = 100000       # libpng's fixed-point 1.0
+_SRGB_GAMMA = 45455  # the file gamma an sRGB chunk implies
 
 
 class UnsupportedImage(ValueError):
-    """A valid image file of a form the port does not decode yet (ROADMAP
-    A10), where ``cv2.imread`` would return pixels."""
+    """A valid image file of a form the port does not decode (ROADMAP A10
+    part 3), where ``cv2.imread`` would return pixels."""
 
 
 def _chunks(data: bytes, path: str):
@@ -119,63 +141,195 @@ def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def _check_header(header: tuple, path: str) -> None:
-    _, _, depth, color, _, _, interlace = header
-    if color not in _CHANNELS:
-        raise UnsupportedImage(f"{path}: colour type {color} "
-                               f"({_COLOR_NAMES.get(color, 'unknown')}) is not supported "
-                               "(ROADMAP A10)")
-    if depth != 8:
-        raise UnsupportedImage(f"{path}: bit depth {depth} is not supported (8 only; "
-                               "ROADMAP A10)")
-    if interlace != 0:
-        raise UnsupportedImage(f"{path}: interlace method {interlace} (Adam7) is not "
-                               "supported (ROADMAP A10)")
+    w, h, depth, color, compression, filter_method, interlace = header
+    if depth not in _DEPTHS.get(color, ()):
+        raise ValueError(f"{path}: bit depth {depth} with colour type {color} is not a PNG form")
+    if not (0 < w < 2 ** 31 and 0 < h < 2 ** 31):
+        raise ValueError(f"{path}: image size {w} x {h}")
+    if compression != 0 or filter_method != 0 or interlace > 1:
+        raise ValueError(f"{path}: unknown compression, filter or interlace method")
 
 
-def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """Decode PNG bytes to uint8 ``[H, W, C]`` in the file's own channels
-    (C = 1, 3, 2 or 4 for colour types 0, 2, 4, 6), turned by its ``eXIf``
-    orientation."""
+def _unpack(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """Unfiltered rows ``[H, stride]`` -> samples ``[H, W, C]`` (uint8, or
+    uint16 at depth 16; sub-byte samples as their values, unscaled)."""
+    h = rows.shape[0]
+    if depth == 16:
+        s = rows[:, :2 * w * c].reshape(h, w * c, 2).astype(np.uint16)
+        return ((s[..., 0] << 8) | s[..., 1]).reshape(h, w, c)
+    if depth == 8:
+        return rows[:, :w * c].reshape(h, w, c)
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[..., None]
+
+
+def _parse(data: bytes, path: str) -> dict:
+    """The chunks that decide the pixels: header, samples ``[H, W, C]`` in
+    the file's own form, palette, gamma, sBIT and the ``eXIf`` block."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    header = None
+    info = {"header": None, "plte": None, "gamma": None, "srgb": False, "sbit": None,
+            "exif": None}
     idat = []
-    exif = None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
+            if len(body) != 13:
+                raise ValueError(f"{path}: IHDR of {len(body)} bytes")
+            info["header"] = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
-        elif kind == b"eXIf" and exif is None and bytes(body[:2]) in (b"II", b"MM"):
-            exif = bytes(body)  # libpng drops a block with another byte order mark
+        elif kind == b"PLTE" and info["plte"] is None:
+            info["plte"] = bytes(body)
+        elif kind == b"eXIf" and info["exif"] is None and bytes(body[:2]) in (b"II", b"MM"):
+            info["exif"] = bytes(body)  # libpng drops a block with another byte order mark
+        elif info["plte"] is not None or idat:
+            pass  # libpng ignores colour-space chunks after PLTE or IDAT
+        elif kind == b"gAMA" and info["gamma"] is None and len(body) == 4:
+            info["gamma"] = struct.unpack(">I", body)[0]
+        elif kind == b"sRGB" and len(body) == 1:
+            info["srgb"] = True
+        elif kind == b"sBIT" and info["sbit"] is None:
+            info["sbit"] = bytes(body)
+    header = info["header"]
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     _check_header(header, path)
-    w, h, _, color, _, _, _ = header
+    w, h, depth, color, _, _, interlace = header
+    if color == 3 and not info["plte"]:
+        raise ValueError(f"{path}: palette image without PLTE")
     c = _CHANNELS[color]
-    raw = zlib.decompress(b"".join(idat), bufsize=h * (1 + w * c))
-    if len(raw) < h * (1 + w * c):
+    bpp = max(1, c * depth // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    shapes = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
+    sizes = [ph * (1 + (pw * c * depth + 7) // 8) if ph and pw else 0 for ph, pw in shapes]
+    try:
+        raw = zlib.decompress(b"".join(idat), bufsize=max(1, sum(sizes)))
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt image data ({e})") from e
+    if len(raw) < sum(sizes):
         raise ValueError(f"{path}: image data too short")
-    rows = np.frombuffer(raw, np.uint8, count=h * (1 + w * c)).reshape(h, 1 + w * c)
-    img = _unfilter(rows, c).reshape(h, w, c)
-    return apply_orientation(img, exif_orientation(exif))
+    raw = np.frombuffer(raw, np.uint8)
+    samples = np.empty((h, w, c), np.uint16 if depth == 16 else np.uint8) if interlace else None
+    pos = 0
+    for (x0, y0, dx, dy), (ph, pw), size in zip(passes, shapes, sizes):
+        if size:
+            part = _unpack(_unfilter(raw[pos:pos + size].reshape(ph, size // ph), bpp),
+                           pw, c, depth)
+            if samples is None:  # not interlaced: the one pass is the image
+                samples = part
+            else:
+                samples[y0::dy, x0::dx] = part
+            pos += size
+    info["samples"] = samples
+    return info
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Decode PNG bytes to their samples ``[H, W, C]`` in the file's own
+    form (C = 1, 3, 1, 2 or 4 for colour types 0, 2, 3, 4, 6; uint16 at
+    depth 16, else uint8; palette indices and sub-byte values as stored),
+    turned by the file's ``eXIf`` orientation."""
+    info = _parse(data, path)
+    return apply_orientation(info["samples"], exif_orientation(info["exif"]))
+
+
+def _to_8bit(v: np.ndarray, depth: int) -> np.ndarray:
+    """Gray samples as libpng hands them to cv2: 16 bits stripped to the
+    high byte, 1, 2 and 4 bits scaled to 8."""
+    if depth == 16:
+        return (v >> 8).astype(np.uint8)
+    return v * np.uint8(255 // ((1 << depth) - 1))
+
+
+def _reciprocal(a: int) -> int:
+    return math.floor(1e10 / a + 0.5)
+
+
+def _significant(g: int) -> bool:
+    return g < _FP_1 - 5000 or g > _FP_1 + 5000
+
+
+def _gamma8(gamma: int) -> np.ndarray:
+    """libpng's ``png_build_8bit_table``: 8-bit samples through ``gamma``."""
+    x = np.arange(256, dtype=np.float64)
+    if not _significant(gamma):
+        return x.astype(np.int64)
+    y = np.floor(255 * np.power(x / 255.0, gamma * 1e-5) + 0.5)
+    y[0], y[-1] = 0, 255
+    return y.astype(np.int64)
+
+
+def _gamma16(n_bits: int, gamma: int) -> np.ndarray:
+    """libpng's ``png_build_16bit_table``, flattened: the top ``n_bits`` of
+    a 16-bit sample -> a 16-bit sample through ``gamma``."""
+    top = (1 << n_bits) - 1
+    x = np.arange(top + 1, dtype=np.int64)
+    if _significant(gamma):
+        return np.floor(65535.0 * np.power(x * (1.0 / top), gamma * 1e-5) + 0.5).astype(np.int64)
+    return x if n_bits == 16 else (x * 65535 + (1 << (n_bits - 1))) // top
+
+
+def _gamma_16to8(n_bits: int) -> np.ndarray:
+    """libpng's ``png_build_16to8_table`` at a file gamma times screen gamma
+    of 1: each top-``n_bits`` input to the 16-bit form of its 8-bit value."""
+    count = 1 << n_bits
+    bounds = ((np.arange(255, dtype=np.int64) * 257 + 128) * count + 32768) // 65535 + 1
+    out = np.searchsorted(bounds, np.arange(count), side="right") * 257
+    return np.minimum(out, 65535)
+
+
+def _rgb_to_gray(rgb: np.ndarray, depth: int, info: dict) -> np.ndarray:
+    """libpng's ``png_do_rgb_to_gray`` with cv2's weights, then the strip to
+    8 bits: ``rgb [H, W, 3]`` uint8 (depth <= 8, palette expanded) or
+    uint16 -> uint8 ``[H, W]``."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    equal = (r == g) & (r == b)
+    file_gamma = _SRGB_GAMMA if info["srgb"] else (info["gamma"] or _FP_1)
+    screen = _reciprocal(file_gamma)
+    if depth <= 8:
+        if not (_significant(file_gamma) or _significant(screen)):
+            return np.where(equal, r, (_RC * r + _GC * g + _BC * b) >> 15).astype(np.uint8)
+        to_1 = _gamma8(_reciprocal(file_gamma))
+        from_1 = _gamma8(_reciprocal(screen))
+        table = _gamma8(math.floor(1e15 / file_gamma / screen + 0.5))
+        mixed = from_1[(_RC * to_1[r] + _GC * to_1[g] + _BC * to_1[b] + 16384) >> 15]
+        return np.where(equal, table[r], mixed).astype(np.uint8)
+    if not (_significant(file_gamma) or _significant(screen)):
+        return (((_RC * r + _GC * g + _BC * b + 16384) >> 15) >> 8).astype(np.uint8)
+    sbit = info["sbit"] or b""
+    sig = max(sbit[:3]) if len(sbit) >= 3 else 0
+    shift = min(max(16 - sig if 0 < sig < 16 else 0, 16 - 11), 8)
+    n_bits = 16 - shift
+    to_1 = _gamma16(n_bits, _reciprocal(file_gamma))
+    from_1 = _gamma16(n_bits, _reciprocal(screen))
+    gray16 = (_RC * to_1[r >> shift] + _GC * to_1[g >> shift] + _BC * to_1[b >> shift]
+              + 16384) >> 15
+    w = np.where(equal, _gamma_16to8(n_bits)[r >> shift], from_1[gray16 >> shift])
+    return (w >> 8).astype(np.uint8)
 
 
 def png_pixels(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.ndarray:
     """PNG bytes as ``read_png`` returns the file: oriented, RGB ``[H, W, 3]``
-    for ``"color"``, ``[H, W]`` of a gray file for ``"gray"``."""
+    for ``"color"``, ``[H, W]`` for ``"gray"``."""
     if mode not in ("color", "gray"):
         raise ValueError(f"unknown read mode {mode!r}")
-    img = decode_png(data, path)
-    c = img.shape[2]
-    if mode == "gray":
-        if c > 2:
-            raise UnsupportedImage(f"{path}: a colour file read as gray (libpng's "
-                                   "rgb-to-gray weights are not ported; ROADMAP A10)")
-        return np.ascontiguousarray(img[..., 0])
-    if c <= 2:
-        return np.repeat(img[..., :1], 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+    info = _parse(data, path)
+    _, _, depth, color, _, _, _ = info["header"]
+    img = info["samples"]
+    if color == 3:
+        palette = np.zeros((256, 3), np.uint8)
+        plte = np.frombuffer(info["plte"], np.uint8)[:768]
+        palette[:len(plte) // 3] = plte[:len(plte) // 3 * 3].reshape(-1, 3)
+        img, depth = palette[img[..., 0]], 8
+    if img.shape[2] <= 2:  # gray, gray + alpha
+        gray = _to_8bit(img[..., 0], depth)
+        out = gray if mode == "gray" else np.repeat(gray[..., None], 3, axis=2)
+    elif mode == "gray":
+        out = _rgb_to_gray(img[..., :3], depth, info)
+    else:
+        out = img[..., :3] if depth == 8 else (img[..., :3] >> 8).astype(np.uint8)
+    return apply_orientation(out, exif_orientation(info["exif"]))
 
 
 def read_png(path: str, mode: str = "color") -> np.ndarray:

@@ -15,9 +15,10 @@ surviving box, ``OUT/<name>_<j>.png``).  ``--continue-test`` skips outputs
 that exist.
 
 The engine runs on ``cuda:0`` (``main(argv, device="cpu")`` runs it on the
-host).  Images are decoded by ``core/imread.py:imread`` (PNG and JPEG, as
-``cv2.imread``): a listed BMP file raises ``NotImplementedError`` naming it
-before anything is written.  Masks are written with
+host).  Images are decoded by ``core/imread.py:imread`` (PNG, JPEG and BMP,
+as ``cv2.imread``): a listed file of a form the port does not decode (an
+RLE BMP, an arithmetic-coded JPEG; ROADMAP A10 part 3) raises
+``UnsupportedImage`` naming it.  Masks are written with
 ``write_png``.  Without ``--checkpoint`` the weights are the port's seeded
 initialisation (``eval.load_weights``).  ``--int8`` and ``--fused-stem``
 raise ``NotImplementedError`` (their modules are not ported yet).
@@ -41,8 +42,6 @@ from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
 from instancesegmentation_tpu_torch.infer.proposals import segment_proposals
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
-#: the extensions of the listed files that ``imread`` decodes
-DECODED_EXTS = (".jpg", ".jpeg", ".png")
 
 
 def parse_args(argv=None):
@@ -81,15 +80,6 @@ def list_images(directory: str) -> list[str]:
             if os.path.splitext(p)[1].lower() in IMAGE_EXTS]
 
 
-def require_decodable(paths: list[str]) -> None:
-    """Raise ``NotImplementedError`` naming the first listed file whose
-    extension the port does not decode (BMP, ROADMAP A10)."""
-    for p in paths:
-        if os.path.splitext(p)[1].lower() not in DECODED_EXTS:
-            raise NotImplementedError(f"{p}: only PNG and JPEG images are decoded (no BMP "
-                                      "decoder is ported, ROADMAP A10)")
-
-
 def main(argv=None, device=None) -> int:
     args = parse_args(argv)
     check_ported(args.int8, args.fused_stem)
@@ -124,7 +114,6 @@ def main(argv=None, device=None) -> int:
         return 0
 
     paths = list_images(args.test_image_dir)
-    require_decodable(paths)
     if args.proposals:
         with open(args.proposals) as f:
             proposal_map = json.load(f)

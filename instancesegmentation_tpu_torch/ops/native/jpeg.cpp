@@ -243,9 +243,9 @@ struct Decoder {
   void read_sof(int marker) {
     if (frame) fail(1, "duplicate SOF marker");
     if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
-      fail(2, "lossless JPEG is not decoded (ROADMAP A10)");
-    if (marker >= 0xC9) fail(2, "arithmetic-coded JPEG is not decoded (ROADMAP A10)");
-    if (marker == 0xC5 || marker == 0xC6) fail(2, "hierarchical JPEG is not decoded (ROADMAP A10)");
+      fail(2, "lossless JPEG is not decoded (ROADMAP A10 part 3)");
+    if (marker >= 0xC9) fail(2, "arithmetic-coded JPEG is not decoded (ROADMAP A10 part 3)");
+    if (marker == 0xC5 || marker == 0xC6) fail(2, "hierarchical JPEG is not decoded (ROADMAP A10 part 3)");
     progressive = marker == 0xC2;
     int len = u16();
     int precision = byte();
@@ -254,7 +254,7 @@ struct Decoder {
     int nc = byte();
     if (len != 8 + 3 * nc) fail(1, "bad SOF length");
     if (height <= 0 || width <= 0 || nc <= 0) fail(1, "empty JPEG image");
-    if (precision != 8) fail(2, std::to_string(precision) + "-bit JPEG is not decoded (ROADMAP A10)");
+    if (precision != 8) fail(2, std::to_string(precision) + "-bit JPEG is not decoded (ROADMAP A10 part 3)");
     comps.resize(nc);
     for (auto &c : comps) {
       c.id = byte();
@@ -270,18 +270,18 @@ struct Decoder {
   void check_form() {
     int nc = (int)comps.size();
     if (nc != 1 && nc != 3)
-      fail(2, std::to_string(nc) + "-component (CMYK or other) JPEG is not decoded (ROADMAP A10)");
+      fail(2, std::to_string(nc) + "-component (CMYK or other) JPEG is not decoded (ROADMAP A10 part 3)");
     if (nc == 3) {
       // jdapimin.c default_decompress_parms: JFIF means YCbCr, then Adobe's
       // transform flag, then the component ids
       bool rgb = !jfif && (adobe ? adobe_transform == 0
                                  : comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
-      if (rgb) fail(2, "RGB-coded JPEG is not decoded (ROADMAP A10)");
+      if (rgb) fail(2, "RGB-coded JPEG is not decoded (ROADMAP A10 part 3)");
       const Component &y = comps[0];
       bool chroma11 = comps[1].h == 1 && comps[1].v == 1 && comps[2].h == 1 && comps[2].v == 1;
       bool ok = chroma11 && ((y.h == 1 && y.v == 1) || (y.h == 2 && y.v == 1) || (y.h == 2 && y.v == 2));
       if (!ok)
-        fail(2, "JPEG sampling factors other than 4:4:4, 4:2:2 and 4:2:0 are not decoded (ROADMAP A10)");
+        fail(2, "JPEG sampling factors other than 4:4:4, 4:2:2 and 4:2:0 are not decoded (ROADMAP A10 part 3)");
     }
     hmax = vmax = 1;
     for (auto &c : comps) {
@@ -378,7 +378,7 @@ struct Decoder {
         read_sof(m);
         continue;
       }
-      if (m == 0xCC) fail(2, "arithmetic-coded JPEG is not decoded (ROADMAP A10)");
+      if (m == 0xCC) fail(2, "arithmetic-coded JPEG is not decoded (ROADMAP A10 part 3)");
       if (m == 0xC4) {
         read_dht();
         continue;

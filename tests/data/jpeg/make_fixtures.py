@@ -12,6 +12,14 @@ orientation, files cut inside their scan data).  ``<name>.npz`` holds what
 ``gray``.  ``tests/test_torch_port_imread.py`` holds the stored arrays
 against cv2 and the port's decoder; ``chip_smoke.py`` holds the port's
 decoder against them on a machine without cv2.
+
+The encoder's fixtures ``enc_<name>.jpg`` are ``cv2.imencode(".jpg")`` with
+cv2's default parameters (quality 95, 4:2:0) of the pixels stored beside
+them as ``pixels`` in ``enc_<name>.npz`` (RGB, or gray): a 480 x 640 image
+(the decode of ``base_480x640_420_q95.jpg``), random and smooth small ones,
+gray ones.  ``tests/test_torch_port_jpeg_encode.py`` holds them against cv2
+and the port's encoder; ``chip_smoke.py`` holds the port's encoder against
+them on the card's machine.
 """
 import os
 import struct
@@ -75,15 +83,38 @@ def fixtures() -> dict[str, bytes]:
     }
 
 
+def encoder_sources() -> dict[str, np.ndarray]:
+    """The pixels (RGB or gray) of the encoder's fixtures."""
+    rng = np.random.default_rng(5)
+    big = cv2.imread(os.path.join(HERE, "base_480x640_420_q95.jpg"), cv2.IMREAD_COLOR)
+    return {
+        "enc_480x640_rgb": cv2.cvtColor(big, cv2.COLOR_BGR2RGB),
+        "enc_37x53_rgb_random": rng.integers(0, 256, (37, 53, 3), dtype=np.uint8),
+        "enc_17x9_rgb": cv2.cvtColor(picture(17, 9, 6), cv2.COLOR_BGR2RGB),
+        "enc_1x1_rgb": rng.integers(0, 256, (1, 1, 3), dtype=np.uint8),
+        "enc_96x128_gray": cv2.cvtColor(picture(96, 128, 7), cv2.COLOR_BGR2GRAY),
+        "enc_33x31_gray_random": rng.integers(0, 256, (33, 31), dtype=np.uint8),
+    }
+
+
+def save(name: str, data: bytes, **arrays) -> None:
+    path = os.path.join(HERE, name + ".jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    color = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
+    np.savez_compressed(os.path.join(HERE, name + ".npz"), color=color,
+                        gray=cv2.imread(path, cv2.IMREAD_GRAYSCALE), **arrays)
+    print(f"{name}: {len(data)} bytes, {color.shape}")
+
+
 def main() -> None:
     for name, data in fixtures().items():
-        path = os.path.join(HERE, name + ".jpg")
-        with open(path, "wb") as f:
-            f.write(data)
-        color = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
-        np.savez_compressed(os.path.join(HERE, name + ".npz"), color=color,
-                            gray=cv2.imread(path, cv2.IMREAD_GRAYSCALE))
-        print(f"{name}: {len(data)} bytes, {color.shape}")
+        save(name, data)
+    for name, pixels in encoder_sources().items():
+        bgr = pixels if pixels.ndim == 2 else cv2.cvtColor(pixels, cv2.COLOR_RGB2BGR)
+        ok, data = cv2.imencode(".jpg", bgr)
+        assert ok
+        save(name, data.tobytes(), pixels=pixels)
 
 
 if __name__ == "__main__":

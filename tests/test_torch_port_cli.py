@@ -6,6 +6,7 @@ and the refusal of BMP files."""
 import functools
 import json
 import os
+import struct
 
 import cv2
 import jax
@@ -18,7 +19,8 @@ from instancesegmentation_tpu.data.synthetic import make_synthetic_dataset as ja
 from instancesegmentation_tpu.infer.cli import main as jax_main
 from instancesegmentation_tpu.models.segment import Segment as JaxSegment
 from instancesegmentation_tpu_torch.core.keys import key_combine
-from instancesegmentation_tpu_torch.core.png import read_png
+from instancesegmentation_tpu_torch.core.imread import imread
+from instancesegmentation_tpu_torch.core.png import UnsupportedImage, read_png
 from instancesegmentation_tpu_torch.core.records import common_ann_loader
 from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
 from instancesegmentation_tpu_torch.infer.cli import list_images, main
@@ -132,19 +134,27 @@ def test_list_images_filters_extensions(tmp_path):
 
 @pytest.mark.parametrize("mode", [[], ["--proposals", "props.json"]], ids=["whole", "proposals"])
 def test_jpeg_raises_naming_the_file(mode, tmp_path):
-    """A listed image the port cannot decode (BMP; JPEG is decoded since
-    JPEG support landed, ``test_whole_image_mode_reads_jpeg``) is never
-    skipped: the command raises before it writes anything, naming the
-    file."""
+    """A listed BMP decodes as cv2 decodes it since the BMP codec landed; a
+    listed image of a form the port does not decode (an RLE BMP, ROADMAP A10
+    part 3) is never skipped: the command raises ``UnsupportedImage`` naming
+    the file, here before it writes anything."""
     img = tmp_path / "img"
     img.mkdir()
     cv2.imwrite(str(img / "a.png"), np.zeros((20, 20, 3), np.uint8))
-    cv2.imwrite(str(img / "b.bmp"), np.zeros((20, 20, 3), np.uint8))
-    (tmp_path / "props.json").write_text(json.dumps({"b": {"boxes": [[0, 0, 9, 9]],
+    pixels = np.random.default_rng(2).integers(0, 256, (20, 20, 3), dtype=np.uint8)
+    cv2.imwrite(str(img / "b.bmp"), pixels)
+    np.testing.assert_array_equal(imread(str(img / "b.bmp")), pixels[..., ::-1])
+    rle8 = bytearray((img / "b.bmp").read_bytes()[:54]) + bytes(1024)
+    rle8 += b"\x14\x07\x00\x00" * 20 + b"\x00\x01"  # 20 rows of one run of 20 pixels
+    rle8[28:34] = struct.pack("<HI", 8, 1)  # 8 bits per pixel, BI_RLE8
+    rle8[10:14] = struct.pack("<I", 54 + 1024)
+    (img / "c.bmp").write_bytes(bytes(rle8))
+    assert cv2.imread(str(img / "c.bmp")) is not None
+    (tmp_path / "props.json").write_text(json.dumps({"c": {"boxes": [[0, 0, 9, 9]],
                                                            "scores": [1.0]}}))
     mode = [str(tmp_path / m) if m.endswith(".json") else m for m in mode]
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="b.bmp"):
+    with pytest.raises(UnsupportedImage, match="c.bmp"):
         main(["-i", str(img), "-o", str(out), "--size", "32", "--float32"] + mode, device="cpu")
     assert not out.exists() or not os.listdir(out)
 

@@ -26,7 +26,13 @@ from instancesegmentation_tpu.train.metrics import dump_image_grid as jax_dump_g
 from instancesegmentation_tpu_torch.core import keys as K
 from instancesegmentation_tpu_torch.core.boxes import box_iou, mask2box
 from instancesegmentation_tpu_torch.core.masks import mask_iou, union_masks
-from instancesegmentation_tpu_torch.core.png import decode_png, read_png, write_png
+from instancesegmentation_tpu_torch.core.imread import imread
+from instancesegmentation_tpu_torch.core.png import (
+    UnsupportedImage,
+    decode_png,
+    read_png,
+    write_png,
+)
 from instancesegmentation_tpu_torch.core.rasterize import fill_ellipse
 from instancesegmentation_tpu_torch.core.records import (
     ROOT_KEY,
@@ -143,7 +149,10 @@ def test_png_filters_and_colour_types_match_cv2(tmp_path, color, filters):
 
 
 def test_png_raises(tmp_path):
-    px = np.zeros((4, 5, 3), np.uint8)
+    """What ``read_png`` refused before the remaining PNG forms were ported
+    (16 bits, palettes, Adam7, a colour file read as gray) now reads as cv2
+    reads it; corrupt files and other formats still raise."""
+    px = np.random.default_rng(9).integers(0, 256, (4, 5, 3), dtype=np.uint8)
 
     def write(name, data):
         path = str(tmp_path / name)
@@ -151,22 +160,29 @@ def test_png_raises(tmp_path):
             f.write(data)
         return path
 
-    cases = {
-        "16.png": (_encode(px, 2, [0] * 4, depth=16), "bit depth 16"),
-        "palette.png": (_encode(px[..., :1], 3, [0] * 4,
-                                extra=[(b"PLTE", bytes(range(6)))]), "palette"),
-        "adam7.png": (_encode(px, 2, [0] * 4, interlace=1), "Adam7"),
-        "text.png": (b"not a png at all", "not a PNG"),
+    decoded = {
+        "16.png": _encode(px, 2, [0] * 4, depth=16),
+        "palette.png": _encode(px[..., :1] % 2, 3, [0] * 4, extra=[(b"PLTE", bytes(range(6)))]),
+        # one pixel: Adam7's layout is the plain one (larger interlaced files
+        # are in test_torch_port_png_forms.py)
+        "adam7.png": _encode(px[:1, :1], 2, [0], interlace=1),
     }
-    for name, (data, what) in cases.items():
-        with pytest.raises(ValueError, match=what):
-            read_png(write(name, data))
+    for name, data in decoded.items():
+        path = write(name, data)
+        np.testing.assert_array_equal(read_png(path, "color"), _cv2_color(path))
+        np.testing.assert_array_equal(read_png(path, "gray"),
+                                      cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    with pytest.raises(ValueError, match="not a PNG"):
+        read_png(write("text.png", b"not a png at all"))
+    ok, tiff = cv2.imencode(".tiff", px)
+    with pytest.raises(UnsupportedImage, match="A10 part 3"):
+        imread(write("image.tiff", tiff.tobytes()))
     corrupt = bytearray(_encode(px, 2, [0] * 4))
     corrupt[40] ^= 0xFF  # inside IDAT: its CRC no longer holds
     with pytest.raises(ValueError, match="CRC"):
         read_png(write("crc.png", bytes(corrupt)))
-    with pytest.raises(ValueError, match="colour file read as gray"):
-        read_png(write("rgb.png", _encode(px, 2, [1] * 4)), "gray")
+    rgb = write("rgb.png", _encode(px, 2, [1] * 4))
+    np.testing.assert_array_equal(read_png(rgb, "gray"), cv2.imread(rgb, cv2.IMREAD_GRAYSCALE))
     with pytest.raises(FileNotFoundError):
         read_png(str(tmp_path / "missing.png"))
     with pytest.raises(ValueError, match="uint8"):

@@ -126,17 +126,25 @@ def test_imread_raises_where_cv2_returns_none(tmp_path):
                 imread(path, mode)
         with pytest.raises(FileNotFoundError):
             trecords._load_image(path)
+    # BMP and 16-bit PNG are decoded since their decoders landed; a colour
+    # PNG read as gray takes libpng's weights
     ok, sixteen = cv2.imencode(".png", _picture(6, 8).astype(np.uint16) * 257)
-    unsupported = {"image.bmp": bmp.tobytes(), "sixteen.png": sixteen.tobytes()}
+    rgb = _write(tmp_path / "rgb.png", encode_png(_picture(6, 8)))
+    for name, data in {"image.bmp": bmp.tobytes(), "sixteen.png": sixteen.tobytes()}.items():
+        _same_as_jax(_write(tmp_path / name, data))
+    np.testing.assert_array_equal(imread(rgb, "gray"), cv2.imread(rgb, cv2.IMREAD_GRAYSCALE))
+    # the forms that stay out (ROADMAP A10 part 3) raise, never skip
+    ok, tiff = cv2.imencode(".tiff", _picture(6, 8))
+    rle8 = bytearray(bmp.tobytes()[:54]) + bytes(1024) + b"\x08\x01\x00\x00" * 6 + b"\x00\x01"
+    rle8[28:34] = struct.pack("<HI", 8, 1)  # 8 bits per pixel, BI_RLE8
+    rle8[10:14] = struct.pack("<I", 54 + 1024)
+    unsupported = {"image.tiff": tiff.tobytes(), "rle8.bmp": bytes(rle8)}
     for name, data in unsupported.items():
         path = _write(tmp_path / name, data)
         assert cv2.imread(path) is not None, name
         with pytest.raises(ValueError, match="A10") as info:
             imread(path)
         assert isinstance(info.value, UnsupportedImage)
-    rgb = _write(tmp_path / "rgb.png", encode_png(_picture(6, 8)))
-    with pytest.raises(UnsupportedImage, match="A10"):
-        imread(rgb, "gray")  # libpng's rgb-to-gray weights are not ported
     # the extension plays no part: a JPEG named .png is a JPEG
     _same_as_jax(_write(tmp_path / "jpeg_named.png", jpg.tobytes()))
 
