@@ -137,6 +137,24 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    and the bf16 train480 step data-parallel over one NCCL rank beside the
    single-process step (CUDA events, in turns), its all-reduces and
    ``warp_2level`` launches per step, and both steps' device idle share;
+   then int8 post-training quantisation (``int8_phase``):
+   ``calibrate_on_dataset`` over 16 images at 480 px on the card and on the
+   CPU (the 76 scales within 1e-4 relative), the int8 conv kernel
+   (``csrc/int8_conv.cu``) bit-equal to its plain version (int32
+   accumulators and outputs) on every quantised conv of the instance480
+   program (bf16 and float32) and of the 3-channel whole512 program, on the
+   activations the programs give them; the instance480 batch served under
+   "int8_mxu" and "int8", each main path read alone (2 / 0 banded chain
+   launches, 2 int8_conv launches per quantised conv: 12 / 152), masks
+   agreeing >= 0.9 with the float engine's, one ``ParallelInferenceEngine``
+   replica bit-equal to the int8_mxu engine, float32 card vs CPU on 2 rows
+   (the quantised inputs that flip between them counted; masks >= 0.9, the
+   bound JAX's tests hold int8 to), img/s and program ms in turns with the
+   float engine, and each conv's kernel ms beside its plain version, its
+   bound and ``torch._int_mm`` over an int8 im2col (a yardstick); ``eval_and_cli``
+   also runs ``eval --int8`` (the crossed demo in float32 and bfloat16, the
+   hard set's full-image protocol: 2 chain and 12 int8_conv launches per
+   dispatch) and ``infer --int8`` in whole-image mode on 4 images;
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above, NMS, the warp, roi_align and
    matching also by their kernels' device time in a ``torch.profiler``
@@ -165,6 +183,7 @@ It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1688,6 +1707,413 @@ def parallel_phase(dev, card: str, fc, w2, sd20, batch, probs, masks, probs32, m
     return out
 
 
+# -- int8 post-training quantisation ------------------------------------------------
+
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
+INT8_CHECK_BATCH = 8      # rows of each program at which every conv is checked
+INT8_CALIB_IMAGES = 16    # the calibration set: 2 batches of 8 instances
+INT8_WHOLE_SIZE = 512     # the 3-channel whole-image program checked
+#: float32 card (kernels) vs CPU (plain versions), int8: on the card's own
+#: model input, the crop masks' agreement and the share of quantised inputs
+#: that flip (an H100 read 1.0, and 1.6e-7 / 0 under int8_mxu / int8); end to
+#: end, the share that flips at the stem from the crop warp's float rounding
+#: (read 2.9e-4)
+INT8_SAME_INPUT_MASKS, INT8_SAME_INPUT_FLIPS, INT8_STEM_FLIPS = 0.999, 1e-5, 1e-3
+
+
+@contextlib.contextmanager
+def int8_hooked(model, fn):
+    """Within the block, each int8 conv of ``model`` computes ``fn(path,
+    qconv, x_nhwc)`` (an NHWC output) in place of its kernel call."""
+    from instancesegmentation_tpu_torch.models.layers import Int8
+
+    saved = {p: m.quant for p, m in model.quant_convs().items() if isinstance(m.quant, Int8)}
+    for path, q in saved.items():
+        model.get_submodule(path).quant = (
+            lambda mod, x, path=path, qc=q.qconv: fn(path, qc, x.permute(0, 2, 3, 1))
+            .permute(0, 3, 1, 2))
+    try:
+        yield
+    finally:
+        for path, q in saved.items():
+            model.get_submodule(path).quant = q
+
+
+def int8_program_inputs(g, n: int, size: int, in_channels: int, dtype, dev):
+    """Seeded inputs of the backbone: images in [-1, 1] and heatmaps in
+    [0, 1] (None for 3 channels)."""
+    x = (torch.rand((n, size, size, 3), generator=g, device=dev) * 2 - 1).to(dtype)
+    hm = (torch.rand((n, size, size, in_channels - 3), generator=g, device=dev).to(dtype)
+          if in_channels > 3 else None)
+    return x, hm
+
+
+def int8_bit_equal(x, q, what: str):
+    """The kernel's int32 accumulators and outputs for conv ``q`` on ``x``
+    bit-equal to the plain version's, on the card; returns the outputs."""
+    from instancesegmentation_tpu_torch.ops.int8_conv import int8_conv, int8_conv_reference
+
+    acc = int8_conv(x, q, torch.int32)
+    y = int8_conv(x, q)
+    for got, want in ((acc, int8_conv_reference(x, q, torch.int32)),
+                      (y, int8_conv_reference(x, q))):
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"int8_conv {what} {list(x.shape)} -> {list(y.shape)} {x.dtype}, k {q.kh}x{q.kw} "
+              f"s{q.stride[0]} groups {q.groups}: the kernel's "
+              f"{'accumulators' if got is acc else 'outputs'} differ from the plain version's "
+              f"(max diff {(got.double() - want.double()).abs().max().item():.3e})")
+    return y
+
+
+def int8_kernel_checks(dev, programs: dict, g) -> dict:
+    """Every quantised conv of each program in "int8" mode, on the
+    activations the program gives it at ``INT8_CHECK_BATCH`` rows: the
+    kernel's int32 accumulators and outputs bit-equal to the plain version's
+    on the card.  ``programs``: label -> (engine, in_channels, size)."""
+    out = {}
+    for label, (eng, in_channels, size) in programs.items():
+        shapes = []
+
+        def checked(path, q, x):
+            x = x.contiguous()
+            shapes.append((list(x.shape), q.groups))
+            return int8_bit_equal(x, q, f"{label} {path}")
+
+        x, hm = int8_program_inputs(g, INT8_CHECK_BATCH, size, in_channels, eng._dtype, dev)
+        with int8_hooked(eng.model, checked), torch.inference_mode():
+            eng._apply_model(x, hm)
+        torch.cuda.synchronize()
+        check(len(shapes) == 76, f"int8_conv {label}: all 76 convs checked")
+        widths = sorted({shape[-1] for shape, groups in shapes if groups == 1})
+        out[label] = {"convs": len(shapes), "dense_input_widths": widths}
+        print(f"int8_conv {label}: the 76 convs bit-equal to the plain version "
+              f"(accumulators and outputs; dense input widths {widths})")
+    return out
+
+
+def int8_im2col(xq, q):
+    """The int8 im2col of ``xq [N, H, W, C]`` for conv ``q`` (groups 1),
+    ``[M, K]`` with K = kh * kw * C zero-padded to a multiple of 8."""
+    import torch.nn.functional as F
+
+    (sh, sw), (ph, pw), (dh, dw) = q.stride, q.padding, q.dilation
+    n, h, w, c = xq.shape
+    ho, wo = q.out_hw(h, w)
+    xp = F.pad(xq, (0, 0, pw, pw, ph, ph))
+    cols = [xp[:, ky * dh: ky * dh + sh * (ho - 1) + 1: sh, kx * dw: kx * dw + sw * (wo - 1) + 1: sw]
+            for ky in range(q.kh) for kx in range(q.kw)]
+    k = q.kh * q.kw * c
+    pad = -k % 8
+    if pad:
+        cols.append(xq.new_zeros((n, ho, wo, pad)))
+    return torch.cat(cols, dim=-1).reshape(n * ho * wo, k + pad)
+
+
+def int8_conv_cost(x, y, q) -> tuple[float, float, float, str]:
+    """(operations, bytes, bound ms, what bounds it) of one int8 conv of a
+    float input: every multiply-add on the int8 tensor cores (2 operations),
+    the float input read once, the output written once, the int8 weights,
+    scales and bias read once."""
+    macs = y.numel() * q.kh * q.kw * q.in_per_group
+    io = (x.numel() * x.element_size() + y.numel() * y.element_size() + q.wq.numel()
+          + 8 * q.out_channels)
+    t_ops, t_io = 2 * macs / PEAK_INT8_OPS * 1e3, io / PEAK_BYTES * 1e3
+    return 2.0 * macs, float(io), max(t_ops, t_io), "operations" if t_ops > t_io else "bytes"
+
+
+def int8_conv_times(eng, dev_batch, mxu_paths) -> list:
+    """Each of the 76 convs of the int8 instance program at the batch of
+    ``dev_batch``, on the input the program gives it: the kernel's ms (both
+    launches), the plain version's, the bound, and as a yardstick
+    ``torch._int_mm`` over an int8 im2col where it takes the shape (groups 1,
+    out channels a multiple of 8), held to the kernel's accumulators.  At
+    this batch every conv's accumulators and outputs are also held bit-equal
+    to the plain version's (the dense kernel's grid-stride loop runs here,
+    not at ``INT8_CHECK_BATCH`` rows)."""
+    from instancesegmentation_tpu_torch.ops.int8_conv import (
+        int8_conv,
+        int8_conv_reference,
+        quantize_input_reference,
+    )
+
+    captured = []
+
+    def capture(path, q, x):
+        x = x.contiguous()
+        captured.append((path, q, x))
+        return int8_conv(x, q)
+
+    with int8_hooked(eng.model, capture), torch.inference_mode():
+        eng._forward_instance(*dev_batch)
+    parts = []
+    for path, q, x in captured:
+        y = int8_bit_equal(x, q, f"{path} at batch {len(x)}")
+        ops, io, b_ms, b_by = int8_conv_cost(x, y, q)
+        ms = cuda_ms(lambda: int8_conv(x, q), iters=10)
+        plain = cuda_ms(lambda: int8_conv_reference(x, q), iters=2, warmup=1)
+        part = {"path": path, "int8_mxu": path in mxu_paths, "in": list(x.shape),
+                "out": list(y.shape), "kernel": [q.kh, q.kw], "stride": q.stride[0],
+                "groups": q.groups, "ops": ops, "bytes": io, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "int_mm_ms": None}
+        if q.groups == 1 and q.out_channels % 8 == 0:
+            a = int8_im2col(quantize_input_reference(x, q.s_in), q)
+            wk = q.wq.permute(0, 2, 3, 1).reshape(q.out_channels, -1).to(x.device)
+            wk = torch.nn.functional.pad(wk, (0, a.shape[1] - wk.shape[1])).contiguous()
+            acc = torch._int_mm(a, wk.t())
+            exact((acc.reshape(y.shape),), (int8_conv(x, q, torch.int32),),
+                  f"torch._int_mm over the im2col of {path}: the kernel's accumulators")
+            part["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(a, wk.t()), iters=10)
+            del a, acc
+        parts.append(part)
+    del captured
+    torch.cuda.empty_cache()
+    print(f"int8_conv: the {len(parts)} convs at batch {len(dev_batch[0])} bit-equal to the "
+          "plain version (accumulators and outputs)")
+    return parts
+
+
+def int8_vs_cpu(dev, sd20, size: int, scales: dict, small: dict) -> dict:
+    """float32 card (kernels) against the CPU (plain versions) on the rows
+    of ``small``, in both int8 modes; checks and returns the readings.
+
+    End to end, the float ops before each quantiser (crop warp, heatmaps,
+    float convs, chains) differ by float rounding, and where such a
+    difference crosses a .5 boundary of x / s_in the quantised input flips
+    by one step.  The model is then run on both from the card's own model
+    input (the stem's input): a conv can flip only after the first float op
+    whose rounding differs (int8_mxu: the chain of section 1; int8: the conv
+    transpose of bottle4_1up), so the convs before it must flip none, and
+    the masks must agree as the float engine's do (0.999)."""
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
+    from instancesegmentation_tpu_torch.ops import int8_conv as ic
+
+    vs_cpu = {}
+    for mode in ("int8_mxu", "int8"):
+        runs, stem_in = [], None
+        for d in (dev, "cpu"):
+            e = InferenceEngine(sd20, 20, size, torch.float32, quant=scales, quant_mode=mode,
+                                device=d)
+            seen = {"end_to_end": {}, "same_model_input": {}}
+
+            def record(path, q, x, inputs):
+                x = x.contiguous()
+                inputs[path] = (q.s_in, x.cpu())
+                return ic.int8_conv(x, q)
+
+            with int8_hooked(e.model, lambda *a: record(*a, seen["end_to_end"])):
+                p_end, m_end = e.predict_instances(small)
+            if stem_in is None:
+                stem_in = next(iter(seen["end_to_end"].values()))[1]
+            xd = stem_in.to(d)
+            with (int8_hooked(e.model, lambda *a: record(*a, seen["same_model_input"])),
+                  torch.inference_mode()):
+                p_same = torch.sigmoid(e._apply_model(xd[..., :3], xd[..., 3:])).cpu().numpy()
+            runs.append({"end_to_end": (p_end, m_end, seen["end_to_end"]),
+                         "same_model_input": (p_same, None, seen["same_model_input"])})
+        vs_cpu[mode], flips_by = {}, {}
+        for name in ("end_to_end", "same_model_input"):
+            (pg, mg, xg), (pc, mc, xc) = (r[name] for r in runs)
+            flips = flips_by[name] = {
+                p: int((ic.quantize_input_reference(xg[p][1], s) !=
+                        ic.quantize_input_reference(x, s)).sum()) for p, (s, x) in xc.items()}
+            vs_cpu[mode][name] = {
+                "prob_max_abs_diff": float(np.abs(pg - pc).max()),
+                "crop_mask_agreement": float(((pg > 0.5) == (pc > 0.5)).mean()),
+                "quantised_input_flips": sum(flips.values()),
+                "quantised_inputs": sum(x.numel() for _, x in xc.values()),
+                "first_flipping_conv": next((p for p, f in flips.items() if f), None),
+                "stem_flip_share": next(iter(flips.values())) / next(iter(xc.values()))[1].numel()}
+            if mg is not None:
+                vs_cpu[mode][name]["canvas_mask_agreement"] = float((mg == mc).mean())
+        exact_sections = (("init_conv", "bottle1_1") if mode == "int8_mxu" else
+                          ("init_conv", "bottle1_1", "bottle1_x", "bottle2_1", "bottle2_x",
+                           "bottle3_1", "bottle3_x"))
+        exact = {p: f for p, f in flips_by["same_model_input"].items()
+                 if p.split(".")[0] in exact_sections}
+        same = vs_cpu[mode]["same_model_input"]
+        same["convs_before_first_float_difference"] = len(exact)
+        print(f"int8 float32 {mode}, card (kernel) vs CPU (plain) on {len(stem_in)} rows: "
+              f"{json.dumps(vs_cpu[mode])} (limits: end to end canvas masks >= 0.9 and stem "
+              f"flips <= {INT8_STEM_FLIPS} of its inputs; on the same model input crop masks >= "
+              f"{INT8_SAME_INPUT_MASKS}, flips <= {INT8_SAME_INPUT_FLIPS} of the quantised "
+              f"inputs and none in the {len(exact)} convs of {'/'.join(exact_sections)})")
+        end = vs_cpu[mode]["end_to_end"]
+        check(end["canvas_mask_agreement"] >= 0.9,
+              f"{mode} float32: card (kernel) vs CPU (plain) canvas masks, end to end")
+        check(end["stem_flip_share"] <= INT8_STEM_FLIPS,
+              f"{mode} float32, end to end: quantised stem inputs flipping")
+        check(len(exact) > 0 and not any(exact.values()),
+              f"{mode} float32, same model input: no quantised input flips before the first "
+              f"float op whose rounding differs ({ {p: f for p, f in exact.items() if f} })")
+        check(same["quantised_input_flips"] <= INT8_SAME_INPUT_FLIPS * same["quantised_inputs"],
+              f"{mode} float32, same model input: quantised inputs flipping")
+        check(same["crop_mask_agreement"] >= INT8_SAME_INPUT_MASKS,
+              f"{mode} float32, same model input: card vs CPU crop masks")
+    return vs_cpu
+
+
+def int8_phase(dev, card: str, fc, sd20, sd3, batch, probs, masks) -> dict:
+    """int8 post-training quantisation on the card:
+
+    1. calibration: ``calibrate_on_dataset`` over a 16-image set written by
+       the port at 480 px (2 batches of 8 instances), on the card and on the
+       CPU (TF32 off): the 76 scales within 1e-4 relative;
+    2. the kernel against its plain version: every quantised conv of the
+       instance480 program in "int8" mode (bf16 and float32) and of the
+       3-channel whole512 program (input widths 3, 19, 35), at
+       ``INT8_CHECK_BATCH`` rows, bit-equal accumulators and outputs;
+    3. serving the instance480 batch in bf16 under "int8_mxu" and "int8"
+       beside the float engine: each mode's main path read alone (fused_chain
+       2 / 0 launches, int8_conv 2 per quantised conv: 12 / 152), masks
+       agreeing >= 0.9 with the float engine's, one ``ParallelInferenceEngine``
+       replica bit-equal to the int8_mxu engine, float32 card vs CPU on 2
+       rows in both modes, end to end (canvas masks >= 0.9, JAX's int8
+       bound; the stem's flips bounded) and from the card's own model input
+       (no quantised input flipping before the first float op whose rounding
+       differs, flips and crop masks bounded), flipped inputs counted;
+       img/s on the host clock and device ms, in turns;
+    4. per conv at batch 128 (int8 mode): the kernel bit-equal to its plain
+       version, kernel ms, plain ms, bound, ``torch._int_mm`` yardstick.
+    """
+    from instancesegmentation_tpu_torch.data.synthetic import make_synthetic_dataset
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
+    from instancesegmentation_tpu_torch.models.layers import int8_selected
+    from instancesegmentation_tpu_torch.models.quantize import (
+        calibrate,
+        calibrate_on_dataset,
+    )
+    from instancesegmentation_tpu_torch.models.segment import Segment
+    from instancesegmentation_tpu_torch.ops import int8_conv as ic
+    from instancesegmentation_tpu_torch.parallel.inference import ParallelInferenceEngine
+
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    n, size, whole = len(probs), probs.shape[1], INT8_WHOLE_SIZE
+
+    # -- 1. calibration, card against CPU
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+        make_synthetic_dataset(tmp, num_images=INT8_CALIB_IMAGES, seed=SEED + 13)
+        t0 = time.perf_counter()
+        scales = calibrate_on_dataset(sd20, tmp, in_channels=20, size=size, device=dev)
+        torch.cuda.synchronize()
+        cal_s = time.perf_counter() - t0
+        cpu_scales = calibrate_on_dataset(sd20, tmp, in_channels=20, size=size, device="cpu")
+    rel = max(abs(scales[k] - cpu_scales[k]) / cpu_scales[k] for k in cpu_scales)
+    vals = sorted(scales.values())
+    out["calibration"] = {"scales": len(scales), "min": vals[0], "max": vals[-1],
+                          "card_vs_cpu_max_rel_diff": rel, "card_s": cal_s}
+    print(f"int8 calibration (calibrate_on_dataset, {INT8_CALIB_IMAGES} images at {size} px, 2 "
+          f"batches of 8): {len(scales)} conv scales in [{vals[0]:.4g}, {vals[-1]:.4g}], "
+          f"{cal_s:.2f} s on the card; card vs CPU max rel diff {rel:.2e} (limit 1e-4)")
+    check(len(scales) == 76 and scales.keys() == cpu_scales.keys(), "int8 calibration: 76 scales")
+    check(rel <= 1e-4, "int8 calibration: card vs CPU within 1e-4 relative")
+    model3 = Segment(3).to(dev).eval()
+    x3, _ = int8_program_inputs(g, 4, whole, 3, torch.float32, dev)
+    scales3 = calibrate(model3, sd3, [x3])
+
+    # -- 2. the kernel against its plain version, every conv
+    programs = {
+        f"instance{size}_bf16": (InferenceEngine(sd20, 20, size, torch.bfloat16, quant=scales,
+                                                 quant_mode="int8", device=dev), 20, size),
+        f"instance{size}_f32": (InferenceEngine(sd20, 20, size, torch.float32, quant=scales,
+                                                quant_mode="int8", device=dev), 20, size),
+        f"whole{whole}_bf16_c3": (InferenceEngine(sd3, 3, whole, torch.bfloat16, quant=scales3,
+                                                  quant_mode="int8", device=dev), 3, whole),
+    }
+    out["kernel_checks"] = int8_kernel_checks(dev, programs, g)
+
+    # -- 3. serving the instance480 batch under each mode, each main path alone
+    engines = {"int8_mxu": InferenceEngine(sd20, 20, size, torch.bfloat16, quant=scales,
+                                           device=dev),
+               "int8": programs[f"instance{size}_bf16"][0]}
+    serve = {}
+    for mode, e in engines.items():
+        fc.reset_launches()
+        ic.reset_launches()
+        p, m = e.predict_instances(batch)  # this mode's main path, once
+        torch.cuda.synchronize()
+        quantised = sum(q is not None for q in
+                        (getattr(mm, "quant", None) for mm in e.model.quant_convs().values()))
+        serve[mode] = {"quantised_convs": quantised,
+                       "fused_chain": dict(fc.fused_chain.launches_by_form),
+                       "int8_conv": ic.int8_conv.launches,
+                       "int8_conv_by_kernel": dict(ic.int8_conv.launches_by_kernel),
+                       "mask_agreement_vs_float": float((m == masks).mean()),
+                       "crop_prob_mean_abs_diff_vs_float": float(np.abs(p - probs).mean())}
+        serve[mode]["outputs"] = (p, m)
+        chains = 2 if mode == "int8_mxu" else 0
+        print(f"main path int8 (instance {size}, batch {n}, bf16, {mode}): {quantised} "
+              f"quantised convs, launches fused_chain {serve[mode]['fused_chain']}, int8_conv "
+              f"{serve[mode]['int8_conv']} ({serve[mode]['int8_conv_by_kernel']}: 2 per conv); "
+              f"masks vs the float engine {serve[mode]['mask_agreement_vs_float']:.4f} "
+              f"(limit 0.9)")
+        check(quantised == (6 if mode == "int8_mxu" else 76), f"{mode}: quantised convs")
+        check(serve[mode]["fused_chain"] == {"banded": chains, "banded_f32": 0, "simt": 0},
+              f"{mode}: {chains} banded fused_chain launches per forward")
+        check(serve[mode]["int8_conv_by_kernel"] == {"quantize": quantised, "conv": quantised},
+              f"{mode}: one quantise and one conv launch per quantised conv")
+        check(p.shape == probs.shape and bool(np.isfinite(p).all()), f"{mode}: finite probabilities")
+        check(serve[mode]["mask_agreement_vs_float"] >= 0.9, f"{mode}: masks agree with float")
+    mxu_probs, mxu_masks = serve["int8_mxu"].pop("outputs")
+    serve["int8"].pop("outputs")
+    peng = ParallelInferenceEngine(sd20, in_channels=20, size=size, dtype=torch.bfloat16,
+                                   quant=scales, devices=[dev])
+    pp, pm = peng.predict_instances(batch)
+    check(np.array_equal(pp, mxu_probs) and np.array_equal(pm, mxu_masks),
+          "ParallelInferenceEngine(quant=...), one replica: bit-equal to the int8 engine")
+    print("ParallelInferenceEngine(quant=..., int8_mxu), one replica: bit-equal to "
+          "InferenceEngine(quant=...)")
+
+    vs_cpu = int8_vs_cpu(dev, sd20, size, scales, {k: v[:2] for k, v in batch.items()})
+
+    keys = ("image", "mask", "image_hw", "obj_box", "mask_box", "mask_valid", "keypoints")
+    dev_batch = [torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev) for k in keys]
+    float_eng = InferenceEngine(sd20, 20, size, torch.bfloat16, device=dev)
+    turns = {"float": [], "int8_mxu": [], "int8": []}
+    device = {"float": [], "int8_mxu": [], "int8": []}
+    for mode in ("float", "int8_mxu", "int8", "int8", "int8_mxu", "float"):
+        e = float_eng if mode == "float" else engines[mode]
+        e.predict_instances(batch)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            e.predict_instances(batch)  # returns host arrays: synchronous
+        turns[mode].append(3 * n / (time.perf_counter() - t0))
+        with torch.inference_mode():
+            device[mode].append(cuda_ms(lambda: e._forward_instance(*dev_batch), iters=5))
+    for mode in turns:
+        serve.setdefault(mode, {}).update(img_per_s_runs=turns[mode], program_ms_runs=device[mode])
+    print(f"time instance{size} bf16 batch {n}, in turns (float, int8_mxu, int8, int8, "
+          f"int8_mxu, float): img/s host clock {json.dumps(turns)}; program ms (CUDA events) "
+          f"{json.dumps(device)}; {card}")
+    out["serve"] = serve
+    out["card_vs_cpu_f32"] = vs_cpu
+
+    # -- 4. per conv at batch 128 (int8 mode), and the int8_mxu subset
+    mxu_paths = {p for p, m in engines["int8"].model.quant_convs().items()
+                 if int8_selected("int8_mxu", m.kernel_size, m.groups)}
+    parts = int8_conv_times(engines["int8"], dev_batch, mxu_paths)
+    check(len(parts) == 76, "int8_conv at batch 128: all 76 convs timed and checked")
+    out["parts"] = parts
+    for p in parts:
+        print(f"time int8_conv {p['path']} {p['in']} -> {p['out']} k{p['kernel']} "
+              f"s{p['stride']} g{p['groups']}: {p['ms']:.4f} ms (plain {p['plain_ms']:.3f}, "
+              f"bound {p['bound_ms']:.4f} by {p['bound_by']}, _int_mm "
+              f"{'-' if p['int_mm_ms'] is None else format(p['int_mm_ms'], '.4f')})")
+    for name, sel in (("int8_mxu", [p for p in parts if p["int8_mxu"]]), ("int8", parts)):
+        mm = [p for p in sel if p["int_mm_ms"] is not None]
+        out[f"sum_{name}"] = {
+            "convs": len(sel), "ms": sum(p["ms"] for p in sel),
+            "plain_ms": sum(p["plain_ms"] for p in sel),
+            "bound_ms": sum(p["bound_ms"] for p in sel),
+            "bound_by": max(sel, key=lambda p: p["bound_ms"])["bound_by"],
+            "int_mm_convs": len(mm), "int_mm_ms": sum(p["int_mm_ms"] for p in mm),
+            "ms_same_convs_as_int_mm": sum(p["ms"] for p in mm)}
+        print(f"time int8_conv per forward ({name}, {len(sel)} convs, batch {n} bf16): "
+              f"{json.dumps(out[f'sum_{name}'])}; {card}")
+    print(json.dumps({"int8": {k: v for k, v in out.items() if k != "parts"}}))
+    return out
+
+
 # -- evaluation and the inference command --------------------------------------
 
 EVAL_IMAGES, EVAL_HW, EVAL_SIZE = 32, (480, 640), 480
@@ -1776,6 +2202,7 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
     )
     from instancesegmentation_tpu_torch.infer import cli, proposals
     from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
+    from instancesegmentation_tpu_torch.ops import int8_conv as ic
     from instancesegmentation_tpu_torch.ops.native.build import load_native
 
     out = {"card": card}
@@ -1804,6 +2231,16 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
           f"{json.dumps(out['crossed_demo'])}")
     check(f32c["AP"] == 1.0, "crossed demo: float32 conditioned AP 1.0")
     check(f32u["AP75"] <= 0.2, "crossed demo: float32 unconditioned AP75 <= 0.2")
+    # eval --int8 (int8_mxu, calibrated on the evaluated set), conditioned
+    for dtype in ("float32", "bfloat16"):
+        r = teval.evaluate_full_image(crossed, demo, size=256, in_channels=20, canvas=320,
+                                      bfloat16=dtype == "bfloat16", int8=True)
+        check(r["num_predictions"] == r["num_gt_instances"] == 16,
+              f"crossed demo int8 {dtype}: 16 predictions of 16 GTs")
+        out["crossed_demo"][f"{dtype}_conditioned_int8"] = {m: r[m] for m in ("AP", "AP50",
+                                                                              "AP75")}
+    print(f"crossed demo, eval --int8 (conditioned) beside float: "
+          f"{json.dumps({k: v for k, v in out['crossed_demo'].items() if 'conditioned' in k})}")
 
     # -- 2. the full-image protocol at 480 on the hard set
     hard = os.path.join(tmp, "hard")
@@ -1897,6 +2334,37 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
           f"engine's build, {host['engine_build']:.3f} s); host split (s): "
           f"{json.dumps({k: round(v, 4) for k, v in host.items()})}; {card}")
 
+    # the same run with --int8 (int8_mxu, calibrated on the set's first 2
+    # batches of 8): 2 chain launches and 6 quantised convs (12 int8_conv
+    # launches) per dispatch
+    nms_mod.nms.launches = 0
+    fc.reset_launches()
+    ic.reset_launches()
+    t0 = time.perf_counter()
+    full8 = json.loads(_run_main(teval.main, ["--dataset", hard, "--full-image", "--proposals",
+                                              props_path, "--size", str(EVAL_SIZE),
+                                              "--nms-threshold", "0.7", "--max-instances", "16",
+                                              "--checkpoint", trained_ckpt, "--int8"])[-1])
+    torch.cuda.synchronize()
+    full8_launches = {"nms": nms_mod.nms.launches,
+                      "fused_chain": dict(fc.fused_chain.launches_by_form),
+                      "int8_conv": dict(ic.int8_conv.launches_by_kernel)}
+    dispatches8 = full8_launches["fused_chain"]["banded"] // 2
+    out["full_image_int8"] = dict(full8, wall_s=time.perf_counter() - t0,
+                                  launches=full8_launches, dispatches=dispatches8)
+    print(f"full-image eval --int8 (hard set, {EVAL_SIZE} px bf16): {json.dumps(full8)}; "
+          f"AP {full8['AP']} beside float {full['AP']}; launches {full8_launches}")
+    check(full8["num_images"] == full["num_images"]
+          and full8["num_gt_instances"] == full["num_gt_instances"]
+          and 0 < full8["num_predictions"] <= 16 * EVAL_IMAGES,
+          "full-image eval --int8: the counts of the dataset and its proposals")
+    check(all(0.0 <= full8[k] <= 1.0 for k in ("AP", "AP50", "AP75")),
+          "full-image eval --int8: AP in [0, 1]")
+    check(dispatches8 > 0 and full8_launches["fused_chain"]["simt"] == 0
+          and full8_launches["int8_conv"] == {"quantize": 6 * dispatches8,
+                                              "conv": 6 * dispatches8},
+          "full-image eval --int8: 2 chain and 12 int8_conv launches per dispatch")
+
     # -- 3. the per-crop protocol on the same set
     eligible = len(InstanceCommonDataset(hard))
     fc.reset_launches()
@@ -1960,6 +2428,25 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
         check(cli_out[mode]["launches"]["fused_chain"]["banded"] > 0,
               f"cli {mode}: the banded chain kernel ran")
     print(f"inference command on the card: {json.dumps(cli_out)}")
+
+    # infer --int8 in whole-image mode on the 4 images (calibrated on them)
+    dest = os.path.join(tmp, "cli_whole_int8")
+    fc.reset_launches()
+    ic.reset_launches()
+    lines = _run_main(cli.main, modes["whole"] + ["--int8", "-o", dest])
+    files = sorted(os.listdir(dest))
+    cli_out["whole_int8"] = {"files": len(files),
+                             "fused_chain": dict(fc.fused_chain.launches_by_form),
+                             "int8_conv": dict(ic.int8_conv.launches_by_kernel)}
+    print(f"infer --int8, whole image ({CLI_IMAGES} images, {CLI_WHOLE_SIZE} px bf16): "
+          f"{json.dumps(cli_out['whole_int8'])}")
+    check("int8: calibrated 76 conv scales" in lines, "infer --int8: calibrated 76 scales")
+    check(files == [f"{i:05d}.png" for i in range(CLI_IMAGES)]
+          and all(read_png(os.path.join(dest, f), "gray").shape == EVAL_HW for f in files),
+          "infer --int8 whole: one mask per image at its size")
+    check(cli_out["whole_int8"]["int8_conv"] == {"quantize": 6, "conv": 6}
+          and cli_out["whole_int8"]["fused_chain"]["banded"] == 2,
+          "infer --int8 whole: one dispatch with 6 quantised convs and 2 chain launches")
 
     # card (float32) against a device="cpu" run of the same command, 2 images
     sub2 = os.path.join(tmp, "hard_sub2")
@@ -2082,7 +2569,10 @@ def main() -> int:
                         ("nms.cu", "nms_kernel"), ("warp_2level.cu", "warp_2level_tiled_kernel"),
                         ("roi_align.cu", "roi_order_kernel"),
                         ("roi_align.cu", "roi_align_kernel"),
-                        ("matching.cu", "match_cluster_kernel")):
+                        ("matching.cu", "match_cluster_kernel"),
+                        ("int8_conv.cu", "int8_conv_dense_kernel"),
+                        ("int8_conv.cu", "int8_conv_grouped_kernel"),
+                        ("int8_conv.cu", "int8_quantize_kernel")):
         log = _build.build_log.get(src)
         if log is None:
             print(f"{src} was built before this run: no ptxas report")
@@ -2644,6 +3134,10 @@ def main() -> int:
     par = parallel_phase(dev, card, fc, w2, sd20, batch, probs, masks, probs32, masks32,
                          tcfg, tbatch, draws)
 
+    # int8 post-training quantisation: calibration, the int8 conv kernel on
+    # every conv, and the int8_mxu and int8 main paths
+    q8 = int8_phase(dev, card, fc, sd20, sd3, batch, probs, masks)
+
     # -- 5. times ------------------------------------------------------------
     # the chain at batch 128, both programs: the banded form (bf16) beside
     # each launch's bound, its rounding plain version, the float32 plain
@@ -3008,6 +3502,26 @@ def main() -> int:
          "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,
          "grid_sample_yardstick_ms": grid_ms, "shape": shape, "tile_plan": plan._asdict(),
          "ptxas": ptxas.get("warp_2level_tiled_kernel")},
+        {"name": "int8_conv", "route": "cuda",
+         "source": "instancesegmentation_tpu_torch/csrc/int8_conv.cu",
+         "replaces": None, "on_main_path": True,
+         "launches": q8["serve"]["int8_mxu"]["int8_conv"],
+         "launches_by_kernel": q8["serve"]["int8_mxu"]["int8_conv_by_kernel"],
+         "launches_int8_mode": q8["serve"]["int8"]["int8_conv"],
+         "launches_per_conv": 2,
+         "launches_eval_full_image_int8": evals["full_image_int8"]["launches"]["int8_conv"],
+         "launches_infer_whole_int8": evals["cli"]["whole_int8"]["int8_conv"],
+         "max_abs_err": 0.0,
+         **{k: q8["sum_int8_mxu"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": q8["sum_int8_mxu"]["int_mm_ms"],
+         "library": "torch._int_mm over an int8 im2col, on the convs it takes "
+                    f"({q8['sum_int8_mxu']['int_mm_convs']} of {q8['sum_int8_mxu']['convs']}; "
+                    "the kernel on those: ms_same_convs_as_int_mm), a yardstick only",
+         "ms_same_convs_as_int_mm": q8["sum_int8_mxu"]["ms_same_convs_as_int_mm"],
+         "int8_mode": q8["sum_int8"], "shape": [BATCH, 480, 480, 20], "dtype": "bfloat16",
+         "ptxas": {k: ptxas.get(k) for k in ("int8_conv_dense_kernel", "int8_conv_grouped_kernel",
+                                             "int8_quantize_kernel")},
+         "parts": q8["parts"]},
         {"name": "warp_2level_fused", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/warp_2level.cu",
          "replaces": "tools/rot_pallas_probe.py:211",

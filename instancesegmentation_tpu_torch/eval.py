@@ -16,7 +16,7 @@ its JSON keys:
 Usage:
   python -m instancesegmentation_tpu_torch.eval --dataset DIR \\
       [--checkpoint X.ckpt|X.pth] [--size 480] [--batch 8] \\
-      [--in-channels 20] [--max-batches N] [--float32] \\
+      [--in-channels 20] [--max-batches N] [--float32] [--int8] \\
       [--full-image] [--proposals boxes.json] [--nms-threshold T]
 
 Prints one JSON line.  The engine runs on ``cuda:0``; the library
@@ -27,8 +27,9 @@ the JAX package's ``PRNGKey(0)`` weights.  GT masks are read with
 ``imread(..., "gray")`` and images with ``imread(..., "color")`` (RGB); a
 mask file that ``cv2.imread`` could not decode skips its object, as in the
 JAX package.
-``--int8`` and ``--fused-stem`` name modules the port does not have yet and
-raise ``NotImplementedError``.
+``--int8`` serves int8 (``models/quantize.py``), calibrated on the first 2
+batches of 8 instances of the evaluated dataset; ``--fused-stem`` names a
+module the port does not have yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,15 +57,13 @@ from instancesegmentation_tpu_torch.data.pipeline import (
 from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine, load_any_checkpoint
 from instancesegmentation_tpu_torch.infer.proposals import _mask_score, iter_segment_proposals
 from instancesegmentation_tpu_torch.models.layers import init_weights_
+from instancesegmentation_tpu_torch.models.quantize import calibrate_on_dataset
 from instancesegmentation_tpu_torch.models.segment import Segment
 
 
-def check_ported(int8: bool = False, fused_stem: bool = False) -> None:
+def check_ported(fused_stem: bool = False) -> None:
     """Raise ``NotImplementedError`` for the serving options whose modules
     the port does not have yet."""
-    if int8:
-        raise NotImplementedError("int8 serving needs models/quantize.py, not ported "
-                                  "yet (ROADMAP A6)")
     if fused_stem:
         raise NotImplementedError("the fused stem needs models/fused_stem_hm.py, not "
                                   "ported yet (ROADMAP A7)")
@@ -80,10 +79,18 @@ def load_weights(checkpoint: Optional[str], in_channels: int) -> dict:
     return model.state_dict()
 
 
-def _build_engine(checkpoint, size, in_channels, bfloat16, device=None) -> InferenceEngine:
+def _build_engine(checkpoint, size, in_channels, bfloat16, device=None,
+                  int8_dataset=None) -> InferenceEngine:
+    """``int8_dataset``: a common-format directory to calibrate int8 serving
+    on (its first batches; the scales live outside the checkpoint)."""
     dtype = torch.bfloat16 if bfloat16 else torch.float32
-    return InferenceEngine(load_weights(checkpoint, in_channels), in_channels=in_channels,
-                           size=size, dtype=dtype, device=device)
+    weights = load_weights(checkpoint, in_channels)
+    quant = None
+    if int8_dataset:
+        quant = calibrate_on_dataset(weights, int8_dataset, in_channels=in_channels, size=size,
+                                     device=device)
+    return InferenceEngine(weights, in_channels=in_channels, size=size, dtype=dtype,
+                           quant=quant, device=device)
 
 
 def evaluate_full_image(
@@ -122,7 +129,7 @@ def evaluate_full_image(
     ``_segment_fn(image_rgb, boxes, scores, keypoints) ->
     list[{"mask", "mask_score"}]`` replaces the engine in tests.
     """
-    check_ported(int8, fused_stem)
+    check_ported(fused_stem)
     proposal_map = None
     if proposals_path:
         with open(proposals_path) as f:
@@ -198,7 +205,8 @@ def evaluate_full_image(
             _consume(_segment_fn(req["image"], req["boxes"], req["scores"], req["keypoints"])
                      if req["boxes"] else [])
     else:
-        engine = _build_engine(checkpoint, size, in_channels, bfloat16, device)
+        engine = _build_engine(checkpoint, size, in_channels, bfloat16, device,
+                               int8_dataset=dataset_dir if int8 else None)
         for results in iter_segment_proposals(engine, _requests(), nms_threshold=nms_threshold,
                                               max_instances=max_instances, canvas=canvas):
             _consume(results)
@@ -233,8 +241,9 @@ def evaluate_dataset(
     """Per-crop protocol: each eligible instance's crop prediction against
     its GT mask warped into the crop by ``preprocess_batch`` with no
     augmentation (on the engine's device); mean IoU and singleton AP."""
-    check_ported(int8, fused_stem)
-    engine = _build_engine(checkpoint, size, in_channels, bfloat16, device)
+    check_ported(fused_stem)
+    engine = _build_engine(checkpoint, size, in_channels, bfloat16, device,
+                           int8_dataset=dataset_dir if int8 else None)
     ds = InstanceCommonDataset(dataset_dir)
     aug = AugmentConfig(out_size=(size, size))
     pred_masks: list[np.ndarray] = []
@@ -306,7 +315,8 @@ def main(argv=None, device=None) -> int:
                         help="per-crop protocol: rank by the foreground-fraction proxy "
                              "instead of the mean in-mask probability")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 PTQ serving (not ported: raises)")
+                        help="int8 PTQ serving, calibrated on the eval set's first "
+                             "batches (models/quantize.py)")
     parser.add_argument("--fused-stem", action="store_true",
                         help="patch-folded conditioned stem (not ported: raises)")
     args = parser.parse_args(argv)

@@ -4,7 +4,7 @@
     python -m instancesegmentation_tpu_torch.infer -i DIR -o OUT \\
         [--dataset-mode | --proposals boxes.json] [--checkpoint X.ckpt|X.pth] \\
         [--size 512] [--batch 8] [--threshold 0.5] [--in-channels 3|20] \\
-        [--float32] [--continue-test]
+        [--float32] [--continue-test] [--int8 [--int8-calib-batches 2]]
 
 Three modes: whole image (one mask per image in ``DIR``, ``OUT/<name>.png``),
 ``--dataset-mode`` (instance crops with keypoint conditioning over a
@@ -20,8 +20,12 @@ as ``cv2.imread``): a listed file of a form the port does not decode (an
 RLE BMP, an arithmetic-coded JPEG; ROADMAP A10 part 3) raises
 ``UnsupportedImage`` naming it.  Masks are written with
 ``write_png``.  Without ``--checkpoint`` the weights are the port's seeded
-initialisation (``eval.load_weights``).  ``--int8`` and ``--fused-stem``
-raise ``NotImplementedError`` (their modules are not ported yet).
+initialisation (``eval.load_weights``).  ``--int8`` serves int8
+(``models/quantize.py``, the "int8_mxu" convs), calibrated on the input
+itself: in dataset mode on its first ``--int8-calib-batches`` batches of
+``--batch`` instances, otherwise on the first ``--int8-calib-batches *
+--batch`` images of the directory.  ``--fused-stem`` raises
+``NotImplementedError`` (its module is not ported yet).
 """
 from __future__ import annotations
 
@@ -40,6 +44,10 @@ from instancesegmentation_tpu_torch.data.pipeline import batch_iterator
 from instancesegmentation_tpu_torch.eval import check_ported, load_weights
 from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
 from instancesegmentation_tpu_torch.infer.proposals import segment_proposals
+from instancesegmentation_tpu_torch.models.quantize import (
+    calibrate_on_dataset,
+    calibrate_on_images,
+)
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
@@ -67,7 +75,9 @@ def parse_args(argv=None):
                         help="3 or 20; default 20 in dataset mode else 3")
     parser.add_argument("--float32", action="store_true", help="disable bfloat16 compute")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 PTQ serving (not ported: raises)")
+                        help="int8 PTQ serving: calibrate on the first --int8-calib-batches "
+                             "of the input source, then run the spatial backbone convs "
+                             "s8xs8->s32 (models/quantize.py, the int8_mxu mode)")
     parser.add_argument("--int8-calib-batches", type=int, default=2)
     parser.add_argument("--fused-stem", action="store_true",
                         help="patch-folded conditioned stem (not ported: raises)")
@@ -82,12 +92,23 @@ def list_images(directory: str) -> list[str]:
 
 def main(argv=None, device=None) -> int:
     args = parse_args(argv)
-    check_ported(args.int8, args.fused_stem)
+    check_ported(args.fused_stem)
     in_channels = args.in_channels or (20 if args.dataset_mode else 3)
     dtype = torch.float32 if args.float32 else torch.bfloat16
-    engine = InferenceEngine(load_weights(args.checkpoint, in_channels),
-                             in_channels=in_channels, size=args.size, dtype=dtype,
-                             threshold=args.threshold, device=device)
+    weights = load_weights(args.checkpoint, in_channels)
+    quant = None
+    if args.int8:
+        if args.dataset_mode:
+            quant = calibrate_on_dataset(weights, args.test_image_dir, in_channels=in_channels,
+                                         size=args.size, batches=args.int8_calib_batches,
+                                         batch_size=args.batch, device=device)
+        else:
+            calib = list_images(args.test_image_dir)[:args.int8_calib_batches * args.batch]
+            quant = calibrate_on_images(weights, [imread(p, "color") for p in calib],
+                                        in_channels=in_channels, size=args.size, device=device)
+        print(f"int8: calibrated {len(quant)} conv scales")
+    engine = InferenceEngine(weights, in_channels=in_channels, size=args.size, dtype=dtype,
+                             threshold=args.threshold, quant=quant, device=device)
     os.makedirs(args.output_dir, exist_ok=True)
 
     if args.dataset_mode:

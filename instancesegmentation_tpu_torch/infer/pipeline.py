@@ -42,7 +42,7 @@ from instancesegmentation_tpu_torch.ops.warp import (
     warp_image,
     warp_points,
 )
-from instancesegmentation_tpu_torch.utils.weights import jax_variables_to_torch
+from instancesegmentation_tpu_torch.utils.weights import port_quant, port_state_dict
 
 #: Largest dispatch batch; bursts above it are chunked into dispatches of
 #: at most this size rather than padded to the next power of 2.
@@ -256,18 +256,39 @@ class InferenceEngine:
     unless ``device="cpu"`` is passed.  ``dtype`` is the compute dtype
     (bfloat16 serves); the input is cast to it after normalisation, and the
     logits come out in float32.
+
+    ``quant``: calibrated input scales (``models/quantize.py``; JAX's
+    ``quant`` collection or the port's dict) switch the backbone convs to
+    int8 (``ops/int8_conv.py``), quantised from the BN-folded weights; the
+    folded head stays float.  ``quant_mode`` picks the convs when ``quant``
+    is given: "int8_mxu" (the 6 spatial non-grouped convs; both chains still
+    run) or "int8" (all 76; sections 1 and 2+3 run their layer modules).
+    ``fused_stem=True`` and ``fold_bn=False`` (the JAX engine's other serving
+    options) raise ``NotImplementedError``: their modules are not ported yet
+    (ROADMAP A7).
     """
 
     def __init__(self, variables: dict, in_channels: int = 3, size: int = 512,
-                 dtype=torch.bfloat16, threshold: float = 0.5,
-                 device: Optional[str] = None):
+                 dtype=torch.bfloat16, threshold: float = 0.5, fused_stem: bool = False,
+                 quant: Optional[dict] = None, quant_mode: str = "int8_mxu",
+                 fold_bn: bool = True, device: Optional[str] = None):
         if size % 16:
             raise ValueError(f"size {size} is not divisible by 16")
+        if fused_stem:
+            raise NotImplementedError("the fused stem needs models/fused_stem_hm.py, not "
+                                      "ported yet (ROADMAP A7)")
+        if not fold_bn:
+            raise NotImplementedError("serving without BN folding (fold_bn=False) is not "
+                                      "ported yet (ROADMAP A7)")
+        if quant is not None and quant_mode not in ("int8", "int8_mxu"):
+            raise ValueError(f"quant_mode {quant_mode!r} is not an int8 mode")
         self.device = pick_device(device)
         self.size = size
         self.threshold = threshold
         self.in_channels = in_channels
         self._dtype = dtype
+        self._scales = None if quant is None else port_quant(quant)
+        self._quant_mode = quant_mode
         self.model = Segment(in_channels).to(
             device=self.device, dtype=dtype, memory_format=torch.channels_last
         ).eval()
@@ -281,18 +302,17 @@ class InferenceEngine:
     @variables.setter
     def variables(self, variables: dict) -> None:
         """Assigning weights folds every BN into its conv, folds the head
-        (float64, CPU), builds the two chain specs and the programs, once
-        per assignment."""
-        if "params" in variables:
-            sd = jax_variables_to_torch(variables)
-        else:
-            sd = {k: (v.detach().cpu().float() if v.is_floating_point()
-                      else v.detach().cpu()) for k, v in variables.items()}
-        sd = fold_batchnorm(sd)
+        (float64, CPU), builds the two chain specs and the programs, and with
+        ``quant`` quantises the covered convs' folded weights (float32, CPU),
+        once per assignment.  Folding preserves values, so the scales
+        calibrated on the unfolded model stay valid."""
+        sd = fold_batchnorm(port_state_dict(variables))
         self.model.load_state_dict(sd)
         s = self.size
         self.model.prepare_serving(extract_s1_chain(sd, s // 8, s // 8),
                                    extract_s23_chain(sd, s // 16, s // 16))
+        if self._scales is not None:
+            self.model.set_quant(self._quant_mode, self._scales, state_dict=sd)
         self._variables = sd
         head = fold_head(sd).to(self.device)
         self._apply_model, self._forward_instance = build_instance_forward(

@@ -31,6 +31,12 @@ data-parallel batch over the ranks of ``group``.  Convs run in the dtype of
 their input: float32 parameters are cast to it at each call, so a float32
 model computes in bfloat16 when fed bfloat16 activations, as the JAX
 package's ``dtype=bfloat16`` modules do.
+
+Every conv that JAX builds as a ``ConvBN`` or ``RawConv`` can be switched to
+post-training int8 (``quant_mode``: "calibrate", "int8" or "int8_mxu";
+``Segment.set_quant``): the switch is the conv's ``quant`` attribute, which
+``conv`` calls outside training, and is not part of the state dict, so a
+float checkpoint loads unchanged (JAX's separate ``quant`` collection).
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from instancesegmentation_tpu_torch.ops.int8_conv import Int8Conv, int8_conv
 
 BN_EPS = 1e-5
 #: flax's BatchNorm momentum: running = MOMENTUM * running + (1 - MOMENTUM) *
@@ -90,7 +98,7 @@ class ConvBN(nn.Module):
         self.bn_group = None  # set by sync_batchnorm
 
     def forward(self, x, train: bool = False):
-        x = conv(self.conv, x)
+        x = conv(self.conv, x, train)
         if train:
             x = _bn_train(self.bn, x, self.bn_group)
         elif not self.bn_folded:
@@ -100,10 +108,57 @@ class ConvBN(nn.Module):
         return F.relu(x) if self.relu else x
 
 
-def conv(m: nn.Conv2d, x):
-    """``m`` applied to ``x`` in ``x``'s dtype (parameters cast to it)."""
+def conv(m: nn.Conv2d, x, train: bool = False):
+    """``m`` applied to ``x`` in ``x``'s dtype (parameters cast to it), or,
+    outside training, through its quantisation mode when one is set
+    (``m.quant``: ``Calibration`` or ``Int8``)."""
+    quant = getattr(m, "quant", None)
+    if quant is not None and not train:
+        return quant(m, x)
+    return _float_conv(m, x)
+
+
+def _float_conv(m: nn.Conv2d, x):
     bias = None if m.bias is None else m.bias.to(x.dtype)
     return m._conv_forward(x, m.weight.to(x.dtype), bias)
+
+
+#: a conv's quantisation modes (JAX ``ConvBN.quant_mode``)
+QUANT_MODES = ("off", "calibrate", "int8", "int8_mxu")
+
+
+def int8_selected(mode: str, kernel_size, groups: int) -> bool:
+    """Which convs a mode covers (JAX ``layers.py:_int8_selected``): every
+    conv under "calibrate" and "int8" (one calibration serves both int8
+    modes); under "int8_mxu" only the spatial (k >= 2) non-grouped ones."""
+    if mode == "int8_mxu":
+        return groups == 1 and max(_pair(kernel_size)) >= 2
+    return True
+
+
+class Calibration:
+    """A conv's "calibrate" mode: the float conv, unchanged, while ``amax``
+    (a float32 scalar tensor on the input's device) keeps the running
+    maximum of ``|x|`` over the calls."""
+
+    def __init__(self):
+        self.amax = None
+
+    def __call__(self, m: nn.Conv2d, x):
+        a = x.detach().abs().amax().float()
+        self.amax = a if self.amax is None else torch.maximum(self.amax, a)
+        return _float_conv(m, x)
+
+
+class Int8:
+    """A conv's int8 mode: ``ops/int8_conv.py:int8_conv`` of the NHWC view of
+    ``x`` (channels_last memory), in ``x``'s dtype."""
+
+    def __init__(self, qconv: Int8Conv):
+        self.qconv = qconv
+
+    def __call__(self, m: nn.Conv2d, x):
+        return int8_conv(x.permute(0, 2, 3, 1), self.qconv).permute(0, 3, 1, 2)
 
 
 def conv_transpose(m: nn.ConvTranspose2d, x):
@@ -192,7 +247,7 @@ def sync_batchnorm(model: nn.Module, group):
 
 def _apply(m: nn.Module, y, train: bool):
     """One entry of a block's ``convs``: a ConvBN, or a raw Conv2d."""
-    return m(y, train) if isinstance(m, ConvBN) else conv(m, y)
+    return m(y, train) if isinstance(m, ConvBN) else conv(m, y, train)
 
 
 class InitHeadS4(nn.Module):
@@ -362,7 +417,7 @@ class BottleneckUpRes(nn.Module):
             y = _bn_eval(self.convs[2], y)
         y = self.convs[4](F.relu(y), train)
         merged = torch.cat([self.conv2[0](x, train), skip.to(y.dtype)], dim=1)
-        shortcut = self.uppool[0](conv(self.uppool[1], merged))
+        shortcut = self.uppool[0](conv(self.uppool[1], merged, train))
         return F.relu(y + shortcut)
 
 

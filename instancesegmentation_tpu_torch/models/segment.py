@@ -14,10 +14,17 @@ BN-folded weights, sections 1 and 2+3 run through
 ``ops.fused_chain.fused_chain`` (the CUDA kernel on a CUDA tensor, its
 plain version on a CPU tensor); otherwise they run the layer modules, so
 the unfolded eval forward stays available.
+
+``set_quant`` switches the 76 convs that JAX builds with a ``quant_mode``
+(every conv but the head's ``bottle6_2``) to post-training int8: "calibrate"
+records each conv's input abs-max, "int8" quantises all 76, "int8_mxu" the 6
+spatial non-grouped ones.  A section whose convs are quantised runs its
+layer modules instead of its chain: under "int8_mxu" no chain conv is
+quantised and both chains run; under "int8" neither does.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 from torch import nn
@@ -29,12 +36,17 @@ from instancesegmentation_tpu_torch.models.layers import (
     BottleneckDimRes,
     BottleneckDown2,
     BottleneckUpRes,
+    Calibration,
     ConvBN,
     InitHeadS4,
+    Int8,
+    QUANT_MODES,
     conv,
     conv_transpose,
+    int8_selected,
 )
 from instancesegmentation_tpu_torch.ops.fused_chain import ChainSpec, fused_chain
+from instancesegmentation_tpu_torch.ops.int8_conv import Int8Conv
 
 #: dilations of the four Bottleneck3x3(48) blocks of sections 2 and 3,
 #: each section then ending in one Bottleneck5x5(48)
@@ -85,6 +97,70 @@ class Segment(nn.Module):
         self.bottle6_1 = nn.ConvTranspose2d(16, 4, 8, stride=4, padding=2)
         self.bottle6_2 = nn.Conv2d(4, 1, 3, padding=1)
         self.chains: Optional[tuple[ChainSpec, ChainSpec]] = None
+        self.quant_mode = "off"
+        self._chains_bypassed = False  # a chain section holds a quantised conv
+
+    def chain_sections(self) -> tuple[tuple[nn.Module, ...], tuple[nn.Module, ...]]:
+        """The layer modules each chain computes in their place (``forward``
+        runs them when the chains do not): section 1 after ``bottle1_1``,
+        and sections 2 and 3 after ``bottle2_1``."""
+        return (self.bottle1_x,), (self.bottle2_x, self.bottle3_1, self.bottle3_x)
+
+    def quant_convs(self) -> dict[str, nn.Conv2d]:
+        """The convs a quantisation mode can cover, by module path: every
+        ``Conv2d`` but the head's ``bottle6_2`` (JAX's ``ConvBN`` and
+        ``RawConv`` built with a ``quant_mode``; 76)."""
+        return {path: m for path, m in self.named_modules()
+                if isinstance(m, nn.Conv2d) and path != "bottle6_2"}
+
+    def set_quant(self, mode: str, scales: Optional[Mapping] = None,
+                  state_dict: Optional[Mapping] = None) -> None:
+        """Switch the convs to a quantisation mode (JAX's ``quant_mode``):
+
+        - "off": the float convs;
+        - "calibrate": float math, every conv recording the running abs-max
+          of its input (``calibration_scales``);
+        - "int8", "int8_mxu": each conv ``int8_selected`` covers runs
+          ``ops/int8_conv.py`` with the input abs-max ``scales[path]``
+          (``calibration_scales``'s keys; entries of convs the mode does not
+          cover are ignored), its weights quantised once, in float32, from
+          ``state_dict[path + ".weight"]`` and its bias from
+          ``state_dict[path + ".bias"]`` (default: the module's own).
+
+        Training always runs the float convs.
+        """
+        if mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant_mode {mode!r}; one of {QUANT_MODES}")
+        convs = self.quant_convs()
+        covered = [path for path, m in convs.items()
+                   if mode != "off" and int8_selected(mode, m.kernel_size, m.groups)]
+        if mode in ("int8", "int8_mxu"):
+            missing = [path for path in covered if path not in (scales or {})]
+            if missing:
+                raise KeyError(f"{mode}: no calibrated scale for {len(missing)} convs, "
+                               f"e.g. {missing[:3]}")
+        device = self.bottle6_1.weight.device
+        sd = state_dict or {}
+        for path, m in convs.items():
+            if path not in covered:
+                m.quant = None
+            elif mode == "calibrate":
+                m.quant = Calibration()
+            else:
+                m.quant = Int8(Int8Conv(sd.get(f"{path}.weight", m.weight),
+                                        sd.get(f"{path}.bias", m.bias), scales[path], m.stride,
+                                        m.padding, m.dilation, m.groups, device))
+        self.quant_mode = mode
+        chained = {id(m) for section in self.chain_sections() for top in section
+                   for m in top.modules()}
+        self._chains_bypassed = any(id(convs[path]) in chained for path in covered)
+
+    def calibration_scales(self) -> dict[str, float]:
+        """The input abs-max each conv recorded under "calibrate", by module
+        path (the convs that ran at least once)."""
+        recorders = {path: getattr(m, "quant", None) for path, m in self.quant_convs().items()}
+        return {path: float(q.amax) for path, q in recorders.items()
+                if isinstance(q, Calibration) and q.amax is not None}
 
     def prepare_serving(self, s1: ChainSpec, s23: ChainSpec) -> None:
         """Serve from BN-folded weights: skip the identity BNs and route
@@ -111,21 +187,25 @@ class Segment(nn.Module):
 
         init_down = self.init_conv(x, train)
 
+        chains = None if self._chains_bypassed else self.chains
+
+        (bottle1_x,), (bottle2_x, bottle3_1, bottle3_x) = self.chain_sections()
+
         # section 1: /8, 48ch
         b1_down, b1_pool = self.bottle1_1(init_down, train)
-        if self.chains is not None:
-            b1_5 = _chain(b1_down, self.chains[0])
+        if chains is not None:
+            b1_5 = _chain(b1_down, chains[0])
         else:
-            b1_5 = _run(self.bottle1_x, b1_down, train)
+            b1_5 = _run(bottle1_x, b1_down, train)
 
         # section 2 + concat_2 + section 3: /16, 128ch
         b2_down, b2_pool = self.bottle2_1(b1_5, train)
-        if self.chains is not None:
-            b3_8 = _chain(b2_down, self.chains[1])
+        if chains is not None:
+            b3_8 = _chain(b2_down, chains[1])
         else:
-            b2_8 = _run(self.bottle2_x, b2_down, train)
+            b2_8 = _run(bottle2_x, b2_down, train)
             cat2 = torch.cat([b2_8, b2_down], dim=1)
-            b3_8 = _run(self.bottle3_x, self.bottle3_1(cat2, train), train)
+            b3_8 = _run(bottle3_x, bottle3_1(cat2, train), train)
 
         # section 4: up to /8, 48ch
         b4_1 = self.bottle4_1up(b3_8, b2_pool, train)

@@ -17,7 +17,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_chain.cu", "nms.cu", "roi_align.cu", "matching.cu", "warp_2level.cu")
+SOURCES = ("fused_chain.cu", "nms.cu", "roi_align.cu", "matching.cu", "warp_2level.cu",
+           "int8_conv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -26,7 +26,9 @@ class ParallelInferenceEngine:
     """Shard-batched serving over ``num_devices`` visible CUDA devices (all
     by default) or an explicit ``devices`` list (the CPU tests pass
     ``[cpu] * n``); the same programs and contracts as ``InferenceEngine``,
-    so ``ServingFrontend`` drives it unchanged."""
+    so ``ServingFrontend`` drives it unchanged.  ``quant`` and ``quant_mode``
+    (int8 serving) go to every replica; ``fused_stem=True`` raises (ROADMAP
+    A7)."""
 
     def __init__(
         self,
@@ -41,9 +43,6 @@ class ParallelInferenceEngine:
         quant_mode: str = "int8_mxu",
         devices: Optional[Sequence] = None,
     ):
-        if quant is not None:
-            raise NotImplementedError(f"quant ({quant_mode}) needs models/quantize.py, not "
-                                      "ported yet (ROADMAP A6)")
         if fused_stem:
             raise NotImplementedError("the fused stem needs models/fused_stem_hm.py, not "
                                       "ported yet (ROADMAP A7)")
@@ -53,7 +52,8 @@ class ParallelInferenceEngine:
         self.in_channels = in_channels
         self.threshold = threshold
         self.replicas = [InferenceEngine(variables, in_channels, size, dtype, threshold,
-                                         device=d) for d in self.mesh.devices]
+                                         quant=quant, quant_mode=quant_mode, device=d)
+                         for d in self.mesh.devices]
         self.device = self.replicas[0].device  # where outputs are gathered
 
     @property

@@ -7,6 +7,9 @@ keeps its own copy of the mapping of
 ``instancesegmentation_tpu/utils/torch_import.py`` (the port imports nothing
 of the JAX package).
 
+The int8 input scales (JAX's ``quant`` collection) carry over with
+``jax_quant_to_torch`` and back with ``torch_quant_to_jax``.
+
 Layouts:
 - Conv2d            flax HWIO ``[kh, kw, in/g, out]``  <->  torch ``[out, in/g, kh, kw]``
 - ConvTranspose2d   flax conv-ready HWIO, spatially flipped  <->  torch
@@ -139,6 +142,52 @@ def _leaves(tree: Mapping, prefix: tuple = ()):
             yield from _leaves(value, prefix + (key,))
         else:
             yield prefix + (key,), value
+
+
+def port_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Segment weights as a port state dict of CPU tensors: flax-layout
+    variables (``{"params", "batch_stats"}``) carried over with
+    ``jax_variables_to_torch``, or a port state dict copied (its floating
+    tensors as float32)."""
+    if "params" in variables:
+        return jax_variables_to_torch(variables)
+    return {k: (v.detach().cpu().float() if v.is_floating_point() else v.detach().cpu())
+            for k, v in variables.items()}
+
+
+def jax_quant_to_torch(quant: Mapping) -> dict[str, float]:
+    """JAX's ``quant`` collection (``{"init_conv": {"layer1": {"conv":
+    {"amax": a}}}, ...}``) -> the port's input scales keyed by the conv's
+    module path (``{"init_conv.layer1.conv": a, ...}``), through
+    ``flax_to_torch_key``'s naming of the conv's kernel."""
+    out = {}
+    for path, leaf in _leaves(quant):
+        if path[-1] != "amax":
+            raise KeyError(f"unexpected quant leaf {path}")
+        key, _ = flax_to_torch_key(path[:-1] + ("kernel",), "params")
+        out[key.removesuffix(".weight")] = float(np.asarray(leaf, np.float32))
+    return out
+
+
+def torch_quant_to_jax(scales: Mapping) -> dict:
+    """Inverse of ``jax_quant_to_torch``: the port's scales nested as JAX's
+    ``quant`` collection (0-d float32 arrays, keys sorted)."""
+    tree: dict = {}
+    for key, amax in scales.items():
+        _, path, _ = torch_to_flax_key(f"{key}.weight", "conv")
+        node = tree
+        for k in path[:-2]:
+            node = node.setdefault(k, {})
+        node.setdefault(path[-2], {})["amax"] = np.asarray(amax, np.float32)
+    return _sorted(tree)
+
+
+def port_quant(quant: Mapping) -> dict[str, float]:
+    """Input scales in either form (JAX's nested ``quant`` collection, or
+    the port's dict by module path) as the port's dict."""
+    if quant and all(isinstance(v, Mapping) for v in quant.values()):
+        return jax_quant_to_torch(quant)
+    return {k: float(v) for k, v in quant.items()}
 
 
 def jax_variables_to_torch(variables: Mapping) -> dict[str, torch.Tensor]:

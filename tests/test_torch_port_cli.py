@@ -178,9 +178,21 @@ def test_whole_image_mode_reads_jpeg(synth, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--int8", "--fused-stem"])
-def test_unported_flags_raise(flag, synth, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["-i", synth, "-o", str(tmp_path), "--dataset-mode", flag], device="cpu")
+def test_unported_flags_raise(flag, synth, tmp_path, capsys):
+    """``--fused-stem`` (ROADMAP A7) raises.  ``--int8`` is ported: dataset
+    mode calibrates on the input's first batches (printing JAX's line) and
+    writes masks >= 99.9 % equal to JAX's."""
+    argv = ["-i", synth, "--dataset-mode", flag]
+    if flag == "--fused-stem":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            main(argv + ["-o", str(tmp_path)], device="cpu")
+        return
+    argv += ["--size", str(SIZE), "--batch", "2", "--float32", "--checkpoint", DEMO]
+    assert main(argv + ["-o", str(tmp_path / "port")], device="cpu") == 0
+    assert "int8: calibrated 76 conv scales" in capsys.readouterr().out
+    assert jax_main(argv + ["-o", str(tmp_path / "jax")]) == 0
+    assert "int8: calibrated 76 conv scales" in capsys.readouterr().out
+    _same_masks(str(tmp_path / "port"), str(tmp_path / "jax"))
 
 
 def test_default_device_is_the_card(synth, tmp_path):

@@ -324,15 +324,23 @@ def test_full_image_with_proposals_file(multi, tmp_path):
     assert seen[:2] == [True, True] and seen[-1] is False
 
 
-def test_unported_options_raise(multi):
-    for kw in ({"int8": True}, {"fused_stem": True}):
-        with pytest.raises(NotImplementedError, match="A6|A7"):
-            teval.evaluate_full_image(multi, _segment_fn=lambda *a: [], **kw)
-        with pytest.raises(NotImplementedError, match="A6|A7"):
-            teval.evaluate_dataset(multi, device="cpu", **kw)
-    for flag in ("--int8", "--fused-stem"):
-        with pytest.raises(NotImplementedError):
-            teval.main(["--dataset", multi, flag], device="cpu")
+def test_unported_options_raise(multi, crossed):
+    """``fused_stem`` (ROADMAP A7) still raises in both protocols and in
+    ``main``.  ``int8`` is ported: the full-image protocol with int8 serving
+    (calibrated on the evaluated set) on the crossed pairs gives JAX's int8
+    run's dict, APs included."""
+    kw = {"fused_stem": True}
+    with pytest.raises(NotImplementedError, match="A7"):
+        teval.evaluate_full_image(multi, _segment_fn=lambda *a: [], **kw)
+    with pytest.raises(NotImplementedError, match="A7"):
+        teval.evaluate_dataset(multi, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A7"):
+        teval.main(["--dataset", multi, "--fused-stem"], device="cpu")
+    common = dict(checkpoint=CROSSED_CKPT, size=256, in_channels=20, bfloat16=False, canvas=320,
+                  int8=True)
+    port = teval.evaluate_full_image(crossed, device="cpu", **common)
+    assert port == jeval.evaluate_full_image(crossed, **common)
+    assert port["num_predictions"] == port["num_gt_instances"] == 4 and port["AP"] > 0.5
 
 
 def test_default_device_is_the_card(multi):

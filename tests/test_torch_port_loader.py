@@ -200,7 +200,10 @@ if __name__ == "__main__":
     loader.close()
     helpers = []
     for task in os.listdir("/proc/self/task"):
-        helpers += open(f"/proc/self/task/{task}/children").read().split()
+        try:
+            helpers += open(f"/proc/self/task/{task}/children").read().split()
+        except FileNotFoundError:  # the thread ended meanwhile
+            pass
     print(" ".join(helpers))
 """
 

@@ -51,6 +51,7 @@ from instancesegmentation_tpu_torch.data.synthetic import (
 from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
 from instancesegmentation_tpu_torch.infer.server import ServingFrontend
 from instancesegmentation_tpu_torch.models.layers import init_weights_
+from instancesegmentation_tpu_torch.models.quantize import calibrate
 from instancesegmentation_tpu_torch.models.segment import Segment
 from instancesegmentation_tpu_torch.parallel import multihost
 from instancesegmentation_tpu_torch.parallel.data_parallel import (
@@ -753,7 +754,26 @@ def test_parallel_engine_variables_refold(carried):
 
 
 @pytest.mark.parametrize("option,where", [({"fused_stem": True}, "A7"),
-                                          ({"quant": {}}, "A6")])
+                                          ({"quant_mode": "int8"}, "A6")])
 def test_parallel_engine_unported_options_raise(carried, option, where):
-    with pytest.raises(NotImplementedError, match=where):
-        ParallelInferenceEngine(carried[0], in_channels=20, size=SIZE, devices=[CPU], **option)
+    """``fused_stem`` (ROADMAP A7) raises.  ``quant`` (A6) is ported: each
+    replica serves int8, equal to the int8 ``InferenceEngine``."""
+    if where == "A7":
+        with pytest.raises(NotImplementedError, match=where):
+            ParallelInferenceEngine(carried[0], in_channels=20, size=SIZE, devices=[CPU],
+                                    **option)
+        return
+    rng = np.random.default_rng(12)
+    quant = calibrate(Segment(20).eval(), carried[1],
+                      [(rng.uniform(-1, 1, (2, SIZE, SIZE, 3)).astype(np.float32),
+                        rng.uniform(0, 1, (2, SIZE, SIZE, 17)).astype(np.float32))])
+    par = ParallelInferenceEngine(carried[0], in_channels=20, size=SIZE, dtype=torch.float32,
+                                  devices=[CPU], quant=quant, **option)
+    single = InferenceEngine(carried[0], in_channels=20, size=SIZE, dtype=torch.float32,
+                             quant=quant, device="cpu", **option)
+    assert par.replicas[0].model.quant_mode == "int8"
+    batch = synthetic_host_batch(2, 128, seed=9)
+    p, m = par.predict_instances(batch)
+    rp, rm = single.predict_instances(batch)
+    np.testing.assert_array_equal(p, rp)
+    np.testing.assert_array_equal(m, rm)
