@@ -155,6 +155,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    also runs ``eval --int8`` (the crossed demo in float32 and bfloat16, the
    hard set's full-image protocol: 2 chain and 12 int8_conv launches per
    dispatch) and ``infer --int8`` in whole-image mode on 4 images;
+   then the keypoint-patch stem and the last options (``fused_stem_phase``):
+   instance480 at batch 128 with ``fused_stem=True`` in bf16, float32 and
+   int8_mxu, each main path read alone (2 chain launches; 8 int8_conv
+   launches under int8_mxu), against the dense engines (bf16: masks >= 0.98,
+   mean abs prob diff <= 0.02; float32: max prob diff <= 1e-3, masks >=
+   0.999) and float32 against the CPU on 2 rows; the patches bit-equal to
+   the card's dense render; ``fold_bn=False`` in float32 (0 chain launches,
+   probabilities within 2e-3 + 1e-4 relative of the folded engine's); one
+   bf16 ``ParallelInferenceEngine(fused_stem=True)`` replica bit-equal to
+   the engine; the dense and fused programs, the stem alone and the folded
+   and unfolded float32 programs in turns; ``utils/profiling.trace`` around
+   a dispatch (the chain kernel's spans); and train480 at batch 32 for 3
+   steps with ``remat`` and twice without (the first loss bit-equal, the
+   state within twice the spread of the two runs without, 1 ``warp_2level``
+   launch per step, step ms and peak memory); ``eval_and_cli`` also runs
+   ``eval --fused-stem`` on the crossed demo (float32, AP equal to the dense
+   stem's) and on the hard set (one NMS launch per image), and ``infer
+   --fused-stem`` in dataset mode on 2 images in float32 (masks >= 0.999
+   equal to the dense stem's and to the CPU's);
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above, NMS, the warp, roi_align and
    matching also by their kernels' device time in a ``torch.profiler``
@@ -2111,6 +2130,7 @@ def int8_phase(dev, card: str, fc, sd20, sd3, batch, probs, masks) -> dict:
         print(f"time int8_conv per forward ({name}, {len(sel)} convs, batch {n} bf16): "
               f"{json.dumps(out[f'sum_{name}'])}; {card}")
     print(json.dumps({"int8": {k: v for k, v in out.items() if k != "parts"}}))
+    out["scales"] = scales
     return out
 
 
@@ -2241,6 +2261,17 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
                                                                               "AP75")}
     print(f"crossed demo, eval --int8 (conditioned) beside float: "
           f"{json.dumps({k: v for k, v in out['crossed_demo'].items() if 'conditioned' in k})}")
+    # eval --fused-stem (the keypoint-patch stem) through the command, float32
+    fc.reset_launches()
+    r = json.loads(_run_main(teval.main, ["--dataset", crossed, "--checkpoint", demo, "--size",
+                                          "256", "--canvas", "320", "--float32", "--full-image",
+                                          "--fused-stem"])[-1])
+    out["crossed_demo"]["float32_conditioned_fused_stem"] = {m: r[m] for m in ("AP", "AP50",
+                                                                               "AP75")}
+    print(f"crossed demo, eval --fused-stem (float32): {json.dumps(r)}; AP {r['AP']} beside "
+          f"the dense stem's {f32c['AP']}; chain launches {dict(fc.fused_chain.launches_by_form)}")
+    check(r["num_predictions"] == r["num_gt_instances"] == 16 and r["AP"] == f32c["AP"],
+          "crossed demo, eval --fused-stem: AP equal to the dense stem's")
 
     # -- 2. the full-image protocol at 480 on the hard set
     hard = os.path.join(tmp, "hard")
@@ -2365,6 +2396,28 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
                                               "conv": 6 * dispatches8},
           "full-image eval --int8: 2 chain and 12 int8_conv launches per dispatch")
 
+    # the same run with --fused-stem: one NMS launch per image, 2 chain
+    # launches per dispatch
+    nms_mod.nms.launches = 0
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    fullf = json.loads(_run_main(teval.main, ["--dataset", hard, "--full-image", "--proposals",
+                                              props_path, "--size", str(EVAL_SIZE),
+                                              "--nms-threshold", "0.7", "--max-instances", "16",
+                                              "--checkpoint", trained_ckpt, "--fused-stem"])[-1])
+    torch.cuda.synchronize()
+    fullf_launches = {"nms": nms_mod.nms.launches,
+                      "fused_chain": dict(fc.fused_chain.launches_by_form)}
+    out["full_image_fused_stem"] = dict(fullf, wall_s=time.perf_counter() - t0,
+                                        launches=fullf_launches)
+    print(f"full-image eval --fused-stem (hard set, {EVAL_SIZE} px bf16): {json.dumps(fullf)}; "
+          f"AP {fullf['AP']} beside the dense stem's {full['AP']}; launches {fullf_launches}")
+    check(fullf["num_predictions"] == full["num_predictions"]
+          and fullf["num_gt_instances"] == full["num_gt_instances"],
+          "full-image eval --fused-stem: the counts of the dense run")
+    check(fullf_launches == {"nms": EVAL_IMAGES, "fused_chain": full_launches["fused_chain"]},
+          "full-image eval --fused-stem: one nms launch per image, 2 chain launches per dispatch")
+
     # -- 3. the per-crop protocol on the same set
     eligible = len(InstanceCommonDataset(hard))
     fc.reset_launches()
@@ -2473,11 +2526,406 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
                  for f in files]
         vs_cpu[mode] = {"files": len(files), "mask_agreement_min": min(agree)}
         check(min(agree) >= 0.999, f"cli {mode} float32: card vs CPU mask agreement >= 0.999")
+    # infer --fused-stem in dataset mode on the same 2 images, float32: the card
+    # against the dense stem's masks on the card and the same command on the CPU
+    argv = [sub2 if a == sub else a for a in modes["dataset"]] + ["--float32", "--fused-stem"]
+    dests = {d: os.path.join(tmp, f"fused_dataset_{d}") for d in ("card", "cpu")}
+    fc.reset_launches()
+    _run_main(cli.main, argv + ["-o", dests["card"]])
+    fused_launches = dict(fc.fused_chain.launches_by_form)
+    _run_main(cli.main, argv + ["-o", dests["cpu"]], device="cpu")
+    files = sorted(os.path.relpath(os.path.join(d, f), dests["card"])
+                   for d, _, fs in os.walk(dests["card"]) for f in fs)
+    dense_dir = os.path.join(tmp, "vs_dataset_card")
+    agree = {k: min(float((read_png(os.path.join(dests["card"], f), "gray")
+                           == read_png(os.path.join(other, f), "gray")).mean()) for f in files)
+             for k, other in (("vs_dense_card", dense_dir), ("vs_cpu", dests["cpu"]))}
+    vs_cpu["dataset_fused_stem"] = {"files": len(files), "launches": fused_launches,
+                                    **{f"mask_agreement_min_{k}": v for k, v in agree.items()}}
+    batches2 = -(-len(InstanceCommonDataset(sub2)) // 8)
+    check(files and all(v >= 0.999 for v in agree.values())
+          and fused_launches == {"banded": 0, "banded_f32": 2 * batches2, "simt": 0},
+          "infer --fused-stem float32: masks >= 0.999 equal to the dense stem's and the CPU's")
     print(f"inference command float32, card vs CPU ({CLI_VS_CPU_IMAGES} images): "
           f"{json.dumps(vs_cpu)} (limit 0.999)")
     out["cli"] = cli_out
     out["cli_vs_cpu"] = vs_cpu
     print(json.dumps({"eval_and_cli": out}))
+    return out
+
+
+# -- the fused stems and the last serving and training options ---------------------------
+
+REMAT_STEPS = 3  # train480 steps per run, with remat and without
+
+
+def chrome_kernels(path: str, name: str) -> int:
+    """Kernel spans in a Chrome trace whose name holds ``name``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(e.get("cat") == "kernel" and name in e.get("name", "") for e in events)
+
+
+def kernel_breakdown(fn, calls: int = 3, top: int = 6) -> dict:
+    """Device ms per call of ``fn`` by kernel name, from one
+    ``torch.profiler`` trace of ``calls`` calls after a warm-up: the
+    total, the kernels per call and the ``top`` largest (a trace that
+    lost spans reads low)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name, kernels = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA":
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6 / calls
+            kernels += 1
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"device_ms": sum(by_name.values()), "kernels_per_call": kernels / calls,
+            "largest": [[name[:80], ms] for name, ms in largest]}
+
+
+def patches_vs_dense(dev, size: int, g) -> dict:
+    """``render_heatmap_patches`` against the card's own ``render_heatmaps`` at
+    the instance program's shape: every patch equal to the dense stack's
+    window bit for bit, and the stack zero outside the windows."""
+    from instancesegmentation_tpu_torch.models.fused_stem_hm import render_heatmap_patches
+    from instancesegmentation_tpu_torch.ops.heatmap import render_heatmaps
+
+    pts = torch.rand((BATCH, 17, 2), generator=g, device=dev) * (size + 60) - 30
+    pts[:, 0] = torch.tensor([2.0, 3.0], device=dev)                # clamped at 0
+    pts[:, 1] = torch.tensor([size - 2.0, size - 3.0], device=dev)  # clamped at size - 1
+    pts[:, 2] = float("nan")                                        # non-finite
+    vis = torch.rand((BATCH, 17), generator=g, device=dev) > 0.2
+    patches, x0, y0 = render_heatmap_patches(pts, vis, (size, size))
+    dense = render_heatmaps(pts, vis, (size, size))
+    p = patches.shape[1]
+    grid = torch.arange(p, device=dev)
+    rows = (y0[:, None, :] + grid[None, :, None])[:, :, None, :].expand(-1, -1, p, -1)
+    cols = (x0[:, None, :] + grid[None, :, None])[:, None, :, :].expand(-1, p, -1, -1)
+    n = torch.arange(BATCH, device=dev)[:, None, None, None]
+    k = torch.arange(17, device=dev)[None, None, None, :]
+    window = dense[n, rows, cols, k]
+    covered = torch.zeros_like(dense, dtype=torch.bool)
+    covered[n, rows, cols, k] = True
+    out = {"patches": list(patches.shape), "equal": bool(torch.equal(window, patches)),
+           "zero_outside": bool((dense[~covered] == 0).all()),
+           "nonzero_values": int((patches > 0).sum())}
+    check(out["equal"] and out["zero_outside"] and out["nonzero_values"] > 0,
+          "render_heatmap_patches: bit-equal to the card's dense render")
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Within the block cuDNN takes only its deterministic algorithms (its
+    heuristics may otherwise pick a weight gradient that sums with atomics,
+    so that two runs of one step differ in the last bits), and PyTorch's
+    deterministic mode warns of any other op that has no deterministic form
+    on the card; the block receives the list those warnings land in."""
+    import warnings
+
+    from torch.utils import deterministic as det
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False  # keep the step's time its own
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+        det.fill_uninitialized_memory = saved[4]
+
+
+def remat_runs(dev, tcfg, tbatch) -> dict:
+    """train480 at batch 32: ``REMAT_STEPS`` steps without remat twice and
+    with it once, from the same weights and draws, under
+    ``deterministic_algorithms``; step ms, peak memory, and the memory a
+    train forward holds for its backward with and without."""
+    import dataclasses
+
+    from instancesegmentation_tpu_torch.data.pipeline import (
+        batch_to,
+        draw_augment,
+        preprocess_batch,
+    )
+    from instancesegmentation_tpu_torch.models.layers import init_weights_
+    from instancesegmentation_tpu_torch.models.segment import Segment
+    from instancesegmentation_tpu_torch.ops import warp_2level as w2
+    from instancesegmentation_tpu_torch.train.state import TrainState
+    from instancesegmentation_tpu_torch.train.steps import (
+        augment_config,
+        make_fwd,
+        make_train_step,
+    )
+
+    runs = {}
+    with deterministic_algorithms() as caught:
+        for name, remat in (("plain_a", False), ("remat", True), ("plain_b", False)):
+            cfg = dataclasses.replace(tcfg, remat=remat)
+            aug = augment_config(cfg, train=True)
+            model = Segment(20)
+            init_weights_(model, torch.Generator().manual_seed(SEED))
+            state = TrainState.create(model.to(dev), cfg.learning_rate)
+            step = make_train_step(cfg)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev)
+            w2.warp_2level.launches = 0
+            losses, ms = [], []
+            for _ in range(REMAT_STEPS):
+                t0 = time.perf_counter()
+                state, m = step(state, tbatch, draw_augment(TRAIN_BATCH, aug, gen))
+                losses.append(float(m["loss"]))  # a host copy: the step has ended
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[name] = {"losses": losses, "step_ms": ms,
+                          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+                          "resident_before_bytes": resident,
+                          "warp_2level": w2.warp_2level.launches,
+                          "state": {k: v.detach().clone() for k, v in state.model.state_dict().items()
+                                    if not k.endswith("num_batches_tracked")}}
+            check(runs[name]["warp_2level"] == REMAT_STEPS,
+                  f"train480 {name}: 1 warp_2level launch per step")
+            del state, model
+    flagged = sorted({str(w.message).splitlines()[0] for w in caught})
+    print(f"train480 under deterministic algorithms: {len(flagged)} ops flagged as "
+          f"nondeterministic{': ' + json.dumps(flagged) if flagged else ''}")
+    a, b, r = (runs[k].pop("state") for k in ("plain_a", "plain_b", "remat"))
+    spread = max((a[k] - b[k]).abs().max().item() for k in a)
+    diff = max((r[k] - a[k]).abs().max().item() for k in a)
+    # what each forward keeps for its backward: the memory a train forward
+    # holds when it returns (a model of its own; its BN update is discarded)
+    held = {}
+    for name, remat in (("plain", False), ("remat", True)):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        aug = augment_config(cfg, train=True)
+        model = Segment(20).to(dev)
+        draws = draw_augment(TRAIN_BATCH, aug, torch.Generator(device=dev).manual_seed(SEED + 1))
+        images, heatmaps, _ = preprocess_batch(batch_to(tbatch, dev), draws, aug)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        logits = make_fwd(model, cfg, train=True)(images, heatmaps)
+        torch.cuda.synchronize()
+        held[name] = torch.cuda.memory_allocated(dev) - before
+        del logits, model
+    out = {"runs": runs, "plain_spread_max_abs": spread, "remat_vs_plain_max_abs": diff,
+           "forward_held_bytes": held, "flagged_nondeterministic": flagged,
+           "first_loss_bit_equal": runs["remat"]["losses"][0] == runs["plain_a"]["losses"][0]}
+    print(f"train480 remat (batch {TRAIN_BATCH}, {REMAT_STEPS} steps): losses without "
+          f"{runs['plain_a']['losses']} / {runs['plain_b']['losses']}, with "
+          f"{runs['remat']['losses']}; parameters and BN statistics: two runs without remat "
+          f"differ by up to {spread:.3e}, remat from the first by {diff:.3e} (limit: twice "
+          f"that spread, 0 if it is 0); step ms without {runs['plain_a']['step_ms']}, with "
+          f"{runs['remat']['step_ms']}; max_memory_allocated without "
+          f"{runs['plain_a']['max_memory_allocated_bytes'] / 2**30:.3f} GiB, with "
+          f"{runs['remat']['max_memory_allocated_bytes'] / 2**30:.3f} GiB (of which resident "
+          f"before the run {runs['remat']['resident_before_bytes'] / 2**30:.3f} GiB); held by "
+          f"a train forward for its backward: without {held['plain'] / 2**30:.3f} GiB, with "
+          f"{held['remat'] / 2**30:.3f} GiB")
+    check(out["first_loss_bit_equal"], "remat: the first loss bit-equal to the step without")
+    check(diff <= 2 * spread, f"remat: parameters and BN statistics within twice the spread "
+                              f"of two runs without it (remat {diff:.3e}, spread {spread:.3e})")
+    return out
+
+
+def fused_stem_phase(dev, card: str, fc, sd20, batch, eng, eng32, probs, masks, probs32,
+                     masks32, scales, tcfg, tbatch) -> dict:
+    """The keypoint-patch stem (``fused_stem``), ``fold_bn=False`` and
+    ``remat`` on the card:
+
+    1. instance480 at batch 128 with ``fused_stem=True``, each main path read
+       alone: bf16 (2 banded chain launches) against the dense bf16 engine
+       (masks >= 0.98, mean abs prob diff <= 0.02), float32 (2 banded f32
+       launches) against the dense float32 engine, TF32 off (max prob diff
+       <= 1e-3, masks >= 0.999), float32 card against CPU on 2 rows (1e-2,
+       0.999); ``quant`` (int8_mxu) with the fused stem: 4 quantised convs
+       run, 8 int8_conv launches, 2 chain launches;
+    2. the patches against the card's own dense render, bit for bit;
+    3. ``fold_bn=False`` in float32: 0 chain launches, probabilities within
+       JAX's bound of the folded engine's (atol 2e-3, rtol 1e-4);
+    4. ``ParallelInferenceEngine(fused_stem=True)``, one bf16 replica:
+       bit-equal to ``InferenceEngine(fused_stem=True)``;
+    5. times in turns (CUDA events; img/s on the host clock): the dense and
+       fused programs, the stem alone (``stem_hm_apply`` against
+       ``render_heatmaps`` + ``init_conv``), the folded and unfolded float32
+       programs; the heatmap bytes the fused stem does not move;
+    6. ``utils/profiling.trace`` around one fused dispatch: a Chrome trace
+       with the chain kernel's spans;
+    7. train480 with ``remat`` (``remat_runs``): the first loss bit-equal,
+       the state after 3 steps within twice the spread of two runs without
+       it, 1 ``warp_2level`` launch per step, step ms and peak memory."""
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
+    from instancesegmentation_tpu_torch.models.fused_stem_hm import stem_hm_apply
+    from instancesegmentation_tpu_torch.ops import int8_conv as ic
+    from instancesegmentation_tpu_torch.ops.heatmap import render_heatmaps
+    from instancesegmentation_tpu_torch.parallel.inference import ParallelInferenceEngine
+    from instancesegmentation_tpu_torch.utils import profiling
+
+    out = {"card": card}
+    n, size = len(probs), probs.shape[1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    # -- 1. the fused stem's main paths, each read alone
+    fused = {"bf16": InferenceEngine(sd20, 20, size, torch.bfloat16, fused_stem=True, device=dev),
+             "f32": InferenceEngine(sd20, 20, size, torch.float32, fused_stem=True, device=dev),
+             "int8_mxu": InferenceEngine(sd20, 20, size, torch.bfloat16, fused_stem=True,
+                                         quant=scales, device=dev)}
+    serve, outputs = {}, {}
+    for name, e in fused.items():
+        fc.reset_launches()
+        ic.reset_launches()
+        outputs[name] = e.predict_instances(batch)  # this path, once
+        serve[name] = {"fused_chain": dict(fc.fused_chain.launches_by_form),
+                       "int8_conv": ic.int8_conv.launches}
+    print(f"main path fused stem (instance {size}, batch {n}): launches {json.dumps(serve)}")
+    check(serve["bf16"] == {"fused_chain": {"banded": 2, "banded_f32": 0, "simt": 0},
+                            "int8_conv": 0}, "fused stem bf16: 2 banded chain launches")
+    check(serve["f32"] == {"fused_chain": {"banded": 0, "banded_f32": 2, "simt": 0},
+                           "int8_conv": 0}, "fused stem f32: 2 banded f32 chain launches")
+    check(serve["int8_mxu"] == {"fused_chain": {"banded": 2, "banded_f32": 0, "simt": 0},
+                                "int8_conv": 8},
+          "fused stem int8_mxu: 4 quantised convs run (8 int8_conv launches), 2 chain launches")
+    (pf, mf), (pf32, mf32), (p8, m8) = (outputs[k] for k in ("bf16", "f32", "int8_mxu"))
+    for p in (pf, pf32, p8):
+        check(p.shape == probs.shape and bool(np.isfinite(p).all()), "fused stem: finite probs")
+    vs = {"bf16_mean_abs_prob_diff": float(np.abs(pf - probs).mean()),
+          "bf16_mask_agreement": float((mf == masks).mean()),
+          "f32_max_abs_prob_diff": float(np.abs(pf32 - probs32).max()),
+          "f32_mask_agreement": float((mf32 == masks32).mean()),
+          "int8_mxu_mask_agreement_vs_fused_bf16": float((m8 == mf).mean())}
+    small = {k: v[:2] for k, v in batch.items()}
+    p_cpu, m_cpu = InferenceEngine(sd20, 20, size, torch.float32, fused_stem=True,
+                                   device="cpu").predict_instances(small)
+    p_gpu, m_gpu = fused["f32"].predict_instances(small)
+    vs.update(card_vs_cpu_max_abs_prob_diff=float(np.abs(p_gpu - p_cpu).max()),
+              card_vs_cpu_mask_agreement=float((m_gpu == m_cpu).mean()))
+    print(f"fused stem against the dense stem: {json.dumps(vs)} (limits: bf16 mean 0.02, masks "
+          f"0.98; f32 max 1e-3, masks 0.999; card vs CPU f32 max 1e-2, masks 0.999; int8_mxu "
+          f"masks 0.9)")
+    check(vs["bf16_mean_abs_prob_diff"] <= 0.02 and vs["bf16_mask_agreement"] >= 0.98,
+          "fused stem bf16 against the dense stem")
+    check(vs["f32_max_abs_prob_diff"] <= 1e-3 and vs["f32_mask_agreement"] >= 0.999,
+          "fused stem f32 against the dense stem")
+    check(vs["card_vs_cpu_max_abs_prob_diff"] <= 1e-2 and vs["card_vs_cpu_mask_agreement"] >= 0.999,
+          "fused stem f32: card against CPU")
+    check(vs["int8_mxu_mask_agreement_vs_fused_bf16"] >= 0.9, "fused stem int8_mxu masks")
+    out["serve"], out["vs_dense"] = serve, vs
+
+    # -- 2. the patches against the card's dense render
+    out["patches"] = patches_vs_dense(dev, size, g)
+
+    # -- 3. fold_bn=False, float32
+    unfolded = InferenceEngine(sd20, 20, size, torch.float32, fold_bn=False, device=dev)
+    fc.reset_launches()
+    pu, mu = unfolded.predict_instances(batch)
+    unfolded_launches = fc.fused_chain.launches
+    err = np.abs(pu - probs32)
+    over = float((err - (2e-3 + 1e-4 * np.abs(probs32))).max())
+    out["fold_bn_false"] = {"fused_chain": unfolded_launches, "max_abs_prob_diff": float(err.max()),
+                            "worst_excess_over_bound": over,
+                            "mask_agreement": float((mu == masks32).mean())}
+    print(f"fold_bn=False (instance {size}, batch {n}, f32): {json.dumps(out['fold_bn_false'])} "
+          f"(limits: 0 chain launches, probs within 2e-3 + 1e-4 |p| of the folded engine)")
+    check(unfolded_launches == 0, "fold_bn=False: no chain launch")
+    check(over <= 0, "fold_bn=False: probabilities within atol 2e-3, rtol 1e-4 of the folded")
+
+    # -- 4. the replicated engine, one bf16 replica
+    par = ParallelInferenceEngine(sd20, in_channels=20, size=size, dtype=torch.bfloat16,
+                                  fused_stem=True, devices=[dev])
+    fc.reset_launches()
+    pp, pm = par.predict_instances(batch)
+    out["parallel_launches"] = fc.fused_chain.launches
+    check(np.array_equal(pp, pf) and np.array_equal(pm, mf) and out["parallel_launches"] == 2,
+          "ParallelInferenceEngine(fused_stem=True), one replica: bit-equal, 2 chain launches")
+    print("ParallelInferenceEngine(fused_stem=True), one bf16 replica: bit-equal to "
+          "InferenceEngine(fused_stem=True), 2 chain launches")
+
+    # -- 5. times, in turns
+    keys = ("image", "mask", "image_hw", "obj_box", "mask_box", "mask_valid", "keypoints")
+    dev_batch = [torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev) for k in keys]
+    engines = {"dense": eng, "fused": fused["bf16"], "folded_f32": eng32,
+               "unfolded_f32": unfolded}
+    program = {k: [] for k in engines}
+    img_s = {"dense": [], "fused": []}
+    with torch.inference_mode():
+        for name in ("dense", "fused", "fused", "dense", "folded_f32", "unfolded_f32",
+                     "unfolded_f32", "folded_f32"):
+            e = engines[name]
+            program[name].append(cuda_ms(lambda: e._forward_instance(*dev_batch), iters=5))
+            if name in img_s:
+                e.predict_instances(batch)
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    e.predict_instances(batch)  # returns host arrays: synchronous
+                img_s[name].append(3 * n / (time.perf_counter() - t0))
+        x = torch.rand((n, size, size, 3), generator=g, device=dev).bfloat16() * 2 - 1
+        pts = torch.rand((n, 17, 2), generator=g, device=dev) * size
+        vis = torch.rand((n, 17), generator=g, device=dev) > 0.3
+        init_conv = eng.model.init_conv
+        stem_fold = fused["bf16"]._stem_fold
+
+        def dense_stem():
+            hm = render_heatmaps(pts, vis, (size, size)).to(torch.bfloat16)
+            return init_conv(torch.cat([x, hm], -1).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last))
+
+        stem = {"dense": [], "fused": []}
+        for name in ("dense", "fused", "fused", "dense"):
+            fn = dense_stem if name == "dense" else (
+                lambda: stem_hm_apply(x, pts, vis, stem_fold, dtype=torch.bfloat16))
+            stem[name].append(cuda_ms(fn, iters=5))
+        got = stem_hm_apply(x, pts, vis, stem_fold, dtype=torch.bfloat16).float()
+        want = dense_stem().permute(0, 2, 3, 1).float()
+        stem_err = (got - want).abs().max().item()
+        # where each stem's device time goes: kernels per call and the
+        # largest kernels by device time (one trace of 3 calls each)
+        breakdown = {name: kernel_breakdown(fn) for name, fn in (
+            ("dense", dense_stem),
+            ("fused", lambda: stem_hm_apply(x, pts, vis, stem_fold, dtype=torch.bfloat16)))}
+    stack_bytes = n * size * size * 17 * 2
+    print(f"stem device time by kernel (one trace, per call): {json.dumps(breakdown)}")
+    out["times"] = {"program_ms_runs": program, "img_per_s_runs": img_s, "stem_ms_runs": stem,
+                    "stem_breakdown": breakdown, "stem_max_abs_diff_bf16": stem_err,
+                    "heatmap_stack_bytes": stack_bytes,
+                    "heatmap_bytes_avoided": 2 * stack_bytes}
+    print(f"time instance{size} batch {n}, in turns (CUDA events): program ms "
+          f"{json.dumps(program)}; img/s host clock {json.dumps(img_s)}; the stem alone (dense "
+          f"render + init_conv against stem_hm_apply, bf16) ms {json.dumps(stem)} (outputs within "
+          f"{stem_err:.3g}); the dense bf16 heatmap stack {stack_bytes / 1e9:.3f} GB, written "
+          f"and read back: {2 * stack_bytes / 1e9:.3f} GB the fused stem does not move; {card}")
+    check(stem_err <= 0.05 * want.abs().max().item(),
+          "stem_hm_apply computes the dense stem (bf16, within 5 % of its largest value)")
+
+    # -- 6. utils/profiling.trace around one fused dispatch
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        spans = []
+        for attempt in range(TRACE_ATTEMPTS):
+            with profiling.trace(tmp):
+                fused["bf16"].predict_instances(batch)
+            path = os.path.join(tmp, f"trace{attempt:04d}.pt.trace.json")
+            spans.append(chrome_kernels(path, "fused_chain_banded"))
+            if spans[-1] == 2:
+                break
+        out["trace"] = {"chain_kernel_spans_per_trace": spans,
+                        "bytes": os.path.getsize(path)}
+    print(f"utils/profiling.trace around one fused dispatch: chain kernel spans per trace {spans}")
+    check(max(spans) > 0, "utils/profiling.trace: the chain kernel's spans in the trace")
+
+    # -- 7. remat
+    out["remat"] = remat_runs(dev, tcfg, tbatch)
+    print(json.dumps({"fused_stem": out}))
     return out
 
 
@@ -3138,6 +3586,10 @@ def main() -> int:
     # every conv, and the int8_mxu and int8 main paths
     q8 = int8_phase(dev, card, fc, sd20, sd3, batch, probs, masks)
 
+    # the fused stem, fold_bn=False and remat: their main paths, checks and times
+    fstem = fused_stem_phase(dev, card, fc, sd20, batch, eng, eng32, probs, masks, probs32,
+                             masks32, q8["scales"], tcfg, tbatch)
+
     # -- 5. times ------------------------------------------------------------
     # the chain at batch 128, both programs: the banded form (bf16) beside
     # each launch's bound, its rounding plain version, the float32 plain
@@ -3429,6 +3881,9 @@ def main() -> int:
                            + evals["per_crop"]["launches"]["banded"]),
          "launches_parallel_engine": par["engine"]["launches"],
          "launches_converters_serve": conv["serve"]["fused_chain"],
+         "launches_fused_stem": fstem["serve"]["bf16"]["fused_chain"]["banded"],
+         "launches_fused_stem_parallel_replica": fstem["parallel_launches"],
+         "launches_fold_bn_false": fstem["fold_bn_false"]["fused_chain"],
          "max_abs_err": max(p["max_abs_err"] for p in main),
          "ms": sum(p["ms"] for p in main),
          "plain_ms": sum(p["plain_ms"] for p in main),
@@ -3461,6 +3916,7 @@ def main() -> int:
          "replaces": "instancesegmentation_tpu/ops/nms.py:105",
          "launches": prop_launches["nms"], "max_abs_err": 0.0, "sort_limit": nms.SORT_LIMIT,
          "launches_eval": evals["full_image"]["launches"]["nms"],
+         "launches_eval_fused_stem": evals["full_image_fused_stem"]["launches"]["nms"],
          **{k: nms_parts[0][k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "ptxas": ptxas.get("nms_kernel"), "parts": nms_parts},
         {"name": "roi_align", "route": "cuda",
@@ -3497,6 +3953,7 @@ def main() -> int:
          "launches_dp_step_world1": par["train_world1_nccl"]["launches_per_step"]["warp_2level"],
          "launches_dp_gloo_per_rank": par["gloo_two_ranks"]["warp_2level_per_rank"],
          "launches_converters_train": {k: v["warp_2level"] for k, v in conv["train"].items()},
+         "launches_remat_train": fstem["remat"]["runs"]["remat"]["warp_2level"],
          "max_abs_err": errs["warp_2level"],
          "ms": warp_ms, "kernel_ms": warp_kernel, "plain_ms": warp_plain,
          "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,
@@ -3511,6 +3968,7 @@ def main() -> int:
          "launches_per_conv": 2,
          "launches_eval_full_image_int8": evals["full_image_int8"]["launches"]["int8_conv"],
          "launches_infer_whole_int8": evals["cli"]["whole_int8"]["int8_conv"],
+         "launches_int8_mxu_fused_stem": fstem["serve"]["int8_mxu"]["int8_conv"],
          "max_abs_err": 0.0,
          **{k: q8["sum_int8_mxu"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": q8["sum_int8_mxu"]["int_mm_ms"],

@@ -9,13 +9,17 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
               ``imwrite``: PNG, JPEG through ``ops/native``, and BMP, with
               EXIF orientation, as ``cv2.imread`` / ``cv2.imwrite``), the
               PNG and BMP codecs, cv2's box and circle drawing, mask
-              rasterisation and RLE codecs, and mask AP
-              (``core/evaluation.py``).
+              rasterisation and RLE codecs, mask AP
+              (``core/evaluation.py``), and record-level affine augmentation
+              (``core/augment.py``, ``cv2.warpAffine``'s arithmetic).
 - ``utils``   weight carrying between the flax variable tree and the port's
-              state dict.
+              state dict, ``torch.profiler`` traces and step timing, debug
+              summaries.
 - ``models``  the Segment encoder-decoder as ``nn.Module``s (eval and train
-              forward), BN folding and the algebraically folded section-6
-              head (serving fold and differentiable training fold).
+              forward), BN folding, the algebraically folded section-6
+              head (serving fold and differentiable training fold), the
+              space-to-depth and keypoint-patch folded stems, and int8
+              post-training quantisation.
 - ``ops``     the separable and rotated crop-warps, the heatmap render, the
               bottleneck-chain kernel, the two-level rotated warp kernels and
               the detection ops (NMS, RoI-Align, proposal matching); each

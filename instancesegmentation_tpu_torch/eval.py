@@ -16,7 +16,7 @@ its JSON keys:
 Usage:
   python -m instancesegmentation_tpu_torch.eval --dataset DIR \\
       [--checkpoint X.ckpt|X.pth] [--size 480] [--batch 8] \\
-      [--in-channels 20] [--max-batches N] [--float32] [--int8] \\
+      [--in-channels 20] [--max-batches N] [--float32] [--int8] [--fused-stem] \\
       [--full-image] [--proposals boxes.json] [--nms-threshold T]
 
 Prints one JSON line.  The engine runs on ``cuda:0``; the library
@@ -28,8 +28,8 @@ the JAX package's ``PRNGKey(0)`` weights.  GT masks are read with
 mask file that ``cv2.imread`` could not decode skips its object, as in the
 JAX package.
 ``--int8`` serves int8 (``models/quantize.py``), calibrated on the first 2
-batches of 8 instances of the evaluated dataset; ``--fused-stem`` names a
-module the port does not have yet and raises ``NotImplementedError``.
+batches of 8 instances of the evaluated dataset; ``--fused-stem`` serves the
+keypoint-patch stem (``models/fused_stem_hm.py``; 20-channel models).
 """
 from __future__ import annotations
 
@@ -61,14 +61,6 @@ from instancesegmentation_tpu_torch.models.quantize import calibrate_on_dataset
 from instancesegmentation_tpu_torch.models.segment import Segment
 
 
-def check_ported(fused_stem: bool = False) -> None:
-    """Raise ``NotImplementedError`` for the serving options whose modules
-    the port does not have yet."""
-    if fused_stem:
-        raise NotImplementedError("the fused stem needs models/fused_stem_hm.py, not "
-                                  "ported yet (ROADMAP A7)")
-
-
 def load_weights(checkpoint: Optional[str], in_channels: int) -> dict:
     """The checkpoint's weights (``load_any_checkpoint``), or without one the
     port's seeded initialisation (``init_weights_``, generator seed 0)."""
@@ -80,9 +72,10 @@ def load_weights(checkpoint: Optional[str], in_channels: int) -> dict:
 
 
 def _build_engine(checkpoint, size, in_channels, bfloat16, device=None,
-                  int8_dataset=None) -> InferenceEngine:
+                  int8_dataset=None, fused_stem=False) -> InferenceEngine:
     """``int8_dataset``: a common-format directory to calibrate int8 serving
-    on (its first batches; the scales live outside the checkpoint)."""
+    on (its first batches; the scales live outside the checkpoint).
+    ``fused_stem``: the keypoint-patch stem (20-channel models)."""
     dtype = torch.bfloat16 if bfloat16 else torch.float32
     weights = load_weights(checkpoint, in_channels)
     quant = None
@@ -90,7 +83,7 @@ def _build_engine(checkpoint, size, in_channels, bfloat16, device=None,
         quant = calibrate_on_dataset(weights, int8_dataset, in_channels=in_channels, size=size,
                                      device=device)
     return InferenceEngine(weights, in_channels=in_channels, size=size, dtype=dtype,
-                           quant=quant, device=device)
+                           fused_stem=fused_stem, quant=quant, device=device)
 
 
 def evaluate_full_image(
@@ -129,7 +122,6 @@ def evaluate_full_image(
     ``_segment_fn(image_rgb, boxes, scores, keypoints) ->
     list[{"mask", "mask_score"}]`` replaces the engine in tests.
     """
-    check_ported(fused_stem)
     proposal_map = None
     if proposals_path:
         with open(proposals_path) as f:
@@ -206,7 +198,8 @@ def evaluate_full_image(
                      if req["boxes"] else [])
     else:
         engine = _build_engine(checkpoint, size, in_channels, bfloat16, device,
-                               int8_dataset=dataset_dir if int8 else None)
+                               int8_dataset=dataset_dir if int8 else None,
+                               fused_stem=fused_stem)
         for results in iter_segment_proposals(engine, _requests(), nms_threshold=nms_threshold,
                                               max_instances=max_instances, canvas=canvas):
             _consume(results)
@@ -241,9 +234,8 @@ def evaluate_dataset(
     """Per-crop protocol: each eligible instance's crop prediction against
     its GT mask warped into the crop by ``preprocess_batch`` with no
     augmentation (on the engine's device); mean IoU and singleton AP."""
-    check_ported(fused_stem)
     engine = _build_engine(checkpoint, size, in_channels, bfloat16, device,
-                           int8_dataset=dataset_dir if int8 else None)
+                           int8_dataset=dataset_dir if int8 else None, fused_stem=fused_stem)
     ds = InstanceCommonDataset(dataset_dir)
     aug = AugmentConfig(out_size=(size, size))
     pred_masks: list[np.ndarray] = []
@@ -318,7 +310,8 @@ def main(argv=None, device=None) -> int:
                         help="int8 PTQ serving, calibrated on the eval set's first "
                              "batches (models/quantize.py)")
     parser.add_argument("--fused-stem", action="store_true",
-                        help="patch-folded conditioned stem (not ported: raises)")
+                        help="patch-folded conditioned stem instead of the dense heatmap "
+                             "render (models/fused_stem_hm.py; 20-channel only)")
     args = parser.parse_args(argv)
     if args.full_image:
         result = evaluate_full_image(

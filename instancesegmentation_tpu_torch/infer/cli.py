@@ -4,7 +4,7 @@
     python -m instancesegmentation_tpu_torch.infer -i DIR -o OUT \\
         [--dataset-mode | --proposals boxes.json] [--checkpoint X.ckpt|X.pth] \\
         [--size 512] [--batch 8] [--threshold 0.5] [--in-channels 3|20] \\
-        [--float32] [--continue-test] [--int8 [--int8-calib-batches 2]]
+        [--float32] [--continue-test] [--int8 [--int8-calib-batches 2]] [--fused-stem]
 
 Three modes: whole image (one mask per image in ``DIR``, ``OUT/<name>.png``),
 ``--dataset-mode`` (instance crops with keypoint conditioning over a
@@ -24,8 +24,9 @@ initialisation (``eval.load_weights``).  ``--int8`` serves int8
 (``models/quantize.py``, the "int8_mxu" convs), calibrated on the input
 itself: in dataset mode on its first ``--int8-calib-batches`` batches of
 ``--batch`` instances, otherwise on the first ``--int8-calib-batches *
---batch`` images of the directory.  ``--fused-stem`` raises
-``NotImplementedError`` (its module is not ported yet).
+--batch`` images of the directory.  ``--fused-stem`` serves the
+keypoint-patch stem (``models/fused_stem_hm.py``) in dataset and proposal
+mode with a 20-channel model.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from instancesegmentation_tpu_torch.core.imread import imread
 from instancesegmentation_tpu_torch.core.png import write_png
 from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
 from instancesegmentation_tpu_torch.data.pipeline import batch_iterator
-from instancesegmentation_tpu_torch.eval import check_ported, load_weights
+from instancesegmentation_tpu_torch.eval import load_weights
 from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine
 from instancesegmentation_tpu_torch.infer.proposals import segment_proposals
 from instancesegmentation_tpu_torch.models.quantize import (
@@ -80,7 +81,10 @@ def parse_args(argv=None):
                              "s8xs8->s32 (models/quantize.py, the int8_mxu mode)")
     parser.add_argument("--int8-calib-batches", type=int, default=2)
     parser.add_argument("--fused-stem", action="store_true",
-                        help="patch-folded conditioned stem (not ported: raises)")
+                        help="conditioned (20-channel) models: fold the heatmap "
+                             "conditioning through the stem as keypoint patches instead "
+                             "of rendering the dense 17-channel stack "
+                             "(models/fused_stem_hm.py)")
     return parser.parse_args(argv)
 
 
@@ -92,7 +96,6 @@ def list_images(directory: str) -> list[str]:
 
 def main(argv=None, device=None) -> int:
     args = parse_args(argv)
-    check_ported(args.fused_stem)
     in_channels = args.in_channels or (20 if args.dataset_mode else 3)
     dtype = torch.float32 if args.float32 else torch.bfloat16
     weights = load_weights(args.checkpoint, in_channels)
@@ -108,7 +111,8 @@ def main(argv=None, device=None) -> int:
                                         in_channels=in_channels, size=args.size, device=device)
         print(f"int8: calibrated {len(quant)} conv scales")
     engine = InferenceEngine(weights, in_channels=in_channels, size=args.size, dtype=dtype,
-                             threshold=args.threshold, quant=quant, device=device)
+                             threshold=args.threshold, fused_stem=args.fused_stem,
+                             quant=quant, device=device)
     os.makedirs(args.output_dir, exist_ok=True)
 
     if args.dataset_mode:

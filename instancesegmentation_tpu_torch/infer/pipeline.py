@@ -8,7 +8,11 @@ chain kernel) and the algebraically folded section-6 head:
   image-only, and the probabilities are resized back to each image;
 - instance: per object, the centring crop-warp from the canvas, the
   17-channel heatmap render, the backbone + head, a sigmoid, and the
-  inverse warp back to the canvas frame.
+  inverse warp back to the canvas frame; with ``fused_stem`` the render
+  and the stem become the keypoint-patch stem (``models/fused_stem_hm.py``).
+
+``fold_bn=False`` serves the unfolded weights through the layer modules
+instead (no chain launch).
 
 Batches are padded to power-of-2 buckets (repeating row 0) and chunked
 above ``MAX_BUCKET``.  The resizes the JAX package does with ``cv2.resize``
@@ -27,6 +31,11 @@ import torch.nn.functional as F
 from instancesegmentation_tpu_torch.core.device import pick_device
 from instancesegmentation_tpu_torch.models.export import fold_batchnorm
 from instancesegmentation_tpu_torch.models.fused_head import fold_head, head_apply
+from instancesegmentation_tpu_torch.models.fused_stem_hm import (
+    FoldedStemHM,
+    fold_stem_hm,
+    stem_hm_apply,
+)
 from instancesegmentation_tpu_torch.models.segment import Segment
 from instancesegmentation_tpu_torch.ops.fused_chain import (
     extract_s1_chain,
@@ -170,16 +179,26 @@ def predict_masks_batched(forward_probs, images: list, size: int,
     return masks
 
 
-def build_instance_forward(model: Segment, in_channels: int, size: int, dtype, head):
+def build_instance_forward(model: Segment, in_channels: int, size: int, dtype, head,
+                           stem_fold: Optional[FoldedStemHM] = None):
     """The instance program, shared by the engines: warp params, crop-warp,
     heatmap render, truncated backbone + folded head, sigmoid, and the
     inverse warp back to the canvas frame.  ``head`` is a FoldedHead on the
-    model's device matching the model's weights.  Returns
-    ``(apply_model, forward_instance)``."""
+    model's device matching the model's weights.  ``stem_fold`` (a
+    ``FoldedStemHM`` on that device, conditioned models only) replaces the
+    dense heatmap render and ``init_conv`` with ``stem_hm_apply``, which
+    never forms the [S, S, 17] stack.  Returns ``(apply_model,
+    forward_instance)``."""
 
     def _apply_model(x, hm=None):
         """Backbone + folded section-6 head: float32 logits [N,S,S,1]."""
         feats = model(x, hm, truncate_head=True)
+        return head_apply(feats, head, dtype=dtype).float()
+
+    def _apply_model_folded(x, pts, vis):
+        """The conditioned forward through the patch-folded stem."""
+        feats0 = stem_hm_apply(x, pts, vis, stem_fold, dtype=dtype)
+        feats = model(feats0, skip_stem=True, truncate_head=True)
         return head_apply(feats, head, dtype=dtype).float()
 
     def _forward_instance(canvas_u8, batch_mask, image_hw, obj_box, mask_box,
@@ -200,8 +219,11 @@ def build_instance_forward(model: Segment, in_channels: int, size: int, dtype, h
         if in_channels > 3:
             kps = keypoints.float()
             pts = warp_points(kps[..., :2], params)
-            hm = render_heatmaps(pts, kps[..., 2] > 0.5, out_hw).to(dtype)
-            logits = _apply_model(x, hm)
+            vis = kps[..., 2] > 0.5
+            if stem_fold is not None:
+                logits = _apply_model_folded(x, pts, vis)
+            else:
+                logits = _apply_model(x, render_heatmaps(pts, vis, out_hw).to(dtype))
         else:
             logits = _apply_model(x)
         probs = torch.sigmoid(logits)
@@ -259,13 +281,22 @@ class InferenceEngine:
 
     ``quant``: calibrated input scales (``models/quantize.py``; JAX's
     ``quant`` collection or the port's dict) switch the backbone convs to
-    int8 (``ops/int8_conv.py``), quantised from the BN-folded weights; the
+    int8 (``ops/int8_conv.py``), quantised from the served weights; the
     folded head stays float.  ``quant_mode`` picks the convs when ``quant``
     is given: "int8_mxu" (the 6 spatial non-grouped convs; both chains still
     run) or "int8" (all 76; sections 1 and 2+3 run their layer modules).
-    ``fused_stem=True`` and ``fold_bn=False`` (the JAX engine's other serving
-    options) raise ``NotImplementedError``: their modules are not ported yet
-    (ROADMAP A7).
+
+    ``fused_stem``: the instance program folds the 17 heatmap channels
+    through the stem as keypoint patches (``models/fused_stem_hm.py``), built
+    from the served weights and kept float under ``quant`` (the stem's two
+    convs then do not run).  As in the JAX engine it applies only to
+    ``in_channels == 20``, the layout the fold is derived for: any other
+    width serves the dense path, and the whole-image program always does.
+
+    ``fold_bn=False`` serves the unfolded weights through the layer modules,
+    each BN's running-statistics affine after its conv, as the JAX engine's
+    ``fold_bn=False``: the chain kernel is not launched (its specs are
+    BN-folded by construction), and ``quant`` quantises the unfolded convs.
     """
 
     def __init__(self, variables: dict, in_channels: int = 3, size: int = 512,
@@ -274,12 +305,6 @@ class InferenceEngine:
                  fold_bn: bool = True, device: Optional[str] = None):
         if size % 16:
             raise ValueError(f"size {size} is not divisible by 16")
-        if fused_stem:
-            raise NotImplementedError("the fused stem needs models/fused_stem_hm.py, not "
-                                      "ported yet (ROADMAP A7)")
-        if not fold_bn:
-            raise NotImplementedError("serving without BN folding (fold_bn=False) is not "
-                                      "ported yet (ROADMAP A7)")
         if quant is not None and quant_mode not in ("int8", "int8_mxu"):
             raise ValueError(f"quant_mode {quant_mode!r} is not an int8 mode")
         self.device = pick_device(device)
@@ -289,6 +314,8 @@ class InferenceEngine:
         self._dtype = dtype
         self._scales = None if quant is None else port_quant(quant)
         self._quant_mode = quant_mode
+        self._fused_stem = fused_stem and in_channels == 20
+        self._fold_bn = fold_bn
         self.model = Segment(in_channels).to(
             device=self.device, dtype=dtype, memory_format=torch.channels_last
         ).eval()
@@ -296,27 +323,34 @@ class InferenceEngine:
 
     @property
     def variables(self) -> dict:
-        """The BN-folded port state dict being served (float32, CPU)."""
+        """The port state dict being served (float32, CPU): BN-folded, or
+        as given with ``fold_bn=False``."""
         return self._variables
 
     @variables.setter
     def variables(self, variables: dict) -> None:
-        """Assigning weights folds every BN into its conv, folds the head
-        (float64, CPU), builds the two chain specs and the programs, and with
-        ``quant`` quantises the covered convs' folded weights (float32, CPU),
-        once per assignment.  Folding preserves values, so the scales
-        calibrated on the unfolded model stay valid."""
-        sd = fold_batchnorm(port_state_dict(variables))
+        """Assigning weights folds every BN into its conv (unless
+        ``fold_bn=False``), folds the head (float64, CPU), builds the two
+        chain specs (folded weights only), the patch-folded stem
+        (``fused_stem``) and the programs, and with ``quant`` quantises the
+        covered convs' weights (float32, CPU), once per assignment.  Folding
+        preserves values, so the scales calibrated on the unfolded model stay
+        valid."""
+        sd = port_state_dict(variables)
+        if self._fold_bn:
+            sd = fold_batchnorm(sd)
         self.model.load_state_dict(sd)
         s = self.size
-        self.model.prepare_serving(extract_s1_chain(sd, s // 8, s // 8),
-                                   extract_s23_chain(sd, s // 16, s // 16))
+        if self._fold_bn:
+            self.model.prepare_serving(extract_s1_chain(sd, s // 8, s // 8),
+                                       extract_s23_chain(sd, s // 16, s // 16))
         if self._scales is not None:
             self.model.set_quant(self._quant_mode, self._scales, state_dict=sd)
         self._variables = sd
         head = fold_head(sd).to(self.device)
+        self._stem_fold = fold_stem_hm(sd).to(self.device) if self._fused_stem else None
         self._apply_model, self._forward_instance = build_instance_forward(
-            self.model, self.in_channels, self.size, self._dtype, head)
+            self.model, self.in_channels, self.size, self._dtype, head, self._stem_fold)
 
     def _forward_whole(self, images_u8: torch.Tensor) -> torch.Tensor:
         dtype = self._dtype

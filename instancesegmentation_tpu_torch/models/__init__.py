@@ -1,1 +1,2 @@
-"""The Segment network as ``nn.Module``s, BN folding and the folded head."""
+"""The Segment network as ``nn.Module``s, BN folding, the folded head and
+stems, and int8 post-training quantisation."""

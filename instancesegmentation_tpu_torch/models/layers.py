@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -202,6 +203,24 @@ class _AllReduceSum(torch.autograd.Function):
         return grad, None
 
 
+#: set in the thread that recomputes a checkpointed forward (``recomputing``)
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Within the block, train-mode BN leaves its running statistics alone:
+    the recompute of a checkpointed forward (``TrainConfig.remat``) gives the
+    batch statistics the gradient needs, and the forward already updated the
+    running ones."""
+    outer = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = outer
+
+
 def _bn_train(bn: nn.BatchNorm2d, x, group=None):
     """Batch-statistics BN as flax computes it, returned in ``x``'s dtype.
 
@@ -213,7 +232,9 @@ def _bn_train(bn: nn.BatchNorm2d, x, group=None):
 
     With a process ``group``, ``E[x]`` and ``E[x^2]`` are the means of the
     ranks' local ones (every rank holds as many rows), in one differentiable
-    all-reduce: flax's ``pmean`` of the two under ``axis_name``.
+    all-reduce: flax's ``pmean`` of the two under ``axis_name``.  Inside
+    ``recomputing()`` the statistics (and their all-reduce) are computed
+    again, and the running statistics are not updated.
     """
     x32 = x.to(_stat_dtype(x))
     dims = (0, 2, 3)
@@ -223,9 +244,10 @@ def _bn_train(bn: nn.BatchNorm2d, x, group=None):
         stats = _AllReduceSum.apply(torch.stack([mean, meansq]), group)
         mean, meansq = stats / dist.get_world_size(group)
     var = torch.clamp_min(meansq - mean * mean, 0.0)
-    with torch.no_grad():
-        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
-        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    if not getattr(_RECOMPUTE, "active", False):
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
     return y.to(x.dtype)

@@ -15,6 +15,11 @@ BN-folded weights, sections 1 and 2+3 run through
 plain version on a CPU tensor); otherwise they run the layer modules, so
 the unfolded eval forward stays available.
 
+``forward(..., skip_stem=True)`` takes the stem's output computed elsewhere
+(``models/fused_stem.py:stem_apply``, ``models/fused_stem_hm.py:
+stem_hm_apply``) in place of the images, and runs everything after
+``init_conv``.
+
 ``set_quant`` switches the 76 convs that JAX builds with a ``quant_mode``
 (every conv but the head's ``bottle6_2``) to post-training int8: "calibrate"
 records each conv's input abs-max, "int8" quantises all 76, "int8_mxu" the 6
@@ -172,20 +177,32 @@ class Segment(nn.Module):
         self.chains = (s1, s23)
 
     def forward(self, images, heatmaps=None, truncate_head: bool = False,
-                train: bool = False, dtype: Optional[torch.dtype] = None):
+                train: bool = False, dtype: Optional[torch.dtype] = None,
+                skip_stem: bool = False):
+        """``skip_stem``: ``images`` is the stem's output ``[N, H/4, W/4,
+        in_channels + 16]`` computed elsewhere (``models/fused_stem.py``,
+        ``models/fused_stem_hm.py``); ``init_conv`` does not run."""
         if train and self.chains is not None:
             raise ValueError("a model prepared for serving (folded BN, chains) cannot train")
         dtype = self.bottle6_1.weight.dtype if dtype is None else dtype
         x = images.to(dtype)
-        if heatmaps is not None:
-            x = torch.cat([x, heatmaps.to(dtype)], dim=-1)
-        if x.shape[-1] != self.in_channels:
-            raise ValueError(
-                f"input has {x.shape[-1]} channels, model expects {self.in_channels}"
-            )
+        if skip_stem:
+            if heatmaps is not None:
+                raise ValueError("skip_stem takes the stem's features, with the heatmaps "
+                                 "already in them")
+            if x.shape[-1] != 16 + self.in_channels:
+                raise ValueError(f"stem features have {x.shape[-1]} channels, expected "
+                                 f"{16 + self.in_channels}")
+        else:
+            if heatmaps is not None:
+                x = torch.cat([x, heatmaps.to(dtype)], dim=-1)
+            if x.shape[-1] != self.in_channels:
+                raise ValueError(
+                    f"input has {x.shape[-1]} channels, model expects {self.in_channels}"
+                )
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
-        init_down = self.init_conv(x, train)
+        init_down = x if skip_stem else self.init_conv(x, train)
 
         chains = None if self._chains_bypassed else self.chains
 

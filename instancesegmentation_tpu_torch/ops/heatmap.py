@@ -20,13 +20,11 @@ import math
 import torch
 
 
-def render_heatmaps(points_xy: torch.Tensor, visible: torch.Tensor, out_hw,
-                    sigma: float = 10.0, threshold: float = 0.01) -> torch.Tensor:
-    """Render [B, K] keypoints to a [B, H, W, K] float32 heatmap stack.
-
-    points_xy: [B, K, 2] (x, y) in output-image coordinates.
-    visible:   [B, K] bool, True only for visible keypoints.
-    """
+def separable_factors(points_xy: torch.Tensor, visible: torch.Tensor, out_hw,
+                      sigma: float = 10.0, threshold: float = 0.01):
+    """The two factors of ``render_heatmaps``'s product: ``ex [B, 1, W, K]``
+    (the window's columns and the visibility applied) and ``ey [B, H, 1, K]``
+    (its rows), zero outside the window."""
     h, w = out_hw
     r = math.sqrt(-math.log(threshold) * sigma * sigma)
     dev = points_xy.device
@@ -47,5 +45,16 @@ def render_heatmaps(points_xy: torch.Tensor, visible: torch.Tensor, out_hw,
                      torch.exp(-((xs - x) ** 2) * inv), 0.0)  # [B, 1, W, K]
     ey = torch.where((ys >= y_min) & (ys < y_max),
                      torch.exp(-((ys - y) ** 2) * inv), 0.0)  # [B, H, 1, K]
+    return ex, ey
+
+
+def render_heatmaps(points_xy: torch.Tensor, visible: torch.Tensor, out_hw,
+                    sigma: float = 10.0, threshold: float = 0.01) -> torch.Tensor:
+    """Render [B, K] keypoints to a [B, H, W, K] float32 heatmap stack.
+
+    points_xy: [B, K, 2] (x, y) in output-image coordinates.
+    visible:   [B, K] bool, True only for visible keypoints.
+    """
+    ex, ey = separable_factors(points_xy, visible, out_hw, sigma, threshold)
     e = ex * ey
     return torch.where(e > threshold, e, 0.0)

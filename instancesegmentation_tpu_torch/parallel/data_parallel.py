@@ -13,7 +13,9 @@ the global batch:
   divided by the world size (JAX's ``pmean``); then the Adam step, the same
   on every rank, so the state stays replicated without a broadcast.
 
-``Segment(20)`` has 74 BN layers: a step runs 2 x 74 + 1 = 149 collectives.
+``Segment(20)`` has 74 BN layers: a step runs 2 x 74 + 1 = 149 collectives,
+and 74 more with ``cfg.remat`` (the recompute takes each BN's batch
+statistics again).
 
 Augmentation draws differ from the JAX package's by design: JAX folds the
 shard index into each shard's key, so its data-parallel draws differ from
@@ -65,8 +67,6 @@ def make_parallel_steps(cfg, mesh: Mesh = None):
     n = mesh.world_size
     if cfg.batch_size % n:
         raise ValueError(f"global batch {cfg.batch_size} not divisible by {n} processes")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported: the step stores activations")
     per = cfg.batch_size // n
     rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
     group = dist.group.WORLD if dist.is_initialized() else None
@@ -115,7 +115,8 @@ def make_parallel_steps(cfg, mesh: Mesh = None):
     return mesh, train_step, make_eval_step(cfg), shard_batch
 
 
-def collectives_per_step(model: torch.nn.Module) -> int:
+def collectives_per_step(model: torch.nn.Module, remat: bool = False) -> int:
     """All-reduces of one data-parallel train step of ``model``: one forward
-    and one backward per train-mode BN layer, and one for the gradients."""
-    return 2 * sum(hasattr(m, "bn_group") for m in model.modules()) + 1
+    and one backward per train-mode BN layer (with ``remat`` one more
+    forward, in the recompute), and one for the gradients."""
+    return (3 if remat else 2) * sum(hasattr(m, "bn_group") for m in model.modules()) + 1

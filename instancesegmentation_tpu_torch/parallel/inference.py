@@ -27,8 +27,8 @@ class ParallelInferenceEngine:
     by default) or an explicit ``devices`` list (the CPU tests pass
     ``[cpu] * n``); the same programs and contracts as ``InferenceEngine``,
     so ``ServingFrontend`` drives it unchanged.  ``quant`` and ``quant_mode``
-    (int8 serving) go to every replica; ``fused_stem=True`` raises (ROADMAP
-    A7)."""
+    (int8 serving) and ``fused_stem`` (the keypoint-patch stem, 20-channel
+    models only) go to every replica."""
 
     def __init__(
         self,
@@ -43,16 +43,14 @@ class ParallelInferenceEngine:
         quant_mode: str = "int8_mxu",
         devices: Optional[Sequence] = None,
     ):
-        if fused_stem:
-            raise NotImplementedError("the fused stem needs models/fused_stem_hm.py, not "
-                                      "ported yet (ROADMAP A7)")
         self.mesh = make_mesh(num_devices, devices)
         self.n = self.mesh.size
         self.size = size
         self.in_channels = in_channels
         self.threshold = threshold
         self.replicas = [InferenceEngine(variables, in_channels, size, dtype, threshold,
-                                         quant=quant, quant_mode=quant_mode, device=d)
+                                         fused_stem=fused_stem, quant=quant,
+                                         quant_mode=quant_mode, device=d)
                          for d in self.mesh.devices]
         self.device = self.replicas[0].device  # where outputs are gathered
 

@@ -73,6 +73,7 @@ from instancesegmentation_tpu_torch.train.steps import (
     make_eval_step,
     make_train_step,
 )
+from instancesegmentation_tpu_torch.utils import profiling
 
 
 def _host(t) -> np.ndarray:
@@ -271,7 +272,7 @@ class Trainer:
             try:
                 for i0, batch in enumerate(batches):
                     if not profile_done and profiler is None and i0 == 1:
-                        profiler = _start_profiler(self.device)
+                        profiler = profiling.start_trace(self.device)
                     draws = draw_augment(cfg.batch_size, aug, self._generator(host_step))
                     self.state, metrics = self.train_step(self.state,
                                                           self.shard_batch(batch), draws)
@@ -282,7 +283,7 @@ class Trainer:
                     if profiler is not None and not profile_done:
                         steps_profiled += 1
                         if steps_profiled >= cfg.profile_steps:
-                            _stop_profiler(profiler, self.device, profile_dir, host_step)
+                            self._stop_profiler(profiler, profile_dir, host_step)
                             profile_done = True
 
                     if i0 % cfg.show_iter == cfg.show_iter - 1:
@@ -354,28 +355,14 @@ class Trainer:
                 host_step = self.state.step
         if profiler is not None and not profile_done:
             # training ended before profile_steps elapsed; close the trace
-            _stop_profiler(profiler, self.device, profile_dir, host_step)
+            self._stop_profiler(profiler, profile_dir, host_step)
         self.logger.close()
         return last_val
 
-
-def _start_profiler(device: torch.device):
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    profiler = torch.profiler.profile(activities=activities)
-    profiler.start()
-    return profiler
-
-
-def _stop_profiler(profiler, device: torch.device, profile_dir: str, step: int) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    profiler.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, f"step{step:06d}.pt.trace.json")
-    profiler.export_chrome_trace(path)
-    print(f"profiler trace written to {path}")
+    def _stop_profiler(self, profiler, profile_dir: str, step: int) -> None:
+        path = os.path.join(profile_dir, f"step{step:06d}.pt.trace.json")
+        profiling.stop_trace(profiler, path, self.device)
+        print(f"profiler trace written to {path}")
 
 
 def main(argv=None):

@@ -13,8 +13,11 @@ from __future__ import annotations
 
 from typing import Callable
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from instancesegmentation_tpu_torch.data.pipeline import (
     AugmentConfig,
@@ -23,6 +26,7 @@ from instancesegmentation_tpu_torch.data.pipeline import (
     preprocess_batch,
 )
 from instancesegmentation_tpu_torch.models.fused_head import fold_head_live, head_apply
+from instancesegmentation_tpu_torch.models.layers import recomputing
 from instancesegmentation_tpu_torch.train.state import TrainState
 
 
@@ -72,6 +76,14 @@ def make_fwd(model, cfg, train: bool) -> Callable:
     re-derived from the live parameters at every call (``fold_head_live`` is
     differentiable, so gradients reach ``bottle6_1``/``bottle6_2``).  The head
     has no BN or activation, so the fold holds in train mode.
+
+    With ``cfg.remat`` a train forward runs under ``torch.utils.checkpoint``
+    (JAX's ``jax.checkpoint`` of the whole forward): it keeps its inputs
+    only, and the backward recomputes it inside ``recomputing()``, where BN
+    takes its batch statistics again (under sync BN, one more all-reduce per
+    layer) but leaves the running statistics to the first pass.  The
+    recompute repeats the forward's arithmetic, so the gradients are those of
+    the step without remat.
     """
     dtype = torch.bfloat16 if cfg.bfloat16 else torch.float32
 
@@ -82,7 +94,11 @@ def make_fwd(model, cfg, train: bool) -> Callable:
         feats = model(images, hm, truncate_head=True, train=train, dtype=dtype)
         return head_apply(feats, fold_head_live(model), dtype=dtype).float()
 
-    return fwd
+    if not (train and cfg.remat):
+        return fwd
+    return lambda images, heatmaps: checkpoint(
+        fwd, images, heatmaps, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 def _device(model) -> torch.device:
@@ -94,8 +110,6 @@ def make_train_step(cfg) -> Callable:
     ``state`` (updated in place) on the host ``batch`` with the augmentation
     ``draws`` of ``draw_augment(b, augment_config(cfg, True), generator)``.
     ``metrics`` holds the device scalars ``loss`` and ``train_iou``."""
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported: the step stores activations")
     aug = augment_config(cfg, train=True)
 
     def train_step(state: TrainState, batch: dict, draws: dict):

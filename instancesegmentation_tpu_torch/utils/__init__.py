@@ -1,1 +1,2 @@
-"""Weight carrying between the flax layout and the port's state dict."""
+"""Weight carrying between the flax layout and the port's state dict;
+profiling (``torch.profiler`` traces, step timing) and debug helpers."""

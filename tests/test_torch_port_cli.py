@@ -1,8 +1,8 @@
 """The port's inference command against the JAX package's (CPU): the three
 modes on the committed demo checkpoint (flax variables of ``Segment(20)``)
 write the same file layout, and the masks the port writes are ≥ 99.9 % equal
-to JAX's, also from JPEG images; the extension filter, the unported flags
-and the refusal of BMP files."""
+to JAX's, also from JPEG images; the extension filter, the once-refused
+flags ``--int8`` and ``--fused-stem``, and the refusal of BMP files."""
 import functools
 import json
 import os
@@ -179,19 +179,19 @@ def test_whole_image_mode_reads_jpeg(synth, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--int8", "--fused-stem"])
 def test_unported_flags_raise(flag, synth, tmp_path, capsys):
-    """``--fused-stem`` (ROADMAP A7) raises.  ``--int8`` is ported: dataset
-    mode calibrates on the input's first batches (printing JAX's line) and
-    writes masks >= 99.9 % equal to JAX's."""
-    argv = ["-i", synth, "--dataset-mode", flag]
-    if flag == "--fused-stem":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            main(argv + ["-o", str(tmp_path)], device="cpu")
-        return
-    argv += ["--size", str(SIZE), "--batch", "2", "--float32", "--checkpoint", DEMO]
+    """Both flags, once refused, are ported.  ``--int8``: dataset mode
+    calibrates on the input's first batches (printing JAX's line) and writes
+    masks >= 99.9 % equal to JAX's.  ``--fused-stem``: dataset mode serves
+    the keypoint-patch stem, masks >= 99.9 % equal to JAX's fused-stem run."""
+    argv = ["-i", synth, "--dataset-mode", flag, "--size", str(SIZE), "--batch", "2",
+            "--float32", "--checkpoint", DEMO]
     assert main(argv + ["-o", str(tmp_path / "port")], device="cpu") == 0
-    assert "int8: calibrated 76 conv scales" in capsys.readouterr().out
+    out = capsys.readouterr().out
     assert jax_main(argv + ["-o", str(tmp_path / "jax")]) == 0
-    assert "int8: calibrated 76 conv scales" in capsys.readouterr().out
+    jax_out = capsys.readouterr().out
+    if flag == "--int8":
+        assert "int8: calibrated 76 conv scales" in out
+        assert "int8: calibrated 76 conv scales" in jax_out
     _same_masks(str(tmp_path / "port"), str(tmp_path / "jax"))
 
 

@@ -324,22 +324,31 @@ def test_full_image_with_proposals_file(multi, tmp_path):
     assert seen[:2] == [True, True] and seen[-1] is False
 
 
-def test_unported_options_raise(multi, crossed):
-    """``fused_stem`` (ROADMAP A7) still raises in both protocols and in
-    ``main``.  ``int8`` is ported: the full-image protocol with int8 serving
-    (calibrated on the evaluated set) on the crossed pairs gives JAX's int8
-    run's dict, APs included."""
-    kw = {"fused_stem": True}
-    with pytest.raises(NotImplementedError, match="A7"):
-        teval.evaluate_full_image(multi, _segment_fn=lambda *a: [], **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
-        teval.evaluate_dataset(multi, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
-        teval.main(["--dataset", multi, "--fused-stem"], device="cpu")
-    common = dict(checkpoint=CROSSED_CKPT, size=256, in_channels=20, bfloat16=False, canvas=320,
-                  int8=True)
-    port = teval.evaluate_full_image(crossed, device="cpu", **common)
+def test_unported_options_raise(crossed, capsys):
+    """Both options, once refused, run.  ``fused_stem`` (the keypoint-patch
+    stem) on the crossed pairs: the full-image protocol gives the dict of
+    JAX's run with the dense stem, APs included (AP 1.0; the engines'
+    fused stems are held against each other in
+    ``test_torch_port_fused_stem.py``), the per-crop protocol the dense
+    stem's mean IoU within 1e-3, and ``main --fused-stem`` prints the
+    library's dict.  ``int8`` (calibrated on the evaluated set): the
+    full-image protocol gives JAX's int8 run's dict."""
+    common = dict(checkpoint=CROSSED_CKPT, size=256, in_channels=20, bfloat16=False, canvas=320)
+    port = teval.evaluate_full_image(crossed, fused_stem=True, device="cpu", **common)
     assert port == jeval.evaluate_full_image(crossed, **common)
+    assert port["num_predictions"] == port["num_gt_instances"] == 4 and port["AP"] == 1.0
+    kw = dict(checkpoint=CROSSED_CKPT, size=256, batch_size=3, in_channels=20, bfloat16=False)
+    crop = teval.evaluate_dataset(crossed, fused_stem=True, device="cpu", **kw)
+    ref = teval.evaluate_dataset(crossed, device="cpu", **kw)
+    assert crop["num_instances"] == ref["num_instances"] == 4
+    assert crop["mean_iou"] == pytest.approx(ref["mean_iou"], abs=1e-3)
+    capsys.readouterr()
+    assert teval.main(["--dataset", crossed, "--checkpoint", CROSSED_CKPT, "--size", "256",
+                       "--canvas", "320", "--float32", "--full-image", "--fused-stem"],
+                      device="cpu") == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == port
+    port = teval.evaluate_full_image(crossed, device="cpu", int8=True, **common)
+    assert port == jeval.evaluate_full_image(crossed, int8=True, **common)
     assert port["num_predictions"] == port["num_gt_instances"] == 4 and port["AP"] > 0.5
 
 

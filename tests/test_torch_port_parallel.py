@@ -216,8 +216,8 @@ def test_make_parallel_steps_checks():
         make_parallel_steps(_tcfg(batch_size=6), Mesh((CPU,), 0, 4))
     with pytest.raises(ValueError, match="one process per GPU"):
         make_parallel_steps(_tcfg(), make_mesh(devices=[CPU] * 2))
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_parallel_steps(_tcfg(remat=True), make_mesh(devices=[CPU]))
+    # remat, once refused, builds (its bit-equality: test_dp_remat_step_bit_identical)
+    assert callable(make_parallel_steps(_tcfg(remat=True), make_mesh(devices=[CPU]))[1])
     _, _, _, shard_batch = make_parallel_steps(_tcfg(), Mesh((CPU,), 1, 2))
     batch = {"image": np.arange(8)}
     np.testing.assert_array_equal(shard_batch(batch)["image"], np.arange(4, 8))
@@ -225,6 +225,7 @@ def test_make_parallel_steps_checks():
     with pytest.raises(ValueError, match="neither the global"):
         shard_batch({"image": np.arange(3)})
     assert collectives_per_step(Segment(20)) == 2 * 74 + 1
+    assert collectives_per_step(Segment(20), remat=True) == 3 * 74 + 1
 
 
 def test_world_one_step_is_the_single_process_step():
@@ -297,10 +298,10 @@ STEP_WORKER = textwrap.dedent("""
                 **{"buf/" + n: b for n, b in tiny.named_buffers()},
                 "conv_a": conv(tiny.a.conv, x.detach()).detach()}
 
-    def cfg_of(variant):
+    def cfg_of(variant, **kw):
         aug = dict(rotate=25.0, flip_prob=0.5) if variant == "rotate_flip" else {}
         return TrainConfig(canvas=192, out_size=64, in_channels=20, bfloat16=False,
-                           batch_size=8, learning_rate=1e-3, data_parallel=True, **aug)
+                           batch_size=8, learning_rate=1e-3, data_parallel=True, **aug, **kw)
 
     def draws_of(variant):
         d = {k: None for k in ("jitter", "brightness", "contrast", "noise")}
@@ -334,8 +335,8 @@ STEP_WORKER = textwrap.dedent("""
     try:
         save("bn", bn_run(x[rows], w[rows], dist.group.WORLD))
 
-        def dp_step(variant):
-            cfg = cfg_of(variant)
+        def dp_step(variant, **kw):
+            cfg = cfg_of(variant, **kw)
             mesh, step, eval_step, shard = data_parallel.make_parallel_steps(
                 cfg, make_mesh(devices=["cpu"]))
             state, m = step(fresh(), shard(batch), draws_of(variant))
@@ -345,6 +346,13 @@ STEP_WORKER = textwrap.dedent("""
             res, eval_step, shard = dp_step(variant)
             save(variant, res)
         save("eval", {"ious": eval_step(fresh().model, shard(batch))[3]})
+        # the step with remat, its all-reduces counted
+        all_reduce, calls = dist.all_reduce, []
+        dist.all_reduce = lambda *a, **k: calls.append(1) or all_reduce(*a, **k)
+        save("remat_rotate_flip", dp_step("rotate_flip", remat=True)[0])
+        dist.all_reduce = all_reduce
+        save("remat_calls", {"all_reduces": len(calls), "expected":
+                             data_parallel.collectives_per_step(Segment(20), remat=True)})
         # the same step with a sync bug: BN's backward without its
         # all-reduce, then no all-reduce of the gradients
         backward = layers._AllReduceSum.backward
@@ -463,6 +471,20 @@ def test_sync_bn_running_var_is_biased(dp_run):
         rv = dp_run[f"rank{r}"]["bn/buf/a.bn.running_var"]
         np.testing.assert_allclose(rv, 0.9 + 0.1 * biased, atol=1e-5)
         assert np.abs(rv - (0.9 + 0.1 * unbiased)).max() > 1e-4
+
+
+def test_dp_remat_step_bit_identical(dp_run):
+    """On 2 gloo ranks the data-parallel step with ``remat`` equals the step
+    without it bit for bit on each rank: loss, IoU, gradients, parameters and
+    BN running statistics.  The recompute takes each BN's batch statistics
+    again over the ranks: 3 x 74 + 1 all-reduces per step."""
+    for r in (0, 1):
+        res = dp_run[f"rank{r}"]
+        plain, remat = _group(res, "rotate_flip"), _group(res, "remat_rotate_flip")
+        assert plain.keys() == remat.keys()
+        for k in plain:
+            np.testing.assert_array_equal(remat[k], plain[k], err_msg=k)
+        assert int(res["remat_calls/all_reduces"]) == int(res["remat_calls/expected"]) == 223
 
 
 def _flat_grads(res: dict, names) -> np.ndarray:
@@ -756,12 +778,22 @@ def test_parallel_engine_variables_refold(carried):
 @pytest.mark.parametrize("option,where", [({"fused_stem": True}, "A7"),
                                           ({"quant_mode": "int8"}, "A6")])
 def test_parallel_engine_unported_options_raise(carried, option, where):
-    """``fused_stem`` (ROADMAP A7) raises.  ``quant`` (A6) is ported: each
-    replica serves int8, equal to the int8 ``InferenceEngine``."""
+    """Both options, once refused, are ported.  ``fused_stem`` (A7): two
+    replicas serve the keypoint-patch stem, equal to
+    ``InferenceEngine(fused_stem=True)`` within 1e-5 (each replica's rows are
+    a batch of their own).  ``quant`` (A6): each replica serves int8, equal
+    to the int8 ``InferenceEngine``."""
     if where == "A7":
-        with pytest.raises(NotImplementedError, match=where):
-            ParallelInferenceEngine(carried[0], in_channels=20, size=SIZE, devices=[CPU],
-                                    **option)
+        par = ParallelInferenceEngine(carried[0], in_channels=20, size=SIZE, dtype=torch.float32,
+                                      devices=[CPU] * 2, **option)
+        single = InferenceEngine(carried[0], in_channels=20, size=SIZE, dtype=torch.float32,
+                                 device="cpu", **option)
+        assert all(r._fused_stem for r in par.replicas)
+        batch = synthetic_host_batch(4, 128, seed=9)
+        p, m = par.predict_instances(batch)
+        rp, rm = single.predict_instances(batch)
+        np.testing.assert_allclose(p, rp, rtol=0, atol=1e-5)
+        assert (m == rm).mean() >= 0.999
         return
     rng = np.random.default_rng(12)
     quant = calibrate(Segment(20).eval(), carried[1],

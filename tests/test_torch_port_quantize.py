@@ -506,8 +506,10 @@ def test_quantized_engine_serves_agreeing_masks(mode, chains, vs_engine, engine3
 
 def test_engine_takes_jax_defaults(engine3):
     """The JAX engine's serving keywords with their defaults build an engine
-    equal to the plain one; ``fused_stem=True`` and ``fold_bn=False`` raise
-    naming A7."""
+    equal to the plain one.  The other values, once refused, build:
+    ``fused_stem=True`` on this 3-channel model is JAX's gate (the plain
+    engine, no stem fold), ``fold_bn=False`` serves the unfolded weights
+    with no chain."""
     v = engine3[0]
     plain = InferenceEngine(v, in_channels=3, size=SIZE, dtype=torch.float32, device="cpu")
     jax_defaults = InferenceEngine(v, 3, SIZE, torch.float32, 0.5, fused_stem=False,
@@ -515,9 +517,16 @@ def test_engine_takes_jax_defaults(engine3):
                                    device="cpu")
     for k, t in plain.variables.items():
         assert torch.equal(jax_defaults.variables[k], t)
-    for option in ({"fused_stem": True}, {"fold_bn": False}):
-        with pytest.raises(NotImplementedError, match="A7"):
-            InferenceEngine(v, in_channels=3, size=SIZE, device="cpu", **option)
+    gated = InferenceEngine(v, in_channels=3, size=SIZE, dtype=torch.float32, fused_stem=True,
+                            device="cpu")
+    assert not gated._fused_stem
+    for k, t in plain.variables.items():
+        assert torch.equal(gated.variables[k], t)
+    unfolded = InferenceEngine(v, in_channels=3, size=SIZE, dtype=torch.float32, fold_bn=False,
+                               device="cpu")
+    assert unfolded.model.chains is None
+    for k, t in jax_variables_to_torch(v).items():
+        assert torch.equal(unfolded.variables[k], t)
 
 
 # -- calibration through the data paths ----------------------------------------------------

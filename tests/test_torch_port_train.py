@@ -24,6 +24,7 @@ from instancesegmentation_tpu.train import steps as jsteps
 from instancesegmentation_tpu.train.state import TrainState as JaxTrainState
 from instancesegmentation_tpu_torch.data import pipeline as tpipe
 from instancesegmentation_tpu_torch.data.synthetic import synthetic_host_batch
+from instancesegmentation_tpu_torch.models import layers as tlayers
 from instancesegmentation_tpu_torch.models.segment import Segment
 from instancesegmentation_tpu_torch.train import config as tconfig
 from instancesegmentation_tpu_torch.train import steps as tsteps
@@ -171,6 +172,44 @@ def test_train_step_matches_jax(carried):
     sel = {p: np.abs(np.asarray(g)) > 2e-4 * gmax for p, g in _flat(grads).items()}
     _assert_tree_close(new["params"], jstate.params, atol=1e-6, where=sel)
     _assert_tree_close(new["batch_stats"], jstate.batch_stats, atol=STATS_ATOL)
+
+
+def _step_result(variables, tcfg, batch, draws):
+    """One port train step: (loss, {name: gradient}, state dict after it)."""
+    state = TrainState.create(_port(variables), tcfg.learning_rate)
+    state, m = tsteps.make_train_step(tcfg)(state, batch, draws)
+    grads = {n: p.grad.clone() for n, p in state.model.named_parameters()}
+    return float(m["loss"]), grads, {k: v.clone() for k, v in state.model.state_dict().items()}
+
+
+@pytest.mark.parametrize("bfloat16", [False, True], ids=["f32", "bf16"])
+def test_remat_step_bit_identical(carried, bfloat16):
+    """``remat`` (the forward under ``torch.utils.checkpoint``) does not
+    change the math, as JAX's ``tests/test_train.py:276``: one step with and
+    without it gives the same loss, gradients, updated parameters and BN
+    running statistics bit for bit (the recompute updates no running
+    statistic); the recompute does run (the forward's BN count doubles)."""
+    _, variables = carried
+    _, plain_cfg = _cfg(bfloat16=bfloat16, batch_size=2)
+    _, remat_cfg = _cfg(bfloat16=bfloat16, batch_size=2, remat=True)
+    batch = {k: v[:2] for k, v in _pipeline_batch().items()}
+    draws = tpipe.draw_augment(2, tsteps.augment_config(plain_cfg, True),
+                               torch.Generator().manual_seed(3))
+    calls = []
+    bn_train = tlayers._bn_train
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlayers, "_bn_train", lambda *a: calls.append(1) or bn_train(*a))
+        l0, g0, s0 = _step_result(variables, plain_cfg, batch, draws)
+        assert len(calls) == 74
+        l1, g1, s1 = _step_result(variables, remat_cfg, batch, draws)
+        assert len(calls) == 74 + 2 * 74
+    assert l0 == l1
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n
+    for k in s0:
+        assert torch.equal(s0[k], s1[k]), k
+    assert not torch.equal(s0["bottle1_1.convs.0.bn.running_mean"],
+                           jax_variables_to_torch(variables)["bottle1_1.convs.0.bn.running_mean"])
 
 
 def test_eval_step_matches_jax(carried):
