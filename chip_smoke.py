@@ -145,7 +145,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    program (bf16 and float32) and of the 3-channel whole512 program, on the
    activations the programs give them; the instance480 batch served under
    "int8_mxu" and "int8", each main path read alone (2 / 0 banded chain
-   launches, 2 int8_conv launches per quantised conv: 12 / 152), masks
+   launches, one int8_conv launch per quantised conv: 6 / 76, no copy of
+   an input before it), masks
    agreeing >= 0.9 with the float engine's, one ``ParallelInferenceEngine``
    replica bit-equal to the int8_mxu engine, float32 card vs CPU on 2 rows
    (the quantised inputs that flip between them counted; masks >= 0.9, the
@@ -153,11 +154,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    float engine, and each conv's kernel ms beside its plain version, its
    bound and ``torch._int_mm`` over an int8 im2col (a yardstick); ``eval_and_cli``
    also runs ``eval --int8`` (the crossed demo in float32 and bfloat16, the
-   hard set's full-image protocol: 2 chain and 12 int8_conv launches per
-   dispatch) and ``infer --int8`` in whole-image mode on 4 images;
+   hard set's full-image protocol: 2 chain and 6 int8_conv launches per
+   dispatch) and ``infer --int8`` in whole-image mode on 4 images; the
+   kernel's ragged edges (``int8_ragged_phase``: every form at odd sizes on
+   the quantiser's ties and beyond +-127 steps, float32 and bfloat16 in,
+   float32, bfloat16 and int32 out, the plan's tiles and imposed small ones,
+   bit-equal to the plain version) and the dense kernel's tensor-core MMA
+   (``IMMA`` in ``cuobjdump -sass``);
    then the keypoint-patch stem and the last options (``fused_stem_phase``):
    instance480 at batch 128 with ``fused_stem=True`` in bf16, float32 and
-   int8_mxu, each main path read alone (2 chain launches; 8 int8_conv
+   int8_mxu, each main path read alone (2 chain launches; 4 int8_conv
    launches under int8_mxu), against the dense engines (bf16: masks >= 0.98,
    mean abs prob diff <= 0.02; float32: max prob diff <= 1e-3, masks >=
    0.999) and float32 against the CPU on 2 rows; the patches bit-equal to
@@ -206,6 +212,8 @@ import contextlib
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -464,6 +472,47 @@ def ptxas_report(log: str, kernel: str) -> str:
     memory), joined."""
     entry = log.split(kernel, 1)[1].split("Compiling entry", 1)[0]
     return " | ".join(ln.strip() for ln in entry.splitlines()[1:] if ln.strip())
+
+
+def int8_ptxas(log: str, kernel: str) -> dict:
+    """nvcc -Xptxas -v's reports of every instantiation of a template
+    kernel: how many, their registers, and which spill."""
+    regs, spilling, n = [], [], 0
+    for entry in log.split("Compiling entry function '")[1:]:
+        name = entry.split("'", 1)[0]
+        if kernel not in name:
+            continue
+        n += 1
+        found = re.search(r"Used (\d+) registers", entry)
+        regs.append(int(found.group(1)) if found else -1)
+        if "spill" in entry and "0 bytes spill stores, 0 bytes spill loads" not in entry:
+            spilling.append(name)
+    return {"instances": n, "registers": [min(regs, default=-1), max(regs, default=-1)],
+            "spilling": spilling}
+
+
+def int8_sass_mma() -> dict:
+    """The dense int8 kernel's instantiations in the built library's SASS
+    (``cuobjdump -sass``) and their IMMA instructions (the int8 tensor-core
+    MMA): instances, IMMA per instance, instances without one."""
+    from instancesegmentation_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.target("int8_conv.cu"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            if "int8_conv_dense_kernel" in name:
+                counts[name] = 0
+        elif name in counts and "IMMA" in line:
+            counts[name] += 1
+    imma = sorted(counts.values())
+    return {"tool": tool, "instances": len(counts), "imma_per_instance": imma[:1] + imma[-1:],
+            "without_imma": sum(v == 0 for v in imma),
+            "example": next((ln.strip() for ln in sass.splitlines() if "IMMA" in ln), None)}
 
 
 def max_err(got, want, atol, rtol, what) -> float:
@@ -1729,6 +1778,11 @@ def parallel_phase(dev, card: str, fc, w2, sd20, batch, probs, masks, probs32, m
 # -- int8 post-training quantisation ------------------------------------------------
 
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
+#: recorded readings, not measured by this run: the per-forward ms of the
+#: int8 conv's first form (a quantise and a direct-conv launch per conv, CUDA
+#: events around the calls), as PERF.md records them (H100 80GB HBM3 at 700
+#: W); printed on their own line, labelled, beside this run's ``ms``
+INT8_FIRST_FORM_MS = {"int8_mxu": [5.052, 5.111], "int8": [19.870, 20.216]}
 INT8_CHECK_BATCH = 8      # rows of each program at which every conv is checked
 INT8_CALIB_IMAGES = 16    # the calibration set: 2 batches of 8 instances
 INT8_WHOLE_SIZE = 512     # the 3-channel whole-image program checked
@@ -1842,13 +1896,18 @@ def int8_conv_cost(x, y, q) -> tuple[float, float, float, str]:
 
 def int8_conv_times(eng, dev_batch, mxu_paths) -> list:
     """Each of the 76 convs of the int8 instance program at the batch of
-    ``dev_batch``, on the input the program gives it: the kernel's ms (both
-    launches), the plain version's, the bound, and as a yardstick
-    ``torch._int_mm`` over an int8 im2col where it takes the shape (groups 1,
-    out channels a multiple of 8), held to the kernel's accumulators.  At
+    ``dev_batch``, on the input the program gives it: ``ms``, CUDA events
+    around back-to-back calls (the measure of the first form's times, and
+    the host's launch time where it exceeds the kernel's), and
+    ``kernel_ms``, the kernel's device time (``device_ms``); the plain
+    version's, the bound, and as a yardstick ``torch._int_mm`` over an int8
+    im2col where it takes the shape (groups 1, out channels a multiple of
+    8), held to the kernel's accumulators, timed both ways
+    (``int_mm_ms``, ``int_mm_kernel_ms``).  At
     this batch every conv's accumulators and outputs are also held bit-equal
     to the plain version's (the dense kernel's grid-stride loop runs here,
     not at ``INT8_CHECK_BATCH`` rows)."""
+    from instancesegmentation_tpu_torch.ops import int8_conv as ic
     from instancesegmentation_tpu_torch.ops.int8_conv import (
         int8_conv,
         int8_conv_reference,
@@ -1869,11 +1928,13 @@ def int8_conv_times(eng, dev_batch, mxu_paths) -> list:
         y = int8_bit_equal(x, q, f"{path} at batch {len(x)}")
         ops, io, b_ms, b_by = int8_conv_cost(x, y, q)
         ms = cuda_ms(lambda: int8_conv(x, q), iters=10)
+        kernel = device_ms(lambda: int8_conv(x, q), "int8_conv", iters=10)
         plain = cuda_ms(lambda: int8_conv_reference(x, q), iters=2, warmup=1)
         part = {"path": path, "int8_mxu": path in mxu_paths, "in": list(x.shape),
                 "out": list(y.shape), "kernel": [q.kh, q.kw], "stride": q.stride[0],
-                "groups": q.groups, "ops": ops, "bytes": io, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "int_mm_ms": None}
+                "groups": q.groups, "form": ic.plan(q, x.shape, x.dtype).form, "ops": ops,
+                "bytes": io, "ms": ms, "kernel_ms": kernel, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "int_mm_ms": None, "int_mm_kernel_ms": None}
         if q.groups == 1 and q.out_channels % 8 == 0:
             a = int8_im2col(quantize_input_reference(x, q.s_in), q)
             wk = q.wq.permute(0, 2, 3, 1).reshape(q.out_channels, -1).to(x.device)
@@ -1882,6 +1943,7 @@ def int8_conv_times(eng, dev_batch, mxu_paths) -> list:
             exact((acc.reshape(y.shape),), (int8_conv(x, q, torch.int32),),
                   f"torch._int_mm over the im2col of {path}: the kernel's accumulators")
             part["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(a, wk.t()), iters=10)
+            part["int_mm_kernel_ms"] = device_ms(lambda: torch._int_mm(a, wk.t()), "", iters=10)
             del a, acc
         parts.append(part)
     del captured
@@ -1971,6 +2033,83 @@ def int8_vs_cpu(dev, sd20, size: int, scales: dict, small: dict) -> dict:
     return vs_cpu
 
 
+#: the ragged-edge phase's convs: (name, in channels, out channels, kernel,
+#: stride, padding, dilation, groups), every form and width the kernel
+#: takes, with output widths that are not multiples of 8 or of 4
+INT8_RAGGED_CONVS = (
+    ("stem_k5s2_c20", 20, 16, (5, 5), 2, 2, 1, 1),
+    ("stem_k5s2_c3", 3, 16, (5, 5), 2, 2, 1, 1),
+    ("k2s2_c36", 36, 16, (2, 2), 2, 0, 1, 1),
+    ("k2s2_c19", 19, 16, (2, 2), 2, 0, 1, 1),
+    ("k3_c16", 16, 16, (3, 3), 1, 1, 1, 1),
+    ("k3_c4_o4", 4, 4, (3, 3), 1, 1, 1, 1),
+    ("1x1_c52", 52, 16, (1, 1), 1, 0, 1, 1),
+    ("1x1_c35", 35, 16, (1, 1), 1, 0, 1, 1),
+    ("1x1_c256_o128", 256, 128, (1, 1), 1, 0, 1, 1),
+    ("1x1_c128_o48", 128, 48, (1, 1), 1, 0, 1, 1),
+    ("1x1_c20_o12", 20, 12, (1, 1), 1, 0, 1, 1),
+    ("1x1_c16_o5", 16, 5, (1, 1), 1, 0, 1, 1),
+    ("dw3_d1_c48", 48, 48, (3, 3), 1, 1, 1, 48),
+    ("dw3_d2_c48", 48, 48, (3, 3), 1, 2, 2, 48),
+    ("dw3_d4_c48", 48, 48, (3, 3), 1, 4, 4, 48),
+    ("dw3_c16", 16, 16, (3, 3), 1, 1, 1, 16),
+    ("dw5x1_c48", 48, 48, (5, 1), 1, (2, 0), 1, 48),
+    ("dw1x5_c48", 48, 48, (1, 5), 1, (0, 2), 1, 48),
+    ("grouped_c8_o12_g4", 8, 12, (3, 3), 1, 1, 1, 4),
+    ("grouped_c6_o6_g2", 6, 6, (3, 3), 2, 1, 1, 2),
+)
+INT8_RAGGED_SHAPES = ((1, 37, 53), (2, 19, 23))
+
+
+def int8_ragged_phase(dev) -> dict:
+    """The int8 kernel's ragged edges and ties: every conv of
+    ``INT8_RAGGED_CONVS`` at the odd sizes of ``INT8_RAGGED_SHAPES``, on
+    inputs half of whose values sit on the quantiser's ties (k + 0.5) * s_in
+    and some beyond +-127 steps, float32 and bfloat16 in, float32, bfloat16
+    and int32 out, with the plan's tile, an imposed small one (ragged tiles
+    in both directions) and an input 4 bytes off a 16-byte boundary (the
+    loader's scalar path): bit-equal to the plain version on the card."""
+    from instancesegmentation_tpu_torch.ops import int8_conv as ic
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    rng = np.random.default_rng(SEED + 15)
+    checked, forms = 0, {"dense": 0, "grouped": 0}
+    for name, cin, cout, k, stride, pad, dil, groups in INT8_RAGGED_CONVS:
+        w = torch.from_numpy(rng.normal(0, 0.3, (cout, cin // groups, *k)).astype(np.float32))
+        b = torch.from_numpy(rng.normal(0, 0.5, cout).astype(np.float32))
+        pair = (lambda v: v if isinstance(v, tuple) else (v, v))
+        q = ic.Int8Conv(w, b, 1.7, pair(stride), pair(pad), pair(dil), groups, device=dev)
+        small = (3, 16) if groups == 1 else (2, 5)
+        for n, h, wd in INT8_RAGGED_SHAPES:
+            shape = (n, h, wd, cin)
+            steps = torch.randint(-140, 140, shape, generator=g, device=dev).float()
+            free = torch.randn(shape, generator=g, device=dev) * 60 * float(q.s_in)
+            x32 = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5,
+                              (steps + 0.5) * float(q.s_in), free)
+            spare = torch.empty(x32.numel() + 1, device=dev)
+            offset = spare[1:].view(shape)  # 4 bytes past a 16-byte boundary
+            offset.copy_(x32)
+            for x in (x32, x32.bfloat16(), offset):
+                for tile in (None, small):
+                    for out_dtype in (torch.float32, torch.bfloat16, torch.int32):
+                        got = ic._launch(x, q, out_dtype, tile)
+                        want = ic.int8_conv_reference(x, q, out_dtype)
+                        check(got.dtype == want.dtype and torch.equal(got, want),
+                              f"int8_conv ragged {name} {list(x.shape)} {x.dtype} -> "
+                              f"{out_dtype} tile {tile} (data_ptr % 16 = "
+                              f"{x.data_ptr() % 16}): the kernel differs from the plain "
+                              f"version (max diff "
+                              f"{(got.double() - want.double()).abs().max().item():.3e})")
+                        checked += 1
+        forms[ic.plan(q, (1, 37, 53, cin)).form] += 1
+    torch.cuda.synchronize()
+    out = {"convs": len(INT8_RAGGED_CONVS), "forms": forms, "launches_checked": checked,
+           "shapes": [list(s) for s in INT8_RAGGED_SHAPES]}
+    print(f"int8_conv ragged edges and ties: {json.dumps(out)}, every launch bit-equal to the "
+          "plain version")
+    return out
+
+
 def int8_phase(dev, card: str, fc, sd20, sd3, batch, probs, masks) -> dict:
     """int8 post-training quantisation on the card:
 
@@ -1983,7 +2122,8 @@ def int8_phase(dev, card: str, fc, sd20, sd3, batch, probs, masks) -> dict:
        ``INT8_CHECK_BATCH`` rows, bit-equal accumulators and outputs;
     3. serving the instance480 batch in bf16 under "int8_mxu" and "int8"
        beside the float engine: each mode's main path read alone (fused_chain
-       2 / 0 launches, int8_conv 2 per quantised conv: 12 / 152), masks
+       2 / 0 launches, int8_conv 1 per quantised conv: 6 / 76, by form, and
+       no input copied before a conv), masks
        agreeing >= 0.9 with the float engine's, one ``ParallelInferenceEngine``
        replica bit-equal to the int8_mxu engine, float32 card vs CPU on 2
        rows in both modes, end to end (canvas masks >= 0.9, JAX's int8
@@ -2056,21 +2196,30 @@ def int8_phase(dev, card: str, fc, sd20, sd3, batch, probs, masks) -> dict:
         serve[mode] = {"quantised_convs": quantised,
                        "fused_chain": dict(fc.fused_chain.launches_by_form),
                        "int8_conv": ic.int8_conv.launches,
+                       "launches_per_conv": ic.int8_conv.launches / max(quantised, 1),
                        "int8_conv_by_kernel": dict(ic.int8_conv.launches_by_kernel),
+                       "int8_conv_copies": ic.int8_conv.copies,
                        "mask_agreement_vs_float": float((m == masks).mean()),
                        "crop_prob_mean_abs_diff_vs_float": float(np.abs(p - probs).mean())}
         serve[mode]["outputs"] = (p, m)
         chains = 2 if mode == "int8_mxu" else 0
         print(f"main path int8 (instance {size}, batch {n}, bf16, {mode}): {quantised} "
               f"quantised convs, launches fused_chain {serve[mode]['fused_chain']}, int8_conv "
-              f"{serve[mode]['int8_conv']} ({serve[mode]['int8_conv_by_kernel']}: 2 per conv); "
+              f"{serve[mode]['int8_conv']} ({serve[mode]['int8_conv_by_kernel']}: 1 per conv; "
+              f"{serve[mode]['int8_conv_copies']} inputs copied); "
               f"masks vs the float engine {serve[mode]['mask_agreement_vs_float']:.4f} "
               f"(limit 0.9)")
         check(quantised == (6 if mode == "int8_mxu" else 76), f"{mode}: quantised convs")
         check(serve[mode]["fused_chain"] == {"banded": chains, "banded_f32": 0, "simt": 0},
               f"{mode}: {chains} banded fused_chain launches per forward")
-        check(serve[mode]["int8_conv_by_kernel"] == {"quantize": quantised, "conv": quantised},
-              f"{mode}: one quantise and one conv launch per quantised conv")
+        dense = sum(q is not None and mm.groups == 1 for mm, q in
+                    ((mm, getattr(mm, "quant", None)) for mm in e.model.quant_convs().values()))
+        check(serve[mode]["int8_conv_by_kernel"] == {"dense": dense, "grouped": quantised - dense}
+              and (mode == "int8" or dense == quantised)
+              and serve[mode]["launches_per_conv"] == 1,
+              f"{mode}: one int8_conv launch per quantised conv, by form")
+        check(serve[mode]["int8_conv_copies"] == 0,
+              f"{mode}: no input copied before an int8 conv (each is a channels_last view)")
         check(p.shape == probs.shape and bool(np.isfinite(p).all()), f"{mode}: finite probabilities")
         check(serve[mode]["mask_agreement_vs_float"] >= 0.9, f"{mode}: masks agree with float")
     mxu_probs, mxu_masks = serve["int8_mxu"].pop("outputs")
@@ -2115,20 +2264,26 @@ def int8_phase(dev, card: str, fc, sd20, sd3, batch, probs, masks) -> dict:
     out["parts"] = parts
     for p in parts:
         print(f"time int8_conv {p['path']} {p['in']} -> {p['out']} k{p['kernel']} "
-              f"s{p['stride']} g{p['groups']}: {p['ms']:.4f} ms (plain {p['plain_ms']:.3f}, "
+              f"s{p['stride']} g{p['groups']} {p['form']}: {p['ms']:.4f} ms (kernel "
+              f"{p['kernel_ms']:.4f}, plain {p['plain_ms']:.3f}, "
               f"bound {p['bound_ms']:.4f} by {p['bound_by']}, _int_mm "
               f"{'-' if p['int_mm_ms'] is None else format(p['int_mm_ms'], '.4f')})")
     for name, sel in (("int8_mxu", [p for p in parts if p["int8_mxu"]]), ("int8", parts)):
         mm = [p for p in sel if p["int_mm_ms"] is not None]
         out[f"sum_{name}"] = {
             "convs": len(sel), "ms": sum(p["ms"] for p in sel),
+            "kernel_ms": sum(p["kernel_ms"] for p in sel),
             "plain_ms": sum(p["plain_ms"] for p in sel),
             "bound_ms": sum(p["bound_ms"] for p in sel),
             "bound_by": max(sel, key=lambda p: p["bound_ms"])["bound_by"],
             "int_mm_convs": len(mm), "int_mm_ms": sum(p["int_mm_ms"] for p in mm),
-            "ms_same_convs_as_int_mm": sum(p["ms"] for p in mm)}
+            "int_mm_kernel_ms": sum(p["int_mm_kernel_ms"] for p in mm),
+            "ms_same_convs_as_int_mm": sum(p["ms"] for p in mm),
+            "kernel_ms_same_convs_as_int_mm": sum(p["kernel_ms"] for p in mm)}
         print(f"time int8_conv per forward ({name}, {len(sel)} convs, batch {n} bf16): "
               f"{json.dumps(out[f'sum_{name}'])}; {card}")
+        print(f"recorded readings (PERF.md, not this run): the first form's ms per forward "
+              f"({name}, CUDA events) {INT8_FIRST_FORM_MS[name]}")
     print(json.dumps({"int8": {k: v for k, v in out.items() if k != "parts"}}))
     out["scales"] = scales
     return out
@@ -2366,8 +2521,8 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
           f"{json.dumps({k: round(v, 4) for k, v in host.items()})}; {card}")
 
     # the same run with --int8 (int8_mxu, calibrated on the set's first 2
-    # batches of 8): 2 chain launches and 6 quantised convs (12 int8_conv
-    # launches) per dispatch
+    # batches of 8): 2 chain launches and 6 quantised convs (6 dense
+    # int8_conv launches) per dispatch
     nms_mod.nms.launches = 0
     fc.reset_launches()
     ic.reset_launches()
@@ -2392,9 +2547,8 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
     check(all(0.0 <= full8[k] <= 1.0 for k in ("AP", "AP50", "AP75")),
           "full-image eval --int8: AP in [0, 1]")
     check(dispatches8 > 0 and full8_launches["fused_chain"]["simt"] == 0
-          and full8_launches["int8_conv"] == {"quantize": 6 * dispatches8,
-                                              "conv": 6 * dispatches8},
-          "full-image eval --int8: 2 chain and 12 int8_conv launches per dispatch")
+          and full8_launches["int8_conv"] == {"dense": 6 * dispatches8, "grouped": 0},
+          "full-image eval --int8: 2 chain and 6 int8_conv launches per dispatch")
 
     # the same run with --fused-stem: one NMS launch per image, 2 chain
     # launches per dispatch
@@ -2497,7 +2651,7 @@ def eval_and_cli(card: str, fc, nms_mod, trained_ckpt: str, tmp: str) -> dict:
     check(files == [f"{i:05d}.png" for i in range(CLI_IMAGES)]
           and all(read_png(os.path.join(dest, f), "gray").shape == EVAL_HW for f in files),
           "infer --int8 whole: one mask per image at its size")
-    check(cli_out["whole_int8"]["int8_conv"] == {"quantize": 6, "conv": 6}
+    check(cli_out["whole_int8"]["int8_conv"] == {"dense": 6, "grouped": 0}
           and cli_out["whole_int8"]["fused_chain"]["banded"] == 2,
           "infer --int8 whole: one dispatch with 6 quantised convs and 2 chain launches")
 
@@ -2751,7 +2905,7 @@ def fused_stem_phase(dev, card: str, fc, sd20, batch, eng, eng32, probs, masks, 
        launches) against the dense float32 engine, TF32 off (max prob diff
        <= 1e-3, masks >= 0.999), float32 card against CPU on 2 rows (1e-2,
        0.999); ``quant`` (int8_mxu) with the fused stem: 4 quantised convs
-       run, 8 int8_conv launches, 2 chain launches;
+       run, 4 int8_conv launches, 2 chain launches;
     2. the patches against the card's own dense render, bit for bit;
     3. ``fold_bn=False`` in float32: 0 chain launches, probabilities within
        JAX's bound of the folded engine's (atol 2e-3, rtol 1e-4);
@@ -2795,8 +2949,8 @@ def fused_stem_phase(dev, card: str, fc, sd20, batch, eng, eng32, probs, masks, 
     check(serve["f32"] == {"fused_chain": {"banded": 0, "banded_f32": 2, "simt": 0},
                            "int8_conv": 0}, "fused stem f32: 2 banded f32 chain launches")
     check(serve["int8_mxu"] == {"fused_chain": {"banded": 2, "banded_f32": 0, "simt": 0},
-                                "int8_conv": 8},
-          "fused stem int8_mxu: 4 quantised convs run (8 int8_conv launches), 2 chain launches")
+                                "int8_conv": 4},
+          "fused stem int8_mxu: 4 quantised convs run (4 int8_conv launches), 2 chain launches")
     (pf, mf), (pf32, mf32), (p8, m8) = (outputs[k] for k in ("bf16", "f32", "int8_mxu"))
     for p in (pf, pf32, p8):
         check(p.shape == probs.shape and bool(np.isfinite(p).all()), "fused stem: finite probs")
@@ -3017,10 +3171,7 @@ def main() -> int:
                         ("nms.cu", "nms_kernel"), ("warp_2level.cu", "warp_2level_tiled_kernel"),
                         ("roi_align.cu", "roi_order_kernel"),
                         ("roi_align.cu", "roi_align_kernel"),
-                        ("matching.cu", "match_cluster_kernel"),
-                        ("int8_conv.cu", "int8_conv_dense_kernel"),
-                        ("int8_conv.cu", "int8_conv_grouped_kernel"),
-                        ("int8_conv.cu", "int8_quantize_kernel")):
+                        ("matching.cu", "match_cluster_kernel")):
         log = _build.build_log.get(src)
         if log is None:
             print(f"{src} was built before this run: no ptxas report")
@@ -3030,6 +3181,19 @@ def main() -> int:
         check("spill" not in ptxas[kernel] or
               "0 bytes spill stores, 0 bytes spill loads" in ptxas[kernel],
               f"{kernel} spills registers")
+    # the int8 conv's instantiations (input, output type, N tiles), each
+    # checked for spills, and the dense ones' tensor-core MMAs in the SASS
+    if "int8_conv.cu" in _build.build_log:
+        for kernel in ("int8_conv_dense_kernel", "int8_conv_grouped_kernel"):
+            ptxas[kernel] = int8_ptxas(_build.build_log["int8_conv.cu"], kernel)
+            print(f"ptxas {kernel}: {json.dumps(ptxas[kernel])}")
+            check(ptxas[kernel]["instances"] > 0 and not ptxas[kernel]["spilling"],
+                  f"{kernel}: every instantiation built without spills")
+    ptxas["int8_conv_dense_kernel_sass"] = int8_sass_mma()
+    print(f"sass int8_conv_dense_kernel: {json.dumps(ptxas['int8_conv_dense_kernel_sass'])}")
+    check(ptxas["int8_conv_dense_kernel_sass"]["instances"] > 0
+          and ptxas["int8_conv_dense_kernel_sass"]["without_imma"] == 0,
+          "int8_conv_dense_kernel: every instantiation issues the int8 tensor-core MMA (IMMA)")
 
     # -- 3. kernels against their plain versions ---------------------------
     sd20 = random_state_dict(20, SEED)
@@ -3585,6 +3749,7 @@ def main() -> int:
     # int8 post-training quantisation: calibration, the int8 conv kernel on
     # every conv, and the int8_mxu and int8 main paths
     q8 = int8_phase(dev, card, fc, sd20, sd3, batch, probs, masks)
+    q8["ragged"] = int8_ragged_phase(dev)
 
     # the fused stem, fold_bn=False and remat: their main paths, checks and times
     fstem = fused_stem_phase(dev, card, fc, sd20, batch, eng, eng32, probs, masks, probs32,
@@ -3961,24 +4126,32 @@ def main() -> int:
          "ptxas": ptxas.get("warp_2level_tiled_kernel")},
         {"name": "int8_conv", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/int8_conv.cu",
-         "replaces": None, "on_main_path": True,
+         "replaces": None,
+         "counterpart": "instancesegmentation_tpu/models/layers.py:85 _Int8Conv (an XLA conv, "
+                        "no Pallas kernel)",
+         "on_main_path": True,
          "launches": q8["serve"]["int8_mxu"]["int8_conv"],
          "launches_by_kernel": q8["serve"]["int8_mxu"]["int8_conv_by_kernel"],
          "launches_int8_mode": q8["serve"]["int8"]["int8_conv"],
-         "launches_per_conv": 2,
+         "launches_int8_mode_by_kernel": q8["serve"]["int8"]["int8_conv_by_kernel"],
+         "launches_per_conv": {m: q8["serve"][m]["launches_per_conv"]
+                               for m in ("int8_mxu", "int8")},
          "launches_eval_full_image_int8": evals["full_image_int8"]["launches"]["int8_conv"],
          "launches_infer_whole_int8": evals["cli"]["whole_int8"]["int8_conv"],
          "launches_int8_mxu_fused_stem": fstem["serve"]["int8_mxu"]["int8_conv"],
          "max_abs_err": 0.0,
-         **{k: q8["sum_int8_mxu"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         **{k: q8["sum_int8_mxu"][k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                                               "bound_by")},
          "library_ms": q8["sum_int8_mxu"]["int_mm_ms"],
          "library": "torch._int_mm over an int8 im2col, on the convs it takes "
                     f"({q8['sum_int8_mxu']['int_mm_convs']} of {q8['sum_int8_mxu']['convs']}; "
                     "the kernel on those: ms_same_convs_as_int_mm), a yardstick only",
-         "ms_same_convs_as_int_mm": q8["sum_int8_mxu"]["ms_same_convs_as_int_mm"],
+         **{k: q8["sum_int8_mxu"][k] for k in ("int_mm_kernel_ms", "ms_same_convs_as_int_mm",
+                                               "kernel_ms_same_convs_as_int_mm")},
          "int8_mode": q8["sum_int8"], "shape": [BATCH, 480, 480, 20], "dtype": "bfloat16",
+         "ragged": q8["ragged"],
          "ptxas": {k: ptxas.get(k) for k in ("int8_conv_dense_kernel", "int8_conv_grouped_kernel",
-                                             "int8_quantize_kernel")},
+                                             "int8_conv_dense_kernel_sass")},
          "parts": q8["parts"]},
         {"name": "warp_2level_fused", "route": "cuda",
          "source": "instancesegmentation_tpu_torch/csrc/warp_2level.cu",
