@@ -93,7 +93,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    load ms); then the JPEG decoder (``ops/native/jpeg.cpp``, built with g++):
    the fixtures of ``tests/data/jpeg`` bit-equal to the cv2 arrays stored
    beside them in both modes, and ms per 480 x 640 baseline and progressive
-   file beside ``read_png``'s ms per 480 x 640 PNG;
+   file beside ``read_png``'s ms per 480 x 640 PNG; then the small image
+   decoders (``image_forms_phase``: PNM / PAM / PFM, Sun raster, Radiance
+   HDR, GIF, RLE BMP, their codes in ``ops/native/image_codes.cpp`` built
+   with g++): the fixtures of ``tests/data/imread`` bit-equal to the cv2
+   arrays stored beside them in both modes, and ms per 480 x 640 GIF and
+   HDR file beside ``read_png``'s;
    then the dataset converters (``converters_phase``): the port writes a
    COCO (64 JPEGs of 480 x 640, two people each, polygons, compressed and
    uncompressed RLE, 17 keypoints), an OCHuman (16 images, 19 keypoints,
@@ -159,7 +164,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    kernel's ragged edges (``int8_ragged_phase``: every form at odd sizes on
    the quantiser's ties and beyond +-127 steps, float32 and bfloat16 in,
    float32, bfloat16 and int32 out, the plan's tiles and imposed small ones,
-   bit-equal to the plain version) and the dense kernel's tensor-core MMA
+   dense convs of 129, 136 and 256 outputs in slices of 128 channels,
+   bit-equal to the plain version, one launch per call) and the dense
+   kernel's tensor-core MMA
    (``IMMA`` in ``cuobjdump -sass``);
    then the keypoint-patch stem and the last options (``fused_stem_phase``):
    instance480 at batch 128 with ``fused_stem=True`` in bf16, float32 and
@@ -1189,6 +1196,67 @@ def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
     return out
 
 
+IMREAD_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                               "imread")
+IMREAD_TIMED = ("screen_480x640.gif", "rle_480x640.hdr")
+
+
+def image_forms_phase(card: str, png_ms: float, iters: int = 20) -> dict:
+    """The small image decoders (PNM / PAM / PFM, Sun raster, Radiance HDR,
+    GIF, RLE BMP; their codes in ``ops/native/image_codes.cpp``, built with
+    g++ here): each committed fixture of ``tests/data/imread`` read in both
+    modes, bit-equal to the cv2 arrays stored beside it (``FileNotFoundError``
+    for a mode cv2 returns None for); ms per 480 x 640 GIF and HDR file
+    beside ``read_png``'s ms per 480 x 640 PNG (``png_ms``, the trainer
+    phase's), host clock."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imread
+    from instancesegmentation_tpu_torch.ops.native.image_codes import load_image_codes
+
+    t0 = time.perf_counter()
+    load_image_codes()
+    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    files = sorted(p for p in glob.glob(os.path.join(IMREAD_FIXTURES, "*"))
+                   if not p.endswith((".npz", ".py")))
+    exts = {os.path.splitext(p)[1] for p in files}
+    check(len(files) >= 20 and {".pbm", ".pgm", ".ppm", ".pam", ".pfm", ".ras", ".hdr", ".gif",
+                                ".bmp"} <= exts, "image forms: the committed fixtures are present")
+    checked = 0
+    for path in files:
+        stored = np.load(path + ".npz")
+        for mode in ("color", "gray"):
+            if mode in stored:
+                check(np.array_equal(imread(path, mode), stored[mode]),
+                      f"image forms: {os.path.basename(path)} in {mode} mode equals cv2's stored "
+                      "decode")
+            else:
+                try:
+                    imread(path, mode)
+                    ok = False
+                except FileNotFoundError:
+                    ok = True
+                check(ok, f"image forms: {os.path.basename(path)} in {mode} mode raises "
+                          "FileNotFoundError where cv2 returns None")
+            checked += 1
+    out["fixtures"], out["reads_checked"] = len(files), checked
+    for name in IMREAD_TIMED:
+        path = os.path.join(IMREAD_FIXTURES, name)
+        imread(path)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            imread(path)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        out[f"{name}_bytes"] = os.path.getsize(path)
+    out["read_png_ms_480x640_rgb"] = png_ms
+    gif, hdr = (out[f"{n}_ms"] for n in IMREAD_TIMED)
+    print(f"image forms: {len(files)} fixtures ({checked} reads) bit-equal to cv2's stored decodes "
+          f"in both modes; 480x640 GIF {gif:.2f} ms, HDR {hdr:.2f} ms, read_png {png_ms:.2f} ms "
+          f"per 480x640 RGB PNG (host clock); {card}")
+    print(json.dumps({"image_forms": out}))
+    return out
+
+
 # -- the dataset converters ---------------------------------------------------------
 
 #: the converters phase: source images per converter, their size, and the
@@ -2057,6 +2125,11 @@ INT8_RAGGED_CONVS = (
     ("dw1x5_c48", 48, 48, (1, 5), 1, (0, 2), 1, 48),
     ("grouped_c8_o12_g4", 8, 12, (3, 3), 1, 1, 1, 4),
     ("grouped_c6_o6_g2", 6, 6, (3, 3), 2, 1, 1, 2),
+    # dense convs wider than 128 outputs: slices of 128 channels
+    ("1x1_c64_o129", 64, 129, (1, 1), 1, 0, 1, 1),
+    ("k3_c32_o136", 32, 136, (3, 3), 1, 1, 1, 1),
+    ("1x1_c48_o256", 48, 256, (1, 1), 1, 0, 1, 1),
+    ("k3_c16_o256", 16, 256, (3, 3), 1, 1, 1, 1),
 )
 INT8_RAGGED_SHAPES = ((1, 37, 53), (2, 19, 23))
 
@@ -2068,12 +2141,14 @@ def int8_ragged_phase(dev) -> dict:
     and some beyond +-127 steps, float32 and bfloat16 in, float32, bfloat16
     and int32 out, with the plan's tile, an imposed small one (ragged tiles
     in both directions) and an input 4 bytes off a 16-byte boundary (the
-    loader's scalar path): bit-equal to the plain version on the card."""
+    loader's scalar path): bit-equal to the plain version on the card, one
+    launch per call; the dense convs of 129, 136 and 256 outputs run in
+    slices of 128 channels."""
     from instancesegmentation_tpu_torch.ops import int8_conv as ic
 
     g = torch.Generator(device=dev).manual_seed(SEED + 15)
     rng = np.random.default_rng(SEED + 15)
-    checked, forms = 0, {"dense": 0, "grouped": 0}
+    checked, forms, wide = 0, {"dense": 0, "grouped": 0}, {}
     for name, cin, cout, k, stride, pad, dil, groups in INT8_RAGGED_CONVS:
         w = torch.from_numpy(rng.normal(0, 0.3, (cout, cin // groups, *k)).astype(np.float32))
         b = torch.from_numpy(rng.normal(0, 0.5, cout).astype(np.float32))
@@ -2092,7 +2167,10 @@ def int8_ragged_phase(dev) -> dict:
             for x in (x32, x32.bfloat16(), offset):
                 for tile in (None, small):
                     for out_dtype in (torch.float32, torch.bfloat16, torch.int32):
+                        before = ic.int8_conv.launches
                         got = ic._launch(x, q, out_dtype, tile)
+                        check(ic.int8_conv.launches == before + 1,
+                              f"int8_conv ragged {name}: one launch per conv")
                         want = ic.int8_conv_reference(x, q, out_dtype)
                         check(got.dtype == want.dtype and torch.equal(got, want),
                               f"int8_conv ragged {name} {list(x.shape)} {x.dtype} -> "
@@ -2101,10 +2179,13 @@ def int8_ragged_phase(dev) -> dict:
                               f"version (max diff "
                               f"{(got.double() - want.double()).abs().max().item():.3e})")
                         checked += 1
-        forms[ic.plan(q, (1, 37, 53, cin)).form] += 1
+        p = ic.plan(q, (1, 37, 53, cin))
+        forms[p.form] += 1
+        if cout > ic.DENSE_SLICE:
+            wide[name] = {"slices": ic.dense_slices(cout), "np": p.np, "smem": p.smem}
     torch.cuda.synchronize()
     out = {"convs": len(INT8_RAGGED_CONVS), "forms": forms, "launches_checked": checked,
-           "shapes": [list(s) for s in INT8_RAGGED_SHAPES]}
+           "shapes": [list(s) for s in INT8_RAGGED_SHAPES], "wide_dense": wide}
     print(f"int8_conv ragged edges and ties: {json.dumps(out)}, every launch bit-equal to the "
           "plain version")
     return out
@@ -3738,6 +3819,7 @@ def main() -> int:
         trained = os.path.join(eval_tmp, "trained.ckpt")
         disk = trainer_from_disk(dev, card, w2, fc, trained)
         jpeg = jpeg_phase(card, disk["read_png_ms_480x640_rgb"])
+        image_forms_phase(card, disk["read_png_ms_480x640_rgb"])
         conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 

@@ -17,9 +17,14 @@ Gray is cv2's ``icvCvt_BGR2Gray_8u``: ``(1868 B + 9617 G + 4899 R + 8192)
 >> 14`` of the colour pixel, except for a 32-bit ``BI_BITFIELDS`` file
 whose header holds an alpha mask (56 bytes or more, as cv2 writes RGBA):
 cv2 reads that one as BGRA and takes ``0.299 R + 0.587 G + 0.114 B`` in
-float32, truncated.  RLE4 and RLE8 files raise ``UnsupportedImage``
-(ROADMAP A10 part 3); a file cv2 refuses (other header sizes, bit depths or
-masks, data cut short) raises plain ``ValueError``.
+float32, truncated.  RLE8 and RLE4 files (``BI_RLE8`` at 8 bits,
+``BI_RLE4`` at 4) decode as cv2's decoder runs their codes
+(``ops/native/image_codes.cpp``): the gaps that end of line, end of bitmap
+and delta leave take index 0 in reading order, and a run past its row
+refuses the file; cv2 reads an RLE4 end of bitmap as an end of line and an
+RLE4 delta as dx pixels (dy unused), and so does the port.  A file cv2
+refuses (other header sizes, bit depths or masks, data cut short) raises
+plain ``ValueError``.
 
 ``encode_bmp(image)`` is ``cv2.imencode(".bmp", ...)`` byte for byte:
 bottom-up rows, 24 bits for RGB ``[H, W, 3]`` (stored BGR) and 8 bits with
@@ -32,7 +37,8 @@ import struct
 
 import numpy as np
 
-from instancesegmentation_tpu_torch.core.png import UnsupportedImage
+from instancesegmentation_tpu_torch.ops.native.image_codes import bmp_rle
+
 
 SIGNATURE = b"BM"
 _BI_RGB, _BI_RLE8, _BI_RLE4, _BI_BITFIELDS = 0, 1, 2, 3
@@ -48,9 +54,18 @@ def _bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
     return ((b * _CB + g * _CG + r * _CR + (1 << 13)) >> 14).astype(np.uint8)
 
 
+def cvtcolor_gray(bgr: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(..., COLOR_BGR2GRAY)`` (and ``BGRA2GRAY``) of uint8
+    ``[..., 3]`` BGR: 15-bit fixed point, unlike the codecs' own
+    ``_bgr_to_gray``; the decoders that convert through ``cvtColor`` (GIF,
+    HDR) use it."""
+    b, g, r = (bgr[..., i].astype(np.int32) for i in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)
+
+
 def _header(data: bytes, path: str) -> tuple:
     """(offset, width, height, bpp, BGR colour table [256, 3], whether cv2
-    reads the pixels as BGRA)."""
+    reads the pixels as BGRA, compression)."""
     if len(data) < 18:
         raise ValueError(f"{path}: BMP header cut short")
     offset, size = struct.unpack_from("<iI", data, 10)
@@ -102,10 +117,7 @@ def _header(data: bytes, path: str) -> tuple:
         ok = False
     if not ok or width <= 0 or height == 0:
         raise ValueError(f"{path}: not a BMP form cv2 reads")
-    if compression in (_BI_RLE4, _BI_RLE8):
-        raise UnsupportedImage(f"{path}: RLE{bpp} compressed BMP files are not decoded "
-                               "(ROADMAP A10 part 3)")
-    return offset, width, height, bpp, palette, bgra
+    return offset, width, height, bpp, palette, bgra, compression
 
 
 def decode_bmp(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.ndarray:
@@ -113,8 +125,14 @@ def decode_bmp(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.nd
     (``"gray"``) uint8, as ``cv2.imread``."""
     if mode not in ("color", "gray"):
         raise ValueError(f"unknown read mode {mode!r}")
-    offset, width, height, bpp, palette, bgra = _header(data, path)
+    offset, width, height, bpp, palette, bgra, compression = _header(data, path)
     h = abs(height)
+    if compression in (_BI_RLE4, _BI_RLE8):
+        if offset < 0:
+            raise ValueError(f"{path}: BMP pixel data offset {offset}")
+        index = bmp_rle(data, offset, h, width, bpp, path)
+        index = index[::-1] if height > 0 else index
+        return _bgr_to_gray(palette)[index] if mode == "gray" else palette[index][..., ::-1]
     pitch = ((width * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & -4
     if offset < 0 or offset + pitch * h > len(data):
         raise ValueError(f"{path}: BMP pixel data cut short")

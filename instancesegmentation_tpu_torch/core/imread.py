@@ -3,33 +3,60 @@
 dataset reader, ``eval``, ``infer`` and the dataset converters open.
 
 ``"color"`` gives RGB uint8 ``[H, W, 3]`` (cv2's BGR converted, as the JAX
-package's readers do), ``"gray"`` uint8 ``[H, W]``; both turned by the
-file's EXIF orientation.  The decoder is chosen by the file's leading bytes,
-as cv2 chooses it, never by its extension:
+package's readers do), ``"gray"`` uint8 ``[H, W]``; PNG and JPEG turned by
+the file's EXIF orientation.  The decoder is chosen by the file's leading
+bytes, as cv2 chooses it, never by its extension:
 
 - PNG signature: ``core/png.py`` (every valid PNG);
 - JPEG ``FF D8 FF``: ``ops/native/jpeg.py`` (C++, built with g++ at first
   use; without a compiler the read raises ``RuntimeError``);
-- ``BM``: ``core/bmp.py``.
+- ``BM``: ``core/bmp.py`` (uncompressed, RLE4 and RLE8);
+- ``P1``-``P6``, ``P7``, ``PF`` / ``Pf`` (then whitespace): ``core/pnm.py``
+  (PNM, PAM, PFM);
+- ``59 A6 6A 95``: ``core/sunras.py`` (Sun raster);
+- ``#?RGBE`` / ``#?RADIANCE``: ``core/hdr.py`` (Radiance HDR);
+- ``GIF87a`` / ``GIF89a``: ``core/gif.py`` (the first frame).
+
+The RLE and LZW codes of BMP, Sun raster, HDR and GIF are unpacked by
+``ops/native/image_codes.cpp`` (built like the JPEG decoder; without a
+compiler such a read raises ``RuntimeError``).
 
 Where cv2 returns None, ``imread`` raises ``FileNotFoundError``: a missing
-or empty file, leading bytes that no decoder claims, a file that is cut or
-corrupt where cv2's decoder gives up.  A valid file of a form the port
-does not decode (RLE BMPs, arithmetic-coded, 12-bit, lossless or CMYK
-JPEGs, and the other formats cv2 reads: TIFF, WebP, PNM, JPEG 2000, ...)
-raises ``UnsupportedImage``, a ``ValueError`` naming ROADMAP A10 part 3:
-the port never drops silently what the JAX package reads.
+or empty file, leading bytes that no decoder claims (among them OpenEXR's
+``76 2F 31 01``: this container's cv2 is built without OpenEXR), a file
+that is cut or corrupt where cv2's decoder gives up.  A header whose size
+cv2 itself raises on raises ``ImageSizeError`` (``core/png.py``).  A valid
+file of a form the port does not decode (arithmetic-coded, 12-bit,
+lossless, CMYK or other-sampled JPEGs, and the other formats cv2 reads:
+TIFF and BigTIFF, WebP, JPEG 2000, AVIF) raises ``UnsupportedImage``, a
+``ValueError`` naming ROADMAP A10 part 3: the port never drops silently
+what the JAX package reads (a file that only starts like one of those
+formats raises it too: the port does not parse them).  ``cv2.imread`` and ``cv2.imdecode`` differ on
+one form, which the port follows: a PFM whose channels differ from the read
+mode's is None to ``imread`` and its own channels to ``imdecode``.
 """
 from __future__ import annotations
 
 import os
+import struct
 
 import numpy as np
 
 from instancesegmentation_tpu_torch.core.bmp import SIGNATURE as BMP_SIGNATURE
 from instancesegmentation_tpu_torch.core.bmp import decode_bmp
+from instancesegmentation_tpu_torch.core.gif import SIGNATURES as GIF_SIGNATURES
+from instancesegmentation_tpu_torch.core.gif import decode_gif
+from instancesegmentation_tpu_torch.core.hdr import SIGNATURES as HDR_SIGNATURES
+from instancesegmentation_tpu_torch.core.hdr import decode_hdr
 from instancesegmentation_tpu_torch.core.png import SIGNATURE as PNG_SIGNATURE
-from instancesegmentation_tpu_torch.core.png import UnsupportedImage, png_pixels
+from instancesegmentation_tpu_torch.core.png import (
+    ImageSizeError,
+    UnsupportedImage,
+    png_pixels,
+)
+from instancesegmentation_tpu_torch.core.pnm import decode_pam, decode_pfm, decode_pnm
+from instancesegmentation_tpu_torch.core.sunras import SIGNATURE as SUNRAS_SIGNATURE
+from instancesegmentation_tpu_torch.core.sunras import decode_sunras
 from instancesegmentation_tpu_torch.ops.native.jpeg import SIGNATURE as JPEG_SIGNATURE
 from instancesegmentation_tpu_torch.ops.native.jpeg import decode_jpeg
 
@@ -37,15 +64,27 @@ from instancesegmentation_tpu_torch.ops.native.jpeg import decode_jpeg
 _OTHER_FORMATS = (
     (b"II*\x00", "TIFF"),
     (b"MM\x00*", "TIFF"),
-    (b"GIF87a", "GIF"),
-    (b"GIF89a", "GIF"),
+    (b"II+\x00", "BigTIFF"),
+    (b"MM\x00+", "BigTIFF"),
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
     (b"\xff\x4f\xff\x51", "JPEG 2000"),
-    (b"\x76\x2f\x31\x01", "OpenEXR"),
-    (b"#?RADIANCE", "Radiance HDR"),
-    (b"#?RGBE", "Radiance HDR"),
-    (b"\x59\xa6\x6a\x95", "Sun raster"),
 )
+#: the ISO-BMFF brands that libavif (cv2's AVIF decoder) takes
+_AVIF_BRANDS = (b"avif", b"avis")
+
+
+def _is_avif(data: bytes) -> bool:
+    """An ISO-BMFF file whose leading ``ftyp`` box names ``avif`` or
+    ``avis`` as its major brand or among its compatible brands, the test
+    libavif's parse applies first."""
+    if len(data) < 16 or data[4:8] != b"ftyp":
+        return False
+    size = struct.unpack(">I", data[:4])[0]
+    if size < 16 or size % 4:
+        return False
+    box = data[8:min(size, len(data))]
+    brands = [box[:4]] + [box[i:i + 4] for i in range(8, len(box) - 3, 4)]
+    return any(b in _AVIF_BRANDS for b in brands)
 
 
 def _other_format(data: bytes) -> str | None:
@@ -54,26 +93,40 @@ def _other_format(data: bytes) -> str | None:
             return name
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
-    if len(data) >= 3 and data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
-        return "PNM"
-    if data[:2] in (b"PF", b"Pf") and data[2:3].isspace():
-        return "PFM"
+    if _is_avif(data):
+        return "AVIF"
     return None
 
 
-def imdecode(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.ndarray:
-    """Decode the image bytes ``data`` as ``cv2.imdecode`` (``"color"``: RGB
-    ``[H, W, 3]``; ``"gray"``: ``[H, W]``); raises as ``imread`` does, with
-    ``path`` in the messages."""
+def _decoder(data: bytes, read_file: bool):
+    """The decoder that claims ``data``'s leading bytes, or None."""
+    if data.startswith(PNG_SIGNATURE):
+        return png_pixels
+    if data.startswith(JPEG_SIGNATURE):
+        return decode_jpeg
+    if data.startswith(BMP_SIGNATURE):
+        return decode_bmp
+    if len(data) >= 3 and data[:1] == b"P" and data[2:3].isspace():
+        if data[1:2] in b"123456":
+            return decode_pnm
+        if data[1:2] == b"7":
+            return decode_pam
+        if data[1:2] in (b"f", b"F"):
+            return lambda d, mode, path: decode_pfm(d, mode, path, imread=read_file)
+    if data.startswith(SUNRAS_SIGNATURE):
+        return decode_sunras
+    if data.startswith(HDR_SIGNATURES):
+        return decode_hdr
+    if data.startswith(GIF_SIGNATURES):
+        return decode_gif
+    return None
+
+
+def _decode(data: bytes, mode: str, path: str, read_file: bool) -> np.ndarray:
     if mode not in ("color", "gray"):
         raise ValueError(f"unknown read mode {mode!r}")
-    if data.startswith(PNG_SIGNATURE):
-        decode = png_pixels
-    elif data.startswith(JPEG_SIGNATURE):
-        decode = decode_jpeg
-    elif data.startswith(BMP_SIGNATURE):
-        decode = decode_bmp
-    else:
+    decode = _decoder(data, read_file)
+    if decode is None:
         name = _other_format(data)
         if name is not None:
             raise UnsupportedImage(f"{path}: {name} files are not decoded (ROADMAP A10 part 3)")
@@ -81,10 +134,17 @@ def imdecode(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.ndar
         raise FileNotFoundError(f"cannot decode image: {path} ({what})")
     try:
         return decode(data, mode, path)
-    except UnsupportedImage:
+    except (UnsupportedImage, ImageSizeError):
         raise
     except ValueError as e:
         raise FileNotFoundError(f"cannot decode image: {path} ({e})") from e
+
+
+def imdecode(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.ndarray:
+    """Decode the image bytes ``data`` as ``cv2.imdecode`` (``"color"``: RGB
+    ``[H, W, 3]``; ``"gray"``: ``[H, W]``; a PFM in its own channels);
+    raises as ``imread`` does, with ``path`` in the messages."""
+    return _decode(data, mode, path, read_file=False)
 
 
 def imread(path: str, mode: str = "color") -> np.ndarray:
@@ -96,4 +156,4 @@ def imread(path: str, mode: str = "color") -> np.ndarray:
     if not os.path.isfile(path):
         raise FileNotFoundError(f"cannot decode image: {path} (no such file)")
     with open(path, "rb") as f:
-        return imdecode(f.read(), mode, path)
+        return _decode(f.read(), mode, path, read_file=True)

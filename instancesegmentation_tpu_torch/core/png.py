@@ -65,6 +65,12 @@ class UnsupportedImage(ValueError):
     part 3), where ``cv2.imread`` would return pixels."""
 
 
+class ImageSizeError(ValueError):
+    """An image file whose header gives a size that ``cv2.imread`` raises
+    on (``validateInputImageSize``: a side not positive or above 2^20, more
+    than 2^30 pixels), where it neither decodes nor returns None."""
+
+
 def _chunks(data: bytes, path: str):
     """Yield ``(type, body)`` of each chunk (the body a view into ``data``),
     checking the CRC of critical chunks (upper-case first letter) and of

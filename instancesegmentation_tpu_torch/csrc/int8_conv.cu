@@ -56,7 +56,13 @@
 //   of a fragment's rows fall in distinct banks. The weights are packed
 //   once on the host (ops/int8_conv.py:pack_weights) in fragment order,
 //   [K/32][NT][32 lanes][2 words]: a B fragment is one 8-byte load, shared
-//   by the MT m-tiles a warp holds. mma.sync and not wgmma: N is only
+//   by the MT m-tiles a warp holds. A conv wider than 128 outputs runs in
+//   slices of 128 channels (the WIDE instantiations, NT = 16, the weights
+//   packed slice after slice): a slice is one more index of the persistent
+//   grid's tiles, the slowest, so that a block reloads its weights only
+//   where its slice changes; each slice loads and quantises its input tile
+//   again (mostly from L2). Without WIDE the kernel is the one-slice form,
+//   unchanged for the model's convs (4..128 outputs). mma.sync and not wgmma: N is only
 //   4..128 and A is a gather from the quantised tile, which wgmma cannot
 //   read (its A comes from registers in the warpgroup layout or from a
 //   dense shared-memory matrix); the work is far below the tensor cores'
@@ -110,7 +116,7 @@ struct I8Geom {
   int cin_g, cout_g;           // channels per group
   int th, tw;                  // a block's output tile
   int ir, ic, pp;              // its input tile: rows, columns, words per pixel
-  int kp, np;                  // dense: padded K and N; grouped: taps, Cout/4 words
+  int kp, np;                  // dense: padded K and N (all slices); grouped: taps, Cout/4 words
   int tiles_y, tiles_x;
   int pitch;                   // dense: bytes per staged pixel
   int smem;                    // dynamic shared memory, bytes
@@ -324,43 +330,51 @@ __device__ __forceinline__ void copy_unit(const unsigned char* src, unsigned cha
   else *reinterpret_cast<unsigned short*>(dst) = *reinterpret_cast<const unsigned short*>(src);
 }
 
-// Dense layout of dynamic shared memory, in bytes:
-//   [Kp * Np]  B fragments [Kp / 32][NT][32][2 words]
+// Dense layout of dynamic shared memory, in bytes, for a slice of Ns = 8 NT
+// output channels (Ns = Np up to 128 outputs, else 128):
+//   [Kp * Ns]  B fragments [Kp / 32][NT][32][2 words]
 //   [Kp]       word offsets of (ky, kx, c4) in the tile [Kp / 4] ints
-//   [8 * Np]   scale, bias [Np] floats
+//   [8 * Ns]   scale, bias [Ns] floats
 //   [I8_WARPS * 16 * pitch]  each warp's staged m-tile
 //   [IR * IC * PP * 4]       the quantised input tile
-__host__ __device__ inline int dense_smem_bytes(int kp, int np, int pitch, int ir, int ic,
+__host__ __device__ inline int dense_smem_bytes(int kp, int ns, int pitch, int ir, int ic,
                                                 int pp) {
-  return kp * np + kp + 8 * np + I8_WARPS * 16 * pitch + ir * ic * pp * 4;
+  return kp * ns + kp + 8 * ns + I8_WARPS * 16 * pitch + ir * ic * pp * 4;
 }
+#define I8_SLICE 128
 
 // Two blocks per SM (128 registers a thread; ops/int8_conv.py:BLOCKS_PER_SM
 // sizes the tiles' shared memory for as many): measured as fast as three at
-// 80 registers, which spill.
-template <typename T, typename OutT, int NT, int MT>
+// 80 registers, which spill. WIDE: slices of NS = 8 NT = 128 output channels
+// (g.np a multiple of 128); otherwise one slice of all g.np channels.
+template <typename T, typename OutT, int NT, int MT, bool WIDE>
 __global__ void __launch_bounds__(I8_THREADS, I8_BLOCKS_PER_SM)
 int8_conv_dense_kernel(const T* __restrict__ x, const uint4* __restrict__ wfrag,
                        const float* __restrict__ scale, const float* __restrict__ bias,
                        OutT* __restrict__ out, const I8Geom g) {
+  constexpr int NS = 8 * NT;
+  const int ns = WIDE ? NS : g.np;  // the channels shared memory holds
   extern __shared__ __align__(16) unsigned char smem[];
   uint2* ws = reinterpret_cast<uint2*>(smem);
-  int* woff = reinterpret_cast<int*>(smem + g.kp * g.np);
-  float* ssc = reinterpret_cast<float*>(smem + g.kp * g.np + g.kp);
-  float* sbi = ssc + g.np;
-  unsigned char* stage = reinterpret_cast<unsigned char*>(sbi + g.np);
+  int* woff = reinterpret_cast<int*>(smem + g.kp * ns);
+  float* ssc = reinterpret_cast<float*>(smem + g.kp * ns + g.kp);
+  float* sbi = ssc + ns;
+  unsigned char* stage = reinterpret_cast<unsigned char*>(sbi + ns);
   unsigned* xs = reinterpret_cast<unsigned*>(stage + I8_WARPS * 16 * g.pitch);
 
   uint4* wdst = reinterpret_cast<uint4*>(ws);
-  for (int i = threadIdx.x; i < g.kp * g.np / 16; i += I8_THREADS) wdst[i] = __ldg(wfrag + i);
+  if (!WIDE)
+    for (int i = threadIdx.x; i < g.kp * g.np / 16; i += I8_THREADS) wdst[i] = __ldg(wfrag + i);
   const int taps = g.kh * g.kw;
   for (int i = threadIdx.x; i < g.kp / 4; i += I8_THREADS) {
     const int tap = i / g.c4, c4 = i - tap * g.c4;
     woff[i] = tap < taps ? ((tap / g.kw) * g.dh * g.ic + (tap % g.kw) * g.dw) * g.pp + c4 : 0;
   }
-  for (int i = threadIdx.x; i < g.np; i += I8_THREADS) {
-    ssc[i] = i < g.cout ? scale[i] : 0.f;
-    sbi[i] = i < g.cout ? bias[i] : 0.f;
+  if (!WIDE) {
+    for (int i = threadIdx.x; i < g.np; i += I8_THREADS) {
+      ssc[i] = i < g.cout ? scale[i] : 0.f;
+      sbi[i] = i < g.cout ? bias[i] : 0.f;
+    }
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -371,14 +385,39 @@ int8_conv_dense_kernel(const T* __restrict__ x, const uint4* __restrict__ wfrag,
   const int unit = bpp % 16 == 0 ? 16 : bpp % 8 == 0 ? 8 : bpp % 4 == 0 ? 4 : 2;
   const int upp = bpp / unit;
   const float inv_upp = 1.f / (float)upp;
+  // WIDE: the slice's first channel and channels, and its copy unit, which
+  // divides the pixel's bytes, the slice's and the slice's offset
+  int c0 = 0, cn = 0, s_unit = 0, s_upp = 0;
+  float s_inv_upp = 0.f;
 
-  // persistent: the block takes tiles blockIdx.x, + gridDim.x, ...
-  const int tiles = g.n * g.tiles_y * g.tiles_x;
+  // persistent: the block takes tiles blockIdx.x, + gridDim.x, ... of
+  // (slice, image, tile row, tile column)
+  const int spatial = g.n * g.tiles_y * g.tiles_x;
+  const int tiles = WIDE ? spatial * (g.np / NS) : spatial;
+  int loaded = -1;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int tx = tile % g.tiles_x;
-    const int ty = tile / g.tiles_x % g.tiles_y;
-    const int n = tile / g.tiles_x / g.tiles_y;
+    const int slice = WIDE ? tile / spatial : 0;
+    const int sp = WIDE ? tile - slice * spatial : tile;
+    const int tx = sp % g.tiles_x;
+    const int ty = sp / g.tiles_x % g.tiles_y;
+    const int n = sp / g.tiles_x / g.tiles_y;
     const int oy0 = ty * g.th, ox0 = tx * g.tw;
+    if (WIDE && slice != loaded) {  // the slice's weights, scale and bias (the last tile is read)
+      const uint4* wsrc = wfrag + (long long)slice * (g.kp * NS / 16);
+      for (int i = threadIdx.x; i < g.kp * NS / 16; i += I8_THREADS) wdst[i] = __ldg(wsrc + i);
+      c0 = slice * NS;
+      cn = min(NS, g.cout - c0);
+      for (int i = threadIdx.x; i < NS; i += I8_THREADS) {
+        ssc[i] = i < cn ? scale[c0 + i] : 0.f;
+        sbi[i] = i < cn ? bias[c0 + i] : 0.f;
+      }
+      const int sbytes = cn * (int)sizeof(OutT);
+      const int all = bpp | sbytes | c0 * (int)sizeof(OutT);
+      s_unit = all % 16 == 0 ? 16 : all % 8 == 0 ? 8 : all % 4 == 0 ? 4 : 2;
+      s_upp = sbytes / s_unit;
+      s_inv_upp = 1.f / (float)s_upp;
+      loaded = slice;
+    }
     // 16 N tiles' 64 accumulators leave room for 4 words in flight a batch
     load_tile<T, (NT >= 16 ? 4 : Raw<T>::words)>(x, xs, g, n, oy0 * g.sh - g.ph,
                                                 ox0 * g.sw - g.pw);
@@ -431,23 +470,33 @@ int8_conv_dense_kernel(const T* __restrict__ x, const uint4* __restrict__ wfrag,
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             const int ch = 8 * j + 2 * tig + (k & 1), row = gid + 8 * (k >> 1);
-            if (ch < g.cout)
+            if (ch < (WIDE ? cn : g.cout))
               put(reinterpret_cast<OutT*>(st + row * g.pitch) + ch, acc[mi][j][k], ssc[ch],
                   sbi[ch]);
           }
         }
         __syncwarp();
         // the m-tile's 16 pixels are consecutive in one output row (TW % 16
-        // == 0); the valid ones, a prefix, are contiguous in memory
+        // == 0); the valid ones are a prefix, their slice's channels
+        // contiguous within each pixel (the whole pixel with one slice)
         const int p0 = mt * 16;
         const int r = div_small(p0, inv_tw);
         const int oy = oy0 + r, ox = ox0 + (p0 - r * g.tw);
         const int valid = oy < g.ho ? min(16, g.wo - ox) : 0;
-        unsigned char* dst = reinterpret_cast<unsigned char*>(
-            out + (((long long)n * g.ho + oy) * g.wo + ox) * g.cout);
-        for (int i = lane; i < valid * upp; i += 32) {
-          const int px = div_small(i, inv_upp), e = i - px * upp;
-          copy_unit(st + px * g.pitch + e * unit, dst + px * bpp + e * unit, unit);
+        if (WIDE) {
+          unsigned char* dst = reinterpret_cast<unsigned char*>(
+              out + (((long long)n * g.ho + oy) * g.wo + ox) * g.cout + c0);
+          for (int i = lane; i < valid * s_upp; i += 32) {
+            const int px = div_small(i, s_inv_upp), e = i - px * s_upp;
+            copy_unit(st + px * g.pitch + e * s_unit, dst + px * bpp + e * s_unit, s_unit);
+          }
+        } else {
+          unsigned char* dst = reinterpret_cast<unsigned char*>(
+              out + (((long long)n * g.ho + oy) * g.wo + ox) * g.cout);
+          for (int i = lane; i < valid * upp; i += 32) {
+            const int px = div_small(i, inv_upp), e = i - px * upp;
+            copy_unit(st + px * g.pitch + e * unit, dst + px * bpp + e * unit, unit);
+          }
         }
         __syncwarp();
       }
@@ -592,11 +641,11 @@ static cudaError_t prepare(K kernel, int smem, int (&granted)[I8_MAX_DEVICES]) {
   return err;
 }
 
-template <typename T, typename OutT, int NT, int MT>
+template <typename T, typename OutT, int NT, int MT, bool WIDE = false>
 static cudaError_t launch_dense(const void* x, const void* w, const float* scale,
                                 const float* bias, void* out, const I8Geom& g, cudaStream_t s) {
   static int granted[I8_MAX_DEVICES] = {};
-  auto kernel = int8_conv_dense_kernel<T, OutT, NT, MT>;
+  auto kernel = int8_conv_dense_kernel<T, OutT, NT, MT, WIDE>;
   cudaError_t err = prepare(kernel, g.smem, granted);
   if (err != cudaSuccess) return err;
   kernel<<<g.blocks, I8_THREADS, g.smem, s>>>(
@@ -608,8 +657,12 @@ template <typename T, typename OutT>
 static cudaError_t dispatch_dense(const void* x, const void* w, const float* scale,
                                   const float* bias, void* out, const I8Geom& g, cudaStream_t s) {
   // N = 8 NT output channels: the model's 4, 16, 48 and 128 take NT 1, 2, 6
-  // and 16; MT m-tiles per warp share each B fragment and word offset, as
-  // many as build without spills (ops/int8_conv.py:DENSE_MT)
+  // and 16, wider convs NT 16 in slices of 128; MT m-tiles per warp share
+  // each B fragment and word offset, as many as build without spills
+  // (ops/int8_conv.py:DENSE_MT)
+  if (g.np > I8_SLICE)
+    return g.np % I8_SLICE ? cudaErrorInvalidValue
+                           : launch_dense<T, OutT, 16, 1, true>(x, w, scale, bias, out, g, s);
   switch (g.np / 8) {
     case 1: return launch_dense<T, OutT, 1, 4>(x, w, scale, bias, out, g, s);
     case 2: return launch_dense<T, OutT, 2, 2>(x, w, scale, bias, out, g, s);
@@ -667,7 +720,7 @@ int int8_conv_launch(const void* x, int x_bf16, const void* w, const float* scal
   memcpy(&g, geom, I8_GEOM_INTS * sizeof(int));
   g.s_in = s_in;
   const int want = g.form == 0
-                       ? dense_smem_bytes(g.kp, g.np, g.pitch, g.ir, g.ic, g.pp)
+                       ? dense_smem_bytes(g.kp, min(g.np, I8_SLICE), g.pitch, g.ir, g.ic, g.pp)
                        : grouped_smem_bytes(g.kp, g.cin_g, g.np, g.ir, g.ic, g.pp);
   if (want != g.smem || g.blocks < 1) return I8_PLAN_MISMATCH;
   const cudaStream_t s = (cudaStream_t)stream;

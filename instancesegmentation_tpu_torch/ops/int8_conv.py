@@ -63,9 +63,12 @@ THREADS, WARPS, RUN, BLOCKS_PER_SM = 256, 8, 4, 2
 #: card's own count (the CPU tests)
 H100_SMS = 132
 #: the dense kernel's output-channel tiles of 8 (``NT``) it is built for,
-#: and the m-tiles of 16 pixels a warp takes at once with each (``MT``)
+#: and the m-tiles of 16 pixels a warp takes at once with each (``MT``); a
+#: conv wider than ``DENSE_SLICE`` outputs runs in slices of that many
+#: channels (NT 16), one more index of the grid's tiles
 DENSE_NT = (1, 2, 6, 16)
 DENSE_MT = {1: 4, 2: 2, 6: 2, 16: 1}
+DENSE_SLICE = 128
 #: the largest tile (pixels) and tile width of each form
 DENSE_TILE_PX, DENSE_TW_MAX = 512, 128
 GROUPED_TILE_PX, GROUPED_TW_MAX = 1024, 64
@@ -122,11 +125,9 @@ class Int8Conv:
 
     The quantisation runs once, on the host in float32; the tensors the
     kernels read (the epilogue's ``scale`` (``epilogue_scale``) and bias, the
-    weights in the kernel's layout) are put on ``device``.  On a CUDA
-    device a dense conv (groups 1) takes at most 128 output channels (a
-    block holds every output channel, ``dense_tiles``), and building one
-    wider raises ``ValueError``; the plain version and grouped convs take
-    any width.  Every conv of ``Segment`` has 4-128.
+    weights in the kernel's layout) are put on ``device``.  Every form takes
+    any number of output channels (a dense conv wider than ``DENSE_SLICE``
+    in slices, ``dense_tiles``); every conv of ``Segment`` has 4-128.
     """
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor, amax, stride: Sequence[int],
@@ -156,16 +157,22 @@ def _round_up(v: int, m: int) -> int:
 
 
 def dense_tiles(cout: int) -> int:
-    """The dense kernel's output-channel tiles of 8 (its ``NT``) for
-    ``cout`` output channels: the smallest of ``DENSE_NT`` that holds them
-    (so 17-47 channels compute 48, 49-128 compute 128, the padding's weights
-    zero and its outputs not written).  Raises ``ValueError`` above 128."""
+    """The dense kernel's output-channel tiles of 8 for ``cout`` output
+    channels, over all its slices: up to ``DENSE_SLICE`` channels the
+    smallest of ``DENSE_NT`` that holds them (its ``NT``: 17-47 channels
+    compute 48, 49-128 compute 128), above it 16 per slice of
+    ``DENSE_SLICE`` (129-256 compute 256); the padding's weights are zero
+    and its outputs not written."""
     need = -(-cout // 8)
-    for nt in DENSE_NT:
-        if nt >= need:
-            return nt
-    raise ValueError(f"the dense int8 kernel takes at most {8 * DENSE_NT[-1]} output "
-                     f"channels, not {cout}")
+    if 8 * need > DENSE_SLICE:
+        return DENSE_NT[-1] * -(-cout // DENSE_SLICE)
+    return next(nt for nt in DENSE_NT if nt >= need)
+
+
+def dense_slices(cout: int) -> int:
+    """The dense kernel's slices of output channels (1 up to
+    ``DENSE_SLICE`` outputs)."""
+    return -(-8 * dense_tiles(cout) // DENSE_SLICE)
 
 
 def padded_k(in_channels: int, kh: int, kw: int) -> int:
@@ -183,7 +190,9 @@ def pack_weights(wq: torch.Tensor, groups: int) -> torch.Tensor:
     - groups == 1: the B fragments of ``m16n8k32``, ``[K/32][NT][32 lanes][2]``:
       lane ``4 g + t`` of step ``s`` and tile ``j`` holds output channel
       ``8 j + g``'s k = 32 s + 4 t .. + 3 and 32 s + 16 + 4 t .. + 3, K in
-      ``padded_k``'s order, channels past ``out`` zero;
+      ``padded_k``'s order, channels past ``out`` zero; above
+      ``DENSE_SLICE`` outputs the slices of that many channels one after
+      another, ``[slices * K/32][16][32][2]``;
     - groups > 1: ``[kh * kw][in/groups][ceil(out / 4)]``, each word 4
       consecutive output channels' weights of one tap and group input.
     """
@@ -194,8 +203,10 @@ def pack_weights(wq: torch.Tensor, groups: int) -> torch.Tensor:
         kp = padded_k(cin_g, kh, kw)
         w = F.pad(wq.permute(0, 2, 3, 1), (0, cp - cin_g)).reshape(out, kh * kw * cp)
         w = F.pad(w, (0, kp - w.shape[1], 0, 8 * nt - out)).contiguous()
-        words = w.view(torch.int32).reshape(nt, 8, kp // 32, 2, 4)
-        return words.permute(2, 0, 1, 4, 3).contiguous().reshape(kp // 32, nt, 32, 2)
+        slices = dense_slices(out)
+        nts = nt // slices
+        words = w.view(torch.int32).reshape(slices, nts, 8, kp // 32, 2, 4)
+        return words.permute(0, 3, 1, 2, 5, 4).contiguous().reshape(slices * kp // 32, nts, 32, 2)
     w = F.pad(wq.permute(2, 3, 1, 0), (0, _round_up(out, 4) - out)).contiguous()
     return w.view(torch.int32).reshape(kh * kw, cin_g, -1).contiguous()
 
@@ -204,10 +215,11 @@ class Plan(NamedTuple):
     """One launch's tile and shared memory (``csrc/int8_conv.cu``'s I8Geom):
     a block computes ``th x tw`` output pixels of one image from an input
     tile of ``ir x ic`` pixels (the halo included) of ``pp`` words each; the
-    dense form's K and N padded to ``kp`` and ``np`` and its staged pixel of
-    ``pitch`` bytes; for the grouped form ``kp`` is the taps and ``np`` the
-    output channel words.  ``blocks``: the persistent grid, as many blocks
-    as the card holds at once at this shared memory, at most one per tile."""
+    dense form's K and N padded to ``kp`` and ``np`` (N over all its slices,
+    ``dense_slices``) and its staged pixel of ``pitch`` bytes; for the
+    grouped form ``kp`` is the taps and ``np`` the output channel words.
+    ``blocks``: the persistent grid, as many blocks as the card holds at
+    once at this shared memory, at most one per tile (and slice)."""
     form: str
     th: int
     tw: int
@@ -280,12 +292,15 @@ def plan(conv: Int8Conv, x_shape: Sequence[int], dtype: torch.dtype = torch.floa
         raise ValueError(f"int8 conv of {tuple(x_shape)}: an image of 2^31 elements or more")
     (sh, sw), (dh, dw) = conv.stride, conv.dilation
     c4 = -(-c // 4)
+    slices = 1
     if conv.groups == 1:
         form, mult, px_max, tw_max = "dense", 16, DENSE_TILE_PX, DENSE_TW_MAX
         pp, kp = _words_per_pixel(c4, sw), padded_k(c, conv.kh, conv.kw)
         np_ = 8 * dense_tiles(conv.out_channels)
+        slices = dense_slices(conv.out_channels)
+        ns = np_ // slices  # a slice's channels: shared memory holds one slice
         osz = torch.empty((), dtype=out_dtype).element_size()
-        pitch = _round_up(osz * conv.out_channels, 16) + 16
+        pitch = _round_up(osz * min(conv.out_channels, ns), 16) + 16
     else:
         form, mult, px_max, tw_max = "grouped", 1, GROUPED_TILE_PX, GROUPED_TW_MAX
         pp, kp, np_, pitch = c4, conv.kh * conv.kw, -(-conv.out_channels // 4), 0
@@ -294,7 +309,7 @@ def plan(conv: Int8Conv, x_shape: Sequence[int], dtype: torch.dtype = torch.floa
         ir = (th - 1) * sh + (conv.kh - 1) * dh + 1
         ic = (tw - 1) * sw + (conv.kw - 1) * dw + 1
         if form == "dense":
-            return _dense_smem(kp, np_, pitch, ir, ic, pp), ir, ic
+            return _dense_smem(kp, ns, pitch, ir, ic, pp), ir, ic
         return _grouped_smem(kp, conv.in_per_group, np_, ir, ic, pp), ir, ic
 
     def fits(size: int, ir: int, ic: int) -> bool:
@@ -316,7 +331,7 @@ def plan(conv: Int8Conv, x_shape: Sequence[int], dtype: torch.dtype = torch.floa
         if form == "dense":
             # a tile's m-tiles go to the warps MT at a time: pixels short of a
             # whole round leave warps idle
-            px_cost, px_round = kp * (8 + np_ // 8) // 8, 16 * WARPS * DENSE_MT[np_ // 8]
+            px_cost, px_round = kp * (8 + ns // 8) // 8, 16 * WARPS * DENSE_MT[ns // 8]
         else:
             px_cost, px_round = np_ * kp * conv.in_per_group * 9, 1
         best = None
@@ -325,7 +340,7 @@ def plan(conv: Int8Conv, x_shape: Sequence[int], dtype: torch.dtype = torch.floa
                 size, ir, ic = smem(th, tw)
                 if size > target or not fits(size, ir, ic):
                     break
-                tiles = -(-ho // th) * -(-wo // tw)
+                tiles = -(-ho // th) * -(-wo // tw) * slices
                 cost = tiles * (LOAD_COST * ir * ic * c4 + px_cost * _round_up(th * tw, px_round)
                                 + TILE_COST)
                 key = (n * tiles < MIN_TILES_PER_SM * sms, cost, -th * tw)
@@ -342,7 +357,7 @@ def plan(conv: Int8Conv, x_shape: Sequence[int], dtype: torch.dtype = torch.floa
     size, ir, ic = smem(th, tw)
     ty, tx = -(-ho // th), -(-wo // tw)
     return Plan(form, th, tw, ir, ic, pp, kp, np_, ty, tx, pitch, size,
-                _grid(n, ty, tx, size, sms))
+                _grid(n * slices, ty, tx, size, sms))
 
 
 def geometry(conv: Int8Conv, x_shape: Sequence[int], p: Plan, vec: bool) -> list[int]:
@@ -443,8 +458,7 @@ def int8_conv(x: torch.Tensor, conv: Int8Conv,
 
     A CPU tensor runs ``int8_conv_reference``; a CUDA tensor launches one
     kernel (counted; a non-contiguous input is copied first, counted in
-    ``int8_conv.copies``) or raises.  On the card a dense conv takes at most
-    128 output channels (``Int8Conv``).
+    ``int8_conv.copies``) or raises.
     """
     if x.dim() != 4 or x.shape[-1] != conv.in_channels:
         raise ValueError(f"int8_conv expects [N, H, W, {conv.in_channels}], got "

@@ -134,10 +134,11 @@ def test_list_images_filters_extensions(tmp_path):
 
 @pytest.mark.parametrize("mode", [[], ["--proposals", "props.json"]], ids=["whole", "proposals"])
 def test_jpeg_raises_naming_the_file(mode, tmp_path):
-    """A listed BMP decodes as cv2 decodes it since the BMP codec landed; a
-    listed image of a form the port does not decode (an RLE BMP, ROADMAP A10
-    part 3) is never skipped: the command raises ``UnsupportedImage`` naming
-    the file, here before it writes anything."""
+    """A listed BMP decodes as cv2 decodes it since the BMP codec landed (RLE
+    too, since its decoder landed); a listed image of a form the port does
+    not decode (a TIFF named ``.bmp``: cv2 goes by content; ROADMAP A10 part
+    3) is never skipped: the command raises ``UnsupportedImage`` naming the
+    file, here before it writes anything."""
     img = tmp_path / "img"
     img.mkdir()
     cv2.imwrite(str(img / "a.png"), np.zeros((20, 20, 3), np.uint8))
@@ -148,7 +149,12 @@ def test_jpeg_raises_naming_the_file(mode, tmp_path):
     rle8 += b"\x14\x07\x00\x00" * 20 + b"\x00\x01"  # 20 rows of one run of 20 pixels
     rle8[28:34] = struct.pack("<HI", 8, 1)  # 8 bits per pixel, BI_RLE8
     rle8[10:14] = struct.pack("<I", 54 + 1024)
-    (img / "c.bmp").write_bytes(bytes(rle8))
+    (img / "d.bmp").write_bytes(bytes(rle8))
+    np.testing.assert_array_equal(imread(str(img / "d.bmp")),
+                                  cv2.imread(str(img / "d.bmp"))[..., ::-1])
+    (img / "d.bmp").unlink()
+    ok, tiff = cv2.imencode(".tiff", pixels)
+    (img / "c.bmp").write_bytes(tiff.tobytes())
     assert cv2.imread(str(img / "c.bmp")) is not None
     (tmp_path / "props.json").write_text(json.dumps({"c": {"boxes": [[0, 0, 9, 9]],
                                                            "scores": [1.0]}}))

@@ -297,17 +297,15 @@ def test_supervisely_class_whitelist(tmp_path):
 
 
 def test_unsupported_images_are_not_skipped(tmp_path):
-    """cv2 reads an RLE BMP that the port does not decode (ROADMAP A10
-    part 3): the port's converter stops with ``UnsupportedImage`` where a
-    skip would drop an image that the JAX package converts."""
+    """cv2 reads a TIFF that the port does not decode (ROADMAP A10 part 3;
+    an RLE BMP served here until its decoder landed): the port's converter
+    stops with ``UnsupportedImage`` where a skip would drop an image that
+    the JAX package converts."""
     img_dir, ann_path = _coco_tree(str(tmp_path / "src"), gray_jpeg=False)
     pixels = np.zeros((96, 128, 3), np.uint8)
-    ok, bmp = cv2.imencode(".bmp", pixels)
-    rle8 = bytearray(bmp.tobytes()[:54]) + bytes(1024) + b"\x80\x03\x00\x00" * 96 + b"\x00\x01"
-    rle8[28:34] = struct.pack("<HI", 8, 1)
-    rle8[10:14] = struct.pack("<I", 54 + 1024)
+    ok, tiff = cv2.imencode(".tiff", pixels)
     with open(os.path.join(img_dir, "0000.jpg"), "wb") as f:  # cv2 goes by content
-        f.write(bytes(rle8))
+        f.write(tiff.tobytes())
     assert cv2.imread(os.path.join(img_dir, "0000.jpg")) is not None
     assert jconv.transfer_coco(img_dir, ann_path, str(tmp_path / "jax"), progress=False) == 4
     with pytest.raises(ValueError, match="A10 part 3"):

@@ -6,6 +6,8 @@ package's readers, which are ``cv2.imread`` (CPU): every pixel equal.
   after IDAT;
 - ``imread``'s split: ``FileNotFoundError`` exactly where cv2 returns None,
   ``ValueError`` naming ROADMAP A10 for valid files it does not decode;
+  the sweep over every format cv2 writes here (C3) and the AVIF and
+  BigTIFF signatures;
 - JPEG: quality 50 and 95, 4:4:4, 4:2:2 and 4:2:0, progressive, optimised
   tables, restart markers, gray files, odd sizes, APP1 orientations, files
   cut in their scan data (block smoothing of a cut progressive file);
@@ -32,7 +34,7 @@ from instancesegmentation_tpu.data.synthetic import make_synthetic_dataset as ja
 from instancesegmentation_tpu_torch import eval as teval
 from instancesegmentation_tpu_torch.core import records as trecords
 from instancesegmentation_tpu_torch.core.exif import exif_orientation
-from instancesegmentation_tpu_torch.core.imread import imread
+from instancesegmentation_tpu_torch.core.imread import imdecode, imread
 from instancesegmentation_tpu_torch.core.keys import key_combine
 from instancesegmentation_tpu_torch.core.png import UnsupportedImage, encode_png
 from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
@@ -133,12 +135,14 @@ def test_imread_raises_where_cv2_returns_none(tmp_path):
     for name, data in {"image.bmp": bmp.tobytes(), "sixteen.png": sixteen.tobytes()}.items():
         _same_as_jax(_write(tmp_path / name, data))
     np.testing.assert_array_equal(imread(rgb, "gray"), cv2.imread(rgb, cv2.IMREAD_GRAYSCALE))
-    # the forms that stay out (ROADMAP A10 part 3) raise, never skip
-    ok, tiff = cv2.imencode(".tiff", _picture(6, 8))
+    # an RLE8 BMP is decoded since its decoder landed
     rle8 = bytearray(bmp.tobytes()[:54]) + bytes(1024) + b"\x08\x01\x00\x00" * 6 + b"\x00\x01"
     rle8[28:34] = struct.pack("<HI", 8, 1)  # 8 bits per pixel, BI_RLE8
     rle8[10:14] = struct.pack("<I", 54 + 1024)
-    unsupported = {"image.tiff": tiff.tobytes(), "rle8.bmp": bytes(rle8)}
+    _same_as_jax(_write(tmp_path / "rle8.bmp", bytes(rle8)))
+    # the forms that stay out (ROADMAP A10 part 3) raise, never skip
+    ok, tiff = cv2.imencode(".tiff", _picture(6, 8))
+    unsupported = {"image.tiff": tiff.tobytes()}
     for name, data in unsupported.items():
         path = _write(tmp_path / name, data)
         assert cv2.imread(path) is not None, name
@@ -147,6 +151,96 @@ def test_imread_raises_where_cv2_returns_none(tmp_path):
         assert isinstance(info.value, UnsupportedImage)
     # the extension plays no part: a JPEG named .png is a JPEG
     _same_as_jax(_write(tmp_path / "jpeg_named.png", jpg.tobytes()))
+
+
+def _writers(img):
+    """{name: bytes} of every format ``cv2.imencode`` writes here, of the
+    BGR ``img`` and its gray, and PIL's BigTIFF and CMYK JPEG."""
+    import io
+
+    from PIL import Image
+
+    gray = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    f32 = img.astype(np.float32) / 255
+    out = {}
+    for ext, src, params in (
+            (".png", img, ()), (".png", gray, ()), (".jpg", img, ()), (".jpg", gray, ()),
+            (".bmp", img, ()), (".bmp", gray, ()), (".tiff", img, ()), (".tiff", gray, ()),
+            (".webp", img, ()), (".webp", img, (cv2.IMWRITE_WEBP_QUALITY, 101)),
+            (".jp2", img, ()), (".avif", img, ()), (".pbm", gray, ()), (".pgm", gray, ()),
+            (".ppm", img, ()), (".pbm", gray, (cv2.IMWRITE_PXM_BINARY, 0)),
+            (".pgm", gray, (cv2.IMWRITE_PXM_BINARY, 0)), (".ppm", img, (cv2.IMWRITE_PXM_BINARY, 0)),
+            (".pam", img, ()), (".pam", gray, ()), (".pfm", f32, ()), (".pfm", f32[..., 0], ()),
+            (".ras", img, ()), (".ras", gray, ()), (".hdr", f32, ()), (".gif", img, ())):
+        ok, buf = cv2.imencode(ext, src, list(params))
+        assert ok, ext
+        out[f"{ext[1:]}_{src.ndim}d_{len(params)}"] = buf.tobytes()
+    rgb = Image.fromarray(img[..., ::-1].copy())
+    for name, kwargs in (("bigtiff", dict(format="TIFF", big_tiff=True)),
+                         ("cmyk_jpeg", dict(format="JPEG"))):
+        buf = io.BytesIO()
+        (rgb.convert("CMYK") if name == "cmyk_jpeg" else rgb).save(buf, **kwargs)
+        out[name] = buf.getvalue()
+    out["openexr_magic"] = b"\x76\x2f\x31\x01" + bytes(60)
+    return out
+
+
+def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
+    """C3: for every format cv2 writes here (and PIL's BigTIFF and CMYK
+    JPEG), in both read modes, the port does exactly one of: decode equal
+    to ``cv2.imread``; raise ``UnsupportedImage`` where cv2 decodes; raise
+    ``FileNotFoundError`` where cv2 returns None.  AVIF, BigTIFF, TIFF,
+    WebP, JPEG 2000 and CMYK JPEG raise ``UnsupportedImage``; OpenEXR (cv2
+    here is built without it) ``FileNotFoundError``."""
+    img = _picture(32, 48, seed=3)
+    outcome = {}
+    for name, data in _writers(img).items():
+        path = _write(tmp_path / name, data)
+        for mode, flag in (("color", cv2.IMREAD_COLOR), ("gray", cv2.IMREAD_GRAYSCALE)):
+            want = cv2.imread(path, flag)
+            try:
+                got = imread(path, mode)
+            except UnsupportedImage:
+                assert want is not None, (name, mode)
+                outcome[name, mode] = "unsupported"
+                continue
+            except FileNotFoundError:
+                assert want is None, (name, mode)
+                outcome[name, mode] = "none"
+                continue
+            assert want is not None, (name, mode)
+            want = want[..., ::-1] if want.ndim == 3 else want
+            np.testing.assert_array_equal(got, want, err_msg=f"{name} {mode}")
+            outcome[name, mode] = "decoded"
+    for name in ("avif_3d_0", "bigtiff", "tiff_3d_0", "webp_3d_0", "webp_3d_2", "jp2_3d_0",
+                 "cmyk_jpeg"):
+        assert outcome[name, "color"] == outcome[name, "gray"] == "unsupported", name
+    assert outcome["openexr_magic", "color"] == "none"
+    assert outcome["pfm_3d_0", "gray"] == outcome["pfm_2d_0", "color"] == "none"
+    decoded = {n for (n, m), o in outcome.items() if o == "decoded"}
+    assert {"pbm_2d_0", "pgm_2d_2", "ppm_3d_2", "pam_3d_0", "pfm_3d_0", "ras_3d_0", "hdr_3d_0",
+            "gif_3d_0", "bmp_3d_0"} <= decoded
+
+
+def test_avif_brands_and_bigtiff_signatures():
+    """The sniff of C3: an ``ftyp`` box naming ``avif`` or ``avis`` as its
+    major or a compatible brand, and both BigTIFF byte orders, raise
+    ``UnsupportedImage``; other ISO-BMFF brands and OpenEXR
+    ``FileNotFoundError`` (cv2 returns None for them here)."""
+    def ftyp(major, compatible):
+        body = major + b"\x00\x00\x00\x00" + b"".join(compatible)
+        return struct.pack(">I", 8 + len(body)) + b"ftyp" + body + bytes(32)
+
+    for data in (ftyp(b"avif", [b"mif1"]), ftyp(b"avis", []), ftyp(b"mif1", [b"miaf", b"avif"]),
+                 ftyp(b"heic", [b"avis"]), b"II+\x00" + bytes(12), b"MM\x00+" + bytes(12)):
+        with pytest.raises(UnsupportedImage, match="A10 part 3"):
+            imdecode(data)
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+    for data in (ftyp(b"heic", [b"mif1"]), ftyp(b"isom", [b"mp41"]),
+                 b"\x76\x2f\x31\x01" + bytes(60)):
+        with pytest.raises(FileNotFoundError):
+            imdecode(data)
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
 
 
 def test_undecodable_masks_skip_as_in_jax(tmp_path):

@@ -13,8 +13,15 @@ included):
   pixels; the grouped form's runs and taps) gives ``int8_conv_reference``'s
   int32 accumulators exactly on small seeded inputs of odd sizes, with the
   plan's own tile and with an imposed ragged one, on inputs that sit on the
-  quantiser's .5 ties and beyond +-127 steps.
+  quantiser's .5 ties and beyond +-127 steps;
+- dense convs wider than 128 outputs (129, 136, 256: slices of 128
+  channels) through the same model, and every conv of both programs keeps
+  the plan and weight layout stored in ``tests/data/int8_model_plans.json``
+  (written before the slices were added).
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -147,8 +154,10 @@ def test_tile_walk_takes_each_word_once(tile):
 
 
 def test_plan_refuses_what_it_cannot_hold():
-    with pytest.raises(ValueError, match="output channels"):
-        ic.dense_tiles(136)
+    # any width is held: above 128 outputs in slices of 128 channels
+    assert [ic.dense_tiles(c) for c in (4, 17, 49, 128, 129, 136, 256, 257)] == \
+        [1, 6, 16, 16, 32, 32, 32, 48]
+    assert [ic.dense_slices(c) for c in (4, 128, 129, 256, 257)] == [1, 1, 2, 2, 3]
     conv = _conv((16, 16, (3, 3), (1, 1), (1, 1), (1, 1), 1), 0)
     with pytest.raises(ValueError, match="tile"):
         ic.plan(conv, (1, 9, 9, 16), tile=(2, 24))
@@ -216,10 +225,12 @@ def _emulate_dense(q, conv, p):
     n_img, h, w, c = q.shape
     ho, wo = conv.out_hw(h, w)
     (sh, sw), (ph, pw), (dh, dw) = conv.stride, conv.padding, conv.dilation
-    c4, nt = -(-c // 4), p.np // 8
+    slices = ic.dense_slices(conv.out_channels)
+    c4, nt = -(-c // 4), p.np // 8 // slices  # a slice's N tiles
     packed = ic.pack_weights(conv.wq, 1).numpy()
-    assert packed.shape == (p.kp // 32, nt, 32, 2)
-    b = _unpack_b(packed, p.kp, nt)
+    assert packed.shape == (slices * p.kp // 32, nt, 32, 2)
+    # each slice's B matrix from its own fragments, side by side
+    b = np.concatenate([_unpack_b(part, p.kp, nt) for part in np.split(packed, slices)], axis=1)
     taps = np.arange(p.kp // 4) // c4
     woff = np.where(taps < conv.kh * conv.kw,
                     ((taps // conv.kw) * dh * p.ic + (taps % conv.kw) * dw) * p.pp
@@ -230,30 +241,34 @@ def _emulate_dense(q, conv, p):
               for g in range(8) for t in range(4) for j in range(nt) for k in range(4)}
     assert staged == {(r, ch) for r in range(16) for ch in range(8 * nt)}
     out = np.full((n_img, ho, wo, conv.out_channels), -2 ** 40, np.int64)
-    writes = np.zeros((n_img, ho, wo), np.int64)
+    writes = np.zeros((n_img, ho, wo, conv.out_channels), np.int64)
     lanes = np.arange(32)
     g, t = lanes // 4, lanes % 4
-    for n in range(n_img):
-        for ty in range(p.tiles_y):
-            for tx in range(p.tiles_x):
-                oy0, ox0 = ty * p.th, tx * p.tw
-                xs = _tile_words(q, n, p, oy0 * sh - ph, ox0 * sw - pw)
-                for mt in range(p.th * p.tw // 16):
-                    pix = mt * 16 + np.stack([g, g + 8])  # fragment rows of each lane
-                    base = ((pix // p.tw) * sh * p.ic + (pix % p.tw) * sw) * p.pp
-                    acc = np.zeros((16, 8 * nt), np.int64)
-                    for ks in range(p.kp // 32):
-                        o0, o1 = woff[ks * 8 + t], woff[ks * 8 + 4 + t]
-                        regs = np.stack([xs[base[0] + o0], xs[base[1] + o0],
-                                         xs[base[0] + o1], xs[base[1] + o1]], axis=1)
-                        acc += _mma_a(regs) @ b[32 * ks:32 * ks + 32]
-                    r, col0 = divmod(mt * 16, p.tw)
-                    oy, ox = oy0 + r, ox0 + col0
-                    valid = min(16, wo - ox) if oy < ho else 0
-                    if valid > 0:
-                        out[n, oy, ox:ox + valid] = acc[:valid, :conv.out_channels]
-                        writes[n, oy, ox:ox + valid] += 1
-    assert (writes == 1).all(), "every output pixel written once"
+    for s in range(slices):  # the grid's slowest index
+        c0 = 8 * nt * s
+        cn = min(8 * nt, conv.out_channels - c0)
+        bs = b[:, c0:c0 + 8 * nt]
+        for n in range(n_img):
+            for ty in range(p.tiles_y):
+                for tx in range(p.tiles_x):
+                    oy0, ox0 = ty * p.th, tx * p.tw
+                    xs = _tile_words(q, n, p, oy0 * sh - ph, ox0 * sw - pw)
+                    for mt in range(p.th * p.tw // 16):
+                        pix = mt * 16 + np.stack([g, g + 8])  # fragment rows of each lane
+                        base = ((pix // p.tw) * sh * p.ic + (pix % p.tw) * sw) * p.pp
+                        acc = np.zeros((16, 8 * nt), np.int64)
+                        for ks in range(p.kp // 32):
+                            o0, o1 = woff[ks * 8 + t], woff[ks * 8 + 4 + t]
+                            regs = np.stack([xs[base[0] + o0], xs[base[1] + o0],
+                                             xs[base[0] + o1], xs[base[1] + o1]], axis=1)
+                            acc += _mma_a(regs) @ bs[32 * ks:32 * ks + 32]
+                        r, col0 = divmod(mt * 16, p.tw)
+                        oy, ox = oy0 + r, ox0 + col0
+                        valid = min(16, wo - ox) if oy < ho else 0
+                        if valid > 0:
+                            out[n, oy, ox:ox + valid, c0:c0 + cn] = acc[:valid, :cn]
+                            writes[n, oy, ox:ox + valid, c0:c0 + cn] += 1
+    assert (writes == 1).all(), "every output channel of every pixel written once"
     return out
 
 
@@ -326,3 +341,51 @@ def test_grouped_model_general_groups():
     for tile in (None, (3, 4)):
         p = ic.plan(conv, x.shape, torch.float32, tile=tile)
         np.testing.assert_array_equal(_emulate_grouped(q, conv, p), want)
+
+
+@pytest.mark.parametrize("key", [(24, 129, (1, 1), (1, 1), (0, 0), (1, 1), 1),
+                                 (8, 136, (3, 3), (1, 1), (1, 1), (1, 1), 1),
+                                 (16, 256, (1, 1), (1, 1), (0, 0), (1, 1), 1),
+                                 (4, 256, (3, 3), (2, 2), (1, 1), (1, 1), 1)],
+                         ids=lambda k: f"o{k[1]}_k{k[2][0]}_s{k[3][0]}")
+def test_wide_dense_model_matches_reference(key):
+    """Dense convs of 129, 136 and 256 outputs run in slices of 128
+    channels: the plan's shared memory holds one slice (as a 128-output
+    conv's), the grid counts every slice's tiles, and the numpy model gives
+    the reference's int32 accumulators with the plan's tile and a small
+    one."""
+    conv = _conv(key, key[1], amax=1.7)
+    slices = -(-key[1] // 128)
+    narrow = _conv((key[0], 128, *key[2:]), 0, amax=1.7)
+    shape = (2, 11, 19, key[0])
+    x = _tie_input(shape, conv.s_in, key[1])
+    want = ic.int8_conv_reference(x, conv, torch.int32).numpy().astype(np.int64)
+    q = ic.quantize_input_reference(x, conv.s_in).numpy()
+    for tile in (None, (3, 16)):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            p = ic.plan(conv, shape, torch.float32, out_dtype, tile=tile)
+            p128 = ic.plan(narrow, shape, torch.float32, out_dtype, tile=(p.th, p.tw))
+            assert p.np == 128 * slices and p.smem == p128.smem and p.pitch == p128.pitch
+            assert p.blocks == min(slices * 2 * p.tiles_y * p.tiles_x, 132 * 2)
+        np.testing.assert_array_equal(_emulate_dense(q, conv, p), want, err_msg=f"tile {tile}")
+
+
+def test_model_convs_keep_their_plans():
+    """Every conv of ``Segment(20)`` at 480 px and ``Segment(3)`` at 512 px,
+    at batch 1 and 128, every input and output type: the plan (tile, shared
+    memory, grid) and the packed weights' shape stored before convs wider
+    than 128 outputs were taken."""
+    with open(os.path.join(os.path.dirname(__file__), "data", "int8_model_plans.json")) as f:
+        stored = json.load(f)
+    got = {}
+    for key in sorted(GEOMETRIES):
+        conv = _conv(key, 0)
+        packed = list(ic.pack_weights(conv.wq, conv.groups).shape)
+        for h, w in sorted(GEOMETRIES[key]):
+            for n in (1, 128):
+                for dt in (torch.float32, torch.bfloat16):
+                    for od in (torch.float32, torch.bfloat16, torch.int32):
+                        p = ic.plan(conv, (n, h, w, key[0]), dt, od)
+                        name = f"{key!r} {[n, h, w, key[0]]} {str(dt)[6:]}->{str(od)[6:]}"
+                        got[name] = list(p)[1:] + [packed]
+    assert got == stored
