@@ -91,9 +91,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    batch order for every loader), and with ``--checkpoint-backend orbax``
    (the ``.orbax`` directory and sidecar, a resume bit for bit, save and
    load ms); then the JPEG decoder (``ops/native/jpeg.cpp``, built with g++):
-   the fixtures of ``tests/data/jpeg`` bit-equal to the cv2 arrays stored
-   beside them in both modes, and ms per 480 x 640 baseline and progressive
-   file beside ``read_png``'s ms per 480 x 640 PNG; then the small image
+   the fixtures of ``tests/data/jpeg`` (every JPEG form cv2 reads, and
+   forms it refuses) bit-equal to the cv2 arrays stored beside them in both
+   modes or refused where cv2 returns None, and ms per 480 x 640 baseline,
+   progressive, CMYK and arithmetic-coded file beside ``read_png``'s ms per
+   480 x 640 PNG; then the small image
    decoders (``image_forms_phase``: PNM / PAM / PFM, Sun raster, Radiance
    HDR, GIF, RLE BMP, their codes in ``ops/native/image_codes.cpp`` built
    with g++): the fixtures of ``tests/data/imread`` bit-equal to the cv2
@@ -1153,15 +1155,20 @@ def orbax_backend(run_argv, w2, n_steps: int) -> dict:
 
 
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
-JPEG_TIMED = ("base_480x640_420_q95", "prog_480x640_420_q95")
+JPEG_TIMED = ("base_480x640_420_q95", "prog_480x640_420_q95", "form_cmyk_480x640_q95",
+              "form_arith_480x640_420")
 
 
 def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
     """The JPEG decoder (``ops/native/jpeg.cpp``, built with g++ here): each
     committed fixture of ``tests/data/jpeg`` decoded in both modes, bit-equal
-    to the cv2 arrays stored beside it; ms per 480 x 640 file, baseline and
-    progressive 4:2:0 at quality 95, beside ``read_png``'s ms per 480 x 640
-    PNG (``png_ms``, the trainer phase's)."""
+    to the cv2 arrays stored beside it, or ``FileNotFoundError`` for a read
+    mode cv2 returns None for (a 12-bit file, a hierarchical SOF5 header, a
+    sampling ratio that is not a whole number in colour, a lossless RGB file
+    as gray); ms per 480 x 640 file, baseline and progressive 4:2:0 at
+    quality 95, CMYK at quality 95 and arithmetic-coded 4:2:0, beside
+    ``read_png``'s ms per 480 x 640 PNG (``png_ms``, the trainer phase's),
+    host clock."""
     import glob
 
     from instancesegmentation_tpu_torch.core.imread import imread
@@ -1171,13 +1178,25 @@ def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
     native_jpeg.load_jpeg()
     out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
     files = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
-    check(len(files) >= 8, "jpeg: the committed fixtures are present")
+    check(len(files) >= 24, "jpeg: the committed fixtures are present")
+    refused = 0
     for path in files:
         stored = np.load(path[:-4] + ".npz")
         for mode in ("color", "gray"):
-            check(np.array_equal(imread(path, mode), stored[mode]),
-                  f"jpeg: {os.path.basename(path)} in {mode} mode equals cv2's stored decode")
+            if mode in stored:
+                check(np.array_equal(imread(path, mode), stored[mode]),
+                      f"jpeg: {os.path.basename(path)} in {mode} mode equals cv2's stored decode")
+                continue
+            try:
+                imread(path, mode)
+                ok = False
+            except FileNotFoundError:
+                ok = True
+            check(ok, f"jpeg: {os.path.basename(path)} in {mode} mode raises FileNotFoundError "
+                      "where cv2 returns None")
+            refused += 1
     out["fixtures_bit_equal"] = len(files)
+    out["reads_refused_as_cv2"] = refused
     for name in JPEG_TIMED:
         path = os.path.join(JPEG_FIXTURES, name + ".jpg")
         imread(path)
@@ -1187,11 +1206,12 @@ def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
         out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
         out[f"{name}_bytes"] = os.path.getsize(path)
     out["read_png_ms_480x640_rgb"] = png_ms
-    print(f"jpeg: {len(files)} fixtures bit-equal to cv2's stored decodes in both modes; "
-          f"480x640 4:2:0 q95 baseline {out[JPEG_TIMED[0] + '_ms']:.2f} ms "
-          f"({out[JPEG_TIMED[0] + '_bytes']} bytes), progressive {out[JPEG_TIMED[1] + '_ms']:.2f} "
-          f"ms ({out[JPEG_TIMED[1] + '_bytes']} bytes), read_png {png_ms:.2f} ms per 480x640 "
-          f"RGB PNG (host clock); {card}")
+    labels = ("baseline", "progressive", "CMYK", "arithmetic")
+    times = ", ".join(f"{label} {out[n + '_ms']:.2f} ms ({out[n + '_bytes']} bytes)"
+                      for label, n in zip(labels, JPEG_TIMED))
+    print(f"jpeg: {len(files)} fixtures bit-equal to cv2's stored decodes in both modes "
+          f"({refused} reads refused where cv2 returns None); 480x640 4:2:0 q95 {times}; "
+          f"read_png {png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
     print(json.dumps({"jpeg": out}))
     return out
 

@@ -9,7 +9,9 @@ bytes, as cv2 chooses it, never by its extension:
 
 - PNG signature: ``core/png.py`` (every valid PNG);
 - JPEG ``FF D8 FF``: ``ops/native/jpeg.py`` (C++, built with g++ at first
-  use; without a compiler the read raises ``RuntimeError``);
+  use; without a compiler the read raises ``RuntimeError``): every form cv2
+  decodes (Huffman or arithmetic, sequential, progressive or lossless, any
+  whole-number sampling, gray, YCbCr, RGB, CMYK, YCCK);
 - ``BM``: ``core/bmp.py`` (uncompressed, RLE4 and RLE8);
 - ``P1``-``P6``, ``P7``, ``PF`` / ``Pf`` (then whitespace): ``core/pnm.py``
   (PNM, PAM, PFM);
@@ -24,16 +26,21 @@ compiler such a read raises ``RuntimeError``).
 Where cv2 returns None, ``imread`` raises ``FileNotFoundError``: a missing
 or empty file, leading bytes that no decoder claims (among them OpenEXR's
 ``76 2F 31 01``: this container's cv2 is built without OpenEXR), a file
-that is cut or corrupt where cv2's decoder gives up.  A header whose size
-cv2 itself raises on raises ``ImageSizeError`` (``core/png.py``).  A valid
-file of a form the port does not decode (arithmetic-coded, 12-bit,
-lossless, CMYK or other-sampled JPEGs, and the other formats cv2 reads:
-TIFF and BigTIFF, WebP, JPEG 2000, AVIF) raises ``UnsupportedImage``, a
-``ValueError`` naming ROADMAP A10 part 3: the port never drops silently
-what the JAX package reads (a file that only starts like one of those
-formats raises it too: the port does not parse them).  ``cv2.imread`` and ``cv2.imdecode`` differ on
-one form, which the port follows: a PFM whose channels differ from the read
-mode's is None to ``imread`` and its own channels to ``imdecode``.
+that is cut or corrupt where cv2's decoder gives up, a JPEG form that
+libjpeg-turbo refuses (hierarchical, 12-bit, lossless arithmetic, ...: see
+``ops/native/jpeg.py``).  A header whose size cv2 itself raises on raises
+``ImageSizeError`` (``core/png.py``).  A valid file of a format the port
+does not decode (TIFF and BigTIFF, WebP, JPEG 2000, AVIF) raises
+``UnsupportedImage``, a ``ValueError`` naming ROADMAP A10 part 3: the port
+never drops silently what the JAX package reads (a file that only starts
+like one of those formats raises it too: the port does not parse them).
+``cv2.imread`` and ``cv2.imdecode`` differ on one form, which the port
+follows: a PFM whose channels differ from the read mode's is None to
+``imread`` and its own channels to ``imdecode``.  They differ on another,
+which the port does not follow yet (ROADMAP C6): ``cv2.imdecode`` returns
+None for JPEG data cut short (its memory source suspends where a file's
+inserts an end marker), and the port's ``imdecode`` decodes it as
+``imread`` does.
 """
 from __future__ import annotations
 

@@ -31,8 +31,10 @@ _failed = False
 
 
 def lib_path(src: Path = SRC) -> Path:
-    """Path of the library built from the current ``src``."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    """Path of the library built from the current ``src`` and the headers
+    beside it (``jpeg_tables.h``)."""
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.h")))
+    digest = hashlib.sha256(text + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

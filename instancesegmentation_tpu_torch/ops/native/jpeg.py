@@ -8,9 +8,21 @@ APP1 segment's EXIF orientation applied (``core/exif.py``).  The library is
 built with g++ on first use (``build.py``); there is no other path, so
 without a compiler the call raises ``RuntimeError`` with the reason.
 
-A file that cv2 cannot decode (headers cut or corrupt, no image) raises
-``ValueError``; a valid form the decoder does not take raises
-``core.png.UnsupportedImage``, a ``ValueError`` too.
+Every JPEG form that cv2 decodes is decoded: baseline, extended and
+progressive files, arithmetic-coded sequential and progressive files (with
+or without DAC conditioning), lossless files of 2 to 8 bits, any whole-number
+sampling layout (the luma plane upsampled too), YCbCr, RGB, gray, CMYK and
+YCCK (converted as cv2 converts CMYK), restart markers, files cut in their
+data.  A file that cv2 cannot decode raises ``ValueError`` (the reader's
+``FileNotFoundError``): headers cut or corrupt, no image, and the forms
+libjpeg-turbo refuses: hierarchical frames and the JPG marker, lossless
+arithmetic coding (SOF11), 12-bit and 9-16-bit samples, 2 or 5 and more
+components, sampling ratios that are not whole numbers for a component the
+read mode needs (so a gray read can succeed where a colour read fails),
+more than 10 blocks in an MCU, sides above 65500, and the colour
+conversions lossless mode refuses (a lossless YCbCr or YCCK file, a gray
+file read in colour, an RGB file read as gray).  ``jpeg.cpp``'s header
+comment says where each rule lives in libjpeg-turbo.
 
 ``encode_jpeg(image)`` gives ``cv2.imencode(".jpg", ...)``'s bytes with
 cv2's defaults (baseline, quality 95, 4:2:0 for colour), byte for byte, for
@@ -26,7 +38,6 @@ from typing import Optional
 import numpy as np
 
 from instancesegmentation_tpu_torch.core.exif import apply_orientation, exif_orientation
-from instancesegmentation_tpu_torch.core.png import UnsupportedImage
 from instancesegmentation_tpu_torch.ops.native.build import build_library
 
 SRC = Path(__file__).with_name("jpeg.cpp")
@@ -47,7 +58,8 @@ def load_jpeg() -> ctypes.CDLL:
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         lib.jpeg_header.restype = ctypes.c_int
-        lib.jpeg_header.argtypes = [ctypes.c_char_p, i64, i64p, ctypes.c_char_p, i64]
+        lib.jpeg_header.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, i64p, ctypes.c_char_p,
+                                    i64]
         lib.jpeg_decode.restype = ctypes.c_int
         lib.jpeg_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, u8p, i64,
                                     ctypes.c_char_p, i64]
@@ -55,11 +67,8 @@ def load_jpeg() -> ctypes.CDLL:
     return _lib
 
 
-def _raise(rc: int, msg: ctypes.Array, path: str) -> None:
-    text = f"{path}: {msg.value.decode(errors='replace')}"
-    if rc == 2:
-        raise UnsupportedImage(text)
-    raise ValueError(text)
+def _raise(msg: ctypes.Array, path: str) -> None:
+    raise ValueError(f"{path}: {msg.value.decode(errors='replace')}")
 
 
 def decode_jpeg(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.ndarray:
@@ -71,14 +80,15 @@ def decode_jpeg(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.n
     data = bytes(data)
     msg = ctypes.create_string_buffer(_MSG_LEN)
     info = np.zeros(6, np.int64)
-    rc = lib.jpeg_header(data, len(data), info, msg, _MSG_LEN)
+    gray = int(mode == "gray")
+    rc = lib.jpeg_header(data, len(data), gray, info, msg, _MSG_LEN)
     if rc:
-        _raise(rc, msg, path)
+        _raise(msg, path)
     h, w, _, _, exif_off, exif_len = (int(v) for v in info)
     out = np.empty((h, w) if mode == "gray" else (h, w, 3), np.uint8)
-    rc = lib.jpeg_decode(data, len(data), int(mode == "gray"), out, out.size, msg, _MSG_LEN)
+    rc = lib.jpeg_decode(data, len(data), gray, out, out.size, msg, _MSG_LEN)
     if rc:
-        _raise(rc, msg, path)
+        _raise(msg, path)
     tiff = data[exif_off:exif_off + exif_len] if exif_off >= 0 else None
     return apply_orientation(out, exif_orientation(tiff))
 

@@ -13,6 +13,17 @@ orientation, files cut inside their scan data).  ``<name>.npz`` holds what
 against cv2 and the port's decoder; ``chip_smoke.py`` holds the port's
 decoder against them on a machine without cv2.
 
+The forms' fixtures (``form_<name>.jpg``) hold one file of each form that
+no writer here made before: cv2's 4:1:1 and 4:4:0, PIL's CMYK, YCCK (its
+Adobe transform byte set to 2) and RGB-coded files, and ``jpeg_writer.py``'s
+arithmetic-coded (sequential with restarts, progressive with DAC
+conditioning, one cut in its data), lossless, luma-upsampled and h4v2 files,
+a 480 x 640 CMYK and a 480 x 640 arithmetic 4:2:0 file for the card's
+timings, and the forms cv2 refuses (a true 12-bit file, a hierarchical SOF5
+header, a sampling ratio that is not a whole number, which cv2 reads as
+gray only).  Their ``.npz`` holds ``color`` and ``gray`` only for a read mode
+cv2 decodes.
+
 The encoder's fixtures ``enc_<name>.jpg`` are ``cv2.imencode(".jpg")`` with
 cv2's default parameters (quality 95, 4:2:0) of the pixels stored beside
 them as ``pixels`` in ``enc_<name>.npz`` (RGB, or gray): a 480 x 640 image
@@ -21,11 +32,15 @@ gray ones.  ``tests/test_torch_port_jpeg_encode.py`` holds them against cv2
 and the port's encoder; ``chip_smoke.py`` holds the port's encoder against
 them on the card's machine.
 """
+import io
 import os
 import struct
 
 import cv2
 import numpy as np
+from PIL import Image
+
+from jpeg_writer import adobe, jfif, write_jpeg
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -83,6 +98,67 @@ def fixtures() -> dict[str, bytes]:
     }
 
 
+def _pil(img: np.ndarray, mode: str, **kwargs) -> bytes:
+    """PIL's JPEG of the BGR ``img`` converted to ``mode``."""
+    buf = io.BytesIO()
+    Image.fromarray(cv2.cvtColor(img, cv2.COLOR_BGR2RGB)).convert(mode).save(buf, format="JPEG",
+                                                                             **kwargs)
+    return buf.getvalue()
+
+
+def _ycck(cmyk: bytes) -> bytes:
+    """A CMYK file whose Adobe transform byte (offset 11 of the APP14 body)
+    says YCCK."""
+    out = bytearray(cmyk)
+    out[cmyk.index(b"Adobe") + 11] = 2
+    return bytes(out)
+
+
+def _ycc(img: np.ndarray) -> list[np.ndarray]:
+    """The Y, Cb and Cr planes of the BGR ``img``."""
+    ycc = cv2.cvtColor(img, cv2.COLOR_BGR2YCrCb)
+    return [ycc[..., 0], ycc[..., 2], ycc[..., 1]]
+
+
+def form_fixtures() -> dict[str, bytes]:
+    """One file of each form cv2 reads and, beside them, forms it refuses."""
+    small = picture(37, 53, 8)
+    big = picture(480, 640, 0)
+    planes = _ycc(small)
+    rgb = [small[..., 2], small[..., 1], small[..., 0]]
+    s420 = [(1, 2, 2), (2, 1, 1), (3, 1, 1)]
+    arith = write_jpeg(_ycc(picture(96, 128, 9)), s420, coding="arith", mode="progressive",
+                       markers=jfif())
+    sof5 = bytearray(encode(small, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420))
+    sof5[sof5.index(b"\xff\xc0") + 1] = 0xC5
+    return {
+        "form_411_37x53": encode(small, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411, rst=3),
+        "form_440_37x53_prog": encode(small, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+                                      progressive=True),
+        "form_cmyk_37x53": _pil(small, "CMYK", quality=90),
+        "form_ycck_37x53_prog": _ycck(_pil(small, "CMYK", quality=90, progressive=True)),
+        "form_rgb_37x53": _pil(small, "RGB", quality=90, keep_rgb=True),
+        "form_arith_37x53_420_rst": write_jpeg(planes, s420, coding="arith", restart=3,
+                                               markers=jfif()),
+        "form_arith_prog_37x53_422_dac": write_jpeg(
+            planes, [(1, 2, 1), (2, 1, 1), (3, 1, 1)], coding="arith", mode="progressive",
+            dac=bytes([0, 0x52, 1, 0x31, 16, 2, 17, 9]), markers=jfif()),
+        "form_arith_prog_96x128_cut": arith[:len(arith) * 3 // 5],
+        "form_luma_up_37x53": write_jpeg(planes, [(1, 1, 1), (2, 2, 2), (3, 2, 2)],
+                                         markers=jfif()),
+        "form_h4v2_37x53": write_jpeg(planes, [(1, 4, 2), (2, 1, 1), (3, 1, 1)], markers=jfif()),
+        "form_lossless_rgb_37x53": write_jpeg(rgb, [(1, 1, 1), (2, 1, 1), (3, 1, 1)],
+                                              mode="lossless", predictor=5, restart=53),
+        "form_frac_37x53": write_jpeg(planes, [(1, 3, 1), (2, 2, 1), (3, 2, 1)], markers=jfif()),
+        "form_12bit_37x53": write_jpeg([planes[0].astype(np.uint16) * 16], [(1, 1, 1)],
+                                       precision=12),
+        "form_sof5_37x53": bytes(sof5),
+        "form_cmyk_480x640_q95": _pil(big, "CMYK", quality=95),
+        "form_arith_480x640_420": write_jpeg(_ycc(big), s420, coding="arith", quality=95,
+                                             markers=jfif()),
+    }
+
+
 def encoder_sources() -> dict[str, np.ndarray]:
     """The pixels (RGB or gray) of the encoder's fixtures."""
     rng = np.random.default_rng(5)
@@ -98,17 +174,22 @@ def encoder_sources() -> dict[str, np.ndarray]:
 
 
 def save(name: str, data: bytes, **arrays) -> None:
+    """The file and, beside it, cv2's decode in each read mode it decodes."""
     path = os.path.join(HERE, name + ".jpg")
     with open(path, "wb") as f:
         f.write(data)
-    color = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
-    np.savez_compressed(os.path.join(HERE, name + ".npz"), color=color,
-                        gray=cv2.imread(path, cv2.IMREAD_GRAYSCALE), **arrays)
-    print(f"{name}: {len(data)} bytes, {color.shape}")
+    color, gray = cv2.imread(path, cv2.IMREAD_COLOR), cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    modes = {}
+    if color is not None:
+        modes["color"] = cv2.cvtColor(color, cv2.COLOR_BGR2RGB)
+    if gray is not None:
+        modes["gray"] = gray
+    np.savez_compressed(os.path.join(HERE, name + ".npz"), **modes, **arrays)
+    print(f"{name}: {len(data)} bytes, modes {sorted(modes)}")
 
 
 def main() -> None:
-    for name, data in fixtures().items():
+    for name, data in {**fixtures(), **form_fixtures()}.items():
         save(name, data)
     for name, pixels in encoder_sources().items():
         bgr = pixels if pixels.ndim == 2 else cv2.cvtColor(pixels, cv2.COLOR_RGB2BGR)

@@ -190,8 +190,9 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
     JPEG), in both read modes, the port does exactly one of: decode equal
     to ``cv2.imread``; raise ``UnsupportedImage`` where cv2 decodes; raise
     ``FileNotFoundError`` where cv2 returns None.  AVIF, BigTIFF, TIFF,
-    WebP, JPEG 2000 and CMYK JPEG raise ``UnsupportedImage``; OpenEXR (cv2
-    here is built without it) ``FileNotFoundError``."""
+    WebP and JPEG 2000 raise ``UnsupportedImage``; PIL's CMYK JPEG is
+    decoded (since the JPEG decoder took every form cv2 reads); OpenEXR
+    (cv2 here is built without it) ``FileNotFoundError``."""
     img = _picture(32, 48, seed=3)
     outcome = {}
     for name, data in _writers(img).items():
@@ -212,9 +213,9 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
             want = want[..., ::-1] if want.ndim == 3 else want
             np.testing.assert_array_equal(got, want, err_msg=f"{name} {mode}")
             outcome[name, mode] = "decoded"
-    for name in ("avif_3d_0", "bigtiff", "tiff_3d_0", "webp_3d_0", "webp_3d_2", "jp2_3d_0",
-                 "cmyk_jpeg"):
+    for name in ("avif_3d_0", "bigtiff", "tiff_3d_0", "webp_3d_0", "webp_3d_2", "jp2_3d_0"):
         assert outcome[name, "color"] == outcome[name, "gray"] == "unsupported", name
+    assert outcome["cmyk_jpeg", "color"] == outcome["cmyk_jpeg", "gray"] == "decoded"
     assert outcome["openexr_magic", "color"] == "none"
     assert outcome["pfm_3d_0", "gray"] == outcome["pfm_2d_0", "color"] == "none"
     decoded = {n for (n, m), o in outcome.items() if o == "decoded"}
@@ -382,19 +383,27 @@ def test_jpeg_dataset_fetch_matches_jax(tmp_path):
 def test_fixtures_equal_cv2_and_the_port(name):
     """The arrays stored beside each fixture are still cv2's decode, and the
     port decodes the file to them (``chip_smoke.py`` repeats the latter on
-    the card's machine, which has no cv2)."""
+    the card's machine, which has no cv2); a read mode with no stored array
+    is one cv2 returns None for, where the port raises
+    ``FileNotFoundError``."""
     path = os.path.join(FIXTURES, name + ".jpg")
     stored = np.load(os.path.join(FIXTURES, name + ".npz"))
-    np.testing.assert_array_equal(stored["color"], jrecords._load_image(path))
-    np.testing.assert_array_equal(stored["gray"], jrecords._load_mask(path))
-    np.testing.assert_array_equal(imread(path, "color"), stored["color"])
-    np.testing.assert_array_equal(imread(path, "gray"), stored["gray"])
+    for mode, flag in (("color", cv2.IMREAD_COLOR), ("gray", cv2.IMREAD_GRAYSCALE)):
+        if mode not in stored:
+            assert cv2.imread(path, flag) is None, mode
+            with pytest.raises(FileNotFoundError):
+                imread(path, mode)
+            continue
+        ref = jrecords._load_image(path) if mode == "color" else jrecords._load_mask(path)
+        np.testing.assert_array_equal(stored[mode], ref)
+        np.testing.assert_array_equal(imread(path, mode), stored[mode])
 
 
 def test_fixture_set_is_complete():
     names = {os.path.basename(p) for p in glob.glob(os.path.join(FIXTURES, "*"))}
     jpgs = {n for n in names if n.endswith(".jpg")}
-    assert {"base_480x640_420_q95.jpg", "prog_480x640_420_q95.jpg"} <= jpgs
+    assert {"base_480x640_420_q95.jpg", "prog_480x640_420_q95.jpg", "form_cmyk_480x640_q95.jpg",
+            "form_arith_480x640_420.jpg"} <= jpgs
     assert {n[:-4] + ".npz" for n in jpgs} <= names
     assert sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in jpgs) < 1 << 20
     assert shutil.which("g++") is None or native_build.lib_path(native_jpeg.SRC).exists()
