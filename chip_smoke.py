@@ -95,12 +95,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    forms it refuses) bit-equal to the cv2 arrays stored beside them in both
    modes or refused where cv2 returns None, and ms per 480 x 640 baseline,
    progressive, CMYK and arithmetic-coded file beside ``read_png``'s ms per
-   480 x 640 PNG; then the small image
+   480 x 640 PNG, and (C6) the ``c6_*`` fixtures' bytes through ``imdecode``
+   equal to the ``cv2.imdecode`` arrays stored beside them or refused where
+   it returns None; then the small image
    decoders (``image_forms_phase``: PNM / PAM / PFM, Sun raster, Radiance
    HDR, GIF, RLE BMP, their codes in ``ops/native/image_codes.cpp`` built
    with g++): the fixtures of ``tests/data/imread`` bit-equal to the cv2
    arrays stored beside them in both modes, and ms per 480 x 640 GIF and
-   HDR file beside ``read_png``'s;
+   HDR file beside ``read_png``'s; then TIFF and BigTIFF (``tiff_phase``:
+   ``core/tiff.py`` with its codes in ``image_codes.cpp`` and ``jpeg.cpp``):
+   the fixtures of ``tests/data/tiff`` through ``imread`` and ``imdecode``
+   in both modes, bit-equal to cv2's stored outcomes, and ms per 480 x 640
+   LZW, Deflate and JPEG-in-TIFF file beside ``read_png``'s;
    then the dataset converters (``converters_phase``): the port writes a
    COCO (64 JPEGs of 480 x 640, two people each, polygons, compressed and
    uncompressed RLE, 17 keypoints), an OCHuman (16 images, 19 keypoints,
@@ -218,6 +224,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -1168,10 +1175,13 @@ def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
     as gray); ms per 480 x 640 file, baseline and progressive 4:2:0 at
     quality 95, CMYK at quality 95 and arithmetic-coded 4:2:0, beside
     ``read_png``'s ms per 480 x 640 PNG (``png_ms``, the trainer phase's),
-    host clock."""
+    host clock.  C6: each ``c6_*`` fixture's bytes through ``imdecode`` equal
+    the ``cv2.imdecode`` arrays stored beside it, or raise
+    ``FileNotFoundError`` where none is stored, while ``imread`` of the file
+    equals the ``cv2.imread`` ones (the loop above)."""
     import glob
 
-    from instancesegmentation_tpu_torch.core.imread import imread
+    from instancesegmentation_tpu_torch.core.imread import imdecode, imread
     from instancesegmentation_tpu_torch.ops.native import jpeg as native_jpeg
 
     t0 = time.perf_counter()
@@ -1197,6 +1207,28 @@ def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
             refused += 1
     out["fixtures_bit_equal"] = len(files)
     out["reads_refused_as_cv2"] = refused
+    # C6: the c6_* files, whose end cv2.imread and cv2.imdecode read apart
+    c6 = [p for p in files if os.path.basename(p).startswith("c6_")]
+    check(len(c6) >= 5, "jpeg: the C6 fixtures are present")
+    c6_refused = 0
+    for path in c6:
+        stored = np.load(path[:-4] + ".npz")
+        with open(path, "rb") as f:
+            data = f.read()
+        for mode in ("color", "gray"):
+            name = f"jpeg C6: {os.path.basename(path)} in {mode} mode"
+            if "decode_" + mode in stored:
+                check(np.array_equal(imdecode(data, mode), stored["decode_" + mode]),
+                      f"{name}: imdecode equals cv2.imdecode's stored decode")
+                continue
+            try:
+                imdecode(data, mode)
+                ok = False
+            except FileNotFoundError:
+                ok = True
+            check(ok, f"{name}: imdecode raises FileNotFoundError where cv2.imdecode returns None")
+            c6_refused += 1
+    out["c6_fixtures"], out["c6_imdecode_refused_as_cv2"] = len(c6), c6_refused
     for name in JPEG_TIMED:
         path = os.path.join(JPEG_FIXTURES, name + ".jpg")
         imread(path)
@@ -1210,7 +1242,9 @@ def jpeg_phase(card: str, png_ms: float, iters: int = 30) -> dict:
     times = ", ".join(f"{label} {out[n + '_ms']:.2f} ms ({out[n + '_bytes']} bytes)"
                       for label, n in zip(labels, JPEG_TIMED))
     print(f"jpeg: {len(files)} fixtures bit-equal to cv2's stored decodes in both modes "
-          f"({refused} reads refused where cv2 returns None); 480x640 4:2:0 q95 {times}; "
+          f"({refused} reads refused where cv2 returns None; C6: {len(c6)} files through "
+          f"imdecode, {c6_refused} reads refused where cv2.imdecode returns None); "
+          f"480x640 4:2:0 q95 {times}; "
           f"read_png {png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
     print(json.dumps({"jpeg": out}))
     return out
@@ -1276,6 +1310,85 @@ def image_forms_phase(card: str, png_ms: float, iters: int = 20) -> dict:
     print(json.dumps({"image_forms": out}))
     return out
 
+
+TIFF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "tiff")
+TIFF_TIMED = ("lzw_480x640.tif", "deflate_480x640.tif", "jpeg_480x640.tif")
+
+
+def _tiff_matches(stored, mode: str, decode: bool, got) -> bool:
+    """Whether a read (an array, or None where it raised) is the cv2 result
+    stored beside a TIFF fixture (``tests/data/tiff/make_fixtures.py``'s
+    ``matches``: ``imread``'s arrays, ``imdecode``'s where they differ,
+    the 480 x 640 ones as SHA-256)."""
+    key = ("decode_" + mode) if decode and "decode_same" not in stored else mode
+    if key + "_sha256" in stored:
+        return got is not None and tuple(got.shape) == tuple(stored[key + "_shape"]) and \
+            hashlib.sha256(np.ascontiguousarray(got)).hexdigest() == str(stored[key + "_sha256"])
+    if key in stored:
+        return got is not None and got.shape == stored[key].shape and \
+            np.array_equal(got, stored[key])
+    return got is None
+
+
+def tiff_phase(card: str, png_ms: float, iters: int = 20) -> dict:
+    """The TIFF decoder (``core/tiff.py``; its LZW, PackBits, CCITT and
+    ThunderScan codes in ``ops/native/image_codes.cpp``, JPEG strips through
+    ``ops/native/jpeg.cpp``, both built with g++ here): each committed
+    fixture of ``tests/data/tiff`` read in both modes through ``imread`` (the
+    file) and ``imdecode`` (its bytes), bit-equal to the cv2 decodes stored
+    beside it or ``FileNotFoundError`` where cv2 returned None; ms per
+    480 x 640 file for cv2's LZW, Deflate with the predictor and JPEG 4:2:0
+    strips, beside ``read_png``'s ms per 480 x 640 PNG (``png_ms``, the
+    trainer phase's), host clock."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imdecode, imread
+    from instancesegmentation_tpu_torch.ops.native import jpeg as native_jpeg
+    from instancesegmentation_tpu_torch.ops.native.image_codes import load_image_codes
+
+    t0 = time.perf_counter()
+    load_image_codes()
+    native_jpeg.load_jpeg()
+    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    files = sorted(glob.glob(os.path.join(TIFF_FIXTURES, "*.tif")))
+    check(len(files) >= 30 and all(os.path.exists(os.path.join(TIFF_FIXTURES, n))
+                                   for n in TIFF_TIMED), "tiff: the committed fixtures are present")
+    checked = refused = 0
+    for path in files:
+        stored = np.load(path[:-4] + ".npz")
+        with open(path, "rb") as f:
+            data = f.read()
+        for mode in ("color", "gray"):
+            for decode, read in ((False, lambda: imread(path, mode)),
+                                 (True, lambda: imdecode(data, mode))):
+                try:
+                    got = read()
+                except FileNotFoundError:
+                    got = None
+                    refused += 1
+                check(_tiff_matches(stored, mode, decode, got),
+                      f"tiff: {os.path.basename(path)} in {mode} mode through "
+                      f"{'imdecode' if decode else 'imread'} equals cv2's stored outcome")
+                checked += 1
+    out["fixtures"], out["reads_checked"], out["reads_refused_as_cv2"] = len(files), checked, \
+        refused
+    for name in TIFF_TIMED:
+        path = os.path.join(TIFF_FIXTURES, name)
+        imread(path)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            imread(path)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        out[f"{name}_bytes"] = os.path.getsize(path)
+    out["read_png_ms_480x640_rgb"] = png_ms
+    lzw, deflate, jpg = (out[f"{n}_ms"] for n in TIFF_TIMED)
+    print(f"tiff: {len(files)} fixtures ({checked} reads through imread and imdecode, {refused} "
+          f"refused where cv2 returns None) bit-equal to cv2's stored outcomes; 480x640 LZW "
+          f"{lzw:.2f} ms, Deflate {deflate:.2f} ms, JPEG 4:2:0 {jpg:.2f} ms, read_png "
+          f"{png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
+    print(json.dumps({"tiff": out}))
+    return out
 
 # -- the dataset converters ---------------------------------------------------------
 
@@ -3840,6 +3953,7 @@ def main() -> int:
         disk = trainer_from_disk(dev, card, w2, fc, trained)
         jpeg = jpeg_phase(card, disk["read_png_ms_480x640_rgb"])
         image_forms_phase(card, disk["read_png_ms_480x640_rgb"])
+        tiff_phase(card, disk["read_png_ms_480x640_rgb"])
         conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 

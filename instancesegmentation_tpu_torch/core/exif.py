@@ -7,6 +7,8 @@ The TIFF walk is cv2's ``ExifReader``: little-endian after ``II``, else
 big-endian; the marker 42; IFD0's entries in order, where the first 0x0112
 entry decides (one SHORT: its value, else 1).  A block cut short keeps what
 was read before the cut.  Values outside 1-8 leave the image as it is.
+``ifd_entries`` is the walk of one IFD, which ``core/tiff.py`` reads TIFF
+and BigTIFF files with too.
 """
 from __future__ import annotations
 
@@ -17,6 +19,26 @@ import numpy as np
 
 ORIENTATION_TAG = 0x0112
 _SHORT = 3
+
+
+def ifd_entries(block: bytes, off: int, order: str, big: bool = False):
+    """Yield ``(tag, type, count, value position)`` for each entry of the IFD
+    at ``off`` of the TIFF block ``block`` (``order`` ``"<"`` or ``">"``;
+    ``big``: BigTIFF's 8-byte counts and offsets), in file order; raises
+    ``IndexError`` where the block ends inside the count or an entry's tag,
+    type and count (its value is the caller's to read)."""
+    cfmt, efmt, size = ("Q", "HHQ", 20) if big else ("H", "HHI", 12)
+    if off < 0 or off + struct.calcsize(cfmt) > len(block):
+        raise IndexError("IFD count cut short")
+    count = struct.unpack_from(order + cfmt, block, off)[0]
+    pos = off + struct.calcsize(cfmt)
+    value = 8 if big else 4
+    for i in range(count):
+        at = pos + size * i
+        if at + size - value > len(block):
+            raise IndexError("IFD entry cut short")
+        tag, typ, n = struct.unpack_from(order + efmt, block, at)
+        yield tag, typ, n, at + size - value
 
 
 def exif_orientation(tiff: Optional[bytes]) -> int:
@@ -30,21 +52,15 @@ def exif_orientation(tiff: Optional[bytes]) -> int:
             raise IndexError
         return struct.unpack_from(end + "H", tiff, off)[0]
 
-    def u32(off: int) -> int:
-        if off + 4 > len(tiff):
-            raise IndexError
-        return struct.unpack_from(end + "I", tiff, off)[0]
-
     try:
         if u16(2) != 42:
             return 1
-        off = u32(4)
-        for i in range(u16(off)):
-            entry = off + 2 + 12 * i
-            if u16(entry) == ORIENTATION_TAG:
-                if u16(entry + 2) == _SHORT and u32(entry + 4) == 1:
-                    return u16(entry + 8)
-                return 1
+        if len(tiff) < 8:
+            raise IndexError
+        for tag, typ, count, pos in ifd_entries(tiff, struct.unpack_from(end + "I", tiff, 4)[0],
+                                                end):
+            if tag == ORIENTATION_TAG:
+                return u16(pos) if typ == _SHORT and count == 1 else 1
     except IndexError:
         pass
     return 1

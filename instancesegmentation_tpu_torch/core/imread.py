@@ -17,30 +17,38 @@ bytes, as cv2 chooses it, never by its extension:
   (PNM, PAM, PFM);
 - ``59 A6 6A 95``: ``core/sunras.py`` (Sun raster);
 - ``#?RGBE`` / ``#?RADIANCE``: ``core/hdr.py`` (Radiance HDR);
-- ``GIF87a`` / ``GIF89a``: ``core/gif.py`` (the first frame).
+- ``GIF87a`` / ``GIF89a``: ``core/gif.py`` (the first frame);
+- ``49 49 2A 00`` / ``4D 4D 00 2A`` (TIFF), ``49 49 2B 00`` / ``4D 4D 00 2B`` (BigTIFF):
+  ``core/tiff.py`` (the first image, as libtiff's RGBA interface and cv2
+  read it: strips or tiles, none, PackBits, LZW, Deflate, JPEG, CCITT and
+  ThunderScan data, gray, palette, RGB(A), CMYK and YCbCr pixels).
 
-The RLE and LZW codes of BMP, Sun raster, HDR and GIF are unpacked by
-``ops/native/image_codes.cpp`` (built like the JPEG decoder; without a
-compiler such a read raises ``RuntimeError``).
+The RLE and LZW codes of BMP, Sun raster, HDR, GIF and TIFF, and TIFF's
+CCITT and ThunderScan codes, are unpacked by ``ops/native/image_codes.cpp``
+(built like the JPEG decoder; without a compiler such a read raises
+``RuntimeError``).
 
 Where cv2 returns None, ``imread`` raises ``FileNotFoundError``: a missing
 or empty file, leading bytes that no decoder claims (among them OpenEXR's
 ``76 2F 31 01``: this container's cv2 is built without OpenEXR), a file
 that is cut or corrupt where cv2's decoder gives up, a JPEG form that
 libjpeg-turbo refuses (hierarchical, 12-bit, lossless arithmetic, ...: see
-``ops/native/jpeg.py``).  A header whose size cv2 itself raises on raises
+``ops/native/jpeg.py``), a TIFF form libtiff or cv2 refuses (see
+``core/tiff.py``).  A header whose size cv2 itself raises on raises
 ``ImageSizeError`` (``core/png.py``).  A valid file of a format the port
-does not decode (TIFF and BigTIFF, WebP, JPEG 2000, AVIF) raises
-``UnsupportedImage``, a ``ValueError`` naming ROADMAP A10 part 3: the port
-never drops silently what the JAX package reads (a file that only starts
-like one of those formats raises it too: the port does not parse them).
-``cv2.imread`` and ``cv2.imdecode`` differ on one form, which the port
-follows: a PFM whose channels differ from the read mode's is None to
-``imread`` and its own channels to ``imdecode``.  They differ on another,
-which the port does not follow yet (ROADMAP C6): ``cv2.imdecode`` returns
-None for JPEG data cut short (its memory source suspends where a file's
-inserts an end marker), and the port's ``imdecode`` decodes it as
-``imread`` does.
+does not decode (WebP, JPEG 2000, AVIF; the CIELab, SGILog and CCITT RLEW
+forms of TIFF) raises ``UnsupportedImage``, a ``ValueError`` naming ROADMAP
+A10 part 3: the port never drops silently what the JAX package reads (a
+file that only starts like WebP, JPEG 2000 or AVIF raises it too: the port
+does not parse them).  ``cv2.imread`` and ``cv2.imdecode`` differ on three
+forms, which the port follows (``imdecode`` reads as ``cv2.imdecode``):
+a PFM whose channels differ from the read mode's is None to ``imread`` and
+its own channels to ``imdecode``; JPEG data that ends before its decode
+does is None to ``imdecode`` (cv2's memory source suspends where a file's
+inserts an end marker) and decoded by ``imread``; a TIFF turned by
+orientation 5-8 is None to ``imread`` and turned by ``imdecode``, and
+libtiff's buffer takes an uncompressed tile whose size is not a whole KiB
+from a mapped file only.
 """
 from __future__ import annotations
 
@@ -64,15 +72,13 @@ from instancesegmentation_tpu_torch.core.png import (
 from instancesegmentation_tpu_torch.core.pnm import decode_pam, decode_pfm, decode_pnm
 from instancesegmentation_tpu_torch.core.sunras import SIGNATURE as SUNRAS_SIGNATURE
 from instancesegmentation_tpu_torch.core.sunras import decode_sunras
+from instancesegmentation_tpu_torch.core.tiff import SIGNATURES as TIFF_SIGNATURES
+from instancesegmentation_tpu_torch.core.tiff import decode_tiff
 from instancesegmentation_tpu_torch.ops.native.jpeg import SIGNATURE as JPEG_SIGNATURE
 from instancesegmentation_tpu_torch.ops.native.jpeg import decode_jpeg
 
 #: leading bytes of the other formats cv2 decodes, which the port does not
 _OTHER_FORMATS = (
-    (b"II*\x00", "TIFF"),
-    (b"MM\x00*", "TIFF"),
-    (b"II+\x00", "BigTIFF"),
-    (b"MM\x00+", "BigTIFF"),
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
     (b"\xff\x4f\xff\x51", "JPEG 2000"),
 )
@@ -110,7 +116,7 @@ def _decoder(data: bytes, read_file: bool):
     if data.startswith(PNG_SIGNATURE):
         return png_pixels
     if data.startswith(JPEG_SIGNATURE):
-        return decode_jpeg
+        return lambda d, mode, path: decode_jpeg(d, mode, path, imread=read_file)
     if data.startswith(BMP_SIGNATURE):
         return decode_bmp
     if len(data) >= 3 and data[:1] == b"P" and data[2:3].isspace():
@@ -126,6 +132,8 @@ def _decoder(data: bytes, read_file: bool):
         return decode_hdr
     if data.startswith(GIF_SIGNATURES):
         return decode_gif
+    if data.startswith(TIFF_SIGNATURES):
+        return lambda d, mode, path: decode_tiff(d, mode, path, imread=read_file)
     return None
 
 

@@ -1,10 +1,13 @@
 """The per-code loops of the port's image decoders (``image_codes.cpp``),
 bound with ctypes: GIF's LZW (``core/gif.py``), Radiance HDR's scanlines
-(``core/hdr.py``) and BMP's RLE4 / RLE8 (``core/bmp.py``).
+(``core/hdr.py``), BMP's RLE4 / RLE8 (``core/bmp.py``) and TIFF's LZW,
+PackBits, CCITT and ThunderScan codes (``core/tiff.py``).
 
 The library is built with g++ on first use (``build.py``); there is no
 other path, so without a compiler such a read raises ``RuntimeError`` with
-the reason.  Each call raises ``ValueError`` where cv2's decoder gives up.
+the reason.  Each GIF, HDR or BMP call raises ``ValueError`` where cv2's
+decoder gives up; a TIFF codec returns what it decoded and whether libtiff
+reports an error there (cv2 keeps the partial output).
 """
 from __future__ import annotations
 
@@ -31,7 +34,12 @@ def load_image_codes() -> ctypes.CDLL:
         lib.gif_lzw.argtypes = [ctypes.c_char_p, i64, i64, c_int, u8p, i64]
         lib.hdr_pixels.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int, u8p]
         lib.bmp_rle.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int, c_int, u8p]
-        for fn in (lib.gif_lzw, lib.hdr_pixels, lib.bmp_rle):
+        for name in ("tiff_lzw", "tiff_packbits"):
+            getattr(lib, name).argtypes = [ctypes.c_char_p, i64, u8p, i64]
+        lib.tiff_fax.argtypes = [c_int, c_int, ctypes.c_char_p, i64, c_int, c_int, u8p]
+        lib.tiff_thunder.argtypes = [ctypes.c_char_p, i64, c_int, c_int, u8p]
+        for fn in (lib.gif_lzw, lib.hdr_pixels, lib.bmp_rle, lib.tiff_lzw, lib.tiff_packbits,
+                   lib.tiff_fax, lib.tiff_thunder):
             fn.restype = c_int
         _lib = lib
     return _lib
@@ -62,3 +70,32 @@ def bmp_rle(data: bytes, pos: int, height: int, width: int, bits: int, path: str
     if load_image_codes().bmp_rle(data, len(data), pos, width, height, bits, out):
         raise ValueError(f"{path}: RLE{bits} data cut short or a run past its row")
     return out
+
+
+def tiff_codec(name: str, data: bytes, size: int) -> tuple[np.ndarray, bool]:
+    """``size`` bytes of one strip or tile decoded by TIFF's ``"lzw"`` or
+    ``"packbits"`` code (zeros where the code stops), and whether libtiff
+    reports an error for it."""
+    out = np.zeros(size, np.uint8)
+    failed = getattr(load_image_codes(), "tiff_" + name)(data, len(data), out, size)
+    return out, bool(failed)
+
+
+def tiff_fax(compression: int, t4_options: int, data: bytes, rows: int, width: int,
+             size: int) -> tuple[np.ndarray, bool]:
+    """``size`` bytes of one CCITT-coded strip or tile (compression 2, 3 or
+    4; ``t4_options`` bit 0: Group 3 rows may be 2-D) of ``rows`` 1-bit rows
+    of ``width`` pixels, and whether libtiff reports an error for it."""
+    out = np.zeros(max(size, rows * ((width + 7) // 8)), np.uint8)
+    failed = load_image_codes().tiff_fax(compression, t4_options & 1, data, len(data), width,
+                                         rows, out)
+    return out[:size], bool(failed)
+
+
+def tiff_thunder(data: bytes, rows: int, width: int, size: int) -> tuple[np.ndarray, bool]:
+    """``size`` bytes of one ThunderScan strip (``rows`` 4-bit rows of
+    ``width`` pixels), and whether libtiff reports an error for it."""
+    # a run that ends the last row writes one byte past it, as in libtiff
+    out = np.zeros(max(size, rows * ((width + 1) // 2)) + 1, np.uint8)
+    failed = load_image_codes().tiff_thunder(data, len(data), width, rows, out)
+    return out[:size], bool(failed)

@@ -184,7 +184,8 @@ struct Huff {
 // how a component reaches the full size (jdsample.c's methods)
 enum Up { FULLSIZE, H2V1_FANCY, H1V2_FANCY, H2V2_FANCY, REPLICATE };
 // the colour space default_decompress_parms names
-enum Space { GRAY, YCC, RGB, CMYK, YCCK };
+// (RAW: JCS_UNKNOWN, the components unconverted, for JPEG-in-TIFF)
+enum Space { GRAY, YCC, RGB, CMYK, YCCK, RAW };
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
@@ -210,12 +211,17 @@ struct Component {
 struct Bits {
   const uint8_t *d;
   size_t n, pos;
+  bool *past;  // set where a read goes past the end of the data
   uint64_t acc = 0;
   int nbits = 0;
   bool at_marker = false;
   bool insufficient = false;
 
-  uint8_t at(size_t p) const { return p < n ? d[p] : ((p - n) & 1) ? 0xD9 : 0xFF; }
+  uint8_t at(size_t p) const {
+    if (p < n) return d[p];
+    *past = true;
+    return ((p - n) & 1) ? 0xD9 : 0xFF;
+  }
 
   void fill() {
     while (nbits <= 56 && !at_marker) {
@@ -255,20 +261,25 @@ struct Bits {
     return v;
   }
   inline int bit() { return get(1); }
+  // jdhuff.c's HUFF_DECODE (HUFF_LOOKAHEAD 8), whose fills a memory
+  // source must match: a fill below 8 bits, another below 9 for a longer
+  // code, then one per bit below 1
   int decode(const Huff &t) {
-    if (nbits < 9) fill();
-    if (nbits >= 9) {
-      uint16_t e = t.look[acc >> 55];
-      if (e >> 8) {
-        int l = e >> 8;
+    if (nbits < 8) fill();
+    int nb = 1;
+    if (nbits >= 8) {
+      uint16_t e = t.look[acc >> 55];  // a code of at most 8 bits ignores the 9th
+      int l = e >> 8;
+      if (l && l <= 8) {
         acc <<= l;
         nbits -= l;
         return e & 0xFF;
       }
+      nb = 9;
     }
-    // libjpeg's slow path, one bit at a time
-    int code = bit();
-    int l = 1;
+    // jpeg_huff_decode: nb bits at once, then one bit at a time
+    int code = get(nb);
+    int l = nb;
     while (code > t.maxcode[l]) {
       code = (code << 1) | bit();
       l++;
@@ -289,11 +300,16 @@ inline int extend(int r, int s) { return r < (1 << (s - 1)) ? r + 1 - (1 << s) :
 struct Arith {
   const uint8_t *d;
   size_t n, pos;
+  bool *past;  // set where a read goes past the end of the data
   int64_t c = 0, a = 0;
   int ct = -16;           // -16: two bytes to read first; -1: error, decode nothing more
   bool at_marker = false;  // pos is at the marker's last 0xFF
 
-  uint8_t at(size_t p) const { return p < n ? d[p] : ((p - n) & 1) ? 0xD9 : 0xFF; }
+  uint8_t at(size_t p) const {
+    if (p < n) return d[p];
+    *past = true;
+    return ((p - n) & 1) ? 0xD9 : 0xFF;
+  }
 
   int byte() {
     if (at_marker) return 0;
@@ -359,6 +375,7 @@ struct Decoder {
   int height = 0, width = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Space space = GRAY;
+  int force = -1;  // a colour space the caller imposes (YCC or RAW), as libtiff does
   std::vector<Component> comps;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
@@ -379,8 +396,14 @@ struct Decoder {
     std::fill(ac_k, ac_k + 16, 5);
   }
 
-  // libjpeg's stdio source inserts FF D9 at each read past the end
-  uint8_t at(size_t p) const { return p < n ? d[p] : ((p - n) & 1) ? 0xD9 : 0xFF; }
+  // libjpeg's stdio source inserts FF D9 at each read past the end, where
+  // cv2's memory source suspends (past_end)
+  mutable bool past_end = false;
+  uint8_t at(size_t p) const {
+    if (p < n) return d[p];
+    past_end = true;
+    return ((p - n) & 1) ? 0xD9 : 0xFF;
+  }
   uint8_t byte() { return at(pos++); }
   int u16() {
     int hi = byte();
@@ -435,7 +458,10 @@ struct Decoder {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    if (nc == 1) {
+    if (force >= 0) {  // libtiff's jpeg_color_space: YCbCr (3 components) or unknown
+      if (force == YCC && nc != 3) fail(1, "YCbCr JPEG data without 3 components");
+      space = (Space)force;
+    } else if (nc == 1) {
       space = GRAY;
     } else if (nc == 3) {
       // JFIF means YCbCr, then Adobe's transform flag, then the component
@@ -534,8 +560,8 @@ struct Decoder {
     int len = u16();
     if (len < 2) fail(1, "bad marker length");
     size_t start = pos, body = (size_t)len - 2;
-    uint8_t p[14];
-    for (size_t i = 0; i < 14; i++) p[i] = at(start + i);
+    uint8_t p[14] = {0};  // get_interesting_appn reads at most 14 bytes
+    for (size_t i = 0; i < 14 && i < body; i++) p[i] = at(start + i);
     if (marker == 0xE0 && body >= 14 && std::memcmp(p, "JFIF\0", 5) == 0) jfif = true;
     if (marker == 0xEE && body >= 12 && std::memcmp(p, "Adobe", 5) == 0) {
       adobe = true;
@@ -787,6 +813,7 @@ struct Decoder {
     br.d = d;
     br.n = n;
     br.pos = pos;
+    br.past = &past_end;
     int next_rst = 0;
     int last_dc[4] = {0, 0, 0, 0};
     int eobrun = 0;
@@ -933,6 +960,7 @@ struct Decoder {
     ar.d = d;
     ar.n = n;
     ar.pos = pos;
+    ar.past = &past_end;
     int next_rst = 0;
     uint8_t dc_stats[16][64], ac_stats[16][256], fixed = kFixedBin;
     int last_dc[4] = {0, 0, 0, 0}, dc_context[4] = {0, 0, 0, 0};
@@ -1087,6 +1115,7 @@ struct Decoder {
     br.d = d;
     br.n = n;
     br.pos = pos;
+    br.past = &past_end;
     int next_rst = 0;
     const int ns = (int)s.comp.size();
     const bool single = ns == 1;
@@ -1537,6 +1566,100 @@ inline uint8_t clamp255(int x) { return (uint8_t)(x < 0 ? 0 : x > 255 ? 255 : x)
 // CMYK sample: each of C, M, Y weighted by K
 inline int cmyk_channel(int v, int k) { return k - ((255 - v) * k >> 8); }
 
+// the decoded components (decode_all done) as the read gives them: RGB or
+// gray as cv2 converts them, or (RAW) each component as it is, interleaved
+void decode_pixels(Decoder &dec, bool gray, uint8_t *out) {
+  const int H = dec.height, W = dec.width;
+  const size_t npix = (size_t)H * W;
+  std::vector<std::array<int, 10>> latch, prev;
+  const bool smooth = !dec.lossless && smoothing_ok(dec, latch, prev);
+  // a component at the full size: upsample, after the IDCT (and block
+  // smoothing) or the lossless samples
+  auto pixels = [&](size_t ci) {
+    Component &c = dec.comps[ci];
+    std::vector<uint8_t> p =
+        dec.lossless ? std::move(c.samples)
+                     : plane(c, dec.mcuy, dec.last_good_row, smooth ? latch[ci].data() : nullptr,
+                             smooth ? prev[ci].data() : nullptr);
+    return upsample(std::move(p), c, H, W);
+  };
+  switch (dec.space) {
+    case GRAY:
+    case YCC: {
+      std::vector<uint8_t> y = pixels(0);
+      if (gray) {
+        std::memcpy(out, y.data(), npix);
+      } else if (dec.space == GRAY) {
+        const uint8_t *yp = y.data();
+        for (size_t i = 0; i < npix; i++) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = yp[i];
+      } else {
+        std::vector<uint8_t> cbv = pixels(1), crv = pixels(2);
+        const uint8_t *yp = y.data(), *cb = cbv.data(), *cr = crv.data();
+        static const YccTables t;
+        for (size_t i = 0; i < npix; i++) {
+          int yy = yp[i], b = cb[i], r = cr[i];
+          out[3 * i] = clamp255(yy + t.cr_r[r]);
+          out[3 * i + 1] = clamp255(yy + (int)((t.cb_g[b] + t.cr_g[r]) >> 16));
+          out[3 * i + 2] = clamp255(yy + t.cb_b[b]);
+        }
+      }
+      break;
+    }
+    case RGB: {
+      std::vector<uint8_t> rv = pixels(0), gv = pixels(1), bv = pixels(2);
+      const uint8_t *r = rv.data(), *g = gv.data(), *b = bv.data();
+      if (gray) {
+        static const RgbYTables t;
+        for (size_t i = 0; i < npix; i++) out[i] = (uint8_t)((t.r[r[i]] + t.g[g[i]] + t.b[b[i]]) >> SCALEBITS);
+      } else {
+        for (size_t i = 0; i < npix; i++) {
+          out[3 * i] = r[i];
+          out[3 * i + 1] = g[i];
+          out[3 * i + 2] = b[i];
+        }
+      }
+      break;
+    }
+    case RAW: {
+      const size_t nc = dec.comps.size();
+      for (size_t ci = 0; ci < nc; ci++) {
+        std::vector<uint8_t> v = pixels(ci);
+        const uint8_t *p = v.data();
+        for (size_t i = 0; i < npix; i++) out[nc * i + ci] = p[i];
+      }
+      break;
+    }
+    case CMYK:
+    case YCCK: {
+      // libjpeg gives CMYK (ycck_cmyk_convert first for YCCK); cv2
+      // converts it: R, G, B from C, M, Y weighted by K, gray from those
+      // with 14-bit weights (icvCvt_CMYK2Gray_8u_C4C1R)
+      std::vector<uint8_t> v0 = pixels(0), v1 = pixels(1), v2 = pixels(2), v3 = pixels(3);
+      const uint8_t *p0 = v0.data(), *p1 = v1.data(), *p2 = v2.data(), *k = v3.data();
+      static const YccTables t;
+      const int cR = 4899, cG = 9617, cB = 1868;  // 0.299, 0.587, 0.114 at 14 bits
+      for (size_t i = 0; i < npix; i++) {
+        int c = p0[i], m = p1[i], y = p2[i], kk = k[i];
+        if (dec.space == YCCK) {
+          int yy = p0[i], cb = p1[i], cr = p2[i];
+          c = clamp255(255 - (yy + t.cr_r[cr]));
+          m = clamp255(255 - (yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+          y = clamp255(255 - (yy + t.cb_b[cb]));
+        }
+        const int r = cmyk_channel(c, kk), g = cmyk_channel(m, kk), b = cmyk_channel(y, kk);
+        if (gray) {
+          out[i] = (uint8_t)((b * cB + g * cG + r * cR + (1 << 13)) >> 14);
+        } else {
+          out[3 * i] = (uint8_t)r;
+          out[3 * i + 1] = (uint8_t)g;
+          out[3 * i + 2] = (uint8_t)b;
+        }
+      }
+      break;
+    }
+  }
+}
+
 void write_msg(char *msg, int64_t msg_len, const std::string &s) {
   if (msg && msg_len > 0) std::snprintf(msg, (size_t)msg_len, "%s", s.c_str());
 }
@@ -1567,9 +1690,15 @@ int jpeg_header(const uint8_t *data, int64_t n, int gray, int64_t *info, char *m
   return 0;
 }
 
-// out: height * width * 3 RGB bytes, or height * width when gray
-int jpeg_decode(const uint8_t *data, int64_t n, int gray, uint8_t *out, int64_t out_len, char *msg,
-                int64_t msg_len) {
+// out: height * width * 3 RGB bytes, or height * width when gray.  memory:
+// read the data as cv2.imdecode's memory source does, which suspends where
+// libjpeg's stdio source (cv2.imread) inserts an end marker; a read past
+// the end then fails the decode, as it fails cv2's (anywhere in a
+// multi-scan image, whose scans jpeg_start_decompress absorbs up to EOI; up
+// to the last MCU of a single scan, after which jpeg_finish_decompress's
+// suspension goes unchecked)
+int jpeg_decode_src(const uint8_t *data, int64_t n, int gray, int memory, uint8_t *out,
+                    int64_t out_len, char *msg, int64_t msg_len) {
   Decoder dec;
   dec.d = data;
   dec.n = (size_t)n;
@@ -1578,86 +1707,53 @@ int jpeg_decode(const uint8_t *data, int64_t n, int gray, uint8_t *out, int64_t 
     int64_t need = (int64_t)dec.height * dec.width * (gray ? 1 : 3);
     if (out_len < need) fail(1, "output buffer too small");
     dec.decode_all();
-    const int H = dec.height, W = dec.width;
-    const size_t npix = (size_t)H * W;
-    std::vector<std::array<int, 10>> latch, prev;
-    const bool smooth = !dec.lossless && smoothing_ok(dec, latch, prev);
-    // a component at the full size: upsample, after the IDCT (and block
-    // smoothing) or the lossless samples
-    auto pixels = [&](size_t ci) {
-      Component &c = dec.comps[ci];
-      std::vector<uint8_t> p =
-          dec.lossless ? std::move(c.samples)
-                       : plane(c, dec.mcuy, dec.last_good_row, smooth ? latch[ci].data() : nullptr,
-                               smooth ? prev[ci].data() : nullptr);
-      return upsample(std::move(p), c, H, W);
-    };
-    switch (dec.space) {
-      case GRAY:
-      case YCC: {
-        std::vector<uint8_t> y = pixels(0);
-        if (gray) {
-          std::memcpy(out, y.data(), npix);
-        } else if (dec.space == GRAY) {
-          const uint8_t *yp = y.data();
-          for (size_t i = 0; i < npix; i++) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = yp[i];
-        } else {
-          std::vector<uint8_t> cbv = pixels(1), crv = pixels(2);
-          const uint8_t *yp = y.data(), *cb = cbv.data(), *cr = crv.data();
-          static const YccTables t;
-          for (size_t i = 0; i < npix; i++) {
-            int yy = yp[i], b = cb[i], r = cr[i];
-            out[3 * i] = clamp255(yy + t.cr_r[r]);
-            out[3 * i + 1] = clamp255(yy + (int)((t.cb_g[b] + t.cr_g[r]) >> 16));
-            out[3 * i + 2] = clamp255(yy + t.cb_b[b]);
-          }
-        }
-        break;
-      }
-      case RGB: {
-        std::vector<uint8_t> rv = pixels(0), gv = pixels(1), bv = pixels(2);
-        const uint8_t *r = rv.data(), *g = gv.data(), *b = bv.data();
-        if (gray) {
-          static const RgbYTables t;
-          for (size_t i = 0; i < npix; i++) out[i] = (uint8_t)((t.r[r[i]] + t.g[g[i]] + t.b[b[i]]) >> SCALEBITS);
-        } else {
-          for (size_t i = 0; i < npix; i++) {
-            out[3 * i] = r[i];
-            out[3 * i + 1] = g[i];
-            out[3 * i + 2] = b[i];
-          }
-        }
-        break;
-      }
-      case CMYK:
-      case YCCK: {
-        // libjpeg gives CMYK (ycck_cmyk_convert first for YCCK); cv2
-        // converts it: R, G, B from C, M, Y weighted by K, gray from those
-        // with 14-bit weights (icvCvt_CMYK2Gray_8u_C4C1R)
-        std::vector<uint8_t> v0 = pixels(0), v1 = pixels(1), v2 = pixels(2), v3 = pixels(3);
-        const uint8_t *p0 = v0.data(), *p1 = v1.data(), *p2 = v2.data(), *k = v3.data();
-        static const YccTables t;
-        const int cR = 4899, cG = 9617, cB = 1868;  // 0.299, 0.587, 0.114 at 14 bits
-        for (size_t i = 0; i < npix; i++) {
-          int c = p0[i], m = p1[i], y = p2[i], kk = k[i];
-          if (dec.space == YCCK) {
-            int yy = p0[i], cb = p1[i], cr = p2[i];
-            c = clamp255(255 - (yy + t.cr_r[cr]));
-            m = clamp255(255 - (yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
-            y = clamp255(255 - (yy + t.cb_b[cb]));
-          }
-          const int r = cmyk_channel(c, kk), g = cmyk_channel(m, kk), b = cmyk_channel(y, kk);
-          if (gray) {
-            out[i] = (uint8_t)((b * cB + g * cG + r * cR + (1 << 13)) >> 14);
-          } else {
-            out[3 * i] = (uint8_t)r;
-            out[3 * i + 1] = (uint8_t)g;
-            out[3 * i + 2] = (uint8_t)b;
-          }
-        }
-        break;
-      }
+    if (memory && dec.past_end) fail(1, "JPEG data cut short (cv2.imdecode's source suspends)");
+    decode_pixels(dec, gray != 0, out);
+  } catch (Fail &f) {
+    write_msg(msg, msg_len, f.msg);
+    return f.code;
+  }
+  return 0;
+}
+
+// the stdio source's read (cv2.imread)
+int jpeg_decode(const uint8_t *data, int64_t n, int gray, uint8_t *out, int64_t out_len, char *msg,
+                int64_t msg_len) {
+  return jpeg_decode_src(data, n, gray, 0, out, out_len, msg, msg_len);
+}
+
+// JPEG-in-TIFF as libtiff's tif_jpeg.c reads it: `tables` (the JPEGTables
+// tag; may be empty) first as a tables-only stream, then the strip or
+// tile's stream `data`; both of libtiff's sources insert an end marker past
+// their end.  rgb: JPEGCOLORMODE_RGB (jpeg_color_space YCbCr,
+// out_color_space RGB), else JCS_UNKNOWN (each component as it is).  info:
+// height, width, components, component 0's h and v sampling factors.  With
+// out null only the header is read.
+int jpeg_tiff_decode(const uint8_t *tables, int64_t tn, const uint8_t *data, int64_t n, int rgb,
+                     int64_t *info, uint8_t *out, int64_t out_len, char *msg, int64_t msg_len) {
+  Decoder dec;
+  dec.force = rgb ? YCC : RAW;
+  try {
+    if (tn > 0) {
+      dec.d = tables;
+      dec.n = (size_t)tn;
+      if (tn < 2 || tables[0] != 0xFF || tables[1] != 0xD8) fail(1, "JPEGTables is not a JPEG stream");
+      dec.pos = 2;
+      if (dec.read_markers() || dec.frame) fail(1, "JPEGTables holds more than tables");
     }
+    dec.d = data;
+    dec.n = (size_t)n;
+    dec.read_header(false);
+    info[0] = dec.height;
+    info[1] = dec.width;
+    info[2] = (int64_t)dec.comps.size();
+    info[3] = dec.comps[0].h;
+    info[4] = dec.comps[0].v;
+    if (!out) return 0;
+    const int nc = rgb ? 3 : (int)dec.comps.size();
+    if (out_len < (int64_t)dec.height * dec.width * nc) fail(1, "output buffer too small");
+    dec.decode_all();
+    decode_pixels(dec, false, out);
   } catch (Fail &f) {
     write_msg(msg, msg_len, f.msg);
     return f.code;

@@ -13,7 +13,9 @@ progressive files, arithmetic-coded sequential and progressive files (with
 or without DAC conditioning), lossless files of 2 to 8 bits, any whole-number
 sampling layout (the luma plane upsampled too), YCbCr, RGB, gray, CMYK and
 YCCK (converted as cv2 converts CMYK), restart markers, files cut in their
-data.  A file that cv2 cannot decode raises ``ValueError`` (the reader's
+data (``cv2.imread`` decodes those; ``cv2.imdecode`` returns None for the
+bytes, whose memory source suspends where libjpeg's file source inserts an
+end marker, and so does ``decode_jpeg(..., imread=False)``).  A file that cv2 cannot decode raises ``ValueError`` (the reader's
 ``FileNotFoundError``): headers cut or corrupt, no image, and the forms
 libjpeg-turbo refuses: hierarchical frames and the JPG marker, lossless
 arithmetic coding (SOF11), 12-bit and 9-16-bit samples, 2 or 5 and more
@@ -60,9 +62,12 @@ def load_jpeg() -> ctypes.CDLL:
         lib.jpeg_header.restype = ctypes.c_int
         lib.jpeg_header.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, i64p, ctypes.c_char_p,
                                     i64]
-        lib.jpeg_decode.restype = ctypes.c_int
-        lib.jpeg_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, u8p, i64,
-                                    ctypes.c_char_p, i64]
+        lib.jpeg_tiff_decode.restype = ctypes.c_int
+        lib.jpeg_tiff_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_char_p, i64, ctypes.c_int,
+                                         i64p, ctypes.c_void_p, i64, ctypes.c_char_p, i64]
+        lib.jpeg_decode_src.restype = ctypes.c_int
+        lib.jpeg_decode_src.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, ctypes.c_int, u8p,
+                                        i64, ctypes.c_char_p, i64]
         _lib = lib
     return _lib
 
@@ -71,9 +76,12 @@ def _raise(msg: ctypes.Array, path: str) -> None:
     raise ValueError(f"{path}: {msg.value.decode(errors='replace')}")
 
 
-def decode_jpeg(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.ndarray:
+def decode_jpeg(data: bytes, mode: str = "color", path: str = "<bytes>",
+                imread: bool = True) -> np.ndarray:
     """JPEG bytes -> RGB ``[H, W, 3]`` (``"color"``) or ``[H, W]``
-    (``"gray"``) uint8, oriented by its EXIF tag, as ``cv2.imread``."""
+    (``"gray"``) uint8, oriented by its EXIF tag, as ``cv2.imread`` reads
+    the file; ``imread=False``: as ``cv2.imdecode`` reads the bytes, which
+    raises where the data ends before the decode does (a file cut short)."""
     if mode not in ("color", "gray"):
         raise ValueError(f"unknown read mode {mode!r}")
     lib = load_jpeg()
@@ -86,11 +94,34 @@ def decode_jpeg(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.n
         _raise(msg, path)
     h, w, _, _, exif_off, exif_len = (int(v) for v in info)
     out = np.empty((h, w) if mode == "gray" else (h, w, 3), np.uint8)
-    rc = lib.jpeg_decode(data, len(data), gray, out, out.size, msg, _MSG_LEN)
+    rc = lib.jpeg_decode_src(data, len(data), gray, int(not imread), out, out.size, msg,
+                             _MSG_LEN)
     if rc:
         _raise(msg, path)
     tiff = data[exif_off:exif_off + exif_len] if exif_off >= 0 else None
     return apply_orientation(out, exif_orientation(tiff))
+
+
+def decode_tiff_jpeg(tables: bytes, data: bytes, rgb: bool) -> tuple[np.ndarray, tuple, int]:
+    """One JPEG-in-TIFF strip or tile as libtiff's JPEG codec decodes it:
+    ``tables`` (the JPEGTables tag, may be empty) read before the stream
+    ``data``; ``rgb``: YCbCr converted to RGB (JPEGCOLORMODE_RGB), else
+    each component as it is.  Returns uint8 ``[h, w, 3 or components]``,
+    the first component's (h, v) sampling factors and the stream's
+    components; raises ``ValueError`` where libjpeg fails."""
+    lib = load_jpeg()
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    info = np.zeros(5, np.int64)
+    tables, data = bytes(tables), bytes(data)
+    if lib.jpeg_tiff_decode(tables, len(tables), data, len(data), int(rgb), info, None, 0, msg,
+                            _MSG_LEN):
+        _raise(msg, "JPEG-in-TIFF")
+    h, w, nc, hs, vs = (int(v) for v in info)
+    out = np.empty((h, w, 3 if rgb else nc), np.uint8)
+    if lib.jpeg_tiff_decode(tables, len(tables), data, len(data), int(rgb), info,
+                            out.ctypes.data, out.size, msg, _MSG_LEN):
+        _raise(msg, "JPEG-in-TIFF")
+    return out, (hs, vs), nc
 
 
 def load_jpeg_encoder() -> ctypes.CDLL:

@@ -24,6 +24,13 @@ header, a sampling ratio that is not a whole number, which cv2 reads as
 gray only).  Their ``.npz`` holds ``color`` and ``gray`` only for a read mode
 cv2 decodes.
 
+The C6 fixtures ``c6_<name>.jpg`` are 48 x 64 files whose end cv2's two
+sources read apart (cut by a byte, the end marker replaced by zero bytes or
+its last byte by a stuffed zero, baseline, progressive and with restart
+markers); their ``.npz`` adds ``decode_color`` and ``decode_gray``, what
+``cv2.imdecode`` gives for the bytes, where it decodes
+(``python make_fixtures.py --c6`` writes only these).
+
 The encoder's fixtures ``enc_<name>.jpg`` are ``cv2.imencode(".jpg")`` with
 cv2's default parameters (quality 95, 4:2:0) of the pixels stored beside
 them as ``pixels`` in ``enc_<name>.npz`` (RGB, or gray): a 480 x 640 image
@@ -35,6 +42,7 @@ them on the card's machine.
 import io
 import os
 import struct
+import sys
 
 import cv2
 import numpy as np
@@ -159,6 +167,23 @@ def form_fixtures() -> dict[str, bytes]:
     }
 
 
+def c6_fixtures() -> dict[str, bytes]:
+    """Files whose end ``cv2.imread`` and ``cv2.imdecode`` read apart."""
+    img = picture(48, 64, 10)
+    base = encode(img, 95, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420)
+    prog = encode(img, 95, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, progressive=True)
+    rst = encode(img, 95, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, rst=4)
+    return {
+        "c6_base_cut1": base[:-1],
+        "c6_prog_cut1": prog[:-1],
+        "c6_base_cut40": base[:-40],
+        "c6_base_eoi_zeros": base[:-2] + bytes(10),
+        "c6_prog_eoi_zeros": prog[:-2] + bytes(10),
+        "c6_rst_stuffed_end": rst[:-1] + b"\x00",
+        "c6_base_trailing_zeros": base + bytes(10),
+    }
+
+
 def encoder_sources() -> dict[str, np.ndarray]:
     """The pixels (RGB or gray) of the encoder's fixtures."""
     rng = np.random.default_rng(5)
@@ -173,8 +198,9 @@ def encoder_sources() -> dict[str, np.ndarray]:
     }
 
 
-def save(name: str, data: bytes, **arrays) -> None:
-    """The file and, beside it, cv2's decode in each read mode it decodes."""
+def save(name: str, data: bytes, imdecode: bool = False, **arrays) -> None:
+    """The file and, beside it, cv2's decode in each read mode it decodes
+    (``imdecode``: also of the bytes, as ``decode_<mode>``)."""
     path = os.path.join(HERE, name + ".jpg")
     with open(path, "wb") as f:
         f.write(data)
@@ -184,11 +210,22 @@ def save(name: str, data: bytes, **arrays) -> None:
         modes["color"] = cv2.cvtColor(color, cv2.COLOR_BGR2RGB)
     if gray is not None:
         modes["gray"] = gray
+    if imdecode:
+        buf = np.frombuffer(data, np.uint8)
+        color, gray = cv2.imdecode(buf, cv2.IMREAD_COLOR), cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)
+        if color is not None:
+            modes["decode_color"] = cv2.cvtColor(color, cv2.COLOR_BGR2RGB)
+        if gray is not None:
+            modes["decode_gray"] = gray
     np.savez_compressed(os.path.join(HERE, name + ".npz"), **modes, **arrays)
     print(f"{name}: {len(data)} bytes, modes {sorted(modes)}")
 
 
 def main() -> None:
+    for name, data in c6_fixtures().items():
+        save(name, data, imdecode=True)
+    if sys.argv[1:] == ["--c6"]:
+        return
     for name, data in {**fixtures(), **form_fixtures()}.items():
         save(name, data)
     for name, pixels in encoder_sources().items():

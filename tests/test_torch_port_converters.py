@@ -297,15 +297,15 @@ def test_supervisely_class_whitelist(tmp_path):
 
 
 def test_unsupported_images_are_not_skipped(tmp_path):
-    """cv2 reads a TIFF that the port does not decode (ROADMAP A10 part 3;
-    an RLE BMP served here until its decoder landed): the port's converter
-    stops with ``UnsupportedImage`` where a skip would drop an image that
-    the JAX package converts."""
+    """cv2 reads a WebP that the port does not decode (ROADMAP A10 part 3;
+    an RLE BMP, then a TIFF, served here until their decoders landed): the
+    port's converter stops with ``UnsupportedImage`` where a skip would drop
+    an image that the JAX package converts."""
     img_dir, ann_path = _coco_tree(str(tmp_path / "src"), gray_jpeg=False)
     pixels = np.zeros((96, 128, 3), np.uint8)
-    ok, tiff = cv2.imencode(".tiff", pixels)
+    ok, webp = cv2.imencode(".webp", pixels)
     with open(os.path.join(img_dir, "0000.jpg"), "wb") as f:  # cv2 goes by content
-        f.write(tiff.tobytes())
+        f.write(webp.tobytes())
     assert cv2.imread(os.path.join(img_dir, "0000.jpg")) is not None
     assert jconv.transfer_coco(img_dir, ann_path, str(tmp_path / "jax"), progress=False) == 4
     with pytest.raises(ValueError, match="A10 part 3"):

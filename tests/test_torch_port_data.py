@@ -174,9 +174,9 @@ def test_png_raises(tmp_path):
                                       cv2.imread(path, cv2.IMREAD_GRAYSCALE))
     with pytest.raises(ValueError, match="not a PNG"):
         read_png(write("text.png", b"not a png at all"))
-    ok, tiff = cv2.imencode(".tiff", px)
+    ok, webp = cv2.imencode(".webp", px)
     with pytest.raises(UnsupportedImage, match="A10 part 3"):
-        imread(write("image.tiff", tiff.tobytes()))
+        imread(write("image.webp", webp.tobytes()))
     corrupt = bytearray(_encode(px, 2, [0] * 4))
     corrupt[40] ^= 0xFF  # inside IDAT: its CRC no longer holds
     with pytest.raises(ValueError, match="CRC"):

@@ -140,9 +140,12 @@ def test_imread_raises_where_cv2_returns_none(tmp_path):
     rle8[28:34] = struct.pack("<HI", 8, 1)  # 8 bits per pixel, BI_RLE8
     rle8[10:14] = struct.pack("<I", 54 + 1024)
     _same_as_jax(_write(tmp_path / "rle8.bmp", bytes(rle8)))
-    # the forms that stay out (ROADMAP A10 part 3) raise, never skip
+    # TIFF is decoded since its decoder landed
     ok, tiff = cv2.imencode(".tiff", _picture(6, 8))
-    unsupported = {"image.tiff": tiff.tobytes()}
+    _same_as_jax(_write(tmp_path / "image.tiff", tiff.tobytes()))
+    # the forms that stay out (ROADMAP A10 part 3) raise, never skip
+    ok, webp = cv2.imencode(".webp", _picture(6, 8))
+    unsupported = {"image.webp": webp.tobytes()}
     for name, data in unsupported.items():
         path = _write(tmp_path / name, data)
         assert cv2.imread(path) is not None, name
@@ -189,10 +192,11 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
     """C3: for every format cv2 writes here (and PIL's BigTIFF and CMYK
     JPEG), in both read modes, the port does exactly one of: decode equal
     to ``cv2.imread``; raise ``UnsupportedImage`` where cv2 decodes; raise
-    ``FileNotFoundError`` where cv2 returns None.  AVIF, BigTIFF, TIFF,
-    WebP and JPEG 2000 raise ``UnsupportedImage``; PIL's CMYK JPEG is
-    decoded (since the JPEG decoder took every form cv2 reads); OpenEXR
-    (cv2 here is built without it) ``FileNotFoundError``."""
+    ``FileNotFoundError`` where cv2 returns None.  AVIF, WebP and JPEG 2000
+    raise ``UnsupportedImage``; PIL's CMYK JPEG is decoded (since the JPEG
+    decoder took every form cv2 reads), and cv2's TIFF and PIL's BigTIFF
+    (since the TIFF decoder landed); OpenEXR (cv2 here is built without it)
+    ``FileNotFoundError``."""
     img = _picture(32, 48, seed=3)
     outcome = {}
     for name, data in _writers(img).items():
@@ -213,9 +217,10 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
             want = want[..., ::-1] if want.ndim == 3 else want
             np.testing.assert_array_equal(got, want, err_msg=f"{name} {mode}")
             outcome[name, mode] = "decoded"
-    for name in ("avif_3d_0", "bigtiff", "tiff_3d_0", "webp_3d_0", "webp_3d_2", "jp2_3d_0"):
+    for name in ("avif_3d_0", "webp_3d_0", "webp_3d_2", "jp2_3d_0"):
         assert outcome[name, "color"] == outcome[name, "gray"] == "unsupported", name
-    assert outcome["cmyk_jpeg", "color"] == outcome["cmyk_jpeg", "gray"] == "decoded"
+    for name in ("cmyk_jpeg", "bigtiff", "tiff_3d_0", "tiff_2d_0"):
+        assert outcome[name, "color"] == outcome[name, "gray"] == "decoded", name
     assert outcome["openexr_magic", "color"] == "none"
     assert outcome["pfm_3d_0", "gray"] == outcome["pfm_2d_0", "color"] == "none"
     decoded = {n for (n, m), o in outcome.items() if o == "decoded"}
@@ -225,20 +230,21 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
 
 def test_avif_brands_and_bigtiff_signatures():
     """The sniff of C3: an ``ftyp`` box naming ``avif`` or ``avis`` as its
-    major or a compatible brand, and both BigTIFF byte orders, raise
-    ``UnsupportedImage``; other ISO-BMFF brands and OpenEXR
+    major or a compatible brand raises ``UnsupportedImage``; other ISO-BMFF
+    brands, OpenEXR and a bare BigTIFF header of either byte order (whose
+    first directory libtiff cannot read, since the TIFF decoder landed)
     ``FileNotFoundError`` (cv2 returns None for them here)."""
     def ftyp(major, compatible):
         body = major + b"\x00\x00\x00\x00" + b"".join(compatible)
         return struct.pack(">I", 8 + len(body)) + b"ftyp" + body + bytes(32)
 
     for data in (ftyp(b"avif", [b"mif1"]), ftyp(b"avis", []), ftyp(b"mif1", [b"miaf", b"avif"]),
-                 ftyp(b"heic", [b"avis"]), b"II+\x00" + bytes(12), b"MM\x00+" + bytes(12)):
+                 ftyp(b"heic", [b"avis"])):
         with pytest.raises(UnsupportedImage, match="A10 part 3"):
             imdecode(data)
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
     for data in (ftyp(b"heic", [b"mif1"]), ftyp(b"isom", [b"mp41"]),
-                 b"\x76\x2f\x31\x01" + bytes(60)):
+                 b"\x76\x2f\x31\x01" + bytes(60), b"II+\x00" + bytes(12), b"MM\x00+" + bytes(12)):
         with pytest.raises(FileNotFoundError):
             imdecode(data)
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
