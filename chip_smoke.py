@@ -194,7 +194,17 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``eval --fused-stem`` on the crossed demo (float32, AP equal to the dense
    stem's) and on the hard set (one NMS launch per image), and ``infer
    --fused-stem`` in dataset mode on 2 images in float32 (masks >= 0.999
-   equal to the dense stem's and to the CPU's);
+   equal to the dense stem's and to the CPU's); then ``visual_qa_phase``:
+   the labels (cv2 5.0's TrueType ``putText``, ``core/text.py`` with
+   ``ops/native/text.cpp`` built with g++ and the package's own font) on
+   every case of ``tests/data/text/labels.npz`` bit-equal to cv2's stored
+   ``draw_label`` and ``draw_keypoint(labeled=True)`` outputs, then the
+   ``show_aug`` tool over 8 synthetic 480 x 640 images the port writes:
+   ``show-dataset``, and ``show-aug --rotate 25`` on the card (one
+   ``warp_2level`` launch per grid) against the same run on the CPU with
+   the card's draws (at most 1 off in at most 1 % of the values; overlay
+   pixels whose mask crosses its threshold excepted, at most 0.1 %), with ms
+   per label, per labeled skeleton and per grid (host clock);
 5. time each kernel and its plain version with CUDA events at batch 128 (the
    detection kernels at the shapes above, NMS, the warp, roi_align and
    matching also by their kernels' device time in a ``torch.profiler``
@@ -3297,6 +3307,143 @@ def fused_stem_phase(dev, card: str, fc, sd20, batch, eng, eng32, probs, masks, 
     return out
 
 
+TEXT_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "text",
+                             "labels.npz")
+
+
+def visual_qa_phase(dev, card: str, w2) -> dict:
+    """The labels and the QA tool: ``core/text.py`` (the font from the
+    package's own file, ``ops/native/text.cpp`` built with g++ here) holds
+    every case of ``tests/data/text/labels.npz`` bit-equal to the cv2 output
+    stored there (``draw_label`` and ``draw_keypoint(labeled=True)``); then
+    ``tools/show_aug.py``'s port over a synthetic 480 x 640 dataset that the
+    port writes here: ``show-dataset`` (one grid per record) and ``show-aug
+    --rotate 25`` at its defaults on ``cuda:0`` (``preprocess_batch`` at
+    batch 1, one ``warp_2level`` launch per grid), its grids held against the
+    same run on the CPU with the card's draws (at most 1 off on the 0-255
+    scale in at most 1 % of the values: the kernel's 1e-2 against its plain
+    version; an overlay pixel whose mask value crosses the overlay's
+    threshold of 127 may differ by the blend, in at most 0.1 % of the mask
+    pixels); ms per label, per labeled skeleton and per grid, host clock."""
+    from instancesegmentation_tpu_torch.core import text as ttext
+    from instancesegmentation_tpu_torch.core import visualize as tvis
+    from instancesegmentation_tpu_torch.core.png import read_png
+    from instancesegmentation_tpu_torch.data.pipeline import draw_augment
+    from instancesegmentation_tpu_torch.data.synthetic import make_synthetic_dataset
+    from instancesegmentation_tpu_torch.tools import show_aug
+
+    t0 = time.perf_counter()
+    ttext._load()
+    ttext.load_font()
+    out = {"card": card, "build_and_font_s": time.perf_counter() - t0}
+    fixtures = np.load(TEXT_FIXTURES)
+    cases = sorted(int(k[5:]) for k in fixtures.files if k.startswith("case_"))
+    check(len(cases) >= 40, "visual QA: the committed text fixtures are present")
+    n_labels = n_skeletons = 0
+    for k in cases:
+        case, bg = json.loads(str(fixtures[f"case_{k}"])), fixtures[f"bg_{k}"]
+        if "label" in case:
+            got = tvis.draw_label(bg.copy(), case["label"], case["origin"],
+                                  color=tuple(case["color"]), thickness=case["thickness"],
+                                  scale=case["scale"])
+            n_labels += 1
+        else:
+            got = tvis.draw_keypoint(bg.copy(), case["keypoints"], labeled=True,
+                                     radius=case["radius"])
+            n_skeletons += 1
+        check(np.array_equal(got, fixtures[f"out_{k}"]),
+              f"visual QA: text fixture {k} ({case.get('label', 'keypoints')!r}) equals cv2's")
+    out["fixtures"] = {"labels": n_labels, "labeled_skeletons": n_skeletons, "bit_equal": True}
+    print(f"visual QA: {n_labels} labels and {n_skeletons} labeled skeletons bit-equal to cv2's "
+          f"stored outputs (font and text.cpp ready in {out['build_and_font_s']:.2f} s)")
+
+    # host times of the labels on a 480 x 640 RGB image
+    img = np.full((480, 640, 3), 90, np.uint8)
+    skeleton = json.loads(str(fixtures[f"case_{cases[-1]}"]))["keypoints"]
+    for name, fn, iters in (
+            ("label_person_ms", lambda: tvis.draw_label(img, "person", (4, 4)), 400),
+            ("label_left_shoulder_035_ms",
+             lambda: tvis.draw_label(img, "left_shoulder", (40, 40), scale=0.35), 400),
+            ("labeled_skeleton_ms", lambda: tvis.draw_keypoint(img, skeleton, labeled=True), 100)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        out[name] = (time.perf_counter() - t0) / iters * 1e3
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qa_") as tmp:
+        data = make_synthetic_dataset(os.path.join(tmp, "data"), num_images=8, image_hw=(480, 640),
+                                      seed=19)
+        t0 = time.perf_counter()
+        show_aug.main(["show-dataset", data, os.path.join(tmp, "ds"), "--limit", "8"])
+        n_ds = len(os.listdir(os.path.join(tmp, "ds")))
+        out["show_dataset_ms_per_grid"] = (time.perf_counter() - t0) / max(n_ds, 1) * 1e3
+        check(n_ds == 8, "visual QA: show-dataset wrote one grid per record")
+        grid = read_png(os.path.join(tmp, "ds", "dataset_0000.png"))
+        check(grid.shape == (480, 640 * 3, 3), "visual QA: show-dataset grid of three panels")
+
+        argv = ["show-aug", data, os.path.join(tmp, "card"), "--limit", "8", "--rotate", "25",
+                "--seed", "3"]
+        show_aug.main(argv[:2] + [os.path.join(tmp, "warm"), "--limit", "1", "--rotate", "25"])
+        w2.warp_2level.launches = 0
+        t0 = time.perf_counter()
+        show_aug.main(argv)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = w2.warp_2level.launches
+        n_aug = len(os.listdir(os.path.join(tmp, "card")))
+        check(n_aug == 8 and launches == n_aug,
+              f"visual QA: show-aug --rotate 25 on the card: {launches} warp_2level launches "
+              f"for {n_aug} grids (one each)")
+
+        def card_draws(i, cfg):
+            g = torch.Generator(device=dev).manual_seed(3 + i)
+            return {k: None if v is None else v.cpu()
+                    for k, v in draw_augment(1, cfg, g).items()}
+
+        w2.warp_2level.launches = 0
+        t0 = time.perf_counter()
+        show_aug.show_aug(data, os.path.join(tmp, "cpu"), limit=8, rotate=25.0, seed=3,
+                          device="cpu", draws=card_draws)
+        cpu_s = time.perf_counter() - t0
+        check(w2.warp_2level.launches == 0, "visual QA: the CPU run launches no kernel")
+        worst, share, flips = 0, 0.0, 0
+        for i in range(n_aug):
+            name = f"aug_{i:04d}.png"
+            a = read_png(os.path.join(tmp, "card", name)).astype(np.int16)
+            b = read_png(os.path.join(tmp, "cpu", name)).astype(np.int16)
+            check(a.shape == b.shape == (480, 480 * 4, 3), f"visual QA: {name} shape")
+            # panels: image | overlay | mask | heatmap max; the overlay blends
+            # where the mask is above 127, so a mask value that the kernel's
+            # 1e-2 moves across 127.5 changes that overlay pixel by the blend
+            diff = np.abs(a - b)
+            crossed = (a[:, 960:1440, 0] > 127) != (b[:, 960:1440, 0] > 127)
+            flips += int(crossed.sum())
+            diff[:, 480:960][crossed] = 0
+            worst, share = max(worst, int(diff.max())), max(share, float((diff > 0).mean()))
+        check(worst <= 1 and share <= 1e-2,
+              f"visual QA: show-aug card grids against the CPU's: max diff {worst}, "
+              f"share {share:.2e} (limits 1, 1e-2) outside {flips} overlay pixels whose "
+              "mask crosses the overlay's threshold")
+        check(flips <= 1e-3 * n_aug * 480 * 480,
+              f"visual QA: {flips} mask pixels cross the overlay's threshold (limit 0.1 %)")
+        out["show_aug"] = {"grids": n_aug, "warp_2level_launches": launches,
+                           "card_ms_per_grid": card_s / n_aug * 1e3,
+                           "cpu_ms_per_grid": cpu_s / n_aug * 1e3,
+                           "max_abs_diff_vs_cpu": worst, "share_differing_vs_cpu": share,
+                           "overlay_threshold_flips_vs_cpu": flips}
+    print(f"visual QA ({card}): draw_label 'person' {out['label_person_ms']:.4f} ms, "
+          f"'left_shoulder' at 0.35 {out['label_left_shoulder_035_ms']:.4f} ms, a labeled "
+          f"17-point skeleton {out['labeled_skeleton_ms']:.4f} ms; show-dataset "
+          f"{out['show_dataset_ms_per_grid']:.2f} ms per grid; show-aug --rotate 25 "
+          f"{out['show_aug']['card_ms_per_grid']:.2f} ms per grid on the card, "
+          f"{out['show_aug']['cpu_ms_per_grid']:.2f} on the CPU, {launches} warp_2level "
+          f"launches, card vs CPU max diff {worst} in {share:.2e} of the values and {flips} "
+          "overlay pixels across the mask threshold (host clock)")
+    print(json.dumps({"visual_qa": out}))
+    return out
+
+
 def grid_sample_yardstick(image, mask, params, out_hw):
     """``F.grid_sample`` (one-pass bilinear, zero padding) of the float NCHW
     canvas + mask through the same rotated window: the gather sampler's
@@ -3971,6 +4118,9 @@ def main() -> int:
     fstem = fused_stem_phase(dev, card, fc, sd20, batch, eng, eng32, probs, masks, probs32,
                              masks32, q8["scales"], tcfg, tbatch)
 
+    # the labels (cv2 5.0's TrueType putText) and the show_aug QA tool
+    vqa = visual_qa_phase(dev, card, w2)
+
     # -- 5. times ------------------------------------------------------------
     # the chain at batch 128, both programs: the banded form (bf16) beside
     # each launch's bound, its rounding plain version, the float32 plain
@@ -4335,6 +4485,7 @@ def main() -> int:
          "launches_dp_gloo_per_rank": par["gloo_two_ranks"]["warp_2level_per_rank"],
          "launches_converters_train": {k: v["warp_2level"] for k, v in conv["train"].items()},
          "launches_remat_train": fstem["remat"]["runs"]["remat"]["warp_2level"],
+         "launches_show_aug_rotate": vqa["show_aug"]["warp_2level_launches"],
          "max_abs_err": errs["warp_2level"],
          "ms": warp_ms, "kernel_ms": warp_kernel, "plain_ms": warp_plain,
          "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,

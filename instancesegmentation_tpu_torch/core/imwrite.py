@@ -2,8 +2,8 @@
 ``cv2.imwrite`` / ``cv2.imencode``, with the encoder chosen by the
 extension as cv2 chooses it (letter case ignored):
 
-- ``.png``: ``core/png.py:encode_png`` (zlib level 1, rows in filter Sub;
-  its bytes differ from cv2's, its pixels do not);
+- ``.png``: ``core/png.py:encode_png``, cv2's bytes (rows in filter Sub,
+  zlib level 1 with ``Z_RLE`` as libpng writes them);
 - ``.jpg`` / ``.jpeg``: ``ops/native/jpeg.py:encode_jpeg``, cv2's bytes
   (quality 95, 4:2:0);
 - ``.bmp``: ``core/bmp.py:encode_bmp``, cv2's bytes.

@@ -29,7 +29,8 @@ CRC, no IEND, short data, a header the format does not allow) raises plain
 ``ValueError``.
 
 ``write_png(path, array)`` writes gray ``[H, W]``, RGB ``[H, W, 3]`` or RGBA
-``[H, W, 4]`` uint8 rows in filter 0 or 1 (default Sub).
+``[H, W, 4]`` uint8 rows in filter 0 or 1; in the default (Sub) the file is
+``cv2.imwrite``'s, byte for byte.
 """
 from __future__ import annotations
 
@@ -357,10 +358,50 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
+def _deflate_window_bits(size: int) -> int:
+    """libpng's zlib window for ``size`` bytes of filtered rows: 15 bits,
+    halved while the data and zlib's 262-byte lookahead fit in half the
+    window (``png_deflate_claim``, data of at most 16 KiB)."""
+    bits = 15
+    if size <= 16384:
+        half = 1 << (bits - 1)
+        while size + 262 <= half:
+            half >>= 1
+            bits -= 1
+    return bits
+
+
+def _optimize_cmf(data: bytes, size: int) -> bytes:
+    """libpng's ``optimize_cmf``: the zlib header of ``size`` bytes of rows
+    (at most 16 KiB) names the smallest window that holds them."""
+    cmf = data[0]
+    if size > 16384 or (cmf & 0x0F) != 8 or (cmf & 0xF0) > 0x70:
+        return data
+    cinfo = cmf >> 4
+    half = 1 << (cinfo + 7)
+    if size > half:
+        return data
+    while True:
+        half >>= 1
+        cinfo -= 1
+        if not (cinfo > 0 and size <= half):
+            break
+    cmf = (cmf & 0x0F) | (cinfo << 4)
+    flg = data[1] & 0xE0
+    flg += 0x1F - ((cmf << 8) + flg) % 0x1F
+    return bytes((cmf, flg)) + data[2:]
+
+
 def encode_png(array: np.ndarray, filter_type: int = 1) -> bytes:
     """PNG bytes of uint8 gray ``[H, W]`` (or ``[H, W, 1]``), RGB
     ``[H, W, 3]`` or RGBA ``[H, W, 4]``, every row in ``filter_type`` 0
-    (None) or 1 (Sub), deflated at zlib level 1 (cv2's default)."""
+    (None) or 1 (Sub).  With filter 1 (the default) these are the bytes of
+    ``cv2.imencode(".png")`` of the BGR(A) counterpart: libpng at cv2's
+    level 1 with zlib's ``Z_RLE`` strategy, the window libpng picks for the
+    data's size (and names in the zlib header), IDAT chunks of 8 KiB.  The
+    bytes equal cv2's where Python's ``zlib`` is the same zlib as the one
+    inside cv2 (the deflate stream is zlib's); with another zlib only the
+    decoded pixels are the same."""
     a = np.asarray(array)
     if a.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8, got {a.dtype}")
@@ -371,6 +412,8 @@ def encode_png(array: np.ndarray, filter_type: int = 1) -> bytes:
     if filter_type not in (0, 1):
         raise ValueError(f"write_png writes filter 0 or 1, not {filter_type}")
     h, w, c = a.shape
+    if w == 1:  # libpng writes a one-pixel row in filter None
+        filter_type = 0
     rows = np.ascontiguousarray(a).reshape(h, w * c)
     if filter_type == 1:
         rows = rows.copy()
@@ -379,13 +422,15 @@ def encode_png(array: np.ndarray, filter_type: int = 1) -> bytes:
     raw[:, 0] = filter_type
     raw[:, 1:] = rows
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (SIGNATURE + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + _chunk(b"IEND", b""))
+    deflate = zlib.compressobj(1, zlib.DEFLATED, _deflate_window_bits(raw.size), 8, zlib.Z_RLE)
+    data = _optimize_cmf(deflate.compress(raw.tobytes()) + deflate.flush(), raw.size)
+    idat = b"".join(_chunk(b"IDAT", data[i:i + 8192]) for i in range(0, len(data), 8192))
+    return SIGNATURE + _chunk(b"IHDR", header) + idat + _chunk(b"IEND", b"")
 
 
 def write_png(path: str, array: np.ndarray, filter_type: int = 1) -> None:
     """Write ``array`` (see ``encode_png``) to ``path`` as ``cv2.imwrite``
-    of its BGR counterpart would: the file holds the array's pixels."""
+    of its BGR counterpart would: in filter Sub, the same bytes."""
     data = encode_png(array, filter_type)
     with open(path, "wb") as f:
         f.write(data)

@@ -15,8 +15,9 @@ algorithms, clipped at the image's edges as cv2 clips them:
 - a filled circle is cv2's integer ``Circle``: horizontal spans from the
   midpoint walk of its octant.
 
-``draw_label`` (``cv2.putText``, only with ``draw_keypoint(labeled=True)``)
-is not ported.
+``draw_label`` is ``cv2.putText`` with ``FONT_HERSHEY_SIMPLEX``, which cv2
+5.0 draws in its embedded TrueType font (``core/text.py:put_text``):
+``draw_keypoint(labeled=True)`` names each point with it.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from instancesegmentation_tpu_torch.core.rasterize import (
     _line8,
     fill_convex_poly,
 )
+from instancesegmentation_tpu_torch.core.text import put_text
 
 DEFAULT_COLORS = (
     (255, 0, 0), (255, 255, 0), (0, 255, 0),
@@ -102,15 +104,24 @@ def draw_box(image: np.ndarray, box, color=(255, 0, 0), thickness: int = 2) -> n
     return image
 
 
+def draw_label(image: np.ndarray, text: str, origin, color=(255, 255, 255), thickness: int = 1, scale: float = 0.6) -> np.ndarray:
+    """Draw a text label with its top-left corner at ``origin``:
+    ``cv2.putText(image, str(text), (x, y + 14), cv2.FONT_HERSHEY_SIMPLEX,
+    scale, color, thickness, cv2.LINE_AA)`` of the truncated origin."""
+    x, y = int(origin[0]), int(origin[1])
+    put_text(image, str(text), (x, y + 14), scale, color, thickness)
+    return image
+
+
 def draw_keypoint(image: np.ndarray, body_keypoint: dict, labeled: bool = False, radius: int = 3) -> np.ndarray:
     """Draw a common-format ``body_keypoint`` sub_dict: visible points in
-    green, occluded (not_vis) in orange, missing points skipped."""
-    if labeled:
-        raise NotImplementedError("keypoint labels (cv2.putText) are not ported")
+    green, occluded (not_vis) in orange, missing points skipped; with
+    ``labeled`` each point's name at ``(x + radius, y - radius)``, scale
+    0.35, in its colour."""
     status_key = key_combine("status", "keypoint_status")
     point_key = key_combine("point", "point_xy")
     for key, kp in body_keypoint.items():
-        _, key_type = key_decompose(key)
+        name, key_type = key_decompose(key)
         if key_type != "sub_dict" or not isinstance(kp, dict):
             continue
         status = kp.get(status_key, "missing")
@@ -119,6 +130,8 @@ def draw_keypoint(image: np.ndarray, body_keypoint: dict, labeled: bool = False,
         x, y = kp[point_key]
         color = (0, 255, 0) if status == "vis" else (255, 165, 0)
         _circle(image, int(x), int(y), radius, np.asarray(color, np.uint8)[:image.shape[2]])
+        if labeled:
+            draw_label(image, name, (x + radius, y - radius), color=color, scale=0.35)
     return image
 
 

@@ -1,14 +1,15 @@
 """Build and bind the port's host C++ libraries.
 
-Each source (``rle.cpp``, ``jpeg.cpp``, ``jpeg_enc.cpp``, ``image_codes.cpp``) is compiled with ``g++`` on first use
+Each source (``rle.cpp``, ``jpeg.cpp``, ``jpeg_enc.cpp``, ``image_codes.cpp``,
+``text.cpp``) is compiled with ``g++`` on first use
 into ``build/native/`` at the repository root, named by a hash of the source
 (a changed source builds afresh), through a temporary file and an atomic
 rename so that concurrent processes never load a half-written library, and
 loaded with ctypes.  Every caller of the RLE library has a NumPy path:
 ``load_native()`` returns None when no compiler is found or the build fails.
-The JPEG codecs and the image decoders' codes have none:
-``ops/native/jpeg.py`` and ``ops/native/image_codes.py`` raise with the
-compiler's message (``build_library``).
+The JPEG codecs, the image decoders' codes and the text rasteriser have
+none: ``ops/native/jpeg.py``, ``ops/native/image_codes.py`` and
+``core/text.py`` raise with the compiler's message (``build_library``).
 """
 from __future__ import annotations
 

@@ -369,8 +369,9 @@ def test_draw_keypoint_matches_jax(seed):
         want = jvis.draw_keypoint(img.copy(), body, radius=radius)
         np.testing.assert_array_equal(tvis.draw_keypoint(img.copy(), body, radius=radius),
                                       want)
-    with pytest.raises(NotImplementedError):
-        tvis.draw_keypoint(img, body, labeled=True)
+        want = jvis.draw_keypoint(img.copy(), body, labeled=True, radius=radius)
+        np.testing.assert_array_equal(
+            tvis.draw_keypoint(img.copy(), body, labeled=True, radius=radius), want)
 
 
 # -- the entry points --------------------------------------------------------------

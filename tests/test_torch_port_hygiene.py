@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor the JAX package nor cv2/PIL, nor msgpack
-(which the card's machine does not have)."""
+"""The port imports neither JAX nor the JAX package nor cv2/PIL/matplotlib,
+nor the repo's ``tools/`` (the JAX tools), nor msgpack (which the card's
+machine does not have)."""
 import ast
 import pathlib
 import subprocess
@@ -9,8 +10,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "instancesegmentation_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "msgpack", "grain", "orbax",
-             "instancesegmentation_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "matplotlib", "msgpack", "grain",
+             "orbax", "instancesegmentation_tpu", "tools", "show_aug")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
