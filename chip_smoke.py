@@ -106,7 +106,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``core/tiff.py`` with its codes in ``image_codes.cpp`` and ``jpeg.cpp``):
    the fixtures of ``tests/data/tiff`` through ``imread`` and ``imdecode``
    in both modes, bit-equal to cv2's stored outcomes, and ms per 480 x 640
-   LZW, Deflate and JPEG-in-TIFF file beside ``read_png``'s;
+   LZW, Deflate and JPEG-in-TIFF file beside ``read_png``'s; then WebP
+   (``webp_phase``: ``core/webp.py`` with its bit streams in
+   ``ops/native/webp.cpp``): the fixtures of ``tests/data/webp`` through
+   ``imread`` and ``imdecode`` in both modes, bit-equal to cv2's stored
+   outcomes, ms per 480 x 640 lossy q75, lossy q90 and lossless file beside
+   ``read_png``'s, and a COCO tree of the 32 committed 480 x 640 WebP
+   scenes converted by ``transfer_coco``, trained by ``main``
+   (``TrainConfig`` defaults, batch 32, 2 steps: finite losses, 1
+   ``warp_2level`` launch per step) and served (2 ``fused_chain`` launches
+   per dispatch);
    then the dataset converters (``converters_phase``): the port writes a
    COCO (64 JPEGs of 480 x 640, two people each, polygons, compressed and
    uncompressed RLE, 17 keypoints), an OCHuman (16 images, 19 keypoints,
@@ -1326,11 +1335,11 @@ TIFF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"
 TIFF_TIMED = ("lzw_480x640.tif", "deflate_480x640.tif", "jpeg_480x640.tif")
 
 
-def _tiff_matches(stored, mode: str, decode: bool, got) -> bool:
+def _stored_matches(stored, mode: str, decode: bool, got) -> bool:
     """Whether a read (an array, or None where it raised) is the cv2 result
-    stored beside a TIFF fixture (``tests/data/tiff/make_fixtures.py``'s
-    ``matches``: ``imread``'s arrays, ``imdecode``'s where they differ,
-    the 480 x 640 ones as SHA-256)."""
+    stored beside a TIFF or WebP fixture (``tests/data/{tiff,webp}/
+    make_fixtures.py``'s ``matches``: ``imread``'s arrays, ``imdecode``'s
+    where they differ, the 480 x 640 ones as SHA-256)."""
     key = ("decode_" + mode) if decode and "decode_same" not in stored else mode
     if key + "_sha256" in stored:
         return got is not None and tuple(got.shape) == tuple(stored[key + "_shape"]) and \
@@ -1377,7 +1386,7 @@ def tiff_phase(card: str, png_ms: float, iters: int = 20) -> dict:
                 except FileNotFoundError:
                     got = None
                     refused += 1
-                check(_tiff_matches(stored, mode, decode, got),
+                check(_stored_matches(stored, mode, decode, got),
                       f"tiff: {os.path.basename(path)} in {mode} mode through "
                       f"{'imdecode' if decode else 'imread'} equals cv2's stored outcome")
                 checked += 1
@@ -1398,6 +1407,166 @@ def tiff_phase(card: str, png_ms: float, iters: int = 20) -> dict:
           f"{lzw:.2f} ms, Deflate {deflate:.2f} ms, JPEG 4:2:0 {jpg:.2f} ms, read_png "
           f"{png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
     print(json.dumps({"tiff": out}))
+    return out
+
+WEBP_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "webp")
+WEBP_TIMED = ("lossy_q75_480x640.webp", "lossy_q90_480x640.webp", "lossless_480x640.webp")
+#: the WebP COCO tree: images (the committed scenes), batch, epochs
+WEBP_COCO, WEBP_BATCH, WEBP_EPOCHS = 32, 32, 1
+
+
+def webp_coco_tree(root: str) -> tuple[str, str]:
+    """A COCO tree of the ``WEBP_COCO`` committed 480 x 640 WebP scenes of
+    ``tests/data/webp`` (lossy and lossless), each under a ``.jpg`` name as
+    scraped datasets hold them (cv2 and the port read by content; under a
+    ``.webp`` name the converters' mix preview would need a WebP encoder,
+    ROADMAP C9), its two people as 24-point polygons with 17 visible
+    keypoints from ``coco_scenes.json``."""
+    with open(os.path.join(WEBP_FIXTURES, "coco_scenes.json")) as f:
+        scenes = json.load(f)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    images, annotations = [], []
+    for i in range(WEBP_COCO):
+        name = f"{i:012d}.jpg"
+        with open(os.path.join(WEBP_FIXTURES, f"coco_{i:02d}.webp"), "rb") as src, \
+                open(os.path.join(img_dir, name), "wb") as dst:
+            dst.write(src.read())
+        images.append({"id": i, "file_name": name, "height": scenes["height"],
+                       "width": scenes["width"]})
+        for j, (cx, cy, ax, ay) in enumerate(scenes["people"][i]):
+            annotations.append({
+                "id": 2 * i + j, "image_id": i, "category_id": 1,
+                "segmentation": [ring(cx, cy, ax, ay, 24)],
+                "bbox": [round(cx - ax, 2), round(cy - ay, 2), round(2 * ax, 2), round(2 * ay, 2)],
+                "keypoints": keypoints_in(cx, cy, ax, ay, (2,) * 17)})
+    ann = os.path.join(root, "instances.json")
+    with open(ann, "w") as f:
+        json.dump({"categories": [{"id": 1, "name": "person"}], "images": images,
+                   "annotations": annotations}, f)
+    return img_dir, ann
+
+
+def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
+    """WebP (``core/webp.py``, its bit streams in ``ops/native/webp.cpp``
+    built with g++ here): each committed fixture of ``tests/data/webp`` read
+    in both modes through ``imread`` (the file) and ``imdecode`` (its
+    bytes), bit-equal to the cv2 decodes stored beside it or
+    ``FileNotFoundError`` where cv2 returned None; ms per 480 x 640 file for
+    lossy q75, lossy q90 and lossless beside ``read_png``'s ms per 480 x 640
+    PNG (``png_ms``), host clock.  Then the main path on WebP data: a COCO
+    tree of the 32 committed 480 x 640 WebP scenes (``webp_coco_tree``),
+    converted by ``transfer_coco`` (which copies the WebP files), trained
+    with ``python -m instancesegmentation_tpu_torch.train``'s ``main``
+    (``TrainConfig`` defaults, batch 32, 2 steps: finite losses, 1
+    ``warp_2level`` launch per step), and the checkpoint served over the
+    tree's 64 instances (2 ``fused_chain`` launches per dispatch, finite
+    outputs)."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imdecode, imread
+    from instancesegmentation_tpu_torch.data import converters
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.data.pipeline import host_batch
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine, load_any_checkpoint
+    from instancesegmentation_tpu_torch.ops.native.webp import load_webp
+    from instancesegmentation_tpu_torch.train import loop
+
+    t0 = time.perf_counter()
+    load_webp()
+    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    files = sorted(glob.glob(os.path.join(WEBP_FIXTURES, "*.webp")))
+    check(len(files) >= 100 and all(os.path.exists(os.path.join(WEBP_FIXTURES, n))
+                                    for n in WEBP_TIMED), "webp: the committed fixtures are present")
+    checked = refused = 0
+    for path in files:
+        stored = np.load(path[:-5] + ".npz")
+        with open(path, "rb") as f:
+            data = f.read()
+        for mode in ("color", "gray"):
+            for decode, read in ((False, lambda: imread(path, mode)),
+                                 (True, lambda: imdecode(data, mode))):
+                try:
+                    got = read()
+                except FileNotFoundError:
+                    got = None
+                    refused += 1
+                check(_stored_matches(stored, mode, decode, got),
+                      f"webp: {os.path.basename(path)} in {mode} mode through "
+                      f"{'imdecode' if decode else 'imread'} equals cv2's stored outcome")
+                checked += 1
+    out["fixtures"], out["reads_checked"], out["reads_refused_as_cv2"] = len(files), checked, \
+        refused
+    for name in WEBP_TIMED:
+        path = os.path.join(WEBP_FIXTURES, name)
+        imread(path)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            imread(path)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        out[f"{name}_bytes"] = os.path.getsize(path)
+    out["read_png_ms_480x640_rgb"] = png_ms
+    q75, q90, lossless = (out[f"{n}_ms"] for n in WEBP_TIMED)
+    print(f"webp: {len(files)} fixtures ({checked} reads through imread and imdecode, {refused} "
+          f"refused where cv2 returns None) bit-equal to cv2's stored outcomes; 480x640 lossy "
+          f"q75 {q75:.2f} ms, lossy q90 {q90:.2f} ms, lossless {lossless:.2f} ms, read_png "
+          f"{png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_webp_") as tmp:
+        img_dir, ann = webp_coco_tree(os.path.join(tmp, "src"))
+        common = os.path.join(tmp, "common")
+        t0 = time.perf_counter()
+        n = converters.transfer_coco(img_dir, ann, common, progress=False)
+        out["convert_s"] = time.perf_counter() - t0
+        check(n == WEBP_COCO, f"webp: transfer_coco converted {n} of {WEBP_COCO} WebP images")
+        for i in (0, 1):
+            with open(os.path.join(common, "image", f"{i:012d}.jpg"), "rb") as a, \
+                    open(os.path.join(img_dir, f"{i:012d}.jpg"), "rb") as b:
+                copied, source = a.read(), b.read()
+            check(copied[:4] == b"RIFF" and copied == source,
+                  "webp: the converted tree holds the WebP files as they were")
+        samples = len(InstanceCommonDataset(common, 640))
+        check(samples == 2 * WEBP_COCO, f"webp: {samples} eligible instances, 2 per image")
+        n_steps = WEBP_EPOCHS * (samples // WEBP_BATCH)
+        argv = ["--train-dataset-dir", common, "--val-dataset-dir", common,
+                "--checkpoint-dir", os.path.join(tmp, "ckpt"), "--out-dir", os.path.join(tmp, "runs"),
+                "--batch-size", str(WEBP_BATCH), "--epochs", str(WEBP_EPOCHS),
+                "--rotate", "25", "--flip-prob", "0.5", "--jitter", "0.1",
+                "--save-iou-gate", "0", "--show-iter", "1"]
+        w2.warp_2level.launches = 0
+        loop.main(argv)
+        torch.cuda.synchronize()
+        launches = w2.warp_2level.launches
+        rows = metric_rows(os.path.join(tmp, "runs"))
+        losses = [r["loss"] for r in rows if "loss" in r]
+        out["train"] = {"steps": n_steps, "losses": losses, "warp_2level": launches}
+        print(f"train on the WebP COCO tree ({samples} instances, batch {WEBP_BATCH}): losses "
+              f"{[round(v, 4) for v in losses]}, {launches} warp_2level launches; {card}")
+        check(n_steps >= 2 and len(losses) == n_steps and all(np.isfinite(losses)),
+              f"webp: {n_steps} finite losses")
+        check(launches == n_steps, "webp: 1 warp_2level launch per step")
+
+        found = glob.glob(os.path.join(tmp, "ckpt", "*_best.ckpt"))
+        check(len(found) == 1, "webp: the trainer's checkpoint exists")
+        eng = InferenceEngine(load_any_checkpoint(found[0]), in_channels=20, size=480)
+        ds = InstanceCommonDataset(common, 640)
+        fc.reset_launches()
+        dispatches = 0
+        for start in range(0, len(ds), WEBP_BATCH):
+            probs, masks = eng.predict_instances(
+                host_batch([ds.fetch(i) for i in range(start, start + WEBP_BATCH)]))
+            dispatches += 1
+            check(probs.shape == (WEBP_BATCH, 480, 480, 1) and np.isfinite(probs).all(),
+                  "webp serve: finite crop probabilities")
+        torch.cuda.synchronize()
+        serve = {"dispatches": dispatches, "fused_chain": fc.fused_chain.launches,
+                 "by_form": dict(fc.fused_chain.launches_by_form)}
+        out["serve"] = serve
+        print(f"served the WebP COCO tree's {len(ds)} instances: {json.dumps(serve)}; {card}")
+        check(serve["fused_chain"] == 2 * dispatches and serve["by_form"].get("banded") == 2 * dispatches,
+              "webp serve: 2 fused_chain launches per dispatch")
+    print(json.dumps({"webp": out}))
     return out
 
 # -- the dataset converters ---------------------------------------------------------
@@ -4101,6 +4270,7 @@ def main() -> int:
         jpeg = jpeg_phase(card, disk["read_png_ms_480x640_rgb"])
         image_forms_phase(card, disk["read_png_ms_480x640_rgb"])
         tiff_phase(card, disk["read_png_ms_480x640_rgb"])
+        webp = webp_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
@@ -4412,6 +4582,7 @@ def main() -> int:
                            + evals["per_crop"]["launches"]["banded"]),
          "launches_parallel_engine": par["engine"]["launches"],
          "launches_converters_serve": conv["serve"]["fused_chain"],
+         "launches_webp_serve": webp["serve"]["fused_chain"],
          "launches_fused_stem": fstem["serve"]["bf16"]["fused_chain"]["banded"],
          "launches_fused_stem_parallel_replica": fstem["parallel_launches"],
          "launches_fold_bn_false": fstem["fold_bn_false"]["fused_chain"],
@@ -4484,6 +4655,7 @@ def main() -> int:
          "launches_dp_step_world1": par["train_world1_nccl"]["launches_per_step"]["warp_2level"],
          "launches_dp_gloo_per_rank": par["gloo_two_ranks"]["warp_2level_per_rank"],
          "launches_converters_train": {k: v["warp_2level"] for k, v in conv["train"].items()},
+         "launches_webp_train": webp["train"]["warp_2level"],
          "launches_remat_train": fstem["remat"]["runs"]["remat"]["warp_2level"],
          "launches_show_aug_rotate": vqa["show_aug"]["warp_2level_launches"],
          "max_abs_err": errs["warp_2level"],

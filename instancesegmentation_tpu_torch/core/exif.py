@@ -5,8 +5,10 @@ byte), then turn the decoded array by one of the eight orientations.
 
 The TIFF walk is cv2's ``ExifReader``: little-endian after ``II``, else
 big-endian; the marker 42; IFD0's entries in order, where the first 0x0112
-entry decides (one SHORT: its value, else 1).  A block cut short keeps what
-was read before the cut.  Values outside 1-8 leave the image as it is.
+entry decides: the 16-bit value at its value field, whatever the entry's
+type and count say (cv2 5.0 reads it so for PNG, JPEG and WebP alike).  A
+block cut short keeps what was read before the cut.  Values outside 1-8
+leave the image as it is.
 ``ifd_entries`` is the walk of one IFD, which ``core/tiff.py`` reads TIFF
 and BigTIFF files with too.
 """
@@ -18,7 +20,6 @@ from typing import Optional
 import numpy as np
 
 ORIENTATION_TAG = 0x0112
-_SHORT = 3
 
 
 def ifd_entries(block: bytes, off: int, order: str, big: bool = False):
@@ -57,10 +58,10 @@ def exif_orientation(tiff: Optional[bytes]) -> int:
             return 1
         if len(tiff) < 8:
             raise IndexError
-        for tag, typ, count, pos in ifd_entries(tiff, struct.unpack_from(end + "I", tiff, 4)[0],
+        for tag, _, _, pos in ifd_entries(tiff, struct.unpack_from(end + "I", tiff, 4)[0],
                                                 end):
             if tag == ORIENTATION_TAG:
-                return u16(pos) if typ == _SHORT and count == 1 else 1
+                return u16(pos)
     except IndexError:
         pass
     return 1

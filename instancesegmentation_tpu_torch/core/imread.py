@@ -3,9 +3,9 @@
 dataset reader, ``eval``, ``infer`` and the dataset converters open.
 
 ``"color"`` gives RGB uint8 ``[H, W, 3]`` (cv2's BGR converted, as the JAX
-package's readers do), ``"gray"`` uint8 ``[H, W]``; PNG and JPEG turned by
-the file's EXIF orientation.  The decoder is chosen by the file's leading
-bytes, as cv2 chooses it, never by its extension:
+package's readers do), ``"gray"`` uint8 ``[H, W]``; PNG, JPEG and WebP
+turned by the file's EXIF orientation.  The decoder is chosen by the file's
+leading bytes, as cv2 chooses it, never by its extension:
 
 - PNG signature: ``core/png.py`` (every valid PNG);
 - JPEG ``FF D8 FF``: ``ops/native/jpeg.py`` (C++, built with g++ at first
@@ -21,7 +21,11 @@ bytes, as cv2 chooses it, never by its extension:
 - ``49 49 2A 00`` / ``4D 4D 00 2A`` (TIFF), ``49 49 2B 00`` / ``4D 4D 00 2B`` (BigTIFF):
   ``core/tiff.py`` (the first image, as libtiff's RGBA interface and cv2
   read it: strips or tiles, none, PackBits, LZW, Deflate, JPEG, CCITT and
-  ThunderScan data, gray, palette, RGB(A), CMYK and YCbCr pixels).
+  ThunderScan data, gray, palette, RGB(A), CMYK and YCbCr pixels);
+- ``RIFF....WEBP``: ``core/webp.py`` with its bit streams in
+  ``ops/native/webp.cpp`` (built like the JPEG decoder): lossless (VP8L),
+  lossy (VP8, its ALPH stream decoded and dropped), VP8X with EXIF, the
+  first frame of an animation, as cv2's libwebp reads them.
 
 The RLE and LZW codes of BMP, Sun raster, HDR, GIF and TIFF, and TIFF's
 CCITT and ThunderScan codes, are unpacked by ``ops/native/image_codes.cpp``
@@ -34,14 +38,17 @@ or empty file, leading bytes that no decoder claims (among them OpenEXR's
 that is cut or corrupt where cv2's decoder gives up, a JPEG form that
 libjpeg-turbo refuses (hierarchical, 12-bit, lossless arithmetic, ...: see
 ``ops/native/jpeg.py``), a TIFF form libtiff or cv2 refuses (see
-``core/tiff.py``).  A header whose size cv2 itself raises on raises
+``core/tiff.py``), a WebP shorter than cv2's 32-byte header read (even one
+that starts ``RIFF....WEBP``) or one libwebp refuses (see
+``core/webp.py``).  A header whose size cv2 itself raises on raises
 ``ImageSizeError`` (``core/png.py``).  A valid file of a format the port
-does not decode (WebP, JPEG 2000, AVIF; the CIELab, SGILog and CCITT RLEW
-forms of TIFF) raises ``UnsupportedImage``, a ``ValueError`` naming ROADMAP
-A10 part 3: the port never drops silently what the JAX package reads (a
-file that only starts like WebP, JPEG 2000 or AVIF raises it too: the port
-does not parse them).  ``cv2.imread`` and ``cv2.imdecode`` differ on three
-forms, which the port follows (``imdecode`` reads as ``cv2.imdecode``):
+does not decode (JPEG 2000, AVIF; the CIELab, SGILog and CCITT RLEW forms
+of TIFF) raises ``UnsupportedImage``, a ``ValueError`` naming ROADMAP A10
+part 3: the port never drops silently what the JAX package reads (a file
+that only starts like JPEG 2000 or AVIF raises it too: the port does not
+parse them).  ``cv2.imread`` and ``cv2.imdecode`` differ on three forms,
+which the port follows (``imdecode`` reads as ``cv2.imdecode``; WebP reads
+alike through both):
 a PFM whose channels differ from the read mode's is None to ``imread`` and
 its own channels to ``imdecode``; JPEG data that ends before its decode
 does is None to ``imdecode`` (cv2's memory source suspends where a file's
@@ -74,6 +81,7 @@ from instancesegmentation_tpu_torch.core.sunras import SIGNATURE as SUNRAS_SIGNA
 from instancesegmentation_tpu_torch.core.sunras import decode_sunras
 from instancesegmentation_tpu_torch.core.tiff import SIGNATURES as TIFF_SIGNATURES
 from instancesegmentation_tpu_torch.core.tiff import decode_tiff
+from instancesegmentation_tpu_torch.core.webp import decode_webp, is_webp
 from instancesegmentation_tpu_torch.ops.native.jpeg import SIGNATURE as JPEG_SIGNATURE
 from instancesegmentation_tpu_torch.ops.native.jpeg import decode_jpeg
 
@@ -104,8 +112,6 @@ def _other_format(data: bytes) -> str | None:
     for sig, name in _OTHER_FORMATS:
         if data.startswith(sig):
             return name
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
     if _is_avif(data):
         return "AVIF"
     return None
@@ -134,6 +140,8 @@ def _decoder(data: bytes, read_file: bool):
         return decode_gif
     if data.startswith(TIFF_SIGNATURES):
         return lambda d, mode, path: decode_tiff(d, mode, path, imread=read_file)
+    if is_webp(data):
+        return decode_webp
     return None
 
 

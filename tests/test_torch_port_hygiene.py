@@ -49,3 +49,18 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_native_decoders_use_no_system_codec():
+    """The port's C++ (the WebP decoder among it) includes no libwebp header
+    and links no library: ``build.py`` compiles each source alone, and no
+    port source names libwebp's library or asks ctypes to find one."""
+    native = PORT / "ops" / "native"
+    for src in sorted(native.glob("*.cpp")) + sorted(native.glob("*.h")):
+        includes = [line for line in src.read_text().splitlines() if line.startswith("#include")]
+        assert not [i for i in includes if "webp/" in i or "<webp" in i], src.name
+    build = (native / "build.py").read_text()
+    assert "-lwebp" not in build and "-l" not in build.split("CXX_FLAGS =")[1].split("\n")[0]
+    for path in SOURCES + sorted(native.glob("*.cpp")):
+        text = path.read_text()
+        assert "libwebp.so" not in text and "find_library" not in text, path.name
