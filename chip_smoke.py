@@ -104,9 +104,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    arrays stored beside them in both modes, and ms per 480 x 640 GIF and
    HDR file beside ``read_png``'s; then TIFF and BigTIFF (``tiff_phase``:
    ``core/tiff.py`` with its codes in ``image_codes.cpp`` and ``jpeg.cpp``):
-   the fixtures of ``tests/data/tiff`` through ``imread`` and ``imdecode``
-   in both modes, bit-equal to cv2's stored outcomes, and ms per 480 x 640
-   LZW, Deflate and JPEG-in-TIFF file beside ``read_png``'s; then WebP
+   the fixtures of ``tests/data/tiff`` (CIELab, SGILog, CCITT RLEW and
+   damaged CCITT strips among them), the EXIF fixtures of
+   ``tests/data/exif`` and the 32 scenes of ``tests/data/coco_forms``
+   through ``imread`` and ``imdecode`` in both modes, bit-equal to cv2's
+   stored outcomes, ms per 480 x 640 LZW, Deflate, JPEG-in-TIFF, 8-bit
+   CIELab and LogLuv24 file beside ``read_png``'s, and a COCO tree of the
+   32 scenes (CIELab, LogLuv, JPEGs whose EXIF cv2 gives up on) converted,
+   trained (batch 32, 2 steps, 1 ``warp_2level`` launch per step) and
+   served (2 ``fused_chain`` launches per dispatch); then WebP
    (``webp_phase``: ``core/webp.py`` with its bit streams in
    ``ops/native/webp.cpp``): the fixtures of ``tests/data/webp`` through
    ``imread`` and ``imdecode`` in both modes, bit-equal to cv2's stored
@@ -1332,12 +1338,22 @@ def image_forms_phase(card: str, png_ms: float, iters: int = 20) -> dict:
 
 TIFF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                              "tiff")
-TIFF_TIMED = ("lzw_480x640.tif", "deflate_480x640.tif", "jpeg_480x640.tif")
+TIFF_TIMED = ("lzw_480x640.tif", "deflate_480x640.tif", "jpeg_480x640.tif",
+              "cielab8_480x640.tif", "logluv24_480x640.tif")
+#: the committed TIFF fixtures (tests/data/tiff/make_fixtures.py writes them)
+TIFF_COUNT = 53
+EXIF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "exif")
+#: the COCO tree of the forms read last: 32 committed 480 x 640 scenes
+#: (tests/data/coco_forms), batch, epochs
+FORMS_SCENES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                            "coco_forms")
+FORMS_COCO, FORMS_BATCH, FORMS_EPOCHS = 32, 32, 1
 
 
 def _stored_matches(stored, mode: str, decode: bool, got) -> bool:
     """Whether a read (an array, or None where it raised) is the cv2 result
-    stored beside a TIFF or WebP fixture (``tests/data/{tiff,webp}/
+    stored beside a TIFF, EXIF or WebP fixture (``tests/data/{tiff,webp}/
     make_fixtures.py``'s ``matches``: ``imread``'s arrays, ``imdecode``'s
     where they differ, the 480 x 640 ones as SHA-256)."""
     key = ("decode_" + mode) if decode and "decode_same" not in stored else mode
@@ -1350,32 +1366,15 @@ def _stored_matches(stored, mode: str, decode: bool, got) -> bool:
     return got is None
 
 
-def tiff_phase(card: str, png_ms: float, iters: int = 20) -> dict:
-    """The TIFF decoder (``core/tiff.py``; its LZW, PackBits, CCITT and
-    ThunderScan codes in ``ops/native/image_codes.cpp``, JPEG strips through
-    ``ops/native/jpeg.cpp``, both built with g++ here): each committed
-    fixture of ``tests/data/tiff`` read in both modes through ``imread`` (the
-    file) and ``imdecode`` (its bytes), bit-equal to the cv2 decodes stored
-    beside it or ``FileNotFoundError`` where cv2 returned None; ms per
-    480 x 640 file for cv2's LZW, Deflate with the predictor and JPEG 4:2:0
-    strips, beside ``read_png``'s ms per 480 x 640 PNG (``png_ms``, the
-    trainer phase's), host clock."""
-    import glob
-
+def _check_stored(label: str, pairs) -> tuple[int, int]:
+    """Each (file, stored npz) read in both modes through ``imread`` (the
+    file) and ``imdecode`` (its bytes), held to cv2's stored outcome
+    (``_stored_matches``); returns the reads checked and those refused."""
     from instancesegmentation_tpu_torch.core.imread import imdecode, imread
-    from instancesegmentation_tpu_torch.ops.native import jpeg as native_jpeg
-    from instancesegmentation_tpu_torch.ops.native.image_codes import load_image_codes
 
-    t0 = time.perf_counter()
-    load_image_codes()
-    native_jpeg.load_jpeg()
-    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
-    files = sorted(glob.glob(os.path.join(TIFF_FIXTURES, "*.tif")))
-    check(len(files) >= 30 and all(os.path.exists(os.path.join(TIFF_FIXTURES, n))
-                                   for n in TIFF_TIMED), "tiff: the committed fixtures are present")
     checked = refused = 0
-    for path in files:
-        stored = np.load(path[:-4] + ".npz")
+    for path, npz in pairs:
+        stored = np.load(npz)
         with open(path, "rb") as f:
             data = f.read()
         for mode in ("color", "gray"):
@@ -1387,52 +1386,23 @@ def tiff_phase(card: str, png_ms: float, iters: int = 20) -> dict:
                     got = None
                     refused += 1
                 check(_stored_matches(stored, mode, decode, got),
-                      f"tiff: {os.path.basename(path)} in {mode} mode through "
+                      f"{label}: {os.path.basename(path)} in {mode} mode through "
                       f"{'imdecode' if decode else 'imread'} equals cv2's stored outcome")
                 checked += 1
-    out["fixtures"], out["reads_checked"], out["reads_refused_as_cv2"] = len(files), checked, \
-        refused
-    for name in TIFF_TIMED:
-        path = os.path.join(TIFF_FIXTURES, name)
-        imread(path)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            imread(path)
-        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
-        out[f"{name}_bytes"] = os.path.getsize(path)
-    out["read_png_ms_480x640_rgb"] = png_ms
-    lzw, deflate, jpg = (out[f"{n}_ms"] for n in TIFF_TIMED)
-    print(f"tiff: {len(files)} fixtures ({checked} reads through imread and imdecode, {refused} "
-          f"refused where cv2 returns None) bit-equal to cv2's stored outcomes; 480x640 LZW "
-          f"{lzw:.2f} ms, Deflate {deflate:.2f} ms, JPEG 4:2:0 {jpg:.2f} ms, read_png "
-          f"{png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
-    print(json.dumps({"tiff": out}))
-    return out
-
-WEBP_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
-                             "webp")
-WEBP_TIMED = ("lossy_q75_480x640.webp", "lossy_q90_480x640.webp", "lossless_480x640.webp")
-#: the WebP COCO tree: images (the committed scenes), batch, epochs
-WEBP_COCO, WEBP_BATCH, WEBP_EPOCHS = 32, 32, 1
+    return checked, refused
 
 
-def webp_coco_tree(root: str) -> tuple[str, str]:
-    """A COCO tree of the ``WEBP_COCO`` committed 480 x 640 WebP scenes of
-    ``tests/data/webp`` (lossy and lossless), each under a ``.jpg`` name as
-    scraped datasets hold them (cv2 and the port read by content; under a
-    ``.webp`` name the converters' mix preview would need a WebP encoder,
-    ROADMAP C9), its two people as 24-point polygons with 17 visible
-    keypoints from ``coco_scenes.json``."""
-    with open(os.path.join(WEBP_FIXTURES, "coco_scenes.json")) as f:
-        scenes = json.load(f)
+def scene_coco_tree(root: str, sources: list, scenes: dict) -> tuple[str, str]:
+    """A COCO tree of committed 480 x 640 scenes: ``sources[i]`` copied as
+    image ``i`` under a ``.jpg`` name (cv2 and the port read by content),
+    its people (``scenes["people"][i]``, each ``(cx, cy, ax, ay)``) as
+    24-point polygons with 17 visible keypoints."""
     img_dir = os.path.join(root, "images")
     os.makedirs(img_dir)
     images, annotations = [], []
-    for i in range(WEBP_COCO):
+    for i, source in enumerate(sources):
         name = f"{i:012d}.jpg"
-        with open(os.path.join(WEBP_FIXTURES, f"coco_{i:02d}.webp"), "rb") as src, \
-                open(os.path.join(img_dir, name), "wb") as dst:
-            dst.write(src.read())
+        shutil.copyfile(source, os.path.join(img_dir, name))
         images.append({"id": i, "file_name": name, "height": scenes["height"],
                        "width": scenes["width"]})
         for j, (cx, cy, ax, ay) in enumerate(scenes["people"][i]):
@@ -1448,6 +1418,167 @@ def webp_coco_tree(root: str) -> tuple[str, str]:
     return img_dir, ann
 
 
+def train_and_serve_tree(label: str, common: str, batch: int, epochs: int, tmp: str, w2, fc,
+                         card: str) -> dict:
+    """The main path on a converted tree of two people per image: ``python
+    -m instancesegmentation_tpu_torch.train``'s ``main`` (``TrainConfig``
+    defaults, ``batch``, ``epochs``: at least 2 finite losses, 1
+    ``warp_2level`` launch per step), then the checkpoint served over the
+    tree's instances by the instance engine (2 ``fused_chain`` launches per
+    dispatch, finite outputs)."""
+    import glob
+
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.data.pipeline import host_batch
+    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine, load_any_checkpoint
+    from instancesegmentation_tpu_torch.train import loop
+
+    ds = InstanceCommonDataset(common, 640)
+    n_steps = epochs * (len(ds) // batch)
+    argv = ["--train-dataset-dir", common, "--val-dataset-dir", common,
+            "--checkpoint-dir", os.path.join(tmp, "ckpt"), "--out-dir", os.path.join(tmp, "runs"),
+            "--batch-size", str(batch), "--epochs", str(epochs),
+            "--rotate", "25", "--flip-prob", "0.5", "--jitter", "0.1",
+            "--save-iou-gate", "0", "--show-iter", "1"]
+    w2.warp_2level.launches = 0
+    loop.main(argv)
+    torch.cuda.synchronize()
+    launches = w2.warp_2level.launches
+    losses = [r["loss"] for r in metric_rows(os.path.join(tmp, "runs")) if "loss" in r]
+    out = {"train": {"steps": n_steps, "losses": losses, "warp_2level": launches}}
+    print(f"train on the {label} COCO tree ({len(ds)} instances, batch {batch}): losses "
+          f"{[round(v, 4) for v in losses]}, {launches} warp_2level launches; {card}")
+    check(n_steps >= 2 and len(losses) == n_steps and all(np.isfinite(losses)),
+          f"{label}: {n_steps} finite losses")
+    check(launches == n_steps, f"{label}: 1 warp_2level launch per step")
+
+    found = glob.glob(os.path.join(tmp, "ckpt", "*_best.ckpt"))
+    check(len(found) == 1, f"{label}: the trainer's checkpoint exists")
+    eng = InferenceEngine(load_any_checkpoint(found[0]), in_channels=20, size=480)
+    fc.reset_launches()
+    dispatches = 0
+    for start in range(0, len(ds), batch):
+        probs, masks = eng.predict_instances(
+            host_batch([ds.fetch(i) for i in range(start, start + batch)]))
+        dispatches += 1
+        check(probs.shape == (batch, 480, 480, 1) and np.isfinite(probs).all(),
+              f"{label} serve: finite crop probabilities")
+    torch.cuda.synchronize()
+    serve = {"dispatches": dispatches, "fused_chain": fc.fused_chain.launches,
+             "by_form": dict(fc.fused_chain.launches_by_form)}
+    out["serve"] = serve
+    print(f"served the {label} COCO tree's {len(ds)} instances: {json.dumps(serve)}; {card}")
+    check(serve["fused_chain"] == 2 * dispatches
+          and serve["by_form"].get("banded") == 2 * dispatches,
+          f"{label} serve: 2 fused_chain launches per dispatch")
+    return out
+
+
+def tiff_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
+    """The TIFF decoder (``core/tiff.py``; its LZW, PackBits, CCITT,
+    ThunderScan and SGILog codes and its CIELab conversion in
+    ``ops/native/image_codes.cpp``, JPEG strips through
+    ``ops/native/jpeg.cpp``, both built with g++ here): each committed
+    fixture of ``tests/data/tiff`` read in both modes through ``imread``
+    (the file) and ``imdecode`` (its bytes), bit-equal to the cv2 decodes
+    stored beside them or ``FileNotFoundError`` where cv2 returned None,
+    and so the EXIF fixtures of ``tests/data/exif`` (C10: JPEG, PNG and
+    WebP files whose EXIF block makes cv2 stop, or not) and the 32 scenes
+    of ``tests/data/coco_forms``; ms per 480 x 640 file for cv2's LZW,
+    Deflate with the predictor, JPEG 4:2:0 strips, 8-bit CIELab and
+    LogLuv24, beside ``read_png``'s ms per 480 x 640 PNG (``png_ms``, the
+    trainer phase's), host clock.  Then the main path on these forms: a
+    COCO tree of the 32 scenes (``scene_coco_tree``), converted by
+    ``transfer_coco``, trained with ``python -m
+    instancesegmentation_tpu_torch.train``'s ``main`` (``TrainConfig``
+    defaults, batch 32, 2 steps: finite losses, 1 ``warp_2level`` launch per
+    step), and the checkpoint served over the tree's 64 instances (2
+    ``fused_chain`` launches per dispatch, finite outputs)."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imread
+    from instancesegmentation_tpu_torch.data import converters
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.ops.native import jpeg as native_jpeg
+    from instancesegmentation_tpu_torch.ops.native.image_codes import load_image_codes
+
+    t0 = time.perf_counter()
+    load_image_codes()
+    native_jpeg.load_jpeg()
+    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    files = sorted(glob.glob(os.path.join(TIFF_FIXTURES, "*.tif")))
+    check(len(files) >= TIFF_COUNT and all(os.path.exists(os.path.join(TIFF_FIXTURES, n))
+                                           for n in TIFF_TIMED),
+          f"tiff: the {TIFF_COUNT} committed fixtures are present")
+    checked, refused = _check_stored("tiff", [(p, p[:-4] + ".npz") for p in files])
+    out["fixtures"], out["reads_checked"], out["reads_refused_as_cv2"] = len(files), checked, \
+        refused
+    exif = sorted(p for p in glob.glob(os.path.join(EXIF_FIXTURES, "*.*"))
+                  if p.endswith((".jpg", ".png", ".webp")))
+    check(len(exif) >= 20, "exif: the committed EXIF fixtures are present")
+    exif_checked, _ = _check_stored("exif", [(p, p.rsplit(".", 1)[0] + "_" + p.rsplit(".", 1)[1]
+                                              + ".npz") for p in exif])
+    unturned = sum(np.load(p.rsplit(".", 1)[0] + "_" + p.rsplit(".", 1)[1] + ".npz")["color"]
+                   .shape[0] == 24 for p in exif)
+    out["exif"] = {"fixtures": len(exif), "reads_checked": exif_checked,
+                   "unturned_as_cv2": unturned}
+    with open(os.path.join(FORMS_SCENES, "coco_scenes.json")) as f:
+        scene_files = json.load(f)["files"]
+    scenes_checked, _ = _check_stored("coco_forms", [
+        (os.path.join(FORMS_SCENES, n), os.path.join(FORMS_SCENES, f"coco_{i:02d}.npz"))
+        for i, n in enumerate(scene_files)])
+    out["scenes"] = {"files": len(scene_files), "reads_checked": scenes_checked}
+    for name in TIFF_TIMED:
+        path = os.path.join(TIFF_FIXTURES, name)
+        imread(path)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            imread(path)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        out[f"{name}_bytes"] = os.path.getsize(path)
+    out["read_png_ms_480x640_rgb"] = png_ms
+    lzw, deflate, jpg, lab, luv = (out[f"{n}_ms"] for n in TIFF_TIMED)
+    print(f"tiff: {len(files)} fixtures ({checked} reads through imread and imdecode, {refused} "
+          f"refused where cv2 returns None), {len(exif)} EXIF fixtures ({unturned} left unturned "
+          f"as cv2 leaves them) and {len(scene_files)} scenes bit-equal to cv2's stored "
+          f"outcomes; 480x640 LZW {lzw:.2f} ms, Deflate {deflate:.2f} ms, JPEG 4:2:0 {jpg:.2f} "
+          f"ms, CIELab 8-bit {lab:.2f} ms, LogLuv24 {luv:.2f} ms, read_png {png_ms:.2f} ms per "
+          f"480x640 RGB PNG (host clock); {card}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiff_") as tmp:
+        # the TIFF scenes under .jpg names: under .tif names the converters'
+        # mix preview would need a TIFF encoder (ROADMAP A15)
+        with open(os.path.join(FORMS_SCENES, "coco_scenes.json")) as f:
+            scenes = json.load(f)
+        img_dir, ann = scene_coco_tree(
+            os.path.join(tmp, "src"),
+            [os.path.join(FORMS_SCENES, n) for n in scenes["files"][:FORMS_COCO]], scenes)
+        common = os.path.join(tmp, "common")
+        t0 = time.perf_counter()
+        n = converters.transfer_coco(img_dir, ann, common, progress=False)
+        out["convert_s"] = time.perf_counter() - t0
+        check(n == FORMS_COCO, f"tiff: transfer_coco converted {n} of {FORMS_COCO} scenes")
+        for i in (0, 8, 16, 24):
+            with open(os.path.join(common, "image", f"{i:012d}.jpg"), "rb") as a, \
+                    open(os.path.join(img_dir, f"{i:012d}.jpg"), "rb") as b:
+                check(a.read() == b.read(), "tiff: the converted tree holds the scenes as they were")
+        ds = InstanceCommonDataset(common, 640)
+        check(len(ds) == 2 * FORMS_COCO, f"tiff: {len(ds)} eligible instances, 2 per image")
+        check(all(tuple(ds.fetch(i).image_hw) == (480, 640) for i in range(48, 64)),
+              "tiff: the EXIF scenes are read unturned, as cv2 reads them")
+        out.update(train_and_serve_tree("CIELab / LogLuv / EXIF", common, FORMS_BATCH,
+                                        FORMS_EPOCHS, tmp, w2, fc, card))
+    print(json.dumps({"tiff": out}))
+    return out
+
+
+WEBP_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "webp")
+WEBP_TIMED = ("lossy_q75_480x640.webp", "lossy_q90_480x640.webp", "lossless_480x640.webp")
+#: the WebP COCO tree: images (the committed scenes), batch, epochs
+WEBP_COCO, WEBP_BATCH, WEBP_EPOCHS = 32, 32, 1
+
+
 def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
     """WebP (``core/webp.py``, its bit streams in ``ops/native/webp.cpp``
     built with g++ here): each committed fixture of ``tests/data/webp`` read
@@ -1456,7 +1587,7 @@ def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
     ``FileNotFoundError`` where cv2 returned None; ms per 480 x 640 file for
     lossy q75, lossy q90 and lossless beside ``read_png``'s ms per 480 x 640
     PNG (``png_ms``), host clock.  Then the main path on WebP data: a COCO
-    tree of the 32 committed 480 x 640 WebP scenes (``webp_coco_tree``),
+    tree of the 32 committed 480 x 640 WebP scenes (``scene_coco_tree``),
     converted by ``transfer_coco`` (which copies the WebP files), trained
     with ``python -m instancesegmentation_tpu_torch.train``'s ``main``
     (``TrainConfig`` defaults, batch 32, 2 steps: finite losses, 1
@@ -1465,13 +1596,10 @@ def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
     outputs)."""
     import glob
 
-    from instancesegmentation_tpu_torch.core.imread import imdecode, imread
+    from instancesegmentation_tpu_torch.core.imread import imread
     from instancesegmentation_tpu_torch.data import converters
     from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
-    from instancesegmentation_tpu_torch.data.pipeline import host_batch
-    from instancesegmentation_tpu_torch.infer.pipeline import InferenceEngine, load_any_checkpoint
     from instancesegmentation_tpu_torch.ops.native.webp import load_webp
-    from instancesegmentation_tpu_torch.train import loop
 
     t0 = time.perf_counter()
     load_webp()
@@ -1479,23 +1607,7 @@ def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
     files = sorted(glob.glob(os.path.join(WEBP_FIXTURES, "*.webp")))
     check(len(files) >= 100 and all(os.path.exists(os.path.join(WEBP_FIXTURES, n))
                                     for n in WEBP_TIMED), "webp: the committed fixtures are present")
-    checked = refused = 0
-    for path in files:
-        stored = np.load(path[:-5] + ".npz")
-        with open(path, "rb") as f:
-            data = f.read()
-        for mode in ("color", "gray"):
-            for decode, read in ((False, lambda: imread(path, mode)),
-                                 (True, lambda: imdecode(data, mode))):
-                try:
-                    got = read()
-                except FileNotFoundError:
-                    got = None
-                    refused += 1
-                check(_stored_matches(stored, mode, decode, got),
-                      f"webp: {os.path.basename(path)} in {mode} mode through "
-                      f"{'imdecode' if decode else 'imread'} equals cv2's stored outcome")
-                checked += 1
+    checked, refused = _check_stored("webp", [(p, p[:-5] + ".npz") for p in files])
     out["fixtures"], out["reads_checked"], out["reads_refused_as_cv2"] = len(files), checked, \
         refused
     for name in WEBP_TIMED:
@@ -1514,7 +1626,14 @@ def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
           f"{png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_webp_") as tmp:
-        img_dir, ann = webp_coco_tree(os.path.join(tmp, "src"))
+        # the WebP scenes under .jpg names, as scraped datasets hold them:
+        # under .webp names the converters' mix preview would need a WebP
+        # encoder (ROADMAP C9)
+        with open(os.path.join(WEBP_FIXTURES, "coco_scenes.json")) as f:
+            scenes = json.load(f)
+        img_dir, ann = scene_coco_tree(
+            os.path.join(tmp, "src"),
+            [os.path.join(WEBP_FIXTURES, f"coco_{i:02d}.webp") for i in range(WEBP_COCO)], scenes)
         common = os.path.join(tmp, "common")
         t0 = time.perf_counter()
         n = converters.transfer_coco(img_dir, ann, common, progress=False)
@@ -1528,44 +1647,8 @@ def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
                   "webp: the converted tree holds the WebP files as they were")
         samples = len(InstanceCommonDataset(common, 640))
         check(samples == 2 * WEBP_COCO, f"webp: {samples} eligible instances, 2 per image")
-        n_steps = WEBP_EPOCHS * (samples // WEBP_BATCH)
-        argv = ["--train-dataset-dir", common, "--val-dataset-dir", common,
-                "--checkpoint-dir", os.path.join(tmp, "ckpt"), "--out-dir", os.path.join(tmp, "runs"),
-                "--batch-size", str(WEBP_BATCH), "--epochs", str(WEBP_EPOCHS),
-                "--rotate", "25", "--flip-prob", "0.5", "--jitter", "0.1",
-                "--save-iou-gate", "0", "--show-iter", "1"]
-        w2.warp_2level.launches = 0
-        loop.main(argv)
-        torch.cuda.synchronize()
-        launches = w2.warp_2level.launches
-        rows = metric_rows(os.path.join(tmp, "runs"))
-        losses = [r["loss"] for r in rows if "loss" in r]
-        out["train"] = {"steps": n_steps, "losses": losses, "warp_2level": launches}
-        print(f"train on the WebP COCO tree ({samples} instances, batch {WEBP_BATCH}): losses "
-              f"{[round(v, 4) for v in losses]}, {launches} warp_2level launches; {card}")
-        check(n_steps >= 2 and len(losses) == n_steps and all(np.isfinite(losses)),
-              f"webp: {n_steps} finite losses")
-        check(launches == n_steps, "webp: 1 warp_2level launch per step")
-
-        found = glob.glob(os.path.join(tmp, "ckpt", "*_best.ckpt"))
-        check(len(found) == 1, "webp: the trainer's checkpoint exists")
-        eng = InferenceEngine(load_any_checkpoint(found[0]), in_channels=20, size=480)
-        ds = InstanceCommonDataset(common, 640)
-        fc.reset_launches()
-        dispatches = 0
-        for start in range(0, len(ds), WEBP_BATCH):
-            probs, masks = eng.predict_instances(
-                host_batch([ds.fetch(i) for i in range(start, start + WEBP_BATCH)]))
-            dispatches += 1
-            check(probs.shape == (WEBP_BATCH, 480, 480, 1) and np.isfinite(probs).all(),
-                  "webp serve: finite crop probabilities")
-        torch.cuda.synchronize()
-        serve = {"dispatches": dispatches, "fused_chain": fc.fused_chain.launches,
-                 "by_form": dict(fc.fused_chain.launches_by_form)}
-        out["serve"] = serve
-        print(f"served the WebP COCO tree's {len(ds)} instances: {json.dumps(serve)}; {card}")
-        check(serve["fused_chain"] == 2 * dispatches and serve["by_form"].get("banded") == 2 * dispatches,
-              "webp serve: 2 fused_chain launches per dispatch")
+        out.update(train_and_serve_tree("WebP", common, WEBP_BATCH, WEBP_EPOCHS, tmp, w2, fc,
+                                        card))
     print(json.dumps({"webp": out}))
     return out
 
@@ -4269,7 +4352,7 @@ def main() -> int:
         disk = trainer_from_disk(dev, card, w2, fc, trained)
         jpeg = jpeg_phase(card, disk["read_png_ms_480x640_rgb"])
         image_forms_phase(card, disk["read_png_ms_480x640_rgb"])
-        tiff_phase(card, disk["read_png_ms_480x640_rgb"])
+        tiff = tiff_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         webp = webp_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
@@ -4583,6 +4666,7 @@ def main() -> int:
          "launches_parallel_engine": par["engine"]["launches"],
          "launches_converters_serve": conv["serve"]["fused_chain"],
          "launches_webp_serve": webp["serve"]["fused_chain"],
+         "launches_tiff_serve": tiff["serve"]["fused_chain"],
          "launches_fused_stem": fstem["serve"]["bf16"]["fused_chain"]["banded"],
          "launches_fused_stem_parallel_replica": fstem["parallel_launches"],
          "launches_fold_bn_false": fstem["fold_bn_false"]["fused_chain"],
@@ -4656,6 +4740,7 @@ def main() -> int:
          "launches_dp_gloo_per_rank": par["gloo_two_ranks"]["warp_2level_per_rank"],
          "launches_converters_train": {k: v["warp_2level"] for k, v in conv["train"].items()},
          "launches_webp_train": webp["train"]["warp_2level"],
+         "launches_tiff_train": tiff["train"]["warp_2level"],
          "launches_remat_train": fstem["remat"]["runs"]["remat"]["warp_2level"],
          "launches_show_aug_rotate": vqa["show_aug"]["warp_2level_launches"],
          "max_abs_err": errs["warp_2level"],

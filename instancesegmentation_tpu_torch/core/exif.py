@@ -1,14 +1,21 @@
 """EXIF orientation as ``cv2.imread`` applies it (no
 ``IMREAD_IGNORE_ORIENTATION``): read tag 0x0112 from IFD0 of a TIFF block
-(a PNG ``eXIf`` chunk, or a JPEG's first APP1 segment from its seventh
-byte), then turn the decoded array by one of the eight orientations.
+(a PNG ``eXIf`` chunk, a JPEG's first APP1 segment from its seventh byte,
+or a WebP ``EXIF`` chunk), then turn the decoded array by one of the eight
+orientations.
 
 The TIFF walk is cv2's ``ExifReader``: little-endian after ``II``, else
 big-endian; the marker 42; IFD0's entries in order, where the first 0x0112
 entry decides: the 16-bit value at its value field, whatever the entry's
-type and count say (cv2 5.0 reads it so for PNG, JPEG and WebP alike).  A
-block cut short keeps what was read before the cut.  Values outside 1-8
-leave the image as it is.
+type and count say (cv2 5.0 reads it so for PNG, JPEG and WebP alike).
+Before it, the reader also reads the data of twelve tags, by tag whatever
+their type (``_TAG_DATA``): the six string tags their ``count`` bytes (at
+the value offset where the count is above 4, else at byte 8 of the block),
+the six rational tags 1, 2, 3 or 6 rationals at the value offset.  Where
+that data does not lie inside the block, cv2 stops, keeps the entries it
+read before, and so never reaches a later orientation: the image stays
+unturned.  A block cut short keeps what was read before the cut.  Values
+outside 1-8 leave the image as it is.
 ``ifd_entries`` is the walk of one IFD, which ``core/tiff.py`` reads TIFF
 and BigTIFF files with too.
 """
@@ -20,6 +27,12 @@ from typing import Optional
 import numpy as np
 
 ORIENTATION_TAG = 0x0112
+#: the tags before the orientation whose data cv2's ``ExifReader`` reads,
+#: by tag: ``"string"`` (``getString``: ``count`` bytes) or the number of
+#: unsigned rationals (8 bytes each) at the value offset
+_TAG_DATA = {0x010E: "string", 0x010F: "string", 0x0110: "string", 0x0131: "string",
+             0x0132: "string", 0x8298: "string", 0x011A: 1, 0x011B: 1, 0x013E: 2, 0x013F: 6,
+             0x0211: 3, 0x0214: 6}
 
 
 def ifd_entries(block: bytes, off: int, order: str, big: bool = False):
@@ -58,13 +71,26 @@ def exif_orientation(tiff: Optional[bytes]) -> int:
             return 1
         if len(tiff) < 8:
             raise IndexError
-        for tag, _, _, pos in ifd_entries(tiff, struct.unpack_from(end + "I", tiff, 4)[0],
-                                                end):
+        for tag, _, count, pos in ifd_entries(tiff, struct.unpack_from(end + "I", tiff, 4)[0],
+                                                  end):
             if tag == ORIENTATION_TAG:
                 return u16(pos)
-    except IndexError:
+            if tag in _TAG_DATA and not _data_fits(tiff, _TAG_DATA[tag], count,
+                                                   struct.unpack_from(end + "I", tiff, pos)[0]):
+                return 1
+    except (IndexError, struct.error):
         pass
     return 1
+
+
+def _data_fits(tiff: bytes, kind, count: int, offset: int) -> bool:
+    """Whether cv2's read of one ``_TAG_DATA`` entry's data stays inside the
+    block (its checks in 32-bit unsigned arithmetic, as cv2 computes
+    them)."""
+    if kind == "string":
+        at = 8 if count <= 4 else offset
+        return at <= len(tiff) and (at + count) & 0xFFFFFFFF <= len(tiff)
+    return offset + 8 * kind <= len(tiff)
 
 
 def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:

@@ -20,15 +20,18 @@ leading bytes, as cv2 chooses it, never by its extension:
 - ``GIF87a`` / ``GIF89a``: ``core/gif.py`` (the first frame);
 - ``49 49 2A 00`` / ``4D 4D 00 2A`` (TIFF), ``49 49 2B 00`` / ``4D 4D 00 2B`` (BigTIFF):
   ``core/tiff.py`` (the first image, as libtiff's RGBA interface and cv2
-  read it: strips or tiles, none, PackBits, LZW, Deflate, JPEG, CCITT and
-  ThunderScan data, gray, palette, RGB(A), CMYK and YCbCr pixels);
+  read it: strips or tiles, none, PackBits, LZW, Deflate, JPEG, CCITT (RLE,
+  RLEW, Group 3, Group 4), ThunderScan and SGILog data, gray, palette,
+  RGB(A), CMYK, YCbCr, CIELab, LogL and LogLuv pixels: every form cv2
+  reads);
 - ``RIFF....WEBP``: ``core/webp.py`` with its bit streams in
   ``ops/native/webp.cpp`` (built like the JPEG decoder): lossless (VP8L),
   lossy (VP8, its ALPH stream decoded and dropped), VP8X with EXIF, the
   first frame of an animation, as cv2's libwebp reads them.
 
 The RLE and LZW codes of BMP, Sun raster, HDR, GIF and TIFF, and TIFF's
-CCITT and ThunderScan codes, are unpacked by ``ops/native/image_codes.cpp``
+CCITT, ThunderScan and SGILog codes and its CIELab conversion, are unpacked
+by ``ops/native/image_codes.cpp``
 (built like the JPEG decoder; without a compiler such a read raises
 ``RuntimeError``).
 
@@ -42,11 +45,11 @@ libjpeg-turbo refuses (hierarchical, 12-bit, lossless arithmetic, ...: see
 that starts ``RIFF....WEBP``) or one libwebp refuses (see
 ``core/webp.py``).  A header whose size cv2 itself raises on raises
 ``ImageSizeError`` (``core/png.py``).  A valid file of a format the port
-does not decode (JPEG 2000, AVIF; the CIELab, SGILog and CCITT RLEW forms
-of TIFF) raises ``UnsupportedImage``, a ``ValueError`` naming ROADMAP A10
-part 3: the port never drops silently what the JAX package reads (a file
-that only starts like JPEG 2000 or AVIF raises it too: the port does not
-parse them).  ``cv2.imread`` and ``cv2.imdecode`` differ on three forms,
+does not decode (JPEG 2000, AVIF) raises ``UnsupportedImage``, a
+``ValueError`` naming ROADMAP A10 part 3: the port never drops silently
+what the JAX package reads (a file that only starts like JPEG 2000 or AVIF
+raises it too: the port does not parse them).  ``cv2.imread`` and
+``cv2.imdecode`` differ on three forms,
 which the port follows (``imdecode`` reads as ``cv2.imdecode``; WebP reads
 alike through both):
 a PFM whose channels differ from the read mode's is None to ``imread`` and
@@ -55,7 +58,8 @@ does is None to ``imdecode`` (cv2's memory source suspends where a file's
 inserts an end marker) and decoded by ``imread``; a TIFF turned by
 orientation 5-8 is None to ``imread`` and turned by ``imdecode``, and
 libtiff's buffer takes an uncompressed tile whose size is not a whole KiB
-from a mapped file only.
+from a mapped file only, and CCITT RLEW's rows are aligned by the address
+of each strip's first byte (its file offset to a mapped file).
 """
 from __future__ import annotations
 

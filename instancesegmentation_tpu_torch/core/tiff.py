@@ -13,9 +13,10 @@ gray (imgcodecs' 14-bit weights 4899 / 9617 / 1868).
   tiles, planar configuration 1 or 2, FillOrder 2 (every strip's bytes
   bit-reversed before its codec); the directory walk is ``core/exif.py``'s
   ``ifd_entries``;
-- the codecs: none, PackBits, LZW (current and old-style), CCITT RLE,
-  Group 3 and Group 4 (2, 3, 4) on 1-bit images and ThunderScan on 4-bit
-  ones (``ops/native/image_codes.cpp``), Deflate (8 and 32946, Python's
+- the codecs: none, PackBits, LZW (current and old-style), CCITT RLE and
+  RLEW, Group 3 and Group 4 (2, 32771, 3, 4) on 1-bit images, ThunderScan on
+  4-bit ones and SGILog (34676: LogL and LogLuv32, 34677: LogLuv24)
+  (``ops/native/image_codes.cpp``), Deflate (8 and 32946, Python's
   ``zlib``), the horizontal predictor on 8 and 16 bits, JPEG (7; each strip
   or tile after the JPEGTables tag, YCbCr converted to RGB per strip,
   ``ops/native/jpeg.cpp``);
@@ -26,32 +27,42 @@ gray (imgcodecs' 14-bit weights 4899 / 9617 / 1868).
   bits (16 to 8 as ``(v + 128) // 257``, unassociated alpha premultiplied
   as ``(v * a + 127) // 255``), subsampled YCbCr through
   ``TIFFYCbCrToRGBInit``'s tables, CMYK (``r = (255 - k) * (255 - c) //
-  255``), each put routine's step over a clipped tile's skipped pixels
-  (libtiff's own: a gray pixel's extra samples, 16-bit gray's second byte
-  and a 4 x 4 YCbCr block's 18 bytes are stepped over short);
+  255``), CIELab at 8 and 16 bits (``TIFFCIELab16ToXYZ`` and
+  ``TIFFXYZToRGB`` for the sRGB display, the WhitePoint tag or D50), LogL
+  and LogLuv through the SGILog codec's 8-bit data format (``L16toGry``,
+  ``Luv32toRGB``, ``Luv24toRGB``), each put routine's step over a clipped
+  tile's skipped pixels (libtiff's own: a gray pixel's extra samples,
+  16-bit gray's second byte and a 4 x 4 YCbCr block's 18 bytes are stepped
+  over short);
 - orientations 2-4 mirror, turn or flip (a tile mirrored in place), 5-8 as
   ``cv2.imdecode`` turns them (``core/exif.py``); ``cv2.imread`` returns
   None for 5-8 (its check that the decoder kept the image's buffer fails
   on the turned image).
+
+The CCITT codec is ``tif_fax3.c``'s state machine bit for bit, damaged
+data included: its bit accumulator and the zeros it pads the data with, a
+Group 3 row whose EOL is not found read again without EOLs from the
+strip's start (``FAXMODE_NOEOL``, kept for the rest of the image), the run
+arrays kept from strip to strip and their overflow, RLEW's 16-bit alignment
+counted from the address of the strip's first byte (its offset in the file
+for ``cv2.imread``, which maps the file; 0 for ``cv2.imdecode``, which
+reads each strip into an aligned buffer).
 
 Where cv2 returns None the decode raises ``ValueError`` (the reader's
 ``FileNotFoundError``): a header or directory cut or corrupt, a strip or
 tile whose bytes lie past the end of the data, samples of other depths than
 1, 8 and 16 (and 4 in a palette), floating-point samples, forms libtiff's
 RGBA interface refuses (1-bit RGB, 16-bit palettes or CMYK, subsampled
-YCbCr that is not 8-bit contig, ...), more than 4 samples, compressions
-cv2's libtiff is built without (old-style JPEG, PixarLog, LZMA, ZSTD, WebP,
-JBIG, LERC) or that need 2-bit samples (NeXT), an uncompressed tile whose
-byte count libtiff's buffer does not match (the count itself where
-``cv2.imread`` maps the file, rounded up to 1 KiB where ``cv2.imdecode``
-reads the bytes or the file needs its bits reversed).  As in cv2, a codec
-that fails inside a strip's bytes leaves that strip's decoded part and
-zeros after it, and a compression code libtiff does not know gives a black
-image.  The forms cv2 reads that the port does not decode raise
-``UnsupportedImage`` (ROADMAP A10 part 3): CIELab pixels, SGILog (LogL /
-LogLuv) pixels and CCITT RLEW (32771) data.  One difference from cv2 is
-known: a CCITT strip whose EOL codes are damaged can decode its last rows
-otherwise (libtiff retries a Group 3 row without its EOL).
+YCbCr that is not 8-bit contig, separate CIELab, LogL or LogLuv without
+SGILog compression, ...), more than 4 samples, compressions cv2's libtiff
+is built without (old-style JPEG, PixarLog, LZMA, ZSTD, WebP, JBIG, LERC)
+or that need 2-bit samples (NeXT), an uncompressed tile whose byte count
+libtiff's buffer does not match (the count itself where ``cv2.imread``
+maps the file, rounded up to 1 KiB where ``cv2.imdecode`` reads the bytes
+or the file needs its bits reversed).  As in cv2, a codec that fails inside
+a strip's bytes leaves that strip's decoded part and zeros after it, and a
+compression code libtiff does not know gives a black image.  Every form
+cv2 reads is decoded: no TIFF raises ``UnsupportedImage``.
 """
 from __future__ import annotations
 
@@ -61,9 +72,9 @@ import zlib
 import numpy as np
 
 from instancesegmentation_tpu_torch.core.exif import apply_orientation, ifd_entries
-from instancesegmentation_tpu_torch.core.png import UnsupportedImage
 from instancesegmentation_tpu_torch.core.pnm import check_size
-from instancesegmentation_tpu_torch.ops.native.image_codes import tiff_codec, tiff_fax, tiff_thunder
+from instancesegmentation_tpu_torch.ops.native.image_codes import (
+    FaxState, tiff_cielab, tiff_codec, tiff_fax, tiff_sgilog, tiff_thunder)
 from instancesegmentation_tpu_torch.ops.native.jpeg import decode_tiff_jpeg
 
 SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
@@ -132,9 +143,12 @@ class _Entry:
         return v
 
     def scalar(self, hi: int) -> int:
-        """``TIFFReadDirEntryShort`` / ``Long``: one integer value."""
+        """``TIFFReadDirEntryShort`` / ``Long``: one integer value (a SHORT
+        is not read from the IFD types 13 and 18)."""
         if self.count != 1:
             raise _EntryError("count")
+        if hi == 0xFFFF and self.type in (13, 18):
+            raise _EntryError("type")
         return self.ints(0, hi)[0]
 
     def per_sample(self, spp: int) -> int:
@@ -267,6 +281,7 @@ class _Directory:
                 self.colormap = optional(320, lambda e: np.array(e.ints(0, 0xFFFF), np.int64)
                                          .reshape(3, -1), None)
         self.t4 = optional(292, lambda e: e.scalar(0xFFFFFFFF), 0)
+        self.whitepoint = optional(318, _floats(2), None)
         # the non-colour channels become extra samples
         cc = _COLOR_CHANNELS.get(self.photometric)
         if cc and spp - len(self.extra) > cc:
@@ -285,14 +300,16 @@ class _Directory:
         if self.tiled:
             tw, th = self.tile
             per_plane = -(-self.width // tw) * -(-self.height // th)
-            off_tag, cnt_tag = 324, 325
         else:
             rps = min(self.rps, self.height) if self.height else self.rps
             per_plane = -(-self.height // rps) if self.height else 0
-            off_tag, cnt_tag = 273, 279
         n = per_plane * (self.spp if self.planar == 2 else 1)
         if n == 0:
             raise _Bad("no strips or tiles")
+        # TIFFReadDirectory reads StripOffsets and TileOffsets (and the two
+        # byte counts) into one field, the later entry of the two winning
+        off_tag = self._later(273, 324)
+        cnt_tag = self._later(279, 325)
         if off_tag not in tags:
             raise _Bad("no StripOffsets or TileOffsets")
         try:  # TIFFFetchStripThing: at most n values, a short array padded with zeros
@@ -321,6 +338,12 @@ class _Directory:
         if (self.compression == JPEG and self.photometric == YCBCR and self.planar == 1
                 and self.spp == 3 and self.subsampling is None and offsets[0]):
             self._jpeg_subsampling(offsets[0], counts[0])
+
+    def _later(self, a: int, b: int) -> int:
+        """Of tags ``a`` and ``b``, the one whose first entry comes later
+        in the directory (``a`` where neither is there)."""
+        at = {tag: self.entries.index(e) for tag, e in self.tags.items() if tag in (a, b)}
+        return max(at, key=at.get) if at else a
 
     def _jpeg_subsampling(self, offset: int, count: int) -> None:
         """``JPEGFixupTagsSubsampling``: without a YCbCrSubsampling tag,
@@ -436,6 +459,32 @@ def _raise(e: Exception):
     raise e
 
 
+def _floats(count: int):
+    """A reader of a ``TIFF_SETGET_C0_FLOAT`` tag of ``count`` values
+    (``TIFFReadDirEntryFloatArray``: a rational as ``(float) num / (float)
+    den``, 0 for a zero denominator; other types cast to float)."""
+    def read(e: _Entry) -> tuple:
+        if e.count != count or e.type not in _TYPES:
+            raise _EntryError("count")
+        if e.type in (5, 10):
+            size = 8
+            at = e.pos if size * count <= (8 if e.big else 4) else \
+                struct.unpack_from(e.order + ("Q" if e.big else "I"), e.data, e.pos)[0]
+            if at + size * count > len(e.data):
+                raise _EntryError("io")
+            raw = struct.unpack_from(e.order + ("ii" if e.type == 10 else "II") * count,
+                                     e.data, at)
+            return tuple(np.float32(0.0) if den == 0 else np.float32(num) / np.float32(den)
+                         for num, den in zip(raw[::2], raw[1::2]))
+        return tuple(np.float32(v) for v in e.values())
+    return read
+
+
+#: TIFFGetFieldDefaulted's WhitePoint: CIE D50 in float arithmetic
+_D50 = (np.float32(96.4250), np.float32(100.0), np.float32(82.4680))
+_D50_WHITEPOINT = (_D50[0] / (_D50[0] + _D50[1] + _D50[2]), _D50[1] / (_D50[0] + _D50[1] + _D50[2]))
+
+
 # -- the RGBA read -------------------------------------------------------------------
 
 
@@ -504,6 +553,7 @@ class _Image:
 
     def __init__(self, d: _Directory):
         self.d = d
+        self.sgilog = None
         if d.compression in _NOT_CONFIGURED:
             raise _Bad(f"{_NOT_CONFIGURED[d.compression]} compression is not configured in cv2's "
                        "libtiff")
@@ -529,14 +579,22 @@ class _Image:
         elif photometric == CIELAB:
             if d.spp != 3 or colorchannels != 3 or d.bps not in (8, 16) or d.planar != 1:
                 raise _Bad("a CIELab form TIFFRGBAImage cannot handle")
-            raise UnsupportedImage("TIFF CIELab pixels are not decoded (ROADMAP A10 part 3)")
+            self.whitepoint = d.whitepoint or _D50_WHITEPOINT
+            if self.whitepoint[1] == 0:  # initCIELabConversion
+                raise _Bad("CIELab with a WhitePoint y of 0")
         elif photometric in (LOGL, LOGLUV):
             if photometric == LOGL and d.compression != SGILOG or photometric == LOGLUV and (
                     d.compression not in (SGILOG, SGILOG24) or d.planar != 1 or d.spp != 3
                     or colorchannels != 3):
                 raise _Bad("LogL / LogLuv data without SGILog compression")
-            raise UnsupportedImage("TIFF SGILog (LogL / LogLuv) pixels are not decoded "
-                                   "(ROADMAP A10 part 3)")
+            if photometric == LOGL and d.spp != 1:  # LogL16InitState
+                raise _Bad("LogL with more than one sample per pixel")
+            # TIFFRGBAImageBegin asks the codec for 8-bit data (its
+            # SGILOGDATAFMT_8BIT sets BitsPerSample 8): LogL as 8-bit gray,
+            # LogLuv as 8-bit RGB
+            self.sgilog = 0 if photometric == LOGL else 1 if d.compression == SGILOG else 2
+            d.bps, d.sample_format = 8, 1
+            photometric = MINISBLACK if photometric == LOGL else RGB
         elif photometric != YCBCR:
             raise _Bad(f"photometric {photometric}")
         alpha = 0
@@ -559,7 +617,7 @@ class _Image:
         self.contig = not (d.planar == 2 and d.spp > 1)
         bps, spp = d.bps, d.spp
         if self.contig:
-            ok = {RGB: bps in (8, 16) and spp >= 3,
+            ok = {RGB: bps in (8, 16) and spp >= 3, CIELAB: True,
                   SEPARATED: bps == 8 and spp >= 4,
                   PALETTE: bps in (1, 2, 4, 8),
                   MINISWHITE: bps in (1, 2, 4, 8, 16),
@@ -568,7 +626,7 @@ class _Image:
                       (4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))}[photometric]
         else:
             ok = {RGB: bps in (8, 16), MINISWHITE: bps in (8, 16), MINISBLACK: bps in (8, 16),
-                  SEPARATED: bps == 8 and spp == 4,
+                  SEPARATED: bps == 8 and spp == 4, CIELAB: False,
                   YCBCR: bps == 8 and spp == 3 and tuple(d.sub) == (1, 1),
                   PALETTE: False}[photometric]
         if not ok:
@@ -622,7 +680,7 @@ class _Image:
         d, ph = self.d, self.photometric
         if d.bps < 8:
             return fromskew // (8 // d.bps)
-        if ph in (RGB, SEPARATED):
+        if ph in (RGB, SEPARATED, CIELAB):
             return fromskew * spp * (d.bps // 8)
         return fromskew
 
@@ -655,6 +713,8 @@ class _Image:
             return np.repeat(g[..., None], 3, axis=2).astype(np.uint8)
         if ph == PALETTE:
             return self.cmap[v[..., 0]]
+        if ph == CIELAB:
+            return tiff_cielab(v[..., :3], d.bps, self.whitepoint)
         if ph == SEPARATED:
             k = 255 - v[..., 3:4]
             return (k * (255 - v[..., :3]) // 255).astype(np.uint8)
@@ -744,7 +804,9 @@ class _Reader:
         # libtiff uses a mapped file's bytes where they need no bit reversal,
         # else reads them into its raw buffer, grown in steps of 1 KiB
         self.direct = mapped and d.fillorder == 1
+        self.mapped = mapped
         self.raw_buffer = 0
+        self.fax = None
         if d.compression in (LZW, DEFLATE, DEFLATE_OLD) and d.predictor != 1:
             if d.predictor == 2:
                 if d.bps not in (8, 16, 32, 64):
@@ -759,11 +821,8 @@ class _Reader:
             raise _Bad("ThunderScan data that is not 4-bit")
         if d.compression == NEXT:  # NeXTPreDecode takes 2-bit samples only, which cv2 refuses
             raise _Bad("NeXT data")
-        if d.compression in (SGILOG, SGILOG24):  # LogLuvSetupDecode
+        if d.compression in (SGILOG, SGILOG24) and img.sgilog is None:  # LogLuvSetupDecode
             raise _Bad("SGILog data of a photometric that is not LogL / LogLuv")
-        if d.compression == CCITTRLEW:
-            raise UnsupportedImage("TIFF CCITT RLEW compression (32771) is not decoded "
-                                   "(ROADMAP A10 part 3)")
 
     def raw(self, index: int) -> bytes:
         """The strip or tile's bytes (``TIFFFillStrip``: past the end of the
@@ -813,10 +872,18 @@ class _Reader:
             out, failed = _inflate(raw, size)
         elif c == JPEG:
             out = self._jpeg(raw, index, size, rows, width)
-        elif c in (CCITTRLE, CCITTFAX3, CCITTFAX4):
-            out, failed = tiff_fax(c, d.t4, raw, rows, width, size)
+        elif c in (CCITTRLE, CCITTFAX3, CCITTFAX4, CCITTRLEW):
+            # a mapped strip is read where it lies in the file (the CCITT
+            # codec reverses FillOrder 2's bits itself), a read one from the
+            # start of libtiff's aligned raw buffer
+            parity = d.offsets[index] & 1 if self.mapped else 0
+            if self.fax is None:
+                self.fax = FaxState(width, c == CCITTFAX4 or (c == CCITTFAX3 and d.t4 & 1))
+            out, failed = tiff_fax(c, d.t4, raw, rows, width, size, parity, self.fax)
         elif c == THUNDERSCAN:
             out, failed = tiff_thunder(raw, rows, d.width, size)
+        elif c in (SGILOG, SGILOG24):
+            out, failed = tiff_sgilog(self.img.sgilog, raw, rows, width, size)
         else:  # a code libtiff does not know: no decoder, the strip stays zero
             out = np.zeros(size, np.uint8)
         if not failed and d.predictor == 2 and c in (LZW, DEFLATE, DEFLATE_OLD):
@@ -866,8 +933,7 @@ def decode_tiff(data: bytes, mode: str = "color", path: str = "<bytes>",
     """TIFF / BigTIFF bytes -> RGB ``[H, W, 3]`` (``"color"``) or
     ``[H, W]`` (``"gray"``) uint8, as ``cv2.imread`` reads the first image
     of the file (``imread=False``: as ``cv2.imdecode`` reads the bytes);
-    raises ``ValueError`` where cv2 returns None and ``UnsupportedImage``
-    for a form cv2 reads that the port does not."""
+    raises ``ValueError`` where cv2 returns None."""
     try:
         d = _Directory(data)
     except _Bad as e:
@@ -901,8 +967,6 @@ def decode_tiff(data: bytes, mode: str = "color", path: str = "<bytes>",
         rgb = _read(d, img, reader)
     except _Bad as e:
         raise ValueError(f"{path}: {e}") from None
-    except UnsupportedImage as e:
-        raise UnsupportedImage(f"{path}: {e}") from None
     if d.orientation >= 5:  # cv2.imdecode turns the image as EXIF's orientation would
         undo = {5: 1, 6: 2, 7: 3, 8: 4}[d.orientation]
         rgb = apply_orientation(apply_orientation(rgb, undo), d.orientation)

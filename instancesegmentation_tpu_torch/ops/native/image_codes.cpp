@@ -10,9 +10,11 @@
 // where libtiff reports an error, whose partial output cv2 keeps.  A read
 // never goes past `n` and a write never past its output.
 
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
 #include <vector>
 
 extern "C" {
@@ -387,287 +389,372 @@ const FaxCode kMakeUp[] = {
     {0x14, 12, 2112}, {0x15, 12, 2176}, {0x16, 12, 2240}, {0x17, 12, 2304}, {0x1c, 12, 2368},
     {0x1d, 12, 2432}, {0x1e, 12, 2496}, {0x1f, 12, 2560}};
 
-// a code table read `width` bits at a time (tif_fax3sm.c's 12- and 13-bit
-// tables): each entry the code's length and its run (-1 EOL: eleven zeros,
-// -2 no code)
+// a code table read `width` bits at a time, the first bit of the data in
+// the index's lowest bit (tif_fax3sm.c's 12- and 13-bit tables and its
+// 7-bit main table): each entry a state, the code's length and its run.  An
+// index no code fits is S_NULL of length 0; eleven zeros are an EOL of
+// length 11 (the EOL's final 1 is found by the row's synchronisation).
+enum FaxState : uint8_t {
+  S_NULL, S_PASS, S_HORIZ, S_V0, S_VR, S_VL, S_EXT, S_TERM, S_MAKEUP, S_EOL
+};
+struct FaxEntry {
+  uint8_t state, len;
+  int16_t param;
+};
 struct FaxTable {
   int width;
-  std::vector<uint8_t> len;
-  std::vector<int16_t> run;
-  FaxTable(const FaxCode* codes, int n, int w) : width(w), len(1 << w, 0), run(1 << w, -2) {
-    auto add = [&](const FaxCode& c) {
-      const int shift = w - c.len;
-      for (int i = 0; i < (1 << shift); ++i) {
-        len[((int)c.code << shift) | i] = c.len;
-        run[((int)c.code << shift) | i] = c.run;
-      }
-    };
-    for (int i = 0; i < n; ++i) add(codes[i]);
-    for (const FaxCode& c : kMakeUp) add(c);
-    for (int i = 0; i < (1 << (w - 11)); ++i) {  // eleven zeros
-      len[i] = 11;
-      run[i] = -1;
-    }
+  std::vector<FaxEntry> e;
+  static int reverse(int v, int n) {
+    int r = 0;
+    for (int i = 0; i < n; ++i) r |= ((v >> i) & 1) << (n - 1 - i);
+    return r;
+  }
+  void add(int code, int len, uint8_t state, int param) {
+    const int low = reverse(code, len);
+    for (int i = 0; i < (1 << (width - len)); ++i) e[low | (i << len)] = {state, (uint8_t)len,
+                                                                          (int16_t)param};
+  }
+  FaxTable(const FaxCode* codes, int n, int w) : width(w), e(1 << w, FaxEntry{S_NULL, 0, 0}) {
+    for (int i = 0; i < n; ++i) add(codes[i].code, codes[i].len,
+                                    codes[i].run < 64 ? S_TERM : S_MAKEUP, codes[i].run);
+    for (const FaxCode& c : kMakeUp) add(c.code, c.len, S_MAKEUP, c.run);
+    add(0, 11, S_EOL, 0);
+  }
+  // the 2-D mode codes (T.4 table 4): P 0001, H 001, V0 1, VR1-3 011,
+  // 000011, 0000011, VL1-3 010, 000010, 0000010, extension 0000001, EOL
+  // 0000000 (its other four zeros read after it)
+  FaxTable() : width(7), e(1 << 7, FaxEntry{S_NULL, 0, 0}) {
+    add(1, 1, S_V0, 0);
+    add(3, 3, S_VR, 1);
+    add(2, 3, S_VL, 1);
+    add(1, 3, S_HORIZ, 0);
+    add(1, 4, S_PASS, 0);
+    add(3, 6, S_VR, 2);
+    add(2, 6, S_VL, 2);
+    add(3, 7, S_VR, 3);
+    add(2, 7, S_VL, 3);
+    add(1, 7, S_EXT, 0);
+    add(0, 7, S_EOL, 0);
   }
 };
 
-struct FaxBits {
-  const uint8_t* d;
-  int64_t nbits, pos = 0;
-  // the next `w` bits MSB first (zeros past the end); false where no bit is left
-  bool peek(int w, int* v) const {
-    if (pos >= nbits) return false;
-    int x = 0;
-    for (int i = 0; i < w; ++i) {
-      const int64_t p = pos + i;
-      x = (x << 1) | (p < nbits ? (d[p >> 3] >> (7 - (p & 7))) & 1 : 0);
-    }
-    *v = x;
-    return true;
-  }
-  void skip(int w) { pos += w; }
-};
+// the length of each of the two run arrays of an image `width` pixels wide
+// (`runs` of tiff_fax holds 2 * fax_nruns + 4 entries, zero at first)
+int64_t fax_nruns(int width, int two_d) {
+  const int64_t n = ((int64_t)width + 1 + 31) / 32 * 32;  // TIFFroundup_32(width + 1, 32)
+  return two_d ? 2 * n : n;
+}
 
-// tif_fax3.c's decoders on one strip or tile: `rows` rows of `width`
-// pixels into `out` (rows of (width + 7) / 8 bytes, a 1 bit for a black
-// run).  compression 2 (RLE: modified Huffman rows, each byte-aligned), 3
-// (Group 3: each row after an EOL, 1-D, or with `two_d` a tag bit choosing
-// 1-D or 2-D against the row above), 4 (Group 4: 2-D rows, the first
-// against a white row, until the end or an EOFB).  A code that fits no
-// table ends its row, padded to the width; the data ending inside a row
-// fills that row and stops with an error (Group 4: not after a whole row).
+// tif_fax3.c's decoders (libtiff 4.7.1) on one strip or tile: `rows` rows
+// of `width` pixels into `out` (rows of (width + 7) / 8 bytes, zero on
+// entry; a 1 bit for a black run).  compression 2 (RLE: modified Huffman
+// rows, each byte-aligned) and 32771 (RLEW: each row aligned to 16 bits,
+// counted from the strip's first byte, whose address parity is `parity`),
+// 3 (Group 3: each row after an EOL, 1-D, or with `two_d` a tag bit
+// choosing 1-D or 2-D against the row above), 4 (Group 4: 2-D rows, the
+// first against a white row, until the end or an EOFB); `runs` the
+// image's run arrays, kept from strip to strip.
+//
+// The bits are read as libtiff's macros read them: a 32-bit accumulator
+// filled a byte at a time where a lookup needs more bits than it holds,
+// padded with zeros at the end of the data while any bit is left (so a
+// decode runs on into the zeros), and the end reached only with none left.
+// A code that fits no table ends its row, padded to the width.  A Group 3
+// row whose EOL search runs out of data after its eleven zeros is decoded
+// without its EOL, from the strip's first bit again, and from then on no Group 3 row looks for one (libtiff's
+// FAXMODE_NOEOL, which lasts for the rest of the image: `*noeol` in and
+// out).  The end of the data inside a row fills that row and stops with an
+// error (Group 4: no error after a whole row); a row whose runs outgrow
+// libtiff's run arrays stops the decode unfilled.  Returns 0, or 1 where
+// libtiff reports an error.
 int tiff_fax(int compression, int two_d, const uint8_t* data, int64_t n, int width, int rows,
-             uint8_t* out) {
+             int parity, int* noeol, uint32_t* runs, uint8_t* out) {
   static const FaxTable white(kWhite, sizeof(kWhite) / sizeof(FaxCode), 12);
   static const FaxTable black(kBlack, sizeof(kBlack) / sizeof(FaxCode), 13);
-  FaxBits br{data, n * 8};
-  const int lastx = width, rowbytes = (width + 7) / 8;
-  const size_t nruns = 2 * (size_t)width + 8;
-  std::vector<int64_t> cur(nruns + 2), ref(nruns + 2);  // fill may pad one run
-  ref[0] = lastx;  // the white row above the first
-  ref[1] = 0;
-  int64_t* thisrun = cur.data();
-  int64_t* pa = thisrun;
-  int64_t a0 = 0, run_length = 0;
-  int eol = 0;
-  auto setvalue = [&](int64_t x) {
-    if (pa < thisrun + nruns) *pa++ = run_length + x;
-    a0 += x;
-    run_length = 0;
-  };
-  auto cleanup = [&] {  // CLEANUP_RUNS
-    if (run_length) setvalue(0);
-    if (a0 != lastx) {
-      while (a0 > lastx && pa > thisrun) a0 -= *--pa;
-      if (a0 < lastx) {
-        if (a0 < 0) a0 = 0;
-        if ((pa - thisrun) & 1) setvalue(0);
-        setvalue(lastx - a0);
-      } else if (a0 > lastx) {
-        setvalue(lastx);
-        setvalue(0);
+  static const FaxTable mode2d;
+  static uint8_t rev[256];
+  static const bool rev_ready = [] {
+    for (int i = 0; i < 256; ++i) rev[i] = (uint8_t)FaxTable::reverse(i, 8);
+    return true;
+  }();
+  (void)rev_ready;
+  const uint8_t* cp = data;
+  const uint8_t* const ep = data + n;
+  uint32_t acc = 0;
+  int avail = 0;
+  // NeedBits8 / NeedBits16: false where the data has ended with no bit left
+  auto need8 = [&](int k) -> bool {
+    if (avail < k) {
+      if (cp >= ep) {
+        if (avail == 0) return false;
+        avail = k;
+      } else {
+        acc |= (uint32_t)rev[*cp++] << avail;
+        avail += 8;
       }
     }
+    return true;
   };
-  auto fill = [&](uint8_t* row) {  // _TIFFFax3fillruns, on uint32 runs
-    int64_t x = 0;
-    int64_t* end = pa;
+  auto need16 = [&](int k) -> bool {
+    if (avail < k) {
+      if (cp >= ep) {
+        if (avail == 0) return false;
+        avail = k;
+      } else {
+        acc |= (uint32_t)rev[*cp++] << avail;
+        if ((avail += 8) < k) {
+          if (cp >= ep) {
+            avail = k;
+          } else {
+            acc |= (uint32_t)rev[*cp++] << avail;
+            avail += 8;
+          }
+        }
+      }
+    }
+    return true;
+  };
+  auto bits = [&](int k) -> int { return (int)(acc & ((1u << k) - 1)); };
+  auto clear = [&](int k) {
+    avail -= k;
+    acc >>= k;
+  };
+
+  const bool is_2d_coded = compression == 4 || (compression == 3 && two_d);
+  const int lastx = width, rowbytes = (width + 7) / 8;
+  // Fax3SetupState's run arrays, a row's runs and the reference row's:
+  // libtiff keeps them for the whole image, so a reference row read past
+  // its imaginary last change finds runs of rows decoded earlier
+  const int64_t nruns = fax_nruns(width, is_2d_coded);
+  uint32_t* curruns = runs;
+  uint32_t* refruns = runs + nruns;
+  refruns[0] = (uint32_t)lastx;  // the white row above the first
+  refruns[1] = 0;
+  uint32_t* thisrun = curruns;
+  uint32_t* pa = thisrun;
+  uint32_t* pb = refruns;
+  int a0 = 0, run_length = 0, b1 = 0, eolcnt = 0;
+  enum { DONE, END, OVERFLOW };
+
+  // SETVALUE: false where the run array is full (the decode stops)
+  auto setvalue = [&](int x) -> bool {
+    if (pa >= thisrun + nruns) return false;
+    *pa++ = (uint32_t)(run_length + x);
+    a0 += x;
+    run_length = 0;
+    return true;
+  };
+  auto cleanup = [&]() -> bool {  // CLEANUP_RUNS
+    if (run_length && !setvalue(0)) return false;
+    if (a0 != lastx) {
+      while (a0 > lastx && pa > thisrun) a0 -= (int)*--pa;
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if (((pa - thisrun) & 1) && !setvalue(0)) return false;
+        if (!setvalue(lastx - a0)) return false;
+      } else if (a0 > lastx) {
+        if (!setvalue(lastx) || !setvalue(0)) return false;
+      }
+    }
+    return true;
+  };
+  auto fill = [&](uint8_t* row) {  // _TIFFFax3fillruns
+    uint32_t x = 0;
+    uint32_t* end = pa;
     if ((end - thisrun) & 1) *end++ = 0;
-    for (int64_t* r = thisrun; r < end; r += 2) {
-      int64_t w = (uint32_t)r[0];
-      if (x + w > lastx || w > lastx) w = lastx - x;
+    for (uint32_t* r = thisrun; r < end; r += 2) {
+      uint32_t w = r[0];
+      if (x + w > (uint32_t)lastx || w > (uint32_t)lastx) w = r[0] = (uint32_t)lastx - x;
       x += w;
-      int64_t b = (uint32_t)r[1];
-      if (x + b > lastx || b > lastx) b = lastx - x;
-      for (int64_t i = x; i < x + b; ++i) row[i >> 3] |= (uint8_t)(0x80 >> (i & 7));
+      uint32_t b = r[1];
+      if (x + b > (uint32_t)lastx || b > (uint32_t)lastx) b = r[1] = (uint32_t)lastx - x;
+      for (uint32_t i = x; i < x + b; ++i) row[i >> 3] |= (uint8_t)(0x80 >> (i & 7));
       x += b;
     }
   };
-  // one modified Huffman run of `t`'s colour, make-up codes summed; 0 the
-  // run is set, 1 an EOL or a bad code ended the row, 2 the data ended
-  auto mh_run = [&](const FaxTable& t) -> int {
+  // one modified Huffman run of `t`'s colour, make-up codes summed: DONE
+  // the run is set (or an EOL or a code that fits no table ended the row:
+  // `*row_ended`; an EOL of a 1-D row counts as the next row's), END the
+  // data ended, OVERFLOW the run array is full
+  auto mh_run = [&](const FaxTable& t, bool* row_ended, bool one_d = true) -> int {
     for (;;) {
-      int v;
-      if (!br.peek(t.width, &v)) return 2;
-      const int r = t.run[v];
-      if (r == -2) return 1;
-      br.skip(t.len[v]);
-      if (r == -1) {
-        eol = 1;
-        return 1;
+      if (!need16(t.width)) return END;
+      const FaxEntry e = t.e[bits(t.width)];
+      clear(e.len);
+      if (e.state == S_TERM) return setvalue(e.param) ? DONE : OVERFLOW;
+      if (e.state == S_MAKEUP) {
+        a0 += e.param;
+        run_length += e.param;
+        continue;
       }
-      if (r < 64) {
-        setvalue(r);
-        return 0;
-      }
-      a0 += r;
-      run_length += r;
+      if (e.state == S_EOL && one_d) eolcnt = 1;
+      *row_ended = true;
+      return DONE;
     }
   };
-  auto expand_1d = [&]() -> int {  // EXPAND1D: 0 row done, 2 data ended
+  auto expand_1d = [&]() -> int {  // EXPAND1D
     for (;;) {
-      int rc = mh_run(white);
-      if (rc) return rc == 2 ? (cleanup(), 2) : (cleanup(), 0);
-      if (a0 >= lastx) break;
-      rc = mh_run(black);
-      if (rc) return rc == 2 ? (cleanup(), 2) : (cleanup(), 0);
-      if (a0 >= lastx) break;
-      if (pa - thisrun >= 2 && pa[-1] == 0 && pa[-2] == 0) pa -= 2;
+      bool ended = false;
+      int rc = mh_run(white, &ended);
+      if (rc == OVERFLOW) return OVERFLOW;
+      if (rc == END) return cleanup() ? END : OVERFLOW;
+      if (ended || a0 >= lastx) break;
+      rc = mh_run(black, &ended);
+      if (rc == OVERFLOW) return OVERFLOW;
+      if (rc == END) return cleanup() ? END : OVERFLOW;
+      if (ended || a0 >= lastx) break;
+      if (pa[-1] == 0 && pa[-2] == 0) pa -= 2;
     }
-    cleanup();
-    return 0;
+    return cleanup() ? DONE : OVERFLOW;
   };
-  auto expand_2d = [&]() -> int {  // EXPAND2D against `ref`
-    int64_t* pb = ref.data();
-    int64_t* const pb_end = ref.data() + nruns;
-    int64_t b1 = *pb++;
-    auto check_b1 = [&]() -> bool {
+  auto expand_2d = [&]() -> int {  // EXPAND2D against the reference row
+    uint32_t* const ref_end = refruns + nruns;
+    auto check_b1 = [&]() -> bool {  // CHECK_b1
       if (pa != thisrun)
         while (b1 <= a0 && b1 < lastx) {
-          if (pb + 1 >= pb_end) return false;
-          b1 += pb[0] + pb[1];
+          if (pb + 1 >= ref_end) return false;
+          b1 += (int)(pb[0] + pb[1]);
           pb += 2;
         }
       return true;
     };
     while (a0 < lastx) {
-      int v;
-      if (!br.peek(7, &v)) return cleanup(), 2;
-      // the main table: P 0001, H 001, V0 1, VR1 011, VR2 000011, VR3
-      // 0000011, VL1 010, VL2 000010, VL3 0000010, extension 0000001,
-      // EOL 0000000
-      int mode, len, param = 0;
-      if (v >> 6) mode = 0, len = 1;                                    // V0
-      else if ((v >> 4) == 3) mode = 1, len = 3, param = 1;             // VR1
-      else if ((v >> 4) == 2) mode = 2, len = 3, param = 1;             // VL1
-      else if ((v >> 4) == 1) mode = 4, len = 3;                        // H
-      else if ((v >> 3) == 1) mode = 3, len = 4;                        // P
-      else if ((v >> 1) == 3) mode = 1, len = 6, param = 2;             // VR2
-      else if ((v >> 1) == 2) mode = 2, len = 6, param = 2;             // VL2
-      else if (v == 3) mode = 1, len = 7, param = 3;                    // VR3
-      else if (v == 2) mode = 2, len = 7, param = 3;                    // VL3
-      else if (v == 1) mode = 5, len = 7;                               // extension
-      else mode = 6, len = 7;                                           // EOL
-      br.skip(len);
-      switch (mode) {
-        case 0:
-        case 1:
-          if (!check_b1()) return cleanup(), 2;
-          setvalue(b1 - a0 + param);
-          if (pb >= pb_end) return cleanup(), 2;
-          b1 += *pb++;
-          break;
-        case 2:
-          if (!check_b1()) return cleanup(), 2;
-          if (b1 < a0 + param) return cleanup(), 0;
-          setvalue(b1 - a0 - param);
-          if (pb == ref.data()) return cleanup(), 0;  // no run left of b1
-          b1 -= *--pb;
-          break;
-        case 3:
-          if (!check_b1()) return cleanup(), 2;
-          if (pb + 1 >= pb_end) return cleanup(), 2;
-          b1 += *pb++;
+      if (pa >= thisrun + nruns) return OVERFLOW;
+      if (!need8(7)) return cleanup() ? END : OVERFLOW;
+      const FaxEntry e = mode2d.e[bits(7)];
+      clear(e.len);
+      switch (e.state) {
+        case S_PASS:
+          if (!check_b1() || pb + 1 >= ref_end) return OVERFLOW;
+          b1 += (int)*pb++;
           run_length += b1 - a0;
           a0 = b1;
-          b1 += *pb++;
+          b1 += (int)*pb++;
           break;
-        case 4: {
+        case S_HORIZ: {
           const bool black_first = (pa - thisrun) & 1;
-          int rc = mh_run(black_first ? black : white);
-          if (rc == 2) return cleanup(), 2;
-          if (rc == 1) return cleanup(), 0;
-          rc = mh_run(black_first ? white : black);
-          if (rc == 2) return cleanup(), 2;
-          if (rc == 1) return cleanup(), 0;
-          if (!check_b1()) return cleanup(), 2;
+          bool ended = false;
+          int rc = mh_run(black_first ? black : white, &ended, false);
+          if (rc == OVERFLOW) return OVERFLOW;
+          if (rc == END) return cleanup() ? END : OVERFLOW;
+          if (ended) return cleanup() ? DONE : OVERFLOW;
+          rc = mh_run(black_first ? white : black, &ended, false);
+          if (rc == OVERFLOW) return OVERFLOW;
+          if (rc == END) return cleanup() ? END : OVERFLOW;
+          if (ended) return cleanup() ? DONE : OVERFLOW;
+          if (!check_b1()) return OVERFLOW;
           break;
         }
-        case 5:
-          if (pa < thisrun + nruns) *pa++ = lastx - a0;
-          return cleanup(), 0;
-        default: {
-          if (pa < thisrun + nruns) *pa++ = lastx - a0;
-          int z;
-          if (!br.peek(4, &z)) return cleanup(), 2;
-          br.skip(4);
-          eol = 1;
-          return cleanup(), 0;
-        }
+        case S_V0:
+        case S_VR:
+          if (!check_b1() || !setvalue(b1 - a0 + e.param) || pb >= ref_end) return OVERFLOW;
+          b1 += (int)*pb++;
+          break;
+        case S_VL:
+          if (!check_b1()) return OVERFLOW;
+          if (b1 < a0 + e.param) return cleanup() ? DONE : OVERFLOW;
+          if (!setvalue(b1 - a0 - e.param)) return OVERFLOW;
+          if (pb == refruns) return cleanup() ? DONE : OVERFLOW;  // no run left of b1
+          b1 -= (int)*--pb;
+          break;
+        case S_EXT:
+          *pa++ = (uint32_t)(lastx - a0);
+          return cleanup() ? DONE : OVERFLOW;
+        default:  // S_EOL: its other four zeros
+          *pa++ = (uint32_t)(lastx - a0);
+          if (!need8(4)) return cleanup() ? END : OVERFLOW;
+          clear(4);
+          eolcnt = 1;
+          return cleanup() ? DONE : OVERFLOW;
       }
     }
     if (run_length) {
       if (run_length + a0 < lastx) {  // a final V0 is expected
-        int z;
-        if (!br.peek(1, &z)) return cleanup(), 2;
-        if (!z) return cleanup(), 0;
-        br.skip(1);
+        if (!need8(1)) return cleanup() ? END : OVERFLOW;
+        if (!bits(1)) return cleanup() ? DONE : OVERFLOW;
+        clear(1);
       }
-      setvalue(0);
+      if (!setvalue(0)) return OVERFLOW;
     }
-    cleanup();
-    return 0;
+    return cleanup() ? DONE : OVERFLOW;
   };
-  auto sync_eol = [&]() -> bool {  // SYNC_EOL: false where the data ends
-    int v;
-    if (!eol) {
+  // SYNC_EOL: DONE after the EOL, END where the data ends before its
+  // eleven zeros; where it ends after them, the row is read without an EOL
+  // from the strip's first bit (libtiff caches the input state again)
+  auto sync_eol = [&]() -> int {
+    if (*noeol) return DONE;
+    if (eolcnt == 0) {
       for (;;) {
-        if (!br.peek(11, &v)) return false;
-        if (v == 0) break;
-        br.skip(1);
+        if (!need16(11)) return END;
+        if (bits(11) == 0) break;
+        clear(1);
       }
     }
     for (;;) {
-      if (!br.peek(8, &v)) return false;
-      if (v) break;
-      br.skip(8);
+      if (!need8(8)) {  // no EOL: the row read from the strip's first bit
+        *noeol = 1;
+        cp = data;
+        acc = 0;
+        avail = 0;
+        eolcnt = 0;
+        return DONE;
+      }
+      if (bits(8)) break;
+      clear(8);
     }
-    for (;;) {
-      br.peek(1, &v);
-      if (v) break;
-      br.skip(1);
-    }
-    br.skip(1);
-    eol = 0;
-    return true;
+    while (bits(1) == 0) clear(1);
+    clear(1);
+    eolcnt = 0;
+    return DONE;
   };
+
   for (int y = 0; y < rows; ++y) {
     uint8_t* row = out + (int64_t)y * rowbytes;
     a0 = 0;
     run_length = 0;
-    pa = thisrun;
+    pa = thisrun = curruns;
     int rc;
-    bool is_2d = compression == 4;
     if (compression == 3) {
-      if (!sync_eol()) {
-        cleanup();
+      if (sync_eol() == END) {
+        if (!cleanup()) return 1;
         fill(row);
         return 1;
       }
-      if (two_d) {
-        int v;
-        if (!br.peek(1, &v)) {
-          cleanup();
-          fill(row);
-          return 1;
-        }
-        br.skip(1);
-        is_2d = v == 0;
-      }
     }
+    bool is_2d = compression == 4;
+    if (compression == 3 && two_d) {
+      if (!need8(1)) {
+        if (!cleanup()) return 1;
+        fill(row);
+        return 1;
+      }
+      is_2d = bits(1) == 0;
+      clear(1);
+    }
+    pb = refruns;
+    b1 = (int)*pb++;
     rc = is_2d ? expand_2d() : expand_1d();
-    if (compression == 4 && (rc == 2 || eol)) {
+    if (rc == OVERFLOW) return 1;
+    if (compression == 4 && (rc == END || eolcnt)) {  // Fax4Decode's EOFB
       fill(row);
-      return y > 0 ? 0 : 1;  // Fax4Decode takes a strip cut after a row
+      return y > 0 ? 0 : 1;  // a strip cut after a row is no error
     }
     fill(row);
-    if (rc == 2) return 1;
-    if (compression == 2) br.pos = (br.pos + 7) & ~(int64_t)7;  // FAXMODE_BYTEALIGN
-    if (pa < thisrun + nruns) {
-      *pa++ = 0;  // the imaginary change of the reference row
+    if (rc == END) return 1;
+    if (compression == 2) {  // FAXMODE_BYTEALIGN
+      clear(avail & 7);
+    } else if (compression == 32771) {  // FAXMODE_WORDALIGN
+      clear(avail & 15);
+      if (avail == 0 && ((cp - data) + parity) & 1) ++cp;
     }
-    std::swap(cur, ref);
-    thisrun = cur.data();
+    if (is_2d_coded) {
+      if (compression == 4) {
+        if (!setvalue(0)) return 1;  // the imaginary change of the reference row
+      } else if (pa < thisrun + nruns) {
+        setvalue(0);
+      }
+      std::swap(curruns, refruns);
+    }
   }
   return 0;
 }
@@ -733,6 +820,278 @@ int tiff_thunder(const uint8_t* data, int64_t n, int width, int rows, uint8_t* o
       uint8_t* end = op0 + (maxpixels + 1) / 2;
       if (op < end) memset(op, 0, end - op);
       return 1;
+    }
+  }
+  return 0;
+}
+
+// ------------------------------------------------------- TIFF CIELab
+// TIFFRGBAImage's CIELab put routines (putcontig8bitCIELab8 / 16):
+// tif_color.c's TIFFCIELab16ToXYZ (8-bit samples as l * 257, a * 256,
+// b * 256) and TIFFXYZToRGB through TIFFCIELabToRGBInit's tables for
+// tif_getimage.c's display_sRGB, in libtiff's float and double arithmetic.
+// `samples` holds n pixels of L, a, b as the file stores them (a and b
+// two's complement in `bits` 8 or 16 bits); `wp` the WhitePoint tag's x,
+// y.  Returns 1 (no output) where y is 0, as initCIELabConversion refuses.
+int tiff_cielab(const int32_t* samples, int64_t n, int bits, float wp_x, float wp_y,
+                uint8_t* rgb) {
+  if (wp_y == 0.0f) return 1;
+  // display_sRGB: the XYZ -> RGB matrix, Y0 1, YC 100, Vrw 255, gamma 2.4
+  static const float mat[9] = {3.2410F, -1.5374F, -0.4986F, -0.9692F, 1.8760F,
+                               0.0416F, 0.0556F, -0.2040F, 1.0570F};
+  const float y0 = 1.0F, yc = 100.0F;
+  const int range = 1500;  // CIELABTORGB_TABLE_RANGE
+  static float table[1501];
+  static const bool ready = [] {
+    const double gamma = 1.0 / (double)2.4F;
+    for (int i = 0; i <= 1500; ++i)
+      table[i] = (float)255u * ((float)pow((double)i / 1500, gamma));
+    return true;
+  }();
+  (void)ready;
+  const float step = (yc - y0) / range;
+  const float ref_y = 100.0F;
+  const float ref_x = wp_x / wp_y * ref_y;
+  const float ref_z = (1.0F - wp_x - wp_y) / wp_y * ref_y;
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t l = (uint32_t)samples[3 * i];
+    int32_t a = samples[3 * i + 1], b = samples[3 * i + 2];
+    if (bits == 8) {
+      l *= 257;
+      a = (int8_t)a * 256;
+      b = (int8_t)b * 256;
+    } else {
+      a = (int16_t)a;
+      b = (int16_t)b;
+    }
+    // TIFFCIELab16ToXYZ
+    const float L = (float)l * 100.0F / 65535.0F;
+    float X, Y, Z, cby, tmp;
+    if (L < 8.856F) {
+      Y = (L * ref_y) / 903.292F;
+      cby = 7.787F * (Y / ref_y) + 16.0F / 116.0F;
+    } else {
+      cby = (L + 16.0F) / 116.0F;
+      Y = ref_y * cby * cby * cby;
+    }
+    tmp = (float)a / 256.0F / 500.0F + cby;
+    if (tmp < 0.2069F) X = ref_x * (tmp - 0.13793F) / 7.787F;
+    else X = ref_x * tmp * tmp * tmp;
+    tmp = cby - (float)b / 256.0F / 200.0F;
+    if (tmp < 0.2069F) Z = ref_z * (tmp - 0.13793F) / 7.787F;
+    else Z = ref_z * tmp * tmp * tmp;
+    // TIFFXYZToRGB
+    float lum[3];
+    for (int c = 0; c < 3; ++c) {
+      float v = mat[3 * c] * X + mat[3 * c + 1] * Y + mat[3 * c + 2] * Z;
+      v = v > y0 ? v : y0;
+      v = v < yc ? v : yc;
+      lum[c] = v;
+    }
+    for (int c = 0; c < 3; ++c) {
+      int k = (int)((lum[c] - y0) / step);
+      k = range < k ? range : k;
+      const float t = table[k];
+      uint32_t v = (uint32_t)(t > 0 ? (t + 0.5) : (t - 0.5));  // RINT
+      rgb[3 * i + c] = (uint8_t)(v < 255u ? v : 255u);
+    }
+  }
+  return 0;
+}
+
+// ------------------------------------------------------- TIFF SGILog
+// tif_luv.c's decoders with the 8-bit data format TIFFRGBAImageBegin asks
+// for: each row of `width` pixels decoded on its own from where the last
+// one stopped, `kind` 0 LogL (LogL16Decode: two byte planes of runs, then
+// L16toGry, one gray byte a pixel), 1 LogLuv32 (LogLuvDecode32: four byte
+// planes, then Luv32toRGB) or 2 LogLuv24 (LogLuvDecode24: 3 bytes a pixel,
+// then Luv24toRGB through uv_decode's table); RGB by XYZtoRGB24 (CCIR-709
+// primaries, gamma 2, no dithering).  A row the data cannot fill stops the
+// decode (that row and the rest stay zero) and returns 1.
+namespace {
+
+// uvcode.h: the (u', v') rows of LogLuv24's 14-bit colour index
+const float kUvSqsiz = (float)0.003500, kUvVstart = (float)0.016940;
+const int kUvNdivs = 16289, kUvNvs = 163;
+const struct {
+  float ustart;
+  short nus, ncum;
+} kUvRow[kUvNvs] = {
+    {0.247663f, 4, 0}, {0.243779f, 6, 4}, {0.241684f, 7, 10}, {0.237874f, 9, 17},
+    {0.235906f, 10, 26}, {0.232153f, 12, 36}, {0.228352f, 14, 48}, {0.226259f, 15, 62},
+    {0.222371f, 17, 77}, {0.220410f, 18, 94}, {0.214710f, 21, 112}, {0.212714f, 22, 133},
+    {0.210721f, 23, 155}, {0.204976f, 26, 178}, {0.202986f, 27, 204}, {0.199245f, 29, 231},
+    {0.195525f, 31, 260}, {0.193560f, 32, 291}, {0.189878f, 34, 323}, {0.186216f, 36, 357},
+    {0.186216f, 36, 393}, {0.182592f, 38, 429}, {0.179003f, 40, 467}, {0.175466f, 42, 507},
+    {0.172001f, 44, 549}, {0.172001f, 44, 593}, {0.168612f, 46, 637}, {0.168612f, 46, 683},
+    {0.163575f, 49, 729}, {0.158642f, 52, 778}, {0.158642f, 52, 830}, {0.158642f, 52, 882},
+    {0.153815f, 55, 934}, {0.153815f, 55, 989}, {0.149097f, 58, 1044}, {0.149097f, 58, 1102},
+    {0.142746f, 62, 1160}, {0.142746f, 62, 1222}, {0.142746f, 62, 1284}, {0.138270f, 65, 1346},
+    {0.138270f, 65, 1411}, {0.138270f, 65, 1476}, {0.132166f, 69, 1541}, {0.132166f, 69, 1610},
+    {0.126204f, 73, 1679}, {0.126204f, 73, 1752}, {0.126204f, 73, 1825}, {0.120381f, 77, 1898},
+    {0.120381f, 77, 1975}, {0.120381f, 77, 2052}, {0.120381f, 77, 2129}, {0.112962f, 82, 2206},
+    {0.112962f, 82, 2288}, {0.112962f, 82, 2370}, {0.107450f, 86, 2452}, {0.107450f, 86, 2538},
+    {0.107450f, 86, 2624}, {0.107450f, 86, 2710}, {0.100343f, 91, 2796}, {0.100343f, 91, 2887},
+    {0.100343f, 91, 2978}, {0.095126f, 95, 3069}, {0.095126f, 95, 3164}, {0.095126f, 95, 3259},
+    {0.095126f, 95, 3354}, {0.088276f, 100, 3449}, {0.088276f, 100, 3549},
+    {0.088276f, 100, 3649}, {0.088276f, 100, 3749}, {0.081523f, 105, 3849},
+    {0.081523f, 105, 3954}, {0.081523f, 105, 4059}, {0.081523f, 105, 4164},
+    {0.074861f, 110, 4269}, {0.074861f, 110, 4379}, {0.074861f, 110, 4489},
+    {0.074861f, 110, 4599}, {0.068290f, 115, 4709}, {0.068290f, 115, 4824},
+    {0.068290f, 115, 4939}, {0.068290f, 115, 5054}, {0.063573f, 119, 5169},
+    {0.063573f, 119, 5288}, {0.063573f, 119, 5407}, {0.063573f, 119, 5526},
+    {0.057219f, 124, 5645}, {0.057219f, 124, 5769}, {0.057219f, 124, 5893},
+    {0.057219f, 124, 6017}, {0.050985f, 129, 6141}, {0.050985f, 129, 6270},
+    {0.050985f, 129, 6399}, {0.050985f, 129, 6528}, {0.050985f, 129, 6657},
+    {0.044859f, 134, 6786}, {0.044859f, 134, 6920}, {0.044859f, 134, 7054},
+    {0.044859f, 134, 7188}, {0.040571f, 138, 7322}, {0.040571f, 138, 7460},
+    {0.040571f, 138, 7598}, {0.040571f, 138, 7736}, {0.036339f, 142, 7874},
+    {0.036339f, 142, 8016}, {0.036339f, 142, 8158}, {0.036339f, 142, 8300},
+    {0.032139f, 146, 8442}, {0.032139f, 146, 8588}, {0.032139f, 146, 8734},
+    {0.032139f, 146, 8880}, {0.027947f, 150, 9026}, {0.027947f, 150, 9176},
+    {0.027947f, 150, 9326}, {0.023739f, 154, 9476}, {0.023739f, 154, 9630},
+    {0.023739f, 154, 9784}, {0.023739f, 154, 9938}, {0.019504f, 158, 10092},
+    {0.019504f, 158, 10250}, {0.019504f, 158, 10408}, {0.016976f, 161, 10566},
+    {0.016976f, 161, 10727}, {0.016976f, 161, 10888}, {0.016976f, 161, 11049},
+    {0.012639f, 165, 11210}, {0.012639f, 165, 11375}, {0.012639f, 165, 11540},
+    {0.009991f, 168, 11705}, {0.009991f, 168, 11873}, {0.009991f, 168, 12041},
+    {0.009016f, 170, 12209}, {0.009016f, 170, 12379}, {0.009016f, 170, 12549},
+    {0.006217f, 173, 12719}, {0.006217f, 173, 12892}, {0.005097f, 175, 13065},
+    {0.005097f, 175, 13240}, {0.005097f, 175, 13415}, {0.003909f, 177, 13590},
+    {0.003909f, 177, 13767}, {0.002340f, 177, 13944}, {0.002389f, 170, 14121},
+    {0.001068f, 164, 14291}, {0.001653f, 157, 14455}, {0.000717f, 150, 14612},
+    {0.001614f, 143, 14762}, {0.000270f, 136, 14905}, {0.000484f, 129, 15041},
+    {0.001103f, 123, 15170}, {0.001242f, 115, 15293}, {0.001188f, 109, 15408},
+    {0.001011f, 103, 15517}, {0.000709f, 97, 15620}, {0.000301f, 89, 15717},
+    {0.002416f, 82, 15806}, {0.003251f, 76, 15888}, {0.003246f, 69, 15964},
+    {0.004141f, 62, 16033}, {0.005963f, 55, 16095}, {0.008839f, 47, 16150},
+    {0.010490f, 40, 16197}, {0.016994f, 31, 16237}, {0.023659f, 21, 16268}};
+
+double logl16_to_y(int p16) {
+  const int le = p16 & 0x7fff;
+  if (!le) return 0.;
+  const double y = exp(M_LN2 / 256. * (le + .5) - M_LN2 * 64.);
+  return !(p16 & 0x8000) ? y : -y;
+}
+
+double logl10_to_y(int p10) {
+  if (p10 == 0) return 0.;
+  return exp(M_LN2 / 64. * (p10 + .5) - M_LN2 * 12.);
+}
+
+int uv_decode(double* up, double* vp, int c) {
+  if (c < 0 || c >= kUvNdivs) return -1;
+  int lower = 0, upper = kUvNvs;
+  while (upper - lower > 1) {
+    const int vi = (lower + upper) >> 1;
+    const int ui = c - kUvRow[vi].ncum;
+    if (ui > 0) {
+      lower = vi;
+    } else if (ui < 0) {
+      upper = vi;
+    } else {
+      lower = vi;
+      break;
+    }
+  }
+  const int vi = lower, ui = c - kUvRow[vi].ncum;
+  *up = kUvRow[vi].ustart + (ui + .5) * kUvSqsiz;
+  *vp = kUvVstart + (vi + .5) * kUvSqsiz;
+  return 0;
+}
+
+void luv_to_xyz(double L, double u, double v, float* xyz) {
+  const double s = 1. / (6. * u - 16. * v + 12.);
+  const double x = 9. * u * s, y = 4. * v * s;
+  xyz[0] = (float)(x / y * L);
+  xyz[1] = (float)L;
+  xyz[2] = (float)((1. - x - y) / y * L);
+}
+
+uint8_t gamma2(double v) { return (uint8_t)(v <= 0. ? 0 : v >= 1. ? 255 : (int)(256. * sqrt(v))); }
+
+void xyz_to_rgb24(const float* xyz, uint8_t* rgb) {
+  const double r = 2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2];
+  const double g = -1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2];
+  const double b = 0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2];
+  rgb[0] = gamma2(r);
+  rgb[1] = gamma2(g);
+  rgb[2] = gamma2(b);
+}
+
+}  // namespace
+
+int tiff_sgilog(int kind, const uint8_t* data, int64_t n, int width, int rows, uint8_t* out) {
+  // the values of every code of L and of (u, v), computed once: the same
+  // results as computing them per pixel
+  static std::vector<double> l16, l10, uv24;
+  static std::vector<uint8_t> gray16;
+  static const bool ready = [] {
+    l16.resize(1 << 16);
+    gray16.resize(1 << 16);
+    for (int c = 0; c < (1 << 16); ++c) {
+      l16[c] = logl16_to_y((int16_t)c);
+      gray16[c] = gamma2(l16[c]);
+    }
+    l10.resize(1 << 10);
+    for (int c = 0; c < (1 << 10); ++c) l10[c] = logl10_to_y(c);
+    uv24.resize(2 << 14);
+    for (int c = 0; c < (1 << 14); ++c)
+      if (uv_decode(&uv24[2 * c], &uv24[2 * c + 1], c) < 0) {
+        uv24[2 * c] = 0.210526316;  // U_NEU, V_NEU
+        uv24[2 * c + 1] = 0.473684211;
+      }
+    return true;
+  }();
+  (void)ready;
+  const int planes = kind == 0 ? 2 : 4, px = kind == 0 ? 1 : 3;
+  std::vector<uint32_t> tp(width);
+  const uint8_t* bp = data;
+  int64_t cc = n;
+  for (int y = 0; y < rows; ++y) {
+    std::fill(tp.begin(), tp.end(), 0u);
+    int64_t i = 0;
+    if (kind == 2) {  // LogLuvDecode24
+      for (; i < width && cc >= 3; ++i, bp += 3, cc -= 3)
+        tp[i] = (uint32_t)bp[0] << 16 | bp[1] << 8 | bp[2];
+      if (i != width) return 1;
+    } else {  // LogL16Decode / LogLuvDecode32: runs of each byte plane
+      for (int shft = 8 * (planes - 1); shft >= 0; shft -= 8) {
+        for (i = 0; i < width && cc > 0;) {
+          if (*bp >= 128) {  // a run
+            if (cc < 2) break;
+            int rc = *bp++ + (2 - 128);
+            const uint32_t b = (uint32_t)*bp++ << shft;
+            cc -= 2;
+            while (rc-- && i < width) tp[i++] |= b;
+          } else {  // literal bytes
+            int rc = *bp++;
+            while (--cc && rc-- && i < width) tp[i++] |= (uint32_t)*bp++ << shft;
+          }
+        }
+        if (i != width) return 1;
+      }
+    }
+    uint8_t* op = out + (int64_t)y * width * px;
+    for (int64_t x = 0; x < width; ++x) {
+      const uint32_t p = tp[x];
+      if (kind == 0) {  // L16toGry
+        op[x] = gray16[p & 0xffff];
+        continue;
+      }
+      float xyz[3] = {0.f, 0.f, 0.f};
+      double L, u, v;
+      if (kind == 1) {  // LogLuv32toXYZ
+        L = l16[p >> 16];
+        u = 1. / 410. * ((p >> 8 & 0xff) + .5);
+        v = 1. / 410. * ((p & 0xff) + .5);
+      } else {  // LogLuv24toXYZ
+        L = l10[p >> 14 & 0x3ff];
+        u = uv24[2 * (p & 0x3fff)];
+        v = uv24[2 * (p & 0x3fff) + 1];
+      }
+      if (L > 0.) luv_to_xyz(L, u, v, xyz);
+      xyz_to_rgb24(xyz, op + 3 * x);
     }
   }
   return 0;

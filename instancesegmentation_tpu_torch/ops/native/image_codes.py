@@ -1,7 +1,8 @@
 """The per-code loops of the port's image decoders (``image_codes.cpp``),
 bound with ctypes: GIF's LZW (``core/gif.py``), Radiance HDR's scanlines
 (``core/hdr.py``), BMP's RLE4 / RLE8 (``core/bmp.py``) and TIFF's LZW,
-PackBits, CCITT and ThunderScan codes (``core/tiff.py``).
+PackBits, CCITT (RLE, RLEW, Group 3, Group 4), ThunderScan and SGILog codes
+and its CIELab conversion (``core/tiff.py``).
 
 The library is built with g++ on first use (``build.py``); there is no
 other path, so without a compiler such a read raises ``RuntimeError`` with
@@ -31,15 +32,22 @@ def load_image_codes() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_library(SRC)))
         i64, c_int = ctypes.c_int64, ctypes.c_int
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
         lib.gif_lzw.argtypes = [ctypes.c_char_p, i64, i64, c_int, u8p, i64]
         lib.hdr_pixels.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int, u8p]
         lib.bmp_rle.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int, c_int, u8p]
         for name in ("tiff_lzw", "tiff_packbits"):
             getattr(lib, name).argtypes = [ctypes.c_char_p, i64, u8p, i64]
-        lib.tiff_fax.argtypes = [c_int, c_int, ctypes.c_char_p, i64, c_int, c_int, u8p]
+        lib.tiff_fax.argtypes = [c_int, c_int, ctypes.c_char_p, i64, c_int, c_int, c_int,
+                                 ctypes.POINTER(c_int), u32p, u8p]
+        lib.fax_nruns.argtypes = [c_int, c_int]
+        lib.fax_nruns.restype = i64
         lib.tiff_thunder.argtypes = [ctypes.c_char_p, i64, c_int, c_int, u8p]
+        lib.tiff_cielab.argtypes = [np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"), i64,
+                                    c_int, ctypes.c_float, ctypes.c_float, u8p]
+        lib.tiff_sgilog.argtypes = [c_int, ctypes.c_char_p, i64, c_int, c_int, u8p]
         for fn in (lib.gif_lzw, lib.hdr_pixels, lib.bmp_rle, lib.tiff_lzw, lib.tiff_packbits,
-                   lib.tiff_fax, lib.tiff_thunder):
+                   lib.tiff_fax, lib.tiff_thunder, lib.tiff_cielab, lib.tiff_sgilog):
             fn.restype = c_int
         _lib = lib
     return _lib
@@ -81,14 +89,29 @@ def tiff_codec(name: str, data: bytes, size: int) -> tuple[np.ndarray, bool]:
     return out, bool(failed)
 
 
+class FaxState:
+    """What libtiff's CCITT codec keeps from strip to strip of one image:
+    its two run arrays (zero at first) and ``FAXMODE_NOEOL``, set once a
+    Group 3 row is decoded without its EOL."""
+
+    def __init__(self, width: int, two_d: bool):
+        lib = load_image_codes()
+        self.runs = np.zeros(2 * lib.fax_nruns(width, int(two_d)) + 4, np.uint32)
+        self.noeol = ctypes.c_int(0)
+
+
 def tiff_fax(compression: int, t4_options: int, data: bytes, rows: int, width: int,
-             size: int) -> tuple[np.ndarray, bool]:
-    """``size`` bytes of one CCITT-coded strip or tile (compression 2, 3 or
-    4; ``t4_options`` bit 0: Group 3 rows may be 2-D) of ``rows`` 1-bit rows
-    of ``width`` pixels, and whether libtiff reports an error for it."""
+             size: int, parity: int, state: FaxState) -> tuple[np.ndarray, bool]:
+    """``size`` bytes of one CCITT-coded strip or tile (compression 2, 3, 4
+    or 32771; ``t4_options`` bit 0: Group 3 rows may be 2-D) of ``rows``
+    1-bit rows of ``width`` pixels, and whether libtiff reports an error
+    for it.  ``parity``: the address parity of the data's first byte, which
+    RLEW's 16-bit row alignment counts from; ``state``: the image's
+    ``FaxState``, which the call updates."""
     out = np.zeros(max(size, rows * ((width + 7) // 8)), np.uint8)
     failed = load_image_codes().tiff_fax(compression, t4_options & 1, data, len(data), width,
-                                         rows, out)
+                                         rows, parity & 1, ctypes.byref(state.noeol),
+                                         state.runs, out)
     return out[:size], bool(failed)
 
 
@@ -98,4 +121,28 @@ def tiff_thunder(data: bytes, rows: int, width: int, size: int) -> tuple[np.ndar
     # a run that ends the last row writes one byte past it, as in libtiff
     out = np.zeros(max(size, rows * ((width + 1) // 2)) + 1, np.uint8)
     failed = load_image_codes().tiff_thunder(data, len(data), width, rows, out)
+    return out[:size], bool(failed)
+
+
+def tiff_cielab(samples: np.ndarray, bits: int, whitepoint: tuple) -> np.ndarray:
+    """RGB uint8 ``[..., 3]`` of CIELab samples ``[..., 3]`` (L unsigned, a
+    and b two's complement in ``bits`` 8 or 16 bits, as the file stores
+    them) as TIFFRGBAImage converts them for the WhitePoint ``whitepoint``
+    (two float32 values); raises ``ValueError`` where its y is 0."""
+    flat = np.ascontiguousarray(samples, np.int32).reshape(-1, 3)
+    out = np.zeros(flat.shape, np.uint8)
+    if load_image_codes().tiff_cielab(flat, len(flat), bits, float(whitepoint[0]),
+                                      float(whitepoint[1]), out):
+        raise ValueError("CIELab with a WhitePoint y of 0")
+    return out.reshape(samples.shape[:-1] + (3,))
+
+
+def tiff_sgilog(kind: int, data: bytes, rows: int, width: int, size: int
+                ) -> tuple[np.ndarray, bool]:
+    """``size`` bytes of one SGILog strip or tile decoded to libtiff's 8-bit
+    data format (``kind`` 0 LogL: a gray byte a pixel; 1 LogLuv32, 2
+    LogLuv24: 3 RGB bytes a pixel) for ``rows`` rows of ``width`` pixels,
+    and whether libtiff reports an error for it."""
+    out = np.zeros(max(size, rows * width * (1 if kind == 0 else 3)), np.uint8)
+    failed = load_image_codes().tiff_sgilog(kind, data, len(data), width, rows, out)
     return out[:size], bool(failed)

@@ -3,15 +3,20 @@ beside them.
 
     python tests/data/tiff/make_fixtures.py
 
-Each ``<name>.tif`` is written by ``cv2.imencode``, PIL or ``tiff_writer.py``
-(the tests' writer of the forms neither writes) from seeded pixels: three
-480 x 640 files of a smooth picture (the size a dataset holds, timed by
-``chip_smoke.py``: cv2's LZW, Deflate with the horizontal predictor, JPEG
-4:2:0 strips with their tables in JPEGTables) and small files of the other
-forms (byte orders, BigTIFF, PackBits, old-style LZW, FillOrder 2, tiles,
-planar configuration 2, 1-, 4-, 8- and 16-bit samples, MinIsWhite,
-palettes, alpha, CMYK, subsampled YCbCr, orientations 2-8, CCITT RLE,
-Group 3 and Group 4, ThunderScan, a file cut in its directory).
+Each ``<name>.tif`` is written by ``cv2.imencode``, PIL, ``tiff_writer.py``
+(the tests' writer of the forms neither writes) or ``libtiff_writer.py``
+(the system's libtiff through ctypes: SGILog and 16-bit CIELab) from seeded
+pixels: five 480 x 640 files of a smooth picture (the size a dataset
+holds, timed by ``chip_smoke.py``: cv2's LZW, Deflate with the horizontal
+predictor, JPEG 4:2:0 strips with their tables in JPEGTables, 8-bit CIELab
+with Deflate, LogLuv24 over five decades of luminance) and small files of
+the other forms (byte orders, BigTIFF, PackBits, old-style LZW, FillOrder
+2, tiles, planar configuration 2, 1-, 4-, 8- and 16-bit samples,
+MinIsWhite, palettes, alpha, CMYK, subsampled YCbCr, CIELab at 8 and 16
+bits with and without a WhitePoint, LogL, LogLuv32 and LogLuv24,
+orientations 2-8, CCITT RLE, RLEW at even and odd offsets, Group 3 and
+Group 4, their strips with damaged EOLs, ThunderScan, a file cut in its
+directory).
 
 ``<name>.npz`` holds what cv2 gives for it, RGB as the readers convert it:
 ``color`` and ``gray`` from ``cv2.imread`` of the file, each only where cv2
@@ -37,10 +42,12 @@ from PIL import Image
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+import libtiff_writer as lw  # noqa: E402
 import tiff_writer as tw  # noqa: E402
 
 #: the files chip_smoke.py times, 480 x 640
-TIMED = ("lzw_480x640.tif", "deflate_480x640.tif", "jpeg_480x640.tif")
+TIMED = ("lzw_480x640.tif", "deflate_480x640.tif", "jpeg_480x640.tif", "cielab8_480x640.tif",
+         "logluv24_480x640.tif")
 #: arrays larger than this are stored as their SHA-256
 BIG = 200_000
 
@@ -70,6 +77,40 @@ def pil(img: np.ndarray, mode: str, **kwargs) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(img).convert(mode).save(buf, format="TIFF", **kwargs)
     return buf.getvalue()
+
+
+def lab_of(rgb: np.ndarray, bits: int = 8) -> np.ndarray:
+    """CIELab samples [h, w, 3] standing for an RGB picture (L its mean,
+    a and b its red-green and blue-yellow differences), as the file stores
+    them: L unsigned, a and b two's complement in ``bits`` bits."""
+    v = rgb.astype(np.int64)
+    lab = np.stack([v.mean(axis=2).astype(np.int64), (v[..., 0] - v[..., 1]) // 2,
+                    (v[..., 1] - v[..., 2]) // 2], axis=-1)
+    if bits == 16:
+        lab = lab * np.array([257, 256, 256])
+    return lab & ((1 << bits) - 1)
+
+
+def xyz_of(rgb: np.ndarray, exposure: np.ndarray) -> np.ndarray:
+    """Float XYZ [h, w, 3] of a wide dynamic range standing for an RGB
+    picture: its linear values through CCIR-709's matrix, times
+    ``exposure`` (a factor per pixel spanning decades)."""
+    lin = (rgb.astype(np.float64) / 255.0) ** 2.2
+    m = np.array([[0.4124, 0.3576, 0.1805], [0.2126, 0.7152, 0.0722], [0.0193, 0.1192, 0.9505]])
+    return (lin @ m.T * exposure[..., None]).astype(np.float32)
+
+
+def damaged(data: bytes, zeros: tuple, ones: tuple = ()) -> bytes:
+    """``data`` (whose first strip starts at byte 8) with the strip's bytes
+    at ``zeros`` set to 0 and at ``ones`` to 0xFF: codes lost, and an EOL
+    lost late in the strip, where libtiff then reads the strip again
+    without EOLs."""
+    out = bytearray(data)
+    for at in zeros:
+        out[8 + at] = 0
+    for at in ones:
+        out[8 + at] = 0xFF
+    return bytes(out)
 
 
 def fixtures() -> dict[str, bytes]:
@@ -136,6 +177,36 @@ def fixtures() -> dict[str, bytes]:
         "gray2_refused": tw.write_tiff(gray % 4, bps=2, photometric=1),
         "cut_directory": tw.write_tiff(noisy, photometric=2, compression=tw.LZW)[:-20],
     }
+    # CIELab, SGILog and CCITT RLEW; CCITT strips with damaged EOLs
+    y, x = np.mgrid[0:480, 0:640]
+    wide = 10.0 ** (-3 + 5 * x / 639)  # five decades across the picture
+    small_wide = 10.0 ** (-4 + 6 * np.mgrid[0:37, 0:53][1] / 52)
+    xyz = xyz_of(noisy, small_wide)
+    bits2d = bits[..., 0].astype(np.uint8) * 255
+    out.update({
+        "cielab8_480x640": tw.write_tiff(lab_of(big), photometric=8, compression=tw.DEFLATE,
+                                         predictor=2, rows_per_strip=16),
+        "logluv24_480x640": lw.sgilog(xyz_of(big, wide), lw.SGILOG24, rows_per_strip=16),
+        "cielab8_pil": pil(noisy.astype(np.uint8), "LAB"),
+        "cielab8_whitepoint": lw.cielab(lab_of(noisy), whitepoint=(0.3127, 0.3290)),
+        "cielab16": lw.cielab(lab_of(noisy, 16), bps=16, rows_per_strip=8),
+        "cielab16_be_tiles": tw.write_tiff(lab_of(noisy, 16), bps=16, photometric=8, order=">",
+                                           tile=(16, 16), compression=tw.LZW),
+        "logl": lw.sgilog(xyz[..., 1], rows_per_strip=8),
+        "logluv32": lw.sgilog(xyz, rows_per_strip=8),
+        "logluv24": lw.sgilog(xyz, lw.SGILOG24),
+        "ccitt_rlew_even": tw.write_tiff(bits, bps=1, photometric=0, compression=tw.JPEG,
+                                         rows_per_strip=8, jpeg_strip=tw.ccitt_rlew,
+                                         extra_tags={259: ("H", [32771])}),
+        "ccitt_rlew_odd": tw.write_tiff(bits, bps=1, photometric=0, compression=tw.JPEG,
+                                        rows_per_strip=8, jpeg_strip=tw.ccitt_rlew,
+                                        extra_tags={259: ("H", [32771])}, lead=1),
+        "ccitt_g3_1d_damaged": damaged(pil(bits2d, "1", compression="group3"), (60, 61, 150),
+                                       (439, 440)),
+        "ccitt_g3_2d_damaged": damaged(pil(bits2d, "1", compression="group3", tiffinfo={292: 1}),
+                                       (40, 41, 90), (489, 490)),
+        "ccitt_g4_damaged": damaged(pil(bits2d, "1", compression="group4"), (30, 31)),
+    })
     for o in range(2, 9):
         out[f"orient{o}"] = tw.write_tiff(noisy, photometric=2, orientation=o, rows_per_strip=8,
                                           compression=tw.LZW)

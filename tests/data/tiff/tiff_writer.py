@@ -161,10 +161,11 @@ def write_tiff(samples: np.ndarray, *, bps: int = 8, photometric: int = 1, compr
                sample_format: int | None = None, subsampling: tuple | None = None,
                order: str = "<", big: bool = False, lzw_old: bool = False,
                jpeg_strip=None, jpeg_tables: bytes | None = None, ifd_first: bool = False,
-               extra_tags: dict | None = None, omit: tuple = ()) -> bytes:
+               extra_tags: dict | None = None, omit: tuple = (), lead: int = 0) -> bytes:
     """One TIFF image of ``samples`` ``[H, W, spp]``; ``jpeg_strip(rows
     [h, w, spp] uint8) -> bytes`` encodes a strip or tile for compression 7
-    (its tables, if ``jpeg_tables`` is given, already taken out)."""
+    (its tables, if ``jpeg_tables`` is given, already taken out); ``lead``
+    zero bytes come before the first strip (odd offsets for odd ``lead``)."""
     a = np.asarray(samples)
     if a.ndim == 2:
         a = a[..., None]
@@ -235,11 +236,11 @@ def write_tiff(samples: np.ndarray, *, bps: int = 8, photometric: int = 1, compr
     tags[cnt_tag] = (off_type, [len(c) for c in chunks])
     for t in omit:
         tags.pop(t, None)
-    return _assemble(tags, chunks, off_tag, order, big, ifd_first)
+    return _assemble(tags, chunks, off_tag, order, big, ifd_first, lead)
 
 
 def _assemble(tags: dict, chunks: list, off_tag: int, order: str, big: bool,
-              ifd_first: bool) -> bytes:
+              ifd_first: bool, lead: int = 0) -> bytes:
     entry, count_fmt, off_fmt, inline = ("HHQ8s", "Q", "Q", 8) if big else ("HHI4s", "H", "I", 4)
     head = (b"II" if order == "<" else b"MM") + (
         struct.pack(order + "HHHQ", 43, 8, 0, 0) if big else struct.pack(order + "HI", 42, 0))
@@ -271,16 +272,16 @@ def _assemble(tags: dict, chunks: list, off_tag: int, order: str, big: bool,
             for tag in sorted(tags)) + struct.pack(order + off_fmt, 0)
         return ifd, bytes(blobs)
 
-    data = b"".join(chunks)
+    data = bytes(lead) + b"".join(chunks)
     hlen = len(head)
     if ifd_first:
         ifd, blobs = layout(hlen, hlen + ifd_size, 0)
         data_at = hlen + ifd_size + len(blobs)
-        ifd, blobs = layout(hlen, hlen + ifd_size, data_at)
+        ifd, blobs = layout(hlen, hlen + ifd_size, data_at + lead)
         body = ifd + blobs + data
         ifd_at = hlen
     else:
-        data_at = hlen
+        data_at = hlen + lead
         values_at = hlen + len(data) + (len(data) % 2)
         _, blobs = layout(0, values_at, data_at)
         ifd_at = values_at + len(blobs) + (len(blobs) % 2)
@@ -289,3 +290,86 @@ def _assemble(tags: dict, chunks: list, off_tag: int, order: str, big: bool,
     head = head[:-8] + struct.pack(order + "Q", ifd_at) if big else \
         head[:-4] + struct.pack(order + "I", ifd_at)
     return head + body
+
+
+# -- CCITT modified Huffman (T.4), for RLEW strips ------------------------------------
+
+#: the white and black codes of runs 0-63 and 64-1728 (in steps of 64), then
+#: the make-up codes both colours share (1792-2560)
+_WHITE = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 "
+    "110100 110101 101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 "
+    "0101011 0010011 0100100 0011000 00000010 00000011 00011010 00011011 00010010 00010011 "
+    "00010100 00010101 00010110 00010111 00101000 00101001 00101010 00101011 00101100 "
+    "00101101 00000100 00000101 00001010 00001011 01010010 01010011 01010100 01010101 "
+    "00100100 00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010 "
+    "00110011 00110100 11011 10010 010111 0110111 00110110 00110111 01100100 01100101 "
+    "01101000 01100111 011001100 011001101 011010010 011010011 011010100 011010101 "
+    "011010110 011010111 011011000 011011001 011011010 011011011 010011000 010011001 "
+    "010011010 011000 010011011").split()
+_BLACK = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 "
+    "00000100 00000111 000011000 0000010111 0000011000 0000001000 00001100111 00001101000 "
+    "00001101100 00000110111 00000101000 00000010111 00000011000 000011001010 000011001011 "
+    "000011001100 000011001101 000001101000 000001101001 000001101010 000001101011 "
+    "000011010010 000011010011 000011010100 000011010101 000011010110 000011010111 "
+    "000001101100 000001101101 000011011010 000011011011 000001010100 000001010101 "
+    "000001010110 000001010111 000001100100 000001100101 000001010010 000001010011 "
+    "000000100100 000000110111 000000111000 000000100111 000000101000 000001011000 "
+    "000001011001 000000101011 000000101100 000001011010 000001100110 000001100111 "
+    "0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 "
+    "000000110101 0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 "
+    "0000001001101 0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 "
+    "0000001110111 0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 "
+    "0000001011011 0000001100100 0000001100101").split()
+_MAKEUP = (
+    "00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 "
+    "000000010101 000000010110 000000010111 000000011100 000000011101 000000011110 "
+    "000000011111").split()
+
+
+def _mh_code(run: int, black: bool) -> str:
+    """The modified Huffman codes of one run (make-up codes first)."""
+    table = _BLACK if black else _WHITE
+    out = ""
+    while run > 2560:
+        out += _MAKEUP[-1]
+        run -= 2560
+    if run >= 1792:
+        out += _MAKEUP[(run - 1792) // 64]
+        run %= 64
+    elif run >= 64:
+        out += table[63 + run // 64]
+        run %= 64
+    return out + table[run]
+
+
+def mh_runs(runs) -> str:
+    """The bits of one row given as its runs, white first (a white run of 0
+    where the row starts black)."""
+    return "".join(_mh_code(int(r), i % 2 == 1) for i, r in enumerate(runs))
+
+
+def row_runs(row: np.ndarray) -> list:
+    """The runs of one row of 1-bit samples (1 black), white first."""
+    runs, colour, n = [], 0, 0
+    for v in np.asarray(row).astype(int):
+        if v != colour:
+            runs.append(n)
+            colour, n = v, 0
+        n += 1
+    return runs + [n]
+
+
+def bits_to_bytes(bits: str) -> bytes:
+    """A string of bits, MSB first, padded with zeros to a whole byte."""
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def ccitt_rlew(part: np.ndarray, rows=None) -> bytes:
+    """CCITT RLEW (32771): each row's modified Huffman codes padded with
+    zeros to 16 bits (``rows``: bit strings to use instead of the rows of
+    ``part`` [h, w, 1], 1 black)."""
+    rows = [mh_runs(row_runs(r)) for r in np.asarray(part)[..., 0]] if rows is None else rows
+    return b"".join(bits_to_bytes(b + "0" * (-len(b) % 16)) for b in rows)

@@ -52,15 +52,20 @@ def test_every_module_imports_without_jax():
 
 
 def test_native_decoders_use_no_system_codec():
-    """The port's C++ (the WebP decoder among it) includes no libwebp header
-    and links no library: ``build.py`` compiles each source alone, and no
-    port source names libwebp's library or asks ctypes to find one."""
+    """The port's C++ (the WebP decoder and the TIFF codecs among it)
+    includes no libwebp or libtiff header and links no library: ``build.py``
+    compiles each source alone, with no ``-march`` (so that g++ contracts no
+    FMA into the CIELab and SGILog arithmetic), and no port source names
+    libwebp's or libtiff's library or asks ctypes to find one."""
     native = PORT / "ops" / "native"
     for src in sorted(native.glob("*.cpp")) + sorted(native.glob("*.h")):
         includes = [line for line in src.read_text().splitlines() if line.startswith("#include")]
-        assert not [i for i in includes if "webp/" in i or "<webp" in i], src.name
+        assert not [i for i in includes if "webp/" in i or "<webp" in i or "tiff" in i], src.name
     build = (native / "build.py").read_text()
-    assert "-lwebp" not in build and "-l" not in build.split("CXX_FLAGS =")[1].split("\n")[0]
+    flags = build.split("CXX_FLAGS =")[1].split("\n")[0]
+    assert "-lwebp" not in build and "-ltiff" not in build and "-l" not in flags
+    assert "-march" not in flags and "-mfma" not in flags and "-ffast-math" not in flags
     for path in SOURCES + sorted(native.glob("*.cpp")):
         text = path.read_text()
-        assert "libwebp.so" not in text and "find_library" not in text, path.name
+        assert "libwebp.so" not in text and "libtiff.so" not in text, path.name
+        assert "find_library" not in text, path.name

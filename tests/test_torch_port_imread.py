@@ -4,6 +4,9 @@ package's readers, which are ``cv2.imread`` (CPU): every pixel equal.
 
 - PNG ``eXIf`` orientations 1-8 (and 0, 9), both byte orders, before and
   after IDAT;
+- C10: an IFD0 entry before the orientation whose data cv2 reads (string and
+  rational tags) swept over tags, types, counts and offsets, in PNG and
+  JPEG, and the committed EXIF fixtures of ``tests/data/exif``;
 - ``imread``'s split: ``FileNotFoundError`` exactly where cv2 returns None,
   ``ValueError`` naming ROADMAP A10 for valid files it does not decode;
   the sweep over every format cv2 writes here (C3) and the AVIF and
@@ -15,6 +18,7 @@ package's readers, which are ``cv2.imread`` (CPU): every pixel equal.
 - the committed fixtures of ``tests/data/jpeg/`` against cv2.
 """
 import glob
+import importlib.util
 import json
 import os
 import shutil
@@ -102,6 +106,113 @@ def test_png_exif_orientation_matches_jax(tmp_path, order, after_idat):
         assert got.shape == ((7, 5, 3) if 5 <= o <= 8 else (5, 7, 3))
         _same_as_jax(_write(tmp_path / f"g{o}.png",
                             _with_exif(encode_png(gray), tiff, after_idat)))
+
+
+# -- C10: the EXIF entries whose data cv2 reads before the orientation -------
+
+_exif_spec = importlib.util.spec_from_file_location(
+    "exif_fixtures", os.path.join(os.path.dirname(__file__), "data", "exif", "make_fixtures.py"))
+exif_fx = importlib.util.module_from_spec(_exif_spec)
+_exif_spec.loader.exec_module(exif_fx)
+EXIF_FIXTURES = os.path.dirname(exif_fx.__file__)
+#: the six string tags, the six rational tags, and tags whose data cv2 does
+#: not read (or reads inline)
+C10_TAGS = (0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298, 0x011A, 0x011B, 0x013E, 0x013F,
+            0x0211, 0x0214, 0x013B, 0x0128, 0x0213, 0x8769, 0x0100, 0x0102, 0x0103, 0x0106,
+            0x0115, 0x011C, 0x8825)
+
+
+def _c10_turned(data: bytes, ext: str) -> bool:
+    """Whether cv2 turns a 24 x 40 picture (the exif fixtures') whose EXIF
+    block ``data`` holds orientation 6."""
+    img = exif_fx.picture()
+    bgr = np.ascontiguousarray(img[..., ::-1])
+    if ext == "png":
+        file = exif_fx.png_with_exif(cv2.imencode(".png", bgr)[1].tobytes(), data)
+    else:
+        file = exif_fx.jpeg_with_exif(cv2.imencode(".jpg", bgr)[1].tobytes(), data)
+    return cv2.imdecode(np.frombuffer(file, np.uint8), cv2.IMREAD_COLOR).shape[0] == 40
+
+
+@pytest.mark.parametrize("ext", ["png", "jpg"])
+@pytest.mark.parametrize("tag", C10_TAGS, ids=[f"0x{t:04X}" for t in C10_TAGS])
+def test_exif_entry_before_the_orientation_matches_cv2(ext, tag):
+    """C10: an entry of ``tag`` before orientation 6, of every type 1-12,
+    counts 0-10 and a large one, its value offset around the block's end
+    and far past it, in both byte orders: the port turns the image exactly
+    where cv2 does (cv2 stops at string and rational tags whose data lies
+    outside the block)."""
+    for order in "<>":
+        for typ in range(1, 13):
+            for count in list(range(11)) + [0x10000]:
+                for back in (None, -78, -48, -25, -24, -17, -16, -9, -8, -7, -6, -5, -1, 0):
+                    data = exif_fx.exif_block((tag, typ, count, back), order, tail=40)
+                    want = _c10_turned(data, ext) if (typ + count + (back or 0)) % 7 == 0 \
+                        or back is None else None
+                    got = exif_orientation(data) == 6
+                    if want is not None:
+                        assert got == want, (order, typ, count, back)
+                    elif tag in (0x013B, 0x0128, 0x0213, 0x8769):
+                        assert got, (order, typ, count, back)
+
+
+@pytest.mark.parametrize("ext", ["png", "jpg"])
+def test_exif_probe_cases_match_cv2(tmp_path, ext):
+    """The cases that found C10, read whole through ``imread`` and
+    ``imdecode`` in both modes: ``Make`` ending at the block's end turned,
+    one byte past it unturned; ``XResolution``'s 8 bytes fitting turned,
+    7 unturned; an inline count (at most 4) turned whatever its offset;
+    an entry after the orientation changes nothing."""
+    cases = {"make_at_end": ((0x010F, 2, 6, -6), True),
+             "make_past_end": ((0x010F, 2, 6, -5), False),
+             "xres_fits": ((0x011A, 5, 1, -8), True), "xres_short": ((0x011A, 5, 1, -7), False),
+             "inline_4": ((0x010F, 2, 4, 9000), True), "inline_5": ((0x010F, 2, 5, 9000), False)}
+    img = exif_fx.picture()
+    bgr = np.ascontiguousarray(img[..., ::-1])
+    for name, (entry, turned) in cases.items():
+        block = exif_fx.exif_block(entry, tail=0)
+        assert _c10_turned(block, ext) == turned, name
+        if ext == "png":
+            data = exif_fx.png_with_exif(cv2.imencode(".png", bgr)[1].tobytes(), block)
+        else:
+            data = exif_fx.jpeg_with_exif(cv2.imencode(".jpg", bgr)[1].tobytes(), block)
+        path = _write(tmp_path / f"{name}.{ext}", data)
+        _same_as_jax(path)
+        for mode, flag in (("color", cv2.IMREAD_COLOR), ("gray", cv2.IMREAD_GRAYSCALE)):
+            want = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+            want = want[..., ::-1] if want.ndim == 3 else want
+            np.testing.assert_array_equal(imdecode(data, mode), want)
+        # the same entry after the orientation: turned
+        tag, typ, count, offset = entry
+        after = struct.pack("<HHII", 0x0112, 3, 1, 6) + struct.pack("<HHII", tag, typ, count,
+                                                                     len(block) + 9000)
+        block2 = block[:10] + after + block[34:]
+        assert exif_orientation(block2) == 6 and _c10_turned(block2, ext), name
+
+
+@pytest.mark.parametrize("name", sorted(os.path.basename(p) for p in glob.glob(
+    os.path.join(EXIF_FIXTURES, "*.*")) if not p.endswith((".py", ".npz"))))
+def test_exif_fixtures_equal_cv2_and_the_port(name):
+    """The committed EXIF fixtures (``tests/data/exif``): the stored decodes
+    are still cv2's, and the port reads the file and decodes its bytes to
+    them in both modes (``chip_smoke.py`` repeats the latter)."""
+    path = os.path.join(EXIF_FIXTURES, name)
+    with open(path, "rb") as f:
+        data = f.read()
+    stem, ext = name.rsplit(".", 1)
+    stored = np.load(os.path.join(EXIF_FIXTURES, f"{stem}_{ext}.npz"))
+    tiff_fx = exif_fx._load(os.path.join(os.path.dirname(EXIF_FIXTURES), "tiff",
+                                         "make_fixtures.py"), "tiff_fixtures")
+    live = tiff_fx.cv2_reads(path, data)
+    assert sorted(live) == sorted(stored.files)
+    for key in stored.files:
+        np.testing.assert_array_equal(live[key], stored[key])
+    case = stem[:-3] if stem.endswith("_be") else stem
+    assert (stored["color"].shape[0] == 40) == exif_fx.CASES[case][1]
+    for mode in ("color", "gray"):
+        for decode, read in ((False, lambda: imread(path, mode)),
+                             (True, lambda: imdecode(data, mode))):
+            assert tiff_fx.matches(stored, mode, decode, read()), (mode, decode)
 
 
 # -- C2: what raises ---------------------------------------------------------

@@ -2,32 +2,42 @@
 ``core/tiff.py``, the codes in ``ops/native/image_codes.cpp`` and
 ``ops/native/jpeg.cpp``) against live ``cv2.imread`` and ``cv2.imdecode``
 (the JAX package's readers) in both read modes: every pixel equal where cv2
-decodes, ``FileNotFoundError`` exactly where cv2 returns None,
-``UnsupportedImage`` only for the forms cv2 reads that the port does not
-(CIELab, SGILog LogL / LogLuv, CCITT RLEW).
+decodes, ``FileNotFoundError`` exactly where cv2 returns None; no TIFF
+raises ``UnsupportedImage``.
 
 - the container: both byte orders, classic and BigTIFF, strips and tiles,
   planar configuration 1 and 2, FillOrder 2, first directory only;
 - the codecs: none, PackBits, LZW (and its old LSB-first form), Deflate (8
   and 32946), the horizontal predictor on 8 and 16 bits, JPEG with and
   without JPEGTables (4:4:4, 4:2:2, 4:2:0, in strips of 8, 16 and all rows,
-  in tiles, short and narrow strips), CCITT RLE, Group 3 1-D and 2-D,
-  Group 4 (widths up to 6000), ThunderScan; the compressions cv2's libtiff
-  is built without; an unknown compression code (a black image);
+  in tiles, short and narrow strips), CCITT RLE and RLEW (strips at even
+  and odd offsets, which ``cv2.imread`` aligns by), Group 3 1-D and 2-D,
+  Group 4 (widths up to 6000; damaged EOLs, libtiff's read without EOLs),
+  ThunderScan, SGILog (LogL, LogLuv32, LogLuv24); the compressions cv2's
+  libtiff is built without; an unknown compression code (a black image);
 - the pixels: gray and bilevel at 1, 8 and 16 bits, MinIsWhite, palettes at
   1, 4 and 8 bits (16-bit and 8-bit colormaps), RGB and RGBA at 8 and 16
   bits (associated, unassociated, unspecified alpha), CMYK, subsampled
-  YCbCr (every layout, strips and tiles, libtiff's 4 x 4 tile skew), the
-  orientations (cv2.imread refuses 5-8, cv2.imdecode turns them), the
-  forms cv2 refuses (2-bit, 4-bit gray, 1-bit RGB, > 4 samples, ...);
+  YCbCr (every layout, strips and tiles, libtiff's 4 x 4 tile skew),
+  CIELab at 8 and 16 bits (every 8-bit L and a, with and without a
+  WhitePoint), LogL and LogLuv codes swept, the orientations (cv2.imread
+  refuses 5-8, cv2.imdecode turns them), the forms cv2 refuses (2-bit,
+  4-bit gray, 1-bit RGB, > 4 samples, ...);
 - every cut length of small files, seeded corruptions of their headers and
-  data, and the committed fixtures of ``tests/data/tiff`` (written by
-  ``make_fixtures.py``) against the decodes stored beside them.
+  data (CCITT and SGILog strips among them), and the committed fixtures of
+  ``tests/data/tiff`` (written by ``make_fixtures.py``) against the decodes
+  stored beside them;
+- a COCO tree of the 480 x 640 scenes of ``tests/data/coco_forms`` (CIELab,
+  LogLuv, JPEGs whose EXIF cv2 gives up on) converted by both packages,
+  read by both datasets and trained on by the port.
 """
 import glob
 import importlib.util
 import io
+import json
 import os
+import subprocess
+import sys
 import zlib
 
 import cv2
@@ -36,8 +46,18 @@ import pytest
 import torch
 from PIL import Image
 
+from instancesegmentation_tpu.data import converters as jconv
+from instancesegmentation_tpu.data.dataset import InstanceCommonDataset as JaxDataset
 from instancesegmentation_tpu_torch.core.imread import imdecode, imread
-from instancesegmentation_tpu_torch.core.png import ImageSizeError, UnsupportedImage
+from instancesegmentation_tpu_torch.core.png import ImageSizeError
+from instancesegmentation_tpu_torch.data import converters as tconv
+from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+from instancesegmentation_tpu_torch.data.pipeline import draw_augment, host_batch
+from instancesegmentation_tpu_torch.models.layers import init_weights_
+from instancesegmentation_tpu_torch.models.segment import Segment
+from instancesegmentation_tpu_torch.train.config import TrainConfig
+from instancesegmentation_tpu_torch.train.state import TrainState
+from instancesegmentation_tpu_torch.train.steps import augment_config, make_train_step
 
 torch.set_num_threads(1)
 FIXTURES = os.path.join(os.path.dirname(__file__), "data", "tiff")
@@ -77,10 +97,7 @@ def _outcome(got_fn, want):
         with pytest.raises(FileNotFoundError):
             got_fn()
         return "none"
-    try:
-        got = got_fn()
-    except UnsupportedImage:
-        return "unsupported"
+    got = got_fn()
     want = want[..., ::-1] if want.ndim == 3 else want
     assert got.dtype == np.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
@@ -357,9 +374,9 @@ def test_thunderscan_matches_cv2(tmp_path):
 
 
 def test_unported_and_unconfigured_forms(tmp_path):
-    """``UnsupportedImage`` exactly for the forms cv2 decodes that the port
-    does not: CIELab (PIL's LAB), LogLuv (SGILog24) and CCITT RLEW;
-    ``FileNotFoundError`` for the compressions cv2's libtiff is built
+    """The forms that raised ``UnsupportedImage`` until they were ported
+    decode equal to cv2: CIELab (PIL's LAB), LogLuv (SGILog24) and CCITT
+    RLEW; ``FileNotFoundError`` for the compressions cv2's libtiff is built
     without (old-style JPEG, PixarLog, LZMA, ZSTD, WebP, JBIG, LERC) and for
     NeXT (2-bit samples, which cv2 refuses)."""
     rng = np.random.default_rng(7)
@@ -374,8 +391,7 @@ def test_unported_and_unconfigured_forms(tmp_path):
     }
     for name, data in unported.items():
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is not None, name
-        with pytest.raises(UnsupportedImage, match="A10 part 3"):
-            imdecode(data)
+        assert _decoded(_against_cv2(tmp_path, data)), name
     refused = {
         "ojpeg": tw.write_tiff(img, photometric=6, subsampling=(2, 2), compression=7,
                                jpeg_strip=lambda p: jpg.tobytes(),
@@ -419,16 +435,22 @@ def test_every_cut_matches_cv2(tmp_path, name):
 
 
 def test_corrupt_bytes_match_cv2(tmp_path):
-    """200 seeded corruptions (one to three bytes, the header and directory
-    the likelier) of six small files: the port reads each as cv2 does, or
-    raises ``ImageSizeError`` where cv2 raises; nothing else escapes."""
+    """400 seeded corruptions (one to three bytes, the header and directory
+    the likelier) of ten small files, Group 3 1-D, Group 3 2-D, Group 4 and
+    RLEW strips among them: the port reads each as cv2 does, or raises
+    ``ImageSizeError`` where cv2 raises; nothing else escapes."""
     rng = np.random.default_rng(11)
     sources = [tw.write_tiff(_pic(H, W, 3), photometric=2, compression=c, rows_per_strip=8)
                for c in (1, 5, 32773)]
     sources += [tw.write_tiff(_pic(H, W, 1, 2), bps=1, photometric=1, rows_per_strip=5),
                 tw.write_tiff(_pic(H, W, 3), photometric=6, subsampling=(2, 2), rows_per_strip=8),
                 tw.write_tiff(_pic(H, W, 3), photometric=2, tile=(16, 16), compression=5)]
-    for i in range(200):
+    bits = (_pic(H, W, 1, 2)[..., 0] * 255).astype(np.uint8)
+    sources += [_pil(bits, "1", compression="group3", tiffinfo={278: 12}),
+                _pil(bits, "1", compression="group3", tiffinfo={292: 1, 278: 12}),
+                _pil(bits, "1", compression="group4", tiffinfo={278: 12}),
+                _rlew(_pic(H, W, 1, 2), rows_per_strip=12, lead=1)]
+    for i in range(400):
         data = bytearray(sources[i % len(sources)])
         for _ in range(int(rng.integers(1, 4))):
             at = int(rng.integers(0, min(len(data), 300) if rng.random() < 0.5 else len(data)))
@@ -441,6 +463,425 @@ def test_corrupt_bytes_match_cv2(tmp_path):
                 imdecode(data)
             continue
         _against_cv2(tmp_path, data, file=False)
+
+
+# -- C11: CCITT strips with damaged EOLs ---------------------------------------------
+
+
+def _rlew(samples, **kw):
+    """CCITT RLEW (32771) strips of 1-bit ``samples`` [h, w, 1] (1 black)."""
+    return tw.write_tiff(samples, bps=1, photometric=kw.pop("photometric", 0), compression=7,
+                         jpeg_strip=tw.ccitt_rlew, extra_tags={259: ("H", [32771])}, **kw)
+
+
+@pytest.mark.parametrize("compression", ["group3_1d", "group3_2d", "group4"])
+def test_ccitt_damaged_strips_match_cv2(tmp_path, compression):
+    """C11: 300 seeded damages (bytes replaced, bits flipped, runs of zeros)
+    inside the strips of CCITT files of one and of several strips: libtiff's
+    bad-row rules (a code that fits no table, an EOL missing or found early,
+    a Group 3 strip read again without EOLs once an EOL search runs out of
+    data, the run arrays kept from strip to strip and their overflow) give
+    cv2's rows, and cv2's None where it returns None."""
+    comp, info = {"group3_1d": ("group3", {}), "group3_2d": ("group3", {292: 1}),
+                  "group4": ("group4", {})}[compression]
+    rng = np.random.default_rng({"group3_1d": 21, "group3_2d": 22, "group4": 23}[compression])
+    sources = []
+    for h, w, rps in ((13, 33, 13), (20, 70, 4), (9, 200, 9)):
+        for p in (0.5, 0.1):
+            a = rng.random((h, w)) < p
+            blocky = np.repeat(np.repeat(rng.random((h // 3 + 1, w // 10 + 1)) < p, 3, 0), 10,
+                               1)[:h, :w]
+            for arr in (a, blocky):
+                sources.append(_pil(arr.astype(np.uint8) * 255, "1", compression=comp,
+                                    tiffinfo={**info, 278: rps}))
+    for i in range(300):
+        data = bytearray(sources[i % len(sources)])
+        end = int.from_bytes(data[4:8], "little")  # PIL writes the strips before the IFD
+        kind = i % 3
+        if kind == 0:
+            for _ in range(int(rng.integers(1, 4))):
+                data[int(rng.integers(8, end))] = int(rng.integers(0, 256))
+        elif kind == 1:
+            data[int(rng.integers(8, end))] ^= 1 << int(rng.integers(0, 8))
+        else:
+            at, n = int(rng.integers(8, end)), int(rng.integers(1, 4))
+            data[at:at + n] = bytes(n)
+        _against_cv2(tmp_path, bytes(data), file=False)
+
+
+def test_rlew_matches_cv2(tmp_path):
+    """CCITT RLEW: rows aligned to 16 bits from the strip's first byte,
+    whose address parity is its file offset where ``cv2.imread`` maps the
+    file (FillOrder 2 too: the CCITT codec reverses bits itself) and even
+    where ``cv2.imdecode`` reads the strip into its buffer; strips at even
+    and odd offsets, one and several strips, then 100 damaged ones."""
+    rng = np.random.default_rng(31)
+    for i in range(60):
+        h, w = int(rng.integers(1, 20)), int(rng.integers(1, 90))
+        a = (rng.random((h, w, 1)) < rng.choice([0.05, 0.5, 0.9])).astype(int)
+        if i % 2:
+            a = np.repeat(a[:, ::7], 7, 1)[:, :w]
+        data = _rlew(a, rows_per_strip=int(rng.integers(1, h + 1)), lead=i % 4,
+                     fillorder=1 + i % 3 // 2, photometric=i % 5 % 2)
+        outcome = _against_cv2(tmp_path, data)
+        assert _decoded(outcome), i
+    for i in range(100):
+        h, w = int(rng.integers(2, 14)), int(rng.integers(5, 60))
+        data = bytearray(_rlew((rng.random((h, w, 1)) < 0.4).astype(int), lead=i % 2,
+                               rows_per_strip=int(rng.integers(1, h + 1))))
+        end = int.from_bytes(data[4:8], "little")
+        for _ in range(int(rng.integers(1, 4))):
+            data[int(rng.integers(8, max(9, end)))] = int(rng.integers(0, 256))
+        _against_cv2(tmp_path, bytes(data))
+
+
+# -- CIELab and SGILog ----------------------------------------------------------------
+
+
+lw = _load("libtiff_writer")
+needs_libtiff = pytest.mark.skipif(not lw.available(),
+                                   reason="no libtiff with SGILog to write the fixtures")
+
+
+def _lab(h, w, bits, seed=0):
+    rng = np.random.default_rng(seed)
+    half = 1 << (bits - 1)
+    return np.stack([rng.integers(0, 2 * half, (h, w)), rng.integers(-half, half, (h, w)),
+                     rng.integers(-half, half, (h, w))], -1)
+
+
+def _xyz(h, w, seed=0):
+    """XYZ over nine decades, with runs and zeros (LogLuv's 0 code)."""
+    rng = np.random.default_rng(seed)
+    xyz = np.exp(rng.uniform(-14, 6, (h, w, 3))).astype(np.float32)
+    xyz[:, : w // 3] = xyz[:, :1]
+    xyz[rng.random((h, w)) < 0.1] = 0
+    return xyz
+
+
+LAST_FORMS = {
+    "cielab8_pil": lambda: _pil(_smooth(H, W), "LAB"),
+    "cielab8_strips": lambda: lw.cielab(_lab(H, W, 8, 1), rows_per_strip=5),
+    "cielab8_whitepoint": lambda: lw.cielab(_lab(H, W, 8, 2), whitepoint=(0.3127, 0.329)),
+    "cielab8_whitepoint_odd": lambda: lw.cielab(_lab(H, W, 8, 3), whitepoint=(0.45, 0.12)),
+    "cielab8_tiles_lzw": lambda: tw.write_tiff(_lab(H, W, 8, 4) & 0xFF, photometric=8,
+                                               tile=(16, 16), compression=5),
+    "cielab8_deflate_pred_be": lambda: tw.write_tiff(_lab(H, W, 8, 5) & 0xFF, photometric=8,
+                                                     compression=8, predictor=2, order=">"),
+    "cielab16": lambda: lw.cielab(_lab(H, W, 16, 6), bps=16, rows_per_strip=8),
+    "cielab16_whitepoint": lambda: lw.cielab(_lab(H, W, 16, 7), bps=16, whitepoint=(0.3, 0.35)),
+    "cielab16_tiles_be": lambda: tw.write_tiff(_lab(H, W, 16, 8) & 0xFFFF, bps=16,
+                                               photometric=8, tile=(32, 16), order=">"),
+    "cielab16_orient3": lambda: tw.write_tiff(_lab(H, W, 16, 9) & 0xFFFF, bps=16,
+                                              photometric=8, orientation=3, rows_per_strip=8),
+    "logl": lambda: lw.sgilog(_xyz(H, W, 10)[..., 1], rows_per_strip=7),
+    "logl_negative": lambda: lw.sgilog(-_xyz(H, W, 11)[..., 1]),
+    "logl_16bit": lambda: lw.sgilog(np.random.default_rng(12).integers(-32768, 32768, (H, W)),
+                                    datafmt=lw.SGILOGDATAFMT_16BIT),
+    "logluv32": lambda: lw.sgilog(_xyz(H, W, 13), rows_per_strip=7),
+    "logluv32_48bit": lambda: lw.sgilog(
+        np.random.default_rng(14).integers(-32768, 32768, (H, W, 3)),
+        datafmt=lw.SGILOGDATAFMT_16BIT),
+    "logluv24": lambda: lw.sgilog(_xyz(H, W, 15), lw.SGILOG24, rows_per_strip=7),
+    "logluv24_one_strip": lambda: lw.sgilog(_xyz(H, W, 16), lw.SGILOG24),
+    "logluv24_tiles": lambda: tw.write_tiff(
+        np.zeros((H, W, 3), int), bps=16, photometric=32845, tile=(16, 16), compression=7,
+        jpeg_strip=lambda p: np.random.default_rng(p.size).integers(
+            0, 256, p.shape[0] * p.shape[1] * 3).astype(np.uint8).tobytes(),
+        extra_tags={259: ("H", [34677]), 339: ("H", [2] * 3)}),
+    "logluv32_orient2": lambda: tw.write_tiff(
+        np.zeros((H, W, 3), int), bps=16, photometric=32845, compression=7, orientation=2,
+        jpeg_strip=lambda p: _luv32_literals(np.random.default_rng(18).integers(
+            0, 1 << 32, p.shape[:2], dtype=np.uint64).astype(np.uint32)),
+        extra_tags={259: ("H", [34676]), 339: ("H", [2] * 3)}),
+    "rlew_even": lambda: _rlew(_pic(H, W, 1, 2), rows_per_strip=8),
+    "rlew_odd_fill2": lambda: _rlew(_pic(H, W, 1, 2), rows_per_strip=8, lead=1, fillorder=2),
+}
+#: refused where TIFFRGBAImage or the SGILog codec refuses them
+LAST_FORMS_REFUSED = {
+    "cielab_planar": lambda: tw.write_tiff(_lab(H, W, 8) & 0xFF, photometric=8, planar=2),
+    "cielab_whitepoint_y0": lambda: lw.cielab(_lab(H, W, 8), whitepoint=(0.3, 0.0)),
+    "cielab_4_samples": lambda: tw.write_tiff(np.dstack([_lab(H, W, 8) & 0xFF,
+                                                         np.zeros((H, W), int)]), photometric=8),
+    "logl_3_samples": lambda: tw.write_tiff(np.zeros((H, W, 3), int), bps=16, photometric=32844,
+                                            compression=7, jpeg_strip=lambda p: bytes(100),
+                                            extra_tags={259: ("H", [34676])}),
+    "logluv_lzw": lambda: tw.write_tiff(np.zeros((H, W, 3), int), bps=16, photometric=32845,
+                                        compression=5),
+    "sgilog_rgb": lambda: tw.write_tiff(np.zeros((H, W, 3), int), photometric=2, compression=7,
+                                        jpeg_strip=lambda p: bytes(100),
+                                        extra_tags={259: ("H", [34676])}),
+}
+
+
+def _luv32_literals(codes: np.ndarray) -> bytes:
+    """LogLuv32 rows of ``codes`` [h, w] uint32: each byte plane as literal
+    runs of up to 127 bytes."""
+    out = bytearray()
+    for row in codes:
+        for shift in (24, 16, 8, 0):
+            plane = ((row >> shift) & 0xFF).astype(np.uint8).tobytes()
+            for i in range(0, len(plane), 127):
+                out += bytes([len(plane[i:i + 127])]) + plane[i:i + 127]
+    return bytes(out)
+
+
+@needs_libtiff
+@pytest.mark.parametrize("name", sorted(LAST_FORMS))
+def test_last_forms_match_cv2(tmp_path, name):
+    """CIELab (8 and 16 bits, strips and tiles, a WhitePoint or D50),
+    LogL, LogLuv32 and LogLuv24 (libtiff's files from float and from
+    16-bit data, raw codes, tiles) and RLEW decode bit-equal to
+    ``cv2.imread`` and ``cv2.imdecode`` in both modes."""
+    assert _decoded(_against_cv2(tmp_path, LAST_FORMS[name]()))
+
+
+@needs_libtiff
+@pytest.mark.parametrize("name", sorted(LAST_FORMS_REFUSED))
+def test_last_forms_refused_as_cv2(tmp_path, name):
+    """Separate CIELab, a WhitePoint y of 0, CIELab of 4 samples, LogL of 3
+    samples, LogLuv without SGILog and SGILog of RGB: None in cv2,
+    ``FileNotFoundError`` in the port."""
+    assert set(_against_cv2(tmp_path, LAST_FORMS_REFUSED[name]()).values()) == {"none"}
+
+
+@needs_libtiff
+def test_cielab8_values_match_cv2(tmp_path):
+    """Every 8-bit L and a, with b every 17th value, and 16-bit samples
+    spread over their range under three white points."""
+    L, A, B = np.meshgrid(np.arange(256), np.arange(-128, 128), np.arange(-128, 128, 17),
+                          indexing="ij")
+    lab = np.stack([L, A, B], -1).reshape(256, -1, 3)
+    assert _decoded(_against_cv2(tmp_path, lw.cielab(lab), file=False))
+    for wp in (None, (0.3127, 0.329), (0.5, 0.1)):
+        assert _decoded(_against_cv2(tmp_path, lw.cielab(_lab(256, 512, 16, 40), bps=16,
+                                                         whitepoint=wp), file=False))
+
+
+def test_sgilog_codes_match_cv2(tmp_path):
+    """Every LogL code (16 bits), every 7th LogLuv24 code (24 bits), and
+    LogLuv32 codes over every L with four (u, v) and every (u, v) with five
+    L, written as raw codes, against cv2 in both modes."""
+    def tiff(codes, compression, photometric, spp, strip):
+        return tw.write_tiff(np.zeros(codes.shape + (spp,), int), bps=16, photometric=photometric,
+                             compression=7, jpeg_strip=lambda p: strip,
+                             extra_tags={259: ("H", [compression]), 339: ("H", [2] * spp)})
+    logl = np.arange(1 << 16, dtype=np.uint32).reshape(64, 1024)
+    planes = bytearray()
+    for row in logl:
+        for shift in (8, 0):
+            plane = ((row >> shift) & 0xFF).astype(np.uint8).tobytes()
+            for i in range(0, len(plane), 127):
+                planes += bytes([len(plane[i:i + 127])]) + plane[i:i + 127]
+    assert _decoded(_against_cv2(tmp_path, tiff(logl, 34676, 32844, 1, bytes(planes)),
+                                 file=False))
+    luv24 = np.arange(0, 1 << 24, 7, dtype=np.uint32)[:(1 << 24) // 7 // 2048 * 2048]
+    luv24 = luv24.reshape(-1, 2048)
+    strip = np.stack([luv24 >> 16, luv24 >> 8, luv24], -1).astype(np.uint8).tobytes()
+    assert _decoded(_against_cv2(tmp_path, tiff(luv24, 34677, 32845, 3, strip), file=False))
+    every = np.arange(1 << 16, dtype=np.uint32)
+    luv32 = np.concatenate([(every << 16) | uv for uv in (0, 0x8080, 0xFFFF, 0x5A91)] +
+                           [(np.uint32(l) << 16) | every for l in (0, 0x3000, 0x4800, 0x7FFF,
+                                                                   0x8123)]).reshape(-1, 1024)
+    assert _decoded(_against_cv2(tmp_path, tiff(luv32, 34676, 32845, 3, _luv32_literals(luv32)),
+                                 file=False))
+
+
+@needs_libtiff
+@pytest.mark.parametrize("name", ["logl", "logluv32", "logluv24", "cielab16_tiles_be",
+                                  "rlew_odd_fill2"])
+def test_every_cut_of_the_last_forms_matches_cv2(tmp_path, name):
+    """Every cut length of a small file of each new form (9 x 13): its
+    header, directory and strips cut short."""
+    small = {
+        "logl": lambda: lw.sgilog(_xyz(9, 13, 50)[..., 1], rows_per_strip=4),
+        "logluv32": lambda: lw.sgilog(_xyz(9, 13, 51), rows_per_strip=4),
+        "logluv24": lambda: lw.sgilog(_xyz(9, 13, 52), lw.SGILOG24, rows_per_strip=4),
+        "cielab16_tiles_be": lambda: tw.write_tiff(_lab(9, 13, 16, 53) & 0xFFFF, bps=16,
+                                                   photometric=8, tile=(32, 16), order=">"),
+        "rlew_odd_fill2": lambda: _rlew(_pic(9, 13, 1, 2), rows_per_strip=4, lead=1,
+                                        fillorder=2),
+    }
+    data = small[name]()
+    for cut in range(1, len(data)):
+        _against_cv2(tmp_path, data[:cut], file=False)
+    assert _decoded(_against_cv2(tmp_path, data))
+
+
+@needs_libtiff
+def test_corrupt_sgilog_and_cielab_match_cv2(tmp_path):
+    """300 seeded corruptions of LogL, LogLuv32, LogLuv24 and CIELab files
+    (runs that overrun a row, rows the data cannot fill, bad directory
+    values): the port reads each as cv2 does."""
+    rng = np.random.default_rng(61)
+    sources = [lw.sgilog(_xyz(7, 19, 62)[..., 1], rows_per_strip=3),
+               lw.sgilog(_xyz(7, 19, 63), rows_per_strip=3),
+               lw.sgilog(_xyz(7, 19, 64), lw.SGILOG24, rows_per_strip=3),
+               lw.cielab(_lab(7, 19, 16, 65), bps=16, whitepoint=(0.3, 0.3))]
+    for i in range(300):
+        data = bytearray(sources[i % len(sources)])
+        for _ in range(int(rng.integers(1, 4))):
+            data[int(rng.integers(0, len(data)))] = int(rng.integers(0, 256))
+        _against_cv2(tmp_path, bytes(data), file=False)
+
+
+def test_reading_tiff_loads_no_libtiff():
+    """A process that decodes the new forms through the port maps no
+    libtiff (nor cv2 or PIL): the codecs are the port's own C++."""
+    code = (
+        "import sys\n"
+        "from instancesegmentation_tpu_torch.core.imread import imread\n"
+        f"for n in ('logluv32', 'logluv24', 'logl', 'cielab16', 'ccitt_rlew_odd'):\n"
+        f"    imread({FIXTURES!r} + '/' + n + '.tif')\n"
+        "files = {l.split()[-1] for l in open('/proc/self/maps') if '/' in l}\n"
+        "bad = [f for f in files if 'tiff' in f.lower() or 'cv2' in f or 'PIL' in f]\n"
+        "assert not bad, bad\n"
+        "assert 'cv2' not in sys.modules and 'PIL' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+# -- a COCO tree of the new forms -----------------------------------------------------
+
+
+SCENES = os.path.join(os.path.dirname(__file__), "data", "coco_forms")
+
+
+def _scene_tree(root: str, indices) -> tuple[str, str]:
+    """The committed scenes ``indices`` of ``tests/data/coco_forms`` as a
+    COCO tree (each under a ``.jpg`` name: cv2 and the port read by
+    content), its people as 24-point polygons with 17 visible keypoints."""
+    with open(os.path.join(SCENES, "coco_scenes.json")) as f:
+        scenes = json.load(f)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    images, annotations = [], []
+    for i in indices:
+        name = f"{i:012d}.jpg"
+        with open(os.path.join(SCENES, scenes["files"][i]), "rb") as src, \
+                open(os.path.join(img_dir, name), "wb") as dst:
+            dst.write(src.read())
+        images.append({"id": i, "file_name": name, "height": scenes["height"],
+                       "width": scenes["width"]})
+        for j, (cx, cy, ax, ay) in enumerate(scenes["people"][i]):
+            ang = 2 * np.pi * np.arange(24) / 24
+            ring = np.stack([cx + ax * np.cos(ang), cy + ay * np.sin(ang)], 1).round(2)
+            kang = 2 * np.pi * np.arange(17) / 17
+            keypoints = np.stack([cx + 0.6 * ax * np.cos(kang), cy + 0.6 * ay * np.sin(kang),
+                                  np.full(17, 2)], 1).astype(int)
+            annotations.append({"id": 2 * i + j, "image_id": i, "category_id": 1,
+                                "segmentation": [ring.ravel().tolist()],
+                                "bbox": [round(cx - ax, 2), round(cy - ay, 2), round(2 * ax, 2),
+                                         round(2 * ay, 2)],
+                                "keypoints": keypoints.ravel().tolist()})
+    ann = os.path.join(root, "instances.json")
+    with open(ann, "w") as f:
+        json.dump({"categories": [{"id": 1, "name": "person"}], "images": images,
+                   "annotations": annotations}, f)
+    return img_dir, ann
+
+
+def _files(d):
+    return sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d) for f in fs)
+
+
+def test_last_forms_coco_tree_converts_as_jax(tmp_path):
+    """Scenes of every form (8- and 16-bit CIELab, LogLuv32, JPEGs whose
+    EXIF cv2 gives up on): both converters copy them and write the same
+    tree, byte for byte."""
+    idx = (0, 9, 17, 26)
+    img_dir, ann = _scene_tree(str(tmp_path / "src"), idx)
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tconv.transfer_coco(img_dir, ann, port, progress=False) == len(idx)
+    assert jconv.transfer_coco(img_dir, ann, ref, progress=False) == len(idx)
+    files = _files(ref)
+    assert _files(port) == files and len(files) == len(idx) * 7
+    for rel in files:
+        with open(os.path.join(port, rel), "rb") as a, open(os.path.join(ref, rel), "rb") as b:
+            assert a.read() == b.read(), rel
+
+
+def test_last_forms_coco_tree_trains(tmp_path):
+    """The converted tree read by both datasets (every field equal; the
+    EXIF scenes unturned, as cv2 reads them), then port train steps on it
+    on the CPU."""
+    idx = (3, 12, 20, 30)
+    img_dir, ann = _scene_tree(str(tmp_path / "src"), idx)
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tconv.transfer_coco(img_dir, ann, port_dir, progress=False) == len(idx)
+    assert jconv.transfer_coco(img_dir, ann, jax_dir, progress=False) == len(idx)
+    port, ref = InstanceCommonDataset(port_dir, canvas=320), JaxDataset(jax_dir, canvas=320)
+    assert len(port) == len(ref) == 2 * len(idx)
+    for i in range(len(port)):
+        got, want = port.fetch(i), ref.fetch(i)
+        for field in ("image", "mask", "image_hw", "obj_box", "mask_box", "keypoints"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field),
+                                          err_msg=f"sample {i} {field}")
+        assert tuple(got.image_hw) == (240, 320)  # 480 x 640, unturned, on the 320 canvas
+    cfg = TrainConfig(train_dataset_dir=port_dir, val_dataset_dir=port_dir,
+                      checkpoint_dir=str(tmp_path / "ckpt"), out_dir=str(tmp_path / "runs"),
+                      canvas=320, out_size=64, in_channels=20, bfloat16=False, batch_size=4,
+                      learning_rate=3e-3, save_iou_gate=0.0, log_images=False)
+    batch = host_batch([port.fetch(i) for i in range(4)])
+    model = Segment(20)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    state = TrainState.create(model, cfg.learning_rate)
+    train_step = make_train_step(cfg)
+    draws = draw_augment(4, augment_config(cfg, True))
+    losses = []
+    for _ in range(2):
+        state, metrics = train_step(state, batch, draws)
+        losses.append(float(metrics["loss"]))
+    assert np.isfinite(losses).all(), losses
+
+
+def test_tif_named_tree_needs_a_tiff_encoder(tmp_path):
+    """ROADMAP A15: under ``.tif`` names the mix preview is a TIFF that
+    cv2's encoder writes; the port has no TIFF encoder and raises naming
+    the extension, where the JAX package writes the tree."""
+    img_dir, ann = _scene_tree(str(tmp_path / "src"), (0,))
+    os.rename(os.path.join(img_dir, "000000000000.jpg"), os.path.join(img_dir, "000000000000.tif"))
+    with open(ann) as f:
+        tree = json.load(f)
+    tree["images"][0]["file_name"] = "000000000000.tif"
+    with open(ann, "w") as f:
+        json.dump(tree, f)
+    assert jconv.transfer_coco(img_dir, ann, str(tmp_path / "jax"), progress=False) == 1
+    assert os.path.getsize(str(tmp_path / "jax" / "mix" / "000000000000.tif")) > 0
+    with pytest.raises(ValueError, match="tif"):
+        tconv.transfer_coco(img_dir, ann, str(tmp_path / "port"), progress=False)
+
+
+@pytest.mark.parametrize("index", range(32))
+def test_coco_scenes_equal_cv2_and_the_port(index):
+    """The decodes stored beside each scene (SHA-256) are still cv2's, and
+    the port reads the file and decodes its bytes to them (``chip_smoke.py``
+    repeats the latter on the card's machine)."""
+    with open(os.path.join(SCENES, "coco_scenes.json")) as f:
+        name = json.load(f)["files"][index]
+    path = os.path.join(SCENES, name)
+    with open(path, "rb") as f:
+        data = f.read()
+    stored = np.load(os.path.join(SCENES, f"coco_{index:02d}.npz"))
+    live = _fixtures.cv2_reads(path, data)
+    assert sorted(live) == sorted(stored.files)
+    assert tuple(stored["color_shape"]) == (480, 640, 3)
+    for mode in ("color", "gray"):
+        for decode, read in ((False, lambda: imread(path, mode)),
+                             (True, lambda: imdecode(data, mode))):
+            assert _fixtures.matches(stored, mode, decode, read()), (mode, decode)
+
+
+def test_coco_scene_set_is_complete():
+    with open(os.path.join(SCENES, "coco_scenes.json")) as f:
+        scenes = json.load(f)
+    assert len(scenes["files"]) == len(scenes["people"]) == 32
+    names = set(os.listdir(SCENES))
+    assert set(scenes["files"]) | {f"coco_{i:02d}.npz" for i in range(32)} <= names
+    kinds = [name.rsplit(".", 1)[1] for name in scenes["files"]]
+    assert kinds.count("tif") == 24 and kinds.count("jpg") == 8
+    assert sum(os.path.getsize(os.path.join(SCENES, n)) for n in names
+               if n.startswith("coco_")) < 800_000
 
 
 # -- the committed fixtures ----------------------------------------------------------

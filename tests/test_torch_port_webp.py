@@ -176,6 +176,16 @@ def test_exif_orientation_matches_cv2(tmp_path, orientation, kind):
     np.testing.assert_array_equal(got, _turned(plain, orientation if 1 <= orientation <= 8 else 1))
 
 
+_exif_spec = importlib.util.spec_from_file_location(
+    "exif_fixtures", os.path.join(os.path.dirname(__file__), "data", "exif", "make_fixtures.py"))
+exif_fx = importlib.util.module_from_spec(_exif_spec)
+_exif_spec.loader.exec_module(exif_fx)
+#: C10: EXIF blocks with an entry before orientation 6 (``tests/data/exif``),
+#: in both byte orders
+C10_CASES = {f"c10_{name}_{'ii' if order == '<' else 'mm'}": exif_fx.exif_block(entry, order)
+             for name, (entry, _) in exif_fx.CASES.items() for order in "<>"}
+
+
 def _exif_entry(value: bytes, typ: int, count: int) -> bytes:
     return b"MM\0*" + struct.pack(">IHHHI", 8, 1, 0x0112, typ, count) + value + bytes(4)
 
@@ -184,11 +194,14 @@ def _exif_entry(value: bytes, typ: int, count: int) -> bytes:
                                   "before_image", "count_10", "count_0", "type_long",
                                   "type_undefined", "beyond_riff", "demux_refuses_trailing",
                                   "demux_refuses_reserved_flag", "demux_refuses_two_images",
-                                  "simple_file", "cut_block"])
+                                  "simple_file", "cut_block"] + sorted(C10_CASES))
 def test_exif_container_rules_match_cv2(tmp_path, case):
     """Where cv2 takes the EXIF orientation of a WebP file: the first EXIF
     chunk of a file with the VP8X EXIF flag that libwebp's demuxer accepts
-    whole, its 16-bit value whatever the entry's type and count."""
+    whole, its 16-bit value whatever the entry's type and count; C10's
+    cases (``tests/data/exif``): an entry before the orientation whose
+    string or rational data lies outside the block leaves the image
+    unturned."""
     img = mf.picture(24, 40, 6, noise=20)
     stream = mf.chunks_of(mf.cv2_webp(img, 101))[0]
     head, six = mf.vp8x(0x08, 40, 24), (b"EXIF", mf.exif(6))
@@ -208,6 +221,8 @@ def test_exif_container_rules_match_cv2(tmp_path, case):
         "demux_refuses_two_images": lambda: mf.riff([head, stream, stream, six]),
         "simple_file": lambda: mf.riff([stream, six]),
         "cut_block": lambda: mf.riff([head, stream, (b"EXIF", mf.exif(6)[:19])]),
+        **{name: (lambda name=name: mf.riff([head, stream, (b"EXIF", C10_CASES[name])]))
+           for name in C10_CASES},
     }[case]()
     _against_cv2(tmp_path, data)
 
