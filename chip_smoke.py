@@ -121,7 +121,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    scenes converted by ``transfer_coco``, trained by ``main``
    (``TrainConfig`` defaults, batch 32, 2 steps: finite losses, 1
    ``warp_2level`` launch per step) and served (2 ``fused_chain`` launches
-   per dispatch);
+   per dispatch); then JPEG 2000 (``jpeg2000_phase``: ``core/jpeg2000.py``
+   with its codestream decoder in ``ops/native/jpeg2000.cpp``): the
+   fixtures of ``tests/data/jpeg2000`` through ``imread`` and ``imdecode``
+   in both modes, bit-equal to cv2's stored outcomes, ms per 480 x 640 file
+   of cv2's default, PIL 5/3 with RCT and PIL 9/7 with ICT beside
+   ``read_png``'s, and a COCO tree of the 32 committed 480 x 640 JPEG 2000
+   scenes (cv2's, 5/3, 9/7, tiled, RPCL, layered) converted, trained (batch
+   32, 2 steps, 1 ``warp_2level`` launch per step) and served (2
+   ``fused_chain`` launches per dispatch);
    then the dataset converters (``converters_phase``): the port writes a
    COCO (64 JPEGs of 480 x 640, two people each, polygons, compressed and
    uncompressed RLE, 17 keypoints), an OCHuman (16 images, 19 keypoints,
@@ -1574,44 +1582,54 @@ def tiff_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
 
 WEBP_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                              "webp")
-WEBP_TIMED = ("lossy_q75_480x640.webp", "lossy_q90_480x640.webp", "lossless_480x640.webp")
+#: the timed 480 x 640 WebP files and what each is
+WEBP_TIMED = (("lossy_q75_480x640.webp", "lossy q75"), ("lossy_q90_480x640.webp", "lossy q90"),
+              ("lossless_480x640.webp", "lossless"))
 #: the WebP COCO tree: images (the committed scenes), batch, epochs
 WEBP_COCO, WEBP_BATCH, WEBP_EPOCHS = 32, 32, 1
+JPEG2000_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                                 "jpeg2000")
+#: the timed 480 x 640 JPEG 2000 files and what each is
+JPEG2000_TIMED = (("cv2_480x640.jp2", "cv2 default"), ("pil53_rct_480x640.jp2", "PIL 5/3 RCT"),
+                  ("pil97_ict_480x640.jp2", "PIL 9/7 ICT"))
+#: the JPEG 2000 COCO tree: images (the committed scenes), batch, epochs
+JPEG2000_COCO, JPEG2000_BATCH, JPEG2000_EPOCHS = 32, 32, 1
 
 
-def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
-    """WebP (``core/webp.py``, its bit streams in ``ops/native/webp.cpp``
-    built with g++ here): each committed fixture of ``tests/data/webp`` read
-    in both modes through ``imread`` (the file) and ``imdecode`` (its
-    bytes), bit-equal to the cv2 decodes stored beside it or
-    ``FileNotFoundError`` where cv2 returned None; ms per 480 x 640 file for
-    lossy q75, lossy q90 and lossless beside ``read_png``'s ms per 480 x 640
-    PNG (``png_ms``), host clock.  Then the main path on WebP data: a COCO
-    tree of the 32 committed 480 x 640 WebP scenes (``scene_coco_tree``),
-    converted by ``transfer_coco`` (which copies the WebP files), trained
+def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: bytes, load,
+                n_coco: int, batch: int, epochs: int, card: str, w2, fc, png_ms: float,
+                iters: int = 20) -> dict:
+    """A decoder of the reader (its native part built with g++ here by
+    ``load``): each committed fixture ``*<ext>`` of ``fixtures`` read in
+    both modes through ``imread`` (the file) and ``imdecode`` (its bytes),
+    bit-equal to the cv2 decodes stored beside it or ``FileNotFoundError``
+    where cv2 returned None; ms per ``timed`` 480 x 640 file beside
+    ``read_png``'s ms per 480 x 640 PNG (``png_ms``), host clock.  Then the
+    main path on that format: a COCO tree of the ``n_coco`` committed 480 x
+    640 scenes ``coco_NN<ext>`` (``scene_coco_tree``), converted by
+    ``transfer_coco`` (which copies the files, starting ``magic``), trained
     with ``python -m instancesegmentation_tpu_torch.train``'s ``main``
-    (``TrainConfig`` defaults, batch 32, 2 steps: finite losses, 1
+    (``TrainConfig`` defaults, ``batch``, ``epochs``: finite losses, 1
     ``warp_2level`` launch per step), and the checkpoint served over the
-    tree's 64 instances (2 ``fused_chain`` launches per dispatch, finite
+    tree's instances (2 ``fused_chain`` launches per dispatch, finite
     outputs)."""
     import glob
 
     from instancesegmentation_tpu_torch.core.imread import imread
     from instancesegmentation_tpu_torch.data import converters
     from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
-    from instancesegmentation_tpu_torch.ops.native.webp import load_webp
 
     t0 = time.perf_counter()
-    load_webp()
+    load()
     out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
-    files = sorted(glob.glob(os.path.join(WEBP_FIXTURES, "*.webp")))
-    check(len(files) >= 100 and all(os.path.exists(os.path.join(WEBP_FIXTURES, n))
-                                    for n in WEBP_TIMED), "webp: the committed fixtures are present")
-    checked, refused = _check_stored("webp", [(p, p[:-5] + ".npz") for p in files])
+    files = sorted(glob.glob(os.path.join(fixtures, "*" + ext)))
+    check(len(files) >= 100 and all(os.path.exists(os.path.join(fixtures, n)) for n, _ in timed),
+          f"{tag}: the committed fixtures are present")
+    checked, refused = _check_stored(tag, [(p, p[:-len(ext)] + ".npz") for p in files])
     out["fixtures"], out["reads_checked"], out["reads_refused_as_cv2"] = len(files), checked, \
         refused
-    for name in WEBP_TIMED:
-        path = os.path.join(WEBP_FIXTURES, name)
+    for name, _ in timed:
+        path = os.path.join(fixtures, name)
         imread(path)
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -1619,38 +1637,60 @@ def webp_phase(card: str, w2, fc, png_ms: float, iters: int = 20) -> dict:
         out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
         out[f"{name}_bytes"] = os.path.getsize(path)
     out["read_png_ms_480x640_rgb"] = png_ms
-    q75, q90, lossless = (out[f"{n}_ms"] for n in WEBP_TIMED)
-    print(f"webp: {len(files)} fixtures ({checked} reads through imread and imdecode, {refused} "
-          f"refused where cv2 returns None) bit-equal to cv2's stored outcomes; 480x640 lossy "
-          f"q75 {q75:.2f} ms, lossy q90 {q90:.2f} ms, lossless {lossless:.2f} ms, read_png "
-          f"{png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
+    times = ", ".join(f"{what} {out[f'{name}_ms']:.2f} ms" for name, what in timed)
+    print(f"{tag}: {len(files)} fixtures ({checked} reads through imread and imdecode, {refused} "
+          f"refused where cv2 returns None) bit-equal to cv2's stored outcomes; 480x640 {times}, "
+          f"read_png {png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_webp_") as tmp:
-        # the WebP scenes under .jpg names, as scraped datasets hold them:
-        # under .webp names the converters' mix preview would need a WebP
-        # encoder (ROADMAP C9)
-        with open(os.path.join(WEBP_FIXTURES, "coco_scenes.json")) as f:
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as tmp:
+        # the scenes under .jpg names, as scraped datasets hold them: under
+        # their own names the converters' mix preview would need an encoder
+        # the port lacks (ROADMAP C9, A16)
+        with open(os.path.join(fixtures, "coco_scenes.json")) as f:
             scenes = json.load(f)
         img_dir, ann = scene_coco_tree(
             os.path.join(tmp, "src"),
-            [os.path.join(WEBP_FIXTURES, f"coco_{i:02d}.webp") for i in range(WEBP_COCO)], scenes)
+            [os.path.join(fixtures, f"coco_{i:02d}{ext}") for i in range(n_coco)], scenes)
         common = os.path.join(tmp, "common")
         t0 = time.perf_counter()
         n = converters.transfer_coco(img_dir, ann, common, progress=False)
         out["convert_s"] = time.perf_counter() - t0
-        check(n == WEBP_COCO, f"webp: transfer_coco converted {n} of {WEBP_COCO} WebP images")
+        check(n == n_coco, f"{tag}: transfer_coco converted {n} of {n_coco} {label} images")
         for i in (0, 1):
             with open(os.path.join(common, "image", f"{i:012d}.jpg"), "rb") as a, \
                     open(os.path.join(img_dir, f"{i:012d}.jpg"), "rb") as b:
                 copied, source = a.read(), b.read()
-            check(copied[:4] == b"RIFF" and copied == source,
-                  "webp: the converted tree holds the WebP files as they were")
+            check(copied.startswith(magic) and copied == source,
+                  f"{tag}: the converted tree holds the {label} files as they were")
         samples = len(InstanceCommonDataset(common, 640))
-        check(samples == 2 * WEBP_COCO, f"webp: {samples} eligible instances, 2 per image")
-        out.update(train_and_serve_tree("WebP", common, WEBP_BATCH, WEBP_EPOCHS, tmp, w2, fc,
-                                        card))
-    print(json.dumps({"webp": out}))
+        check(samples == 2 * n_coco, f"{tag}: {samples} eligible instances, 2 per image")
+        out.update(train_and_serve_tree(label, common, batch, epochs, tmp, w2, fc, card))
+    print(json.dumps({tag: out}))
     return out
+
+
+def webp_phase(card: str, w2, fc, png_ms: float) -> dict:
+    """WebP (``core/webp.py``, its bit streams in ``ops/native/webp.cpp``):
+    ``codec_phase`` over ``tests/data/webp`` (lossy q75, q90 and lossless
+    timed) and its 32 WebP scenes (lossy and lossless), batch 32, 2 steps."""
+    from instancesegmentation_tpu_torch.ops.native.webp import load_webp
+
+    return codec_phase("webp", "WebP", WEBP_FIXTURES, ".webp", WEBP_TIMED, b"RIFF", load_webp,
+                       WEBP_COCO, WEBP_BATCH, WEBP_EPOCHS, card, w2, fc, png_ms)
+
+
+def jpeg2000_phase(card: str, w2, fc, png_ms: float) -> dict:
+    """JPEG 2000 (``core/jpeg2000.py``, the codestream decoder in
+    ``ops/native/jpeg2000.cpp``): ``codec_phase`` over
+    ``tests/data/jpeg2000`` (cv2's default ``.jp2``, a PIL 5/3 file with RCT
+    and a PIL 9/7 file with ICT timed) and its 32 JPEG 2000 scenes (cv2's,
+    5/3, 9/7, tiled, RPCL, layered), batch 32, 2 steps."""
+    from instancesegmentation_tpu_torch.core.jpeg2000 import JP2_SIGNATURE
+    from instancesegmentation_tpu_torch.ops.native.jpeg2000 import load_jpeg2000
+
+    return codec_phase("jpeg2000", "JPEG 2000", JPEG2000_FIXTURES, ".jp2", JPEG2000_TIMED,
+                       JP2_SIGNATURE, load_jpeg2000, JPEG2000_COCO, JPEG2000_BATCH,
+                       JPEG2000_EPOCHS, card, w2, fc, png_ms)
 
 # -- the dataset converters ---------------------------------------------------------
 
@@ -4354,6 +4394,7 @@ def main() -> int:
         image_forms_phase(card, disk["read_png_ms_480x640_rgb"])
         tiff = tiff_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         webp = webp_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
+        j2k = jpeg2000_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
@@ -4666,6 +4707,7 @@ def main() -> int:
          "launches_parallel_engine": par["engine"]["launches"],
          "launches_converters_serve": conv["serve"]["fused_chain"],
          "launches_webp_serve": webp["serve"]["fused_chain"],
+         "launches_jpeg2000_serve": j2k["serve"]["fused_chain"],
          "launches_tiff_serve": tiff["serve"]["fused_chain"],
          "launches_fused_stem": fstem["serve"]["bf16"]["fused_chain"]["banded"],
          "launches_fused_stem_parallel_replica": fstem["parallel_launches"],
@@ -4740,6 +4782,7 @@ def main() -> int:
          "launches_dp_gloo_per_rank": par["gloo_two_ranks"]["warp_2level_per_rank"],
          "launches_converters_train": {k: v["warp_2level"] for k, v in conv["train"].items()},
          "launches_webp_train": webp["train"]["warp_2level"],
+         "launches_jpeg2000_train": j2k["train"]["warp_2level"],
          "launches_tiff_train": tiff["train"]["warp_2level"],
          "launches_remat_train": fstem["remat"]["runs"]["remat"]["warp_2level"],
          "launches_show_aug_rotate": vqa["show_aug"]["warp_2level_launches"],

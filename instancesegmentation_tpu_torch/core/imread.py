@@ -27,7 +27,14 @@ leading bytes, as cv2 chooses it, never by its extension:
 - ``RIFF....WEBP``: ``core/webp.py`` with its bit streams in
   ``ops/native/webp.cpp`` (built like the JPEG decoder): lossless (VP8L),
   lossy (VP8, its ALPH stream decoded and dropped), VP8X with EXIF, the
-  first frame of an animation, as cv2's libwebp reads them.
+  first frame of an animation, as cv2's libwebp reads them;
+- the JP2 signature box ``00 00 00 0C 6A 50 20 20 0D 0A 87 0A`` and the raw
+  codestream's ``FF 4F FF 51``: ``core/jpeg2000.py`` with its codestream
+  decoder in ``ops/native/jpeg2000.cpp`` (built like the JPEG decoder):
+  JPEG 2000 as cv2's OpenJPEG 2.5.3 reads it (5/3 and 9/7, RCT and ICT,
+  every progression order, tiles, layers, precincts, code-block styles,
+  ROI, the JP2 boxes, palettes and channel definitions) and cv2 converts
+  it.
 
 The RLE and LZW codes of BMP, Sun raster, HDR, GIF and TIFF, and TIFF's
 CCITT, ThunderScan and SGILog codes and its CIELab conversion, are unpacked
@@ -43,15 +50,17 @@ libjpeg-turbo refuses (hierarchical, 12-bit, lossless arithmetic, ...: see
 ``ops/native/jpeg.py``), a TIFF form libtiff or cv2 refuses (see
 ``core/tiff.py``), a WebP shorter than cv2's 32-byte header read (even one
 that starts ``RIFF....WEBP``) or one libwebp refuses (see
-``core/webp.py``).  A header whose size cv2 itself raises on raises
-``ImageSizeError`` (``core/png.py``).  A valid file of a format the port
-does not decode (JPEG 2000, AVIF) raises ``UnsupportedImage``, a
-``ValueError`` naming ROADMAP A10 part 3: the port never drops silently
-what the JAX package reads (a file that only starts like JPEG 2000 or AVIF
-raises it too: the port does not parse them).  ``cv2.imread`` and
+``core/webp.py``), a JPEG 2000 file OpenJPEG or cv2 refuses (see
+``core/jpeg2000.py``).  A header whose size cv2 itself raises on raises
+``ImageSizeError`` (``core/png.py``).  A valid file of the format the port
+does not decode (AVIF) raises ``UnsupportedImage``, a ``ValueError``
+naming ROADMAP A10 part 3: the port never drops silently what the JAX
+package reads (a file that only starts like AVIF raises it too: the port
+does not parse it); so does a JPEG 2000 file of a form its decoder leaves
+out (ROADMAP A10 part 3, step 5: HTJ2K code-blocks, Part 2 transforms).  ``cv2.imread`` and
 ``cv2.imdecode`` differ on three forms,
-which the port follows (``imdecode`` reads as ``cv2.imdecode``; WebP reads
-alike through both):
+which the port follows (``imdecode`` reads as ``cv2.imdecode``; WebP and
+JPEG 2000 read alike through both):
 a PFM whose channels differ from the read mode's is None to ``imread`` and
 its own channels to ``imdecode``; JPEG data that ends before its decode
 does is None to ``imdecode`` (cv2's memory source suspends where a file's
@@ -74,6 +83,8 @@ from instancesegmentation_tpu_torch.core.gif import SIGNATURES as GIF_SIGNATURES
 from instancesegmentation_tpu_torch.core.gif import decode_gif
 from instancesegmentation_tpu_torch.core.hdr import SIGNATURES as HDR_SIGNATURES
 from instancesegmentation_tpu_torch.core.hdr import decode_hdr
+from instancesegmentation_tpu_torch.core.jpeg2000 import SIGNATURES as JPEG2000_SIGNATURES
+from instancesegmentation_tpu_torch.core.jpeg2000 import decode_jpeg2000
 from instancesegmentation_tpu_torch.core.png import SIGNATURE as PNG_SIGNATURE
 from instancesegmentation_tpu_torch.core.png import (
     ImageSizeError,
@@ -89,11 +100,6 @@ from instancesegmentation_tpu_torch.core.webp import decode_webp, is_webp
 from instancesegmentation_tpu_torch.ops.native.jpeg import SIGNATURE as JPEG_SIGNATURE
 from instancesegmentation_tpu_torch.ops.native.jpeg import decode_jpeg
 
-#: leading bytes of the other formats cv2 decodes, which the port does not
-_OTHER_FORMATS = (
-    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    (b"\xff\x4f\xff\x51", "JPEG 2000"),
-)
 #: the ISO-BMFF brands that libavif (cv2's AVIF decoder) takes
 _AVIF_BRANDS = (b"avif", b"avis")
 
@@ -113,12 +119,8 @@ def _is_avif(data: bytes) -> bool:
 
 
 def _other_format(data: bytes) -> str | None:
-    for sig, name in _OTHER_FORMATS:
-        if data.startswith(sig):
-            return name
-    if _is_avif(data):
-        return "AVIF"
-    return None
+    """The format cv2 decodes that the port does not (AVIF), or None."""
+    return "AVIF" if _is_avif(data) else None
 
 
 def _decoder(data: bytes, read_file: bool):
@@ -146,6 +148,8 @@ def _decoder(data: bytes, read_file: bool):
         return lambda d, mode, path: decode_tiff(d, mode, path, imread=read_file)
     if is_webp(data):
         return decode_webp
+    if data.startswith(JPEG2000_SIGNATURES):
+        return decode_jpeg2000
     return None
 
 

@@ -135,11 +135,11 @@ def test_list_images_filters_extensions(tmp_path):
 @pytest.mark.parametrize("mode", [[], ["--proposals", "props.json"]], ids=["whole", "proposals"])
 def test_jpeg_raises_naming_the_file(mode, tmp_path):
     """A listed BMP decodes as cv2 decodes it since the BMP codec landed (RLE
-    too, since its decoder landed; a TIFF and a WebP too, since their
-    decoders landed); a listed image of a form the port does not decode (a
-    JPEG 2000 named ``.bmp``: cv2 goes by content; ROADMAP A10 part 3) is
-    never skipped: the command raises ``UnsupportedImage`` naming the file,
-    here before it writes anything."""
+    too, since its decoder landed; a TIFF, a WebP and a JPEG 2000 too, since
+    their decoders landed); a listed image of a form the port does not
+    decode (an AVIF named ``.bmp``: cv2 goes by content; ROADMAP A10 part 3)
+    is never skipped: the command raises ``UnsupportedImage`` naming the
+    file, here before it writes anything."""
     img = tmp_path / "img"
     img.mkdir()
     cv2.imwrite(str(img / "a.png"), np.zeros((20, 20, 3), np.uint8))
@@ -164,7 +164,12 @@ def test_jpeg_raises_naming_the_file(mode, tmp_path):
                                   cv2.imread(str(img / "d.bmp"))[..., ::-1])
     (img / "d.bmp").unlink()
     ok, jp2 = cv2.imencode(".jp2", np.tile(pixels, (2, 2, 1)))  # OpenJPEG needs 33+ pixels a side
-    (img / "c.bmp").write_bytes(jp2.tobytes())
+    (img / "d.bmp").write_bytes(jp2.tobytes())
+    np.testing.assert_array_equal(imread(str(img / "d.bmp")),
+                                  cv2.imread(str(img / "d.bmp"))[..., ::-1])
+    (img / "d.bmp").unlink()
+    ok, avif = cv2.imencode(".avif", np.tile(pixels, (2, 2, 1)))
+    (img / "c.bmp").write_bytes(avif.tobytes())
     assert cv2.imread(str(img / "c.bmp")) is not None
     (tmp_path / "props.json").write_text(json.dumps({"c": {"boxes": [[0, 0, 9, 9]],
                                                            "scores": [1.0]}}))

@@ -297,11 +297,12 @@ def test_supervisely_class_whitelist(tmp_path):
 
 
 def test_unsupported_images_are_not_skipped(tmp_path):
-    """cv2 reads a JPEG 2000 that the port does not decode (ROADMAP A10 part
-    3; an RLE BMP, a TIFF, then a WebP, served here until their decoders
-    landed): the port's converter stops with ``UnsupportedImage`` where a
-    skip would drop an image that the JAX package converts.  The same tree
-    with a WebP in that place converts as the JAX package converts it."""
+    """cv2 reads an AVIF that the port does not decode (ROADMAP A10 part 3;
+    an RLE BMP, a TIFF, a WebP, then a JPEG 2000, served here until their
+    decoders landed): the port's converter stops with ``UnsupportedImage``
+    where a skip would drop an image that the JAX package converts.  The
+    same tree with a WebP, or a JPEG 2000, in that place converts as the JAX
+    package converts it, file for file."""
     img_dir, ann_path = _coco_tree(str(tmp_path / "src"), gray_jpeg=False)
     pixels = np.random.default_rng(5).integers(0, 256, (96, 128, 3), dtype=np.uint8)
     ok, webp = cv2.imencode(".webp", pixels)
@@ -313,6 +314,12 @@ def test_unsupported_images_are_not_skipped(tmp_path):
     ok, jp2 = cv2.imencode(".jp2", pixels)
     with open(os.path.join(img_dir, "0000.jpg"), "wb") as f:
         f.write(jp2.tobytes())
+    assert tconv.transfer_coco(img_dir, ann_path, str(tmp_path / "port_jp2"), progress=False) == 4
+    assert jconv.transfer_coco(img_dir, ann_path, str(tmp_path / "jax_jp2"), progress=False) == 4
+    _same_tree(str(tmp_path / "port_jp2"), str(tmp_path / "jax_jp2"), image_bytes=True)
+    ok, avif = cv2.imencode(".avif", pixels)
+    with open(os.path.join(img_dir, "0000.jpg"), "wb") as f:
+        f.write(avif.tobytes())
     assert cv2.imread(os.path.join(img_dir, "0000.jpg")) is not None
     assert jconv.transfer_coco(img_dir, ann_path, str(tmp_path / "jax"), progress=False) == 4
     with pytest.raises(ValueError, match="A10 part 3"):

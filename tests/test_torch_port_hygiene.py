@@ -52,20 +52,25 @@ def test_every_module_imports_without_jax():
 
 
 def test_native_decoders_use_no_system_codec():
-    """The port's C++ (the WebP decoder and the TIFF codecs among it)
-    includes no libwebp or libtiff header and links no library: ``build.py``
-    compiles each source alone, with no ``-march`` (so that g++ contracts no
-    FMA into the CIELab and SGILog arithmetic), and no port source names
-    libwebp's or libtiff's library or asks ctypes to find one."""
+    """The port's C++ (the WebP and JPEG 2000 decoders and the TIFF codecs
+    among it) includes no libwebp, libtiff or OpenJPEG header and links no
+    library: ``build.py`` compiles each source alone, with no ``-march`` and
+    with ``-ffp-contract=off`` (so that g++ contracts no FMA into the
+    CIELab, SGILog and 9/7 wavelet arithmetic), and no port source names
+    libwebp's, libtiff's or OpenJPEG's library or asks ctypes to find one."""
     native = PORT / "ops" / "native"
     for src in sorted(native.glob("*.cpp")) + sorted(native.glob("*.h")):
         includes = [line for line in src.read_text().splitlines() if line.startswith("#include")]
-        assert not [i for i in includes if "webp/" in i or "<webp" in i or "tiff" in i], src.name
+        assert not [i for i in includes if "webp/" in i or "<webp" in i or "tiff" in i
+                    or "openjp" in i], src.name
     build = (native / "build.py").read_text()
     flags = build.split("CXX_FLAGS =")[1].split("\n")[0]
     assert "-lwebp" not in build and "-ltiff" not in build and "-l" not in flags
+    assert "-lopenjp2" not in build
     assert "-march" not in flags and "-mfma" not in flags and "-ffast-math" not in flags
+    assert "-ffp-contract=off" in flags
     for path in SOURCES + sorted(native.glob("*.cpp")):
         text = path.read_text()
         assert "libwebp.so" not in text and "libtiff.so" not in text, path.name
+        assert "libopenjp2" not in text, path.name
         assert "find_library" not in text, path.name

@@ -258,9 +258,12 @@ def test_imread_raises_where_cv2_returns_none(tmp_path):
     for q in (90, 101):
         ok, webp = cv2.imencode(".webp", _picture(6, 8), [cv2.IMWRITE_WEBP_QUALITY, q])
         _same_as_jax(_write(tmp_path / f"image{q}.webp", webp.tobytes()))
-    # the forms that stay out (ROADMAP A10 part 3) raise, never skip
+    # JPEG 2000 is decoded since its decoder landed
     ok, jp2 = cv2.imencode(".jp2", _picture(64, 64))  # OpenJPEG needs 33+ pixels a side
-    unsupported = {"image.jp2": jp2.tobytes()}
+    _same_as_jax(_write(tmp_path / "image.jp2", jp2.tobytes()))
+    # the form that stays out (ROADMAP A10 part 3) raises, never skips
+    ok, avif = cv2.imencode(".avif", _picture(64, 64))
+    unsupported = {"image.avif": avif.tobytes()}
     for name, data in unsupported.items():
         path = _write(tmp_path / name, data)
         assert cv2.imread(path) is not None, name
@@ -307,12 +310,12 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
     """C3: for every format cv2 writes here (and PIL's BigTIFF and CMYK
     JPEG), in both read modes, the port does exactly one of: decode equal
     to ``cv2.imread``; raise ``UnsupportedImage`` where cv2 decodes; raise
-    ``FileNotFoundError`` where cv2 returns None.  AVIF and JPEG 2000
-    raise ``UnsupportedImage``; PIL's CMYK JPEG is decoded (since the JPEG
+    ``FileNotFoundError`` where cv2 returns None.  AVIF raises
+    ``UnsupportedImage``; PIL's CMYK JPEG is decoded (since the JPEG
     decoder took every form cv2 reads), cv2's TIFF and PIL's BigTIFF (since
-    the TIFF decoder landed) and cv2's lossy and lossless WebP (since the
-    WebP decoder landed); OpenEXR (cv2 here is built without it)
-    ``FileNotFoundError``."""
+    the TIFF decoder landed), cv2's lossy and lossless WebP (since the WebP
+    decoder landed) and cv2's JPEG 2000 (since the JPEG 2000 decoder
+    landed); OpenEXR (cv2 here is built without it) ``FileNotFoundError``."""
     img = _picture(32, 48, seed=3)
     outcome = {}
     for name, data in _writers(img).items():
@@ -333,9 +336,9 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
             want = want[..., ::-1] if want.ndim == 3 else want
             np.testing.assert_array_equal(got, want, err_msg=f"{name} {mode}")
             outcome[name, mode] = "decoded"
-    for name in ("avif_3d_0", "jp2_3d_0"):
-        assert outcome[name, "color"] == outcome[name, "gray"] == "unsupported", name
-    for name in ("cmyk_jpeg", "bigtiff", "tiff_3d_0", "tiff_2d_0", "webp_3d_0", "webp_3d_2"):
+    assert outcome["avif_3d_0", "color"] == outcome["avif_3d_0", "gray"] == "unsupported"
+    for name in ("cmyk_jpeg", "bigtiff", "tiff_3d_0", "tiff_2d_0", "webp_3d_0", "webp_3d_2",
+                 "jp2_3d_0"):
         assert outcome[name, "color"] == outcome[name, "gray"] == "decoded", name
     assert outcome["openexr_magic", "color"] == "none"
     assert outcome["pfm_3d_0", "gray"] == outcome["pfm_2d_0", "color"] == "none"
