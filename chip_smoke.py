@@ -129,7 +129,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``read_png``'s, and a COCO tree of the 32 committed 480 x 640 JPEG 2000
    scenes (cv2's, 5/3, 9/7, tiled, RPCL, layered) converted, trained (batch
    32, 2 steps, 1 ``warp_2level`` launch per step) and served (2
-   ``fused_chain`` launches per dispatch);
+   ``fused_chain`` launches per dispatch); then the encoders
+   (``encoders_phase``: ``core/imwrite.py`` over ``core/{pnm,sunras,hdr,
+   gif,tiff}.py`` and ``image_codes.cpp``): ``imencode`` of the inputs of
+   ``tests/data/imwrite`` in every extension ``cv2.imwrite`` writes but the
+   three codecs, equal to cv2's stored digests or refused where cv2
+   refuses (with what ``cv2.imwrite`` leaves on disk), ms per 480 x 640
+   colour image per encoder, the encoders480 COCO tree (the 32 WebP scenes
+   under those names) converted equal to the JAX package's tree, trained
+   (batch 32, 2 steps) and served, and C12's ``infer --dataset-mode`` mask
+   writes;
    then the dataset converters (``converters_phase``): the port writes a
    COCO (64 JPEGs of 480 x 640, two people each, polygons, compressed and
    uncompressed RLE, 17 keypoints), an OCHuman (16 images, 19 keypoints,
@@ -1400,16 +1409,18 @@ def _check_stored(label: str, pairs) -> tuple[int, int]:
     return checked, refused
 
 
-def scene_coco_tree(root: str, sources: list, scenes: dict) -> tuple[str, str]:
+def scene_coco_tree(root: str, sources: list, scenes: dict,
+                    exts: tuple = (".jpg",)) -> tuple[str, str]:
     """A COCO tree of committed 480 x 640 scenes: ``sources[i]`` copied as
-    image ``i`` under a ``.jpg`` name (cv2 and the port read by content),
-    its people (``scenes["people"][i]``, each ``(cx, cy, ax, ay)``) as
-    24-point polygons with 17 visible keypoints."""
+    image ``i`` under the name ``<i><ext>``, ``ext`` taken from ``exts`` in
+    turn (cv2 and the port read by content), its people
+    (``scenes["people"][i]``, each ``(cx, cy, ax, ay)``) as 24-point
+    polygons with 17 visible keypoints."""
     img_dir = os.path.join(root, "images")
     os.makedirs(img_dir)
     images, annotations = [], []
     for i, source in enumerate(sources):
-        name = f"{i:012d}.jpg"
+        name = f"{i:012d}{exts[i % len(exts)]}"
         shutil.copyfile(source, os.path.join(img_dir, name))
         images.append({"id": i, "file_name": name, "height": scenes["height"],
                        "width": scenes["width"]})
@@ -1424,6 +1435,23 @@ def scene_coco_tree(root: str, sources: list, scenes: dict) -> tuple[str, str]:
         json.dump({"categories": [{"id": 1, "name": "person"}], "images": images,
                    "annotations": annotations}, f)
     return img_dir, ann
+
+
+def tree_digests(root: str, img_dir: str) -> dict:
+    """SHA-256 of every file of a converted tree by its path under ``root``
+    (``/`` separated); in the records (``data/*.json``) the source
+    directory ``img_dir``, which they name, reads ``<images>``."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                data = f.read()
+            if name.endswith(".json"):
+                data = data.replace(img_dir.encode(), b"<images>")
+            out[os.path.relpath(path, root).replace(os.sep, "/")] = \
+                hashlib.sha256(data).hexdigest()
+    return dict(sorted(out.items()))
 
 
 def train_and_serve_tree(label: str, common: str, batch: int, epochs: int, tmp: str, w2, fc,
@@ -1691,6 +1719,200 @@ def jpeg2000_phase(card: str, w2, fc, png_ms: float) -> dict:
     return codec_phase("jpeg2000", "JPEG 2000", JPEG2000_FIXTURES, ".jp2", JPEG2000_TIMED,
                        JP2_SIGNATURE, load_jpeg2000, JPEG2000_COCO, JPEG2000_BATCH,
                        JPEG2000_EPOCHS, card, w2, fc, png_ms)
+
+IMWRITE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                                "imwrite")
+#: the encoders timed per 480 x 640 colour image (the aliases share these)
+ENCODERS_TIMED = (".png", ".jpg", ".bmp", ".ppm", ".pam", ".pfm", ".sr", ".hdr", ".gif",
+                  ".tif")
+#: the encoders480 tree: images (the committed WebP scenes), batch, epochs
+ENCODERS_COCO, ENCODERS_BATCH, ENCODERS_EPOCHS = 32, 32, 1
+#: C12: the extensions ``infer --dataset-mode``'s instance-mask paths take in turn
+C12_EXTS = (".bmp", ".jpg", ".tif", ".pgm", ".ppm")
+C12_SIZE = 480
+
+
+def _encode_matches(got, stored: dict) -> bool:
+    """Whether the port's bytes (None where it refuses) are the cv2 outcome
+    stored by ``tests/data/imwrite/make_fixtures.py`` (``cut``: the last
+    byte, which cv2 reads from past its image, left out; the port's is 0)."""
+    if stored.get("refused"):
+        return got is None
+    cut = stored["cut"]
+    return (got is not None and len(got) == stored["bytes"] and (not cut or got[-1] == 0)
+            and hashlib.sha256(got[:len(got) - cut]).hexdigest() == stored["sha256"])
+
+
+def c12_infer(common: str, ckpt: str, tmp: str, fc, card: str) -> dict:
+    """ROADMAP C12 on the card: ``python -m instancesegmentation_tpu_torch.infer
+    --dataset-mode``'s ``main`` with the trainer's checkpoint, first on the
+    converted tree (``.png`` masks), then on a copy whose instance-mask paths
+    end in turn in ``C12_EXTS``.  Each mask of the second run is in its
+    path's format: its bytes are ``imencode(ext, m)`` of the first run's
+    mask ``m`` (the encoders' bytes are held to cv2's stored digests
+    before), a lossless one reads back as ``m``, and ``.ppm`` (which cv2
+    refuses for a gray mask) writes no file while the run goes on."""
+    from instancesegmentation_tpu_torch.core.imread import imread
+    from instancesegmentation_tpu_torch.core.imwrite import imencode
+    from instancesegmentation_tpu_torch.core.keys import key_combine
+    from instancesegmentation_tpu_torch.infer import cli
+
+    k_obj, k_mask = key_combine("object", "sub_list"), key_combine("instance_mask", "mask_path")
+    renamed = os.path.join(tmp, "c12_tree")
+    shutil.copytree(common, renamed)
+    paths, n = [], 0
+    for name in sorted(os.listdir(os.path.join(renamed, "data"))):
+        with open(os.path.join(renamed, "data", name)) as f:
+            rec = json.load(f)
+        for obj in rec[k_obj]:
+            old = obj[k_mask]
+            obj[k_mask] = os.path.splitext(old)[0] + C12_EXTS[n % len(C12_EXTS)]
+            os.rename(os.path.join(renamed, old), os.path.join(renamed, obj[k_mask]))
+            paths.append((old, obj[k_mask]))
+            n += 1
+        with open(os.path.join(renamed, "data", name), "w") as f:
+            json.dump(rec, f)
+    argv = ["--dataset-mode", "--size", str(C12_SIZE), "--batch", str(ENCODERS_BATCH),
+            "--checkpoint", ckpt]
+    out = {}
+    for tag, tree in (("png", common), ("c12", renamed)):
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        _run_main(cli.main, ["-i", tree, "-o", os.path.join(tmp, "masks_" + tag)] + argv)
+        torch.cuda.synchronize()
+        out[tag] = {"s": time.perf_counter() - t0, "fused_chain": fc.fused_chain.launches}
+    by_ext = dict.fromkeys(C12_EXTS, 0)
+    lossless_equal = nonempty = 0
+    for old, new in paths:
+        ext = os.path.splitext(new)[1]
+        mask = imread(os.path.join(tmp, "masks_png", old), "gray")
+        nonempty += bool(mask.any())
+        path = os.path.join(tmp, "masks_c12", new)
+        want = imencode(ext, mask)
+        if want is None:
+            check(not os.path.exists(path), f"C12: no mask file where cv2 refuses ({new})")
+            continue
+        with open(path, "rb") as f:
+            data = f.read()
+        check(hashlib.sha256(data).hexdigest() == hashlib.sha256(want).hexdigest(),
+              f"C12: {new} holds imencode({ext!r})'s bytes of the mask")
+        if ext != ".jpg":
+            check(np.array_equal(imread(path, "gray"), mask), f"C12: {new} reads back")
+            lossless_equal += 1
+        by_ext[ext] += 1
+    out.update({"masks": len(paths), "nonempty_masks": nonempty, "written_by_ext": by_ext,
+                "lossless_read_back_equal": lossless_equal})
+    print(f"C12: infer --dataset-mode on the encoders480 tree wrote {json.dumps(by_ext)} "
+          f"of {len(paths)} masks (.ppm refused as in cv2), each imencode's bytes of the "
+          f"PNG run's mask; fused_chain launches {out['png']['fused_chain']} / "
+          f"{out['c12']['fused_chain']}; {card}")
+    check(by_ext[".ppm"] == 0
+          and sum(by_ext.values()) == sum(not new.endswith(".ppm") for _, new in paths),
+          "C12: every mask but the refused .ppm ones written")
+    return out
+
+
+def encoders_phase(card: str, w2, fc, iters: int = 10) -> dict:
+    """The encoders behind ``core/imwrite.py`` (``core/{pnm,sunras,hdr,gif,
+    tiff}.py``, their loops in ``ops/native/image_codes.cpp`` built with g++
+    here): every stored outcome of ``tests/data/imwrite/cv2_digests.json``
+    (``cv2.imencode`` of the synthetic inputs of ``inputs.npz`` and the 32
+    480 x 640 scenes of ``tests/data/webp`` as the port decodes them, in
+    each of ``.jpe .dib .pbm .pgm .ppm .pnm .pam .pfm .sr .ras .hdr .pic
+    .gif .tif .tiff``) matched by ``imencode``: the same SHA-256, or None
+    where cv2 refuses, and ``imwrite`` leaving what ``cv2.imwrite`` left;
+    ms per 480 x 640 colour image for each encoder of ``ENCODERS_TIMED``,
+    host clock.  Then the main path on those formats, cell encoders480: the
+    32 scenes as a COCO tree named in turn ``.jpe .dib .ppm .pnm .pam .pfm
+    .sr .ras .hdr .pic .gif .tif .tiff .pgm .pbm .JPE``, converted by
+    ``transfer_coco`` equal to the JAX package's tree file for file (its
+    stored digests; the ``.pgm`` and ``.pbm`` mix previews absent), trained
+    with ``python -m instancesegmentation_tpu_torch.train``'s ``main``
+    (``TrainConfig`` defaults, batch 32, 1 epoch: finite losses, 1
+    ``warp_2level`` launch per step), the checkpoint served over the 64
+    instances (2 "banded" ``fused_chain`` launches per dispatch, finite
+    outputs), and C12's ``infer --dataset-mode`` flow (``c12_infer``)."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imread
+    from instancesegmentation_tpu_torch.core.imwrite import imencode, imwrite
+    from instancesegmentation_tpu_torch.data import converters
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.ops.native.image_codes import load_image_codes
+    from instancesegmentation_tpu_torch.ops.native.jpeg import load_jpeg_encoder
+
+    t0 = time.perf_counter()
+    load_image_codes()
+    load_jpeg_encoder()
+    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    with open(os.path.join(IMWRITE_FIXTURES, "cv2_digests.json")) as f:
+        digests = json.load(f)
+    inputs = np.load(os.path.join(IMWRITE_FIXTURES, "inputs.npz"))
+    checked = refused = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_encoders_") as tmp:
+        for name, outcomes in digests["encodes"].items():
+            image = imread(os.path.join(WEBP_FIXTURES, name + ".webp")) \
+                if name.startswith("coco_") else inputs[name]
+            for ext, stored in outcomes.items():
+                check(_encode_matches(imencode(ext, image), stored),
+                      f"encoders: imencode({ext!r}) of {name} is cv2's stored outcome")
+                checked += 1
+                if stored.get("refused"):
+                    path = os.path.join(tmp, "refused" + ext)
+                    check(imwrite(path, image) is False, f"encoders: {ext} refuses {name}")
+                    left = None
+                    if os.path.exists(path):
+                        with open(path, "rb") as f:
+                            left = f.read().hex()
+                        os.remove(path)
+                    check(left == stored["left"],
+                          f"encoders: imwrite({ext!r}) of {name} leaves what cv2 leaves")
+                    refused += 1
+    out["encodes_checked"], out["refused_as_cv2"] = checked, refused
+    scene = imread(os.path.join(WEBP_FIXTURES, "coco_00.webp"))
+    for ext in ENCODERS_TIMED:
+        imencode(ext, scene)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            imencode(ext, scene)
+        out[f"{ext[1:]}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    times = ", ".join(f"{ext} {out[f'{ext[1:]}_ms']:.2f}" for ext in ENCODERS_TIMED)
+    print(f"encoders: {checked} encodes ({refused} refused as cv2 refuses) equal to cv2's stored "
+          f"digests; ms per 480x640 colour image: {times} (host clock); {card}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_encoders480_") as tmp:
+        with open(os.path.join(WEBP_FIXTURES, "coco_scenes.json")) as f:
+            scenes = json.load(f)
+        tree = digests["encoders480"]
+        img_dir, ann = scene_coco_tree(
+            os.path.join(tmp, "src"),
+            [os.path.join(WEBP_FIXTURES, f"coco_{i:02d}.webp") for i in range(ENCODERS_COCO)],
+            scenes, tuple(tree["exts"]))
+        common = os.path.join(tmp, "common")
+        t0 = time.perf_counter()
+        n = converters.transfer_coco(img_dir, ann, common, progress=False)
+        out["convert_s"] = time.perf_counter() - t0
+        check(n == ENCODERS_COCO, f"encoders480: transfer_coco converted {n} of {ENCODERS_COCO}")
+        got = tree_digests(common, img_dir)
+        same = sum(got.get(k) == v for k, v in tree["files"].items())
+        mixes = sorted(k for k in got if k.startswith("mix/"))
+        out.update({"tree_files": len(got), "tree_files_equal_jax": same, "mix_files": len(mixes)})
+        print(f"encoders480: transfer_coco {out['convert_s']:.2f} s; {same} of "
+              f"{len(tree['files'])} files equal to the JAX package's tree ({len(mixes)} mix "
+              f"previews; the .pgm and .pbm ones absent as in cv2); {card}")
+        check(sorted(got) == sorted(tree["files"]) and same == len(tree["files"]),
+              "encoders480: the converted tree equals the JAX package's, file for file")
+        check(len(mixes) == 28 and not any(m.endswith((".pgm", ".pbm")) for m in mixes),
+              "encoders480: the .pgm and .pbm mix previews are absent")
+        samples = len(InstanceCommonDataset(common, 640))
+        check(samples == 2 * ENCODERS_COCO, f"encoders480: {samples} eligible instances")
+        out.update(train_and_serve_tree("encoders480", common, ENCODERS_BATCH, ENCODERS_EPOCHS,
+                                        tmp, w2, fc, card))
+        ckpt = glob.glob(os.path.join(tmp, "ckpt", "*_best.ckpt"))[0]
+        out["c12"] = c12_infer(common, ckpt, tmp, fc, card)
+    print(json.dumps({"encoders": out}))
+    return out
+
 
 # -- the dataset converters ---------------------------------------------------------
 
@@ -4395,6 +4617,7 @@ def main() -> int:
         tiff = tiff_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         webp = webp_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         j2k = jpeg2000_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
+        enc = encoders_phase(card, w2, fc)
         conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
@@ -4708,6 +4931,8 @@ def main() -> int:
          "launches_converters_serve": conv["serve"]["fused_chain"],
          "launches_webp_serve": webp["serve"]["fused_chain"],
          "launches_jpeg2000_serve": j2k["serve"]["fused_chain"],
+         "launches_encoders_serve": enc["serve"]["fused_chain"],
+         "launches_encoders_c12_infer": enc["c12"]["c12"]["fused_chain"],
          "launches_tiff_serve": tiff["serve"]["fused_chain"],
          "launches_fused_stem": fstem["serve"]["bf16"]["fused_chain"]["banded"],
          "launches_fused_stem_parallel_replica": fstem["parallel_launches"],
@@ -4783,6 +5008,7 @@ def main() -> int:
          "launches_converters_train": {k: v["warp_2level"] for k, v in conv["train"].items()},
          "launches_webp_train": webp["train"]["warp_2level"],
          "launches_jpeg2000_train": j2k["train"]["warp_2level"],
+         "launches_encoders_train": enc["train"]["warp_2level"],
          "launches_tiff_train": tiff["train"]["warp_2level"],
          "launches_remat_train": fstem["remat"]["runs"]["remat"]["warp_2level"],
          "launches_show_aug_rotate": vqa["show_aug"]["warp_2level_launches"],

@@ -6,9 +6,11 @@ It serves the same programs as the JAX package ``instancesegmentation_tpu``
 
 - ``core``    device selection (the card unless the caller asks for the CPU),
               records, the image reader and writer (``imread`` /
-              ``imwrite``: PNG, JPEG through ``ops/native``, and BMP, with
-              EXIF orientation, as ``cv2.imread`` / ``cv2.imwrite``), the
-              PNG and BMP codecs, cv2's box and circle drawing, mask
+              ``imwrite``: every format cv2 reads but AVIF (and JPEG
+              2000's HTJ2K and Part 2 forms), and every one it writes but
+              WebP, JPEG 2000 and AVIF, with EXIF
+              orientation, as ``cv2.imread`` / ``cv2.imwrite``), the
+              codecs behind them, cv2's box and circle drawing, mask
               rasterisation and RLE codecs, mask AP
               (``core/evaluation.py``), and record-level affine augmentation
               (``core/augment.py``, ``cv2.warpAffine``'s arithmetic).

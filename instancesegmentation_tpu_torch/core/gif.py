@@ -27,6 +27,15 @@ A file cv2 refuses raises ``ValueError``; a screen cv2 raises on raises
 decoding the bytes after a frame's end code within its sub-blocks, into a
 table it has freed (what that gives depends on memory); the port reads
 nothing after the end code.
+
+``encode_gif(pixels)`` writes what ``cv2.imencode(".gif")`` writes at its
+defaults (fast mode): ``GIF89a`` with a global table of 256 entries (8
+levels of red and of green in steps of 36, 4 of blue in steps of 85), a
+``NETSCAPE2.0`` block looping forever, a graphic control extension with
+disposal 3 and a delay of 100, one image of the whole screen, its pixels
+quantised into the table with cv2's Floyd-Steinberg diffusion and coded
+as LZW at minimum code size 8 (``ops/native/image_codes.cpp``).  cv2's
+quantiser refuses a gray image: ``encode_gif`` returns None for it.
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ import numpy as np
 
 from instancesegmentation_tpu_torch.core.bmp import cvtcolor_gray
 from instancesegmentation_tpu_torch.core.pnm import check_size
-from instancesegmentation_tpu_torch.ops.native.image_codes import gif_lzw
+from instancesegmentation_tpu_torch.ops.native.image_codes import (
+    gif_dither, gif_lzw, gif_lzw_encode)
 
 SIGNATURES = (b"GIF87a", b"GIF89a")
 _EXTENSION, _IMAGE, _TRAILER, _GCE = 0x21, 0x2C, 0x3B, 0xF9
@@ -143,3 +153,21 @@ def decode_gif(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.nd
     if mode == "gray":
         return cvtcolor_gray(canvas[..., ::-1])
     return canvas
+
+
+def _encoder_table() -> bytes:
+    i = np.arange(256)
+    return np.stack([(i >> 5) * 36, (i >> 2 & 7) * 36, (i & 3) * 85], axis=1).astype(
+        np.uint8).tobytes()
+
+
+def encode_gif(pixels: np.ndarray):
+    """GIF bytes of uint8 RGB ``[H, W, 3]``; None for gray ``[H, W, 1]``."""
+    h, w, c = pixels.shape
+    if c != 3:
+        return None
+    return (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + _encoder_table()
+            + b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+            + struct.pack("<BBBBHBB", _EXTENSION, _GCE, 4, 0x0C, 100, 0, 0)
+            + struct.pack("<BHHHHB", _IMAGE, 0, 0, w, h, 0x07) + b"\x08"
+            + gif_lzw_encode(gif_dither(pixels)) + bytes([_TRAILER]))

@@ -17,6 +17,15 @@ colour pixels):
 
 A file cv2 refuses (a header it cannot read, data cut short or malformed)
 raises ``ValueError``; a size cv2 raises on raises ``ImageSizeError``.
+
+``encode_hdr(pixels)`` writes what ``cv2.imencode(".hdr")`` writes: the
+header ``#?RADIANCE``, ``FORMAT=32-bit_rle_rgbe``, an empty line and
+``-Y H +X W``; each value ``v`` as the float32 ``v * float32(1 / 255)``
+(gray replicated to three channels) turned into RGBE by ``rgbe.cpp``'s
+``float2rgbe`` (``frexp`` of the largest channel in double, the factor
+``m * 256 / max`` rounded to float32, each channel times it truncated;
+all zero below 1e-32); scanlines run-length coded for widths 8-32767
+(``ops/native/image_codes.cpp``) and flat otherwise.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import numpy as np
 
 from instancesegmentation_tpu_torch.core.bmp import cvtcolor_gray
 from instancesegmentation_tpu_torch.core.pnm import check_size
-from instancesegmentation_tpu_torch.ops.native.image_codes import hdr_pixels
+from instancesegmentation_tpu_torch.ops.native.image_codes import hdr_pixels, hdr_rle_encode
 
 SIGNATURES = (b"#?RGBE", b"#?RADIANCE")
 _FGETS = 127
@@ -101,3 +110,29 @@ def decode_hdr(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.nd
     if mode == "gray":
         return cvtcolor_gray(rgb[..., ::-1])
     return rgb
+
+
+def float2rgbe(rgb: np.ndarray) -> np.ndarray:
+    """float32 RGB ``[..., 3]`` -> RGBE bytes ``[..., 4]`` as ``rgbe.cpp``'s
+    ``float2rgbe`` computes them."""
+    top = rgb.max(axis=-1).astype(np.float64)
+    mantissa, exponent = np.frexp(top)
+    small = top < 1e-32
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = np.where(small, 0, mantissa * 256.0 / top).astype(np.float32)
+    out = np.zeros(rgb.shape[:-1] + (4,), np.uint8)
+    out[..., :3] = np.floor(rgb * scale[..., None]).astype(np.uint8)
+    out[..., 3] = np.where(small, 0, exponent + 128).astype(np.uint8)
+    return out
+
+
+def encode_hdr(pixels: np.ndarray) -> bytes:
+    """Radiance HDR bytes of uint8 ``[H, W, C]`` (C 1: gray, 3: RGB)."""
+    h, w, c = pixels.shape
+    scale = np.float32(1) / np.float32(255)  # cv2's convertTo scale 1 / 255.0f
+    rgb = np.broadcast_to(pixels, (h, w, 3)).astype(np.float32) * scale
+    rgbe = float2rgbe(rgb)
+    header = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (h, w)
+    if 8 <= w <= 0x7FFF:
+        return header + hdr_rle_encode(rgbe)
+    return header + rgbe.tobytes()

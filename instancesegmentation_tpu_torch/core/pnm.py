@@ -330,3 +330,54 @@ def decode_pfm(data: bytes, mode: str = "color", path: str = "<bytes>",
         out = np.where(ok, np.clip(np.where(ok, rounded, 0), 0, 255), 0).astype(np.uint8)
     out = out.reshape(height, width, channels)[::-1]
     return np.ascontiguousarray(out[..., 0] if channels == 1 else out)
+
+
+# ---- encoders: cv2 5.0's grfmt_pxm, grfmt_pam and grfmt_pfm writers ----
+#
+# Each takes uint8 ``[H, W, C]`` (C 1: gray, 3: RGB, as ``core/imwrite.py``
+# passes it) and returns the bytes ``cv2.imencode`` gives for the BGR
+# counterpart, or None where cv2's encoder refuses the image.
+
+
+def encode_pbm(pixels: np.ndarray):
+    """P4 (gray only): a set bit for each pixel that is 0, rows padded to
+    whole bytes."""
+    h, w, c = pixels.shape
+    if c != 1:
+        return None
+    bits = np.packbits(pixels[..., 0] == 0, axis=1)
+    return b"P4\n%d %d\n" % (w, h) + bits.tobytes()
+
+
+def encode_pgm(pixels: np.ndarray):
+    """P5 at maxval 255 (gray only)."""
+    h, w, c = pixels.shape
+    return b"P5\n%d %d\n255\n" % (w, h) + pixels.tobytes() if c == 1 else None
+
+
+def encode_ppm(pixels: np.ndarray):
+    """P6 at maxval 255, samples in RGB order (colour only)."""
+    h, w, c = pixels.shape
+    return b"P6\n%d %d\n255\n" % (w, h) + pixels.tobytes() if c == 3 else None
+
+
+def encode_pnm(pixels: np.ndarray):
+    """P5 for gray, P6 for colour."""
+    return encode_pgm(pixels) if pixels.shape[2] == 1 else encode_ppm(pixels)
+
+
+def encode_pam(pixels: np.ndarray) -> bytes:
+    """P7 without a TUPLTYPE line; a colour image's samples in BGR order, as
+    cv2 stores them (the mirror of the reader's channel quirk)."""
+    h, w, c = pixels.shape
+    body = pixels if c == 1 else pixels[..., ::-1]
+    return (b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL 255\nENDHDR\n" % (w, h, c)
+            + np.ascontiguousarray(body).tobytes())
+
+
+def encode_pfm(pixels: np.ndarray) -> bytes:
+    """``Pf`` (gray) or ``PF`` (RGB) with scale -1: the raw 0-255 values as
+    little-endian float32, rows bottom-up."""
+    h, w, c = pixels.shape
+    values = pixels[::-1].astype("<f4")
+    return b"%s\n%d %d\n-1\n" % (b"Pf" if c == 1 else b"PF", w, h) + values.tobytes()

@@ -18,6 +18,13 @@ or ``[H, W]`` (``"gray"``).  The 32-byte big-endian header; rows padded to
 
 A file cv2 refuses (another type, depth or map, data cut short) raises
 ``ValueError``; a size cv2 raises on raises ``ImageSizeError``.
+
+``encode_sunras(pixels)`` writes what ``cv2.imencode(".ras")`` writes:
+``RT_STANDARD`` without a colour map, gray at depth 8 and colour at depth
+24 (B, G, R), the header's length the data's size.  cv2 writes each row
+padded to 16 bits by taking one byte past it from its buffer: the next
+row's first byte, and after the last row a byte past the image, which the
+port writes as 0 (cv2's is whatever its memory holds there).
 """
 from __future__ import annotations
 
@@ -71,3 +78,14 @@ def decode_sunras(data: bytes, mode: str = "color", path: str = "<bytes>") -> np
     if mode == "gray":
         return _bgr_to_gray(bgr)
     return np.ascontiguousarray(bgr[..., ::-1])
+
+
+def encode_sunras(pixels: np.ndarray) -> bytes:
+    """Sun raster bytes of uint8 ``[H, W, C]`` (C 1: gray, 3: RGB)."""
+    h, w, c = pixels.shape
+    body = pixels if c == 1 else pixels[..., ::-1]
+    step = (w * c + 1) & -2
+    flat = np.concatenate([np.ascontiguousarray(body).ravel(), np.zeros(1, np.uint8)])
+    rows = flat[np.arange(h)[:, None] * (w * c) + np.arange(step)[None, :]]
+    header = SIGNATURE + struct.pack(">iiiiiii", w, h, 8 * c, step * h, 1, _RMT_NONE, 0)
+    return header + rows.tobytes()

@@ -63,6 +63,18 @@ or the file needs its bits reversed).  As in cv2, a codec that fails inside
 a strip's bytes leaves that strip's decoded part and zeros after it, and a
 compression code libtiff does not know gives a black image.  Every form
 cv2 reads is decoded: no TIFF raises ``UnsupportedImage``.
+
+``encode_tiff(pixels)`` writes what ``cv2.imencode(".tif")`` writes with
+libtiff 4.7.1 at cv2's defaults: little-endian classic TIFF, the strips
+first (from byte 8, one after another), then the directory at the next
+even offset and the values that do not fit in it (BitsPerSample,
+StripByteCounts, StripOffsets, SampleFormat, in that order).  The tags:
+ImageWidth and ImageLength (SHORT below 65536, else LONG), BitsPerSample
+8, Compression 5 (LZW), Photometric 1 (gray) or 2 (RGB), StripOffsets,
+SamplesPerPixel, RowsPerStrip (cv2's ``8192 // row bytes``, at least 1 and
+at most the height), StripByteCounts (LONG), PlanarConfig 1, Predictor 2
+and SampleFormat 1; each strip coded by ``tif_lzw.c``'s encoder after the
+horizontal predictor (``ops/native/image_codes.cpp``).
 """
 from __future__ import annotations
 
@@ -74,7 +86,7 @@ import numpy as np
 from instancesegmentation_tpu_torch.core.exif import apply_orientation, ifd_entries
 from instancesegmentation_tpu_torch.core.pnm import check_size
 from instancesegmentation_tpu_torch.ops.native.image_codes import (
-    FaxState, tiff_cielab, tiff_codec, tiff_fax, tiff_sgilog, tiff_thunder)
+    FaxState, tiff_cielab, tiff_codec, tiff_fax, tiff_lzw_encode, tiff_sgilog, tiff_thunder)
 from instancesegmentation_tpu_torch.ops.native.jpeg import decode_tiff_jpeg
 
 SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
@@ -1018,3 +1030,41 @@ def _read(d: _Directory, img: _Image, reader: _Reader) -> np.ndarray:
     if d.orientation in (3, 4, 7, 8):
         out = out[::-1]
     return out
+
+
+def encode_tiff(pixels: np.ndarray) -> bytes:
+    """TIFF bytes of uint8 ``[H, W, C]`` (C 1: gray, 3: RGB)."""
+    h, w, c = pixels.shape
+    row_bytes = w * c
+    rows_per_strip = max(1, min(h, 8192 // row_bytes))
+    rows = np.ascontiguousarray(pixels).reshape(h, row_bytes)
+    strips = [tiff_lzw_encode(rows[y:y + rows_per_strip], c)
+              for y in range(0, h, rows_per_strip)]
+    offsets = np.cumsum([8] + [len(s) for s in strips[:-1]])
+    end = 8 + sum(len(s) for s in strips)
+    ifd = end + (end & 1)
+    n_tags = 12
+    extra_at = ifd + 2 + 12 * n_tags + 4
+    extra = bytearray()
+
+    def entry(tag: int, kind: int, values) -> bytes:
+        fmt = "<%d%s" % (len(values), "H" if kind == 3 else "I")
+        raw = struct.pack(fmt, *values)
+        if len(raw) <= 4:
+            return struct.pack("<HHI", tag, kind, len(values)) + raw.ljust(4, b"\0")
+        at = extra_at + len(extra)
+        extra.extend(raw)
+        return struct.pack("<HHII", tag, kind, len(values), at)
+
+    # the out-of-line values go in libtiff's order: 258, 279, 273, 339
+    bits = entry(258, 3, [8] * c)
+    counts = entry(279, 4, [len(s) for s in strips])
+    offs = entry(273, 4, [int(o) for o in offsets])
+    formats = entry(339, 3, [1] * c)
+    entries = [entry(256, 3 if w < 65536 else 4, [w]), entry(257, 3 if h < 65536 else 4, [h]),
+               bits, entry(259, 3, [5]), entry(262, 3, [1 if c == 1 else 2]), offs,
+               entry(277, 3, [c]), entry(278, 3, [rows_per_strip]), counts,
+               entry(284, 3, [1]), entry(317, 3, [2]), formats]
+    return (b"II*\x00" + struct.pack("<I", ifd) + b"".join(strips) + bytes(ifd - end)
+            + struct.pack("<H", n_tags) + b"".join(entries) + struct.pack("<I", 0)
+            + bytes(extra))

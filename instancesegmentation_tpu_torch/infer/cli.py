@@ -15,12 +15,14 @@ surviving box, ``OUT/<name>_<j>.png``).  ``--continue-test`` skips outputs
 that exist.
 
 The engine runs on ``cuda:0`` (``main(argv, device="cpu")`` runs it on the
-host).  Images are decoded by ``core/imread.py:imread`` (PNG, JPEG and BMP,
-as ``cv2.imread``): a listed file of a form the port does not decode (an
-RLE BMP, an arithmetic-coded JPEG; ROADMAP A10 part 3) raises
-``UnsupportedImage`` naming it.  Masks are written with
-``write_png``.  Without ``--checkpoint`` the weights are the port's seeded
-initialisation (``eval.load_weights``).  ``--int8`` serves int8
+host).  Images are decoded by ``core/imread.py:imread`` as ``cv2.imread``
+decodes them; a listed file of a form the port does not decode (AVIF;
+ROADMAP A10 part 3) raises ``UnsupportedImage`` naming it.  Dataset mode
+writes each mask with ``core/imwrite.py:imwrite`` in the format of its
+record's path, as ``cv2.imwrite`` does (where cv2 refuses a gray mask, as
+for ``.ppm``, no file is written and the run goes on); the other modes
+write PNG with ``write_png``.  Without ``--checkpoint`` the weights are the
+port's seeded initialisation (``eval.load_weights``).  ``--int8`` serves int8
 (``models/quantize.py``, the "int8_mxu" convs), calibrated on the input
 itself: in dataset mode on its first ``--int8-calib-batches`` batches of
 ``--batch`` instances, otherwise on the first ``--int8-calib-batches *
@@ -39,6 +41,7 @@ import torch
 
 from instancesegmentation_tpu_torch.core.keys import key_combine
 from instancesegmentation_tpu_torch.core.imread import imread
+from instancesegmentation_tpu_torch.core.imwrite import imwrite
 from instancesegmentation_tpu_torch.core.png import write_png
 from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
 from instancesegmentation_tpu_torch.data.pipeline import batch_iterator
@@ -134,7 +137,7 @@ def main(argv=None, device=None) -> int:
                     continue
                 os.makedirs(os.path.dirname(out_path), exist_ok=True)
                 h, w = batch["image_hw"][i].astype(int)
-                write_png(out_path, canvas_masks[i, :h, :w])
+                imwrite(out_path, canvas_masks[i, :h, :w])
         print(f"wrote {written} instance masks to {args.output_dir}")
         return 0
 

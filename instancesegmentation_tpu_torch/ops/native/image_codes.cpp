@@ -1,6 +1,8 @@
 // The per-code loops of the port's image decoders (core/gif.py, core/hdr.py,
 // core/bmp.py, core/tiff.py), as cv2 5.0 runs them (libtiff 4.7's codecs for
-// TIFF); headers, palettes and the conversion to pixels stay in Python.
+// TIFF), and of its GIF, HDR and TIFF encoders, as cv2 5.0 writes those
+// files (its own GIF encoder, rgbe.cpp, libtiff 4.7.1's LZW); headers,
+// palettes and the conversion to pixels stay in Python.
 // Built with g++ by ops/native/build.py at first use and bound with ctypes
 // (ops/native/image_codes.py).
 //
@@ -8,7 +10,9 @@
 // cv2's decoder gives up (data cut short, a code or run it refuses).  The
 // TIFF codecs fill `out[0:occ]` (zeros where they stop) and return 0, or 1
 // where libtiff reports an error, whose partial output cv2 keeps.  A read
-// never goes past `n` and a write never past its output.
+// never goes past `n` and a write never past its output.  The encoders
+// write into an output their callers size for the worst case and return
+// the number of bytes written.
 
 #include <math.h>
 #include <stdint.h>
@@ -1095,6 +1099,254 @@ int tiff_sgilog(int kind, const uint8_t* data, int64_t n, int width, int rows, u
     }
   }
   return 0;
+}
+
+
+// ---- encoders ----
+
+// GIF: cv2 5.0's fast-mode quantiser (grfmt_gif.cpp's ditheringKernel at
+// depth 3:3:2): the RGB pixels `rgb` [height * width * 3] to indices into its
+// fixed table (red level * 32 + green level * 4 + blue level; red and green
+// in steps of 36, blue in steps of 85), with Floyd-Steinberg error diffusion
+// in float: each channel's value is the pixel plus the error it was given,
+// its level floor(value / step + 0.5) in float (clamped to the table), and
+// value - level
+// goes 7/16 right, 3/16 down-left, 5/16 down and 1/16 down-right (none past
+// an edge).  The errors of the row below sum in the order the pixels give
+// them, as cv2's row buffers do.
+void gif_dither(const uint8_t* rgb, int height, int width, uint8_t* out) {
+  const float step[3] = {36.0f, 36.0f, 85.0f};
+  const int top[3] = {7, 7, 3};
+  std::vector<float> cur(3 * ((size_t)width + 2)), nxt(cur.size());
+  for (int y = 0; y < height; ++y) {
+    std::fill(nxt.begin(), nxt.end(), 0.0f);
+    for (int x = 0; x < width; ++x) {
+      const uint8_t* px = rgb + ((int64_t)y * width + x) * 3;
+      int level[3];
+      for (int c = 0; c < 3; ++c) {
+        const float v = (float)px[c] + cur[3 * (x + 1) + c];
+        int l = (int)floorf(v / step[c] + 0.5f);
+        l = std::min(std::max(l, 0), top[c]);
+        level[c] = l;
+        const float e = v - (float)l * step[c];
+        if (x + 1 < width) cur[3 * (x + 2) + c] += e * 7 / 16;
+        if (x > 0) nxt[3 * x + c] += e * 3 / 16;
+        nxt[3 * (x + 1) + c] += e * 5 / 16;
+        if (x + 1 < width) nxt[3 * (x + 2) + c] += e * 1 / 16;
+      }
+      out[(int64_t)y * width + x] = (uint8_t)(level[0] * 32 + level[1] * 4 + level[2]);
+    }
+    std::swap(cur, nxt);
+  }
+}
+
+// GIF: the LZW image data of `n` 8-bit indices (minimum code size 8) as
+// cv2 5.0 writes it, in sub-blocks of 255 bytes (the last shorter) and the
+// zero block that ends them: a clear code, then codes LSB first, 9 bits
+// wide and one wider once the next entry passes 2^width; the entry that
+// fills the table (4096) is followed by a clear code at once.  `out` holds
+// at least 2 * n + 16 bytes.
+int64_t gif_lzw_encode(const uint8_t* idx, int64_t n, uint8_t* out) {
+  const int clear = 256, eoi = 257;
+  std::vector<uint16_t> table(4096 * 256, 0);
+  std::vector<uint8_t> raw;
+  raw.reserve(2 * (size_t)n + 8);
+  uint64_t acc = 0;
+  int nacc = 0, width = 9, next = eoi + 1;
+  auto put = [&](int code) {
+    acc |= (uint64_t)code << nacc;
+    nacc += width;
+    while (nacc >= 8) {
+      raw.push_back((uint8_t)acc);
+      acc >>= 8;
+      nacc -= 8;
+    }
+  };
+  put(clear);
+  if (n > 0) {
+    int prefix = idx[0];
+    for (int64_t i = 1; i < n; ++i) {
+      const uint8_t c = idx[i];
+      const uint16_t hit = table[(size_t)prefix * 256 + c];
+      if (hit) {
+        prefix = hit;
+        continue;
+      }
+      put(prefix);
+      table[(size_t)prefix * 256 + c] = (uint16_t)next++;
+      if (next == 4096) {
+        put(clear);
+        std::fill(table.begin(), table.end(), 0);
+        next = eoi + 1;
+        width = 9;
+      } else if (next > (1 << width)) {
+        ++width;
+      }
+      prefix = c;
+    }
+    put(prefix);
+  }
+  put(eoi);
+  if (nacc) raw.push_back((uint8_t)acc);
+  int64_t o = 0;
+  for (size_t at = 0; at < raw.size(); at += 255) {
+    const size_t len = std::min<size_t>(255, raw.size() - at);
+    out[o++] = (uint8_t)len;
+    memcpy(out + o, raw.data() + at, len);
+    o += len;
+  }
+  out[o++] = 0;
+  return o;
+}
+
+// Radiance HDR: `height` scanlines of `width` RGBE pixels, given as planes
+// (`planes` [height][4][width]: R, G, B, E), as rgbe.cpp's
+// RGBE_WritePixels_RLE writes them for 8 <= width <= 0x7fff: each scanline
+// the bytes 2, 2, width >> 8, width & 255, then each plane by
+// RGBE_WriteBytes_RLE: runs of at least 4 equal bytes (at most 127) as
+// 128 + count and the byte; a run of 2 or 3 that ends just before such a
+// run as a short run; the rest as literals of at most 128 bytes.  `out`
+// holds at least height * (4 + 4 * width + 4 * ceil(width / 128)) bytes.
+int64_t hdr_rle_encode(const uint8_t* planes, int width, int height, uint8_t* out) {
+  const int kMinRun = 4;
+  int64_t o = 0;
+  for (int y = 0; y < height; ++y) {
+    out[o++] = 2;
+    out[o++] = 2;
+    out[o++] = (uint8_t)(width >> 8);
+    out[o++] = (uint8_t)(width & 0xff);
+    for (int ch = 0; ch < 4; ++ch) {
+      const uint8_t* data = planes + ((int64_t)y * 4 + ch) * width;
+      int cur = 0;
+      while (cur < width) {
+        int beg_run = cur, run_count = 0, old_run_count = 0;
+        while (run_count < kMinRun && beg_run < width) {
+          beg_run += run_count;
+          old_run_count = run_count;
+          run_count = 1;
+          while (beg_run + run_count < width && run_count < 127 &&
+                 data[beg_run] == data[beg_run + run_count])
+            ++run_count;
+        }
+        if (old_run_count > 1 && old_run_count == beg_run - cur) {
+          out[o++] = (uint8_t)(128 + old_run_count);
+          out[o++] = data[cur];
+          cur = beg_run;
+        }
+        while (cur < beg_run) {
+          const int count = std::min(beg_run - cur, 128);
+          out[o++] = (uint8_t)count;
+          memcpy(out + o, data + cur, count);
+          o += count;
+          cur += count;
+        }
+        if (run_count >= kMinRun) {
+          out[o++] = (uint8_t)(128 + run_count);
+          out[o++] = data[beg_run];
+          cur += run_count;
+        }
+      }
+    }
+  }
+  return o;
+}
+
+// TIFF: one strip of `rows` rows of `row_bytes` 8-bit samples as libtiff
+// 4.7.1 writes it with compression 5 (tif_lzw.c's LZWEncode) after the
+// horizontal predictor (tif_predict.c's horDiff8: each sample less the one
+// `stride` samples before it in its row, the row's first pixel kept), row
+// by row into one LZW stream: a clear code first; 9- to 12-bit codes MSB
+// first, one wider once the next entry passes 2^width - 1; a clear code
+// right after the entry that brings the table to 4094, and also, at the
+// first new entry that neither widens the codes nor is reached before
+// 10,000 input bytes since the last check, when the ratio of input to
+// output bits (24.8 fixed point) has not grown since that check; then the
+// last string, the end code (LZWPostEncode: one bit wider where its entry
+// would have widened the codes) and the last bits padded with zeros.
+// `out` holds at least 2 * rows * row_bytes + 16 bytes.
+int64_t tiff_lzw_encode(const uint8_t* samples, int64_t row_bytes, int rows, int stride,
+                        uint8_t* out) {
+  const int kClear = 256, kEoi = 257, kFirst = 258, kCodeMax = 4095, kCheckGap = 10000;
+  std::vector<uint16_t> table(4096 * 256, 0);
+  std::vector<uint8_t> row(row_bytes);
+  uint64_t nextdata = 0;
+  int nextbits = 0, nbits = 9, maxcode = 511, free_ent = kFirst, ent = -1;
+  int64_t o = 0, incount = 0, outcount = 0, checkpoint = kCheckGap, ratio = 0;
+  auto put = [&](int code) {
+    nextdata = (nextdata << nbits) | (uint64_t)code;
+    nextbits += nbits;
+    out[o++] = (uint8_t)(nextdata >> (nextbits - 8));
+    nextbits -= 8;
+    if (nextbits >= 8) {
+      out[o++] = (uint8_t)(nextdata >> (nextbits - 8));
+      nextbits -= 8;
+    }
+    nextdata &= (1ull << nextbits) - 1;
+    outcount += nbits;
+  };
+  auto reset = [&]() {
+    std::fill(table.begin(), table.end(), 0);
+    ratio = 0;
+    incount = 0;
+    outcount = 0;
+    free_ent = kFirst;
+    put(kClear);
+    nbits = 9;
+    maxcode = 511;
+  };
+  for (int r = 0; r < rows; ++r) {
+    const uint8_t* src = samples + (int64_t)r * row_bytes;
+    for (int64_t i = row_bytes - 1; i >= stride; --i) row[i] = (uint8_t)(src[i] - src[i - stride]);
+    for (int64_t i = 0; i < std::min<int64_t>(stride, row_bytes); ++i) row[i] = src[i];
+    int64_t i = 0;
+    if (ent < 0 && row_bytes > 0) {
+      put(kClear);
+      ent = row[i++];
+      ++incount;
+    }
+    for (; i < row_bytes; ++i) {
+      const int c = row[i];
+      ++incount;
+      const uint16_t hit = table[(size_t)ent * 256 + c];
+      if (hit) {
+        ent = hit;
+        continue;
+      }
+      put(ent);
+      table[(size_t)ent * 256 + c] = (uint16_t)free_ent++;
+      ent = c;
+      if (free_ent == kCodeMax - 1) {
+        reset();
+      } else if (free_ent > maxcode) {
+        ++nbits;
+        maxcode = (1 << nbits) - 1;
+      } else if (incount >= checkpoint) {
+        checkpoint = incount + kCheckGap;
+        int64_t rat;
+        if (incount > 0x007fffff) {
+          rat = outcount >> 8;
+          rat = rat == 0 ? 0x7fffffff : incount / rat;
+        } else {
+          rat = (incount << 8) / outcount;
+        }
+        if (rat <= ratio) reset();
+        else ratio = rat;
+      }
+    }
+  }
+  if (ent >= 0) {
+    put(ent);
+    const int after = free_ent + 1;
+    if (after == kCodeMax - 1) {
+      put(kClear);
+      nbits = 9;
+    } else if (after > maxcode) {
+      ++nbits;
+    }
+  }
+  put(kEoi);
+  if (nextbits > 0) out[o++] = (uint8_t)((nextdata << (8 - nextbits)) & 0xff);
+  return o;
 }
 
 }  // extern "C"

@@ -2,7 +2,9 @@
 bound with ctypes: GIF's LZW (``core/gif.py``), Radiance HDR's scanlines
 (``core/hdr.py``), BMP's RLE4 / RLE8 (``core/bmp.py``) and TIFF's LZW,
 PackBits, CCITT (RLE, RLEW, Group 3, Group 4), ThunderScan and SGILog codes
-and its CIELab conversion (``core/tiff.py``).
+and its CIELab conversion (``core/tiff.py``); and those of the encoders:
+GIF's quantiser and LZW, HDR's run-length scanlines and TIFF's LZW with
+its horizontal predictor.
 
 The library is built with g++ on first use (``build.py``); there is no
 other path, so without a compiler such a read raises ``RuntimeError`` with
@@ -46,6 +48,13 @@ def load_image_codes() -> ctypes.CDLL:
         lib.tiff_cielab.argtypes = [np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"), i64,
                                     c_int, ctypes.c_float, ctypes.c_float, u8p]
         lib.tiff_sgilog.argtypes = [c_int, ctypes.c_char_p, i64, c_int, c_int, u8p]
+        lib.gif_dither.argtypes = [u8p, c_int, c_int, u8p]
+        lib.gif_dither.restype = None
+        lib.gif_lzw_encode.argtypes = [u8p, i64, u8p]
+        lib.hdr_rle_encode.argtypes = [u8p, c_int, c_int, u8p]
+        lib.tiff_lzw_encode.argtypes = [u8p, i64, c_int, c_int, u8p]
+        for fn in (lib.gif_lzw_encode, lib.hdr_rle_encode, lib.tiff_lzw_encode):
+            fn.restype = i64
         for fn in (lib.gif_lzw, lib.hdr_pixels, lib.bmp_rle, lib.tiff_lzw, lib.tiff_packbits,
                    lib.tiff_fax, lib.tiff_thunder, lib.tiff_cielab, lib.tiff_sgilog):
             fn.restype = c_int
@@ -146,3 +155,41 @@ def tiff_sgilog(kind: int, data: bytes, rows: int, width: int, size: int
     out = np.zeros(max(size, rows * width * (1 if kind == 0 else 3)), np.uint8)
     failed = load_image_codes().tiff_sgilog(kind, data, len(data), width, rows, out)
     return out[:size], bool(failed)
+
+
+def gif_dither(rgb: np.ndarray) -> np.ndarray:
+    """cv2 5.0's GIF quantiser: indices ``[H, W]`` (uint8) into its fixed
+    3:3:2 table of the RGB uint8 pixels ``rgb`` ``[H, W, 3]``."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    out = np.zeros(rgb.shape[:2], np.uint8)
+    load_image_codes().gif_dither(rgb, rgb.shape[0], rgb.shape[1], out)
+    return out
+
+
+def gif_lzw_encode(indices: np.ndarray) -> bytes:
+    """GIF's LZW image data (minimum code size 8) of 8-bit ``indices`` as
+    cv2 5.0 writes it, in sub-blocks ended by the zero block."""
+    flat = np.ascontiguousarray(indices, np.uint8).ravel()
+    out = np.zeros(2 * flat.size + 16, np.uint8)
+    n = load_image_codes().gif_lzw_encode(flat, flat.size, out)
+    return out[:n].tobytes()
+
+
+def hdr_rle_encode(rgbe: np.ndarray) -> bytes:
+    """Radiance HDR's run-length scanlines of RGBE bytes ``[H, W, 4]`` as
+    rgbe.cpp writes them (width 8 to 0x7fff)."""
+    height, width = rgbe.shape[:2]
+    planes = np.ascontiguousarray(np.asarray(rgbe, np.uint8).transpose(0, 2, 1))
+    out = np.zeros(height * (4 + 4 * width + 4 * -(-width // 128)), np.uint8)
+    n = load_image_codes().hdr_rle_encode(planes, width, height, out)
+    return out[:n].tobytes()
+
+
+def tiff_lzw_encode(rows: np.ndarray, stride: int) -> bytes:
+    """One TIFF strip of 8-bit sample rows ``[rows, row_bytes]`` as libtiff
+    4.7.1 writes it with LZW after the horizontal predictor over
+    ``stride`` samples a pixel."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    out = np.zeros(2 * rows.size + 16, np.uint8)
+    n = load_image_codes().tiff_lzw_encode(rows, rows.shape[1], rows.shape[0], stride, out)
+    return out[:n].tobytes()

@@ -1,8 +1,10 @@
 """The port's inference command against the JAX package's (CPU): the three
 modes on the committed demo checkpoint (flax variables of ``Segment(20)``)
 write the same file layout, and the masks the port writes are ≥ 99.9 % equal
-to JAX's, also from JPEG images; the extension filter, the once-refused
-flags ``--int8`` and ``--fused-stem``, and the refusal of BMP files."""
+to JAX's, also from JPEG images; dataset mode writes each mask in the format
+of its record's extension as ``cv2.imwrite`` does (ROADMAP C12); the
+extension filter, the once-refused flags ``--int8`` and ``--fused-stem``,
+and the refusal of BMP files."""
 import functools
 import json
 import os
@@ -20,7 +22,13 @@ from instancesegmentation_tpu.infer.cli import main as jax_main
 from instancesegmentation_tpu.models.segment import Segment as JaxSegment
 from instancesegmentation_tpu_torch.core.keys import key_combine
 from instancesegmentation_tpu_torch.core.imread import imread
-from instancesegmentation_tpu_torch.core.png import UnsupportedImage, read_png
+from instancesegmentation_tpu_torch.core.imwrite import imwrite
+from instancesegmentation_tpu_torch.core.png import (
+    UnsupportedImage,
+    encode_png,
+    read_png,
+    write_png,
+)
 from instancesegmentation_tpu_torch.core.records import common_ann_loader
 from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
 from instancesegmentation_tpu_torch.infer.cli import list_images, main
@@ -106,6 +114,69 @@ def test_dataset_mode_mirrors_common_layout(synth, tmp_path):
     for f in files:
         assert f.startswith("instance_mask" + os.sep)
         assert read_png(os.path.join(tmp_path, "port", f), "gray").shape == (240, 320)
+
+
+C12_EXTS = (".png", ".bmp", ".jpg", ".tif", ".pgm", ".ppm")
+
+
+def test_dataset_mode_writes_each_mask_in_its_records_format(tmp_path):
+    """C12: a common-format tree whose six instance-mask paths end in
+    ``.png``, ``.bmp``, ``.jpg``, ``.tif``, ``.pgm`` and ``.ppm`` (the input
+    masks keep their PNG bytes: both readers go by content).  Both packages'
+    ``--dataset-mode`` on the same float32 weights write the same set of
+    files: none for ``.ppm`` (cv2 refuses a gray mask there, and the run goes
+    on); the same bytes wherever the masks read back are equal, and the masks
+    read back ≥ 99.9 % equal; a ``.png`` mask has the bytes of
+    ``encode_png``, as before the repair."""
+    data = tmp_path / "data"
+    jax_make(str(data), num_images=6, objects_per_image=1, seed=7)
+    k_obj, k_mask = key_combine("object", "sub_list"), key_combine("instance_mask", "mask_path")
+    records = sorted(os.listdir(data / "data"))
+    assert len(records) == len(C12_EXTS)
+    for name, ext in zip(records, C12_EXTS):
+        path = data / "data" / name
+        rec = json.loads(path.read_text())
+        for obj in rec[k_obj]:
+            old = obj[k_mask]
+            obj[k_mask] = os.path.splitext(old)[0] + ext
+            os.rename(data / old, data / obj[k_mask])
+        path.write_text(json.dumps(rec))
+    argv = ["-i", str(data), "--dataset-mode", "--size", str(SIZE), "--batch", "2",
+            "--float32", "--checkpoint", DEMO]
+    assert main(["-o", str(tmp_path / "port")] + argv, device="cpu") == 0
+    assert jax_main(["-o", str(tmp_path / "jax")] + argv) == 0
+    files = _files(str(tmp_path / "port"))
+    assert files == _files(str(tmp_path / "jax"))
+    assert sorted(os.path.splitext(f)[1] for f in files) == sorted(set(C12_EXTS) - {".ppm"})
+    same_bytes = 0
+    for f in files:
+        port_bytes = (tmp_path / "port" / f).read_bytes()
+        jax_bytes = (tmp_path / "jax" / f).read_bytes()
+        got = imread(str(tmp_path / "port" / f), "gray")
+        want = cv2.imread(str(tmp_path / "jax" / f), cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(got, cv2.imread(str(tmp_path / "port" / f),
+                                                      cv2.IMREAD_GRAYSCALE))
+        assert got.shape == want.shape and (got == want).mean() >= 0.999, f
+        if np.array_equal(got, want):
+            assert port_bytes == jax_bytes, f
+            same_bytes += 1
+        if f.endswith(".png"):
+            assert port_bytes == encode_png(got)
+    assert same_bytes >= len(files) - 1
+
+
+def test_write_png_is_encode_png(tmp_path):
+    """``write_png`` (filter Sub, its default) writes ``encode_png``'s bytes,
+    which are ``imwrite``'s for ``.png`` and cv2's."""
+    rng = np.random.default_rng(3)
+    for shape in ((1, 1), (7, 9), (30, 41, 3), (5, 6, 4)):
+        a = rng.integers(0, 256, shape, dtype=np.uint8)
+        write_png(str(tmp_path / "a.png"), a, filter_type=1)
+        assert imwrite(str(tmp_path / "b.png"), a)
+        data = (tmp_path / "a.png").read_bytes()
+        assert data == encode_png(a) == (tmp_path / "b.png").read_bytes()
+        bgr = a if a.ndim == 2 else a[..., [2, 1, 0, 3][:a.shape[2]]]
+        assert data == cv2.imencode(".png", np.ascontiguousarray(bgr))[1].tobytes()
 
 
 def test_proposal_mode(synth, tmp_path):

@@ -835,21 +835,28 @@ def test_last_forms_coco_tree_trains(tmp_path):
     assert np.isfinite(losses).all(), losses
 
 
-def test_tif_named_tree_needs_a_tiff_encoder(tmp_path):
-    """ROADMAP A15: under ``.tif`` names the mix preview is a TIFF that
-    cv2's encoder writes; the port has no TIFF encoder and raises naming
-    the extension, where the JAX package writes the tree."""
-    img_dir, ann = _scene_tree(str(tmp_path / "src"), (0,))
-    os.rename(os.path.join(img_dir, "000000000000.jpg"), os.path.join(img_dir, "000000000000.tif"))
+def test_tif_named_tree_converts_as_jax(tmp_path):
+    """ROADMAP A15, done: under ``.tif`` names the mix preview is the TIFF
+    that cv2's encoder writes (libtiff's LZW with the horizontal
+    predictor); the port writes the same tree, byte for byte."""
+    img_dir, ann = _scene_tree(str(tmp_path / "src"), (0, 1))
     with open(ann) as f:
         tree = json.load(f)
-    tree["images"][0]["file_name"] = "000000000000.tif"
+    for image, ext in zip(tree["images"], (".tif", ".TIFF")):
+        name = image["file_name"].replace(".jpg", ext)
+        os.rename(os.path.join(img_dir, image["file_name"]), os.path.join(img_dir, name))
+        image["file_name"] = name
     with open(ann, "w") as f:
         json.dump(tree, f)
-    assert jconv.transfer_coco(img_dir, ann, str(tmp_path / "jax"), progress=False) == 1
-    assert os.path.getsize(str(tmp_path / "jax" / "mix" / "000000000000.tif")) > 0
-    with pytest.raises(ValueError, match="tif"):
-        tconv.transfer_coco(img_dir, ann, str(tmp_path / "port"), progress=False)
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert jconv.transfer_coco(img_dir, ann, ref, progress=False) == 2
+    assert tconv.transfer_coco(img_dir, ann, port, progress=False) == 2
+    files = _files(ref)
+    assert _files(port) == files and len(files) == 2 * 7
+    assert "mix/000000000000.tif" in files and "mix/000000000001.TIFF" in files
+    for rel in files:
+        with open(os.path.join(port, rel), "rb") as a, open(os.path.join(ref, rel), "rb") as b:
+            assert a.read() == b.read(), rel
 
 
 @pytest.mark.parametrize("index", range(32))
