@@ -138,7 +138,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    colour image per encoder, the encoders480 COCO tree (the 32 WebP scenes
    under those names) converted equal to the JAX package's tree, trained
    (batch 32, 2 steps) and served, and C12's ``infer --dataset-mode`` mask
-   writes;
+   writes; then the WebP encoder (``webp_encoder_phase``: ``core/webp.py:
+   encode_webp`` over ``ops/native/webp_enc.cpp``, a lossless VP8L stream as
+   cv2 writes by default): the port's bytes for every input of
+   ``tests/data/imwrite`` equal to their stored digests and decoding to the
+   input, the bytes against cv2's over the 32 scenes, ms per 480 x 640
+   image beside ``.png``, and the webp_named480 COCO tree (the 32 scenes
+   under ``.webp`` names) converted (every file but the mix previews equal
+   to the JAX package's, each preview's pixels equal to cv2's decode of
+   the JAX package's), trained (batch 32, 2 steps), served and run through
+   ``infer --dataset-mode`` with ``.webp`` mask paths;
    then the dataset converters (``converters_phase``): the port writes a
    COCO (64 JPEGs of 480 x 640, two people each, polygons, compressed and
    uncompressed RLE, 17 keypoints), an OCHuman (16 images, 19 keypoints,
@@ -1671,9 +1680,9 @@ def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: byt
           f"read_png {png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
 
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as tmp:
-        # the scenes under .jpg names, as scraped datasets hold them: under
-        # their own names the converters' mix preview would need an encoder
-        # the port lacks (ROADMAP C9, A16)
+        # the scenes under .jpg names, as scraped datasets hold them (under
+        # .jp2 names the mix preview needs JPEG 2000's encoder, ROADMAP A16;
+        # .webp names: webp_encoder_phase)
         with open(os.path.join(fixtures, "coco_scenes.json")) as f:
             scenes = json.load(f)
         img_dir, ann = scene_coco_tree(
@@ -1724,7 +1733,7 @@ IMWRITE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tes
                                 "imwrite")
 #: the encoders timed per 480 x 640 colour image (the aliases share these)
 ENCODERS_TIMED = (".png", ".jpg", ".bmp", ".ppm", ".pam", ".pfm", ".sr", ".hdr", ".gif",
-                  ".tif")
+                  ".tif", ".webp")
 #: the encoders480 tree: images (the committed WebP scenes), batch, epochs
 ENCODERS_COCO, ENCODERS_BATCH, ENCODERS_EPOCHS = 32, 32, 1
 #: C12: the extensions ``infer --dataset-mode``'s instance-mask paths take in turn
@@ -1743,22 +1752,24 @@ def _encode_matches(got, stored: dict) -> bool:
             and hashlib.sha256(got[:len(got) - cut]).hexdigest() == stored["sha256"])
 
 
-def c12_infer(common: str, ckpt: str, tmp: str, fc, card: str) -> dict:
+def c12_infer(common: str, ckpt: str, tmp: str, fc, card: str, exts: tuple = C12_EXTS,
+              label: str = "C12") -> dict:
     """ROADMAP C12 on the card: ``python -m instancesegmentation_tpu_torch.infer
     --dataset-mode``'s ``main`` with the trainer's checkpoint, first on the
-    converted tree (``.png`` masks), then on a copy whose instance-mask paths
-    end in turn in ``C12_EXTS``.  Each mask of the second run is in its
-    path's format: its bytes are ``imencode(ext, m)`` of the first run's
-    mask ``m`` (the encoders' bytes are held to cv2's stored digests
-    before), a lossless one reads back as ``m``, and ``.ppm`` (which cv2
-    refuses for a gray mask) writes no file while the run goes on."""
+    converted tree (``.png`` masks, run ``png``), then on a copy whose
+    instance-mask paths end in turn in ``exts`` (run ``renamed``).  Each
+    mask of the second run is in its path's format: its bytes are
+    ``imencode(ext, m)`` of the first run's mask ``m`` (the encoders' bytes
+    are held to their stored digests before), a lossless one reads back as
+    ``m``, and where cv2 refuses a gray mask (``.ppm``) no file is written
+    while the run goes on."""
     from instancesegmentation_tpu_torch.core.imread import imread
     from instancesegmentation_tpu_torch.core.imwrite import imencode
     from instancesegmentation_tpu_torch.core.keys import key_combine
     from instancesegmentation_tpu_torch.infer import cli
 
     k_obj, k_mask = key_combine("object", "sub_list"), key_combine("instance_mask", "mask_path")
-    renamed = os.path.join(tmp, "c12_tree")
+    renamed = os.path.join(tmp, label.lower() + "_tree")
     shutil.copytree(common, renamed)
     paths, n = [], 0
     for name in sorted(os.listdir(os.path.join(renamed, "data"))):
@@ -1766,7 +1777,7 @@ def c12_infer(common: str, ckpt: str, tmp: str, fc, card: str) -> dict:
             rec = json.load(f)
         for obj in rec[k_obj]:
             old = obj[k_mask]
-            obj[k_mask] = os.path.splitext(old)[0] + C12_EXTS[n % len(C12_EXTS)]
+            obj[k_mask] = os.path.splitext(old)[0] + exts[n % len(exts)]
             os.rename(os.path.join(renamed, old), os.path.join(renamed, obj[k_mask]))
             paths.append((old, obj[k_mask]))
             n += 1
@@ -1775,40 +1786,40 @@ def c12_infer(common: str, ckpt: str, tmp: str, fc, card: str) -> dict:
     argv = ["--dataset-mode", "--size", str(C12_SIZE), "--batch", str(ENCODERS_BATCH),
             "--checkpoint", ckpt]
     out = {}
-    for tag, tree in (("png", common), ("c12", renamed)):
+    for tag, tree in (("png", common), ("renamed", renamed)):
         fc.reset_launches()
         t0 = time.perf_counter()
-        _run_main(cli.main, ["-i", tree, "-o", os.path.join(tmp, "masks_" + tag)] + argv)
+        _run_main(cli.main, ["-i", tree, "-o", os.path.join(tmp, f"masks_{label}_{tag}")] + argv)
         torch.cuda.synchronize()
         out[tag] = {"s": time.perf_counter() - t0, "fused_chain": fc.fused_chain.launches}
-    by_ext = dict.fromkeys(C12_EXTS, 0)
-    lossless_equal = nonempty = 0
+    by_ext = dict.fromkeys(exts, 0)
+    lossless_equal = nonempty = refused = 0
     for old, new in paths:
         ext = os.path.splitext(new)[1]
-        mask = imread(os.path.join(tmp, "masks_png", old), "gray")
+        mask = imread(os.path.join(tmp, f"masks_{label}_png", old), "gray")
         nonempty += bool(mask.any())
-        path = os.path.join(tmp, "masks_c12", new)
+        path = os.path.join(tmp, f"masks_{label}_renamed", new)
         want = imencode(ext, mask)
         if want is None:
-            check(not os.path.exists(path), f"C12: no mask file where cv2 refuses ({new})")
+            check(not os.path.exists(path), f"{label}: no mask file where cv2 refuses ({new})")
+            refused += 1
             continue
         with open(path, "rb") as f:
             data = f.read()
         check(hashlib.sha256(data).hexdigest() == hashlib.sha256(want).hexdigest(),
-              f"C12: {new} holds imencode({ext!r})'s bytes of the mask")
-        if ext != ".jpg":
-            check(np.array_equal(imread(path, "gray"), mask), f"C12: {new} reads back")
+              f"{label}: {new} holds imencode({ext!r})'s bytes of the mask")
+        if ext.lower() not in (".jpg", ".jpe", ".jpeg"):
+            check(np.array_equal(imread(path, "gray"), mask), f"{label}: {new} reads back")
             lossless_equal += 1
         by_ext[ext] += 1
     out.update({"masks": len(paths), "nonempty_masks": nonempty, "written_by_ext": by_ext,
-                "lossless_read_back_equal": lossless_equal})
-    print(f"C12: infer --dataset-mode on the encoders480 tree wrote {json.dumps(by_ext)} "
-          f"of {len(paths)} masks (.ppm refused as in cv2), each imencode's bytes of the "
-          f"PNG run's mask; fused_chain launches {out['png']['fused_chain']} / "
-          f"{out['c12']['fused_chain']}; {card}")
-    check(by_ext[".ppm"] == 0
-          and sum(by_ext.values()) == sum(not new.endswith(".ppm") for _, new in paths),
-          "C12: every mask but the refused .ppm ones written")
+                "refused": refused, "lossless_read_back_equal": lossless_equal})
+    print(f"{label}: infer --dataset-mode wrote {json.dumps(by_ext)} of {len(paths)} masks "
+          f"({refused} refused as cv2 refuses them), each imencode's bytes of the PNG run's "
+          f"mask; fused_chain launches {out['png']['fused_chain']} / "
+          f"{out['renamed']['fused_chain']}; {card}")
+    check(sum(by_ext.values()) + refused == len(paths),
+          f"{label}: every mask written but those cv2 refuses")
     return out
 
 
@@ -1910,7 +1921,135 @@ def encoders_phase(card: str, w2, fc, iters: int = 10) -> dict:
                                         tmp, w2, fc, card))
         ckpt = glob.glob(os.path.join(tmp, "ckpt", "*_best.ckpt"))[0]
         out["c12"] = c12_infer(common, ckpt, tmp, fc, card)
+        c12 = out["c12"]
+        ppm = sum(C12_EXTS[k % len(C12_EXTS)] == ".ppm" for k in range(c12["masks"]))
+        check(c12["written_by_ext"][".ppm"] == 0 and c12["refused"] == ppm,
+              "C12: every mask but the refused .ppm ones written")
     print(json.dumps({"encoders": out}))
+    return out
+
+
+def webp_read_back(image: np.ndarray) -> np.ndarray:
+    """What a reader gets back from the port's lossless ``.webp`` of
+    ``image``, RGB(A): gray as three equal channels, an opaque alpha
+    dropped, RGB under alpha 0 as 0 (where libwebp writes what its
+    predictors make cheapest)."""
+    a = image if image.ndim == 3 else image[..., None]
+    if a.shape[2] == 1:
+        return np.repeat(a, 3, -1)
+    if a.shape[2] == 4:
+        if (a[..., 3] == 255).all():
+            return a[..., :3]
+        a = a.copy()
+        a[a[..., 3] == 0] = 0
+    return a
+
+
+def webp_encoder_phase(card: str, w2, fc, enc: dict) -> dict:
+    """The WebP encoder (``core/webp.py:encode_webp``, its VP8L stream in
+    ``ops/native/webp_enc.cpp`` built with g++ here; cv2 writes a lossless
+    file by default, and the port's bytes decode to its pixels, not to its
+    bytes): for every input of ``tests/data/imwrite/inputs.npz`` and the 32
+    scenes, ``imencode(".webp", x)`` has the stored SHA-256 of the port's
+    bytes (``cv2_digests.json``'s ``webp`` section: integer decisions, so
+    every host writes them) and ``decode_webp`` of them gives ``x``'s
+    pixels (``webp_read_back``); the bytes against cv2's stored bytes over
+    the scenes (at most 1.5 x); ms per 480 x 640 image beside ``.png``
+    (``encoders_phase``'s, host clock).  Then the main path on WebP names,
+    cell webp_named480: the 32 scenes as a COCO tree named ``.webp`` (two
+    ``.WEBP``), converted by ``transfer_coco`` (every file but the mix
+    previews equal to the JAX package's stored digests, each preview's RGB
+    decode equal to the stored digest of cv2's decode of the JAX package's
+    preview), trained with ``main`` (batch 32, 1 epoch: finite losses, 1
+    ``warp_2level`` launch per step), served over the 64 instances (2
+    "banded" ``fused_chain`` launches per dispatch), and ``infer
+    --dataset-mode`` with ``.webp`` / ``.WEBP`` mask paths (``c12_infer``:
+    each mask ``imencode``'s bytes of the ``.png`` run's mask, reading back
+    as it)."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imread
+    from instancesegmentation_tpu_torch.core.imwrite import imencode
+    from instancesegmentation_tpu_torch.core.webp import decode_webp
+    from instancesegmentation_tpu_torch.data import converters
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.ops.native.webp import load_webp_encoder
+
+    t0 = time.perf_counter()
+    load_webp_encoder()
+    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    with open(os.path.join(IMWRITE_FIXTURES, "cv2_digests.json")) as f:
+        stored = json.load(f)["webp"]
+    inputs = np.load(os.path.join(IMWRITE_FIXTURES, "inputs.npz"))
+    ours = theirs = checked = 0
+    for name, want in stored["encodes"].items():
+        image = imread(os.path.join(WEBP_FIXTURES, name + ".webp")) \
+            if name.startswith("coco_") else inputs[name]
+        data = imencode(".webp", image)
+        check(data is not None and len(data) == want["port_bytes"]
+              and hashlib.sha256(data).hexdigest() == want["port_sha256"],
+              f"webp: imencode('.webp') of {name} is the port's stored bytes")
+        check(np.array_equal(decode_webp(data), webp_read_back(image)[..., :3]),
+              f"webp: the port's .webp of {name} decodes to its pixels")
+        checked += 1
+        if name.startswith("coco_"):
+            ours += len(data)
+            theirs += want["cv2_bytes"]
+    out.update({"encodes_checked": checked, "scene_bytes": ours, "scene_cv2_bytes": theirs,
+                "scene_ratio": ours / theirs, "webp_ms": enc["webp_ms"], "png_ms": enc["png_ms"]})
+    print(f"webp encoder: {checked} encodes equal to the stored digests, each decoding to its "
+          f"input; the 32 scenes in {ours} bytes against cv2's {theirs} "
+          f"({ours / theirs:.4f} x); ms per 480x640 colour image .webp {enc['webp_ms']:.2f}, "
+          f".png {enc['png_ms']:.2f} (host clock); {card}")
+    check(ours <= 1.5 * theirs, "webp: the scenes in at most 1.5 x cv2's bytes")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_webp_named480_") as tmp:
+        with open(os.path.join(WEBP_FIXTURES, "coco_scenes.json")) as f:
+            scenes = json.load(f)
+        tree = stored["webp_named480"]
+        img_dir, ann = scene_coco_tree(
+            os.path.join(tmp, "src"),
+            [os.path.join(WEBP_FIXTURES, f"coco_{i:02d}.webp") for i in range(ENCODERS_COCO)],
+            scenes, tuple(tree["exts"]))
+        common = os.path.join(tmp, "common")
+        t0 = time.perf_counter()
+        n = converters.transfer_coco(img_dir, ann, common, progress=False)
+        out["convert_s"] = time.perf_counter() - t0
+        check(n == ENCODERS_COCO, f"webp_named480: transfer_coco converted {n} of "
+              f"{ENCODERS_COCO}")
+        got = tree_digests(common, img_dir)
+        previews = {k: got.pop(k) for k in list(got) if k.startswith("mix/")}
+        same = sum(got.get(k) == v for k, v in tree["files"].items())
+        pixels_same = preview_bytes = 0
+        for rel in previews:
+            with open(os.path.join(common, rel), "rb") as f:
+                data = f.read()
+            preview_bytes += len(data)
+            rgb = decode_webp(data)
+            pixels_same += hashlib.sha256(rgb).hexdigest() == tree["previews"].get(rel)
+        cv2_preview_bytes = sum(tree["preview_cv2_bytes"].values())
+        out.update({"tree_files": len(got), "tree_files_equal_jax": same,
+                    "previews": len(previews), "previews_pixels_equal_jax": pixels_same,
+                    "preview_bytes": preview_bytes, "preview_cv2_bytes": cv2_preview_bytes})
+        print(f"webp_named480: transfer_coco {out['convert_s']:.2f} s; {same} of "
+              f"{len(tree['files'])} files equal to the JAX package's tree, {pixels_same} of "
+              f"{len(tree['previews'])} .webp mix previews decoding to the JAX package's "
+              f"pixels ({preview_bytes} bytes against cv2's {cv2_preview_bytes}); {card}")
+        check(sorted(got) == sorted(tree["files"]) and same == len(tree["files"]),
+              "webp_named480: every file but the previews equals the JAX package's")
+        check(sorted(previews) == sorted(tree["previews"]) and pixels_same == len(previews),
+              "webp_named480: each .webp mix preview decodes to the JAX package's pixels")
+        samples = len(InstanceCommonDataset(common, 640))
+        check(samples == 2 * ENCODERS_COCO, f"webp_named480: {samples} eligible instances")
+        out.update(train_and_serve_tree("webp_named480", common, ENCODERS_BATCH,
+                                        ENCODERS_EPOCHS, tmp, w2, fc, card))
+        ckpt = glob.glob(os.path.join(tmp, "ckpt", "*_best.ckpt"))[0]
+        out["infer"] = c12_infer(common, ckpt, tmp, fc, card, exts=(".webp",) * 15 + (".WEBP",),
+                                 label="webp_named480")
+        check(out["infer"]["refused"] == 0
+              and out["infer"]["lossless_read_back_equal"] == out["infer"]["masks"],
+              "webp_named480: every .webp mask written and read back")
+    print(json.dumps({"webp_encoder": out}))
     return out
 
 
@@ -4618,6 +4757,7 @@ def main() -> int:
         webp = webp_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         j2k = jpeg2000_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         enc = encoders_phase(card, w2, fc)
+        wenc = webp_encoder_phase(card, w2, fc, enc)
         conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
@@ -4932,7 +5072,9 @@ def main() -> int:
          "launches_webp_serve": webp["serve"]["fused_chain"],
          "launches_jpeg2000_serve": j2k["serve"]["fused_chain"],
          "launches_encoders_serve": enc["serve"]["fused_chain"],
-         "launches_encoders_c12_infer": enc["c12"]["c12"]["fused_chain"],
+         "launches_encoders_c12_infer": enc["c12"]["renamed"]["fused_chain"],
+         "launches_webp_named_serve": wenc["serve"]["fused_chain"],
+         "launches_webp_named_infer": wenc["infer"]["renamed"]["fused_chain"],
          "launches_tiff_serve": tiff["serve"]["fused_chain"],
          "launches_fused_stem": fstem["serve"]["bf16"]["fused_chain"]["banded"],
          "launches_fused_stem_parallel_replica": fstem["parallel_launches"],
@@ -5009,6 +5151,7 @@ def main() -> int:
          "launches_webp_train": webp["train"]["warp_2level"],
          "launches_jpeg2000_train": j2k["train"]["warp_2level"],
          "launches_encoders_train": enc["train"]["warp_2level"],
+         "launches_webp_named_train": wenc["train"]["warp_2level"],
          "launches_tiff_train": tiff["train"]["warp_2level"],
          "launches_remat_train": fstem["remat"]["runs"]["remat"]["warp_2level"],
          "launches_show_aug_rotate": vqa["show_aug"]["warp_2level_launches"],

@@ -14,20 +14,24 @@ bytes at its default parameters:
 - ``.hdr`` / ``.pic``: ``core/hdr.py:encode_hdr``;
 - ``.gif`` (colour only): ``core/gif.py:encode_gif``;
 - ``.tif`` / ``.tiff``: ``core/tiff.py:encode_tiff`` (LZW and the
-  horizontal predictor, as libtiff 4.7.1 writes them for cv2).
+  horizontal predictor, as libtiff 4.7.1 writes them for cv2);
+- ``.webp``: ``core/webp.py:encode_webp``, a lossless VP8L file as cv2
+  writes it by default: not cv2's bytes (libwebp's choices are heuristic)
+  but the same pixels in every reader.
 
 ``image`` is RGB ``[H, W, 3]`` or gray ``[H, W]`` (or ``[H, W, 1]``) uint8,
-as the port's readers return it, and RGBA ``[H, W, 4]`` for PNG and BMP:
-the file holds what ``cv2.imwrite`` writes for the BGR(A) counterpart.
-Where cv2's encoder refuses the image (gray to ``.ppm`` or ``.gif``, colour
-to ``.pbm`` or ``.pgm``, four channels to a PNM, PFM or HDR file),
-``imencode`` returns None and ``imwrite`` returns False and writes no file,
-except where cv2 has opened the file already: ``.gif`` leaves it empty and
-``.pfm`` leaves the one byte ``P`` it wrote before its check.  ``.webp``,
-``.jp2`` and ``.avif``, which cv2 writes with codecs the port has not
-ported (ROADMAP C9, A16 and AVIF), four channels to a format other than
-PNG and BMP, and an extension cv2 has no writer for raise ``ValueError``
-naming the extension.
+as the port's readers return it, and RGBA ``[H, W, 4]`` for PNG, BMP and
+WebP: the file holds what ``cv2.imwrite`` writes for the BGR(A)
+counterpart.  Where cv2's encoder refuses the image (gray to ``.ppm`` or
+``.gif``, colour to ``.pbm`` or ``.pgm``, four channels to a PNM, PFM or
+HDR file, a side above 16,383 to ``.webp``), ``imencode`` returns None and
+``imwrite`` returns False and writes no file, except where cv2 has opened
+the file already: ``.gif`` leaves it empty and ``.pfm`` leaves the one
+byte ``P`` it wrote before its check; ``.webp`` removes a file that was
+there.  ``.jp2`` and ``.avif``, which cv2 writes with codecs the port has
+not ported (ROADMAP A16 and AVIF), four channels to a format other than
+PNG, BMP and WebP, and an extension cv2 has no writer for raise
+``ValueError`` naming the extension.
 """
 from __future__ import annotations
 
@@ -50,11 +54,12 @@ from instancesegmentation_tpu_torch.core.pnm import (
 )
 from instancesegmentation_tpu_torch.core.sunras import encode_sunras
 from instancesegmentation_tpu_torch.core.tiff import encode_tiff
+from instancesegmentation_tpu_torch.core.webp import encode_webp
 from instancesegmentation_tpu_torch.ops.native.jpeg import encode_jpeg
 
-#: encoders that take the image as given (their own checks, RGBA for PNG and BMP)
+#: encoders that take the image as given (their own checks, RGBA for PNG, BMP and WebP)
 _WHOLE = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".jpe": encode_jpeg,
-          ".bmp": encode_bmp, ".dib": encode_bmp}
+          ".bmp": encode_bmp, ".dib": encode_bmp, ".webp": encode_webp}
 #: encoders of ``[H, W, C]`` (C 1 or 3) that return None where cv2 refuses
 _PIXELS = {".pbm": encode_pbm, ".pgm": encode_pgm, ".ppm": encode_ppm, ".pnm": encode_pnm,
            ".pam": encode_pam, ".pfm": encode_pfm, ".sr": encode_sunras,
@@ -63,11 +68,12 @@ _PIXELS = {".pbm": encode_pbm, ".pgm": encode_pgm, ".ppm": encode_ppm, ".pnm": e
 #: where cv2 refuses a four-channel image (the others write it)
 _REFUSE_FOUR = {".pbm", ".pgm", ".ppm", ".pnm", ".pfm", ".hdr", ".pic"}
 #: extensions cv2 writes with a codec the port has not ported
-_QUEUED = {".webp": "WebP's encoder, ROADMAP C9",
-           ".jp2": "JPEG 2000's encoder, ROADMAP A16",
+_QUEUED = {".jp2": "JPEG 2000's encoder, ROADMAP A16",
            ".avif": "AVIF, ROADMAP queue A"}
 #: what ``cv2.imwrite`` leaves in the file where the encoder refuses the image
 _LEFT_ON_REFUSAL = {".gif": b"", ".pfm": b"P"}
+#: where ``cv2.imwrite`` removes the file when the encoder refuses the image
+_REMOVED_ON_REFUSAL = {".webp"}
 EXTENSIONS = tuple(_WHOLE) + tuple(_PIXELS)
 
 
@@ -92,18 +98,21 @@ def imencode(ext: str, image: np.ndarray) -> Optional[bytes]:
     if a.shape[2] == 4:
         if key in _REFUSE_FOUR:
             return None
-        raise ValueError(f"the port writes four channels to .png, .bmp and .dib only, "
-                         f"not to {ext!r}")
+        raise ValueError(f"the port writes four channels to .png, .bmp, .dib and .webp "
+                         f"only, not to {ext!r}")
     return _PIXELS[key](np.ascontiguousarray(a))
 
 
 def imwrite(path: str, image: np.ndarray) -> bool:
     """Write ``image`` to ``path`` in the format of its extension, as
     ``cv2.imwrite``: True when written; False where cv2's encoder refuses
-    the image (no file, or what cv2 leaves in it: ``_LEFT_ON_REFUSAL``)."""
+    the image (no file, or what cv2 leaves in it: ``_LEFT_ON_REFUSAL``,
+    ``_REMOVED_ON_REFUSAL``)."""
     ext = os.path.splitext(path)[1]
     data = imencode(ext, image)
     if data is None:
+        if ext.lower() in _REMOVED_ON_REFUSAL and os.path.lexists(path):
+            os.remove(path)
         data = _LEFT_ON_REFUSAL.get(ext.lower())
         if data is not None:
             with open(path, "wb") as f:

@@ -26,6 +26,15 @@ or raises ``ValueError`` where cv2 returns None.  What cv2 does, in order:
   (``core/exif.py``); a file it refuses keeps its pixels unturned.
 
 ``imread`` and ``imdecode`` read WebP alike.
+
+``encode_webp(image)`` writes what ``cv2.imwrite`` writes for ``.webp`` at
+its default parameters: a lossless file (cv2 calls libwebp's
+``WebPEncodeLosslessBGR`` / ``BGRA`` unless ``IMWRITE_WEBP_QUALITY`` <= 100
+is passed).  libwebp chooses its transforms and codes by heuristics that
+change between versions, so the port's stream (``ops/native/webp_enc.cpp``)
+is not cv2's byte for byte: it decodes, in every reader, to the same
+pixels.  The container is cv2's simple form, ``RIFF`` / ``WEBP`` /
+``VP8L`` with the pad byte of an odd-sized chunk and no ``VP8X`` chunk.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ import numpy as np
 from instancesegmentation_tpu_torch.core.bmp import cvtcolor_gray
 from instancesegmentation_tpu_torch.core.exif import apply_orientation, exif_orientation
 from instancesegmentation_tpu_torch.core.pnm import check_size
-from instancesegmentation_tpu_torch.ops.native.webp import decode_vp8, decode_vp8l
+from instancesegmentation_tpu_torch.ops.native.webp import decode_vp8, decode_vp8l, encode_vp8l
 
 #: bytes cv2 reads for the features before it decodes
 HEADER_SIZE = 32
@@ -45,6 +54,8 @@ _MAX_PAYLOAD = 0xFFFFFFFF - 8 - 1
 _OK, _NOT_ENOUGH, _ERROR = 0, 1, 2
 _ALPHA, _ANIMATION, _EXIF = 0x10, 0x02, 0x08
 _VALID_FLAGS = 0x3E
+#: the longest side libwebp writes (cv2's write of a longer one fails)
+MAX_SIDE = 16383
 
 
 def is_webp(data: bytes) -> bool:
@@ -448,3 +459,36 @@ def decode_webp(data: bytes, mode: str = "color", path: str = "<bytes>") -> np.n
         out = cvtcolor_gray(out[..., ::-1])
     exif = demux.exif() if demux.ok else None
     return apply_orientation(out, exif_orientation(exif))
+
+
+def encode_webp(image: np.ndarray) -> Optional[bytes]:
+    """The ``.webp`` bytes ``cv2.imwrite`` writes for the BGR(A) counterpart
+    of uint8 RGB ``[H, W, 3]``, gray ``[H, W]`` / ``[H, W, 1]`` (written as
+    three equal channels, cv2's ``GRAY2BGR``) or RGBA ``[H, W, 4]``, or None
+    where cv2 refuses the image (a side above ``MAX_SIDE``).  The header's
+    alpha hint is set only where some alpha is below 255, so an opaque RGBA
+    image reads back with three channels, as cv2's file does; RGB under
+    alpha 0 is written as 0 (libwebp's default, inexact mode lets it write
+    any RGB there)."""
+    a = np.asarray(image)
+    if a.dtype != np.uint8:
+        raise ValueError(f"encode_webp takes uint8, got {a.dtype}")
+    if a.ndim == 2:
+        a = a[..., None]
+    if a.ndim != 3 or a.shape[2] not in (1, 3, 4) or 0 in a.shape:
+        raise ValueError(f"encode_webp takes [H, W], [H, W, 1], [H, W, 3] or [H, W, 4], "
+                         f"got {a.shape}")
+    h, w, c = a.shape
+    if h > MAX_SIDE or w > MAX_SIDE:
+        return None
+    u = a.astype(np.uint32)
+    if c == 1:
+        argb = (u[..., 0] * 0x010101) | 0xFF000000
+        alpha = False
+    else:
+        argb = (u[..., 0] << 16) | (u[..., 1] << 8) | u[..., 2]
+        alpha = c == 4 and bool((a[..., 3] < 255).any())
+        argb |= (u[..., 3] << 24) if c == 4 else np.uint32(0xFF000000)
+    stream = encode_vp8l(argb, w, h, alpha)
+    chunk = b"VP8L" + struct.pack("<I", len(stream)) + stream + b"\0" * (len(stream) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk

@@ -19,8 +19,10 @@ import numpy as np
 from instancesegmentation_tpu_torch.ops.native.build import build_library
 
 SRC = Path(__file__).with_name("webp.cpp")
+ENC_SRC = Path(__file__).with_name("webp_enc.cpp")
 _MSG_LEN = 256
 _lib: Optional[ctypes.CDLL] = None
+_enc: Optional[ctypes.CDLL] = None
 
 
 def load_webp() -> ctypes.CDLL:
@@ -63,3 +65,37 @@ def decode_vp8(data: bytes, width: int, height: int, alph: Optional[bytes] = Non
                             _MSG_LEN):
         raise ValueError(f"{path}: {msg.value.decode(errors='replace')}")
     return (out, alpha) if with_alpha else out
+
+
+def load_webp_encoder() -> ctypes.CDLL:
+    """The bound encoder, built on first use; raises ``RuntimeError`` (with
+    the compiler's message) when it cannot be built."""
+    global _enc
+    if _enc is None:
+        lib = ctypes.CDLL(str(build_library(ENC_SRC)))
+        lib.webp_vp8l_encode.argtypes = [
+            np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)]
+        lib.webp_vp8l_encode.restype = ctypes.c_int
+        lib.webp_enc_free.argtypes = [ctypes.c_void_p]
+        lib.webp_enc_free.restype = None
+        _enc = lib
+    return _enc
+
+
+def encode_vp8l(argb: np.ndarray, width: int, height: int, use_alpha: bool) -> bytes:
+    """The VP8L stream (its header included) of ``height x width`` pixels
+    ``argb`` (uint32 ``0xAARRGGBB``), the header's alpha hint ``use_alpha``;
+    RGB under alpha 0 is written as 0.  Sides of 1 to 16,384."""
+    argb = np.ascontiguousarray(argb, dtype=np.uint32).reshape(-1)
+    if argb.size != width * height:
+        raise ValueError(f"encode_vp8l: {argb.size} pixels for {width} x {height}")
+    lib = load_webp_encoder()
+    out, size = ctypes.c_void_p(), ctypes.c_int64()
+    if lib.webp_vp8l_encode(argb, width, height, int(use_alpha), ctypes.byref(out),
+                            ctypes.byref(size)):
+        raise ValueError(f"encode_vp8l: cannot encode {width} x {height}")
+    try:
+        return ctypes.string_at(out, size.value)
+    finally:
+        lib.webp_enc_free(out)

@@ -26,7 +26,21 @@ Writes beside itself:
     converted tree and its digest (``chip_smoke.py:tree_digests``: the
     records with their source directory as ``<images>``); the ``.pgm`` and
     ``.pbm`` mix previews are absent (cv2 refuses a colour image there and
-    the converter goes on).
+    the converter goes on);
+  - ``webp``: the port's WebP writer, whose bytes are not cv2's (libwebp's
+    lossless encoder decides by heuristics) but decode to the same pixels:
+    - ``encodes[input]``: ``port_sha256`` / ``port_bytes``, the port's
+      ``imencode(".webp", image)``; ``decode_sha256``, cv2's
+      ``IMREAD_UNCHANGED`` decode of those bytes as RGB(A), which this
+      script asserts equal to the image as a reader gets it back
+      (``chip_smoke.py:webp_read_back``); ``cv2_bytes``, the
+      length of ``cv2.imencode(".webp")``'s own file;
+    - ``webp_named480``: the 32 scenes as a COCO tree named ``exts`` in
+      turn (``.webp``, two of them ``.WEBP``), converted by the JAX
+      package's ``transfer_coco``: ``files``, the digest of every file but
+      the mix previews (``tree_digests``); ``previews``, the SHA-256 of
+      cv2's RGB decode of each ``.webp`` mix preview, and ``preview_cv2_bytes``
+      its length.
 
 ``tests/test_torch_port_imwrite.py`` holds the stored digests against live
 cv2 and the port.
@@ -46,6 +60,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (the tree the card converts)
 from instancesegmentation_tpu_torch.core.imread import imread  # noqa: E402
+from instancesegmentation_tpu_torch.core.webp import encode_webp  # noqa: E402
 
 SEED = 23
 EXTS = (".jpe", ".dib", ".pbm", ".pgm", ".ppm", ".pnm", ".pam", ".pfm", ".sr", ".ras", ".hdr",
@@ -53,6 +68,8 @@ EXTS = (".jpe", ".dib", ".pbm", ".pgm", ".ppm", ".pnm", ".pam", ".pfm", ".sr", "
 #: the encoders480 tree's names, two scenes each
 TREE_EXTS = (".jpe", ".dib", ".ppm", ".pnm", ".pam", ".pfm", ".sr", ".ras", ".hdr", ".pic",
              ".gif", ".tif", ".tiff", ".pgm", ".pbm", ".JPE")
+#: the webp_named480 tree's names: every scene ``.webp``, two of them ``.WEBP``
+WEBP_TREE_EXTS = (".webp",) * 15 + (".WEBP",)
 SCENES = os.path.join(ROOT, "tests", "data", "webp")
 N_SCENES = 32
 
@@ -103,36 +120,81 @@ def cv2_outcome(ext: str, image: np.ndarray, tmp: str) -> dict:
     return {"refused": True, "left": left}
 
 
-def tree_digests(tmp: str) -> dict:
+def sha256(data) -> str:
+    return hashlib.sha256(np.ascontiguousarray(data) if isinstance(data, np.ndarray)
+                          else data).hexdigest()
+
+
+def jax_tree(tmp: str, exts: tuple) -> tuple[str, str]:
+    """The 32 scenes as a COCO tree named ``exts`` in turn, converted by the
+    JAX package: (the converted tree, the source image directory)."""
     from instancesegmentation_tpu.data.converters import transfer_coco
 
     with open(os.path.join(SCENES, "coco_scenes.json")) as f:
         scenes = json.load(f)
     sources = [os.path.join(SCENES, f"coco_{i:02d}.webp") for i in range(N_SCENES)]
-    img_dir, ann = chip_smoke.scene_coco_tree(os.path.join(tmp, "src"), sources, scenes,
-                                              TREE_EXTS)
-    out = os.path.join(tmp, "jax")
+    tag = "webp" if exts == WEBP_TREE_EXTS else "enc"
+    img_dir, ann = chip_smoke.scene_coco_tree(os.path.join(tmp, "src_" + tag), sources, scenes,
+                                              exts)
+    out = os.path.join(tmp, "jax_" + tag)
     assert transfer_coco(img_dir, ann, out, progress=False) == N_SCENES
-    return chip_smoke.tree_digests(out, img_dir)
+    return out, img_dir
+
+
+def tree_digests(tmp: str) -> dict:
+    return chip_smoke.tree_digests(*jax_tree(tmp, TREE_EXTS))
+
+
+def webp_outcome(image: np.ndarray) -> dict:
+    data = encode_webp(image)
+    ok, theirs = cv2.imencode(".webp", bgr(image))
+    assert ok and data is not None
+    back = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    back = back[..., [2, 1, 0, 3][:back.shape[2]]]
+    assert np.array_equal(back, chip_smoke.webp_read_back(image))
+    return {"port_sha256": sha256(data), "port_bytes": len(data), "cv2_bytes": len(theirs),
+            "decode_sha256": sha256(back)}
+
+
+def webp_tree(tmp: str) -> dict:
+    out, img_dir = jax_tree(tmp, WEBP_TREE_EXTS)
+    files = chip_smoke.tree_digests(out, img_dir)
+    previews, preview_bytes = {}, {}
+    for rel in [r for r in files if r.startswith("mix/")]:
+        with open(os.path.join(out, rel), "rb") as f:
+            data = f.read()
+        assert data[8:16] == b"WEBPVP8L"
+        previews[rel] = sha256(cv2.imdecode(np.frombuffer(data, np.uint8),
+                                            cv2.IMREAD_COLOR)[..., ::-1])
+        preview_bytes[rel] = len(data)
+        del files[rel]
+    return {"exts": WEBP_TREE_EXTS, "files": files, "previews": previews,
+            "preview_cv2_bytes": preview_bytes}
 
 
 def main() -> None:
     inputs = synthetic_inputs()
     np.savez_compressed(os.path.join(HERE, "inputs.npz"), **inputs)
-    encodes = {}
+    encodes, webp = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, image in list(inputs.items()) + [(f"coco_{i:02d}", scene(i))
                                                    for i in range(N_SCENES)]:
             exts = EXTS if image.ndim == 2 or image.shape[2] == 3 else \
                 (".dib", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm", ".hdr", ".pic")
             encodes[name] = {ext: cv2_outcome(ext, image, tmp) for ext in exts}
+            webp[name] = webp_outcome(image)
         files = tree_digests(tmp)
+        named = webp_tree(tmp)
     with open(os.path.join(HERE, "cv2_digests.json"), "w") as f:
         json.dump({"cv2": cv2.__version__, "encodes": encodes,
-                   "encoders480": {"exts": TREE_EXTS, "files": files}}, f, indent=0)
+                   "encoders480": {"exts": TREE_EXTS, "files": files},
+                   "webp": {"encodes": webp, "webp_named480": named}}, f, indent=0)
         f.write("\n")
     print(f"{len(encodes)} inputs, {sum(map(len, encodes.values()))} encodes, "
-          f"{len(files)} tree files")
+          f"{len(files)} tree files; webp: the port's bytes "
+          f"{sum(v['port_bytes'] for v in webp.values())} against cv2's "
+          f"{sum(v['cv2_bytes'] for v in webp.values())}, {len(named['files'])} tree files and "
+          f"{len(named['previews'])} previews")
 
 
 if __name__ == "__main__":

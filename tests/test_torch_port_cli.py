@@ -22,7 +22,7 @@ from instancesegmentation_tpu.infer.cli import main as jax_main
 from instancesegmentation_tpu.models.segment import Segment as JaxSegment
 from instancesegmentation_tpu_torch.core.keys import key_combine
 from instancesegmentation_tpu_torch.core.imread import imread
-from instancesegmentation_tpu_torch.core.imwrite import imwrite
+from instancesegmentation_tpu_torch.core.imwrite import imencode, imwrite
 from instancesegmentation_tpu_torch.core.png import (
     UnsupportedImage,
     encode_png,
@@ -163,6 +163,44 @@ def test_dataset_mode_writes_each_mask_in_its_records_format(tmp_path):
         if f.endswith(".png"):
             assert port_bytes == encode_png(got)
     assert same_bytes >= len(files) - 1
+
+
+def test_dataset_mode_writes_webp_masks(tmp_path):
+    """ROADMAP C9 on ``infer``'s path: a tree whose instance-mask paths end
+    in ``.webp`` (one record's in ``.WEBP``).  Both packages'
+    ``--dataset-mode`` write a lossless WebP for every mask; the port's file
+    holds ``imencode(".webp")``'s bytes of its mask, which cv2 and the
+    port's reader decode to that mask, and the masks agree with the JAX
+    run's as C12's do (at least 99.9 % of the pixels, float32 weights)."""
+    data = tmp_path / "data"
+    jax_make(str(data), num_images=3, objects_per_image=1, seed=11)
+    k_obj, k_mask = key_combine("object", "sub_list"), key_combine("instance_mask", "mask_path")
+    for k, name in enumerate(sorted(os.listdir(data / "data"))):
+        path = data / "data" / name
+        rec = json.loads(path.read_text())
+        for obj in rec[k_obj]:
+            old = obj[k_mask]
+            obj[k_mask] = os.path.splitext(old)[0] + (".WEBP" if k == 2 else ".webp")
+            os.rename(data / old, data / obj[k_mask])
+        path.write_text(json.dumps(rec))
+    argv = ["-i", str(data), "--dataset-mode", "--size", str(SIZE), "--batch", "2",
+            "--float32", "--checkpoint", DEMO]
+    assert main(["-o", str(tmp_path / "port")] + argv, device="cpu") == 0
+    assert jax_main(["-o", str(tmp_path / "jax")] + argv) == 0
+    files = _files(str(tmp_path / "port"))
+    assert files == _files(str(tmp_path / "jax")) and len(files) == 3
+    assert sorted(os.path.splitext(f)[1] for f in files) == [".WEBP", ".webp", ".webp"]
+    for f in files:
+        port_bytes = (tmp_path / "port" / f).read_bytes()
+        jax_bytes = (tmp_path / "jax" / f).read_bytes()
+        assert port_bytes[8:16] == jax_bytes[8:16] == b"WEBPVP8L", f
+        got = imread(str(tmp_path / "port" / f), "gray")
+        np.testing.assert_array_equal(got, cv2.imread(str(tmp_path / "port" / f),
+                                                      cv2.IMREAD_GRAYSCALE))
+        assert port_bytes == imencode(".webp", got), f
+        want = cv2.imread(str(tmp_path / "jax" / f), cv2.IMREAD_GRAYSCALE)
+        assert got.shape == want.shape and (got == want).mean() >= 0.999, f
+        assert set(np.unique(got)) <= {0, 255} and got.any(), f
 
 
 def test_write_png_is_encode_png(tmp_path):

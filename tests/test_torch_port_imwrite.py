@@ -12,14 +12,18 @@ encoders behind it: ``core/pnm.py``, ``core/sunras.py``, ``core/hdr.py``,
   format; HDR's conversion at every gray level; the GIF quantiser on
   random pixels and on the scenes; TIFF's LZW over rows longer than its
   ratio check's 10,000 bytes;
-- ``.webp``, ``.jp2``, ``.avif`` and extensions cv2 has no writer for raise
-  ``ValueError`` naming the extension;
+- ``.jp2``, ``.avif`` and extensions cv2 has no writer for raise
+  ``ValueError`` naming the extension (``.webp``:
+  ``tests/test_torch_port_webp_enc.py``);
 - the digests ``tests/data/imwrite/make_fixtures.py`` stored (which
   ``chip_smoke.py`` holds the port to on the card) are still cv2's and the
-  port's;
+  port's, and for WebP the port's bytes, cv2's decode of them and cv2's
+  byte count;
 - the encoders480 COCO tree (the 32 scenes of ``tests/data/webp`` under the
   names of every encoder) converted by both packages' ``transfer_coco``,
-  file for file.
+  file for file; the webp_named480 tree (the scenes under ``.webp``
+  names) converted by the port against the stored digests of the JAX
+  package's tree.
 
 Sun raster: cv2 pads a row of odd length with the byte after it in its
 buffer, which after the last row lies past the image; the port writes 0
@@ -179,21 +183,39 @@ def test_rgba(tmp_path):
             imencode(ext, rgba)
 
 
-@pytest.mark.parametrize("ext", [".webp", ".jp2", ".avif", ".xyz", ".exr", ".j2k", ".jpg2",
-                                 ".WEBP", ""])
+@pytest.mark.parametrize("ext", [".jp2", ".avif", ".xyz", ".exr", ".j2k", ".jpg2", ""])
 def test_extensions_without_an_encoder_raise(ext, tmp_path):
     image = _picture((40, 40, 3), 0)
-    writes = ext.lower() in (".webp", ".avif")
+    writes = ext.lower() == ".avif"
     if writes:
         assert cv2.imencode(ext, image)[0]
     with pytest.raises(ValueError, match=repr(ext).replace(".", r"\.")) as err:
         imencode(ext, image)
-    label = {".webp": "C9", ".jp2": "A16", ".avif": "AVIF"}.get(ext.lower())
+    label = {".jp2": "A16", ".avif": "AVIF"}.get(ext.lower())
     if label:
         assert label in str(err.value)
     with pytest.raises(ValueError):
         imwrite(str(tmp_path / ("x" + ext)), image)
     assert not (tmp_path / ("x" + ext)).exists()
+
+
+def test_jp2_default_is_lossless_only_within_rate_1():
+    """ROADMAP A16: cv2's default ``.jp2`` (OpenJPEG's 5/3 at rate 1) decodes
+    bit-equal while the stream fits the rate, as a 480 x 640 scene and its
+    gray plane do, but not for noise, whose coding passes the rate
+    allocation cuts; so a JPEG 2000 encoder cannot be held to the pixels
+    alone, as the WebP encoder is."""
+    scene = _bgr(_input("coco_00"))
+    for img in (scene, cv2.cvtColor(scene, cv2.COLOR_BGR2GRAY)):
+        ok, data = cv2.imencode(".jp2", img)
+        assert ok
+        np.testing.assert_array_equal(cv2.imdecode(data, cv2.IMREAD_UNCHANGED), img)
+        print(f"jp2 of {img.shape}: {len(data)} bytes, bit-equal")
+    noise = np.random.default_rng(0).integers(0, 256, (37, 53, 3), dtype=np.uint8)
+    ok, data = cv2.imencode(".jp2", noise)
+    err = np.abs(cv2.imdecode(data, cv2.IMREAD_UNCHANGED).astype(int) - noise).max()
+    print(f"jp2 of seeded noise (37, 53, 3): {len(data)} bytes, largest error {err}")
+    assert ok and err > 100
 
 
 def test_aliases_write_their_formats_bytes():
@@ -282,6 +304,16 @@ def test_stored_digests_are_cv2s_and_the_ports(name, tmp_path):
         data = data.tobytes()
         assert hashlib.sha256(data[:len(data) - cut]).hexdigest() == stored["sha256"]
         assert got == (stored["sha256"], stored["bytes"], cut), (name, ext)
+    webp = DIGESTS["webp"]["encodes"][name]
+    ours = imencode(".webp", image)
+    ok, theirs = cv2.imencode(".webp", _bgr(image))
+    assert ok and len(theirs) == webp["cv2_bytes"], name
+    assert (hashlib.sha256(ours).hexdigest(), len(ours)) == (webp["port_sha256"],
+                                                             webp["port_bytes"]), name
+    back = cv2.imdecode(np.frombuffer(ours, np.uint8), cv2.IMREAD_UNCHANGED)
+    back = np.ascontiguousarray(back[..., [2, 1, 0, 3][:back.shape[2]]])
+    np.testing.assert_array_equal(back, chip_smoke.webp_read_back(image))
+    assert hashlib.sha256(back).hexdigest() == webp["decode_sha256"], name
 
 
 def test_fixture_set_is_complete():
@@ -293,6 +325,16 @@ def test_fixture_set_is_complete():
     assert tuple(DIGESTS["encoders480"]["exts"]) == (
         ".jpe", ".dib", ".ppm", ".pnm", ".pam", ".pfm", ".sr", ".ras", ".hdr", ".pic", ".gif",
         ".tif", ".tiff", ".pgm", ".pbm", ".JPE")
+    webp = DIGESTS["webp"]
+    assert set(webp["encodes"]) == set(DIGESTS["encodes"])
+    for outcome in webp["encodes"].values():
+        assert set(outcome) == {"port_sha256", "port_bytes", "cv2_bytes", "decode_sha256"}
+    named = webp["webp_named480"]
+    assert tuple(named["exts"]) == (".webp",) * 15 + (".WEBP",)
+    assert len(named["previews"]) == len(named["preview_cv2_bytes"]) == 32
+    assert sorted(os.path.splitext(r)[1] for r in named["previews"]) == \
+        [".WEBP"] * 2 + [".webp"] * 30
+    assert not any(r.startswith("mix/") for r in named["files"])
     size = sum(os.path.getsize(os.path.join(FIXTURES, f)) for f in os.listdir(FIXTURES))
     assert size < 300_000, size
 
@@ -328,3 +370,34 @@ def test_encoders480_tree_converts_as_jax(tmp_path):
     mixes = sorted(r for r in ours if r.startswith("mix/"))
     assert len(mixes) == 28
     assert not any(r.endswith((".pgm", ".pbm")) for r in mixes)
+
+
+def test_webp_named480_tree_matches_the_stored_digests(tmp_path):
+    """The 32 scenes under ``.webp`` names (two ``.WEBP``), ``chip_smoke.py``'s
+    webp_named480 tree, converted by the port: every file but the mix
+    previews has the stored digest of the JAX package's file, and each
+    ``.webp`` mix preview decodes (the port's reader and cv2's) to the
+    stored digest of cv2's decode of the JAX package's preview."""
+    with open(os.path.join(SCENES, "coco_scenes.json")) as f:
+        scenes = json.load(f)
+    named = DIGESTS["webp"]["webp_named480"]
+    sources = [os.path.join(SCENES, f"coco_{i:02d}.webp") for i in range(32)]
+    img_dir, ann = chip_smoke.scene_coco_tree(str(tmp_path / "src"), sources, scenes,
+                                              tuple(named["exts"]))
+    port = str(tmp_path / "port")
+    assert tconv.transfer_coco(img_dir, ann, port, progress=False) == 32
+    got = chip_smoke.tree_digests(port, img_dir)
+    previews = {r: got.pop(r) for r in list(got) if r.startswith("mix/")}
+    assert got == named["files"]
+    assert sorted(previews) == sorted(named["previews"])
+    ours = theirs = 0
+    for rel in previews:
+        path = os.path.join(port, rel)
+        rgb = imread(path)
+        np.testing.assert_array_equal(rgb, cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1])
+        assert hashlib.sha256(rgb).hexdigest() == named["previews"][rel], rel
+        ours += os.path.getsize(path)
+        theirs += named["preview_cv2_bytes"][rel]
+    print(f"webp_named480: the port's previews {ours} bytes against cv2's {theirs}: "
+          f"{ours / theirs:.4f} x")
+    assert ours <= 1.5 * theirs

@@ -21,7 +21,8 @@ returns None, ``ImageSizeError`` where cv2 raises on the size.
   the decodes stored beside them and against live cv2;
 - a COCO tree of WebP images converted by both packages' ``transfer_coco``
   (file for file equal), read by both datasets, and a few port train steps
-  on it.
+  on it; the same under ``.webp`` names, whose mix previews the port writes
+  with its WebP encoder (equal pixels, ``test_torch_port_webp_enc.py``).
 """
 import glob
 import importlib.util
@@ -425,17 +426,17 @@ def test_fixture_set_is_complete():
 # -- a COCO tree of WebP images ----------------------------------------------------
 
 
-def _webp_coco_tree(root: str, n: int, ext: str = ".jpg") -> tuple[str, str]:
+def _webp_coco_tree(root: str, n: int, ext=".jpg") -> tuple[str, str]:
     """``n`` committed 480 x 640 WebP scenes as a COCO tree (polygon people
     from ``coco_scenes.json``, 17 visible keypoints each), the files named
-    ``<id><ext>``."""
+    ``<id><ext>`` (``ext`` a tuple: its extensions in turn)."""
     with open(os.path.join(FIXTURES, "coco_scenes.json")) as f:
         scenes = json.load(f)
     img_dir = os.path.join(root, "images")
     os.makedirs(img_dir)
     images, annotations = [], []
     for i in range(n):
-        name = f"{i:012d}{ext}"
+        name = f"{i:012d}{ext if isinstance(ext, str) else ext[i % len(ext)]}"
         with open(os.path.join(img_dir, name), "wb") as f:
             f.write(_fixture(f"coco_{i:02d}"))
         images.append({"id": i, "file_name": name, "height": scenes["height"],
@@ -480,26 +481,41 @@ def test_webp_coco_tree_converts_as_jax(tmp_path):
             assert f.read() == _fixture(f"coco_{i:02d}")
 
 
-def test_webp_named_tree_needs_a_webp_encoder(tmp_path):
-    """ROADMAP C9: under ``.webp`` names the mix preview is a WebP that
-    cv2's encoder writes (lossy); the port has no WebP encoder and raises
-    naming the extension, where the JAX package writes the tree."""
-    img_dir, ann = _webp_coco_tree(str(tmp_path / "src"), 1, ext=".webp")
-    assert jconv.transfer_coco(img_dir, ann, str(tmp_path / "jax"), progress=False) == 1
-    assert os.path.getsize(str(tmp_path / "jax" / "mix" / "000000000000.webp")) > 0
-    with pytest.raises(ValueError, match="webp"):
-        tconv.transfer_coco(img_dir, ann, str(tmp_path / "port"), progress=False)
+def test_webp_named_tree_converts_as_jax(tmp_path):
+    """ROADMAP C9: under ``.webp`` names (one ``.WEBP``) the mix preview is a
+    WebP, which cv2 writes lossless.  Both converters write the same files,
+    byte for byte, except the previews, which decode to the same pixels in
+    cv2 and in the port's reader; both datasets read the trees alike, and
+    the port takes 2 train steps on its tree."""
+    img_dir, ann = _webp_coco_tree(str(tmp_path / "src"), 4, ext=(".webp",) * 3 + (".WEBP",))
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tconv.transfer_coco(img_dir, ann, port, progress=False) == 4
+    assert jconv.transfer_coco(img_dir, ann, ref, progress=False) == 4
+    files = _files(ref)
+    assert _files(port) == files and len(files) == 4 * 7
+    previews = 0
+    for rel in files:
+        with open(os.path.join(port, rel), "rb") as a, open(os.path.join(ref, rel), "rb") as b:
+            ours, theirs = a.read(), b.read()
+        if not rel.startswith("mix" + os.sep):
+            assert ours == theirs, rel
+            continue
+        assert ours[8:16] == theirs[8:16] == b"WEBPVP8L", rel
+        want = cv2.imdecode(np.frombuffer(theirs, np.uint8), cv2.IMREAD_COLOR)
+        np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(ours, np.uint8),
+                                                   cv2.IMREAD_COLOR), want)
+        np.testing.assert_array_equal(imread(os.path.join(port, rel)), want[..., ::-1])
+        previews += 1
+    assert previews == 4
+    _same_datasets_and_train(port, ref, 8, 2, tmp_path)
 
 
-def test_webp_coco_tree_trains(tmp_path):
-    """The converted WebP tree read by both datasets (every field equal),
-    then a few port train steps on it."""
-    img_dir, ann = _webp_coco_tree(str(tmp_path / "src"), 2)
-    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
-    assert tconv.transfer_coco(img_dir, ann, port_dir, progress=False) == 2
-    assert jconv.transfer_coco(img_dir, ann, jax_dir, progress=False) == 2
+def _same_datasets_and_train(port_dir: str, jax_dir: str, n: int, steps: int, tmp_path) -> None:
+    """Both datasets read the converted trees alike (every field of the
+    first 4 of ``n`` samples), then ``steps`` port train steps on a batch of
+    them with finite losses."""
     port, ref = InstanceCommonDataset(port_dir, canvas=320), JaxDataset(jax_dir, canvas=320)
-    assert len(port) == len(ref) == 4
+    assert len(port) == len(ref) == n
     for i in range(4):
         got, want = port.fetch(i), ref.fetch(i)
         for field in ("image", "mask", "image_hw", "obj_box", "mask_box", "keypoints"):
@@ -516,10 +532,20 @@ def test_webp_coco_tree_trains(tmp_path):
     train_step = make_train_step(cfg)
     draws = draw_augment(4, augment_config(cfg, True))
     losses = []
-    for _ in range(3):
+    for _ in range(steps):
         state, metrics = train_step(state, batch, draws)
         losses.append(float(metrics["loss"]))
     assert np.isfinite(losses).all(), losses
+
+
+def test_webp_coco_tree_trains(tmp_path):
+    """The converted WebP tree read by both datasets (every field equal),
+    then a few port train steps on it."""
+    img_dir, ann = _webp_coco_tree(str(tmp_path / "src"), 2)
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tconv.transfer_coco(img_dir, ann, port_dir, progress=False) == 2
+    assert jconv.transfer_coco(img_dir, ann, jax_dir, progress=False) == 2
+    _same_datasets_and_train(port_dir, jax_dir, 4, 3, tmp_path)
 
 
 def test_reading_webp_loads_no_libwebp():
