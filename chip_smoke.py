@@ -147,7 +147,17 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    under ``.webp`` names) converted (every file but the mix previews equal
    to the JAX package's, each preview's pixels equal to cv2's decode of
    the JAX package's), trained (batch 32, 2 steps), served and run through
-   ``infer --dataset-mode`` with ``.webp`` mask paths;
+   ``infer --dataset-mode`` with ``.webp`` mask paths; then the JPEG 2000
+   encoder (``jpeg2000_encoder_phase``: ``core/jpeg2000.py:encode_jpeg2000``
+   over ``ops/native/jpeg2000_enc.cpp``, OpenJPEG 2.5.3's file as cv2 writes
+   it at rate 4): ``imencode(".jp2")`` of every input of
+   ``tests/data/imwrite`` equal to cv2's stored digest (or refused, leaving
+   cv2's JP2 boxes on disk) and decoding to cv2's stored decode, ms per 480
+   x 640 image beside ``.png``, and the jp2_named480 COCO tree (the 32 JPEG
+   2000 scenes under ``.jp2`` names) converted equal to the JAX package's
+   tree byte for byte, its ``.jp2`` mix previews included, trained (batch
+   32, 2 steps), served and run through ``infer --dataset-mode`` with
+   ``.jp2`` mask paths;
    then the dataset converters (``converters_phase``): the port writes a
    COCO (64 JPEGs of 480 x 640, two people each, polygons, compressed and
    uncompressed RLE, 17 keypoints), an OCHuman (16 images, 19 keypoints,
@@ -1680,9 +1690,8 @@ def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: byt
           f"read_png {png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
 
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as tmp:
-        # the scenes under .jpg names, as scraped datasets hold them (under
-        # .jp2 names the mix preview needs JPEG 2000's encoder, ROADMAP A16;
-        # .webp names: webp_encoder_phase)
+        # the scenes under .jpg names, as scraped datasets hold them (.jp2
+        # names: jpeg2000_encoder_phase; .webp names: webp_encoder_phase)
         with open(os.path.join(fixtures, "coco_scenes.json")) as f:
             scenes = json.load(f)
         img_dir, ann = scene_coco_tree(
@@ -1733,7 +1742,7 @@ IMWRITE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tes
                                 "imwrite")
 #: the encoders timed per 480 x 640 colour image (the aliases share these)
 ENCODERS_TIMED = (".png", ".jpg", ".bmp", ".ppm", ".pam", ".pfm", ".sr", ".hdr", ".gif",
-                  ".tif", ".webp")
+                  ".tif", ".webp", ".jp2")
 #: the encoders480 tree: images (the committed WebP scenes), batch, epochs
 ENCODERS_COCO, ENCODERS_BATCH, ENCODERS_EPOCHS = 32, 32, 1
 #: C12: the extensions ``infer --dataset-mode``'s instance-mask paths take in turn
@@ -1761,10 +1770,14 @@ def c12_infer(common: str, ckpt: str, tmp: str, fc, card: str, exts: tuple = C12
     mask of the second run is in its path's format: its bytes are
     ``imencode(ext, m)`` of the first run's mask ``m`` (the encoders' bytes
     are held to their stored digests before), a lossless one reads back as
-    ``m``, and where cv2 refuses a gray mask (``.ppm``) no file is written
-    while the run goes on."""
+    ``m``, a ``.jp2`` one too where its bytes are the lossless file's
+    (``_encode_jp2`` at ``IMWRITE_JPEG2000_COMPRESSION_X1000`` 1000; rate 4
+    cuts a mask whose lossless stream passes its budget, as cv2 does), and
+    where cv2 refuses a gray mask (``.ppm``) no file is written while the
+    run goes on."""
     from instancesegmentation_tpu_torch.core.imread import imread
     from instancesegmentation_tpu_torch.core.imwrite import imencode
+    from instancesegmentation_tpu_torch.core.jpeg2000 import _encode_jp2
     from instancesegmentation_tpu_torch.core.keys import key_combine
     from instancesegmentation_tpu_torch.infer import cli
 
@@ -1793,7 +1806,7 @@ def c12_infer(common: str, ckpt: str, tmp: str, fc, card: str, exts: tuple = C12
         torch.cuda.synchronize()
         out[tag] = {"s": time.perf_counter() - t0, "fused_chain": fc.fused_chain.launches}
     by_ext = dict.fromkeys(exts, 0)
-    lossless_equal = nonempty = refused = 0
+    lossless_equal = nonempty = refused = cut_by_rate = 0
     for old, new in paths:
         ext = os.path.splitext(new)[1]
         mask = imread(os.path.join(tmp, f"masks_{label}_png", old), "gray")
@@ -1808,15 +1821,21 @@ def c12_infer(common: str, ckpt: str, tmp: str, fc, card: str, exts: tuple = C12
             data = f.read()
         check(hashlib.sha256(data).hexdigest() == hashlib.sha256(want).hexdigest(),
               f"{label}: {new} holds imencode({ext!r})'s bytes of the mask")
-        if ext.lower() not in (".jpg", ".jpe", ".jpeg"):
-            check(np.array_equal(imread(path, "gray"), mask), f"{label}: {new} reads back")
+        back = imread(path, "gray")
+        check(back.shape == mask.shape, f"{label}: {new} reads back")
+        if ext.lower() == ".jp2" and want != _encode_jp2(mask, 1000):
+            cut_by_rate += 1
+        elif ext.lower() not in (".jpg", ".jpe", ".jpeg"):
+            check(np.array_equal(back, mask), f"{label}: {new} reads back as the mask")
             lossless_equal += 1
         by_ext[ext] += 1
     out.update({"masks": len(paths), "nonempty_masks": nonempty, "written_by_ext": by_ext,
-                "refused": refused, "lossless_read_back_equal": lossless_equal})
+                "refused": refused, "lossless_read_back_equal": lossless_equal,
+                "cut_by_rate": cut_by_rate})
     print(f"{label}: infer --dataset-mode wrote {json.dumps(by_ext)} of {len(paths)} masks "
-          f"({refused} refused as cv2 refuses them), each imencode's bytes of the PNG run's "
-          f"mask; fused_chain launches {out['png']['fused_chain']} / "
+          f"({refused} refused as cv2 refuses them, {cut_by_rate} .jp2 cut by the rate), each "
+          f"imencode's bytes of the PNG run's mask; fused_chain launches "
+          f"{out['png']['fused_chain']} / "
           f"{out['renamed']['fused_chain']}; {card}")
     check(sum(by_ext.values()) + refused == len(paths),
           f"{label}: every mask written but those cv2 refuses")
@@ -2050,6 +2069,111 @@ def webp_encoder_phase(card: str, w2, fc, enc: dict) -> dict:
               and out["infer"]["lossless_read_back_equal"] == out["infer"]["masks"],
               "webp_named480: every .webp mask written and read back")
     print(json.dumps({"webp_encoder": out}))
+    return out
+
+
+def jpeg2000_encoder_phase(card: str, w2, fc, enc: dict) -> dict:
+    """The JPEG 2000 encoder (``core/jpeg2000.py:encode_jpeg2000``, its
+    codestream in ``ops/native/jpeg2000_enc.cpp`` built with g++ here; cv2
+    has OpenJPEG 2.5.3 write one layer at rate 4, and the port writes its
+    bytes): for every input of ``tests/data/imwrite/inputs.npz`` and the 32
+    scenes, ``imencode(".jp2", x)`` has the SHA-256 of cv2's bytes
+    (``cv2_digests.json``'s ``jp2`` section) and the port's reader gives
+    cv2's stored decode of them, or, where cv2 refuses (a side under 32),
+    ``imencode`` gives None and ``imwrite`` leaves cv2's JP2 boxes; ms per
+    480 x 640 image beside ``.png`` (``encoders_phase``'s, host clock).
+    Then the main path on JPEG 2000 names, cell jp2_named480: the 32 JPEG
+    2000 scenes of ``tests/data/jpeg2000`` as a COCO tree named ``.jp2``
+    (two ``.JP2``), converted by ``transfer_coco`` equal to the JAX
+    package's stored digests file for file, the ``.jp2`` mix previews
+    included, trained with ``main`` (batch 32, 1 epoch: finite losses, 1
+    ``warp_2level`` launch per step), served over the 64 instances (2
+    "banded" ``fused_chain`` launches per dispatch), and ``infer
+    --dataset-mode`` with ``.jp2`` / ``.JP2`` mask paths (``c12_infer``:
+    each mask ``imencode``'s bytes of the ``.png`` run's mask, reading back
+    as it unless rate 4 cut it)."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imdecode, imread
+    from instancesegmentation_tpu_torch.core.imwrite import imencode, imwrite
+    from instancesegmentation_tpu_torch.data import converters
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+    from instancesegmentation_tpu_torch.ops.native.jpeg2000 import load_jpeg2000_encoder
+
+    t0 = time.perf_counter()
+    load_jpeg2000_encoder()
+    out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    with open(os.path.join(IMWRITE_FIXTURES, "cv2_digests.json")) as f:
+        stored = json.load(f)["jp2"]
+    inputs = np.load(os.path.join(IMWRITE_FIXTURES, "inputs.npz"))
+    checked = refused = scene_bytes = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jp2_refused_") as tmp:
+        for name, want in stored["encodes"].items():
+            image = imread(os.path.join(WEBP_FIXTURES, name + ".webp")) \
+                if name.startswith("coco_") else inputs[name]
+            data = imencode(".jp2", image)
+            if want.get("refused"):
+                path = os.path.join(tmp, name + ".jp2")
+                check(data is None and imwrite(path, image) is False,
+                      f"jp2: {name} refused as cv2 refuses it")
+                with open(path, "rb") as f:
+                    check(f.read().hex() == want["left"],
+                          f"jp2: imwrite of {name} leaves what cv2 leaves")
+                refused += 1
+                continue
+            check(data is not None and len(data) == want["bytes"]
+                  and hashlib.sha256(data).hexdigest() == want["sha256"],
+                  f"jp2: imencode('.jp2') of {name} is cv2's stored bytes")
+            check(hashlib.sha256(np.ascontiguousarray(imdecode(data))).hexdigest()
+                  == want["decode_sha256"], f"jp2: the .jp2 of {name} reads as cv2 reads it")
+            checked += 1
+            scene_bytes += len(data) if name.startswith("coco_") else 0
+    out.update({"encodes_checked": checked, "refused_as_cv2": refused,
+                "scene_bytes": scene_bytes, "jp2_ms": enc["jp2_ms"], "png_ms": enc["png_ms"]})
+    print(f"jp2 encoder: {checked} encodes equal to cv2's stored bytes, each read back as cv2 "
+          f"reads it, {refused} refused as cv2 refuses them; the 32 scenes in {scene_bytes} "
+          f"bytes; ms per 480x640 colour image .jp2 {enc['jp2_ms']:.2f}, .png "
+          f"{enc['png_ms']:.2f} (host clock); {card}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jp2_named480_") as tmp:
+        with open(os.path.join(JPEG2000_FIXTURES, "coco_scenes.json")) as f:
+            scenes = json.load(f)
+        tree = stored["jp2_named480"]
+        img_dir, ann = scene_coco_tree(
+            os.path.join(tmp, "src"),
+            [os.path.join(JPEG2000_FIXTURES, f"coco_{i:02d}.jp2") for i in range(JPEG2000_COCO)],
+            scenes, tuple(tree["exts"]))
+        common = os.path.join(tmp, "common")
+        t0 = time.perf_counter()
+        n = converters.transfer_coco(img_dir, ann, common, progress=False)
+        out["convert_s"] = time.perf_counter() - t0
+        check(n == JPEG2000_COCO, f"jp2_named480: transfer_coco converted {n} of "
+              f"{JPEG2000_COCO}")
+        got = tree_digests(common, img_dir)
+        same = sum(got.get(k) == v for k, v in tree["files"].items())
+        previews = sorted(k for k in got if k.startswith("mix/"))
+        out.update({"tree_files": len(got), "tree_files_equal_jax": same,
+                    "previews": len(previews)})
+        print(f"jp2_named480: transfer_coco {out['convert_s']:.2f} s; {same} of "
+              f"{len(tree['files'])} files equal to the JAX package's tree, its "
+              f"{len(previews)} .jp2 mix previews included; {card}")
+        check(sorted(got) == sorted(tree["files"]) and same == len(tree["files"]),
+              "jp2_named480: the converted tree equals the JAX package's, byte for byte")
+        check(len(previews) == JPEG2000_COCO
+              and all(p.lower().endswith(".jp2") for p in previews),
+              "jp2_named480: a .jp2 mix preview per image")
+        samples = len(InstanceCommonDataset(common, 640))
+        check(samples == 2 * JPEG2000_COCO, f"jp2_named480: {samples} eligible instances")
+        out.update(train_and_serve_tree("jp2_named480", common, JPEG2000_BATCH,
+                                        JPEG2000_EPOCHS, tmp, w2, fc, card))
+        ckpt = glob.glob(os.path.join(tmp, "ckpt", "*_best.ckpt"))[0]
+        out["infer"] = c12_infer(common, ckpt, tmp, fc, card, exts=(".jp2",) * 15 + (".JP2",),
+                                 label="jp2_named480")
+        inf = out["infer"]
+        check(inf["refused"] == 0
+              and inf["lossless_read_back_equal"] + inf["cut_by_rate"] == inf["masks"],
+              "jp2_named480: every .jp2 mask written and read back")
+    print(json.dumps({"jpeg2000_encoder": out}))
     return out
 
 
@@ -4758,6 +4882,7 @@ def main() -> int:
         j2k = jpeg2000_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         enc = encoders_phase(card, w2, fc)
         wenc = webp_encoder_phase(card, w2, fc, enc)
+        jenc = jpeg2000_encoder_phase(card, w2, fc, enc)
         conv = converters_phase(dev, card, w2, fc, jpeg)
         evals = eval_and_cli(card, fc, nms, trained, eval_tmp)
 
@@ -5075,6 +5200,8 @@ def main() -> int:
          "launches_encoders_c12_infer": enc["c12"]["renamed"]["fused_chain"],
          "launches_webp_named_serve": wenc["serve"]["fused_chain"],
          "launches_webp_named_infer": wenc["infer"]["renamed"]["fused_chain"],
+         "launches_jp2_named_serve": jenc["serve"]["fused_chain"],
+         "launches_jp2_named_infer": jenc["infer"]["renamed"]["fused_chain"],
          "launches_tiff_serve": tiff["serve"]["fused_chain"],
          "launches_fused_stem": fstem["serve"]["bf16"]["fused_chain"]["banded"],
          "launches_fused_stem_parallel_replica": fstem["parallel_launches"],
@@ -5152,6 +5279,7 @@ def main() -> int:
          "launches_jpeg2000_train": j2k["train"]["warp_2level"],
          "launches_encoders_train": enc["train"]["warp_2level"],
          "launches_webp_named_train": wenc["train"]["warp_2level"],
+         "launches_jp2_named_train": jenc["train"]["warp_2level"],
          "launches_tiff_train": tiff["train"]["warp_2level"],
          "launches_remat_train": fstem["remat"]["runs"]["remat"]["warp_2level"],
          "launches_show_aug_rotate": vqa["show_aug"]["warp_2level_launches"],

@@ -34,9 +34,21 @@ What cv2 does, in order:
   file of one or two, else ``cvtColor(BGR2GRAY)`` of the colour read.
 
 ``imread`` and ``imdecode`` read JPEG 2000 alike.
+
+``encode_jpeg2000(image)`` writes what ``cv2.imwrite`` writes for ``.jp2``,
+byte for byte: cv2 hands OpenJPEG 2.5.3 the BGR(A) image as R, G, B(, A)
+components (gray as one), with one quality layer at rate 4
+(``IMWRITE_JPEG2000_COMPRESSION_X1000`` 250), so photographs are cut by
+the rate allocation.  The file is the signature box, ``ftyp`` (``jp2 ``),
+``jp2h`` with ``ihdr`` and ``colr`` (enumerated: 17 gray, 16 sRGB), and
+for four components ``cdef`` (the fourth an alpha channel of the whole
+image), then ``jp2c`` with the codestream of ``ops/native/jpeg2000_enc.cpp``.
+A side under 32 is refused (None); ``cv2.imwrite`` has then written the
+boxes before ``jp2c`` (``jp2_header_boxes``).
 """
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 from typing import Optional
 
@@ -44,7 +56,12 @@ import numpy as np
 
 from instancesegmentation_tpu_torch.core.bmp import cvtcolor_gray
 from instancesegmentation_tpu_torch.core.pnm import check_size
-from instancesegmentation_tpu_torch.ops.native.jpeg2000 import decode_codestream, read_header
+from instancesegmentation_tpu_torch.ops.native.jpeg2000 import (
+    DEFAULT_X1000,
+    decode_codestream,
+    encode_codestream,
+    read_header,
+)
 
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
@@ -372,3 +389,52 @@ def decode_jpeg2000(data: bytes, mode: str = "color", path: str = "<bytes>") -> 
                          "for SRGB image decoding")
     rgb = np.stack([eight(0), eight(1), eight(2)], -1)
     return cvtcolor_gray(rgb[..., ::-1]) if mode == "gray" else rgb
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def _planes(image: np.ndarray) -> np.ndarray:
+    """``image`` as uint8 ``[C, H, W]`` components, C 1, 3 or 4."""
+    a = np.asarray(image)
+    if a.dtype != np.uint8:
+        raise ValueError(f"encode_jpeg2000 takes uint8, got {a.dtype}")
+    if a.ndim == 2:
+        a = a[..., None]
+    if a.ndim != 3 or a.shape[2] not in (1, 3, 4) or 0 in a.shape:
+        raise ValueError(f"encode_jpeg2000 takes [H, W], [H, W, 1], [H, W, 3] or [H, W, 4], "
+                         f"got {a.shape}")
+    return np.ascontiguousarray(a.transpose(2, 0, 1))
+
+
+def _header_boxes(n: int, h: int, w: int) -> bytes:
+    header = _box(b"ihdr", struct.pack(">IIHBBBB", h, w, n, 7, 7, 0, 0))
+    header += _box(b"colr", struct.pack(">BBBI", 1, 0, 0, 17 if n == 1 else 16))
+    if n == 4:
+        header += _box(b"cdef", struct.pack(">H", 4) + b"".join(
+            struct.pack(">HHH", i, 0, i + 1) for i in range(3)) + struct.pack(">HHH", 3, 1, 0))
+    return (JP2_SIGNATURE + _box(b"ftyp", b"jp2 " + struct.pack(">I", 0) + b"jp2 ")
+            + _box(b"jp2h", header))
+
+
+def jp2_header_boxes(image: np.ndarray) -> bytes:
+    """The boxes OpenJPEG writes ahead of ``jp2c`` for ``image``: what
+    ``cv2.imwrite`` leaves in a ``.jp2`` file whose image it refuses."""
+    return _header_boxes(*_planes(image).shape)
+
+
+def _encode_jp2(image: np.ndarray, x1000: int) -> Optional[bytes]:
+    planes = _planes(image)
+    boxes = _header_boxes(*planes.shape)
+    codestream = encode_codestream(planes, len(boxes) + 8, x1000)
+    if codestream is None:
+        return None
+    return boxes + _box(b"jp2c", codestream)
+
+
+def encode_jpeg2000(image: np.ndarray) -> Optional[bytes]:
+    """The ``.jp2`` bytes ``cv2.imwrite`` writes for the BGR(A) counterpart
+    of uint8 RGB ``[H, W, 3]``, RGBA ``[H, W, 4]`` or gray ``[H, W]`` /
+    ``[H, W, 1]``, or None where cv2 refuses the image (a side under 32)."""
+    return _encode_jp2(image, DEFAULT_X1000)

@@ -1,7 +1,8 @@
 """Build and bind the port's host C++ libraries.
 
 Each source (``rle.cpp``, ``jpeg.cpp``, ``jpeg_enc.cpp``, ``image_codes.cpp``,
-``text.cpp``, ``webp.cpp``, ``webp_enc.cpp``, ``jpeg2000.cpp``) is compiled
+``text.cpp``, ``webp.cpp``, ``webp_enc.cpp``, ``jpeg2000.cpp``,
+``jpeg2000_enc.cpp``) is compiled
 with ``g++`` on first use into ``build/native/`` at the repository root,
 named by a hash of the source (a changed source builds afresh), through a
 temporary file and an atomic rename so that concurrent processes never load
@@ -9,13 +10,14 @@ a half-written library, and loaded with ctypes.  Every caller of the RLE
 library has a NumPy path: ``load_native()`` returns None when no compiler
 is found or the build fails.
 The JPEG codecs, the image decoders' codes, the WebP codecs, the JPEG
-2000 decoder and the text rasteriser have none: ``ops/native/jpeg.py``,
+2000 codecs and the text rasteriser have none: ``ops/native/jpeg.py``,
 ``ops/native/image_codes.py``, ``ops/native/webp.py``,
 ``ops/native/jpeg2000.py`` and ``core/text.py`` raise with the compiler's
 message (``build_library``).  No source is built with ``-march`` or
 ``-ffast-math``, and ``-ffp-contract=off`` keeps g++ from fusing a product
 and a sum (the JPEG 2000 9/7 wavelet and colour transform round as
-OpenJPEG's do).
+OpenJPEG's do, and the encoder's rate allocation compares OpenJPEG's
+slopes).
 """
 from __future__ import annotations
 

@@ -40,10 +40,21 @@ Writes beside itself:
       package's ``transfer_coco``: ``files``, the digest of every file but
       the mix previews (``tree_digests``); ``previews``, the SHA-256 of
       cv2's RGB decode of each ``.webp`` mix preview, and ``preview_cv2_bytes``
-      its length.
+      its length;
+- ``jp2``: cv2's ``.jp2`` files (OpenJPEG 2.5.3 at cv2's default rate 4),
+  which the port writes byte for byte:
+  - ``encodes[input]``: ``cv2.imencode(".jp2")`` of each input's BGR(A)
+    counterpart as ``{"sha256", "bytes", "decode_sha256"}`` (the last:
+    cv2's ``IMREAD_COLOR`` decode of the file, as RGB), or ``{"refused":
+    true, "left": ...}`` (a side under 32);
+  - ``jp2_named480``: the 32 JPEG 2000 scenes of ``tests/data/jpeg2000``
+    as a COCO tree named ``.jp2`` (two of them ``.JP2``), converted by the
+    JAX package's ``transfer_coco``: ``files``, the digest of every file,
+    the ``.jp2`` mix previews included (``tree_digests``).
 
-``tests/test_torch_port_imwrite.py`` holds the stored digests against live
-cv2 and the port.
+``tests/test_torch_port_imwrite.py`` and
+``tests/test_torch_port_jpeg2000_enc.py`` hold the stored digests against
+live cv2 and the port.
 """
 import hashlib
 import json
@@ -70,7 +81,10 @@ TREE_EXTS = (".jpe", ".dib", ".ppm", ".pnm", ".pam", ".pfm", ".sr", ".ras", ".hd
              ".gif", ".tif", ".tiff", ".pgm", ".pbm", ".JPE")
 #: the webp_named480 tree's names: every scene ``.webp``, two of them ``.WEBP``
 WEBP_TREE_EXTS = (".webp",) * 15 + (".WEBP",)
+#: the jp2_named480 tree's names: every scene ``.jp2``, two of them ``.JP2``
+JP2_TREE_EXTS = (".jp2",) * 15 + (".JP2",)
 SCENES = os.path.join(ROOT, "tests", "data", "webp")
+JP2_SCENES = os.path.join(ROOT, "tests", "data", "jpeg2000")
 N_SCENES = 32
 
 
@@ -125,15 +139,17 @@ def sha256(data) -> str:
                           else data).hexdigest()
 
 
-def jax_tree(tmp: str, exts: tuple) -> tuple[str, str]:
-    """The 32 scenes as a COCO tree named ``exts`` in turn, converted by the
-    JAX package: (the converted tree, the source image directory)."""
+def jax_tree(tmp: str, exts: tuple, scenes_dir: str = SCENES,
+             ext: str = ".webp") -> tuple[str, str]:
+    """The 32 scenes ``coco_NN<ext>`` of ``scenes_dir`` as a COCO tree named
+    ``exts`` in turn, converted by the JAX package: (the converted tree, the
+    source image directory)."""
     from instancesegmentation_tpu.data.converters import transfer_coco
 
-    with open(os.path.join(SCENES, "coco_scenes.json")) as f:
+    with open(os.path.join(scenes_dir, "coco_scenes.json")) as f:
         scenes = json.load(f)
-    sources = [os.path.join(SCENES, f"coco_{i:02d}.webp") for i in range(N_SCENES)]
-    tag = "webp" if exts == WEBP_TREE_EXTS else "enc"
+    sources = [os.path.join(scenes_dir, f"coco_{i:02d}{ext}") for i in range(N_SCENES)]
+    tag = {WEBP_TREE_EXTS: "webp", JP2_TREE_EXTS: "jp2"}.get(exts, "enc")
     img_dir, ann = chip_smoke.scene_coco_tree(os.path.join(tmp, "src_" + tag), sources, scenes,
                                               exts)
     out = os.path.join(tmp, "jax_" + tag)
@@ -172,10 +188,24 @@ def webp_tree(tmp: str) -> dict:
             "preview_cv2_bytes": preview_bytes}
 
 
+def jp2_outcome(image: np.ndarray, tmp: str) -> dict:
+    out = cv2_outcome(".jp2", image, tmp)
+    if not out.get("refused"):
+        del out["cut"]
+        ok, data = cv2.imencode(".jp2", bgr(image))
+        out["decode_sha256"] = sha256(cv2.imdecode(data, cv2.IMREAD_COLOR)[..., ::-1])
+    return out
+
+
+def jp2_tree(tmp: str) -> dict:
+    out, img_dir = jax_tree(tmp, JP2_TREE_EXTS, JP2_SCENES, ".jp2")
+    return {"exts": JP2_TREE_EXTS, "files": chip_smoke.tree_digests(out, img_dir)}
+
+
 def main() -> None:
     inputs = synthetic_inputs()
     np.savez_compressed(os.path.join(HERE, "inputs.npz"), **inputs)
-    encodes, webp = {}, {}
+    encodes, webp, jp2 = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, image in list(inputs.items()) + [(f"coco_{i:02d}", scene(i))
                                                    for i in range(N_SCENES)]:
@@ -183,18 +213,23 @@ def main() -> None:
                 (".dib", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm", ".hdr", ".pic")
             encodes[name] = {ext: cv2_outcome(ext, image, tmp) for ext in exts}
             webp[name] = webp_outcome(image)
+            jp2[name] = jp2_outcome(image, tmp)
         files = tree_digests(tmp)
         named = webp_tree(tmp)
+        jp2_named = jp2_tree(tmp)
     with open(os.path.join(HERE, "cv2_digests.json"), "w") as f:
         json.dump({"cv2": cv2.__version__, "encodes": encodes,
                    "encoders480": {"exts": TREE_EXTS, "files": files},
-                   "webp": {"encodes": webp, "webp_named480": named}}, f, indent=0)
+                   "webp": {"encodes": webp, "webp_named480": named},
+                   "jp2": {"encodes": jp2, "jp2_named480": jp2_named}}, f, indent=0)
         f.write("\n")
     print(f"{len(encodes)} inputs, {sum(map(len, encodes.values()))} encodes, "
           f"{len(files)} tree files; webp: the port's bytes "
           f"{sum(v['port_bytes'] for v in webp.values())} against cv2's "
           f"{sum(v['cv2_bytes'] for v in webp.values())}, {len(named['files'])} tree files and "
-          f"{len(named['previews'])} previews")
+          f"{len(named['previews'])} previews; jp2: "
+          f"{sum(not v.get('refused') for v in jp2.values())} files, "
+          f"{len(jp2_named['files'])} tree files")
 
 
 if __name__ == "__main__":

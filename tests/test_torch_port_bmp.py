@@ -167,6 +167,6 @@ def test_rle_raises_and_cut_files_fail_as_in_cv2(tmp_path):
         assert cv2.imread(str(path)) is None
         with pytest.raises(FileNotFoundError):
             imread(str(path))
-    for ext in (".jp2", ".xyz"):  # JPEG 2000's encoder is ROADMAP A16; cv2 writes no .xyz
-        with pytest.raises(ValueError, match="extension"):
-            imencode(ext, np.zeros((2, 2), np.uint8))
+    assert imencode(".jp2", np.zeros((2, 2), np.uint8)) is None  # OpenJPEG: sides of 32+
+    with pytest.raises(ValueError, match="extension"):  # cv2 writes no .xyz
+        imencode(".xyz", np.zeros((2, 2), np.uint8))

@@ -203,6 +203,49 @@ def test_dataset_mode_writes_webp_masks(tmp_path):
         assert set(np.unique(got)) <= {0, 255} and got.any(), f
 
 
+def test_dataset_mode_writes_jp2_masks(tmp_path):
+    """``--dataset-mode`` on a tree whose instance-mask paths end in
+    ``.jp2`` (one record's in ``.JP2``): both packages write a JPEG 2000 file
+    for every mask, the port's holding ``imencode(".jp2")``'s bytes of its
+    mask (cv2's encoder, byte for byte), and the same bytes as the JAX
+    run's wherever the masks read back equal (at least all but one; the
+    masks agree on at least 99.9 % of the pixels, float32 weights)."""
+    data = tmp_path / "data"
+    jax_make(str(data), num_images=3, objects_per_image=1, seed=13)
+    k_obj, k_mask = key_combine("object", "sub_list"), key_combine("instance_mask", "mask_path")
+    for k, name in enumerate(sorted(os.listdir(data / "data"))):
+        path = data / "data" / name
+        rec = json.loads(path.read_text())
+        for obj in rec[k_obj]:
+            old = obj[k_mask]
+            obj[k_mask] = os.path.splitext(old)[0] + (".JP2" if k == 2 else ".jp2")
+            os.rename(data / old, data / obj[k_mask])
+        path.write_text(json.dumps(rec))
+    argv = ["-i", str(data), "--dataset-mode", "--size", str(SIZE), "--batch", "2",
+            "--float32", "--checkpoint", DEMO]
+    assert main(["-o", str(tmp_path / "port")] + argv, device="cpu") == 0
+    assert jax_main(["-o", str(tmp_path / "jax")] + argv) == 0
+    files = _files(str(tmp_path / "port"))
+    assert files == _files(str(tmp_path / "jax")) and len(files) == 3
+    assert sorted(os.path.splitext(f)[1] for f in files) == [".JP2", ".jp2", ".jp2"]
+    same_bytes = 0
+    for f in files:
+        port_bytes = (tmp_path / "port" / f).read_bytes()
+        jax_bytes = (tmp_path / "jax" / f).read_bytes()
+        assert port_bytes[4:8] == jax_bytes[4:8] == b"jP  ", f
+        got = imread(str(tmp_path / "port" / f), "gray")
+        np.testing.assert_array_equal(got, cv2.imread(str(tmp_path / "port" / f),
+                                                      cv2.IMREAD_GRAYSCALE))
+        assert port_bytes == imencode(".jp2", got), f
+        want = cv2.imread(str(tmp_path / "jax" / f), cv2.IMREAD_GRAYSCALE)
+        assert got.shape == want.shape and (got == want).mean() >= 0.999, f
+        if np.array_equal(got, want):
+            assert port_bytes == jax_bytes, f
+            same_bytes += 1
+        assert set(np.unique(got)) <= {0, 255} and got.any(), f
+    assert same_bytes >= len(files) - 1
+
+
 def test_write_png_is_encode_png(tmp_path):
     """``write_png`` (filter Sub, its default) writes ``encode_png``'s bytes,
     which are ``imwrite``'s for ``.png`` and cv2's."""

@@ -12,9 +12,9 @@ encoders behind it: ``core/pnm.py``, ``core/sunras.py``, ``core/hdr.py``,
   format; HDR's conversion at every gray level; the GIF quantiser on
   random pixels and on the scenes; TIFF's LZW over rows longer than its
   ratio check's 10,000 bytes;
-- ``.jp2``, ``.avif`` and extensions cv2 has no writer for raise
-  ``ValueError`` naming the extension (``.webp``:
-  ``tests/test_torch_port_webp_enc.py``);
+- ``.avif`` and extensions cv2 has no writer for raise ``ValueError``
+  naming the extension (``.webp``: ``tests/test_torch_port_webp_enc.py``;
+  ``.jp2``: ``tests/test_torch_port_jpeg2000_enc.py``);
 - the digests ``tests/data/imwrite/make_fixtures.py`` stored (which
   ``chip_smoke.py`` holds the port to on the card) are still cv2's and the
   port's, and for WebP the port's bytes, cv2's decode of them and cv2's
@@ -183,7 +183,7 @@ def test_rgba(tmp_path):
             imencode(ext, rgba)
 
 
-@pytest.mark.parametrize("ext", [".jp2", ".avif", ".xyz", ".exr", ".j2k", ".jpg2", ""])
+@pytest.mark.parametrize("ext", [".avif", ".xyz", ".exr", ".j2k", ".jpg2", ""])
 def test_extensions_without_an_encoder_raise(ext, tmp_path):
     image = _picture((40, 40, 3), 0)
     writes = ext.lower() == ".avif"
@@ -191,7 +191,7 @@ def test_extensions_without_an_encoder_raise(ext, tmp_path):
         assert cv2.imencode(ext, image)[0]
     with pytest.raises(ValueError, match=repr(ext).replace(".", r"\.")) as err:
         imencode(ext, image)
-    label = {".jp2": "A16", ".avif": "AVIF"}.get(ext.lower())
+    label = {".avif": "AVIF"}.get(ext.lower())
     if label:
         assert label in str(err.value)
     with pytest.raises(ValueError):
@@ -200,11 +200,13 @@ def test_extensions_without_an_encoder_raise(ext, tmp_path):
 
 
 def test_jp2_default_is_lossless_only_within_rate_1():
-    """ROADMAP A16: cv2's default ``.jp2`` (OpenJPEG's 5/3 at rate 1) decodes
-    bit-equal while the stream fits the rate, as a 480 x 640 scene and its
-    gray plane do, but not for noise, whose coding passes the rate
-    allocation cuts; so a JPEG 2000 encoder cannot be held to the pixels
-    alone, as the WebP encoder is."""
+    """cv2's default ``.jp2`` is OpenJPEG's 5/3 at rate 4
+    (``IMWRITE_JPEG2000_COMPRESSION_X1000`` 250, not rate 1): it decodes
+    bit-equal while the lossless stream fits a quarter of the raw bytes, as
+    a 480 x 640 scene and its gray plane do, but not for noise, whose coding
+    passes the rate allocation cuts; so the port's JPEG 2000 encoder is held
+    to cv2's bytes (``tests/test_torch_port_jpeg2000_enc.py``), not to the
+    pixels alone, as the WebP encoder is."""
     scene = _bgr(_input("coco_00"))
     for img in (scene, cv2.cvtColor(scene, cv2.COLOR_BGR2GRAY)):
         ok, data = cv2.imencode(".jp2", img)

@@ -22,8 +22,10 @@ where cv2 decodes, ``FileNotFoundError`` exactly where cv2 returns None,
   cv2;
 - a COCO tree of JPEG 2000 images converted by both packages'
   ``transfer_coco`` (file for file equal), read by both datasets, and a few
-  port train steps on it; a ``.jp2``-named tree needs a JPEG 2000 encoder
-  (ROADMAP A16).
+  port train steps on it; ``.jp2``-named COCO and OCHuman trees, whose mix
+  previews are JPEG 2000 files, converted by both packages byte for byte
+  (the encoder: ``tests/test_torch_port_jpeg2000_enc.py``), and a
+  Supervisely project of ``.jp2`` images, which both re-encode as PNG.
 """
 import glob
 import importlib.util
@@ -639,15 +641,107 @@ def test_jpeg2000_coco_tree_converts_as_jax(tmp_path):
             assert f.read() == _fixture(f"coco_{i:02d}")
 
 
-def test_jp2_named_tree_needs_a_jpeg2000_encoder(tmp_path):
-    """ROADMAP A16: under ``.jp2`` names the mix preview is a JPEG 2000
-    that cv2's encoder writes; the port has no JPEG 2000 encoder and raises
-    naming the extension, where the JAX package writes the tree."""
-    img_dir, ann = _jpeg2000_coco_tree(str(tmp_path / "src"), 1, ext=".jp2")
-    assert jconv.transfer_coco(img_dir, ann, str(tmp_path / "jax"), progress=False) == 1
-    assert os.path.getsize(str(tmp_path / "jax" / "mix" / "000000000000.jp2")) > 0
-    with pytest.raises(ValueError, match="jp2"):
-        tconv.transfer_coco(img_dir, ann, str(tmp_path / "port"), progress=False)
+def _tree_files(root: str) -> dict:
+    out = {}
+    for d, _, names in os.walk(root):
+        for name in names:
+            with open(os.path.join(d, name), "rb") as f:
+                out[os.path.relpath(os.path.join(d, name), root)] = f.read()
+    return out
+
+
+def _same_bytes(port: str, jax: str) -> dict:
+    """The two converted trees hold the same files with the same bytes (the
+    records name the source directory, the same for both)."""
+    got, want = _tree_files(port), _tree_files(jax)
+    assert sorted(got) == sorted(want)
+    for rel in want:
+        assert got[rel] == want[rel], rel
+    return got
+
+
+def test_jp2_named_coco_tree_equals_the_jax_packages(tmp_path):
+    """Under ``.jp2`` names (one ``.JP2``) the mix previews are JPEG 2000
+    files that cv2's encoder writes (rate 4, cut by the allocation): both
+    packages' ``transfer_coco`` write the same tree, byte for byte."""
+    img_dir, ann = _jpeg2000_coco_tree(str(tmp_path / "src"), 2, ext=".jp2")
+    os.rename(os.path.join(img_dir, "000000000001.jp2"), os.path.join(img_dir, "000000000001.JP2"))
+    with open(ann) as f:
+        coco = json.load(f)
+    coco["images"][1]["file_name"] = "000000000001.JP2"
+    with open(ann, "w") as f:
+        json.dump(coco, f)
+    assert jconv.transfer_coco(img_dir, ann, str(tmp_path / "jax"), progress=False) == 2
+    assert tconv.transfer_coco(img_dir, ann, str(tmp_path / "port"), progress=False) == 2
+    files = _same_bytes(str(tmp_path / "port"), str(tmp_path / "jax"))
+    previews = sorted(f for f in files if f.startswith("mix"))
+    assert previews == [os.path.join("mix", "000000000000.jp2"),
+                        os.path.join("mix", "000000000001.JP2")]
+    for rel in previews:
+        assert files[rel].startswith(b"\x00\x00\x00\x0cjP  ")
+
+
+def test_jp2_named_ochuman_tree_equals_the_jax_packages(tmp_path):
+    """An OCHuman tree of ``.jp2`` images (people with holes, keypoints):
+    both packages' ``transfer_ochuman`` write the same tree, its ``.jp2``
+    mix previews included, byte for byte."""
+    with open(os.path.join(FIXTURES, "coco_scenes.json")) as f:
+        scenes = json.load(f)
+    img_dir = tmp_path / "src" / "images"
+    img_dir.mkdir(parents=True)
+    images = []
+    for i in range(2):
+        name = f"{i:06d}.jp2"
+        (img_dir / name).write_bytes(_fixture(f"coco_{i + 2:02d}"))
+        anns = []
+        for cx, cy, ax, ay in scenes["people"][i + 2]:
+            ang = 2 * np.pi * np.arange(20) / 20
+            outer = np.stack([cx + ax * np.cos(ang), cy + ay * np.sin(ang)], 1).round(1)
+            inner = np.stack([cx + ax / 5 * np.cos(ang), cy + ay / 5 * np.sin(ang)], 1).round(1)
+            kang = 2 * np.pi * np.arange(19) / 19
+            kps = np.stack([cx + 0.6 * ax * np.cos(kang), cy + 0.6 * ay * np.sin(kang),
+                            np.full(19, 1)], 1).round(1)
+            anns.append({"bbox": [int(cx - ax), int(cy - ay), int(cx + ax), int(cy + ay)],
+                         "keypoints": kps.ravel().tolist(),
+                         "segms": {"outer": [outer.ravel().tolist()],
+                                   "inner": [inner.ravel().tolist()]}})
+        images.append({"file_name": name, "width": scenes["width"], "height": scenes["height"],
+                       "annotations": anns})
+    ann = tmp_path / "src" / "ochuman.json"
+    ann.write_text(json.dumps({"images": images}))
+    for pkg, out in ((jconv, "jax"), (tconv, "port")):
+        assert pkg.transfer_ochuman(str(ann), str(img_dir), str(tmp_path / out),
+                                    progress=False) == 2
+    files = _same_bytes(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert sorted(f for f in files if f.startswith("mix")) == [
+        os.path.join("mix", "000000.jp2"), os.path.join("mix", "000001.jp2")]
+
+
+def test_jp2_supervisely_project_equals_the_jax_packages(tmp_path):
+    """A Supervisely project whose images are ``.jp2`` files: both
+    converters read each image and re-encode it with ``write_image`` (under
+    ``<n>.png``, as for every Supervisely image), and write the same tree,
+    byte for byte."""
+    root = tmp_path / "proj"
+    for ds in ("ds0", "ds1"):
+        (root / ds / "ann").mkdir(parents=True)
+        (root / ds / "img").mkdir()
+    objects = [
+        {"classTitle": "person_poly", "geometryType": "polygon", "instance": "A",
+         "points": {"exterior": [[200, 100], [420, 90], [440, 400], [180, 380]],
+                    "interior": [[[260, 200], [330, 200], [300, 280]]]}},
+        {"classTitle": "nose", "geometryType": "point", "instance": "A",
+         "points": {"exterior": [[300, 150]], "interior": []}}]
+    for k, ds in enumerate(("ds0", "ds1")):
+        (root / ds / "img" / "item.jp2").write_bytes(_fixture(f"coco_{k + 4:02d}"))
+        (root / ds / "ann" / "item.json").write_text(json.dumps(
+            {"size": {"height": 480, "width": 640}, "objects": objects}))
+    for pkg, out in ((jconv, "jax"), (tconv, "port")):
+        assert pkg.transfer_supervisely_to_common(str(root), str(tmp_path / out),
+                                                  progress=False) == 2
+    files = _same_bytes(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert os.path.join("image", "00000.png") in files
+    assert os.path.join("mix", "00001.png") in files
 
 
 def test_jpeg2000_coco_tree_trains(tmp_path):
