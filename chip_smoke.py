@@ -247,9 +247,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    --fused-stem`` in dataset mode on 2 images in float32 (masks >= 0.999
    equal to the dense stem's and to the CPU's); then ``visual_qa_phase``:
    the labels (cv2 5.0's TrueType ``putText``, ``core/text.py`` with
-   ``ops/native/text.cpp`` built with g++ and the package's own font) on
-   every case of ``tests/data/text/labels.npz`` bit-equal to cv2's stored
-   ``draw_label`` and ``draw_keypoint(labeled=True)`` outputs, then the
+   ``ops/native/text.cpp`` built with g++ and the package's own fonts,
+   Rubik and the fallback WenQuanYi Micro Hei) on every case of
+   ``tests/data/text/labels.npz`` bit-equal to cv2's stored ``draw_label``
+   and ``draw_keypoint(labeled=True)`` outputs (CJK, mixed and
+   multi-line labels and characters in neither font among them; ms per
+   CJK label beside "person"), then the
    ``show_aug`` tool over 8 synthetic 480 x 640 images the port writes:
    ``show-dataset``, and ``show-aug --rotate 25`` on the card (one
    ``warp_2level`` launch per grid) against the same run on the CPU with
@@ -4089,10 +4092,12 @@ TEXT_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"
 
 
 def visual_qa_phase(dev, card: str, w2) -> dict:
-    """The labels and the QA tool: ``core/text.py`` (the font from the
-    package's own file, ``ops/native/text.cpp`` built with g++ here) holds
+    """The labels and the QA tool: ``core/text.py`` (the fonts from the
+    package's own files, ``ops/native/text.cpp`` built with g++ here) holds
     every case of ``tests/data/text/labels.npz`` bit-equal to the cv2 output
-    stored there (``draw_label`` and ``draw_keypoint(labeled=True)``); then
+    stored there (``draw_label`` and ``draw_keypoint(labeled=True)``; the
+    labels with characters Rubik lacks drawn with the fallback font or as
+    its "?"), and times a CJK label beside "person"; then
     ``tools/show_aug.py``'s port over a synthetic 480 x 640 dataset that the
     port writes here: ``show-dataset`` (one grid per record) and ``show-aug
     --rotate 25`` at its defaults on ``cuda:0`` (``preprocess_batch`` at
@@ -4111,12 +4116,16 @@ def visual_qa_phase(dev, card: str, w2) -> dict:
 
     t0 = time.perf_counter()
     ttext._load()
-    ttext.load_font()
+    rubik = ttext.load_font()
     out = {"card": card, "build_and_font_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ttext.load_font(ttext.FALLBACK)
+    out["fallback_font_s"] = time.perf_counter() - t0
     fixtures = np.load(TEXT_FIXTURES)
     cases = sorted(int(k[5:]) for k in fixtures.files if k.startswith("case_"))
-    check(len(cases) >= 40, "visual QA: the committed text fixtures are present")
-    n_labels = n_skeletons = 0
+    check(len(cases) >= 60, "visual QA: the committed text fixtures are present")
+    n_labels = n_skeletons = n_fallback = 0
+    skeleton = None
     for k in cases:
         case, bg = json.loads(str(fixtures[f"case_{k}"])), fixtures[f"bg_{k}"]
         if "label" in case:
@@ -4124,21 +4133,36 @@ def visual_qa_phase(dev, card: str, w2) -> dict:
                                   color=tuple(case["color"]), thickness=case["thickness"],
                                   scale=case["scale"])
             n_labels += 1
+            n_fallback += any(ord(c) not in rubik.cmap for c in case["label"].replace("\n", ""))
         else:
+            skeleton = case["keypoints"]
             got = tvis.draw_keypoint(bg.copy(), case["keypoints"], labeled=True,
                                      radius=case["radius"])
             n_skeletons += 1
         check(np.array_equal(got, fixtures[f"out_{k}"]),
               f"visual QA: text fixture {k} ({case.get('label', 'keypoints')!r}) equals cv2's")
-    out["fixtures"] = {"labels": n_labels, "labeled_skeletons": n_skeletons, "bit_equal": True}
-    print(f"visual QA: {n_labels} labels and {n_skeletons} labeled skeletons bit-equal to cv2's "
-          f"stored outputs (font and text.cpp ready in {out['build_and_font_s']:.2f} s)")
+    check(n_fallback >= 14, f"visual QA: {n_fallback} stored labels need the fallback font")
+    out["fixtures"] = {"labels": n_labels, "fallback_font_labels": n_fallback,
+                       "labeled_skeletons": n_skeletons, "bit_equal": True}
+    print(f"visual QA: {n_labels} labels ({n_fallback} of them with characters Rubik lacks: "
+          f"WenQuanYi Micro Hei and the '?' of characters in neither font) and {n_skeletons} "
+          f"labeled skeletons bit-equal to cv2's stored outputs (Rubik and text.cpp ready in "
+          f"{out['build_and_font_s']:.2f} s, the fallback font read in "
+          f"{out['fallback_font_s']:.3f} s)")
 
-    # host times of the labels on a 480 x 640 RGB image
+    # host times of the labels on a 480 x 640 RGB image ("pedestrian" in
+    # Chinese beside "person"; its first call parses its two glyphs)
     img = np.full((480, 640, 3), 90, np.uint8)
-    skeleton = json.loads(str(fixtures[f"case_{cases[-1]}"]))["keypoints"]
+    cjk = "\u884c\u4eba"
+    ttext.face_glyph.cache_clear()
+    ttext.glyph_bitmap.cache_clear()
+    ttext.glyph_outline.cache_clear()
+    t0 = time.perf_counter()
+    tvis.draw_label(img, cjk, (4, 60))
+    out["label_cjk_first_ms"] = (time.perf_counter() - t0) * 1e3
     for name, fn, iters in (
             ("label_person_ms", lambda: tvis.draw_label(img, "person", (4, 4)), 400),
+            ("label_cjk_ms", lambda: tvis.draw_label(img, cjk, (4, 60)), 400),
             ("label_left_shoulder_035_ms",
              lambda: tvis.draw_label(img, "left_shoulder", (40, 40), scale=0.35), 400),
             ("labeled_skeleton_ms", lambda: tvis.draw_keypoint(img, skeleton, labeled=True), 100)):
@@ -4210,7 +4234,8 @@ def visual_qa_phase(dev, card: str, w2) -> dict:
                            "max_abs_diff_vs_cpu": worst, "share_differing_vs_cpu": share,
                            "overlay_threshold_flips_vs_cpu": flips}
     print(f"visual QA ({card}): draw_label 'person' {out['label_person_ms']:.4f} ms, "
-          f"'left_shoulder' at 0.35 {out['label_left_shoulder_035_ms']:.4f} ms, a labeled "
+          f"{cjk!r} (CJK, fallback font) {out['label_cjk_ms']:.4f} ms "
+          f"({out['label_cjk_first_ms']:.3f} ms the first time), 'left_shoulder' at 0.35 {out['label_left_shoulder_035_ms']:.4f} ms, a labeled "
           f"17-point skeleton {out['labeled_skeleton_ms']:.4f} ms; show-dataset "
           f"{out['show_dataset_ms_per_grid']:.2f} ms per grid; show-aug --rotate 25 "
           f"{out['show_aug']['card_ms_per_grid']:.2f} ms per grid on the card, "

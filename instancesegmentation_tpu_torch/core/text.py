@@ -33,13 +33,25 @@ carries; ``fonts/LICENSE``), a variable font with one ``wght`` axis from
 - ``'\\n'`` starts a new line ``round((ascent - descent + lineGap) * size
   / ascent)`` pixels lower, with ``size`` the pixel size above: for Rubik
   ``round(1185 * size / 935)`` (11 pixels at scale 0.35, 34 at 1.0), in
-  float32, ties to even; newlines before the first character are
-  skipped.  The empty string and spaces draw nothing, nor does text whose
-  origin lies right of the image.
-- Only uint8 images of 1, 3 or 4 channels are drawn (cv2 asserts).  A
-  character outside Rubik's ``cmap`` is one cv2 draws with its fallback
-  font, WenQuanYi Micro Hei, which is not ported: it raises
-  ``NotImplementedError``.
+  float32, ties to even, the largest such step of the faces that drew the
+  line's characters (an empty line steps as the line before it); newlines
+  before the first character are skipped.  The empty string and spaces
+  draw nothing, nor does text whose origin lies right of the image.
+- Only uint8 images of 1, 3 or 4 channels are drawn (cv2 asserts).
+- A character outside Rubik's ``cmap`` is drawn with cv2's fallback font,
+  WenQuanYi Micro Hei (``fonts/WenQuanYiMicroHei.ttf.gz``, the bytes cv2
+  carries; ``fonts/WenQuanYiMicroHei.LICENSE``), a static font: the same
+  pixel size over its own ascent (1918 units; the scale ``float32(size) /
+  1918``), no weights (thickness changes nothing), its glyphs rasterised,
+  boxed, padded, advanced and blended as Rubik's, on the same baseline.
+  Its ``cmap`` is the one stb_truetype keeps, the last Unicode
+  subtable (format 12, planes past the BMP too); 1,620 of its composite
+  components carry a scale, which stb applies and then multiplies again
+  by the column norms (``glyph_outline``).  It is unpacked only when a
+  string first needs it, and its glyphs are parsed one by one.
+- A character in neither font (controls such as ``'\\t'`` and ``'\\r'``,
+  private-use and unassigned code points) is drawn as Rubik's ``'?'``.
+  The text ends at its first ``'\\0'``, as cv2 reads a C string.
 """
 from __future__ import annotations
 
@@ -56,6 +68,9 @@ import numpy as np
 from instancesegmentation_tpu_torch.ops.native.build import build_library
 
 FONT_PATH = Path(__file__).with_name("fonts") / "Rubik.ttf.gz"
+FALLBACK_FONT_PATH = FONT_PATH.with_name("WenQuanYiMicroHei.ttf.gz")
+#: the faces: Rubik, and the fallback font for the characters Rubik lacks
+RUBIK, FALLBACK = 0, 1
 SRC = Path(__file__).resolve().parents[1] / "ops" / "native" / "text.cpp"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -145,7 +160,8 @@ def _iup(deltas: list, coords: np.ndarray) -> list:
 
 
 class Font:
-    """The tables of a TrueType variable font that ``put_text`` reads."""
+    """The tables of a TrueType font that ``put_text`` reads: a variable
+    font with a ``wght`` axis, or a static one (no ``fvar``)."""
 
     def __init__(self, data: bytes):
         self.data = data
@@ -161,23 +177,34 @@ class Font:
         self.ascent, self.descent, self.line_gap = struct.unpack_from(">hhh", data, hhea + 4)
         self.num_hmetrics = struct.unpack_from(">H", data, hhea + 34)[0]
         self.cmap = self._read_cmap()
-        self.axis = self._read_fvar()
+        self.axis = self._read_fvar() if "fvar" in self.tables else None
         self.avar = self._read_avar()
-        self._read_gvar()
+        if "gvar" in self.tables:
+            self._read_gvar()
 
     def _u16(self, pos):
         return struct.unpack_from(">H", self.data, pos)[0]
 
     def _read_cmap(self) -> dict:
-        """Code point -> glyph of the Unicode BMP subtable (format 4)."""
+        """Code point -> glyph of the subtable stb_truetype keeps: the last
+        Unicode one (platform 0, or Microsoft's BMP or full Unicode), read
+        as format 4 or 12."""
         base = self.tables["cmap"][0]
         pos = None
         for i in range(self._u16(base + 2)):
             pid, eid, off = struct.unpack_from(">HHI", self.data, base + 4 + 8 * i)
-            if (pid == 0 or (pid, eid) == (3, 1)) and self._u16(base + off) == 4:
+            if pid == 0 or (pid, eid) in ((3, 1), (3, 10)):
                 pos = base + off
-        if pos is None:
-            raise ValueError("font has no Unicode cmap of format 4")
+        fmt = None if pos is None else self._u16(pos)
+        if fmt == 12:
+            cmap = {}
+            count = struct.unpack_from(">I", self.data, pos + 12)[0]
+            for start, end, glyph in struct.iter_unpack(
+                    ">III", self.data[pos + 16:pos + 16 + 12 * count]):
+                cmap.update(zip(range(start, end + 1), range(glyph, glyph + end - start + 1)))
+            return {c: g for c, g in cmap.items() if g}
+        if fmt != 4:
+            raise ValueError("font has no Unicode cmap of format 4 or 12")
         cmap = {}
         seg2 = self._u16(pos + 6)
         ends = pos + 14
@@ -230,7 +257,9 @@ class Font:
 
     def normalise(self, weight: float) -> float:
         """The ``wght`` coordinate in [-1, 1], as F2Dot14 before and after
-        ``avar``."""
+        ``avar``; 0 for a static font."""
+        if self.axis is None:
+            return 0.0
         lo, default, hi = self.axis
         w = min(max(weight, lo), hi)
         if w < default:
@@ -339,8 +368,10 @@ class Font:
         ``ends`` for IUP, ``ends`` None for a composite glyph (whose
         untouched components move by 0)."""
         total = np.zeros((npoints + 4, 2))
+        if n == 0:
+            return total
         start, stop = self.gvar_offsets[gid], self.gvar_offsets[gid + 1]
-        if n == 0 or stop == start:
+        if stop == start:
             return total
         data, pos = self.data, self.gvar_data + start
         count, data_off = struct.unpack_from(">HH", data, pos)
@@ -436,10 +467,28 @@ class Font:
         return out[:count], p
 
 
-@lru_cache(maxsize=1)
-def load_font() -> Font:
-    """Rubik, read from the package's own ``fonts/Rubik.ttf.gz``."""
-    return Font(gzip.decompress(FONT_PATH.read_bytes()))
+def load_font(face: int = RUBIK) -> Font:
+    """Rubik, or the fallback font, read from the package's own
+    ``fonts/Rubik.ttf.gz`` or ``fonts/WenQuanYiMicroHei.ttf.gz``."""
+    return _read_font(face)
+
+
+@lru_cache(maxsize=2)
+def _read_font(face: int) -> Font:
+    return Font(gzip.decompress((FALLBACK_FONT_PATH if face == FALLBACK else FONT_PATH)
+                                .read_bytes()))
+
+
+@lru_cache(maxsize=4096)
+def face_glyph(code: int) -> tuple[int, int]:
+    """(face, glyph) cv2 draws code point ``code`` with: Rubik's glyph,
+    else the fallback font's, else Rubik's ``'?'``.  Rubik's characters
+    never open the fallback font."""
+    rubik = load_font().cmap
+    if code in rubik:
+        return RUBIK, rubik[code]
+    gid = load_font(FALLBACK).cmap.get(code)
+    return (FALLBACK, gid) if gid else (RUBIK, rubik[ord("?")])
 
 
 def _stb_vertices(coords: np.ndarray, on: np.ndarray, ends: list) -> tuple[list, list]:
@@ -499,11 +548,15 @@ def _to_short(v: float) -> int:
 
 
 @lru_cache(maxsize=4096)
-def glyph_outline(gid: int, weight: int) -> tuple[np.ndarray, np.ndarray, int, int]:
-    """stb vertices (types [n] uint8, xy [n, 4] float32) of glyph ``gid`` at
-    ``weight``, and the floored x deltas of its two horizontal phantom
-    points (left side bearing, advance)."""
-    font = load_font()
+def glyph_outline(gid: int, weight: int, face: int = RUBIK
+                  ) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """stb vertices (types [n] uint8, xy [n, 4] float32) of glyph ``gid`` of
+    ``face`` at ``weight``, and the floored x deltas of its two horizontal
+    phantom points (left side bearing, advance; 0 in a static font).  A
+    composite's component is placed as stb places it: each point ``p`` of
+    the child goes to ``trunc(m * (M p + offset))`` per axis, ``m`` the norm
+    of the matrix's column for that axis."""
+    font = load_font(face)
     n = font.normalise(weight)
     simple = font.simple_points(gid)
     if simple is not None:
@@ -522,7 +575,7 @@ def glyph_outline(gid: int, weight: int) -> tuple[np.ndarray, np.ndarray, int, i
         types, xy = [], []
         for (child, _, dx, dy, mtx), dd in zip(comps, d[:npoints].tolist()):
             ox, oy = math.floor(dx + dd[0]), math.floor(dy + dd[1])
-            ct, cxy, _, _ = glyph_outline(child, weight)
+            ct, cxy, _, _ = glyph_outline(child, weight, face)
             a, b, c, e = (np.float32(v) for v in mtx)
             sm = np.float32(math.sqrt(float(a * a + b * b)))
             sn = np.float32(math.sqrt(float(c * c + e * e)))
@@ -540,23 +593,24 @@ def glyph_outline(gid: int, weight: int) -> tuple[np.ndarray, np.ndarray, int, i
             math.floor(d[npoints, 0]), math.floor(d[npoints + 1, 0]))
 
 
-def _glyph_box(gid: int, weight: int) -> Optional[tuple[int, int, int, int]]:
+def _glyph_box(gid: int, weight: int, face: int = RUBIK) -> Optional[tuple[int, int, int, int]]:
     """cv2's box of a varied glyph: the header's box, its x ends moved by
     the floored deltas of the phantom points."""
-    box = load_font().header_box(gid)
+    box = load_font(face).header_box(gid)
     if box is None:
         return None
-    _, _, d_lsb, d_adv = glyph_outline(gid, weight)
+    _, _, d_lsb, d_adv = glyph_outline(gid, weight, face)
     return box[0] + d_lsb, box[1], box[2] + d_adv, box[3]
 
 
 @lru_cache(maxsize=4096)
-def glyph_bitmap(gid: int, size: int, weight: int) -> tuple[np.ndarray, int, int]:
-    """(coverage [h, w] uint8, x, y) of glyph ``gid``: the bitmap's top-left
-    corner relative to the pen on the baseline."""
-    font = load_font()
-    box = _glyph_box(gid, weight)
-    types, xy, _, _ = glyph_outline(gid, weight)
+def glyph_bitmap(gid: int, size: int, weight: int, face: int = RUBIK
+                 ) -> tuple[np.ndarray, int, int]:
+    """(coverage [h, w] uint8, x, y) of glyph ``gid`` of ``face``: the
+    bitmap's top-left corner relative to the pen on the baseline."""
+    font = load_font(face)
+    box = _glyph_box(gid, weight, face)
+    types, xy, _, _ = glyph_outline(gid, weight, face)
     if box is None or len(types) == 0:
         return np.zeros((0, 0), np.uint8), 0, 0
     scale = np.float32(np.float32(size) / np.float32(font.ascent))
@@ -574,17 +628,27 @@ def glyph_bitmap(gid: int, size: int, weight: int) -> tuple[np.ndarray, int, int
 
 
 @lru_cache(maxsize=4096)
-def _advance_pixels(gid: int, size: int, weight: int) -> int:
+def _advance_pixels(gid: int, size: int, weight: int, face: int = RUBIK) -> int:
     """The pen's advance in whole pixels: the varied advance (the hmtx
     advance, less the header box's width, plus the varied box's) times the
     scale, rounded to 1/64 pixel (nearest even), the 1/64 dropped."""
-    font = load_font()
+    font = load_font(face)
     scale = np.float32(np.float32(size) / np.float32(font.ascent))
     adv = font.advance(gid)
-    box, varied = font.header_box(gid), _glyph_box(gid, weight)
+    box, varied = font.header_box(gid), _glyph_box(gid, weight, face)
     if box is not None:
         adv = adv - (box[2] - box[0]) + (varied[2] - varied[0])
     return int(np.rint(np.float32(np.float32(adv) * scale) * np.float32(64))) >> 6
+
+
+@lru_cache(maxsize=256)
+def _line_step(face: int, size: int) -> int:
+    """``round((ascent - descent + lineGap) * size / ascent)`` of ``face``,
+    in float32, ties to even: for Rubik ``round(1185 * size / 935)``, for
+    the fallback font ``round(2401 * size / 1918)``, never more."""
+    font = load_font(face)
+    return int(np.rint(float(np.float32(font.ascent - font.descent + font.line_gap)
+                             * np.float32(np.float32(size) / np.float32(font.ascent)))))
 
 
 def hershey_to_truetype(scale: float, thickness: int) -> tuple[int, int]:
@@ -608,33 +672,32 @@ def put_text(image: np.ndarray, text: str, org, scale: float, color, thickness: 
     channels = 1 if image.ndim == 2 else image.shape[2]
     if image.ndim not in (2, 3) or channels not in (1, 3, 4):
         raise ValueError("put_text draws on images of 1, 3 or 4 channels (cv2 asserts it)")
-    font = load_font()
-    missing = sorted({c for c in text if c != "\n" and ord(c) not in font.cmap})
-    if missing:
-        raise NotImplementedError(
-            f"characters {missing!r} are not in Rubik; cv2 draws them with its fallback font "
-            "WenQuanYi Micro Hei, which is not ported")
+    try:
+        text.encode("utf-8")
+    except UnicodeEncodeError as e:  # a lone surrogate, which cv2's binding cannot convert
+        raise ValueError("put_text takes text that encodes as UTF-8") from e
     size, weight = hershey_to_truetype(scale, thickness)
-    text = text.lstrip("\n")
+    text = text.split("\0", 1)[0].lstrip("\n")
     if size <= 0 or not text or int(org[0]) >= image.shape[1]:
         return image
-    line = int(np.rint(float(np.float32(font.ascent - font.descent + font.line_gap)
-                             * np.float32(np.float32(size) / np.float32(font.ascent)))))
     x, y = int(org[0]), int(org[1])
     colour = _colour(color, channels)
     target = image if image.flags.c_contiguous else np.ascontiguousarray(image)
     h, w = target.shape[:2]
     lib = _load()
+    line, new_line = 0, True
     for c in text:
         if c == "\n":
-            x, y = int(org[0]), y + line
+            x, y, new_line = int(org[0]), y + line, True
             continue
-        gid = font.cmap[ord(c)]
-        bitmap, bx, by = glyph_bitmap(gid, size, weight)
+        face, gid = face_glyph(ord(c))
+        step = _line_step(face, size)
+        line, new_line = step if new_line else max(line, step), False
+        bitmap, bx, by = glyph_bitmap(gid, size, weight, face)
         if bitmap.size:
             lib.text_blend(target.ctypes.data, h, w, channels, target.strides[0], bitmap,
                            bitmap.shape[0], bitmap.shape[1], x + bx, y + by, colour)
-        x += _advance_pixels(gid, size, weight)
+        x += _advance_pixels(gid, size, weight, face)
     if target is not image:
         image[...] = target
     return image

@@ -40,7 +40,9 @@
 // Dequantisation and inverse DWT: 5/3 in integers; 9/7 in single precision
 // in OpenJPEG's lifting order and constants (K on the low band, 2/K on the
 // high band, the step sizes of non-LL bands halved to match).
-// Component transform: RCT in integers, ICT in single precision; then the
+// Component transform: RCT in integers, ICT in single precision, chosen by
+// component 0's wavelet and run over the first three components' 32-bit
+// buffers whatever wavelet a COC gave the others; then each component's own
 // DC level shift and clamp (9/7: lrintf, round half to even).
 //
 // Built with -ffp-contract=off so that no product and sum are fused.
@@ -1940,25 +1942,32 @@ void Decoder::decode_tile(uint32_t tileno, bool whole) {
                 (size_t)(tcs[1].x1 - tcs[1].x0) * (tcs[1].y1 - tcs[1].y0) != n0 ||
                 (size_t)(tcs[2].x1 - tcs[2].x0) * (tcs[2].y1 - tcs[2].y0) != n0)
                 refuse("Tiles don't all have the same dimension. Skip the MCT step.");
-            if (tcp.tccps[0].qmfbid == 1) {
-                if (tcs[1].idata.size() != n0 || tcs[2].idata.size() != n0)
-                    unsupported("a reversible component transform over irreversible components");
-                int32_t *c0 = tcs[0].idata.data(), *c1 = tcs[1].idata.data(),
-                        *c2 = tcs[2].idata.data();
+            // opj_tcd_mct_decode: component 0's wavelet picks the transform,
+            // which runs over the three buffers as they lie. A component of
+            // the other wavelet is read through its bits (OpenJPEG keeps one
+            // 32-bit buffer for both), and keeps what the transform wrote
+            // there for its own DC shift to read the same way.
+            std::vector<uint32_t> w[3];
+            for (int c = 0; c < 3; ++c) {
+                w[c].resize(n0);
+                const void* src = tcs[c].idata.empty() ? (const void*)tcs[c].fdata.data()
+                                                       : (const void*)tcs[c].idata.data();
+                std::memcpy(w[c].data(), src, n0 * 4);
+            }
+            if (tcp.tccps[0].qmfbid == 1) {  // opj_mct_decode: int32, wrapping as SSE2's adds
                 for (size_t i = 0; i < n0; ++i) {
-                    int32_t y = c0[i], u = c1[i], v = c2[i];
-                    int32_t g = y - ((u + v) >> 2);
-                    c0[i] = v + g;
-                    c1[i] = g;
-                    c2[i] = u + g;
+                    const uint32_t y = w[0][i], u = w[1][i], v = w[2][i];
+                    const uint32_t g = y - (uint32_t)((int32_t)(u + v) >> 2);
+                    w[0][i] = v + g;
+                    w[1][i] = g;
+                    w[2][i] = u + g;
                 }
-            } else {
-                if (tcs[1].fdata.size() != n0 || tcs[2].fdata.size() != n0)
-                    unsupported("an irreversible component transform over reversible components");
-                float *c0 = tcs[0].fdata.data(), *c1 = tcs[1].fdata.data(),
-                      *c2 = tcs[2].fdata.data();
+            } else {  // opj_mct_decode_real: float32
                 for (size_t i = 0; i < n0; ++i) {
-                    float y = c0[i], u = c1[i], v = c2[i];
+                    float y, u, v;
+                    std::memcpy(&y, &w[0][i], 4);
+                    std::memcpy(&u, &w[1][i], 4);
+                    std::memcpy(&v, &w[2][i], 4);
                     float vr = v * 1.402f;
                     float r = y + vr;
                     float ug = u * 0.34413f, vg = v * 0.71414f;
@@ -1966,10 +1975,15 @@ void Decoder::decode_tile(uint32_t tileno, bool whole) {
                     g = g - vg;
                     float ub = u * 1.772f;
                     float b = y + ub;
-                    c0[i] = r;
-                    c1[i] = g;
-                    c2[i] = b;
+                    std::memcpy(&w[0][i], &r, 4);
+                    std::memcpy(&w[1][i], &g, 4);
+                    std::memcpy(&w[2][i], &b, 4);
                 }
+            }
+            for (int c = 0; c < 3; ++c) {
+                void* dst = tcs[c].idata.empty() ? (void*)tcs[c].fdata.data()
+                                                 : (void*)tcs[c].idata.data();
+                std::memcpy(dst, w[c].data(), n0 * 4);
             }
         }
     }
@@ -2038,9 +2052,12 @@ void Decoder::decode_tile(uint32_t tileno, bool whole) {
         uint32_t sx, ox, nx, sy, oy, ny;
         span(ic.x0, ic.w, rr.x0, rr.x1, &sx, &ox, &nx);
         span(ic.y0, ic.h, rr.y0, rr.y1, &sy, &oy, &ny);
+        // a decoded resolution whose area misses the component's (an image
+        // offset past the last level a POC reached) gives a negative width
+        // there, and opj_j2k_update_image_data fails the decode
         if ((uint64_t)sx + nx > ic.w || (uint64_t)sy + ny > ic.h || (uint64_t)ox + nx > tw ||
             (uint64_t)oy + ny > th)
-            unsupported("a tile whose decoded area falls outside its component");
+            refuse("a tile's decoded area falls outside its component");
         for (uint32_t j = 0; j < ny; ++j)
             std::memcpy(&plane[(size_t)(sy + j) * ic.w + sx], &out[(size_t)(oy + j) * tw + ox],
                         (size_t)nx * 4);

@@ -1,14 +1,15 @@
 // Glyph rasteriser and text blend of cv2 5.0's putText (core/text.py).
 //
-// cv2 5.0 draws text with its own copy of stb_truetype (public domain):
-// each glyph's quadratic contours are flattened with a tolerance of 0.35
-// pixels and filled by stb's exact-area scanline rasteriser (version 2) into
-// an 8-bit coverage bitmap, in single precision.  cv2 pads the glyph's box
-// (from the glyph header) by a margin on every side and passes the margin as
-// the shift of the outline; the float rounding of the coverage depends on
-// that frame, so it is kept here as cv2 has it.  The bitmap is then blended
-// glyph by glyph into the image: round(bg + (c - bg) * a / 255) on each
-// colour channel, and a 4th channel takes the coverage itself.
+// cv2 5.0 draws text with its own copy of stb_truetype (public domain), in
+// Rubik and in its fallback font alike: each glyph's quadratic contours are
+// flattened with a tolerance of 0.35 pixels and filled by stb's exact-area
+// scanline rasteriser (version 2) into an 8-bit coverage bitmap, in single
+// precision.  cv2 pads the glyph's box (from the glyph header) by a margin
+// on every side and passes the margin as the shift of the outline; the
+// float rounding of the coverage depends on that frame, so it is kept here
+// as cv2 has it.  The bitmap is then blended glyph by glyph into the image:
+// round(bg + (c - bg) * a / 255) on each colour channel, and a 4th channel
+// takes the coverage itself.
 #include <cmath>
 #include <cstdint>
 #include <cstring>

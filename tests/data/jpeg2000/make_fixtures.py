@@ -21,9 +21,11 @@ hand-made boxes, from seeded pixels:
   by hand into PPT or PPM markers (``packed_headers``);
 - hand-made boxes: ``colr`` gray, sYCC and ICC, ``pclr`` + ``cmap``,
   ``cdef`` reordering the channels, a trailing box;
+- COD's multiple component transform over components that a COC gives
+  the other wavelet (``mct_mixed_*``);
 - files cv2 refuses (``refused_*``): a signed component, 4-bit samples,
-  subsampled components, an image offset, an incomplete ``cdef``, a cut
-  codestream;
+  subsampled components, an image offset (also one past a POC's last
+  level), an incomplete ``cdef``, a cut codestream;
 - the three 480 x 640 files ``chip_smoke.py`` times (cv2's default, PIL 5/3
   with RCT, PIL 9/7 with ICT);
 - ``coco_00.jp2`` ... ``coco_31.jp2``, 480 x 640 scenes of two people each,
@@ -212,6 +214,22 @@ def packed_headers(cs: bytes, kind: str, markers: int = 1, order=None) -> bytes:
     return out + cs[pos:]
 
 
+def flip_transform(cs: bytes, comps) -> bytes:
+    """Raw codestream ``cs`` with a COC before its QCD for each component of
+    ``comps``: COD's coding style with the other wavelet (5/3 for 9/7 or
+    the reverse), so that COD's MCT runs over components of both kinds."""
+    pos, found = 2, {}
+    while cs[pos:pos + 2] != b"\xff\x90":
+        found[cs[pos:pos + 2]] = pos
+        pos += 2 + struct.unpack(">H", cs[pos + 2:pos + 4])[0]
+    cod, qcd = found[b"\xff\x52"], found[b"\xff\x5c"]
+    spcod = cs[cod + 9:cod + 14]  # levels, code-block sides, style, transform
+    sp = spcod[:4] + bytes([1 - spcod[4]])
+    cocs = b"".join(b"\xff\x53" + struct.pack(">H", 4 + len(sp)) + bytes([c, 0]) + sp
+                    for c in comps)
+    return cs[:qcd] + cocs + cs[qcd:]
+
+
 def small_forms(writer: Writer) -> dict:
     """{name: thunk giving the file} of the small forms, written live by the
     tests and committed (a part of them) by ``fixtures``."""
@@ -282,6 +300,12 @@ def small_forms(writer: Writer) -> dict:
         "ppt": lambda: packed_headers(writer(img, csty=6, rates="20,5"), "ppt", 3, [1, 0, 2]),
         "ppm_tiles": lambda: packed_headers(writer(img, csty=6, tile="16x16", tp="R",
                                                    rates="20,5"), "ppm", 3),
+        # COD's MCT over components of both wavelets: component 0's picks it
+        "mct_mixed_53_c0": lambda: flip_transform(writer(img, rates="20,5"), [0]),
+        "mct_mixed_53_c1": lambda: flip_transform(writer(img), [1]),
+        "mct_mixed_97_c2": lambda: flip_transform(writer(img, irreversible=1), [2]),
+        "mct_mixed_97_c12": lambda: flip_transform(writer(img, irreversible=1, rates="20,5",
+                                                          tile="32x32"), [1, 2]),
     })
     cs_rgb = lambda: pil_j2k(img, no_jp2=True, mct=0)  # noqa: E731
     cs_gray = lambda: pil_j2k(gray, no_jp2=True)  # noqa: E731
@@ -313,6 +337,9 @@ def small_forms(writer: Writer) -> dict:
         "refused_prec4": lambda: writer(img // 16, prec=4),
         "refused_subsampled": lambda: writer(img, sub="2x2", mct=0),
         "refused_offset": lambda: writer(img, offset="3x5"),
+        # a POC stops short of the top level, whose area then misses the
+        # offset component's: OpenJPEG fails the decode
+        "refused_offset_poc": lambda: writer(img, offset="64x64", poc="1:0:0:1:3:3:LRCP"),
         "refused_cdef_incomplete": lambda: jp2(cs_rgb(), 45, 53, 3,
                                                boxes=[cdef([(0, 0, 1), (1, 0, 2)])]),
         "refused_ihdr_mismatch": lambda: jp2(cs_rgb(), 44, 53, 3),

@@ -1,16 +1,20 @@
-"""Copy Rubik out of cv2's binary into the port and check it.
+"""Copy Rubik and WenQuanYi Micro Hei out of cv2's binary into the port and
+check them.
 
     python tests/data/text/extract_font.py [--check]
 
 cv2 5.0 carries its TrueType fonts as gzip streams inside
 ``cv2.abi3.so``.  This script finds every gzip stream there that unpacks to
-a TrueType font, picks the one whose name table says "Rubik for OpenCV
-Light" (the upright sans face ``putText`` draws ``FONT_HERSHEY_SIMPLEX``
-with), and writes its gzip bytes, as they stand in the binary, to
-``instancesegmentation_tpu_torch/core/fonts/Rubik.ttf.gz``; with
-``--check`` it only compares them with that file.  Either way it checks
-that the bytes unpack to the font the port parses (``core/text.py:Font``):
-the same ``cmap``, the ``wght`` axis 300-900 and the glyph count.
+a TrueType font and picks two by the English full name in their name
+tables: "Rubik for OpenCV Light" (the upright sans face ``putText`` draws
+``FONT_HERSHEY_SIMPLEX`` with) and "WenQuanYi Micro Hei" (the fallback font
+it draws every character Rubik lacks with).  It writes their gzip bytes, as
+they stand in the binary, to ``instancesegmentation_tpu_torch/core/fonts/
+Rubik.ttf.gz`` and ``WenQuanYiMicroHei.ttf.gz``; with ``--check`` it only
+compares them with those files.  Either way it checks that the bytes unpack
+to the fonts the port parses (``core/text.py:Font``): Rubik's ``wght`` axis
+300-900, each font's glyph count and its ``cmap`` (WenQuanYi's the format 12
+subtable, six code points past the BMP among them).
 """
 import argparse
 import gzip
@@ -24,21 +28,25 @@ import cv2
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 sys.path.insert(0, ROOT)
 
-from instancesegmentation_tpu_torch.core.text import FONT_PATH, Font  # noqa: E402
+from instancesegmentation_tpu_torch.core.text import (  # noqa: E402
+    FALLBACK_FONT_PATH, FONT_PATH, Font)
 
 NAME = "Rubik for OpenCV Light"
+FALLBACK_NAME = "WenQuanYi Micro Hei"
 
 
 def full_name(ttf: bytes) -> str:
-    """The font's full name (name ID 4, Windows platform)."""
+    """The font's English full name (name ID 4, Windows platform, US
+    English)."""
     import struct
     for i in range(struct.unpack_from(">H", ttf, 4)[0]):
         tag, _, offset, _ = struct.unpack_from(">4sIII", ttf, 12 + 16 * i)
         if tag == b"name":
             _, count, strings = struct.unpack_from(">HHH", ttf, offset)
             for k in range(count):
-                pid, _, _, nid, length, off = struct.unpack_from(">6H", ttf, offset + 6 + 12 * k)
-                if pid == 3 and nid == 4:
+                pid, _, lang, nid, length, off = struct.unpack_from(">6H", ttf,
+                                                                    offset + 6 + 12 * k)
+                if pid == 3 and lang == 0x409 and nid == 4:
                     start = offset + strings + off
                     return ttf[start:start + length].decode("utf-16-be")
     return ""
@@ -64,19 +72,26 @@ def main(argv=None):
     so = os.path.join(os.path.dirname(cv2.__file__), "cv2.abi3.so")
     with open(so, "rb") as f:
         binary = f.read()
-    found = [(gz, ttf) for gz, ttf in fonts_in(binary) if full_name(ttf) == NAME]
-    assert len(found) == 1, f"{len(found)} Rubik fonts in {so}"
-    gz, ttf = found[0]
-    if args.check:
-        assert FONT_PATH.read_bytes() == gz, f"{FONT_PATH} differs from cv2's blob"
-    else:
-        FONT_PATH.write_bytes(gz)
-    assert gzip.decompress(FONT_PATH.read_bytes()) == ttf
-    font = Font(ttf)
-    assert font.axis == (300.0, 300.0, 900.0) and font.num_glyphs == 1174
-    assert all(ord(c) in font.cmap for c in map(chr, range(32, 127)))
-    print(f"{FONT_PATH}: {len(gz)} bytes gzipped, {len(ttf)} unpacked, "
-          f"{len(font.cmap)} characters")
+    fonts = list(fonts_in(binary))
+    for name, path in ((NAME, FONT_PATH), (FALLBACK_NAME, FALLBACK_FONT_PATH)):
+        found = [(gz, ttf) for gz, ttf in fonts if full_name(ttf) == name]
+        assert len(found) == 1, f"{len(found)} fonts named {name!r} in {so}"
+        gz, ttf = found[0]
+        if args.check:
+            assert path.read_bytes() == gz, f"{path} differs from cv2's blob"
+        else:
+            path.write_bytes(gz)
+        assert gzip.decompress(path.read_bytes()) == ttf
+        font = Font(ttf)
+        if path == FONT_PATH:
+            assert font.axis == (300.0, 300.0, 900.0) and font.num_glyphs == 1174
+            assert all(ord(c) in font.cmap for c in map(chr, range(32, 127)))
+        else:
+            assert font.axis is None and font.num_glyphs == 49531
+            assert (font.ascent, font.descent, font.line_gap) == (1918, -483, 0)
+            assert len(font.cmap) == 34600 and sum(c > 0xFFFF for c in font.cmap) == 6
+        print(f"{path}: {len(gz)} bytes gzipped, {len(ttf)} unpacked, "
+              f"{len(font.cmap)} characters")
 
 
 if __name__ == "__main__":

@@ -12,7 +12,11 @@ cv2), and ``case_k``, a JSON string of the call: ``{"label", "origin",
 COCO keypoint names and "person" at scales 0.35 and 0.6, the printable
 ASCII at four scales and both weights, a clipped and a multi-line label,
 the 27 glyphs past ASCII of ROADMAP C7 at both weights, on 1-, 3- and
-4-channel images, and labeled keypoints.
+4-channel images, and labeled keypoints; then the labels cv2 draws with its
+fallback font, WenQuanYi Micro Hei (ROADMAP A14), at both weights: CJK
+alone, glyphs with scaled components, code points past the BMP, mixed
+Latin / CJK strings over several lines, and characters in neither font
+(controls, private use), which cv2 draws as Rubik's "?".
 """
 import json
 import os
@@ -64,6 +68,25 @@ def label_cases():
     return cases
 
 
+#: labels of the fallback font: CJK (Chinese "pedestrian", Japanese, Korean),
+#: glyphs with scaled components (U+4E04, U+650A, U+9D63), code points past
+#: the BMP, mixed strings over several lines, and characters in neither font
+FALLBACK_LABELS = ("\u884c\u4eba", "\u4eba\u7269 \u3072\u3068 \uc0ac\ub78c", "\u4e04\u650a\u9d63",
+                   "\U00010400\U0001d30c",
+                   "left_\u80a9 (\u5de6\u80a9)\n\u53f3\u80a9 right\n\n\u4eba",
+                   "\u4eba\n\nN\u4e2d\n \u6587", "tab\there\rcr\x01\ue000\U0001f600!")
+
+
+def fallback_cases():
+    cases = []
+    for k, label in enumerate(FALLBACK_LABELS):
+        for thickness, scale in ((1, (0.6, 1.3)[k % 2]), (2, (1.0, 0.45)[k % 2])):
+            cases.append(dict(label=label, origin=[3, 30], color=[240, 30, 200, 77],
+                              thickness=thickness, scale=scale,
+                              shape=[120, 420, (1, 3, 4)[(k + thickness) % 3]]))
+    return cases
+
+
 def keypoint_cases(rng):
     status_key, point_key = (key_combine("status", "keypoint_status"),
                              key_combine("point", "point_xy"))
@@ -79,7 +102,7 @@ def keypoint_cases(rng):
 def main():
     rng = np.random.default_rng(2026)
     arrays = {}
-    for k, case in enumerate(label_cases() + keypoint_cases(rng)):
+    for k, case in enumerate(label_cases() + keypoint_cases(rng) + fallback_cases()):
         h, w, c = case.pop("shape")
         bg = background(rng, h, w, c, noisy=k % 8 == 0)
         if "label" in case:

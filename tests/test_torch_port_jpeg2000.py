@@ -355,12 +355,19 @@ def test_marker_rules_match_cv2(tmp_path, writer, case):
         assert out == {"color": "raises", "gray": "raises"}
 
 
-def _coc_qcc_cases(writer, irreversible: int) -> dict:
+def _coc_qcc_cases(writer, irreversible: int, mct: int = 0) -> dict:
     """COC and QCC markers assembled by hand into a codestream of three
     independent components: equal to or unlike COD's and QCD's values,
     before and after them (OpenJPEG lets a later COD or QCD overwrite every
-    component), out of range, cut short, in a tile-part header."""
-    cs = writer(mf.picture(29, 33, 8, noise=6), mct=0, irreversible=irreversible, rates="20,5")
+    component), out of range, cut short, in a tile-part header. With
+    ``mct`` COD's component transform runs over them, and the ``mct_*``
+    cases give one or two of the first three components the other wavelet
+    (component 0's picks the transform)."""
+    cs = writer(mf.picture(29, 33, 8, noise=6), mct=mct, irreversible=irreversible, rates="20,5")
+    if mct:
+        return {"mct_same": cs,
+                **{f"mct_flip_{''.join(map(str, comps))}": mf.flip_transform(cs, comps)
+                   for comps in ((0,), (1,), (2,), (1, 2), (0, 2))}}
     m = _markers(cs)
     cod, qcd, sot = m[b"\xff\x52"], m[b"\xff\x5c"], m[b"\xff\x90"]
     spcod = cs[cod + 9:cod + 14]  # levels, code-block sides, style, transform
@@ -404,13 +411,31 @@ def _coc_qcc_cases(writer, irreversible: int) -> dict:
 COC_QCC = ("coc_same_after_cod", "coc_blocks_after_cod", "coc_blocks_before_cod", "coc_transform",
            "coc_three_levels", "coc_precincts", "coc_vsc", "coc_bad_component", "coc_short",
            "coc_in_tile_header", "qcc_after_qcd", "qcc_before_qcd", "qcc_derived",
-           "qcc_bad_component", "qcc_short")
+           "qcc_bad_component", "qcc_short", "mct_same", "mct_flip_0", "mct_flip_1",
+           "mct_flip_2", "mct_flip_12", "mct_flip_02")
 
 
 @pytest.mark.parametrize("irreversible", [0, 1])
 @pytest.mark.parametrize("case", COC_QCC)
 def test_coc_qcc_match_cv2(tmp_path, writer, case, irreversible):
-    _against_cv2(tmp_path, _coc_qcc_cases(writer, irreversible)[case])
+    mct = int(case.startswith("mct_"))
+    out = _against_cv2(tmp_path, _coc_qcc_cases(writer, irreversible, mct)[case])
+    if mct:  # cv2 decodes each (ROADMAP C13, which the port refused)
+        assert out["color"].shape == (29, 33, 3) and out["gray"].shape == (29, 33)
+
+
+def test_decoded_area_outside_the_component_matches_cv2(tmp_path, writer):
+    """An image offset past the area of the last level a POC reaches:
+    OpenJPEG's ``opj_j2k_update_image_data`` fails the decode and cv2
+    returns None, in colour and in gray (the port raised
+    ``UnsupportedImage``)."""
+    img = mf.picture(29, 33, 8, noise=6)
+    for settings in (dict(offset="64x64", poc="1:0:0:1:3:3:LRCP"),
+                     dict(offset="64x64", poc="1:0:0:1:1:3:LRCP"),
+                     dict(offset="64x64", tile="16x16", tileoff="60x60",
+                          poc="1:0:0:1:3:3:LRCP")):
+        out = _against_cv2(tmp_path, writer(img, **settings), file=False)
+        assert out == {"color": None, "gray": None}, settings
 
 
 PACKED = [(layout, kind, markers, order)

@@ -1,8 +1,12 @@
 """The port's text (``core/text.py``, ``core/visualize.py:draw_label``,
 ``draw_keypoint(labeled=True)``) against the JAX package's, which calls
-``cv2.putText`` (cv2 5.0: TrueType Rubik), and the port's ``show_aug`` tool
-against ``tools/show_aug.py``.  Every label case is bit-equal, and so is
-the drawing of every code point in Rubik's cmap (ROADMAP C7, repaired)."""
+``cv2.putText`` (cv2 5.0: TrueType Rubik, and WenQuanYi Micro Hei for the
+characters Rubik lacks), and the port's ``show_aug`` tool against
+``tools/show_aug.py``.  Every label case is bit-equal, and so is the
+drawing of every code point in Rubik's cmap (ROADMAP C7, repaired), of a
+seeded sample of the fallback font's, of every fallback glyph with a
+scaled component, and of mixed strings with controls and code points in
+neither font (ROADMAP A14)."""
 import gzip
 import math
 import os
@@ -139,10 +143,17 @@ def test_what_cv2_refuses_and_what_it_falls_back_on():
             tvis.draw_label(np.zeros((20, 40, 3), dtype), "a", (0, 0))
     with pytest.raises(ValueError, match="1, 3 or 4"):
         tvis.draw_label(np.zeros((20, 40, 2), np.uint8), "a", (0, 0))
-    for label in ("中", "a\tb", "\r"):  # cv2 draws these with WenQuanYi Micro Hei
-        with pytest.raises(NotImplementedError, match="WenQuanYi"):
-            tvis.draw_label(img, label, (0, 0))
+    with pytest.raises(ValueError, match="UTF-8"):  # cv2's binding cannot convert it
+        tvis.draw_label(img, "a\ud800", (0, 0))
     assert not img.any()
+    # WenQuanYi Micro Hei draws "中"; "\t" and "\r" are in neither font and
+    # draw as Rubik's "?"; the text ends at its first NUL, as cv2's C string
+    for label in ("中", "a\tb", "\r", "a\x00中", "\x00"):
+        for thickness in (1, 2):
+            got, want = _both(np.zeros((40, 60, 3), np.uint8), label, (2, 30), (255, 200, 100),
+                              thickness, 0.8)
+            np.testing.assert_array_equal(got, want, err_msg=repr(label))
+            assert want.any() == (label[0] != "\x00")
 
 
 def test_labeled_keypoints_match_jax():
@@ -242,6 +253,179 @@ def test_rasteriser_refuses_nothing_of_an_empty_outline():
     text._load().text_glyph(np.zeros(0, np.uint8), np.zeros((0, 4), np.float32), 0, 0.1, 0, 0,
                             0, 4, 3, out)
     assert not out.any()
+
+
+# -- text outside Rubik: cv2's fallback font, WenQuanYi Micro Hei (ROADMAP A14) --
+
+
+@pytest.fixture(scope="module")
+def fallback():
+    return text.load_font(text.FALLBACK)
+
+
+def _fallback_only(font) -> list:
+    """The fallback font's code points that Rubik lacks."""
+    rubik = text.load_font().cmap
+    return sorted(c for c in font.cmap if c not in rubik)
+
+
+@pytest.mark.parametrize("thickness", [1, 2])
+@pytest.mark.parametrize("scale", [0.45, 1.3])
+def test_fallback_code_points_alone(fallback, scale, thickness):
+    """A seeded 200 of the 34,031 code points only the fallback font has
+    (CJK, Hangul, kana, the six past the BMP), each alone, through
+    ``draw_label`` against the JAX package's, on 1-, 3- and 4-channel
+    images."""
+    codes = _fallback_only(fallback)
+    assert len(codes) == 34031
+    rng = np.random.default_rng(int(scale * 10) + thickness)
+    sample = [int(c) for c in rng.choice(codes, 200, replace=False)] + [
+        c for c in codes if c > 0xFFFF]
+    for i, code in enumerate(sample):
+        img = _background(rng, 64, 64, (1, 3, 4)[i % 3])
+        color = tuple(int(v) for v in rng.integers(0, 256, 4))
+        got, want = _both(img, chr(code), (6, 44), color, thickness, scale)
+        np.testing.assert_array_equal(got, want, err_msg=hex(code))
+
+
+def _scaled_composites(font) -> list:
+    """The code points whose glyph has a component with a scale (flag 8,
+    0x40 or 0x80): 1,133 glyphs, 1,620 components, every one an x / y
+    scale."""
+    glyphs = set()
+    for gid in range(font.num_glyphs):
+        pos, length = font.glyph_range(gid)
+        if length and font.simple_points(gid) is None:
+            if any(flags & 0xC8 for _, flags, _, _, _ in font.components(gid)):
+                glyphs.add(gid)
+    return sorted(c for c, g in font.cmap.items() if g in glyphs)
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_fallback_scaled_composites(fallback, part):
+    """Every code point whose glyph places a component with a scale, where
+    stb multiplies each transformed point again by the column's norm, at
+    two scales: a quarter of them per part."""
+    codes = _scaled_composites(fallback)
+    assert len(codes) == 1133
+    for code in codes[part::4]:
+        for scale in (0.6, 1.7):
+            a = np.zeros((80, 80), np.uint8)
+            cv2.putText(a, chr(code), (8, 56), cv2.FONT_HERSHEY_SIMPLEX, scale, 255, 1)
+            b = text.put_text(np.zeros((80, 80), np.uint8), chr(code), (8, 56), scale, 255, 1)
+            np.testing.assert_array_equal(b, a, err_msg=f"{code:#x} {scale}")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_mixed_strings(fallback, seed):
+    """Seeded strings of Latin, CJK, newlines, ``'\\t'``, ``'\\r'`` and other
+    controls, U+E000, code points past the BMP (in the fallback font and
+    in neither) and NUL, at random scales, weights, channels, colours and
+    origins, through ``draw_label`` against the JAX package's."""
+    rng = np.random.default_rng(300 + seed)
+    pool = ([chr(int(c)) for c in rng.choice(_fallback_only(fallback), 60)] + ASCII
+            + ["\n"] * 16 + ["\t", "\r", "\x01", "\x1b", "\x7f", "\x85", "\ue000",
+                             "\U0001d30c", "\U00010400", "\U0001f600", "\U0010fffd", "\x00"])
+    for _ in range(120):
+        label = "".join(rng.choice(pool, int(rng.integers(1, 14))))
+        scale = float(rng.uniform(0.3, 2.0))
+        thickness = int(rng.choice([-1, 1, 2, 3]))
+        h, w = int(rng.integers(16, 120)), int(rng.integers(16, 300))
+        origin = (float(rng.uniform(-30, w)), float(rng.uniform(-20, h + 10)))
+        img = _background(rng, h, w, int(rng.choice([1, 3, 4])))
+        color = tuple(int(v) for v in rng.integers(0, 256, 4))
+        got, want = _both(img, label, origin, color, thickness, scale)
+        np.testing.assert_array_equal(got, want, err_msg=f"{label!r} {scale} {origin}")
+
+
+def test_line_steps_of_mixed_lines():
+    """A line steps down by the largest step of the faces that drew it (the
+    fallback font's ``round(2401 * size / 1918)`` is never more than
+    Rubik's); an empty line steps as the line before it."""
+    labels = ["中\nN", "a中\nN", "中a\nN", "中\n\nN", "a\n\n中\n\n\nN", "中\n \n\t\n人",
+              "\n\n中\n中", "人人\n\na"]
+    for scale in (0.35, 0.6, 1.0, 1.22, 1.5, 2.2, 3.0):
+        for label in labels:
+            got, want = _both(np.zeros((420, 140, 3), np.uint8), label, (4, 70), (255, 255, 255),
+                              1, scale)
+            np.testing.assert_array_equal(got, want, err_msg=f"{label!r} {scale}")
+
+
+def test_rubik_labels_never_open_the_fallback_font(monkeypatch, tmp_path):
+    """Labels Rubik draws alone (the keypoint names, "person", every
+    printable ASCII character) never read the fallback font's file; the
+    first character Rubik lacks does."""
+    monkeypatch.setattr(text, "FALLBACK_FONT_PATH", tmp_path / "missing.ttf.gz")
+    text._read_font.cache_clear()
+    text.face_glyph.cache_clear()
+    try:
+        img = np.zeros((60, 900, 3), np.uint8)
+        for label in COCO_NAMES + ("person", "".join(ASCII), "two\nlines"):
+            for thickness in (1, 2):
+                tvis.draw_label(img, label, (2, 30), thickness=thickness, scale=0.6)
+        assert img.any()
+        assert text._read_font.cache_info().currsize == 1
+        with pytest.raises(FileNotFoundError):
+            tvis.draw_label(img, "中", (2, 30))
+    finally:
+        text._read_font.cache_clear()
+        text.face_glyph.cache_clear()
+
+
+def test_fallback_font_is_the_packages_own_file(fallback):
+    """The fallback font is read from the package's
+    ``fonts/WenQuanYiMicroHei.ttf.gz``, cv2's embedded blob, which ships
+    with its licence (name ID 0's copyright, name ID 13's Apache 2.0
+    grant, the licence's text); a static font with a format 12 cmap."""
+    assert text.FALLBACK_FONT_PATH == text.FONT_PATH.with_name("WenQuanYiMicroHei.ttf.gz")
+    data = gzip.decompress(text.FALLBACK_FONT_PATH.read_bytes())
+    assert len(data) == 4561944 and fallback.data == data
+    assert fallback.axis is None and fallback.num_glyphs == 49531
+    assert (fallback.ascent, fallback.descent, fallback.line_gap) == (1918, -483, 0)
+    assert len(fallback.cmap) == 34600 and sum(c > 0xFFFF for c in fallback.cmap) == 6
+    licence = text.FALLBACK_FONT_PATH.with_name("WenQuanYiMicroHei.LICENSE").read_text()
+    assert "WenQuanYi Board of Trustees" in licence and "Google Corporation" in licence
+    assert "Licensed under the Apache License, Version 2.0" in licence
+    assert licence.count("TERMS AND CONDITIONS FOR USE, REPRODUCTION, AND DISTRIBUTION") == 1
+    assert text.FALLBACK_FONT_PATH.stat().st_size == 2104595
+
+
+def test_stored_label_fixtures_match_cv2_and_the_port():
+    """``tests/data/text/labels.npz`` (what ``chip_smoke.py`` holds the port
+    to on a machine without cv2): each stored output is the JAX package's
+    live drawing and the port's, the fallback font's cases among them."""
+    import json
+
+    fixtures = np.load(os.path.join(ROOT, "tests", "data", "text", "labels.npz"))
+    cases = sorted(int(k[5:]) for k in fixtures.files if k.startswith("case_"))
+    rubik, fallback_labels = text.load_font().cmap, 0
+    for k in cases:
+        case, bg, want = (json.loads(str(fixtures[f"case_{k}"])), fixtures[f"bg_{k}"],
+                          fixtures[f"out_{k}"])
+        if "label" in case:
+            args = (case["label"], case["origin"])
+            kw = dict(color=tuple(case["color"]), thickness=case["thickness"],
+                      scale=case["scale"])
+            live, got = (m.draw_label(bg.copy(), *args, **kw) for m in (jvis, tvis))
+            fallback_labels += any(ord(c) not in rubik for c in case["label"] if c != "\n")
+        else:
+            live, got = (m.draw_keypoint(bg.copy(), case["keypoints"], labeled=True,
+                                         radius=case["radius"]) for m in (jvis, tvis))
+        np.testing.assert_array_equal(live, want, err_msg=str(k))
+        np.testing.assert_array_equal(got, want, err_msg=str(k))
+    assert len(cases) == 62 and fallback_labels == 14
+
+
+def test_fonts_are_cv2s_blobs():
+    """``tests/data/text/extract_font.py --check``: both fonts are the gzip
+    streams cv2 carries, byte for byte, found by their English names."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "extract_font", os.path.join(ROOT, "tests", "data", "text", "extract_font.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.main(["--check"])
 
 
 # -- the show_aug tool ---------------------------------------------------------
