@@ -129,7 +129,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``read_png``'s, and a COCO tree of the 32 committed 480 x 640 JPEG 2000
    scenes (cv2's, 5/3, 9/7, tiled, RPCL, layered) converted, trained (batch
    32, 2 steps, 1 ``warp_2level`` launch per step) and served (2
-   ``fused_chain`` launches per dispatch); then the encoders
+   ``fused_chain`` launches per dispatch); then AVIF (``avif_phase``:
+   ``core/avif.py`` with its AV1 decoder in ``ops/native/av1.cpp``): the
+   fixtures of ``tests/data/avif`` through ``imread`` and ``imdecode`` in
+   both modes, bit-equal to cv2's stored outcomes, ms per 480 x 640 file of
+   cv2's default, cv2 at speed 2 and PIL 4:4:4 in two tiles beside
+   ``read_png``'s, and the avif480 COCO tree of the 32 committed 480 x 640
+   AVIF scenes (cv2's default, speed 2, gray 4:0:0, PIL 4:4:4 tiles, BGRA)
+   converted, trained (batch 32, 2 steps, 1 ``warp_2level`` launch per
+   step) and served (2 ``fused_chain`` launches per dispatch); then the
+   encoders
    (``encoders_phase``: ``core/imwrite.py`` over ``core/{pnm,sunras,hdr,
    gif,tiff}.py`` and ``image_codes.cpp``): ``imencode`` of the inputs of
    ``tests/data/imwrite`` in every extension ``cv2.imwrite`` writes but the
@@ -1644,6 +1653,13 @@ JPEG2000_TIMED = (("cv2_480x640.jp2", "cv2 default"), ("pil53_rct_480x640.jp2", 
                   ("pil97_ict_480x640.jp2", "PIL 9/7 ICT"))
 #: the JPEG 2000 COCO tree: images (the committed scenes), batch, epochs
 JPEG2000_COCO, JPEG2000_BATCH, JPEG2000_EPOCHS = 32, 32, 1
+AVIF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "avif")
+#: the timed 480 x 640 AVIF files and what each is
+AVIF_TIMED = (("cv2_480x640.avif", "cv2 default"),
+              ("cv2_s2_480x640.avif", "cv2 speed 2 (loop restoration)"),
+              ("pil444_tiles_480x640.avif", "PIL 4:4:4 two tiles"))
+#: the avif480 COCO tree: images (the committed scenes), batch, epochs
+AVIF_COCO, AVIF_BATCH, AVIF_EPOCHS = 32, 32, 1
 
 
 def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: bytes, load,
@@ -1740,6 +1756,18 @@ def jpeg2000_phase(card: str, w2, fc, png_ms: float) -> dict:
     return codec_phase("jpeg2000", "JPEG 2000", JPEG2000_FIXTURES, ".jp2", JPEG2000_TIMED,
                        JP2_SIGNATURE, load_jpeg2000, JPEG2000_COCO, JPEG2000_BATCH,
                        JPEG2000_EPOCHS, card, w2, fc, png_ms)
+
+def avif_phase(card: str, w2, fc, png_ms: float) -> dict:
+    """AVIF (``core/avif.py``, the AV1 stream in ``ops/native/av1.cpp``):
+    ``codec_phase`` over ``tests/data/avif`` (cv2's default, cv2 at speed 2
+    with loop restoration and PIL 4:4:4 in two tiles timed) and its 32 AVIF
+    scenes (cv2's default, speed 2, gray 4:0:0, PIL 4:4:4 in two tiles,
+    BGRA with its alpha item: the avif480 tree), batch 32, 2 steps."""
+    from instancesegmentation_tpu_torch.ops.native.av1 import load_av1
+
+    return codec_phase("avif", "AVIF", AVIF_FIXTURES, ".avif", AVIF_TIMED,
+                       b"\x00\x00\x00\x20ftypavif", load_av1, AVIF_COCO, AVIF_BATCH,
+                       AVIF_EPOCHS, card, w2, fc, png_ms)
 
 IMWRITE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                                 "imwrite")
@@ -4905,6 +4933,7 @@ def main() -> int:
         tiff = tiff_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         webp = webp_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         j2k = jpeg2000_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
+        avif = avif_phase(card, w2, fc, disk["read_png_ms_480x640_rgb"])
         enc = encoders_phase(card, w2, fc)
         wenc = webp_encoder_phase(card, w2, fc, enc)
         jenc = jpeg2000_encoder_phase(card, w2, fc, enc)
@@ -5221,6 +5250,7 @@ def main() -> int:
          "launches_converters_serve": conv["serve"]["fused_chain"],
          "launches_webp_serve": webp["serve"]["fused_chain"],
          "launches_jpeg2000_serve": j2k["serve"]["fused_chain"],
+         "launches_avif_serve": avif["serve"]["fused_chain"],
          "launches_encoders_serve": enc["serve"]["fused_chain"],
          "launches_encoders_c12_infer": enc["c12"]["renamed"]["fused_chain"],
          "launches_webp_named_serve": wenc["serve"]["fused_chain"],
@@ -5302,6 +5332,7 @@ def main() -> int:
          "launches_converters_train": {k: v["warp_2level"] for k, v in conv["train"].items()},
          "launches_webp_train": webp["train"]["warp_2level"],
          "launches_jpeg2000_train": j2k["train"]["warp_2level"],
+         "launches_avif_train": avif["train"]["warp_2level"],
          "launches_encoders_train": enc["train"]["warp_2level"],
          "launches_webp_named_train": wenc["train"]["warp_2level"],
          "launches_jp2_named_train": jenc["train"]["warp_2level"],

@@ -34,7 +34,13 @@ leading bytes, as cv2 chooses it, never by its extension:
   JPEG 2000 as cv2's OpenJPEG 2.5.3 reads it (5/3 and 9/7, RCT and ICT,
   every progression order, tiles, layers, precincts, code-block styles,
   ROI, the JP2 boxes, palettes and channel definitions) and cv2 converts
-  it.
+  it;
+- an ISO-BMFF ``ftyp`` naming ``avif`` or ``avis``: ``core/avif.py`` with
+  its AV1 decoder in ``ops/native/av1.cpp`` (built like the JPEG decoder):
+  AVIF still images as cv2's libavif 1.4.2 over libaom 3.14.1 reads them
+  (one AV1 key frame at 8 bits in 4:2:0, 4:4:4 or 4:0:0, every intra tool
+  and post-filter, its alpha item decoded and dropped) and cv2 converts
+  them.
 
 The RLE and LZW codes of BMP, Sun raster, HDR, GIF and TIFF, and TIFF's
 CCITT, ThunderScan and SGILog codes and its CIELab conversion, are unpacked
@@ -45,19 +51,21 @@ by ``ops/native/image_codes.cpp``
 Where cv2 returns None, ``imread`` raises ``FileNotFoundError``: a missing
 or empty file, leading bytes that no decoder claims (among them OpenEXR's
 ``76 2F 31 01``: this container's cv2 is built without OpenEXR), a file
-that is cut or corrupt where cv2's decoder gives up, a JPEG form that
+that is cut or corrupt where cv2's decoder gives up (an AVIF file where
+libavif or libaom does), a JPEG form that
 libjpeg-turbo refuses (hierarchical, 12-bit, lossless arithmetic, ...: see
 ``ops/native/jpeg.py``), a TIFF form libtiff or cv2 refuses (see
 ``core/tiff.py``), a WebP shorter than cv2's 32-byte header read (even one
 that starts ``RIFF....WEBP``) or one libwebp refuses (see
 ``core/webp.py``), a JPEG 2000 file OpenJPEG or cv2 refuses (see
 ``core/jpeg2000.py``).  A header whose size cv2 itself raises on raises
-``ImageSizeError`` (``core/png.py``).  A valid file of the format the port
-does not decode (AVIF) raises ``UnsupportedImage``, a ``ValueError``
-naming ROADMAP A10 part 3: the port never drops silently what the JAX
-package reads (a file that only starts like AVIF raises it too: the port
-does not parse it); so does a JPEG 2000 file of a form its decoder leaves
-out (ROADMAP A10 part 3, step 5: HTJ2K code-blocks, Part 2 transforms).  ``cv2.imread`` and
+``ImageSizeError`` (``core/png.py``).  A valid file of a form the port does not decode raises
+``UnsupportedImage``, a ``ValueError`` naming ROADMAP A10 part 3: the port
+never drops silently what the JAX package reads.  Those forms are AVIF's of
+step 6b (10 and 12 bits, 4:2:2, intra block copy, palettes, superres, film
+grain, ``grid`` and other derived items, sequences, colour matrices libavif
+converts without libyuv: see ``core/avif.py``) and JPEG 2000's of step 5
+(HTJ2K code-blocks, Part 2 transforms).  ``cv2.imread`` and
 ``cv2.imdecode`` differ on three forms,
 which the port follows (``imdecode`` reads as ``cv2.imdecode``; WebP and
 JPEG 2000 read alike through both):
@@ -73,10 +81,10 @@ of each strip's first byte (its file offset to a mapped file).
 from __future__ import annotations
 
 import os
-import struct
 
 import numpy as np
 
+from instancesegmentation_tpu_torch.core.avif import decode_avif, is_avif
 from instancesegmentation_tpu_torch.core.bmp import SIGNATURE as BMP_SIGNATURE
 from instancesegmentation_tpu_torch.core.bmp import decode_bmp
 from instancesegmentation_tpu_torch.core.gif import SIGNATURES as GIF_SIGNATURES
@@ -99,29 +107,6 @@ from instancesegmentation_tpu_torch.core.tiff import decode_tiff
 from instancesegmentation_tpu_torch.core.webp import decode_webp, is_webp
 from instancesegmentation_tpu_torch.ops.native.jpeg import SIGNATURE as JPEG_SIGNATURE
 from instancesegmentation_tpu_torch.ops.native.jpeg import decode_jpeg
-
-#: the ISO-BMFF brands that libavif (cv2's AVIF decoder) takes
-_AVIF_BRANDS = (b"avif", b"avis")
-
-
-def _is_avif(data: bytes) -> bool:
-    """An ISO-BMFF file whose leading ``ftyp`` box names ``avif`` or
-    ``avis`` as its major brand or among its compatible brands, the test
-    libavif's parse applies first."""
-    if len(data) < 16 or data[4:8] != b"ftyp":
-        return False
-    size = struct.unpack(">I", data[:4])[0]
-    if size < 16 or size % 4:
-        return False
-    box = data[8:min(size, len(data))]
-    brands = [box[:4]] + [box[i:i + 4] for i in range(8, len(box) - 3, 4)]
-    return any(b in _AVIF_BRANDS for b in brands)
-
-
-def _other_format(data: bytes) -> str | None:
-    """The format cv2 decodes that the port does not (AVIF), or None."""
-    return "AVIF" if _is_avif(data) else None
-
 
 def _decoder(data: bytes, read_file: bool):
     """The decoder that claims ``data``'s leading bytes, or None."""
@@ -150,6 +135,8 @@ def _decoder(data: bytes, read_file: bool):
         return decode_webp
     if data.startswith(JPEG2000_SIGNATURES):
         return decode_jpeg2000
+    if is_avif(data):
+        return decode_avif
     return None
 
 
@@ -158,9 +145,6 @@ def _decode(data: bytes, mode: str, path: str, read_file: bool) -> np.ndarray:
         raise ValueError(f"unknown read mode {mode!r}")
     decode = _decoder(data, read_file)
     if decode is None:
-        name = _other_format(data)
-        if name is not None:
-            raise UnsupportedImage(f"{path}: {name} files are not decoded (ROADMAP A10 part 3)")
         what = "empty data" if not data else "no decoder claims its leading bytes"
         raise FileNotFoundError(f"cannot decode image: {path} ({what})")
     try:

@@ -2,7 +2,7 @@
 
 Each source (``rle.cpp``, ``jpeg.cpp``, ``jpeg_enc.cpp``, ``image_codes.cpp``,
 ``text.cpp``, ``webp.cpp``, ``webp_enc.cpp``, ``jpeg2000.cpp``,
-``jpeg2000_enc.cpp``) is compiled
+``jpeg2000_enc.cpp``, ``av1.cpp``) is compiled
 with ``g++`` on first use into ``build/native/`` at the repository root,
 named by a hash of the source (a changed source builds afresh), through a
 temporary file and an atomic rename so that concurrent processes never load
@@ -10,10 +10,11 @@ a half-written library, and loaded with ctypes.  Every caller of the RLE
 library has a NumPy path: ``load_native()`` returns None when no compiler
 is found or the build fails.
 The JPEG codecs, the image decoders' codes, the WebP codecs, the JPEG
-2000 codecs and the text rasteriser have none: ``ops/native/jpeg.py``,
-``ops/native/image_codes.py``, ``ops/native/webp.py``,
-``ops/native/jpeg2000.py`` and ``core/text.py`` raise with the compiler's
-message (``build_library``).  No source is built with ``-march`` or
+2000 codecs, the AV1 decoder and the text rasteriser have none:
+``ops/native/jpeg.py``, ``ops/native/image_codes.py``,
+``ops/native/webp.py``, ``ops/native/jpeg2000.py``, ``ops/native/av1.py``
+and ``core/text.py`` raise with the compiler's message
+(``build_library``).  No source is built with ``-march`` or
 ``-ffast-math``, and ``-ffp-contract=off`` keeps g++ from fusing a product
 and a sum (the JPEG 2000 9/7 wavelet and colour transform round as
 OpenJPEG's do, and the encoder's rate allocation compares OpenJPEG's
@@ -41,7 +42,7 @@ _failed = False
 
 def lib_path(src: Path = SRC) -> Path:
     """Path of the library built from the current ``src`` and the headers
-    beside it (``jpeg_tables.h``)."""
+    beside it (``jpeg_tables.h``, ``av1_tables.h``)."""
     text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.h")))
     digest = hashlib.sha256(text + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"

@@ -288,9 +288,10 @@ def test_list_images_filters_extensions(tmp_path):
 def test_jpeg_raises_naming_the_file(mode, tmp_path):
     """A listed BMP decodes as cv2 decodes it since the BMP codec landed (RLE
     too, since its decoder landed; a TIFF, a WebP and a JPEG 2000 too, since
-    their decoders landed); a listed image of a form the port does not
-    decode (an AVIF named ``.bmp``: cv2 goes by content; ROADMAP A10 part 3)
-    is never skipped: the command raises ``UnsupportedImage`` naming the
+    their decoders landed; an 8-bit AVIF too, since its decoder landed); a
+    listed image of a form the port does not decode (a 10-bit AVIF named
+    ``.bmp``: cv2 goes by content; ROADMAP A10 part 3, step 6b) is never
+    skipped: the command raises ``UnsupportedImage`` naming the
     file, here before it writes anything."""
     img = tmp_path / "img"
     img.mkdir()
@@ -321,6 +322,12 @@ def test_jpeg_raises_naming_the_file(mode, tmp_path):
                                   cv2.imread(str(img / "d.bmp"))[..., ::-1])
     (img / "d.bmp").unlink()
     ok, avif = cv2.imencode(".avif", np.tile(pixels, (2, 2, 1)))
+    (img / "d.bmp").write_bytes(avif.tobytes())
+    np.testing.assert_array_equal(imread(str(img / "d.bmp")),
+                                  cv2.imread(str(img / "d.bmp"))[..., ::-1])
+    (img / "d.bmp").unlink()
+    ok, avif = cv2.imencode(".avif", np.tile(pixels, (2, 2, 1)).astype(np.uint16) * 257,
+                            [cv2.IMWRITE_AVIF_DEPTH, 10])
     (img / "c.bmp").write_bytes(avif.tobytes())
     assert cv2.imread(str(img / "c.bmp")) is not None
     (tmp_path / "props.json").write_text(json.dumps({"c": {"boxes": [[0, 0, 9, 9]],

@@ -297,12 +297,13 @@ def test_supervisely_class_whitelist(tmp_path):
 
 
 def test_unsupported_images_are_not_skipped(tmp_path):
-    """cv2 reads an AVIF that the port does not decode (ROADMAP A10 part 3;
-    an RLE BMP, a TIFF, a WebP, then a JPEG 2000, served here until their
-    decoders landed): the port's converter stops with ``UnsupportedImage``
-    where a skip would drop an image that the JAX package converts.  The
-    same tree with a WebP, or a JPEG 2000, in that place converts as the JAX
-    package converts it, file for file."""
+    """cv2 reads a 10-bit AVIF that the port does not decode (ROADMAP A10
+    part 3, step 6b; an RLE BMP, a TIFF, a WebP, a JPEG 2000, then an 8-bit
+    AVIF, served here until their decoders landed): the port's converter
+    stops with ``UnsupportedImage`` where a skip would drop an image that
+    the JAX package converts.  The same tree with a WebP, a JPEG 2000 or an
+    8-bit AVIF in that place converts as the JAX package converts it, file
+    for file."""
     img_dir, ann_path = _coco_tree(str(tmp_path / "src"), gray_jpeg=False)
     pixels = np.random.default_rng(5).integers(0, 256, (96, 128, 3), dtype=np.uint8)
     ok, webp = cv2.imencode(".webp", pixels)
@@ -318,6 +319,12 @@ def test_unsupported_images_are_not_skipped(tmp_path):
     assert jconv.transfer_coco(img_dir, ann_path, str(tmp_path / "jax_jp2"), progress=False) == 4
     _same_tree(str(tmp_path / "port_jp2"), str(tmp_path / "jax_jp2"), image_bytes=True)
     ok, avif = cv2.imencode(".avif", pixels)
+    with open(os.path.join(img_dir, "0000.jpg"), "wb") as f:
+        f.write(avif.tobytes())
+    assert tconv.transfer_coco(img_dir, ann_path, str(tmp_path / "port_avif"), progress=False) == 4
+    assert jconv.transfer_coco(img_dir, ann_path, str(tmp_path / "jax_avif"), progress=False) == 4
+    _same_tree(str(tmp_path / "port_avif"), str(tmp_path / "jax_avif"), image_bytes=True)
+    ok, avif = cv2.imencode(".avif", pixels.astype(np.uint16) * 257, [cv2.IMWRITE_AVIF_DEPTH, 10])
     with open(os.path.join(img_dir, "0000.jpg"), "wb") as f:
         f.write(avif.tobytes())
     assert cv2.imread(os.path.join(img_dir, "0000.jpg")) is not None

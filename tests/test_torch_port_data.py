@@ -151,9 +151,9 @@ def test_png_filters_and_colour_types_match_cv2(tmp_path, color, filters):
 def test_png_raises(tmp_path):
     """What ``read_png`` refused before the remaining PNG forms were ported
     (16 bits, palettes, Adam7, a colour file read as gray) now reads as cv2
-    reads it, and so do a WebP and a JPEG 2000 since their decoders landed;
-    corrupt files and the format the port does not decode (AVIF) still
-    raise."""
+    reads it, and so do a WebP, a JPEG 2000 and an 8-bit AVIF since their
+    decoders landed; corrupt files and a form the port does not decode (a
+    10-bit AVIF, ROADMAP A10 part 3, step 6b) still raise."""
     px = np.random.default_rng(9).integers(0, 256, (4, 5, 3), dtype=np.uint8)
 
     def write(name, data):
@@ -183,8 +183,12 @@ def test_png_raises(tmp_path):
     jp2_path = write("image.jp2", jp2.tobytes())
     np.testing.assert_array_equal(imread(jp2_path), _cv2_color(jp2_path))
     ok, avif = cv2.imencode(".avif", np.tile(px, (16, 16, 1)))
-    with pytest.raises(UnsupportedImage, match="A10 part 3"):
-        imread(write("image.avif", avif.tobytes()))
+    avif_path = write("image.avif", avif.tobytes())
+    np.testing.assert_array_equal(imread(avif_path), _cv2_color(avif_path))
+    ok, avif = cv2.imencode(".avif", np.tile(px, (16, 16, 1)).astype(np.uint16) * 257,
+                            [cv2.IMWRITE_AVIF_DEPTH, 10])
+    with pytest.raises(UnsupportedImage, match="A10 part 3, step 6b"):
+        imread(write("image10.avif", avif.tobytes()))
     corrupt = bytearray(_encode(px, 2, [0] * 4))
     corrupt[40] ^= 0xFF  # inside IDAT: its CRC no longer holds
     with pytest.raises(ValueError, match="CRC"):

@@ -10,7 +10,8 @@ package's readers, which are ``cv2.imread`` (CPU): every pixel equal.
 - ``imread``'s split: ``FileNotFoundError`` exactly where cv2 returns None,
   ``ValueError`` naming ROADMAP A10 for valid files it does not decode;
   the sweep over every format cv2 writes here (C3) and the AVIF and
-  BigTIFF signatures;
+  BigTIFF signatures (AVIF's decoder is held to cv2 in
+  ``test_torch_port_avif.py``);
 - JPEG: quality 50 and 95, 4:4:4, 4:2:2 and 4:2:0, progressive, optimised
   tables, restart markers, gray files, odd sizes, APP1 orientations, files
   cut in their scan data (block smoothing of a cut progressive file);
@@ -261,9 +262,13 @@ def test_imread_raises_where_cv2_returns_none(tmp_path):
     # JPEG 2000 is decoded since its decoder landed
     ok, jp2 = cv2.imencode(".jp2", _picture(64, 64))  # OpenJPEG needs 33+ pixels a side
     _same_as_jax(_write(tmp_path / "image.jp2", jp2.tobytes()))
-    # the form that stays out (ROADMAP A10 part 3) raises, never skips
+    # AVIF is decoded since its decoder landed
     ok, avif = cv2.imencode(".avif", _picture(64, 64))
-    unsupported = {"image.avif": avif.tobytes()}
+    _same_as_jax(_write(tmp_path / "image.avif", avif.tobytes()))
+    # a form that stays out (ROADMAP A10 part 3, step 6b) raises, never skips
+    ok, avif = cv2.imencode(".avif", _picture(64, 64).astype(np.uint16) * 257,
+                            [cv2.IMWRITE_AVIF_DEPTH, 10])
+    unsupported = {"image10.avif": avif.tobytes()}
     for name, data in unsupported.items():
         path = _write(tmp_path / name, data)
         assert cv2.imread(path) is not None, name
@@ -296,6 +301,8 @@ def _writers(img):
         ok, buf = cv2.imencode(ext, src, list(params))
         assert ok, ext
         out[f"{ext[1:]}_{src.ndim}d_{len(params)}"] = buf.tobytes()
+    ok, buf = cv2.imencode(".avif", img.astype(np.uint16) * 257, [cv2.IMWRITE_AVIF_DEPTH, 10])
+    out["avif10"] = buf.tobytes()
     rgb = Image.fromarray(img[..., ::-1].copy())
     for name, kwargs in (("bigtiff", dict(format="TIFF", big_tiff=True)),
                          ("cmyk_jpeg", dict(format="JPEG"))):
@@ -310,8 +317,9 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
     """C3: for every format cv2 writes here (and PIL's BigTIFF and CMYK
     JPEG), in both read modes, the port does exactly one of: decode equal
     to ``cv2.imread``; raise ``UnsupportedImage`` where cv2 decodes; raise
-    ``FileNotFoundError`` where cv2 returns None.  AVIF raises
-    ``UnsupportedImage``; PIL's CMYK JPEG is decoded (since the JPEG
+    ``FileNotFoundError`` where cv2 returns None.  A 10-bit AVIF raises
+    ``UnsupportedImage`` (ROADMAP A10 part 3, step 6b); cv2's 8-bit AVIF is
+    decoded (since the AVIF decoder landed); PIL's CMYK JPEG is decoded (since the JPEG
     decoder took every form cv2 reads), cv2's TIFF and PIL's BigTIFF (since
     the TIFF decoder landed), cv2's lossy and lossless WebP (since the WebP
     decoder landed) and cv2's JPEG 2000 (since the JPEG 2000 decoder
@@ -336,9 +344,9 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
             want = want[..., ::-1] if want.ndim == 3 else want
             np.testing.assert_array_equal(got, want, err_msg=f"{name} {mode}")
             outcome[name, mode] = "decoded"
-    assert outcome["avif_3d_0", "color"] == outcome["avif_3d_0", "gray"] == "unsupported"
+    assert outcome["avif10", "color"] == outcome["avif10", "gray"] == "unsupported"
     for name in ("cmyk_jpeg", "bigtiff", "tiff_3d_0", "tiff_2d_0", "webp_3d_0", "webp_3d_2",
-                 "jp2_3d_0"):
+                 "jp2_3d_0", "avif_3d_0"):
         assert outcome[name, "color"] == outcome[name, "gray"] == "decoded", name
     assert outcome["openexr_magic", "color"] == "none"
     assert outcome["pfm_3d_0", "gray"] == outcome["pfm_2d_0", "color"] == "none"
@@ -349,17 +357,19 @@ def test_every_format_cv2_writes_decodes_or_raises_as_cv2(tmp_path):
 
 def test_avif_brands_and_bigtiff_signatures():
     """The sniff of C3: an ``ftyp`` box naming ``avif`` or ``avis`` as its
-    major or a compatible brand raises ``UnsupportedImage``; other ISO-BMFF
-    brands, OpenEXR and a bare BigTIFF header of either byte order (whose
-    first directory libtiff cannot read, since the TIFF decoder landed)
-    ``FileNotFoundError`` (cv2 returns None for them here)."""
+    major or a compatible brand goes to the AVIF decoder, which finds no
+    ``meta`` box after it (since the AVIF decoder landed; it raised
+    ``UnsupportedImage`` before); other ISO-BMFF brands, OpenEXR and a bare
+    BigTIFF header of either byte order (whose first directory libtiff
+    cannot read, since the TIFF decoder landed): all ``FileNotFoundError``
+    (cv2 returns None for them here)."""
     def ftyp(major, compatible):
         body = major + b"\x00\x00\x00\x00" + b"".join(compatible)
         return struct.pack(">I", 8 + len(body)) + b"ftyp" + body + bytes(32)
 
     for data in (ftyp(b"avif", [b"mif1"]), ftyp(b"avis", []), ftyp(b"mif1", [b"miaf", b"avif"]),
                  ftyp(b"heic", [b"avis"])):
-        with pytest.raises(UnsupportedImage, match="A10 part 3"):
+        with pytest.raises(FileNotFoundError, match="AVIF: no ftyp, or the meta or moov box"):
             imdecode(data)
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
     for data in (ftyp(b"heic", [b"mif1"]), ftyp(b"isom", [b"mp41"]),
