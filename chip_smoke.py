@@ -40,12 +40,17 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    whose rows do not fit in shared memory, NaN in rows, in columns and a
    whole NaN row), one launch per call; and
    both two-level rotated
-   warp kernels (``warp_2level``, one tiled launch, and ``warp_2level_fused``)
+   warp kernels (``warp_2level``, one tiled launch, and ``warp_2level_fused``,
+   one launch of the sweep that allocates nothing beyond its output)
    at the training shape (batch 32, 640 -> 480, draws with rotate 25 incl.
    samples at 0, flips, jitter 0.1, boxes moved so the centring translation
    cuts content off) within 1e-2 on the 0-255 scale of the plain version,
    and bit-equal to each other, also with tile plans too small for the
-   samples (sub-tiles, and rows read straight from pass 1);
+   samples (sub-tiles, and rows read straight from pass 1), and on a harder
+   set (``warp_hard_cases``: +-25 deg at the scale bound, batch 1 and 33,
+   an output width off the strip, a canvas row of 1,914 bytes from an
+   unaligned address, a NaN sample, sweep plans with a small ring and small
+   stage buffers);
 4. serve at full width from seeded random weights with random running
    statistics: the 20-channel instance program at 480 px over a batch of 128
    in bfloat16 (with the launch counts read around that one dispatch: 2
@@ -297,6 +302,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import math
@@ -4274,6 +4280,71 @@ def visual_qa_phase(dev, card: str, w2) -> dict:
     return out
 
 
+def warp_hard_cases(w2, wargs, plan, scale_x_max: float) -> dict:
+    """The sweep (``warp_2level_fused``) against the tiled kernel, bit for
+    bit, one launch per call, on inputs beyond the training draws: every
+    sample at +-25 deg and +-``scale_x_max`` (the plan's bounds), batch 1 and
+    33, an output width that is not a multiple of the strip, a canvas 638
+    pixels wide (rows of 1,914 bytes) whose image and mask start 5 and 3
+    bytes past an aligned address, a NaN sample, and plans too small for
+    the samples (a ring a third of the plan's and one of 8 rows: halved
+    steps and rows read straight from pass 1; stage buffers of 3 rows of 16
+    bytes: rows staged in pieces or read from device memory).  Within 1e-2
+    of the plain version where that has no NaN."""
+    image, mask, params, out_hw, theta, block = wargs
+    b = image.shape[0]
+    th = torch.tensor([math.radians(theta), -math.radians(theta)] * (b // 2) + [0.0] * (b % 2),
+                      device=image.device)
+    sign = torch.tensor([1.0, -1.0], device=image.device).repeat(b // 2 + 1)[:b]
+    bound = params._replace(
+        scale=torch.stack([torch.full_like(sign, scale_x_max), sign * scale_x_max], 1),
+        cos_sin=torch.stack([torch.cos(th), torch.sin(th)], 1))
+    cat33 = type(params)(*(torch.cat([f, f[:1]]) for f in params))
+
+    def offset_copy(t, skip):
+        buf = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+        view = buf[skip:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    narrow = (offset_copy(image[:, :, :638].contiguous(), 5),
+              offset_copy(mask[:, :, :638].contiguous(), 3))
+    nan = params.cos_sin.clone()
+    nan[3, 0] = float("nan")
+    cases = {
+        "pm25_at_scale_bound": (image, mask, bound, out_hw, None),
+        "batch1": (image[:1], mask[:1], type(params)(*(f[:1] for f in params)), out_hw, None),
+        "batch33": (torch.cat([image, image[:1]]), torch.cat([mask, mask[:1]]), cat33, out_hw,
+                    None),
+        "out_w_470": (image, mask, params, (out_hw[0], 470), None),
+        "stride_1914_unaligned": (*narrow, params, out_hw, None),
+        "nan_sample": (image, mask, params._replace(cos_sin=nan), out_hw, None),
+        "small_ring": (image, mask, params, out_hw, plan._replace(ring_rows=plan.ring_rows // 3)),
+        "ring_8_rows": (image, mask, params, out_hw, plan._replace(ring_rows=8)),
+        "small_stage": (image, mask, params, out_hw,
+                        plan._replace(stage_rows=3, stage_rgb=16, stage_mask=16)),
+    }
+    out = {}
+    for name, (img, msk, prm, hw, small) in cases.items():
+        tiled = w2.warp_2level(img, msk, prm, hw, theta, block)
+        before = w2.warp_2level_fused.launches
+        if small is None:
+            sweep = w2.warp_2level_fused(img, msk, prm, hw, theta, block)
+        else:
+            sweep = w2._sweep(img, msk, prm, hw, theta, block, None, small)
+        check(w2.warp_2level_fused.launches == before + 1,
+              f"warp_2level_fused {name}: one launch per call")
+        check(bool(torch.isfinite(sweep).all()), f"warp_2level_fused {name}: finite")
+        exact((tiled,), (sweep,), f"warp_2level vs warp_2level_fused, {name} (bit-equal)")
+        err = None
+        if name != "nan_sample":
+            err = max_err(sweep, w2.warp_2level_reference(img, msk, prm, hw, theta, block), 1e-2,
+                          0.0, f"warp_2level_fused {name} {list(sweep.shape)}")
+        out[name] = {"shape": list(sweep.shape), "bit_equal_to_tiled": True,
+                     "max_abs_err_vs_plain": err}
+    return out
+
+
 def grid_sample_yardstick(image, mask, params, out_hw):
     """``F.grid_sample`` (one-pass bilinear, zero padding) of the float NCHW
     canvas + mask through the same rotated window: the gather sampler's
@@ -4354,12 +4425,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
     # ptxas reports (registers, spills, stack, static shared memory) of the
-    # two banded chain kernels, the nms and tiled warp kernels, roi_align's
-    # order and gather (its first instantiation) and the cluster matcher
+    # two banded chain kernels, the nms kernel, both warp kernels (tiled and
+    # the sweep), roi_align's order and gather (its first instantiation) and
+    # the cluster matcher
     ptxas = {}
     for src, kernel in (("fused_chain.cu", "fused_chain_banded_kernel"),
                         ("fused_chain.cu", "fused_chain_banded_f32_kernel"),
                         ("nms.cu", "nms_kernel"), ("warp_2level.cu", "warp_2level_tiled_kernel"),
+                        ("warp_2level.cu", "warp_2level_sweep_kernel"),
                         ("roi_align.cu", "roi_order_kernel"),
                         ("roi_align.cu", "roi_align_kernel"),
                         ("matching.cu", "match_cluster_kernel")):
@@ -4369,8 +4442,9 @@ def main() -> int:
             continue
         ptxas[kernel] = ptxas_report(log, kernel)
         print(f"ptxas {kernel}: {ptxas[kernel]}")
-        check("spill" not in ptxas[kernel] or
-              "0 bytes spill stores, 0 bytes spill loads" in ptxas[kernel],
+        # the kernel's own line (device functions it calls report theirs after it)
+        own = next((part for part in ptxas[kernel].split(" | ") if "spill" in part), "")
+        check(not own or "0 bytes spill stores, 0 bytes spill loads" in own,
               f"{kernel} spills registers")
     # the int8 conv's instantiations (input, output type, N tiles), each
     # checked for spills, and the dense ones' tensor-core MMAs in the SASS
@@ -4627,9 +4701,27 @@ def main() -> int:
     tiled = w2.warp_2level(*wargs)
     check(w2.warp_2level.launches == before + 1, "warp_2level: one launch per call")
     errs["warp_2level"] = max_err(tiled, want, 1e-2, 0.0, f"warp_2level {shape}")
+    sweep_plan = w2.plan_sweep(float(aug.rotate), aug.rotate_block,
+                               (tcfg.canvas + 2 * SRC_PAD) / aug.out_size[1], tuple(aug.out_size))
+    print(f"warp_2level_fused sweep plan: {sweep_plan._asdict()}, "
+          f"{sweep_plan.smem_bytes} bytes of dynamic shared memory per CTA")
+    # one launch, and no device memory beyond the output, also at the peak
+    torch.cuda.synchronize()
+    before, mem0 = w2.warp_2level_fused.launches, torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     fused = w2.warp_2level_fused(*wargs)
+    torch.cuda.synchronize()
+    out_bytes = -(-fused.numel() * 4 // 512) * 512
+    fused_mem = {"out_bytes": out_bytes, "delta": torch.cuda.memory_allocated() - mem0,
+                 "peak_delta": torch.cuda.max_memory_allocated() - mem0}
+    print(f"warp_2level_fused: device memory of one call {fused_mem}")
+    check(w2.warp_2level_fused.launches == before + 1, "warp_2level_fused: one launch per call")
+    check(fused_mem["delta"] == fused_mem["peak_delta"] == out_bytes,
+          "warp_2level_fused: no device allocation beyond the output")
     errs["warp_2level_fused"] = max_err(fused, want, 1e-2, 0.0, f"warp_2level_fused {shape}")
     exact((tiled,), (fused,), "warp_2level vs warp_2level_fused (bit-equal)")
+    warp_hard = warp_hard_cases(w2, wargs, sweep_plan, float(tcfg.canvas + 2 * SRC_PAD)
+                                / aug.out_size[1])
     # plans too small for these samples: sub-tiles along u, and one-row
     # sub-tiles read straight from pass 1; both still bit-equal
     for cap in (plan.cap_rows // 3, 8):
@@ -5200,7 +5292,16 @@ def main() -> int:
     warp_ms = cuda_ms(lambda: w2.warp_2level(*wargs), iters=20)
     warp_kernel = device_ms(lambda: w2.warp_2level(*wargs), "warp_2level_tiled_kernel")
     fused_ms = cuda_ms(lambda: w2.warp_2level_fused(*wargs), iters=20)
-    fused_kernel = device_ms(lambda: w2.warp_2level_fused(*wargs), "warp_2level_fused_kernel")
+    fused_kernel = device_ms(lambda: w2.warp_2level_fused(*wargs), "warp_2level_sweep_kernel")
+    # the two warp kernels in turns (tiled, sweep, sweep, tiled): kernel
+    # device ms and call ms
+    warp_turns = {"tiled": [], "sweep": []}
+    for name in ("tiled", "sweep", "sweep", "tiled"):
+        run, kname = ((functools.partial(w2.warp_2level, *wargs), "warp_2level_tiled_kernel")
+                      if name == "tiled" else
+                      (functools.partial(w2.warp_2level_fused, *wargs), "warp_2level_sweep_kernel"))
+        warp_turns[name].append({"kernel_ms": device_ms(run, kname), "call_ms": cuda_ms(run, 20)})
+    print(f"warp kernels in turns (tiled, sweep, sweep, tiled): {json.dumps(warp_turns)}")
     warp_plain = cuda_ms(lambda: w2.warp_2level_reference(*wargs), iters=3, warmup=1)
     grid_ms = cuda_ms(grid_sample_yardstick(tbatch["image"], tbatch["mask"], wparams,
                                                    aug.out_size), iters=20)
@@ -5211,12 +5312,14 @@ def main() -> int:
              "preprocess_ms": pre_ms, "warp_2level_ms": warp_ms,
              "warp_2level_kernel_ms": warp_kernel, "warp_2level_fused_ms": fused_ms,
              "warp_2level_fused_kernel_ms": fused_kernel,
+             "warp_turns": warp_turns, "warp_2level_fused_plan": sweep_plan._asdict(),
+             "warp_2level_fused_memory": fused_mem, "warp_2level_fused_hard_cases": warp_hard,
              "warp_plain_ms": warp_plain, "warp_bound_ms": warp_bound, "warp_bound_by": warp_by,
              "grid_sample_yardstick_ms": grid_ms, "step_vs_cpu": step_vs_cpu}
     print(f"time train step [{TRAIN_BATCH}, 640 -> 480] bf16: {step_ms:.2f} ms "
           f"({TRAIN_BATCH / step_ms * 1e3:.1f} img/s), of which preprocessing {pre_ms:.2f} ms, "
-          f"warp_2level {warp_ms:.3f} ms per call, kernel {warp_kernel:.4f} ms (fused "
-          f"{fused_ms:.3f} ms, kernel {fused_kernel:.4f} ms; plain {warp_plain:.2f} ms, bound "
+          f"warp_2level {warp_ms:.3f} ms per call, kernel {warp_kernel:.4f} ms (fused, the "
+          f"sweep, {fused_ms:.3f} ms, kernel {fused_kernel:.4f} ms; plain {warp_plain:.2f} ms, bound "
           f"{warp_bound:.4f} ms by {warp_by}; grid_sample yardstick {grid_ms:.3f} ms)")
     print(json.dumps({"train_bf16_480": train, "card": card}))
 
@@ -5380,7 +5483,9 @@ def main() -> int:
          "max_abs_err": errs["warp_2level_fused"], "ms": fused_ms, "kernel_ms": fused_kernel,
          "plain_ms": warp_plain,
          "bound_ms": warp_bound, "bound_by": warp_by, "library_ms": None,
-         "grid_sample_yardstick_ms": grid_ms, "shape": shape},
+         "grid_sample_yardstick_ms": grid_ms, "shape": shape,
+         "plan": sweep_plan._asdict(), "turns_with_tiled": warp_turns, "memory": fused_mem,
+         "hard_cases": sorted(warp_hard), "ptxas": ptxas.get("warp_2level_sweep_kernel")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,8 +15,10 @@ A CPU tensor runs ``warp_2level_reference``.  A CUDA tensor launches the
 kernels of ``csrc/warp_2level.cu`` or raises: ``warp_2level`` is one launch
 of the tiled kernel per call (counted in ``warp_2level.launches``), each CTA
 one output tile whose pass-1 rows stay in shared memory, laid out by
-``plan_tiles``; ``warp_2level_fused`` is one launch of the cluster kernel
-(``warp_2level_fused.launches``).
+``plan_tiles``; ``warp_2level_fused`` is one launch of the sweep
+(``warp_2level_fused.launches``), each CTA one sample and strip of output
+columns swept down the output rows with its pass-1 rows in a shared-memory
+ring, laid out by ``plan_sweep``.
 """
 from __future__ import annotations
 
@@ -100,10 +102,11 @@ class TilePlan(NamedTuple):
     grid: tuple
 
 
-def _centre_spread(out_w: int, block: int) -> int:
-    """The largest spread of block centres over the columns of one tile."""
-    return max((min(v0 + TILE_V, out_w) - 1) // block * block - v0 // block * block
-               for v0 in range(0, out_w, TILE_V))
+def _centre_spread(out_w: int, block: int, width: int = TILE_V) -> int:
+    """The largest spread of block centres over the columns of one tile (or
+    strip) of ``width`` columns."""
+    return max((min(v0 + width, out_w) - 1) // block * block - v0 // block * block
+               for v0 in range(0, out_w, width))
 
 
 @functools.lru_cache(maxsize=64)
@@ -207,28 +210,132 @@ def warp_2level(image: torch.Tensor, mask: torch.Tensor, params: RotWarpParams, 
 warp_2level.launches = 0
 
 
+#: output columns per CTA of the sweep (``csrc/warp_2level.cu:W2_SWEEP_S``)
+SWEEP_STRIP = 64
+#: the sweep's plan shared memory per CTA: two CTAs per SM of an H100 (the
+#: 256 CTAs of 32 x 640 -> 480 all resident)
+SWEEP_SMEM_BYTES = 112 * 1024
+#: the most output rows a step of the sweep takes
+SWEEP_CHUNK_MAX = 32
+#: bytes of a staged canvas row's entry in the stage table (``StageRow``)
+STAGE_ROW_BYTES = 32
+#: the stage buffers' two transaction barriers (``W2_SWEEP_BARRIER_BYTES``)
+SWEEP_BARRIER_BYTES = 16
+
+
+class SweepPlan(NamedTuple):
+    """The sweep's layout: CTAs of ``strip`` (``SWEEP_STRIP``) output
+    columns of one sample,
+    stepping ``chunk_u`` output rows at a time; ``ring_rows`` rows of tmp
+    in shared memory; two stage buffers of ``stage_rows`` canvas rows, each
+    ``stage_rgb`` RGB and ``stage_mask`` mask bytes (multiples of 16);
+    ``grid`` is (strips,) per sample.  The ring holds two more rows, which
+    mirror its first two."""
+
+    strip: int
+    chunk_u: int
+    ring_rows: int
+    stage_rows: int
+    stage_rgb: int
+    stage_mask: int
+    grid: tuple
+
+    @property
+    def smem_bytes(self) -> int:
+        return (SWEEP_BARRIER_BYTES + (self.ring_rows + 2) * self.strip * 16
+                + 2 * self.stage_rows * (STAGE_ROW_BYTES + self.stage_rgb + self.stage_mask))
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def plan_sweep(theta_max_deg: float, block: int, scale_x_max: float, out_hw) -> SweepPlan:
+    """The sweep's layout from bounds the wrapper knows, with no read of the
+    per-sample coefficients: |theta| <= ``theta_max_deg`` and |a_y|, |a_x|
+    <= ``scale_x_max``.  A step of ``cu`` output rows reads the band of
+    ``rows(cu) = floor(s (cu - 1) + s sin(theta) spread) + 2 d2 + 4`` canvas
+    rows (``plan_tiles``' bound), which the ring holds; the band's front
+    moves at most ``floor(s cu) + 1`` rows a step, which a stage buffer holds
+    (+ 1 for rounding); a canvas row's window over a strip is at most
+    ``floor(s / cos(theta) (strip - 1)) + 4`` pixels (+ 1), ``|Ax| = |a_x| /
+    cos(theta)``, staged in 16-byte chunks (+ 30 bytes of alignment).  Takes
+    the largest step within ``SWEEP_SMEM_BYTES``; a sample beyond the
+    bounds is handled by the kernel itself."""
+    out_h, out_w = out_hw
+    strip = SWEEP_STRIP
+    _, d2 = two_level_bands(theta_max_deg, block, scale_x_max)
+    s = abs(float(scale_x_max))
+    t = math.radians(abs(float(theta_max_deg)))
+    spread = s * math.sin(t) * _centre_spread(out_w, block, strip)
+    px = math.floor(s / math.cos(t) * (strip - 1)) + 5
+    rgb, msk = _round16(3 * px + 30), _round16(px + 30)
+
+    def rows(cu: int) -> int:
+        return math.floor(s * (cu - 1) + spread) + 2 * d2 + 4
+
+    def stage_rows(cu: int) -> int:
+        return math.floor(s * cu) + 2
+
+    def smem(cu: int, rgb: int, msk: int) -> int:
+        return SweepPlan(strip, cu, rows(cu), stage_rows(cu), rgb, msk, ()).smem_bytes
+
+    fits = [cu for cu in range(1, min(out_h, SWEEP_CHUNK_MAX) + 1)
+            if smem(cu, rgb, msk) <= SWEEP_SMEM_BYTES]
+    grid = (-(-out_w // strip),)
+    if fits:
+        cu = max(fits)
+        return SweepPlan(strip, cu, rows(cu), stage_rows(cu), rgb, msk, grid)
+    # not even one row fits: narrow stage rows, the largest ring beside them
+    rgb, msk = min(rgb, 1024), min(msk, 512)
+    stage = SweepPlan(strip, 1, 0, stage_rows(1), rgb, msk, grid)
+    ring = (MAX_SMEM_BYTES - stage.smem_bytes) // (strip * 16)
+    return stage._replace(ring_rows=max(1, min(rows(1), ring)))
+
+
+def _sweep(image, mask, params: RotWarpParams, out_hw, theta_max_deg: float, block: int,
+           scale_x_max: Optional[float], plan: Optional[SweepPlan] = None) -> torch.Tensor:
+    """One launch of the sweep on CUDA tensors, laid out by ``plan`` (default
+    ``plan_sweep``), counted in ``warp_2level_fused.launches``.  Allocates the
+    output alone: the params fields go to the kernel as they are (float32
+    and contiguous in the training path)."""
+    _check(image, mask, params)
+    b, h, w, _ = image.shape
+    out_h, out_w = out_hw
+    if scale_x_max is None:
+        scale_x_max = (w + 2 * SRC_PAD) / out_w
+    d1, d2 = two_level_bands(theta_max_deg, block, scale_x_max)
+    if plan is None:
+        plan = plan_sweep(float(theta_max_deg), block, float(scale_x_max), tuple(out_hw))
+    out = torch.empty((b, out_h, out_w, 4), dtype=torch.float32, device=image.device)
+    fields = [f if f.dtype == torch.float32 and f.is_contiguous() else f.float().contiguous()
+              for f in params]
+    img, msk = image.contiguous(), mask.contiguous()
+    fused = _library("warp_2level_fused", 13, 11)
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        _raise_on(fused(img.data_ptr(), msk.data_ptr(), *(f.data_ptr() for f in fields),
+                        out.data_ptr(), b, h, w, out_h, out_w, block, d1, d2, plan.chunk_u,
+                        plan.ring_rows, plan.stage_rows, plan.stage_rgb, plan.stage_mask,
+                        stream), "warp_2level_fused")
+        warp_2level_fused.launches += 1
+    return out
+
+
 def warp_2level_fused(image: torch.Tensor, mask: torch.Tensor, params: RotWarpParams, out_hw,
                       theta_max_deg: float, block: int = 16,
                       scale_x_max: Optional[float] = None) -> torch.Tensor:
-    """``warp_2level`` in one launch (a thread-block cluster per sample, tmp
-    in a global scratch); counted in ``warp_2level_fused.launches``.  A CPU
-    tensor runs ``warp_2level_reference``."""
+    """``warp_2level`` in one launch of the sweep (a CTA per sample and
+    strip of output columns, tmp in a shared-memory ring); counted in
+    ``warp_2level_fused.launches``.  A CPU tensor runs
+    ``warp_2level_reference``."""
     out_hw = tuple(out_hw)
     if not _on_card(image, "warp_2level_fused"):
         _check(image, mask, params)
         return warp_2level_reference(image, mask, params, out_hw, theta_max_deg, block,
                                      scale_x_max)
-    dims, out, table, _ = _prepare(image, mask, params, out_hw, theta_max_deg, block,
-                                   scale_x_max)
-    tmp = torch.empty((dims[0], dims[1], dims[4], 4), dtype=torch.float32, device=image.device)
-    img, msk = image.contiguous(), mask.contiguous()
-    fused = _library("warp_2level_fused", 8, 5)
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        _raise_on(fused(img.data_ptr(), msk.data_ptr(), table.data_ptr(), tmp.data_ptr(),
-                        out.data_ptr(), *dims, stream), "warp_2level_fused")
-        warp_2level_fused.launches += 1
-    return out
+    return _sweep(image, mask, params, out_hw, theta_max_deg, block, scale_x_max)
 
 
 warp_2level_fused.launches = 0

@@ -5,6 +5,7 @@ one NVIDIA GPU.
     python3 profile_port.py --train  # the train step only
     python3 profile_port.py --trainer  # the trainer from disk beside its step
     python3 profile_port.py --detection  # roi_align and match_proposals forms
+    python3 profile_port.py --warp   # the two warp kernels at the train shape
     python3 profile_port.py --trace-check  # the profiler's spans per trace
 
 On seeded random weights, at batch 128 in bfloat16, it times with CUDA
@@ -24,7 +25,11 @@ forward and loss, the backward and the Adam update, with one trace.
 (``trainer_breakdown``).  ``--detection`` times the detection kernels alone at ``chip_smoke.py``'s
 shapes (``detection_breakdown``): ``roi_align`` with and without its
 locality order over a range of ROI counts at both poolers, and
-``match_proposals``' two forms.  ``--trace-check`` counts the spans
+``match_proposals``' two forms.  ``--warp`` holds the two-level warp's
+kernels against each other at the train cell's shape and params (the tiled
+``warp_2level`` and the sweep ``warp_2level_fused``, bit for bit) and times
+them in turns (``warp_breakdown``), with their ptxas reports.
+``--trace-check`` counts the spans
 ``torch.profiler`` returns per trace, in a child process per CUPTI
 setting (``trace_check``).  Each prints one JSON object as its last line,
 after the card's name and power limit.
@@ -43,13 +48,17 @@ from chip_smoke import (
     LAUNCH_RECORDS,
     SEED,
     TRAIN_BATCH,
+    bound_f32,
     card_line,
+    check,
     cuda_ms,
     device_calls,
     device_ms,
+    ptxas_report,
     random_state_dict,
     roi_inputs,
     training_batch,
+    warp_cost,
 )
 
 
@@ -436,6 +445,64 @@ def detection_breakdown(dev) -> dict:
     return out
 
 
+def warp_breakdown(dev) -> dict:
+    """The tiled warp kernel and the sweep on the train cell's batch and
+    params: bit-equal to each other, one launch per call; device ms
+    (profiler) and call ms (CUDA events) in turns (tiled, sweep, sweep,
+    tiled), beside the bound."""
+    from instancesegmentation_tpu_torch.data.pipeline import (
+        batch_to,
+        draw_augment,
+        rotated_warp_params,
+    )
+    from instancesegmentation_tpu_torch.ops import _build
+    from instancesegmentation_tpu_torch.ops import warp_2level as w2
+    from instancesegmentation_tpu_torch.ops.warp import SRC_PAD
+    from instancesegmentation_tpu_torch.train.config import TrainConfig
+    from instancesegmentation_tpu_torch.train.steps import augment_config
+
+    _build.build_all()
+    log = _build.build_log.get("warp_2level.cu", "")
+    ptxas = {k: ptxas_report(log, k) if k in log else None
+             for k in ("warp_2level_tiled_kernel", "warp_2level_sweep_kernel")}
+    for k, v in ptxas.items():
+        print(f"ptxas {k}: {v}", flush=True)
+    cfg = TrainConfig(in_channels=20, rotate=25.0, flip_prob=0.5, jitter=0.1,
+                      brightness=0.2, contrast=0.2, noise_std=5.0, batch_size=TRAIN_BATCH)
+    aug = augment_config(cfg, train=True)
+    batch = batch_to(training_batch(TRAIN_BATCH, cfg.canvas, SEED), dev)
+    draws = draw_augment(TRAIN_BATCH, aug, torch.Generator(device=dev).manual_seed(SEED))
+    params, _ = rotated_warp_params(batch, draws, aug)
+    args = (batch["image"], batch["mask"], params, aug.out_size, aug.rotate, aug.rotate_block)
+    bounds = (float(aug.rotate), aug.rotate_block, (cfg.canvas + 2 * SRC_PAD) / aug.out_size[1],
+              tuple(aug.out_size))
+    runs = {"tiled": (lambda: w2.warp_2level(*args), "warp_2level_tiled_kernel"),
+            "sweep": (lambda: w2.warp_2level_fused(*args), "warp_2level_sweep_kernel")}
+    tiled = runs["tiled"][0]()
+    want = w2.warp_2level_reference(*args)
+    err = (tiled - want).abs().max().item()
+    before = w2.warp_2level_fused.launches
+    sweep = runs["sweep"][0]()
+    torch.cuda.synchronize()
+    check(w2.warp_2level_fused.launches == before + 1, "sweep: one launch per call")
+    check(torch.equal(sweep, tiled), "sweep: bit-equal to the tiled kernel")
+    print(f"warp: the sweep bit-equal to the tiled kernel, which is within {err:.3e} of the "
+          f"plain version", flush=True)
+    turns = {}
+    for name in ("tiled", "sweep", "sweep", "tiled"):
+        fn, kernel = runs[name]
+        turns.setdefault(name, []).append({"kernel_ms": device_ms(fn, kernel),
+                                           "call_ms": cuda_ms(fn, 20)})
+        print(f"warp {name}: {json.dumps(turns[name][-1])}", flush=True)
+    bound, by = bound_f32(*warp_cost(w2.coefficients(params), batch["image"].shape,
+                                     aug.out_size))
+    plan = w2.plan_sweep(*bounds)
+    return {"shape": list(want.shape), "turns": turns, "bound_ms": bound, "bound_by": by,
+            "plan": dict(plan._asdict(), smem_bytes=plan.smem_bytes),
+            "tiled_plan": w2.plan_tiles(*bounds)._asdict(), "ptxas": ptxas,
+            "tiled_max_abs_err_vs_plain": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
@@ -453,6 +520,11 @@ def main() -> int:
         print(card)
         print(json.dumps({"card": card, "detection": detection_breakdown(torch.device("cuda:0"))}))
         print(card)
+        return 0
+    if "--warp" in sys.argv[1:]:
+        card = card_line()
+        print(card)
+        print(json.dumps({"card": card, "warp": warp_breakdown(torch.device("cuda:0"))}))
         return 0
     if "--trainer" in sys.argv[1:]:
         card = card_line()
