@@ -137,10 +137,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``fused_chain`` launches per dispatch); then AVIF (``avif_phase``:
    ``core/avif.py`` with its AV1 decoder in ``ops/native/av1.cpp``): the
    fixtures of ``tests/data/avif`` through ``imread`` and ``imdecode`` in
-   both modes, bit-equal to cv2's stored outcomes, ms per 480 x 640 file of
-   cv2's default, cv2 at speed 2 and PIL 4:4:4 in two tiles beside
-   ``read_png``'s, and the avif480 COCO tree of the 32 committed 480 x 640
-   AVIF scenes (cv2's default, speed 2, gray 4:0:0, PIL 4:4:4 tiles, BGRA)
+   both modes, bit-equal to cv2's stored outcomes (intra block copy and
+   4:2:2 among them), ms per 480 x 640 file of cv2's default, cv2 at speed
+   2, PIL 4:4:4 in two tiles, PIL's default of a scene that codes intra
+   block copy and PIL 4:2:2 beside ``read_png``'s, and two COCO trees of the
+   32 committed 480 x 640 AVIF scenes, avif480 (cv2's default, speed 2,
+   gray 4:0:0, PIL 4:4:4 tiles, BGRA) and avif_pil480 (PIL's default with
+   intra block copy, 4:2:2, 4:4:4 tiles with intra block copy), each
    converted, trained (batch 32, 2 steps, 1 ``warp_2level`` launch per
    step) and served (2 ``fused_chain`` launches per dispatch); then the
    encoders
@@ -1663,14 +1666,18 @@ AVIF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"
 #: the timed 480 x 640 AVIF files and what each is
 AVIF_TIMED = (("cv2_480x640.avif", "cv2 default"),
               ("cv2_s2_480x640.avif", "cv2 speed 2 (loop restoration)"),
-              ("pil444_tiles_480x640.avif", "PIL 4:4:4 two tiles"))
-#: the avif480 COCO tree: images (the committed scenes), batch, epochs
+              ("pil444_tiles_480x640.avif", "PIL 4:4:4 two tiles"),
+              ("pil480_00.avif", "PIL default scene (intra block copy)"),
+              ("pil422_480x640.avif", "PIL 4:2:2"))
+#: the avif480 and avif_pil480 COCO trees: images (the committed scenes),
+#: batch, epochs; the avif_pil480 scenes' fixture prefix
 AVIF_COCO, AVIF_BATCH, AVIF_EPOCHS = 32, 32, 1
+AVIF_PIL_PREFIX = "pil480_"
 
 
-def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: bytes, load,
+def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic, load,
                 n_coco: int, batch: int, epochs: int, card: str, w2, fc, png_ms: float,
-                iters: int = 20) -> dict:
+                iters: int = 20, prefix: str = "coco_", check_fixtures: bool = True) -> dict:
     """A decoder of the reader (its native part built with g++ here by
     ``load``): each committed fixture ``*<ext>`` of ``fixtures`` read in
     both modes through ``imread`` (the file) and ``imdecode`` (its bytes),
@@ -1678,13 +1685,15 @@ def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: byt
     where cv2 returned None; ms per ``timed`` 480 x 640 file beside
     ``read_png``'s ms per 480 x 640 PNG (``png_ms``), host clock.  Then the
     main path on that format: a COCO tree of the ``n_coco`` committed 480 x
-    640 scenes ``coco_NN<ext>`` (``scene_coco_tree``), converted by
-    ``transfer_coco`` (which copies the files, starting ``magic``), trained
+    640 scenes ``<prefix>NN<ext>`` (``scene_coco_tree``), converted by
+    ``transfer_coco`` (which copies the files, starting ``magic``, bytes or a
+    tuple of them), trained
     with ``python -m instancesegmentation_tpu_torch.train``'s ``main``
     (``TrainConfig`` defaults, ``batch``, ``epochs``: finite losses, 1
     ``warp_2level`` launch per step), and the checkpoint served over the
     tree's instances (2 ``fused_chain`` launches per dispatch, finite
-    outputs)."""
+    outputs).  ``check_fixtures`` False: the tree alone (a second tree of
+    the same format)."""
     import glob
 
     from instancesegmentation_tpu_torch.core.imread import imread
@@ -1694,6 +1703,22 @@ def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: byt
     t0 = time.perf_counter()
     load()
     out = {"card": card, "build_or_load_s": time.perf_counter() - t0}
+    if check_fixtures:
+        out.update(_check_codec_fixtures(tag, fixtures, ext, timed, png_ms, card, iters))
+    out.update(_codec_tree(tag, label, fixtures, ext, magic, n_coco, batch, epochs, card, w2, fc,
+                           prefix))
+    print(json.dumps({tag: out}))
+    return out
+
+
+def _check_codec_fixtures(tag: str, fixtures: str, ext: str, timed, png_ms: float, card: str,
+                          iters: int) -> dict:
+    """``codec_phase``'s fixture reads and timed files."""
+    import glob
+
+    from instancesegmentation_tpu_torch.core.imread import imread
+
+    out = {}
     files = sorted(glob.glob(os.path.join(fixtures, "*" + ext)))
     check(len(files) >= 100 and all(os.path.exists(os.path.join(fixtures, n)) for n, _ in timed),
           f"{tag}: the committed fixtures are present")
@@ -1713,7 +1738,16 @@ def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: byt
     print(f"{tag}: {len(files)} fixtures ({checked} reads through imread and imdecode, {refused} "
           f"refused where cv2 returns None) bit-equal to cv2's stored outcomes; 480x640 {times}, "
           f"read_png {png_ms:.2f} ms per 480x640 RGB PNG (host clock); {card}")
+    return out
 
+
+def _codec_tree(tag: str, label: str, fixtures: str, ext: str, magic: bytes, n_coco: int,
+                batch: int, epochs: int, card: str, w2, fc, prefix: str) -> dict:
+    """``codec_phase``'s COCO tree: converted, trained and served."""
+    from instancesegmentation_tpu_torch.data import converters
+    from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
+
+    out = {}
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as tmp:
         # the scenes under .jpg names, as scraped datasets hold them (.jp2
         # names: jpeg2000_encoder_phase; .webp names: webp_encoder_phase)
@@ -1721,7 +1755,7 @@ def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: byt
             scenes = json.load(f)
         img_dir, ann = scene_coco_tree(
             os.path.join(tmp, "src"),
-            [os.path.join(fixtures, f"coco_{i:02d}{ext}") for i in range(n_coco)], scenes)
+            [os.path.join(fixtures, f"{prefix}{i:02d}{ext}") for i in range(n_coco)], scenes)
         common = os.path.join(tmp, "common")
         t0 = time.perf_counter()
         n = converters.transfer_coco(img_dir, ann, common, progress=False)
@@ -1736,7 +1770,6 @@ def codec_phase(tag: str, label: str, fixtures: str, ext: str, timed, magic: byt
         samples = len(InstanceCommonDataset(common, 640))
         check(samples == 2 * n_coco, f"{tag}: {samples} eligible instances, 2 per image")
         out.update(train_and_serve_tree(label, common, batch, epochs, tmp, w2, fc, card))
-    print(json.dumps({tag: out}))
     return out
 
 
@@ -1766,14 +1799,24 @@ def jpeg2000_phase(card: str, w2, fc, png_ms: float) -> dict:
 def avif_phase(card: str, w2, fc, png_ms: float) -> dict:
     """AVIF (``core/avif.py``, the AV1 stream in ``ops/native/av1.cpp``):
     ``codec_phase`` over ``tests/data/avif`` (cv2's default, cv2 at speed 2
-    with loop restoration and PIL 4:4:4 in two tiles timed) and its 32 AVIF
-    scenes (cv2's default, speed 2, gray 4:0:0, PIL 4:4:4 in two tiles,
-    BGRA with its alpha item: the avif480 tree), batch 32, 2 steps."""
+    with loop restoration, PIL 4:4:4 in two tiles, PIL's default of a scene
+    that codes intra block copy and PIL 4:2:2 timed) and its 32 AVIF scenes
+    (cv2's default, speed 2, gray 4:0:0, PIL 4:4:4 in two tiles, BGRA with
+    its alpha item: the avif480 tree), batch 32, 2 steps; then
+    ``codec_phase`` a second time over the same scenes as PIL writes them
+    (its defaults, where libaom codes intra block copy, 4:2:2, 4:4:4 in two
+    tiles with intra block copy: the avif_pil480 tree, under ``pil480``)."""
     from instancesegmentation_tpu_torch.ops.native.av1 import load_av1
 
-    return codec_phase("avif", "AVIF", AVIF_FIXTURES, ".avif", AVIF_TIMED,
-                       b"\x00\x00\x00\x20ftypavif", load_av1, AVIF_COCO, AVIF_BATCH,
-                       AVIF_EPOCHS, card, w2, fc, png_ms)
+    out = codec_phase("avif", "AVIF", AVIF_FIXTURES, ".avif", AVIF_TIMED,
+                      b"\x00\x00\x00\x20ftypavif", load_av1, AVIF_COCO, AVIF_BATCH,
+                      AVIF_EPOCHS, card, w2, fc, png_ms)
+    out["pil480"] = codec_phase(
+        "avif_pil480", "AVIF (PIL)", AVIF_FIXTURES, ".avif", (),
+        (b"\x00\x00\x00\x20ftypavif", b"\x00\x00\x00\x1cftypavif"), load_av1, AVIF_COCO,
+        AVIF_BATCH, AVIF_EPOCHS, card, w2, fc, png_ms, prefix=AVIF_PIL_PREFIX,
+        check_fixtures=False)
+    return out
 
 IMWRITE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                                 "imwrite")
@@ -5354,6 +5397,7 @@ def main() -> int:
          "launches_webp_serve": webp["serve"]["fused_chain"],
          "launches_jpeg2000_serve": j2k["serve"]["fused_chain"],
          "launches_avif_serve": avif["serve"]["fused_chain"],
+         "launches_avif_pil480_serve": avif["pil480"]["serve"]["fused_chain"],
          "launches_encoders_serve": enc["serve"]["fused_chain"],
          "launches_encoders_c12_infer": enc["c12"]["renamed"]["fused_chain"],
          "launches_webp_named_serve": wenc["serve"]["fused_chain"],
@@ -5436,6 +5480,7 @@ def main() -> int:
          "launches_webp_train": webp["train"]["warp_2level"],
          "launches_jpeg2000_train": j2k["train"]["warp_2level"],
          "launches_avif_train": avif["train"]["warp_2level"],
+         "launches_avif_pil480_train": avif["pil480"]["train"]["warp_2level"],
          "launches_encoders_train": enc["train"]["warp_2level"],
          "launches_webp_named_train": wenc["train"]["warp_2level"],
          "launches_jp2_named_train": jenc["train"]["warp_2level"],

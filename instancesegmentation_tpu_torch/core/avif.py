@@ -26,15 +26,16 @@ What libavif and cv2 do, in order (ROADMAP "not port faults" 24):
   ``avifImageYUVToRGB`` into BGR: the identity matrix (cv2's lossless
   files) as G = Y, B = U, R = V; BT.601 / unspecified, BT.709, BT.2020
   and chroma-derived matrices through libyuv's fixed-point rows (full or
-  limited range), 4:2:0 chroma upsampled by libyuv's bilinear filter; gray
-  is ``cvtColor(BGR2GRAY)`` of the colour read.
+  limited range), 4:2:0 chroma upsampled by libyuv's bilinear filter, 4:2:2
+  chroma by its linear filter along each row; gray is
+  ``cvtColor(BGR2GRAY)`` of the colour read.
 
 The colour description comes from the ``colr`` ``nclx`` box, else the AV1
 sequence header.  ``UnsupportedImage`` naming ROADMAP A10 part 3, step 6b
-for the forms left out, each of which cv2 decodes: 10 and 12 bits, 4:2:2,
-a block that uses intra block copy, superres, film grain, ``grid`` and
-other derived items, sequences, an ``ispe`` other than the frame's sides
-(libavif scales the frame), matrices libavif converts in floating point.
+for the forms left out, each of which cv2 decodes: 10 and 12 bits,
+superres, film grain, ``grid`` and other derived items, sequences, an
+``ispe`` other than the frame's sides (libavif scales the frame), matrices
+libavif converts in floating point.
 """
 from __future__ import annotations
 
@@ -516,7 +517,8 @@ _DERIVED = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
 
 
 def _upsample_linear(c: np.ndarray, w: int) -> np.ndarray:
-    """libyuv's ScaleRowUp2_Linear_Any: each row of ``c`` to ``w`` columns."""
+    """libyuv's ScaleRowUp2_Linear_Any: each row of ``c`` to ``w`` columns
+    (the rows of ``I422ToRGB24MatrixFilter``'s linear filter)."""
     c = c.astype(np.int32)
     out = np.empty((c.shape[0], w), np.int32)
     out[:, 0] = c[:, 0]
@@ -587,8 +589,10 @@ def _yuv_to_rgb(img: Av1Image, cicp: tuple, path: str) -> np.ndarray:
             raise UnsupportedImage(f"{path}: AVIF: matrix coefficients {mc} ({_STEP})")
         raise ValueError(f"{path}: AVIF: matrix coefficients {mc} libavif does not convert")
     yg, yb, ub, ug, vg, vr = _LIBYUV[(name, full)]
-    if ssx:
+    if ssx and ssy:
         u, v = _upsample_420(u, w, h), _upsample_420(v, w, h)
+    elif ssx:
+        u, v = _upsample_linear(u, w), _upsample_linear(v, w)
     else:
         u, v = u.astype(np.int32), v.astype(np.int32)
     y1 = ((img.y.astype(np.int64) * 0x0101 * yg) >> 16).astype(np.int32)

@@ -62,9 +62,9 @@ that starts ``RIFF....WEBP``) or one libwebp refuses (see
 ``ImageSizeError`` (``core/png.py``).  A valid file of a form the port does not decode raises
 ``UnsupportedImage``, a ``ValueError`` naming ROADMAP A10 part 3: the port
 never drops silently what the JAX package reads.  Those forms are AVIF's of
-step 6b (10 and 12 bits, 4:2:2, intra block copy, palettes, superres, film
-grain, ``grid`` and other derived items, sequences, colour matrices libavif
-converts without libyuv: see ``core/avif.py``) and JPEG 2000's of step 5
+step 6b (10 and 12 bits, superres, film grain, ``grid`` and other derived
+items, sequences, an ``ispe`` that scales the frame, colour matrices
+libavif converts without libyuv: see ``core/avif.py``) and JPEG 2000's of step 5
 (HTJ2K code-blocks, Part 2 transforms).  ``cv2.imread`` and
 ``cv2.imdecode`` differ on three forms,
 which the port follows (``imdecode`` reads as ``cv2.imdecode``; WebP and

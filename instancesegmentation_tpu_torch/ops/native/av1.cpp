@@ -1,6 +1,7 @@
-// AV1 still-picture decoder: one shown key frame at 8 bits, 4:2:0, 4:4:4 or
-// 4:0:0, as libaom 3.14.1 (cv2 5.0's, through libavif 1.4.2) decodes it, bit
-// for bit.  Bound by ctypes in av1.py; core/avif.py reads the container.
+// AV1 still-picture decoder: one shown key frame at 8 bits, 4:2:0, 4:2:2,
+// 4:4:4 or 4:0:0, as libaom 3.14.1 (cv2 5.0's, through libavif 1.4.2)
+// decodes it, bit for bit.  Bound by ctypes in av1.py; core/avif.py reads the
+// container.
 //
 // What it decodes: the OBUs (temporal delimiter, sequence header reduced or
 // full with one operating point, frame header + tile groups or OBU_FRAME,
@@ -8,15 +9,19 @@
 // frame (tiles uniform or not, quantiser with delta q and matrices,
 // segmentation, delta lf, loop filter, CDEF, loop restoration, tx mode,
 // reduced tx set), libaom's entropy decoder with CDF adaptation, the intra
-// block syntax (palettes with their colour caches and index maps),
-// dequantisation, the inverse transforms (DCT 4-64, ADST 4-16,
+// block syntax (palettes with their colour caches and index maps), intra
+// block copy (the displacement vector's reference from the neighbours' or
+// the default one, its syntax and libaom's validity rules, the variable
+// transform tree and the inter transform sets, the bilinear copy from the
+// frame), dequantisation, the inverse transforms (DCT 4-64, ADST 4-16,
 // identity, flips, the lossless WHT) with libaom's intermediate clamps, every
 // intra predictor, then the deblocking filter, CDEF and loop restoration.
 //
-// What it refuses (code 2, UnsupportedImage): bit depths above 8, 4:2:2,
-// a block that uses intra block copy (raised at that symbol), superres,
+// What it refuses (code 2, UnsupportedImage): bit depths above 8, superres,
 // film grain (its parameters read and checked, raised once the frame
-// decodes), frames other than a shown key frame.  Palettes are decoded.  What libaom refuses (code 1).
+// decodes), frames other than a shown key frame.  What libaom refuses (code
+// 1): among them a displacement vector libaom finds invalid and a block size
+// that has no chroma block under the frame's subsampling.
 //
 // Tables come from av1_tables.h, generated from libaom's binary by
 // tests/data/avif/extract_tables.py.
@@ -80,8 +85,11 @@ int tx_cat(int b) {
     while (t != 0) { d++; t = split_tx(t); }
     return d - 1;
 }
+// libaom's av1_ss_size_lookup: BLOCK_INVALID where a luma size has no
+// chroma block under the subsampling
 int plane_block(int b, int ssx, int ssy) {
-    return block_of(std::max(2, kBW[b] - ssx), std::max(2, kBH[b] - ssy));
+    int v = kSsSizeLookup[b][ssx][ssy];
+    return v == 255 ? BLOCK_INVALID : v;
 }
 
 // intra modes
@@ -267,6 +275,9 @@ struct Cdfs {
     uint16_t delta_q[5], delta_lf_multi[4][5], delta_lf[5], intra_ext_tx[3][4][13][17];
     uint16_t cfl_sign[9], cfl_alpha[6][17], palette_y_mode[7][3][3], palette_uv_mode[2][3];
     uint16_t palette_y_size[7][8], palette_uv_size[7][8], palette_y_color[7][5][9], palette_uv_color[7][5][9];
+    // intra block copy: the transform partitions, the inter transform types
+    // and the displacement vectors' nmv_context (libaom's ndvc)
+    uint16_t txfm_partition[21][3], inter_ext_tx[4][4][17], dv[143];
     void init(int base_q_idx) {
         int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
         std::memcpy(txb_skip, kTxbSkipCdf[q], sizeof(txb_skip));
@@ -307,6 +318,9 @@ struct Cdfs {
         std::memcpy(palette_uv_size, kPaletteUvSizeCdf, sizeof(palette_uv_size));
         std::memcpy(palette_y_color, kPaletteYColorCdf, sizeof(palette_y_color));
         std::memcpy(palette_uv_color, kPaletteUvColorCdf, sizeof(palette_uv_color));
+        std::memcpy(txfm_partition, kTxfmPartitionCdf, sizeof(txfm_partition));
+        std::memcpy(inter_ext_tx, kInterExtTxCdf, sizeof(inter_ext_tx));
+        std::memcpy(dv, kNmvContext, sizeof(dv));
     }
 };
 
@@ -747,9 +761,20 @@ int read_delta_q(BitReader& rb) { return rb.f(1) ? rb.su(7) : 0; }
 
 // ---------------------------------------------------------------- decoder
 struct MiInfo {
-    uint8_t size, ymode, uvmode, skip, seg, tx, use_filter_intra;
+    uint8_t size, ymode, uvmode, skip, seg, use_filter_intra;
     int8_t dlf[4];
+    uint8_t intrabc;      // an intra-block-copy block (libaom's is_inter_block)
+    int16_t dv_row, dv_col;  // its displacement vector, 1/8 pel
 };
+
+// Counters a test reads after a decode (av1_test_counters): which of the
+// decoder's paths the frame reached.
+enum {
+    C_IBC_444, C_IBC_420, C_IBC_422, C_IBC_400, C_HALF_PEL_420, C_HALF_PEL_422, C_DV_REF_NEIGHBOUR,
+    C_DV_REF_DEFAULT, C_VARTX_DEPTH1, C_VARTX_DEPTH2, C_TX_SET_DCT_IDTX, C_TX_SET_DTT9, C_TX_SET_ALL16,
+    C_CDEF_422_REMAPPED, C_LR_422_CHROMA, C_BLOCKS_422, C_COUNT
+};
+thread_local int64_t g_counters[C_COUNT];
 
 struct Palette {
     uint8_t n[2];
@@ -779,6 +804,9 @@ struct Decoder {
     Frame cur;
     // contexts
     std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
+    // libaom's transform-size contexts (above_txfm_context, left_txfm_context):
+    // the width (height) in pixels of the transform above (left of) each 4x4
+    std::vector<uint8_t> above_txfm, left_txfm;
     // tile
     int mi_row_start, mi_row_end, mi_col_start, mi_col_end;
     int current_q = 0, delta_lf[4];
@@ -787,6 +815,11 @@ struct Decoder {
     int mi_row, mi_col, mi_size, has_chroma, avail_u, avail_l, avail_u_chroma, avail_l_chroma;
     int skip, segment_id, lossless, ymode, uvmode, angle_y, angle_uv, use_filter_intra, filter_intra_mode;
     int cfl_u, cfl_v, tx_size, read_deltas;
+    // intra block copy: the block's flag, displacement vector (1/8 pel), the
+    // partition that made it (has_top_right reads it) and the transform size
+    // of each 4x4 (libaom's inter_tx_size)
+    int use_intrabc, dv_row, dv_col, partition;
+    uint8_t inter_tx[32][32];
     Palette pal;
     uint8_t color_map[2][64 * 64];
     int color_map_w[2];
@@ -1101,6 +1134,8 @@ struct Decoder {
         mi_stride = sbc * sb_mi + 32;
         mi_alloc_rows = sbr * sb_mi + 32;
         mi.assign((size_t)mi_stride * mi_alloc_rows, MiInfo{});
+        above_txfm.assign(mi_stride, 64);
+        left_txfm.assign(mi_alloc_rows, 64);
         tx_types.assign((size_t)mi_stride * mi_alloc_rows, 0);
         palettes.assign((size_t)mi_stride * mi_alloc_rows, Palette{});
         for (int p = 0; p < num_planes; p++) {
@@ -1145,6 +1180,7 @@ struct Decoder {
             for (int i = mi_col_start >> sx; i < (mi_col_end >> sx) + 1 && i < mi_stride; i++)
                 above_level[p][i] = above_dc[p][i] = 0;
         }
+        for (int i = mi_col_start; i < mi_col_end; i++) above_txfm[i] = 64;
         for (int i = 0; i < 4; i++) delta_lf[i] = 0;
         for (int p = 0; p < num_planes; p++) {
             ref_sgr_xqd[p][0] = -32;
@@ -1163,6 +1199,7 @@ struct Decoder {
                 for (int i = r >> sy; i < ((r + sb4) >> sy) && i < mi_alloc_rows; i++)
                     left_level[p][i] = left_dc[p][i] = 0;
             }
+            for (int i = r; i < r + sb4 && i < mi_alloc_rows; i++) left_txfm[i] = 64;
             for (int c = mi_col_start; c < mi_col_end; c += sb4) {
                 read_deltas = fh.delta_q_present;
                 clear_cdef(r, c);
@@ -1328,15 +1365,29 @@ struct Decoder {
         }
         int bl = kBW[bsize];
         int horz = block_of(bl, bl - 1), vert = block_of(bl - 1, bl), split = block_of(bl - 1, bl - 1);
+        // libaom: the partition's block size must have a chroma block under
+        // the frame's subsampling (4:2:2 has none for the tall sizes)
+        static const int kSub[10] = {0, 1, 2, 3, 1, 1, 2, 2, 4, 5};
+        int sub = bsize;
+        switch (kSub[partition]) {
+            case 1: sub = horz; break;
+            case 2: sub = vert; break;
+            case 3: sub = split; break;
+            case 4: sub = block_of(bl, bl - 2); break;
+            case 5: sub = block_of(bl - 2, bl); break;
+        }
+        if (plane_block(sub, ssx, ssy) == BLOCK_INVALID) fail("block size invalid with this subsampling mode");
+        // each block knows the partition that made it (has_top_right reads it)
+        auto block = [&](int br, int bc, int bs) { decode_block(br, bc, bs, partition); };
         switch (partition) {
-            case 0: decode_block(r, c, bsize); break;
+            case 0: block(r, c, bsize); break;
             case 1:
-                decode_block(r, c, horz);
-                if (has_rows) decode_block(r + half, c, horz);
+                block(r, c, horz);
+                if (has_rows) block(r + half, c, horz);
                 break;
             case 2:
-                decode_block(r, c, vert);
-                if (has_cols) decode_block(r, c + half, vert);
+                block(r, c, vert);
+                if (has_cols) block(r, c + half, vert);
                 break;
             case 3:
                 decode_partition(r, c, split);
@@ -1345,45 +1396,46 @@ struct Decoder {
                 decode_partition(r + half, c + half, split);
                 break;
             case 4:
-                decode_block(r, c, split);
-                decode_block(r, c + half, split);
-                decode_block(r + half, c, horz);
+                block(r, c, split);
+                block(r, c + half, split);
+                block(r + half, c, horz);
                 break;
             case 5:
-                decode_block(r, c, horz);
-                decode_block(r + half, c, split);
-                decode_block(r + half, c + half, split);
+                block(r, c, horz);
+                block(r + half, c, split);
+                block(r + half, c + half, split);
                 break;
             case 6:
-                decode_block(r, c, split);
-                decode_block(r + half, c, split);
-                decode_block(r, c + half, vert);
+                block(r, c, split);
+                block(r + half, c, split);
+                block(r, c + half, vert);
                 break;
             case 7:
-                decode_block(r, c, vert);
-                decode_block(r, c + half, split);
-                decode_block(r + half, c + half, split);
+                block(r, c, vert);
+                block(r, c + half, split);
+                block(r + half, c + half, split);
                 break;
             case 8: {
                 int b4 = block_of(bl, bl - 2);
                 for (int i = 0; i < 4; i++)
-                    if (i < 3 || r + quarter * 3 < fh.mi_rows) decode_block(r + quarter * i, c, b4);
+                    if (i < 3 || r + quarter * 3 < fh.mi_rows) block(r + quarter * i, c, b4);
                 break;
             }
             case 9: {
                 int b4 = block_of(bl - 2, bl);
                 for (int i = 0; i < 4; i++)
-                    if (i < 3 || c + quarter * 3 < fh.mi_cols) decode_block(r, c + quarter * i, b4);
+                    if (i < 3 || c + quarter * 3 < fh.mi_cols) block(r, c + quarter * i, b4);
                 break;
             }
         }
     }
 
     // ------------------------------------------------------------ block
-    void decode_block(int r, int c, int bsize) {
+    void decode_block(int r, int c, int bsize, int part) {
         mi_row = r;
         mi_col = c;
         mi_size = bsize;
+        partition = part;
         int bw4 = 1 << (kBW[bsize] - 2), bh4 = 1 << (kBH[bsize] - 2);
         if (bh4 == 1 && ssy && (r & 1) == 0) has_chroma = 0;
         else if (bw4 == 1 && ssx && (c & 1) == 0) has_chroma = 0;
@@ -1398,9 +1450,11 @@ struct Decoder {
         } else {
             avail_u_chroma = avail_l_chroma = 0;
         }
+        if (ssx && !ssy && num_planes > 1) g_counters[C_BLOCKS_422]++;
         mode_info();
         palette_tokens();
-        read_tx_size_block();
+        if (use_intrabc) read_tx_size_inter(bw4, bh4);
+        else read_tx_size_block(bw4, bh4);
         if (skip) reset_block_context(bw4, bh4);
         for (int y = 0; y < bh4; y++)
             for (int x = 0; x < bw4; x++) {
@@ -1410,12 +1464,19 @@ struct Decoder {
                 m.uvmode = (uint8_t)uvmode;
                 m.skip = (uint8_t)skip;
                 m.seg = (uint8_t)segment_id;
-                m.tx = (uint8_t)tx_size;
                 m.use_filter_intra = (uint8_t)use_filter_intra;
                 for (int i = 0; i < 4; i++) m.dlf[i] = (int8_t)delta_lf[i];
+                m.intrabc = (uint8_t)use_intrabc;
+                m.dv_row = (int16_t)dv_row;
+                m.dv_col = (int16_t)dv_col;
                 palettes[(size_t)(r + y) * mi_stride + c + x] = pal;
             }
-        residual(bw4, bh4);
+        if (use_intrabc) {
+            predict_intrabc(bw4, bh4);
+            residual_inter(bw4, bh4);
+        } else {
+            residual(bw4, bh4);
+        }
     }
 
     void mode_info() {
@@ -1427,8 +1488,21 @@ struct Decoder {
         read_delta_qindex();
         read_delta_lf();
         read_deltas = 0;
-        // a frame that allows intra block copy decodes until a block uses it
-        if (fh.allow_intrabc && ec.read(cdf.intrabc, 2)) unsupported("intra block copy");
+        use_intrabc = 0;
+        dv_row = dv_col = 0;
+        if (fh.allow_intrabc) use_intrabc = ec.read(cdf.intrabc, 2);
+        if (use_intrabc) {
+            // libaom's read_intrabc_info: DC_PRED for luma and chroma, no
+            // palette, no filter intra, no CfL, no angle deltas
+            ymode = uvmode = DC_PRED;
+            angle_y = angle_uv = 0;
+            pal = Palette{};
+            use_filter_intra = 0;
+            read_intrabc_dv();
+            static const int kIbc[2][2] = {{C_IBC_444, -1}, {C_IBC_422, C_IBC_420}};
+            g_counters[num_planes == 1 ? C_IBC_400 : kIbc[ssx][ssy]]++;
+            return;
+        }
         // intra frame y mode
         int am = avail_u ? at(mi_row - 1, mi_col).ymode : DC_PRED;
         int lm = avail_l ? at(mi_row, mi_col - 1).ymode : DC_PRED;
@@ -1458,6 +1532,398 @@ struct Decoder {
             if (use_filter_intra) filter_intra_mode = ec.read(cdf.filter_intra_mode, 5);
         }
     }
+
+    // ------------------------------------------------------------ intra block copy: the DV
+    // libaom's av1_find_mv_refs for INTRA_FRAME in an intra frame: the
+    // spatial scan (rows above, columns left, top right, the outer ring),
+    // where only intra-block-copy neighbours count, their weights and the
+    // sort, then the clamp; no temporal candidates, no extension (every
+    // candidate's reference is INTRA_FRAME)
+    struct RefMv {
+        int row, col, weight;
+    };
+    RefMv stack[8];
+    int stack_n;
+    void add_candidate(const MiInfo& m, int weight) {
+        if (!m.intrabc) return;
+        int k = 0;
+        for (; k < stack_n; k++)
+            if (stack[k].row == m.dv_row && stack[k].col == m.dv_col) {
+                stack[k].weight += weight;
+                break;
+            }
+        if (k == stack_n && stack_n < 8) stack[stack_n++] = RefMv{m.dv_row, m.dv_col, weight};
+    }
+    static int mi_w(int b) { return 1 << (kBW[b] - 2); }
+    static int mi_h(int b) { return 1 << (kBH[b] - 2); }
+    void scan_row(int row_offset, int max_row_offset, int* processed_rows) {
+        int bw = mi_w(mi_size);
+        int end_mi = std::min(std::min(bw, fh.mi_cols - mi_col), 16);
+        int col_offset = 0;
+        if (std::abs(row_offset) > 1) {
+            col_offset = 1;
+            if ((mi_col & 1) && bw < 2) col_offset--;
+        }
+        int use_step_16 = bw >= 16;
+        for (int i = 0; i < end_mi;) {
+            const MiInfo& m = at(mi_row + row_offset, mi_col + col_offset + i);
+            int n4_w = mi_w(m.size);
+            int len = std::min(bw, n4_w);
+            if (use_step_16) len = std::max(4, len);
+            else if (std::abs(row_offset) > 1) len = std::max(len, 2);
+            int weight = 2;
+            if (bw >= 2 && bw <= n4_w) {
+                int inc = std::min(-max_row_offset + row_offset + 1, mi_h(m.size));
+                weight = std::max(weight, inc);
+                *processed_rows = inc - row_offset - 1;
+            }
+            add_candidate(m, len * weight);
+            i += len;
+        }
+    }
+    void scan_col(int col_offset, int max_col_offset, int* processed_cols) {
+        int bh = mi_h(mi_size);
+        int end_mi = std::min(std::min(bh, fh.mi_rows - mi_row), 16);
+        int row_offset = 0;
+        if (std::abs(col_offset) > 1) {
+            row_offset = 1;
+            if ((mi_row & 1) && bh < 2) row_offset--;
+        }
+        int use_step_16 = bh >= 16;
+        for (int i = 0; i < end_mi;) {
+            const MiInfo& m = at(mi_row + row_offset + i, mi_col + col_offset);
+            int n4_h = mi_h(m.size);
+            int len = std::min(bh, n4_h);
+            if (use_step_16) len = std::max(4, len);
+            else if (std::abs(col_offset) > 1) len = std::max(len, 2);
+            int weight = 2;
+            if (bh >= 2 && bh <= n4_h) {
+                int inc = std::min(-max_col_offset + col_offset + 1, mi_w(m.size));
+                weight = std::max(weight, inc);
+                *processed_cols = inc - col_offset - 1;
+            }
+            add_candidate(m, len * weight);
+            i += len;
+        }
+    }
+    void scan_blk(int row_offset, int col_offset) {
+        if (inside(mi_row + row_offset, mi_col + col_offset)) add_candidate(at(mi_row + row_offset, mi_col + col_offset), 4);
+    }
+    // libaom's has_top_right (bs in 4x4 units)
+    int has_top_right(int bs) {
+        int sb_mi = seq.sb128 ? 32 : 16;
+        int mask_row = mi_row & (sb_mi - 1), mask_col = mi_col & (sb_mi - 1);
+        if (bs > 16) return 0;
+        int has_tr = !((mask_row & bs) && (mask_col & bs));
+        while (bs < sb_mi) {
+            if (mask_col & bs) {
+                if ((mask_col & (2 * bs)) && (mask_row & (2 * bs))) {
+                    has_tr = 0;
+                    break;
+                }
+            } else {
+                break;
+            }
+            bs <<= 1;
+        }
+        int w = mi_w(mi_size), h = mi_h(mi_size);
+        // the last of a vertical partition; the first of a horizontal one
+        if (w < h && ((mi_col + w) & (h - 1))) has_tr = 1;
+        if (w > h && (mi_row & (w - 1))) has_tr = 0;
+        if (partition == 6 && w == h && (mask_row & bs)) has_tr = 0;  // PARTITION_VERT_A
+        return has_tr;
+    }
+    void find_dv_ref(int* ref_row, int* ref_col) {
+        int bw = mi_w(mi_size), bh = mi_h(mi_size);
+        int has_tr = has_top_right(std::max(bw, bh));
+        int row_adj = bh < 2 && (mi_row & 1), col_adj = bw < 2 && (mi_col & 1);
+        int max_row_offset = 0, max_col_offset = 0, processed_rows = 0, processed_cols = 0;
+        stack_n = 0;
+        if (avail_u) {
+            max_row_offset = bh < 2 ? -4 + row_adj : -6 + row_adj;
+            max_row_offset = clip3(mi_row_start - mi_row, mi_row_end - mi_row - 1, max_row_offset);
+        }
+        if (avail_l) {
+            max_col_offset = bw < 2 ? -4 + col_adj : -6 + col_adj;
+            max_col_offset = clip3(mi_col_start - mi_col, mi_col_end - mi_col - 1, max_col_offset);
+        }
+        if (std::abs(max_row_offset) >= 1) scan_row(-1, max_row_offset, &processed_rows);
+        if (std::abs(max_col_offset) >= 1) scan_col(-1, max_col_offset, &processed_cols);
+        if (has_tr) scan_blk(-1, bw);
+        int nearest = stack_n;
+        for (int k = 0; k < nearest; k++) stack[k].weight += 640;  // REF_CAT_LEVEL
+        scan_blk(-1, -1);
+        for (int idx = 2; idx <= 3; idx++) {
+            int ro = -(idx << 1) + 1 + row_adj, co = -(idx << 1) + 1 + col_adj;
+            if (std::abs(ro) <= std::abs(max_row_offset) && std::abs(ro) > processed_rows)
+                scan_row(ro, max_row_offset, &processed_rows);
+            if (std::abs(co) <= std::abs(max_col_offset) && std::abs(co) > processed_cols)
+                scan_col(co, max_col_offset, &processed_cols);
+        }
+        auto sort = [&](int lo, int len) {
+            while (len > lo) {
+                int nr = lo;
+                for (int k = lo + 1; k < len; k++)
+                    if (stack[k - 1].weight < stack[k].weight) {
+                        std::swap(stack[k - 1], stack[k]);
+                        nr = k;
+                    }
+                len = nr;
+            }
+        };
+        sort(0, nearest);
+        sort(nearest, stack_n);
+        // clamp_mv_ref: the block may reach 16 pixels past the frame's edges
+        int left = -(mi_col * 32) - bw * 32 - 128, right = (fh.mi_cols - bw - mi_col) * 32 + bw * 32 + 128;
+        int top = -(mi_row * 32) - bh * 32 - 128, bottom = (fh.mi_rows - bh - mi_row) * 32 + bh * 32 + 128;
+        int list[2][2] = {{0, 0}, {0, 0}};
+        for (int k = 0; k < std::min(stack_n, 2); k++) {
+            list[k][0] = clip3(top, bottom, stack[k].row);
+            list[k][1] = clip3(left, right, stack[k].col);
+        }
+        int k = (list[0][0] || list[0][1]) ? 0 : 1;
+        *ref_row = list[k][0];
+        *ref_col = list[k][1];
+        if (*ref_row || *ref_col) {
+            g_counters[C_DV_REF_NEIGHBOUR]++;
+            return;
+        }
+        // av1_find_ref_dv: a superblock up, else a superblock and the
+        // 256-pixel delay left
+        int mib = seq.sb128 ? 32 : 16;
+        if (mi_row - mib < mi_row_start) {
+            *ref_row = 0;
+            *ref_col = (-4 * mib - 256) * 8;
+        } else {
+            *ref_row = -4 * mib * 8;
+            *ref_col = 0;
+        }
+        g_counters[C_DV_REF_DEFAULT]++;
+    }
+    // libaom's read_mv_component at MV_SUBPEL_NONE over the ndvc context
+    int read_mv_component(int comp) {
+        uint16_t* c = cdf.dv + 5 + 69 * comp;
+        uint16_t *classes = c, *sign = c + 27, *class0 = c + 36, *bits = c + 39;
+        int s = ec.read(sign, 2);
+        int mv_class = ec.read(classes, 11);
+        int mag, d;
+        if (mv_class == 0) {
+            d = ec.read(class0, 2);
+            mag = 0;
+        } else {
+            int n = mv_class;  // mv_class + CLASS0_BITS - 1
+            d = 0;
+            for (int i = 0; i < n; i++) d |= ec.read(bits + 3 * i, 2) << i;
+            mag = 2 << (mv_class + 2);
+        }
+        mag += ((d << 3) | (3 << 1) | 1) + 1;
+        return s ? -mag : mag;
+    }
+    // libaom's av1_is_dv_valid
+    bool dv_valid(int row, int col) {
+        if ((row & 7) || (col & 7)) return false;
+        int bw = 4 << (kBW[mi_size] - 2), bh = 4 << (kBH[mi_size] - 2);
+        int src_top = mi_row * 32 + row, tile_top = mi_row_start * 32;
+        if (src_top < tile_top) return false;
+        int src_left = mi_col * 32 + col, tile_left = mi_col_start * 32;
+        if (src_left < tile_left) return false;
+        int src_bottom = (mi_row * 4 + bh) * 8 + row;
+        if (src_bottom > mi_row_end * 32) return false;
+        int src_right = (mi_col * 4 + bw) * 8 + col;
+        if (src_right > mi_col_end * 32) return false;
+        // sub-8x8 chroma reaches 4 pixels up or left of the block
+        if (num_planes > 1 && has_chroma) {
+            if (bw < 8 && ssx && src_left < tile_left + 32) return false;
+            if (bh < 8 && ssy && src_top < tile_top + 32) return false;
+        }
+        int mib_log2 = seq.sb128 ? 5 : 4;
+        int sb_size = 4 << mib_log2;
+        int active_sb_row = mi_row >> mib_log2, active_sb64_col = (mi_col * 4) >> 6;
+        int src_sb_row = ((src_bottom >> 3) - 1) / sb_size, src_sb64_col = ((src_right >> 3) - 1) >> 6;
+        int total_sb64_per_row = ((mi_col_end - mi_col_start - 1) >> 4) + 1;
+        int active_sb64 = active_sb_row * total_sb64_per_row + active_sb64_col;
+        int src_sb64 = src_sb_row * total_sb64_per_row + src_sb64_col;
+        if (src_sb64 >= active_sb64 - 4) return false;  // INTRABC_DELAY_SB64
+        int gradient = 1 + 4 + (sb_size > 64);
+        int wf_offset = gradient * (active_sb_row - src_sb_row);
+        if (src_sb_row > active_sb_row || src_sb64_col >= active_sb64_col - 4 + wf_offset) return false;
+        return true;
+    }
+    void read_intrabc_dv() {
+        int ref_row, ref_col;
+        find_dv_ref(&ref_row, &ref_col);
+        bool valid = !(ref_row & 7) && !(ref_col & 7);
+        ref_row = (ref_row >> 3) * 8;
+        ref_col = (ref_col >> 3) * 8;
+        int joint = ec.read(cdf.dv, 4);
+        int drow = (joint == 2 || joint == 3) ? read_mv_component(0) : 0;
+        int dcol = (joint == 1 || joint == 3) ? read_mv_component(1) : 0;
+        dv_row = ((ref_row + drow) >> 3) * 8;
+        dv_col = ((ref_col + dcol) >> 3) * 8;
+        valid = valid && dv_row > -(1 << 14) && dv_row < (1 << 14) && dv_col > -(1 << 14) && dv_col < (1 << 14);
+        if (!valid || !dv_valid(dv_row, dv_col)) fail("invalid intrabc dv");
+    }
+
+    // ------------------------------------------------------------ intra block copy: transforms
+    // libaom's txfm_partition_context
+    int txfm_partition_ctx(int blk_row, int blk_col, int t) {
+        int above = above_txfm[mi_col + blk_col] < (1 << kTW[t]);
+        int left = left_txfm[mi_row + blk_row] < (1 << kTH[t]);
+        if (t == 0) return 0;
+        int dim = std::max(kBW[mi_size], kBH[mi_size]);  // log2 of the larger side
+        int max_sq = std::min(dim, 6) - 2;  // get_sqr_tx_size: TX_4X4 .. TX_64X64
+        int category = (tx_sqr_up(t) != max_sq && max_sq > 1) + (4 - max_sq) * 2;
+        return category * 3 + above + left;
+    }
+    void txfm_update(int blk_row, int blk_col, int area_t, int t) {
+        int w4 = 1 << (kTW[area_t] - 2), h4 = 1 << (kTH[area_t] - 2);
+        for (int i = 0; i < h4; i++) left_txfm[mi_row + blk_row + i] = (uint8_t)(1 << kTH[t]);
+        for (int i = 0; i < w4; i++) above_txfm[mi_col + blk_col + i] = (uint8_t)(1 << kTW[t]);
+    }
+    void set_inter_tx(int blk_row, int blk_col, int area_t, int t) {
+        int w4 = 1 << (kTW[area_t] - 2), h4 = 1 << (kTH[area_t] - 2);
+        for (int i = 0; i < h4; i++)
+            for (int j = 0; j < w4; j++) inter_tx[blk_row + i][blk_col + j] = (uint8_t)t;
+    }
+    // libaom's read_tx_size_vartx
+    void read_vartx(int t, int depth, int blk_row, int blk_col) {
+        int max_h = std::min(mi_h(mi_size), fh.mi_rows - mi_row), max_w = std::min(mi_w(mi_size), fh.mi_cols - mi_col);
+        if (blk_row >= max_h || blk_col >= max_w) return;
+        if (depth == 2) {
+            set_inter_tx(blk_row, blk_col, t, t);
+            tx_size = t;
+            txfm_update(blk_row, blk_col, t, t);
+            g_counters[C_VARTX_DEPTH2]++;
+            return;
+        }
+        int ctx = txfm_partition_ctx(blk_row, blk_col, t);
+        if (ec.read(cdf.txfm_partition[ctx], 2)) {
+            int sub = split_tx(t);
+            if (sub == 0) {
+                set_inter_tx(blk_row, blk_col, t, sub);
+                tx_size = sub;
+                txfm_update(blk_row, blk_col, t, sub);
+                g_counters[depth + 1 == 1 ? C_VARTX_DEPTH1 : C_VARTX_DEPTH2]++;
+                return;
+            }
+            int sh = 1 << (kTH[sub] - 2), sw = 1 << (kTW[sub] - 2);
+            for (int row = 0; row < (1 << (kTH[t] - 2)); row += sh)
+                for (int col = 0; col < (1 << (kTW[t] - 2)); col += sw)
+                    read_vartx(sub, depth + 1, blk_row + row, blk_col + col);
+        } else {
+            set_inter_tx(blk_row, blk_col, t, t);
+            tx_size = t;
+            txfm_update(blk_row, blk_col, t, t);
+            if (depth == 1) g_counters[C_VARTX_DEPTH1]++;
+        }
+    }
+    // libaom's parse_decode_block for an intra-block-copy block: the
+    // transform tree where it is coded, else one size for the block (the
+    // largest rectangle; 4x4 where lossless)
+    void read_tx_size_inter(int bw4, int bh4) {
+        int mt = max_tx_rect(mi_size);
+        if (fh.tx_mode_select && mi_size > BLOCK_4X4 && !skip && !lossless) {
+            int bh = 1 << (kTH[mt] - 2), bw = 1 << (kTW[mt] - 2);
+            for (int idy = 0; idy < bh4; idy += bh)
+                for (int idx = 0; idx < bw4; idx += bw) read_vartx(mt, 0, idy, idx);
+            return;
+        }
+        tx_size = lossless ? 0 : mt;
+        for (int i = 0; i < bh4; i++)
+            for (int j = 0; j < bw4; j++) inter_tx[i][j] = (uint8_t)tx_size;
+        // set_txfm_ctxs: a skipped inter block gives its own size
+        for (int i = 0; i < bw4; i++) above_txfm[mi_col + i] = (uint8_t)(skip ? bw4 * 4 : 1 << kTW[tx_size]);
+        for (int i = 0; i < bh4; i++) left_txfm[mi_row + i] = (uint8_t)(skip ? bh4 * 4 : 1 << kTH[tx_size]);
+    }
+
+    // ------------------------------------------------------------ intra block copy: prediction
+    // libaom's build_inter_predictors_8x8_and_bigger with the intra block
+    // copy filter: whole pixels copied, half-pel chroma positions averaged
+    // (av1_convolve_{x,y,2d}_sr_intrabc_c: round_0 3, round_1 11 at 8 bits)
+    void predict_intrabc(int bw4, int bh4) {
+        for (int p = 0; p < 1 + 2 * has_chroma; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int bw = std::max(4, (bw4 * 4) >> sx), bh = std::max(4, (bh4 * 4) >> sy);
+            int row_start = (bh4 == 1 && sy) ? -1 : 0, col_start = (bw4 == 1 && sx) ? -1 : 0;
+            int pre_x = (mi_col * 4 + 4 * col_start) >> sx, pre_y = (mi_row * 4 + 4 * row_start) >> sy;
+            // clamp_mv_to_umv_border_sb (a valid DV is never clamped)
+            int mvr = dv_row * (1 << (1 - sy)), mvc = dv_col * (1 << (1 - sx));
+            int spel_left = (4 + bw) << 4, spel_top = (4 + bh) << 4;
+            mvc = clip3(-(mi_col * 32) * (1 << (1 - sx)) - spel_left,
+                        (fh.mi_cols - bw4 - mi_col) * 32 * (1 << (1 - sx)) + spel_left - 16, mvc);
+            mvr = clip3(-(mi_row * 32) * (1 << (1 - sy)) - spel_top,
+                        (fh.mi_rows - bh4 - mi_row) * 32 * (1 << (1 - sy)) + spel_top - 16, mvr);
+            int pos_x = (pre_x << 4) + mvc, pos_y = (pre_y << 4) + mvr;
+            int x0 = pos_x >> 4, y0 = pos_y >> 4, fx = pos_x & 15, fy = pos_y & 15;
+            if (x0 < 0 || y0 < 0 || x0 + bw + (fx != 0) > cur.pw[p] || y0 + bh + (fy != 0) > cur.ph[p])
+                fail("intrabc source outside the frame");
+            if (p && (fx || fy)) g_counters[ssy ? C_HALF_PEL_420 : C_HALF_PEL_422]++;
+            int stride = cur.stride[p];
+            const uint8_t* src = &cur.p[p][(size_t)y0 * stride + x0];
+            uint8_t* dst = &cur.p[p][(size_t)pre_y * stride + pre_x];
+            for (int i = 0; i < bh; i++)
+                for (int j = 0; j < bw; j++) {
+                    const uint8_t* s = src + (size_t)i * stride + j;
+                    int v;
+                    if (fx && fy) v = (s[0] + s[1] + s[stride] + s[stride + 1] + 2) >> 2;
+                    else if (fx) v = (s[0] + s[1] + 1) >> 1;
+                    else if (fy) v = (s[0] + s[stride] + 1) >> 1;
+                    else v = s[0];
+                    dst[(size_t)i * stride + j] = (uint8_t)v;
+                }
+        }
+    }
+
+    // ------------------------------------------------------------ intra block copy: residual
+    // libaom's decode_token_recon_block for an inter block: each 64x64 unit,
+    // luma along the transform tree (decode_reconstruct_tx), then chroma at
+    // the largest chroma transform
+    void residual_inter(int bw4, int bh4) {
+        int max_bw = std::min(bw4, fh.mi_cols - mi_col), max_bh = std::min(bh4, fh.mi_rows - mi_row);
+        int mu_w = std::min(max_bw, 16), mu_h = std::min(max_bh, 16);
+        for (int row = 0; row < max_bh; row += mu_h)
+            for (int col = 0; col < max_bw; col += mu_w)
+                for (int p = 0; p < 1 + 2 * has_chroma; p++) {
+                    int sx = p ? ssx : 0, sy = p ? ssy : 0;
+                    int pb = p ? plane_block(mi_size, ssx, ssy) : mi_size;
+                    int mt = lossless ? 0 : p ? uv_tx_size() : max_tx_rect(mi_size);
+                    int bh_var = 1 << (kTH[mt] - 2), bw_var = 1 << (kTW[mt] - 2);
+                    int unit_h = round2(std::min(mu_h + row, max_bh), sy), unit_w = round2(std::min(mu_w + col, max_bw), sx);
+                    for (int br = row >> sy; br < unit_h; br += bh_var)
+                        for (int bc = col >> sx; bc < unit_w; bc += bw_var) recon_tx(p, pb, br, bc, mt);
+                }
+    }
+    void recon_tx(int p, int pb, int blk_row, int blk_col, int t) {
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
+        // max_block_high / wide of the plane block, clipped at the frame
+        int max_h = 1 << kBH[pb], max_w = 1 << kBW[pb];
+        int bh4 = mi_h(mi_size), bw4 = mi_w(mi_size);
+        if (mi_row + bh4 > fh.mi_rows) max_h += ((fh.mi_rows - bh4 - mi_row) * 4) >> sy;
+        if (mi_col + bw4 > fh.mi_cols) max_w += ((fh.mi_cols - bw4 - mi_col) * 4) >> sx;
+        max_h >>= 2;
+        max_w >>= 2;
+        if (blk_row >= max_h || blk_col >= max_w) return;
+        int plane_t = p ? t : inter_tx[blk_row][blk_col];
+        if (t == plane_t || p) {
+            int startx = (mi_col >> sx) * 4 + blk_col * 4, starty = (mi_row >> sy) * 4 + blk_row * 4;
+            if (!skip) {
+                inter_blk_row = blk_row;
+                inter_blk_col = blk_col;
+                int eob = coeffs(p, startx, starty, t);
+                if (eob > 0)
+                    inverse_transform_add(dequant, t, plane_tx_type, lossless,
+                                          &cur.p[p][(size_t)starty * cur.stride[p] + startx], cur.stride[p]);
+            }
+            mark_decoded(p, startx, starty, t);
+            return;
+        }
+        int sub = split_tx(t);
+        int bsw = 1 << (kTW[sub] - 2), bsh = 1 << (kTH[sub] - 2);
+        int row_end = std::min(1 << (kTH[t] - 2), max_h - blk_row), col_end = std::min(1 << (kTW[t] - 2), max_w - blk_col);
+        for (int row = 0; row < row_end; row += bsh)
+            for (int col = 0; col < col_end; col += bsw) recon_tx(p, pb, blk_row + row, blk_col + col, sub);
+    }
+    int inter_blk_row = 0, inter_blk_col = 0;
 
     // ------------------------------------------------------------ palettes
     static int ceil_log2(int n) {
@@ -1733,22 +2199,30 @@ struct Decoder {
         }
     }
 
-    void read_tx_size_block() {
-        if (lossless) {
-            tx_size = 0;
-            return;
-        }
+    // libaom's read_tx_size of an intra block; its get_tx_size_context reads
+    // the transform-size contexts, and an intra-block-copy neighbour's block
+    // size
+    void read_tx_size_block(int bw4, int bh4) {
         int mt = max_tx_rect(mi_size);
-        tx_size = mt;
-        if (mi_size > BLOCK_4X4 && fh.tx_mode_select) {
+        tx_size = lossless ? 0 : mt;
+        if (!lossless && mi_size > BLOCK_4X4 && fh.tx_mode_select) {
             int maxw = 1 << kTW[mt], maxh = 1 << kTH[mt];
-            int above = avail_u ? ((1 << kTW[at(mi_row - 1, mi_col).tx]) >= maxw) : 0;
-            int left = avail_l ? ((1 << kTH[at(mi_row, mi_col - 1).tx]) >= maxh) : 0;
+            int above = 0, left = 0;
+            if (avail_u) {
+                const MiInfo& a = at(mi_row - 1, mi_col);
+                above = (a.intrabc ? 1 << kBW[a.size] : above_txfm[mi_col]) >= maxw;
+            }
+            if (avail_l) {
+                const MiInfo& l = at(mi_row, mi_col - 1);
+                left = (l.intrabc ? 1 << kBH[l.size] : left_txfm[mi_row]) >= maxh;
+            }
             int ctx = above + left;
             int md = max_depth(mi_size);
             int depth = ec.read(cdf.tx_size[tx_cat(mi_size)][ctx], md + 1);
             for (int i = 0; i < depth; i++) tx_size = split_tx(tx_size);
         }
+        for (int i = 0; i < bw4; i++) above_txfm[mi_col + i] = (uint8_t)(1 << kTW[tx_size]);
+        for (int i = 0; i < bh4; i++) left_txfm[mi_row + i] = (uint8_t)(1 << kTH[tx_size]);
     }
     void reset_block_context(int bw4, int bh4) {
         for (int p = 0; p < 1 + 2 * has_chroma; p++) {
@@ -1824,6 +2298,15 @@ struct Decoder {
                 inverse_transform_add(dequant, t, plane_tx_type, lossless,
                                       &cur.p[p][(size_t)starty * cur.stride[p] + startx], cur.stride[p]);
         }
+        mark_decoded(p, startx, starty, t);
+    }
+    // the spec's LoopfilterTxSizes and BlockDecoded of a transform block
+    void mark_decoded(int p, int startx, int starty, int t) {
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
+        int row = (starty << sy) >> 2, col = (startx << sx) >> 2;
+        int sbmask = seq.sb128 ? 31 : 15;
+        int sbr = row & sbmask, sbc = col & sbmask;
+        int stepx = 1 << (kTW[t] - 2), stepy = 1 << (kTH[t] - 2);
         for (int i = 0; i < stepy; i++)
             for (int j = 0; j < stepx; j++) {
                 lf_tx[p][(size_t)((row >> sy) + i) * lf_stride[p] + (col >> sx) + j] = (uint8_t)t;
@@ -1832,21 +2315,41 @@ struct Decoder {
     }
 
     // ------------------------------------------------------------ coefficients
-    int get_tx_set(int t) {
+    // libaom's av1_get_ext_tx_set_type: 0 DCT only, 1 DCT and IDTX, 2 DTT4_IDTX,
+    // 3 DTT4_IDTX_1DDCT, 4 DTT9_IDTX_1DDCT, 5 all 16
+    int get_tx_set(int t, int inter = 0) {
         int sq = tx_sqr(t), squp = tx_sqr_up(t);
         if (squp > 3) return 0;
-        if (squp == 3) return 0;
-        if (fh.reduced_tx_set) return 2;
+        if (squp == 3) return inter ? 1 : 0;
+        if (fh.reduced_tx_set) return inter ? 1 : 2;
+        if (inter) return sq == 2 ? 4 : 5;
         if (sq == 2) return 2;
         return 3;
     }
     int compute_tx_type(int p, int t, int x4, int y4) {
         if (lossless || tx_sqr_up(t) > 3) return DCT_DCT;
         if (p == 0) return tx_types[(size_t)y4 * mi_stride + x4];
+        if (use_intrabc) {
+            // the luma type at the chroma transform's place in the block
+            int type = tx_types[(size_t)(mi_row + (inter_blk_row << ssy)) * mi_stride + mi_col + (inter_blk_col << ssx)];
+            return kExtTxUsed[get_tx_set(t, 1)][type] ? type : DCT_DCT;
+        }
         int type = kModeToTxfm[uvmode];
         int set = get_tx_set(t);
         if (set == 0 && type != DCT_DCT) return DCT_DCT;
         return type;
+    }
+    // an inter block's luma type, at its transform's top-left 4x4 only
+    void read_tx_type_inter(int t, int x4, int y4) {
+        int set = get_tx_set(t, 1);
+        int type = DCT_DCT;
+        int q = fh.seg_enabled ? seg_qindex(segment_id, fh.base_q_idx) : fh.base_q_idx;
+        if (set > 0 && q > 0) {
+            int sym = ec.read(cdf.inter_ext_tx[kExtTxSetIndex[1][set]][tx_sqr(t)], kTxSetSize[set]);
+            type = kExtTxInv[set][sym];
+            g_counters[set == 1 ? C_TX_SET_DCT_IDTX : set == 4 ? C_TX_SET_DTT9 : C_TX_SET_ALL16]++;
+        }
+        tx_types[(size_t)y4 * mi_stride + x4] = (uint8_t)type;
     }
     void read_tx_type(int t, int x4, int y4) {
         int set = get_tx_set(t);
@@ -1911,11 +2414,13 @@ struct Decoder {
         int all_zero = ec.read(cdf.txb_skip[tsctx][ctx], 2);
         int eob = 0, cul = 0, dccat = 0;
         if (all_zero) {
-            if (p == 0)
+            if (p == 0 && use_intrabc) tx_types[(size_t)y4 * mi_stride + x4] = DCT_DCT;
+            else if (p == 0)
                 for (int j = 0; j < h4; j++)
                     for (int i = 0; i < w4; i++) tx_types[(size_t)(y4 + j) * mi_stride + x4 + i] = DCT_DCT;
         } else {
-            if (p == 0) read_tx_type(t, x4, y4);
+            if (p == 0 && use_intrabc) read_tx_type_inter(t, x4, y4);
+            else if (p == 0) read_tx_type(t, x4, y4);
             plane_tx_type = compute_tx_type(p, t, x4, y4);
             int cls = tx_class(plane_tx_type);
             const int16_t* scan = &kScanPool[kScanOffset[kScanOf[t][plane_tx_type]]];
@@ -2574,13 +3079,17 @@ struct Decoder {
                 for (int p = 0; p < num_planes; p++) {
                     int pri = p == 0 ? fh.cdef_y_pri[idx] : fh.cdef_uv_pri[idx];
                     int sec = p == 0 ? fh.cdef_y_sec[idx] : fh.cdef_uv_sec[idx];
-                    int dir = pri == 0 ? 0 : ydir;
+                    // libaom remaps the chroma direction where the
+                    // subsampling differs by axis (conv422)
+                    int cdir = p > 0 && ssx != ssy ? kConv422[ydir] : ydir;
+                    int dir = pri == 0 ? 0 : cdir;
                     int damping = fh.cdef_damping - (p > 0);
                     if (p == 0) {
                         int vs = (var >> 6) ? std::min(floor_log2(var >> 6), 12) : 0;
                         pri = var ? (pri * (4 + vs) + 8) >> 4 : 0;
                     }
                     if (!pri && !sec) continue;
+                    if (p > 0 && ssx != ssy && pri && cdir != ydir) g_counters[C_CDEF_422_REMAPPED]++;
                     int pri_shift = pri ? std::max(0, damping - floor_log2(pri)) : 0;
                     int sec_shift = sec ? std::max(0, damping - floor_log2(sec)) : 0;
                     int sx = p ? ssx : 0, sy = p ? ssy : 0;
@@ -2658,6 +3167,7 @@ struct Decoder {
         int w = std::min(4 >> sx, plane_end_x - x + 1), h = std::min(4 >> sy, plane_end_y - y + 1);
         const LrUnit& u = lr_units[p][(size_t)unit_row * uc + unit_col];
         if (u.type == 0) return;
+        if (p > 0 && ssx != ssy) g_counters[C_LR_422_CHROMA]++;
         uint8_t* out = &cur.p[p][0];
         int stride = cur.stride[p];
         // the block's source samples, 3 around (the reach of both filters)
@@ -2864,7 +3374,6 @@ struct Decoder {
                     // libavif refuses a stream whose depth is not its av1C's
                     if (expected_depth && seq.bitdepth != expected_depth) fail("bit depth differs from av1C's");
                     if (seq.bitdepth != 8) unsupported("bit depth " + std::to_string(seq.bitdepth));
-                    if (!seq.mono && seq.ssx != seq.ssy) unsupported("4:2:2");
                     num_planes = seq.mono ? 1 : 3;
                     ssx = seq.ssx;
                     ssy = seq.ssy;
@@ -2935,6 +3444,7 @@ extern "C" {
 int av1_decode(const uint8_t* data, int64_t size, int depth, int64_t* info, void** handle, char* msg,
                int64_t msg_len) {
     *handle = nullptr;
+    std::memset(g_counters, 0, sizeof(g_counters));
     try {
         Decoder d;
         d.expected_depth = depth;
@@ -2979,6 +3489,13 @@ void av1_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
 }
 
 void av1_free(void* handle) { delete (Result*)handle; }
+
+// Test entry point: the calling thread's counters of its last av1_decode
+// (which paths the frame reached), n of them.
+int av1_test_counters(int64_t* out, int n) {
+    for (int i = 0; i < n && i < C_COUNT; i++) out[i] = g_counters[i];
+    return C_COUNT;
+}
 
 // Test entry points: one inverse 1-D transform (type 0 DCT, 1 ADST, 3
 // identity) of 2^n values, in place.

@@ -24,6 +24,16 @@ from instancesegmentation_tpu_torch.ops.native.build import build_library
 SRC = Path(__file__).with_name("av1.cpp")
 _MSG_LEN = 256
 _lib: Optional[ctypes.CDLL] = None
+#: the decoder's path counters (``av1_test_counters``), in its order: intra
+#: block copy blocks by subsampling, chroma predicted at half pixels, the
+#: displacement vector's reference (a neighbour's, the default), transform
+#: tree leaves at depths 1 and 2, inter transform sets read (DCT and IDTX,
+#: 9 types and IDTX and the 1-D DCTs, all 16), 4:2:2 chroma blocks CDEF
+#: filtered along a remapped direction and restored, 4:2:2 blocks
+COUNTERS = ("intrabc_444", "intrabc_420", "intrabc_422", "intrabc_400", "half_pel_420",
+            "half_pel_422", "dv_ref_neighbour", "dv_ref_default", "vartx_depth1", "vartx_depth2",
+            "tx_set_dct_idtx", "tx_set_dtt9", "tx_set_all16", "cdef_422_remapped", "lr_422_chroma",
+            "blocks_422")
 
 
 @dataclass(frozen=True)
@@ -58,6 +68,8 @@ def load_av1() -> ctypes.CDLL:
         lib.av1_planes.restype = None
         lib.av1_free.argtypes = [ctypes.c_void_p]
         lib.av1_free.restype = None
+        lib.av1_test_counters.argtypes = [i64p, ctypes.c_int]
+        lib.av1_test_counters.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -89,3 +101,12 @@ def decode_av1(data: bytes, path: str = "<bytes>", depth: int = 0) -> Av1Image:
     finally:
         lib.av1_free(handle)
     return Av1Image(w, h, bool(mono), ssx, ssy, bool(full_range), cp, tc, mc, y, u, v)
+
+
+def last_counters() -> dict:
+    """The counters of this thread's last ``decode_av1`` (for tests: which
+    of the decoder's paths the frame reached)."""
+    lib = load_av1()
+    out = np.zeros(len(COUNTERS), np.int64)
+    assert lib.av1_test_counters(out, len(COUNTERS)) == len(COUNTERS)
+    return dict(zip(COUNTERS, (int(v) for v in out)))

@@ -11,12 +11,18 @@ size: the coefficient CDFs (``av1_default_*_cdfs``), the quantiser lookups
 and inverse weight matrices, the scan orders (through the relocations of
 ``av1_scan_orders``), the coefficient context offsets, the filter-intra
 taps, the smooth weights, the directional derivatives, the self-guided
-parameters and their reciprocals, and the transform constants.  The small
-mode CDFs have no symbol of their own: libaom's ``av1_init_mode_probs``
+parameters and their reciprocals, the transform constants, the inter
+transform-type CDFs and the sets' member lists, the chroma block sizes of
+each subsampling (``av1_ss_size_lookup``), CDEF's 4:2:2 chroma direction
+map (``conv422``) and the default motion-vector context, which intra block
+copy's displacement vectors start from (``default_nmv_context``).  The
+small mode CDFs have no symbol of their own: libaom's ``av1_init_mode_probs``
 copies them into a frame context, so the script calls it on a buffer and
 reads them at their places in that struct, anchored by the tables that do
 have symbols (kf y mode, partition, uv mode, intra tx type; the palette
-colour index CDFs, which have symbols too, lie between them).
+colour index CDFs, which have symbols too, lie between them); the
+transform-partition CDFs of intra block copy's transform trees are read
+there too.
 
 CDFs stay in libaom's inverse form (32768 - the spec's value, with the
 adaptation counter in the last slot).  Scans, context offsets and
@@ -79,6 +85,11 @@ NAMED = [
     ("kExtTxSetIndex", "ext_tx_set_index", "i32", (2, 6)),
     ("kPaletteYColorCdf", "default_palette_y_color_index_cdf", "u16", (7, 5, 9)),
     ("kPaletteUvColorCdf", "default_palette_uv_color_index_cdf", "u16", (7, 5, 9)),
+    ("kInterExtTxCdf", "default_inter_ext_tx_cdf", "u16", (4, 4, 17)),
+    ("kExtTxUsed", "av1_ext_tx_used", "i32", (6, 16)),
+    ("kSsSizeLookup", "av1_ss_size_lookup", "u8", (22, 2, 2)),
+    ("kConv422", "conv422.1", "i32", (8,)),
+    ("kNmvContext", "default_nmv_context", "u16", (143,)),
 ]
 #: (C name, shape, uint16 offset in the frame context) of the mode CDFs
 #: that ``av1_init_mode_probs`` writes (libaom 3.14.1's FRAME_CONTEXT)
@@ -87,6 +98,7 @@ FRAME_CONTEXT = [
     ("kPaletteUvSizeCdf", (7, 8), 4916),
     ("kPaletteYModeCdf", (7, 3, 3), 5602),
     ("kPaletteUvModeCdf", (2, 3), 5665),
+    ("kTxfmPartitionCdf", (21, 3), 5827),
     ("kSkipCdf", (3, 3), 5935),
     ("kIntrabcCdf", (3,), 6242),
     ("kSegIdCdf", (3, 9), 6254),
@@ -191,6 +203,19 @@ def check_cdfs(name: str, a: np.ndarray) -> None:
         assert n <= len(r) and (np.diff(r[:n - 1]) <= 0).all() and r[n - 1] == 0, (name, r)
 
 
+def nmv_rows(a: np.ndarray) -> np.ndarray:
+    """The CDFs of an ``nmv_context`` (the joints, then per component the
+    classes, class0 fractions, fractions, sign, class0 and high-precision
+    bits, class0 and the ten offset bits), each padded to 12 words."""
+    sizes = [5] + 2 * ([12, 5, 5, 5, 3, 3, 3, 3] + [3] * 10)
+    assert sum(sizes) == a.size, a.size
+    rows, o = np.zeros((len(sizes), 12), a.dtype), 0
+    for i, n in enumerate(sizes):
+        rows[i, :n] = a[o:o + n]
+        o += n
+    return rows
+
+
 def row_major(libaom_pos: np.ndarray, w: int, h: int) -> np.ndarray:
     """libaom's column-major coefficient positions as row-major ones."""
     return (libaom_pos % h) * w + libaom_pos // h
@@ -207,6 +232,8 @@ def tables(path: str) -> list:
         a = a.reshape(shape)
         if cname.endswith("Cdf"):
             check_cdfs(cname, a)
+        if cname == "kNmvContext":
+            check_cdfs(cname, nmv_rows(a))
         out.append((cname, DTYPES[dt][1], a))
     fc = frame_context(path, elf)
     for cname, shape, off in FRAME_CONTEXT:

@@ -29,15 +29,30 @@ libaom), or edited from their boxes, from seeded pixels:
   identity matrix over 4:2:0, a cut item, a bad tile trailing bit, an
   unknown property marked essential, ``clap`` or ``a1op`` not marked
   essential, ``a1lx`` marked essential;
-- the three 480 x 640 files ``chip_smoke.py`` times (cv2's default, cv2 at
-  speed 2, PIL 4:4:4 in two tiles);
+- intra block copy (``ibc_*``), which libaom picks for flat or blocky
+  content that PIL writes with screen content tools: PIL's 4:2:0 and 4:4:4
+  scenes at qualities 30-90 and speeds 2 and 6, 4:0:0, 4:2:2, two tile
+  columns, 128 x 128 superblocks, odd sides, a small file whose every cut the tests read, blocky
+  repeated tiles whose blocks code split transform trees (depths 1 and 2);
+- 4:2:2 (``yuv422_*``, PIL's): pictures and a scene across qualities,
+  speeds 0-4 (loop restoration), CDEF turned on (chroma directions
+  remapped), odd sides, limited range, screen content (palettes), two tile
+  columns;
+- the five 480 x 640 files ``chip_smoke.py`` times (cv2's default, cv2 at
+  speed 2, PIL 4:4:4 in two tiles, PIL's default of a scene that codes
+  intra block copy, PIL 4:2:2);
 - ``coco_00.avif`` ... ``coco_31.avif``, the WebP fixtures' 480 x 640
   scenes of two people each, in turn cv2's default, cv2 at speed 2, gray
   (4:0:0), PIL 4:4:4 in two tiles (libaom's intra block copy, which it
   picks for these flat scenes, turned off: ROADMAP A10 part 3, step 6b;
   its palettes stay) and BGRA with its alpha item, whose people
   ``coco_scenes.json`` lists as (cx, cy, ax, ay) ellipses, for the AVIF
-  COCO tree of the tests and of ``chip_smoke.py``.
+  COCO tree of the tests and of ``chip_smoke.py`` (avif480);
+- ``pil480_00.avif`` ... ``pil480_31.avif``, the same scenes as PIL writes
+  them: the even ones at its defaults (4:2:0, where libaom codes most of
+  them with intra block copy), the odd ones in turn in 4:2:2 at its default
+  quality and in 4:4:4 in two tiles with intra block copy left on: the
+  avif_pil480 COCO tree.
 
 ``<name>.npz`` holds what cv2 gives for it, as ``tests/data/webp`` stores
 it (``cv2_reads`` there), every array as its SHA-256 and shape.
@@ -65,11 +80,16 @@ picture, scene, cv2_reads, matches = webp.picture, webp.scene, webp.cv2_reads, w
 webp.BIG = 0  # every decode is stored as its SHA-256: the set stays small
 
 #: the files chip_smoke.py times, 480 x 640
-TIMED = ("cv2_480x640.avif", "cv2_s2_480x640.avif", "pil444_tiles_480x640.avif")
+TIMED = ("cv2_480x640.avif", "cv2_s2_480x640.avif", "pil444_tiles_480x640.avif", "pil480_00.avif",
+         "pil422_480x640.avif")
 #: the COCO scenes: count, size
 COCO_SCENES, COCO_HW = 32, (480, 640)
 #: the forms of the COCO scenes, in turn
 COCO_FORMS = ("cv2", "cv2_s2", "gray", "pil444_tiles", "bgra")
+#: the forms of the PIL scenes (avif_pil480), in turn
+PIL_FORMS = ("pil", "pil422", "pil", "pil444_tiles_ibc")
+#: the COCO trees: name -> fixture prefix
+TREES = {"avif480": "coco_", "avif_pil480": "pil480_"}
 #: libaom options of PIL's files: name -> ``advanced``
 ADVANCED = {
     "cdef_off": {"enable-cdef": "0"},
@@ -105,6 +125,20 @@ def screen(h: int, w: int, seed: int) -> np.ndarray:
     for _ in range(12):
         y0, x0 = rng.integers(0, h), rng.integers(0, w)
         img[y0:y0 + rng.integers(4, 30), x0:x0 + rng.integers(4, 30)] = rng.integers(0, 256, 3)
+    return img
+
+
+def blocky_tiles(seed: int, tile: int, n: int) -> np.ndarray:
+    """A tile of 8 x 8 squares in four colours repeated n x n times, with one
+    2 x 2 speck per copy: libaom copies the tiles by intra block copy and
+    codes the specks' residual in split transform trees."""
+    rng = np.random.default_rng(seed)
+    pal = rng.integers(0, 256, (4, 3))
+    t = pal[rng.integers(0, 4, (tile // 8, tile // 8))].astype(np.uint8).repeat(8, 0).repeat(8, 1)
+    img = np.tile(t, (n, n, 1))
+    for _ in range(n * n):
+        y, x = rng.integers(0, tile * n - 4, 2)
+        img[y:y + 2, x:x + 2] = pal[rng.integers(0, 4)]
     return img
 
 
@@ -307,6 +341,58 @@ def small_forms() -> dict:
     return out
 
 
+def intrabc_forms() -> dict:
+    """Files libaom codes with intra block copy (each checked to use it by
+    the tests' coverage test)."""
+    sc = scene(2)[0]
+    out = {}
+    for q, sp in ((50, 2), (70, 6), (90, 2)):
+        out[f"ibc_420_q{q}_s{sp}"] = pil_avif(sc, quality=q, speed=sp)
+    for q, sp in ((30, 2), (50, 2), (50, 6), (70, 6)):
+        out[f"ibc_444_q{q}_s{sp}"] = pil_avif(sc, quality=q, speed=sp, subsampling="4:4:4")
+    out["ibc_400"] = pil_avif(sc, quality=60, subsampling="4:0:0")
+    out["ibc_422_q75_s6"] = pil_avif(sc, quality=75, speed=6, subsampling="4:2:2")
+    out["ibc_420_tiles"] = pil_avif(sc, quality=60, tile_cols=1)
+    out["ibc_444_sb128"] = pil_avif(sc, quality=60, speed=6, subsampling="4:4:4",
+                                    advanced={"sb-size": "128"})
+    # libaom codes this flat scene with intra block copy in 4:4:4 in two tiles
+    out["ibc_444_tiles"] = pil_avif(scene(8)[0], quality=60, subsampling="4:4:4", tile_cols=1)
+    odd = np.ascontiguousarray(sc[:237, :331])
+    out["ibc_420_237x331"] = pil_avif(odd)
+    out["ibc_444_237x331"] = pil_avif(odd, subsampling="4:4:4")
+    out["ibc_422_239x317"] = pil_avif(np.ascontiguousarray(sc[:239, :317]), quality=75, speed=6,
+                                      subsampling="4:2:2")
+    out["ibc_444_small"] = pil_avif(np.ascontiguousarray(scene(1)[0][:240, :320]), subsampling="4:4:4")
+    out["ibc_vartx_64"] = pil_avif(blocky_tiles(2, 64, 8), quality=60, speed=0)
+    out["ibc_vartx_32"] = pil_avif(blocky_tiles(1, 32, 16), quality=60, speed=0)
+    return out
+
+
+def yuv422_forms() -> dict:
+    """PIL's 4:2:2 files."""
+    out = {}
+    pic = picture(96, 128, 5, noise=8)
+    for q in (30, 60, 90):
+        out[f"yuv422_q{q}"] = pil_avif(pic, quality=q, subsampling="4:2:2")
+    for q in (40, 75):
+        out[f"yuv422_scene_q{q}"] = pil_avif(scene(7)[0], quality=q, subsampling="4:2:2")
+    for sp in range(5):
+        out[f"yuv422_s{sp}"] = pil_avif(picture(72, 96, 10 + sp, noise=8), speed=sp, subsampling="4:2:2")
+    out["yuv422_scene_s0"] = pil_avif(scene(3)[0], quality=60, speed=0, subsampling="4:2:2")
+    out["yuv422_cdef"] = pil_avif(scene(1)[0], quality=50, speed=0, subsampling="4:2:2",
+                                  advanced={"enable-cdef": "1"})
+    out["yuv422_cdef_picture"] = pil_avif(picture(128, 160, 3, noise=8), quality=50, speed=1,
+                                          subsampling="4:2:2", advanced={"enable-cdef": "1"})
+    out["yuv422_24x32"] = pil_avif(picture(24, 32, 4), subsampling="4:2:2")
+    out["yuv422_37x53"] = pil_avif(picture(37, 53, 3, noise=8), subsampling="4:2:2")
+    out["yuv422_limited"] = pil_avif(picture(96, 128, 6, noise=8), quality=60, subsampling="4:2:2",
+                                     range="limited")
+    out["yuv422_screen"] = pil_avif(screen(80, 72, 4), quality=70, subsampling="4:2:2")
+    out["yuv422_tiles"] = pil_avif(picture(128, 640, 6, noise=8), quality=60, subsampling="4:2:2",
+                                   tile_cols=1)
+    return out
+
+
 def coco_file(i: int, img: np.ndarray) -> bytes:
     form = COCO_FORMS[i % len(COCO_FORMS)]
     if form == "cv2":
@@ -325,16 +411,29 @@ def coco_file(i: int, img: np.ndarray) -> bytes:
     return cv2_avif(np.dstack([img, alpha]))
 
 
+def pil_file(i: int, img: np.ndarray) -> bytes:
+    form = PIL_FORMS[i % len(PIL_FORMS)]
+    if form == "pil":
+        return pil_avif(img)
+    if form == "pil422":
+        return pil_avif(img, subsampling="4:2:2")
+    return pil_avif(img, quality=60, subsampling="4:4:4", tile_cols=1)
+
+
 def fixtures() -> dict:
     out = small_forms()
+    out.update(intrabc_forms())
+    out.update(yuv422_forms())
     big = picture(480, 640, 40)
     out["cv2_480x640"] = cv2_avif(big)
     out["cv2_s2_480x640"] = cv2_avif(big, cv2.IMWRITE_AVIF_SPEED, 2)
     out["pil444_tiles_480x640"] = pil_avif(big, quality=60, subsampling="4:4:4", tile_cols=1)
+    out["pil422_480x640"] = pil_avif(big, subsampling="4:2:2")
     scenes = []
     for i in range(COCO_SCENES):
         img, people = scene(i)
         out[f"coco_{i:02d}"] = coco_file(i, img)
+        out[f"pil480_{i:02d}"] = pil_file(i, img)
         scenes.append(people)
     with open(os.path.join(HERE, "coco_scenes.json"), "w") as f:
         json.dump({"height": COCO_HW[0], "width": COCO_HW[1], "people": scenes}, f)
@@ -354,7 +453,7 @@ def main() -> None:
             assert sorted(arrays) == ["decode_same"], name  # cv2 returns None
         else:
             assert "color" in arrays or "color_sha256" in arrays, name
-        if name.startswith("coco_"):
+        if name.startswith(tuple(TREES.values())):
             assert len(data) <= 60_000, (name, len(data))
         np.savez_compressed(os.path.join(HERE, name + ".npz"), **arrays)
         total += len(data) + os.path.getsize(os.path.join(HERE, name + ".npz"))

@@ -6,21 +6,22 @@ decodes, ``FileNotFoundError`` exactly where cv2 returns None.
 
 - the committed fixtures of ``tests/data/avif/make_fixtures.py`` (cv2's
   quality and speed sweeps, gray, BGRA, odd sides, screen content; PIL's
-  4:4:4, 4:0:0, limited range, tiles and libaom tool options; ``nclx``
-  edits; files cv2 refuses) against the decodes stored beside them and
-  live cv2;
-- every cut of three small files, seeded byte flips of four;
+  4:4:4, 4:0:0, 4:2:2, limited range, tiles and libaom tool options; intra
+  block copy in 4:2:0, 4:4:4, 4:2:2 and 4:0:0; ``nclx`` edits; files cv2
+  refuses; the avif480 and avif_pil480 COCO scenes) against the decodes
+  stored beside them and live cv2, and the decoder's path counters summed
+  over them (each intra block copy and 4:2:2 path reached);
+- every cut of five small files, seeded byte flips of six;
 - the forms the port does not decode (ROADMAP A10 part 3, step 6b: 10 and
-  12 bits, 4:2:2, intra block copy, film grain, a colour matrix libavif
-  converts in floating point) raise ``UnsupportedImage`` where cv2
-  decodes;
+  12 bits, film grain, a colour matrix libavif converts in floating point)
+  raise ``UnsupportedImage`` where cv2 decodes;
 - the tables of ``ops/native/av1_tables.h`` against cv2's libaom
   (``extract_tables.py --check``), the inverse transforms against
   libaom's own C functions (``transforms_check.py``), and a process that
   reads AVIF maps no codec library;
-- a COCO tree of AVIF scenes converted by both packages' ``transfer_coco``
-  (file for file equal), read by both datasets (every field equal), and
-  two port train steps on it.
+- the two COCO trees of AVIF scenes (cv2's and PIL's files) converted by
+  both packages' ``transfer_coco`` (file for file equal), read by both
+  datasets (every field equal), and two port train steps on each.
 """
 import glob
 import importlib.util
@@ -45,6 +46,7 @@ from instancesegmentation_tpu_torch.data.dataset import InstanceCommonDataset
 from instancesegmentation_tpu_torch.data.pipeline import draw_augment, host_batch
 from instancesegmentation_tpu_torch.models.layers import init_weights_
 from instancesegmentation_tpu_torch.models.segment import Segment
+from instancesegmentation_tpu_torch.ops.native.av1 import COUNTERS, last_counters
 from instancesegmentation_tpu_torch.train.config import TrainConfig
 from instancesegmentation_tpu_torch.train.state import TrainState
 from instancesegmentation_tpu_torch.train.steps import augment_config, make_train_step
@@ -112,32 +114,38 @@ def _av1c(data: bytes, item: int = 0) -> bytes:
 
 
 def test_fixture_set_is_complete():
-    """At least 100 fixtures, among the ones that decode cv2's default file,
+    """At least 200 fixtures, among the ones that decode cv2's default file,
     loop restoration (speeds 0-4), lossless (quality 100), 4:0:0, BGRA with
-    its alpha item, several tiles in 4:4:4, and screen content (palettes);
-    the set stays under 2 MB."""
+    its alpha item, several tiles in 4:4:4, screen content (palettes), intra
+    block copy and 4:2:2, and both COCO trees' scenes; the set stays under
+    2 MB."""
     names = set(FIXTURE_NAMES)
-    assert len(names) >= 100
+    assert len(names) >= 200
     for t in mf.TIMED:
         assert t[:-5] in names
-    assert {f"coco_{i:02d}" for i in range(mf.COCO_SCENES)} <= names
+    for prefix in mf.TREES.values():
+        assert {f"{prefix}{i:02d}" for i in range(mf.COCO_SCENES)} <= names
     assert set(mf.small_forms()) <= names
+    assert len([n for n in names if n.startswith("ibc_")]) >= 15
+    assert len([n for n in names if n.startswith("yuv422_")]) >= 15
     must = {"cv2_480x640": "default", "cv2_s02": "restoration", "cv2_q100": "lossless",
             "cv2_gray_q075": "4:0:0", "cv2_bgra_q090": "alpha", "pil444_tiles_480x640": "tiles",
-            "cv2_screen_s2_0": "palette"}
+            "cv2_screen_s2_0": "palette", "pil480_00": "intra block copy",
+            "pil422_480x640": "4:2:2"}
     for name in must:
         stored = np.load(os.path.join(FIXTURES, name + ".npz"))
         assert "color_sha256" in stored, name  # cv2 decodes it, and so must the port
     assert _av1c(_fixture("cv2_gray_q075"))[2] & 0x10  # monochrome
     assert _fixture("cv2_bgra_q090").count(b"auxC") == 1 and b"auxl" in _fixture("cv2_bgra_q090")
     assert _av1c(_fixture("pil444_tiles_480x640"))[2] & 0x0C == 0  # 4:4:4
+    assert _av1c(_fixture("pil422_480x640"))[2] & 0x0C == 0x08  # 4:2:2
     size = sum(os.path.getsize(p) for p in glob.glob(os.path.join(FIXTURES, "*")))
     assert size < 2_000_000, size
 
 
 # -- damaged files -----------------------------------------------------------------
 
-CUT = ("cv2_17x23", "cv2_gray_q030", "cv2_bgra_q050")
+CUT = ("cv2_17x23", "cv2_gray_q030", "cv2_bgra_q050", "ibc_444_small", "yuv422_37x53")
 
 
 @pytest.mark.parametrize("name", CUT)
@@ -196,10 +204,6 @@ def _unported_forms() -> dict:
     for depth in (10, 12):
         ok, buf = cv2.imencode(".avif", img16, [cv2.IMWRITE_AVIF_DEPTH, depth])
         out[f"bits_{depth}"] = (buf.tobytes(), f"bit depth {depth}")
-    out["yuv422"] = (_pil(mf.picture(24, 32, 4), subsampling="4:2:2"), "4:2:2")
-    # libaom codes this flat scene with intra block copy in 4:4:4
-    out["intrabc"] = (_pil(mf.scene(8)[0], quality=60, subsampling="4:4:4", tile_cols=1),
-                      "intra block copy")
     out["matrix_smpte240"] = (mf.nclx(mf.cv2_avif(mf.picture(16, 24, 5)), 7, True),
                               "matrix coefficients 7")
     # libaom's test grain table: the frame decodes, its grain is left out
@@ -217,6 +221,31 @@ def test_unported_forms_raise(form):
         with pytest.raises(UnsupportedImage, match=STEP) as info:
             imdecode(data, mode)
         assert what in str(info.value)
+
+
+def test_fixtures_reach_every_decoder_path():
+    """The decoder's path counters (``av1_test_counters``), summed over the
+    fixtures' colour decodes, show intra block copy in 4:4:4, 4:2:0, 4:2:2
+    and 4:0:0, chroma predicted at half pixels in 4:2:0 and 4:2:2, a
+    displacement vector referred to a neighbour's and to the default one,
+    transform trees split to depths 1 and 2, each inter transform set, and
+    4:2:2 chroma filtered by CDEF along a remapped direction and by loop
+    restoration; the intra-block-copy and 4:2:2 fixtures each reach their
+    path."""
+    total = dict.fromkeys(COUNTERS, 0)
+    for name in FIXTURE_NAMES:
+        if name.startswith("refused_"):
+            continue
+        decode_avif(_fixture(name))
+        got = last_counters()
+        for k, v in got.items():
+            total[k] += v
+        if name.startswith("ibc_"):
+            assert sum(got[k] for k in COUNTERS[:4]) > 0, name
+        if name.startswith("yuv422_"):
+            assert got["blocks_422"] > 0, name
+    missing = [k for k, v in total.items() if not v]
+    assert not missing, (missing, total)
 
 
 # -- the tables and the library ---------------------------------------------------------
@@ -288,10 +317,10 @@ def test_decode_avif_modes():
 # -- a COCO tree of AVIF images ---------------------------------------------------
 
 
-def _avif_coco_tree(root: str, ids: list) -> tuple[str, str]:
-    """The committed 480 x 640 AVIF scenes ``ids`` as a COCO tree under
-    ``.jpg`` names (polygon people from ``coco_scenes.json``, 17 visible
-    keypoints each)."""
+def _avif_coco_tree(root: str, ids: list, prefix: str = "coco_") -> tuple[str, str]:
+    """The committed 480 x 640 AVIF scenes ``ids`` (fixtures ``prefix`` +
+    number) as a COCO tree under ``.jpg`` names (polygon people from
+    ``coco_scenes.json``, 17 visible keypoints each)."""
     with open(os.path.join(FIXTURES, "coco_scenes.json")) as f:
         scenes = json.load(f)
     img_dir = os.path.join(root, "images")
@@ -300,7 +329,7 @@ def _avif_coco_tree(root: str, ids: list) -> tuple[str, str]:
     for n, i in enumerate(ids):
         name = f"{n:012d}.jpg"
         with open(os.path.join(img_dir, name), "wb") as f:
-            f.write(_fixture(f"coco_{i:02d}"))
+            f.write(_fixture(f"{prefix}{i:02d}"))
         images.append({"id": n, "file_name": name, "height": scenes["height"],
                        "width": scenes["width"]})
         for j, (cx, cy, ax, ay) in enumerate(scenes["people"][i]):
@@ -331,13 +360,20 @@ def _tree_files(root: str) -> dict:
 
 
 def test_avif_coco_tree_converts_and_trains_as_jax(tmp_path):
-    """One scene of each form (cv2's default, speed 2, gray, PIL 4:4:4 in
-    two tiles, BGRA): both packages' ``transfer_coco`` write the same tree,
-    file for file (the AVIF images copied as they were), both datasets give
-    the same samples, and two port train steps on the first four give
-    finite losses."""
-    ids = list(range(len(mf.COCO_FORMS)))
-    img_dir, ann = _avif_coco_tree(str(tmp_path / "src"), ids)
+    """Each tree, one scene of each of its forms (avif480: cv2's default,
+    speed 2, gray, PIL 4:4:4 in two tiles, BGRA; avif_pil480: PIL's default,
+    4:2:2, PIL's default, 4:4:4 in two tiles with intra block copy): both
+    packages' ``transfer_coco`` write the same tree, file for file (the
+    AVIF images copied as they were), both datasets give the same samples,
+    and two port train steps on the first four give finite losses."""
+    for tree in sorted(mf.TREES):
+        _check_tree(tmp_path / tree, tree)
+
+
+def _check_tree(tmp_path, tree: str) -> None:
+    prefix = mf.TREES[tree]
+    ids = list(range(len(mf.COCO_FORMS if tree == "avif480" else mf.PIL_FORMS)))
+    img_dir, ann = _avif_coco_tree(str(tmp_path / "src"), ids, prefix)
     port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
     assert tconv.transfer_coco(img_dir, ann, port_dir, progress=False) == len(ids)
     assert jconv.transfer_coco(img_dir, ann, jax_dir, progress=False) == len(ids)
@@ -346,7 +382,7 @@ def test_avif_coco_tree_converts_and_trains_as_jax(tmp_path):
     for rel in want:
         assert got[rel] == want[rel], rel
     for n, i in enumerate(ids):
-        assert got[os.path.join("image", f"{n:012d}.jpg")] == _fixture(f"coco_{i:02d}")
+        assert got[os.path.join("image", f"{n:012d}.jpg")] == _fixture(f"{prefix}{i:02d}")
     port, ref = InstanceCommonDataset(port_dir, canvas=320), JaxDataset(jax_dir, canvas=320)
     assert len(port) == len(ref) == 2 * len(ids)
     for k in range(len(port)):
